@@ -1,0 +1,65 @@
+"""The port stands without JAX: every slice module, and the scripts that
+drive it on the card, import with jax blocked, and importing them pulls in
+neither jax nor the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLICE_MODULES = [
+    "vap_tpu_torch",
+    "vap_tpu_torch.convert",
+    "vap_tpu_torch.ops._build",
+    "vap_tpu_torch.ops.attention",
+    "vap_tpu_torch.ops.flash_attention",
+    "vap_tpu_torch.ops.rope",
+    "vap_tpu_torch.ops.schedulers",
+    "vap_tpu_torch.ops.schedulers.common",
+    "vap_tpu_torch.ops.schedulers.ddim",
+    "vap_tpu_torch.models.common",
+    "vap_tpu_torch.models.cogvideox.config",
+    "vap_tpu_torch.models.cogvideox.transformer_mot",
+    "vap_tpu_torch.models.cogvideox.vae",
+    "vap_tpu_torch.models.text_encoders.t5",
+    "vap_tpu_torch.pipelines.cogvideox_i2v_mot",
+]
+
+_PROBE = """
+import importlib, sys
+before = set(sys.modules)
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+for name in {modules!r}:
+    importlib.import_module(name)
+leaked = sorted(m for m in set(sys.modules) - before if m == "vap_tpu"
+                or m.startswith(("vap_tpu.", "jax.")))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("modules", [SLICE_MODULES, ["chip_smoke", "chip_profile"]],
+                         ids=["slice", "chip_scripts"])
+def test_port_imports_without_jax(modules):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE.format(modules=modules)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_jax_sdpa_or_compile_in_port_sources():
+    """The port imports no jax and calls neither torch's SDPA nor torch.compile."""
+    banned = re.compile(r"^\s*(import jax|from jax)|torch\.compile|scaled_dot_product_attention\(")
+    root = os.path.join(REPO, "vap_tpu_torch")
+    hits = []
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(dirpath, name)) as fh:
+                    hits += [f"{name}:{n}: {line.strip()}" for n, line in enumerate(fh, 1)
+                             if banned.search(line)]
+    assert not hits, hits
