@@ -1,5 +1,5 @@
-"""The port's attention kernels (K1 flash, K2 sage) and provider registry
-against the JAX package.
+"""The port's attention kernels (K1 and K4 flash, K2 sage) and provider
+registry against the JAX package.
 
 The CPU tests hold each kernel's plain PyTorch version (what its wrapper runs
 on CPU tensors) against the JAX Pallas kernel in interpret mode, on the same
@@ -17,6 +17,7 @@ from vap_tpu.ops.flash_attention import (
     DEFAULT_BLOCK_Q_T,
     LANES,
     _cdiv,
+    _flash_attention_forward,
     _flash_attention_forward_t,
     _flash_attention_forward_t_i8,
 )
@@ -25,6 +26,8 @@ from vap_tpu_torch.ops import flash_attention as tfa
 
 # unaligned (Sq, Skv) pairs: ROADMAP Queue 3 "short, unaligned KV"
 SHAPES = [(300, 200), (128, 257), (64, 77)]
+# head_dim 128 (Wan): the same, plus Wan's 512 text keys at an unaligned Sq
+SHAPES_D128 = SHAPES + [(130, 512)]
 # float32 inputs: both sides compute the same softmax in f32 and differ only
 # in summation order (tiles of 512 keys vs the TPU blocks)
 F32_ATOL = 2e-5
@@ -55,6 +58,17 @@ def _jax_k1(q, k, v, use_bound, dtype=jnp.float32):
             jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
             q.shape[-1] ** -0.5, bq, bk, use_bound=use_bound)
     return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+
+
+def _jax_k4(q, k, v, use_bound):
+    """JAX's row-layout forward at D >= 128 with the blocks ``_forward_dispatch``
+    picks there (2048 and 1024, rounded to 128 lanes and clamped)."""
+    bq = max(min(2048, _cdiv(q.shape[2], LANES) * LANES), LANES)
+    bk = max(min(1024, _cdiv(k.shape[2], LANES) * LANES), LANES)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _flash_attention_forward(*map(jnp.asarray, (q, k, v)), q.shape[-1] ** -0.5,
+                                            bq, bk, use_bound=use_bound)
+    return np.asarray(out), np.asarray(lse)
 
 
 def _jax_k2(q, k, v, use_bound=True, dtype=jnp.float32):
@@ -113,6 +127,45 @@ def test_k2_plain_matches_jax_bf16(sq, skv, use_bound):
     np.testing.assert_allclose(lse.numpy(), ref_lse, atol=BF16_LSE_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("use_bound", [True, False], ids=["bound", "runmax"])
+@pytest.mark.parametrize("sq,skv", SHAPES_D128)
+def test_k4_plain_matches_jax_f32(sq, skv, use_bound):
+    """K4 (head_dim 128): the plain version against JAX's row-layout forward,
+    whose kv-bias row masks the padded keys of the unaligned shapes. f32:
+    the same softmax, summed in another order."""
+    q, k, v = _qkv(30 + sq + skv, sq, skv, d=128)
+    ref_out, ref_lse = _jax_k4(q, k, v, use_bound)
+    out, lse = tfa.flash_attention_forward(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("gain", [1.0, 3.0])
+def test_k4_plain_matches_jax_large_gain(gain):
+    """The scalar-bound case of ``tests/test_attention.py`` (S = 384, qk gain
+    up to 3, where the reference point sits far above most rows' maxima);
+    the port's running max needs no reference point. At gain 3 the scores
+    reach ~100 nats, so f32 rounding of the scores moves lse by ~1e-5."""
+    q, k, v = _qkv(5, 384, 384, d=128)
+    q, k = q * gain, k * gain
+    for use_bound in (True, False):
+        ref_out, ref_lse = _jax_k4(q, k, v, use_bound)
+        out, lse = tfa.flash_attention_forward(*map(torch.from_numpy, (q, k, v)))
+        assert np.abs(out.numpy()).max() > 0
+        np.testing.assert_allclose(out.numpy(), ref_out, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(lse.numpy(), ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("sq,skv", [(300, 200), (130, 512), (128, 257)])
+def test_k2_plain_matches_jax_d128(sq, skv):
+    """K2 at head_dim 128, Wan's sage path: the same int8 recipe as at 64."""
+    q, k, v = _qkv(40 + sq, sq, skv, d=128)
+    ref_out, ref_lse = _jax_k2(q, k, v)
+    out, lse = tfa.flash_attention_int8_forward(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=1e-4, rtol=0)
+
+
 def test_k2_quantization_matches_jax_recipe():
     q, k, _ = _qkv(5, 64, 77)
     q_i8, k_i8, sqk = tfa.sage_quantize(torch.from_numpy(q), torch.from_numpy(k), 0.125)
@@ -168,6 +221,9 @@ def test_provider_registry():
     with tattn.attention_provider("xla joint:sage"):
         assert tattn.get_attention_provider("joint") == "sage"
         assert tattn.get_attention_provider("cross") == "xla"
+    with tattn.attention_provider("sage cross:flash"):  # Wan's per-site spec
+        assert tattn.get_attention_provider("joint") == "sage"
+        assert tattn.get_attention_provider("cross") == "flash"
     assert tattn.get_attention_provider() == tattn.DEFAULT_PROVIDER == "flash"
 
 
@@ -182,10 +238,12 @@ def test_providers_agree_on_cpu(provider):
 def test_non_cpu_tensor_does_not_fall_back():
     """The wrappers run the plain version only for CPU tensors: any other
     device (here 'meta', which every build has) raises before a launch."""
-    q = torch.empty((1, 2, 8, 64), device="meta")
-    launches = (tfa.flash_attention_forward.launches, tfa.flash_attention_int8_forward.launches)
-    for fn in (tfa.flash_attention_forward, tfa.flash_attention_int8_forward):
-        with pytest.raises(ValueError, match="not supported"):
-            fn(q, q, q)
-    assert (tfa.flash_attention_forward.launches,
+    launches = (tfa.flash_attention_forward.launches, tfa.flash_attention_forward.launches_d128,
+                tfa.flash_attention_int8_forward.launches)
+    for d in (64, 128):
+        q = torch.empty((1, 2, 8, d), device="meta")
+        for fn in (tfa.flash_attention_forward, tfa.flash_attention_int8_forward):
+            with pytest.raises(ValueError, match="not supported"):
+                fn(q, q, q)
+    assert (tfa.flash_attention_forward.launches, tfa.flash_attention_forward.launches_d128,
             tfa.flash_attention_int8_forward.launches) == launches

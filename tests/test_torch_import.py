@@ -20,22 +20,30 @@ SLICE_MODULES = [
     "vap_tpu_torch.ops.schedulers",
     "vap_tpu_torch.ops.schedulers.common",
     "vap_tpu_torch.ops.schedulers.ddim",
+    "vap_tpu_torch.ops.schedulers.flow_match",
     "vap_tpu_torch.models.common",
     "vap_tpu_torch.models.cogvideox.config",
     "vap_tpu_torch.models.cogvideox.transformer_mot",
     "vap_tpu_torch.models.cogvideox.vae",
     "vap_tpu_torch.models.text_encoders.t5",
+    "vap_tpu_torch.models.text_encoders.clip_vision",
+    "vap_tpu_torch.models.wan.config",
+    "vap_tpu_torch.models.wan.transformer_mot",
+    "vap_tpu_torch.models.wan.vae",
     "vap_tpu_torch.pipelines.cogvideox_i2v_mot",
+    "vap_tpu_torch.pipelines.offload",
+    "vap_tpu_torch.pipelines.wan_i2v_mot",
 ]
 
 _PROBE = """
 import importlib, sys
 before = set(sys.modules)
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["cv2"] = None  # the port must run where cv2 is not installed
 for name in {modules!r}:
     importlib.import_module(name)
 leaked = sorted(m for m in set(sys.modules) - before if m == "vap_tpu"
-                or m.startswith(("vap_tpu.", "jax.")))
+                or m.startswith(("vap_tpu.", "jax.", "cv2.")))
 assert not leaked, leaked
 print("ok")
 """
@@ -52,8 +60,10 @@ def test_port_imports_without_jax(modules):
 
 
 def test_no_jax_sdpa_or_compile_in_port_sources():
-    """The port imports no jax and calls neither torch's SDPA nor torch.compile."""
-    banned = re.compile(r"^\s*(import jax|from jax)|torch\.compile|scaled_dot_product_attention\(")
+    """The port imports neither jax, cv2 nor the JAX package, and calls
+    neither torch's SDPA nor torch.compile."""
+    banned = re.compile(r"^\s*(import (jax|cv2)|from (jax|cv2)\b)|vap_tpu\.|torch\.compile"
+                        r"|scaled_dot_product_attention\(")
     root = os.path.join(REPO, "vap_tpu_torch")
     hits = []
     for dirpath, _, files in os.walk(root):

@@ -76,7 +76,7 @@ def pipelines():
     vae.load_state_dict(convert.from_jax_vae(jax.tree.map(np.asarray, jparams_vae), vae_cfg))
 
     port = tpipe.CogVideoXVAPPipeline(transformer, vae, text_encoder, FakeTokenizer(),
-                                      dtype=torch.float32)
+                                      dtype=torch.float32, device="cpu")
     ref = jpipe.CogVideoXVAPPipeline(
         transformer_cfg=jt_cfg, vae_cfg=jvae_cfg, text_cfg=jtxt_cfg,
         params={"transformer": jparams_t, "vae": jparams_vae, "text_encoder": jparams_txt},
@@ -133,7 +133,7 @@ def test_invert_scale_latents_only_on_image_latents():
     invert_scale_latents the image-conditioning latents stay unscaled, the
     reference-video latents keep the scaling factor, as in JAX."""
     vae, jparams, jvae_cfg = _vae_pair_inverted_scale()
-    port = tpipe.CogVideoXVAPPipeline(None, vae, None, dtype=torch.float32)
+    port = tpipe.CogVideoXVAPPipeline(None, vae, None, dtype=torch.float32, device="cpu")
     ref = jpipe.CogVideoXVAPPipeline(transformer_cfg=None, vae_cfg=jvae_cfg, text_cfg=None,
                                      params={"vae": jparams}, dtype=jnp.float32)
     video = np.random.default_rng(1).uniform(-1, 1, (1, 5, 16, 16, 3)).astype(np.float32)
@@ -154,3 +154,12 @@ def test_unported_modes_raise(pipelines):
                   dict(ref_videos=None)):
         with pytest.raises(NotImplementedError):
             port(**{**args, **extra})
+
+
+def test_pipeline_without_device_needs_a_card(monkeypatch):
+    """No ``device`` means the card: on a box without CUDA the constructor
+    raises instead of running on the CPU; ``device="cpu"`` is the way there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.CogVideoXVAPPipeline(None, None, None)
+    assert tpipe.CogVideoXVAPPipeline(None, None, None, device="cpu").device == torch.device("cpu")

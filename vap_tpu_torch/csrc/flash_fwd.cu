@@ -1,8 +1,13 @@
-// K1: bf16 flash-attention forward for head_dim < 128 (multiple of 16).
+// K1 and K4: bf16 flash-attention forward, one kernel templated on head_dim.
 //
-// Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
-// `_flash_attention_forward_t` (`_fwd_kernel_t`, `_fwd_kernel_t_bound`).
-// Same contract: q [BH, Sq, D], k/v [BH, Skv, D] bf16 -> out [BH, Sq, D] bf16
+// K1 (head_dim < 128, a multiple of 16, entry `vap_flash_fwd`) replaces the
+// TPU kernels of vap_tpu/ops/flash_attention.py `_flash_attention_forward_t`
+// (`_fwd_kernel_t`, `_fwd_kernel_t_bound`). K4 (head_dim 128, entry
+// `vap_flash_fwd_d128`) replaces `_flash_attention_forward` (`_fwd_kernel`,
+// `_fwd_kernel_scalar_bound`, with its running-max fallback), the TPU's
+// row-layout forward for head_dim >= 128 that Wan's joint and cross
+// attention take. The TPU's kv-bias row that masks padded keys becomes the
+// in-register mask of the ragged last tile. Same contract for both: q [BH, Sq, D], k/v [BH, Skv, D] bf16 -> out [BH, Sq, D] bf16
 // and the natural-log lse [BH, Sq] f32, non-causal, keys past Skv masked.
 // It computes the running-max online softmax; the TPU's bound form is the
 // same function with another reference point.
@@ -14,11 +19,16 @@
 // cores as mma.sync m16n8k16 with f32 accumulation; the softmax stays in
 // registers (the m16n8 C layout of S is reused as the A layout of P).
 //
-// What bounds it on an H100: at the main-path shape (S = 35,552, D = 64)
-// attention does ~16 FLOP per byte of K/V read per query tile, so it is
-// compute bound; this first kernel is limited by mma.sync issue rate, the
-// un-pipelined global->shared copies (no cp.async/TMA yet) and the exp2
-// work per score. wgmma with a TMA producer warp is the next step.
+// What bounds it on an H100: at the main-path shapes (CogVideoX S = 35,552,
+// D = 64; Wan S = 40,560, D = 128) attention does 4*S*D FLOP per query row
+// against 4*D bytes of K/V per key, far above the card's ~295 FLOP/byte
+// ridge, so it is compute bound; this first kernel is limited by mma.sync
+// issue rate, the un-pipelined global->shared copies (no cp.async/TMA yet)
+// and the exp2 work per score. At D = 128 the Q fragments (32 registers),
+// the accumulator (64) and the 64-key score tile (32) take about 160
+// registers a thread, so fewer blocks fit on an SM than at D = 64; the two
+// 64x136 bf16 tiles take 34.8 KB of static shared memory. wgmma with a TMA
+// producer warp is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,9 +120,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace
 
-// C entry point, bound from Python with ctypes. Tensors are contiguous
-// [bh, s, d]; scale_log2 = softmax scale * log2(e). Returns the CUDA error
-// of the launch (0 on success). bh <= 65535, sq >= 1.
+// C entry points, bound from Python with ctypes. Tensors are contiguous
+// [bh, s, d]; scale_log2 = softmax scale * log2(e). Each returns the CUDA
+// error of the launch (0 on success). bh <= 65535, sq >= 1.
+
+// K1: head_dim d in 16..112, step 16.
 extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int bh, int sq, int skv, int d, float scale_log2, void* stream) {
   float* l = static_cast<float*>(lse);
@@ -127,4 +139,11 @@ extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* 
     case 112: return launch<112>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K4: head_dim 128.
+extern "C" int vap_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, void* lse,
+                                  int bh, int sq, int skv, float scale_log2, void* stream) {
+  return launch<128>(q, k, v, o, static_cast<float*>(lse), bh, sq, skv, scale_log2,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
 // K2: SageAttention-style forward, int8 QK^T with int32 accumulation and
-// bf16 PV, for head_dim % 32 == 0 (up to 96).
+// bf16 PV, for head_dim 32, 64, 96 and 128.
 //
 // Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
 // `_flash_attention_forward_t_i8` (`_fwd_kernel_t_i8`, `_fwd_kernel_t_i8_bound`).
@@ -15,7 +15,9 @@
 // a loop over 64-key tiles), with QK^T on the int8 tensor cores as
 // mma.sync m16n8k32 s8 -> s32 at twice the bf16 rate, and PV as bf16
 // m16n8k16. What bounds it on an H100 is the same as for K1, minus half of
-// the QK^T issue time and half of the K bytes per tile.
+// the QK^T issue time and half of the K bytes per tile. At D = 128 (Wan) the
+// int8 Q fragments take 16 registers, the accumulator 64 and the score tile
+// 32; shared memory is 64x144 int8 plus 64x136 bf16, 26.6 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +122,7 @@ extern "C" int vap_sage_fwd(const void* q8, const void* k8, const void* sqk, con
     case 32: return launch<32>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
     case 64: return launch<64>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
     case 96: return launch<96>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
+    case 128: return launch<128>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
     default: return cudaErrorInvalidValue;
   }
 }

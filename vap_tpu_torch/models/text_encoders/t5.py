@@ -1,12 +1,15 @@
-"""T5 v1.1 encoder (T5-XXL for CogVideoX) in PyTorch.
+"""T5 v1.1 and UMT5 encoders (T5-XXL for CogVideoX, UMT5-XXL for Wan) in PyTorch.
 
 Port of ``vap_tpu/models/text_encoders/t5.py:26-169``: RMS-norm pre-LN
-blocks, one relative position bias table (in block 0) shared by all layers,
-gated-GELU feed-forward, unscaled attention. As on the main path
-(``cogvideox_i2v_mot.py:167-170``) it takes no attention mask and keeps all
-positions. Attribute names follow HF ``T5EncoderModel`` state-dict keys
-(``encoder.block.{i}.layer.0.SelfAttention.q.weight``, ``shared.weight``, ...).
-UMT5's per-layer bias and the ReLU feed-forward are not ported (they raise).
+blocks, a relative position bias, gated-GELU feed-forward, unscaled
+attention. T5 v1.1 keeps one bias table (in block 0) shared by all layers;
+UMT5 (``per_layer_relative_bias``) has a table in every block and computes
+each layer's bias from its own. An optional ``attention_mask`` adds -1e9 to
+the scores of padded keys (``t5.py:135-136``); the CogVideoX path
+(``cogvideox_i2v_mot.py:167-170``) passes none and keeps all positions.
+Attribute names follow HF ``T5EncoderModel`` / ``UMT5EncoderModel``
+state-dict keys (``encoder.block.{i}.layer.0.SelfAttention.q.weight``,
+``shared.weight``, ...). The ReLU feed-forward is not ported (it raises).
 """
 
 from __future__ import annotations
@@ -33,11 +36,17 @@ class T5Config:
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "gated-gelu"
-    per_layer_relative_bias: bool = False
+    per_layer_relative_bias: bool = False  # True for UMT5
 
     @classmethod
     def t5_xxl(cls, **overrides) -> "T5Config":
         return cls(**overrides)
+
+    @classmethod
+    def umt5_xxl(cls, **overrides) -> "T5Config":
+        base = dict(vocab_size=256384, per_layer_relative_bias=True)
+        base.update(overrides)
+        return cls(**base)
 
     @classmethod
     def tiny(cls, **overrides) -> "T5Config":
@@ -92,7 +101,7 @@ class _T5Attention(nn.Module):
                                                         cfg.num_heads)
 
     def forward(self, x, bias):
-        """x [B, S, d_model]; bias [1, H, S, S] float32."""
+        """x [B, S, d_model]; bias [1 or B, H, S, S] float32."""
         q, k, v = (proj(x).unflatten(-1, (self.heads, -1)).transpose(1, 2)
                    for proj in (self.q, self.k, self.v))
         scores = q.float() @ k.float().transpose(-1, -2) + bias
@@ -143,36 +152,47 @@ class _T5Block(nn.Module):
 class _T5Stack(nn.Module):
     def __init__(self, cfg: T5Config):
         super().__init__()
-        self.block = nn.ModuleList([_T5Block(cfg, i == 0) for i in range(cfg.num_layers)])
+        self.block = nn.ModuleList([_T5Block(cfg, cfg.per_layer_relative_bias or i == 0)
+                                    for i in range(cfg.num_layers)])
         self.final_layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
 
 
 class T5EncoderModel(nn.Module):
-    """``forward(input_ids [B, S]) -> [B, S, d_model]`` in the weights' dtype."""
+    """``forward(input_ids [B, S], attention_mask [B, S] or None)`` ->
+    [B, S, d_model] in the weights' dtype."""
 
     def __init__(self, cfg: T5Config):
         super().__init__()
-        if cfg.per_layer_relative_bias or cfg.feed_forward_proj != "gated-gelu":
-            raise NotImplementedError("only the T5 v1.1 encoder (shared relative bias, "
-                                      "gated-GELU) is ported")
+        if cfg.feed_forward_proj != "gated-gelu":
+            raise NotImplementedError("only the gated-GELU feed-forward (T5 v1.1, UMT5) is ported")
         self.config = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.encoder = _T5Stack(cfg)
 
-    def position_bias(self, seq_len: int) -> torch.Tensor:
-        """[1, H, S, S] float32 from block 0's bucket table."""
+    def position_bias(self, seq_len: int, layer: int = 0) -> torch.Tensor:
+        """[1, H, S, S] float32 from the bucket table of block ``layer``."""
         cfg = self.config
         pos = np.arange(seq_len)
         buckets = relative_position_bucket(pos[None, :] - pos[:, None],
                                            cfg.relative_attention_num_buckets,
                                            cfg.relative_attention_max_distance)
-        table = self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
+        table = self.encoder.block[layer].layer[0].SelfAttention.relative_attention_bias.weight
         idx = torch.from_numpy(buckets).to(table.device)
         return table.float()[idx].permute(2, 0, 1)[None]
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor = None) -> torch.Tensor:
         h = self.shared(input_ids)
-        bias = self.position_bias(input_ids.shape[1])
-        for block in self.encoder.block:
+        s = input_ids.shape[1]
+        mask_bias = None
+        if attention_mask is not None:
+            mask_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).to(
+                device=h.device, dtype=torch.float32)
+        per_layer = self.config.per_layer_relative_bias
+        for i, block in enumerate(self.encoder.block):
+            if i == 0 or per_layer:
+                bias = self.position_bias(s, i)
+                if mask_bias is not None:
+                    bias = bias + mask_bias
             h = block(h, bias)
         return self.encoder.final_layer_norm(h)

@@ -2,7 +2,8 @@
 
 Port of ``vap_tpu/ops/attention.py:41-110,206-299``. Providers:
 
-  * "flash" — K1, the hand-written bf16 flash forward (``ops/flash_attention.py``);
+  * "flash" — K1 (head_dim < 128) or K4 (head_dim 128), the hand-written bf16
+    flash forward (``ops/flash_attention.py``);
   * "sage"  — K2, the int8-QK SageAttention-style forward (inference only);
   * "xla"   — plain PyTorch dense attention (the name is the JAX package's);
   * "null"  — profiling only: skips the attention math.
@@ -10,7 +11,9 @@ Port of ``vap_tpu/ops/attention.py:41-110,206-299``. Providers:
 The default is "flash", as on the TPU; on CPU tensors the kernel wrappers
 run their plain versions. Selection is thread-local and set with the
 ``attention_provider`` context manager, with optional per-site overrides
-("sage joint:flash").
+("sage joint:flash", "sage cross:flash"). Sites: "joint" (the MoT joint
+self-attention of CogVideoX and Wan), "cross" (Wan's text and image
+cross-attentions) and "default" (the rest).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ DEFAULT_PROVIDER = "flash"
 def _parse_provider_spec(spec: str) -> dict:
     """'sage' -> {'default': 'sage'}; 'sage joint:flash' -> per-site overrides.
 
-    Sites: 'joint' (the MoT joint self-attention) and 'default' (the rest)."""
+    Sites: 'joint' (the MoT joint self-attention), 'cross' (Wan's
+    cross-attentions) and 'default' (the rest)."""
     out = {}
     for part in spec.replace(",", " ").split():
         site, name = part.split(":", 1) if ":" in part else ("default", part)

@@ -1,9 +1,12 @@
 """The port's attention kernels and their plain PyTorch versions.
 
-K1 ``flash_attention_forward``: non-causal softmax(Q K^T * scale) V with the
-natural-log lse, bf16, head_dim < 128 — the forward of
-``vap_tpu/ops/flash_attention.py`` ``flash_attention`` (``_flash_attention_forward_t``).
-CUDA source: ``csrc/flash_fwd.cu``.
+K1 and K4 ``flash_attention_forward``: non-causal softmax(Q K^T * scale) V
+with the natural-log lse, bf16. Head_dim < 128 launches K1, the forward of
+``vap_tpu/ops/flash_attention.py`` ``flash_attention`` at D < 128
+(``_flash_attention_forward_t``); head_dim 128 launches K4, its row-layout
+forward at D >= 128 (``_flash_attention_forward``). Both are one CUDA
+kernel templated on head_dim, ``csrc/flash_fwd.cu``, with one entry point
+each.
 
 K2 ``flash_attention_int8_forward``: the SageAttention-style forward of
 ``flash_attention_int8`` (``_flash_attention_forward_t_i8``): K smoothing,
@@ -17,7 +20,10 @@ input dtype, lse [B, H, Sq] float32.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
-raises. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+raises. Each kernel counts its launches on its wrapper:
+``flash_attention_forward.launches`` (K1),
+``flash_attention_forward.launches_d128`` (K4) and
+``flash_attention_int8_forward.launches`` (K2).
 """
 
 from __future__ import annotations
@@ -134,14 +140,20 @@ def sage_quantize(q, k, scale: float):
     int8 with one scale per (b, h) for Q and for the smoothed K, rounded half
     to even. Returns q_i8, k_i8 (int8, input shapes) and
     sqk = s_q * s_k * scale * log2(e) [B, H] f32.
+
+    One float32 copy of each input is worked in place, and the abs-max is
+    taken as max(max, -min), so the pass holds one f32 copy at a time (at
+    Wan's joint shape a copy is 1.7 GB).
     """
-    qf = q.float()
-    kf = k.float()
-    ks = kf - kf.mean(dim=2, keepdim=True)
-    s_q = (qf.abs().amax(dim=(2, 3), keepdim=True) / 127.0).clamp_min(1e-8)
-    s_k = (ks.abs().amax(dim=(2, 3), keepdim=True) / 127.0).clamp_min(1e-8)
-    q_i8 = torch.round(qf / s_q).to(torch.int8)
-    k_i8 = torch.round(ks / s_k).to(torch.int8)
+    def absmax(x):
+        return torch.maximum(x.amax(dim=(2, 3), keepdim=True), -x.amin(dim=(2, 3), keepdim=True))
+
+    s_q = (absmax(q).float() / 127.0).clamp_min(1e-8)
+    q_i8 = q.to(torch.float32, copy=True).div_(s_q).round_().to(torch.int8)
+    ks = k.to(torch.float32, copy=True)
+    ks.sub_(ks.mean(dim=2, keepdim=True))
+    s_k = (absmax(ks) / 127.0).clamp_min(1e-8)
+    k_i8 = ks.div_(s_k).round_().to(torch.int8)
     sqk = (s_q * s_k * scale * LOG2_E).reshape(q.shape[:2])
     return q_i8, k_i8, sqk
 
@@ -178,8 +190,9 @@ def flash_attention_int8_forward_plain(q, k, v, scale: Optional[float] = None):
 # ---------------------------------------------------------------------------
 
 def flash_attention_forward(q, k, v, scale: Optional[float] = None):
-    """K1: (out, lse). CUDA tensors launch ``vap_flash_fwd``: bf16,
-    head_dim a multiple of 16 below 128, contiguous. CPU tensors take
+    """K1 and K4: (out, lse). CUDA tensors launch ``vap_flash_fwd`` (K1,
+    head_dim a multiple of 16 below 128) or ``vap_flash_fwd_d128`` (K4,
+    head_dim 128): bf16, contiguous. CPU tensors take
     ``flash_attention_forward_plain``."""
     _shapes(q, k, v)
     if scale is None:
@@ -188,34 +201,40 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None):
         return flash_attention_forward_plain(q, k, v, scale)
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if d % 16 or d >= 128:
-        raise ValueError(f"flash kernel takes head_dim in 16..112 step 16, got {d}")
+    if d % 16 or d > 128:
+        raise ValueError(f"flash kernel takes head_dim in 16..128 step 16, got {d}")
     bf16 = torch.bfloat16
     _kernel_inputs("flash_attention_forward", {"q": q, "k": k, "v": v},
                    {"q": bf16, "k": bf16, "v": bf16}, b * h, sq)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.library()
+    lib = _build.library("flash_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.vap_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                lse.data_ptr(), b * h, sq, skv, d, scale * LOG2_E,
-                                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "vap_flash_fwd")
-    flash_attention_forward.launches += 1
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if d == 128:
+            err = lib.vap_flash_fwd_d128(*ptrs, b * h, sq, skv, scale * LOG2_E, stream)
+            _build.check(err, "vap_flash_fwd_d128")
+            flash_attention_forward.launches_d128 += 1
+        else:
+            err = lib.vap_flash_fwd(*ptrs, b * h, sq, skv, d, scale * LOG2_E, stream)
+            _build.check(err, "vap_flash_fwd")
+            flash_attention_forward.launches += 1
     return out, lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.launches_d128 = 0
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """Fused full attention (K1), output only."""
+    """Fused full attention (K1 or K4 by head_dim), output only."""
     return flash_attention_forward(q, k, v, scale)[0]
 
 
 def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None):
     """K2: (out, lse). The int8 pre-pass runs in PyTorch; CUDA tensors then
-    launch ``vap_sage_fwd`` (bf16 v, head_dim 32, 64 or 96, contiguous), CPU
+    launch ``vap_sage_fwd`` (bf16 v, head_dim 32, 64, 96 or 128, contiguous), CPU
     tensors take the plain version."""
     _sage_checks(q, k, v)
     if scale is None:
@@ -226,8 +245,8 @@ def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None):
         return _sage_plain(q_i8, k_i8, sqk, v)
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if d > 96:
-        raise ValueError(f"sage kernel takes head_dim 32, 64 or 96, got {d}")
+    if d > 128:
+        raise ValueError(f"sage kernel takes head_dim 32, 64, 96 or 128, got {d}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_int8_forward: q must be bfloat16, got {q.dtype}")
     i8 = torch.int8
@@ -237,7 +256,7 @@ def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None):
                    b * h, sq)
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.library()
+    lib = _build.library("sage_fwd")
     with torch.cuda.device(q.device):
         err = lib.vap_sage_fwd(q_i8.data_ptr(), k_i8.data_ptr(), sqk.data_ptr(), v.data_ptr(),
                                out.data_ptr(), lse.data_ptr(), b * h, sq, skv, d,

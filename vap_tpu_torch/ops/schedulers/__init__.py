@@ -1,1 +1,2 @@
 from .ddim import CogVideoXDDIMScheduler
+from .flow_match import FlowMatchEulerScheduler

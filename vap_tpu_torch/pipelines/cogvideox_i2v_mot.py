@@ -68,6 +68,16 @@ def dynamic_cfg_schedule(timesteps: np.ndarray, guidance_scale: float,
     )).astype(np.float32)
 
 
+def resolve_device(device) -> torch.device:
+    """The pipelines run on the card unless the caller asks for the CPU;
+    without a card, a CUDA device raises instead of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the pipeline runs on the card; "
+                           "pass device='cpu' to run it on the CPU")
+    return device
+
+
 def decode_splits(lat_w: int) -> int:
     """W tiles for the decode, the JAX default (``cogvideox_i2v_mot.py:102``)."""
     return 2 if lat_w >= 80 else 1
@@ -81,7 +91,8 @@ class CogVideoXVAPPipeline:
     tokenizer: Any = None
     scheduler: Any = dataclasses.field(default_factory=CogVideoXDDIMScheduler)
     dtype: torch.dtype = torch.bfloat16
-    device: torch.device = torch.device("cpu")
+    # the card unless the caller asks for the CPU; raises where there is no card
+    device: torch.device = torch.device("cuda")
 
     vae_scale_factor_spatial: int = 8
     vae_scale_factor_temporal: int = 4
@@ -91,7 +102,7 @@ class CogVideoXVAPPipeline:
     stage_seconds: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -1,0 +1,325 @@
+"""Wan2.1 image-to-video Video-As-Prompt pipeline in PyTorch.
+
+Port of ``vap_tpu/pipelines/wan_i2v_mot.py:83-514`` (the non-cached
+FlowMatch path): UMT5-encode the prompts, zeroed past each prompt's length;
+CLIP-encode the target image and each reference's first frame; Wan-VAE
+encode the conditioning video, the reference video and the reference
+conditioning video into the 36-channel inputs
+[noisy(16) ‖ mask(4) ‖ cond-latent(16)]; run the FlowMatch Euler denoise
+with CFG folded into the batch, as a Python loop over steps; decode the
+latents one latent frame at a time.
+
+With ``enable_model_offload`` every component stays in host memory and one
+at a time is staged onto the card (``pipelines/offload.py``).
+
+Not ported yet (they raise ``NotImplementedError``): UniPC, the step cache,
+streamed block offload (``offload_blocks_chunk``), VAE tiling and slicing,
+and the plain and text-to-video modes (no reference video).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.text_encoders.clip_vision import CLIPVisionModel
+from ..models.text_encoders.t5 import T5EncoderModel
+from ..models.wan.transformer_mot import WanTransformer3DMOTModel
+from ..models.wan.vae import (AutoencoderKLWan, denormalize_latents, normalize_latents,
+                              wan_vae_decode_streamed, wan_vae_encode)
+from ..ops.schedulers import FlowMatchEulerScheduler
+from .cogvideox_i2v_mot import DEFAULT_NEGATIVE_PROMPT, resolve_device
+from .offload import stage_component
+
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+# ---------------------------------------------------------------------------
+# host-side resize with cv2.resize's semantics (the JAX preprocessing calls
+# cv2, which the port does not import)
+# ---------------------------------------------------------------------------
+
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] INTER_AREA weights for a shrink: each output pixel averages
+    the source span [i * s, (i + 1) * s), s = src / dst, partial pixels at
+    the span's ends weighted by their overlap (cv2's computeResizeAreaTab)."""
+    scale = src / dst
+    w = np.zeros((dst, src), np.float64)
+    for dx in range(dst):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, src - fsx1)
+        sx1, sx2 = int(np.ceil(fsx1)), int(np.floor(fsx2))
+        sx2 = min(sx2, src - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            w[dx, sx1 - 1] = (sx1 - fsx1) / cell
+        w[dx, sx1:sx2] = 1.0 / cell
+        if fsx2 - sx2 > 1e-3:
+            w[dx, sx2] = min(min(fsx2 - sx2, 1.0), cell) / cell
+    return w
+
+
+def _linear_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] INTER_LINEAR weights: half-pixel centres, the source
+    coordinate clamped to the image at both ends."""
+    scale = src / dst
+    w = np.zeros((dst, src), np.float64)
+    for dx in range(dst):
+        fx = (dx + 0.5) * scale - 0.5
+        sx = int(np.floor(fx))
+        fx -= sx
+        if sx < 0:
+            fx, sx = 0.0, 0
+        if sx >= src - 1:
+            fx, sx = 0.0, src - 1
+        w[dx, sx] += 1.0 - fx
+        if fx:
+            w[dx, sx + 1] += fx
+    return w
+
+
+def resize_frame(frame: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Resize one [H, W, C] float frame as ``resize_frame`` of ``vap_tpu/data/video.py``
+    does with cv2: INTER_AREA when the height shrinks, else INTER_LINEAR.
+    Both are separable: out = Wy @ frame @ Wx^T per channel."""
+    h, w = frame.shape[:2]
+    if h > height:
+        if w < width:
+            raise NotImplementedError("INTER_AREA with a growing width is not ported")
+        wy, wx = _area_weights(h, height), _area_weights(w, width)
+    else:
+        wy, wx = _linear_weights(h, height), _linear_weights(w, width)
+    rows = np.tensordot(wy, np.asarray(frame, np.float64), axes=(1, 0))  # [height, w, C]
+    return np.einsum("xw,ywc->yxc", wx, rows).astype(np.float32)
+
+
+# --- copied from vap_tpu/pipelines/wan_i2v_mot.py:83-92 (make_i2v_mask) ------
+def make_i2v_mask(batch: int, num_frames: int, lat_h: int, lat_w: int,
+                  temporal_ratio: int = 4) -> np.ndarray:
+    """First-frame mask, 4 channels per latent frame (reference pipeline
+    :807-817). Returns [B, F_lat, lat_h, lat_w, 4] channel-last."""
+    mask = np.ones((batch, 1, num_frames, lat_h, lat_w), np.float32)
+    mask[:, :, 1:] = 0
+    first = np.repeat(mask[:, :, :1], temporal_ratio, axis=2)
+    mask = np.concatenate([first, mask[:, :, 1:]], axis=2)
+    mask = mask.reshape(batch, -1, temporal_ratio, lat_h, lat_w).transpose(0, 2, 1, 3, 4)
+    return mask.transpose(0, 2, 3, 4, 1)
+
+
+@dataclasses.dataclass
+class WanVAPPipeline:
+    transformer: WanTransformer3DMOTModel
+    vae: AutoencoderKLWan
+    text_encoder: T5EncoderModel
+    image_encoder: CLIPVisionModel
+    tokenizer: Any = None
+    scheduler: Any = dataclasses.field(default_factory=lambda: FlowMatchEulerScheduler(shift=3.0))
+    dtype: torch.dtype = torch.bfloat16
+    # the card unless the caller asks for the CPU; raises where there is no card
+    device: torch.device = torch.device("cuda")
+
+    vae_scale_factor_spatial: int = 8
+    vae_scale_factor_temporal: int = 4
+
+    # weights on the host, one component at a time staged onto the device
+    enable_model_offload: bool = False
+    # not ported: decode tiling and slicing, streamed block offload
+    enable_vae_tiling: bool = False
+    enable_vae_slicing: bool = False
+    offload_blocks_chunk: Optional[int] = None
+
+    # host-clock seconds of the last call, per stage, each read after a
+    # device synchronise; "staging" holds the host->device copies of offload
+    stage_seconds: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
+    _staged: list = dataclasses.field(default_factory=list, repr=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _component(self, name: str):
+        """The named component, staged onto the device under offload."""
+        if not self.enable_model_offload:
+            return getattr(self, name)
+        if self._staged and self._staged[0][0] == name:
+            return self._staged[0][1]
+        self._sync()
+        t0 = time.perf_counter()
+        comps = {n: getattr(self, n) for n in ("transformer", "vae", "text_encoder",
+                                                "image_encoder")}
+        module = stage_component(comps, name, self._staged, self.device)
+        self._sync()
+        staging = self.stage_seconds.setdefault("staging", {})
+        staging[name] = staging.get(name, 0.0) + time.perf_counter() - t0
+        return module
+
+    # ------------------------------------------------------------------
+    # conditioning
+    # ------------------------------------------------------------------
+    def encode_prompt(self, prompt: str, max_length: int = 512) -> torch.Tensor:
+        """UMT5 embeddings [1, L, D], zeroed past the prompt's length."""
+        toks = self.tokenizer([prompt], padding="max_length", max_length=max_length,
+                              truncation=True, add_special_tokens=True, return_tensors="np")
+        ids = torch.from_numpy(np.asarray(toks["input_ids"], np.int64)).to(self.device)
+        mask = torch.from_numpy(np.asarray(toks["attention_mask"], np.int64)).to(self.device)
+        out = self._component("text_encoder")(ids, mask)
+        return (out * mask[..., None].to(out.dtype)).to(self.dtype)
+
+    def clip_preprocess(self, image: np.ndarray) -> torch.Tensor:
+        """[H, W, 3] in [-1, 1] -> [1, S, S, 3] float32, resized to the CLIP
+        size and CLIP-normalised (host side)."""
+        img01 = (np.asarray(image, np.float32) + 1.0) / 2.0
+        size = self.image_encoder.config.image_size
+        img = resize_frame(img01, size, size)
+        return torch.from_numpy((img - CLIP_MEAN) / CLIP_STD)[None]
+
+    def encode_image(self, image: np.ndarray) -> torch.Tensor:
+        """[H, W, 3] in [-1, 1] -> CLIP penultimate hidden state [1, 257, D]."""
+        px = self.clip_preprocess(image).to(self.device)
+        return self._component("image_encoder")(px).to(self.dtype)
+
+    def _vae_encode(self, video: torch.Tensor) -> torch.Tensor:
+        """Posterior mean (sample_mode "argmax"), normalised; channel-last."""
+        vae = self._component("vae")
+        mean = wan_vae_encode(vae, video.to(self.dtype))[..., :vae.config.z_dim]
+        return normalize_latents(vae.config, mean)
+
+    # ------------------------------------------------------------------
+    # full generation
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def __call__(
+        self,
+        image: np.ndarray,                       # [H, W, 3] in [-1, 1]
+        prompt: str = None,
+        ref_videos: Optional[List[np.ndarray]] = None,   # list of [F, H, W, 3] in [-1, 1]
+        prompt_mot_ref: Optional[List[str]] = None,
+        negative_prompt: str = DEFAULT_NEGATIVE_PROMPT,
+        negative_prompt_mot_ref: str = DEFAULT_NEGATIVE_PROMPT,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 49,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: int = 42,
+        max_sequence_length: int = 512,
+        latents: Optional[torch.Tensor] = None,
+        output_type: str = "np",
+        step_cache: Optional[str] = None,
+    ):
+        unported = {
+            "step_cache": step_cache is not None,
+            "plain / text-to-video mode (no reference videos)": not ref_videos,
+            "image=None": image is None,
+            "a scheduler other than FlowMatch Euler (UniPC)":
+                not isinstance(self.scheduler, FlowMatchEulerScheduler),
+            "offload_blocks_chunk (streamed block offload)": bool(self.offload_blocks_chunk),
+            "VAE tiling / slicing": self.enable_vae_tiling or self.enable_vae_slicing,
+        }
+        bad = [name for name, on in unported.items() if on]
+        if bad:
+            raise NotImplementedError(f"not ported to PyTorch yet: {bad}")
+        times = self.stage_seconds
+        times.clear()
+        dev, dtype = self.device, self.dtype
+        do_cfg = guidance_scale > 1.0
+        mult = 2 if do_cfg else 1
+        r = len(ref_videos)
+
+        # 1. prompts (UMT5)
+        self._component("text_encoder")
+        t0 = time.perf_counter()
+        pe = self.encode_prompt(prompt, max_sequence_length)
+        embeds = (torch.cat([self.encode_prompt(negative_prompt, max_sequence_length), pe])
+                  if do_cfg else pe)
+        pe_ref = torch.cat([self.encode_prompt(p, max_sequence_length) for p in prompt_mot_ref], dim=1)
+        ne_ref = torch.cat([self.encode_prompt(negative_prompt_mot_ref, max_sequence_length)] * r, dim=1)
+        embeds_ref = torch.cat([ne_ref, pe_ref]) if do_cfg else pe_ref
+        self._sync()
+        times["text_encode"] = time.perf_counter() - t0
+
+        # 2. CLIP image embeddings of the target and of each reference's first frame
+        img_embeds = img_embeds_ref = None
+        if self.transformer.config.image_dim is not None:
+            self._component("image_encoder")
+            t0 = time.perf_counter()
+            img_embeds = torch.cat([self.encode_image(image)] * mult)
+            img_embeds_ref = torch.cat(
+                [torch.cat([self.encode_image(rv[0]) for rv in ref_videos], dim=1)] * mult)
+            self._sync()
+            times["image_encode"] = time.perf_counter() - t0
+
+        # 3. VAE latents and the 36-channel conditioning (channel-last)
+        self._component("vae")
+        t0 = time.perf_counter()
+        f_lat = (num_frames - 1) // self.vae_scale_factor_temporal + 1
+        lat_h = height // self.vae_scale_factor_spatial
+        lat_w = width // self.vae_scale_factor_spatial
+        zc = self.vae.config.z_dim
+
+        def first_frame_video(frame) -> torch.Tensor:
+            first = torch.as_tensor(np.asarray(frame, np.float32), device=dev)[None, None]
+            return torch.cat([first, first.new_zeros((1, num_frames - 1, height, width, 3))], dim=1)
+
+        mask = torch.from_numpy(make_i2v_mask(1, num_frames, lat_h, lat_w,
+                                              self.vae_scale_factor_temporal)).to(dev)
+        cond_latent = self._vae_encode(first_frame_video(image))
+        condition = torch.cat([mask.to(cond_latent.dtype), cond_latent], dim=-1)  # [1, F, h, w, 20]
+        ref_lat, ref_cond = [], []
+        for rv in ref_videos:
+            ref_lat.append(self._vae_encode(torch.as_tensor(np.asarray(rv, np.float32), device=dev)[None]))
+            cl = self._vae_encode(first_frame_video(rv[0]))
+            ref_cond.append(torch.cat([mask.to(cl.dtype), cl], dim=-1))
+        ref_input = torch.cat([torch.cat(ref_lat, dim=1), torch.cat(ref_cond, dim=1)], dim=-1)
+        self._sync()
+        times["vae_encode"] = time.perf_counter() - t0
+
+        if latents is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            latents = torch.randn((1, f_lat, lat_h, lat_w, zc), generator=gen, device=dev)
+        latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
+
+        # 4. FlowMatch Euler denoise, the CFG pair folded into the batch
+        transformer = self._component("transformer")
+        ts = self.scheduler.timesteps(num_inference_steps).astype(np.float32)
+        sigmas = self.scheduler.sigmas(num_inference_steps)
+        cond_in = condition.to(dtype).repeat(mult, 1, 1, 1, 1)
+        ref_in = ref_input.to(dtype).repeat(mult, 1, 1, 1, 1)
+        t_ref = torch.ones((mult, r), dtype=torch.float32, device=dev)
+        step_times = []
+        for i, t in enumerate(ts):
+            t0 = time.perf_counter()
+            x_in = torch.cat([latents.to(dtype).repeat(mult, 1, 1, 1, 1), cond_in], dim=-1)
+            timestep = torch.full((mult,), float(t), dtype=torch.float32, device=dev)
+            pred = transformer(
+                hidden_states=x_in, timestep=timestep, encoder_hidden_states=embeds,
+                encoder_hidden_states_image=img_embeds, hidden_states_mot_ref=ref_in,
+                timestep_mot_ref=t_ref, encoder_hidden_states_mot_ref=embeds_ref,
+                encoder_hidden_states_image_mot_ref=img_embeds_ref, num_mot_ref=r).float()
+            if do_cfg:
+                uncond, cond = pred.chunk(2)
+                pred = uncond + float(guidance_scale) * (cond - uncond)
+            latents = self.scheduler.step(pred, latents, sigmas[i], sigmas[i + 1])
+            self._sync()
+            step_times.append(time.perf_counter() - t0)
+        times["denoise_steps"] = step_times
+
+        if output_type == "latent":
+            return latents
+
+        # 5. streamed decode, one latent frame per decoder step
+        vae = self._component("vae")
+        t0 = time.perf_counter()
+        z = denormalize_latents(vae.config, latents.to(dtype))
+        out = wan_vae_decode_streamed(vae, z).float().cpu().numpy()
+        times["vae_decode"] = time.perf_counter() - t0
+        return out
