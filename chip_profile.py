@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the device time of one main-path call goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [cogvideox] [wan]
+    python3 chip_profile.py [cogvideox] [wan] [train]
 
-Builds the kernels and the same full-width pipelines as chip_smoke.py
-(random bf16 weights from a seed, one reference, one denoise step):
-CogVideoX-5B VAP at 49 frames of 480x720 under the flash and sage providers,
-and Wan2.1-I2V-14B VAP at 49 frames of 480x832 with model offload under
-flash. Each call runs once to warm up and once under torch.profiler. It
-prints the call's host wall time and stage seconds, the device's busy time
-and idle share (1 - busy / wall), the device time by category and the
-costliest kernels. With no argument it profiles both models. It checks
+Builds the kernels and the same full-width paths as chip_smoke.py (random
+bf16 weights from a seed, one reference): one denoise step of CogVideoX-5B
+VAP at 49 frames of 480x720 under the flash and sage providers; one of
+Wan2.1-I2V-14B VAP at 49 frames of 480x832 with model offload under flash;
+one CogVideoX-5B VAP training step at 49 frames of 480x720, batch 1, remat
+"full", AdamW. Each runs once to warm up and once under torch.profiler. It
+prints the host wall time and stage seconds, the device's busy time and
+idle share (1 - busy / wall), the device time by category and the costliest
+kernels. With no argument it profiles the two generation paths. It checks
 nothing that chip_smoke.py does not; it only measures.
 """
 
@@ -18,8 +19,10 @@ import collections
 import sys
 import time
 
-from chip_smoke import (build_main_pipeline, build_wan_pipeline, log, main_path_args, power_line,
-                        wan_args)
+import os
+
+from chip_smoke import (HERE, build_main_pipeline, build_trainer, build_wan_pipeline, log,
+                        main_path_args, power_line, wan_args)
 
 STEPS = 1
 TOP = 25
@@ -27,6 +30,8 @@ TOP = 25
 # first match wins; names are the device kernels' names as the profiler gives them
 CATEGORIES = [
     ("attention kernel", ("flash_fwd_kernel", "sage_fwd_kernel")),
+    ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("optimizer (fused AdamW)", ("fused_adam", "FusedAdam", "multi_tensor")),
     ("host->device copies (offload staging)", ("Memcpy HtoD",)),
     ("conv layout (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
     ("GEMM and implicit-GEMM conv", ("nvjet", "gemm", "cutlass", "xmma", "conv")),
@@ -50,16 +55,17 @@ def _rounded(v):
     return round(v, 3)
 
 
-def profile_call(pipe, args, label):
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler; returns (wall seconds, seconds
+    and launches by device kernel name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe(**args)  # warm-up: cuDNN and cuBLAS pick their algorithms here
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(**args)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
@@ -68,18 +74,38 @@ def profile_call(pipe, args, label):
             entry = per_kernel[evt.name]
             entry[0] += evt.time_range.elapsed_us() / 1e6
             entry[1] += 1
+    return wall, per_kernel
+
+
+def report(label, wall, per_kernel, stages):
     busy = sum(sec for sec, _ in per_kernel.values())
     by_cat = collections.Counter()
     for name, (sec, _) in per_kernel.items():
         by_cat[category(name)] += sec
-
-    stages = ", ".join(f"{k} {_rounded(v)}" for k, v in pipe.stage_seconds.items())
-    log(f"== {label}, {STEPS} step(s): wall {wall:.3f} s; {stages}")
+    log(f"== {label}: wall {wall:.3f} s; {stages}")
     log(f"device busy {busy:.3f} s of wall {wall:.3f} s -> idle share {1 - busy / wall:.3f}")
     for name, sec in by_cat.most_common():
         log(f"  {name:40s} {sec:8.3f} s  {100 * sec / busy:5.1f}%")
     for name, (sec, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
         log(f"  {1e3 * sec:10.1f} ms  x {count:5d}  {name[:110]}")
+
+
+def profile_call(pipe, args, label):
+    pipe(**args)  # warm-up: cuDNN and cuBLAS pick their algorithms here
+    wall, per_kernel = profiled(lambda: pipe(**args))
+    stages = ", ".join(f"{k} {_rounded(v)}" for k, v in pipe.stage_seconds.items())
+    report(f"{label}, {STEPS} step(s)", wall, per_kernel, stages)
+
+
+def profile_training(dev):
+    """Step 1 warms up (allocator, cuBLAS, the AdamW state); step 2 is traced."""
+    trainer = build_trainer(dev, os.path.join(HERE, "build", "chip_profile_train"), 1)
+    trainer.run()
+    trainer.args.train_steps = 2
+    wall, per_kernel = profiled(trainer.run)
+    r = trainer.history[-1]
+    stages = ", ".join(f"{k} {_rounded(r[k])}" for k in ("forward_s", "backward_s", "update_s"))
+    report("CogVideoX training, 1 step", wall, per_kernel, f"loss {r['loss']:.6f}, {stages}")
 
 
 def main():
@@ -105,6 +131,10 @@ def main():
         pipe = build_wan_pipeline(dev)
         with attention_provider("flash"):
             profile_call(pipe, wan_args(STEPS), "Wan, flash, model offload")
+        del pipe
+        torch.cuda.empty_cache()
+    if "train" in models:
+        profile_training(dev)
 
 
 if __name__ == "__main__":

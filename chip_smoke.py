@@ -26,7 +26,21 @@ Phases, each of which raises on failure:
      49 frames of 480x832, one reference, FlowMatch shift 3, guidance 5,
      random bf16 weights from a seed, through WanVAPPipeline.__call__ with
      model offload (one component on the card at a time), cut to 2 steps
-     under flash and 1 under sage.
+     under flash and 1 under sage;
+  7. K5 (the flash backward, D=64) against its plain PyTorch version in
+     bf16 at the unaligned shapes and at the main-path shape [1,48,35552,64],
+     dq, dk and dv each within a limit of max|ref|, with a planted fault
+     (dout rows out of place inside each 64-query tile) that must break it;
+     its time, the plain version's, the backward of torch's SDPA flash
+     backend (a yardstick only) and the card's bound;
+  8. CogVideoX-5B VAP training at full width (42 blocks, MoT in 0-40,
+     random bf16 weights from a seed) on a random precomputed batch at 49
+     frames of 480x720, batch 1, through SFTTrainer.run: AdamW (beta 0.9 /
+     0.99, weight decay 1e-4, clip 1.0, a constant lr of 1e-5), remat
+     "full", 3 optimizer steps (the first a warm-up); per step the loss,
+     grad_norm, seconds and the forward / backward / update split, the peak
+     device memory, K1 and K5 launches (84 and 42 a step), the frozen trunk
+     bit-identical and the MoT expert moved.
 
 The last three lines are a JSON object with each kernel's launches in its
 main-path run, its largest error against the plain version, and its times
@@ -69,6 +83,17 @@ E2E_ATOL = {"flash": 0.1, "sage": 0.2}
 # ~0.99 v with v = u + 5 (c - u), so one bf16 ulp of c (2^-6 at |c| in
 # [2, 4)) moves a latent by ~0.08; the limit allows about three such flips
 WAN_E2E_ATOL = {"flash": 0.25, "sage": 0.35}
+# K5 vs plain version: dq, dk and dv each held as max|err| / max|ref|. Both
+# round ds and p to bf16 at the same points from the same out and lse; exp2
+# and the summation order differ, which flips a rounding by one bf16 ulp
+# (2^-8 relative) now and then, and each output is itself rounded to bf16.
+# A planted fault (dout rows rolled by one inside each 64-query tile) must
+# read above the limit in all three.
+GRAD_REL_TOL = 2e-2
+Q_TILE = 64  # queries per tile of the dk/dv kernel
+TRAIN_STEPS = 3  # optimizer steps of phase 8: 1 warm-up, 2 timed
+TRAIN_LR = 1e-5  # the recipe's lr, constant: the first update is not at lr 0
+NEVER = 2**31 - 1  # checkpointing_steps: no checkpoint (a full-width one holds ~32 GB)
 # H100 SXM dense peaks (NVIDIA data sheet): the bound of each kernel
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -89,83 +114,6 @@ def mem_total_gib():
             if line.startswith("MemTotal:"):
                 return int(line.split()[1]) / 2**20
     return float("nan")
-
-
-# ---------------------------------------------------------------------------
-# random weights from a seed (the JAX package's initializers, in distribution)
-# ---------------------------------------------------------------------------
-
-def init_random_(model, gen):
-    """The transformers' linears (and their patch convs, linears there) and
-    CLIP's linears uniform +-1/sqrt(fan_in); T5's linears and the VAEs'
-    convs normal * fan_in^-0.5; zero biases, unit norms, a normal embedding,
-    a 0.02-normal T5 bias table and CLIP embeddings, normal/sqrt(dim)
-    scale-shift tables."""
-    import torch
-    from torch import nn
-
-    from vap_tpu_torch.models.cogvideox.transformer_mot import (CogVideoXTransformer3DMOTModel,
-                                                                sincos_pos_embedding)
-    from vap_tpu_torch.models.text_encoders.clip_vision import CLIPVisionModel
-    from vap_tpu_torch.models.text_encoders.t5 import T5LayerNorm
-    from vap_tpu_torch.models.wan.transformer_mot import RMSNorm, WanTransformer3DMOTModel
-    from vap_tpu_torch.models.wan.vae import RMSNormVideo
-
-    uniform = isinstance(model, (CogVideoXTransformer3DMOTModel, WanTransformer3DMOTModel,
-                                 CLIPVisionModel))
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
-                fan_in = mod.weight[0].numel()
-                if uniform:
-                    mod.weight.uniform_(-fan_in ** -0.5, fan_in ** -0.5, generator=gen)
-                else:
-                    mod.weight.normal_(generator=gen).mul_(fan_in ** -0.5)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-                if mod.weight is not None:
-                    mod.weight.fill_(1.0)
-                    mod.bias.zero_()
-            elif isinstance(mod, (T5LayerNorm, RMSNorm)):
-                mod.weight.fill_(1.0)
-            elif isinstance(mod, RMSNormVideo):
-                mod.gamma.fill_(1.0)
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(generator=gen)
-                if mod.weight.shape[0] < 1000:  # T5 bias tables, CLIP positions
-                    mod.weight.mul_(0.02)
-        for name, p in model.named_parameters():
-            if "scale_shift_table" in name:
-                p.normal_(generator=gen).div_(p.shape[-1] ** 0.5)
-            elif name.endswith(("class_embedding", "embeddings.patch_embedding.weight")):
-                p.normal_(generator=gen).mul_(0.02)
-            elif name.endswith("pos_embed"):
-                p.zero_()
-        if isinstance(model, CogVideoXTransformer3DMOTModel):
-            cfg = model.config
-            frames = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
-            pos = torch.from_numpy(sincos_pos_embedding(cfg, cfg.sample_height,
-                                                        cfg.sample_width, frames))
-            for pe in (model.patch_embed, model.patch_embed_mot_ref):
-                pe.pos_embedding.copy_(pos[None])
-    return model
-
-
-def build_random(cls, cfg, device, dtype, gen, host=False):
-    """Construct on the meta device, allocate on ``device``, fill from
-    ``gen``; with ``host``, move the weights to host memory afterwards."""
-    import torch
-
-    prev = torch.get_default_dtype()
-    torch.set_default_dtype(dtype)
-    try:
-        with torch.device("meta"):
-            model = cls(cfg)
-    finally:
-        torch.set_default_dtype(prev)
-    model = init_random_(model.to_empty(device=device), gen).eval()
-    return model.to("cpu") if host else model
 
 
 class FakeTokenizer:
@@ -227,6 +175,19 @@ def bound(kind, b, h, sq, skv, d):
     t_ops = flops / PEAK_BF16 if kind == "flash" else flops / 2 / PEAK_INT8 + flops / 2 / PEAK_BF16
     t_bytes = (2 * b * h * (2 * sq + 2 * skv) * d + 4 * b * h * sq) / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_bound(b, h, sq, skv, d):
+    """(ms, "operations" or "bytes") for K5: 10*B*H*Sq*Skv*D operations (q k^T,
+    dout v^T, ds k, p^T dout, ds^T q) at the bf16 peak; bytes: q, k, v, out,
+    dout, dq, dk, dv in bf16 and lse in f32, each moved once."""
+    t_ops = 10 * b * h * sq * skv * d / PEAK_BF16
+    t_bytes = (2 * b * h * d * (4 * sq + 4 * skv) + 4 * b * h * sq) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+BWD_SPEC = dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+                replaces="vap_tpu/ops/flash_attention.py:1131")
 
 
 def kernel_specs():
@@ -327,6 +288,7 @@ def small_pipeline_check(dev):
     import numpy as np
     import torch
 
+    from vap_tpu_torch.models.random_init import build_random
     from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
     from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
     from vap_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
@@ -396,6 +358,7 @@ def build_main_pipeline(dev):
     default VAE) with random bf16 weights from SEED, on the card."""
     import torch
 
+    from vap_tpu_torch.models.random_init import build_random
     from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
     from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
     from vap_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
@@ -443,6 +406,7 @@ def reset_counts():
     fa.flash_attention_forward.launches = 0
     fa.flash_attention_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
+    fa.flash_attention_backward.launches = 0
 
 
 def read_counts():
@@ -450,7 +414,8 @@ def read_counts():
 
     return {"flash_fwd": fa.flash_attention_forward.launches,
             "flash_fwd_d128": fa.flash_attention_forward.launches_d128,
-            "sage_fwd": fa.flash_attention_int8_forward.launches}
+            "sage_fwd": fa.flash_attention_int8_forward.launches,
+            "flash_bwd": fa.flash_attention_backward.launches}
 
 
 def check_launches(launches, want):
@@ -503,6 +468,7 @@ def wan_small_check(dev):
     import numpy as np
     import torch
 
+    from vap_tpu_torch.models.random_init import build_random
     from vap_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
     from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
     from vap_tpu_torch.models.wan.config import WanMOTConfig
@@ -551,6 +517,7 @@ def build_wan_pipeline(dev):
     each component built on the card and kept in host memory (model offload)."""
     import torch
 
+    from vap_tpu_torch.models.random_init import build_random
     from vap_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
     from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
     from vap_tpu_torch.models.wan.config import WanMOTConfig
@@ -629,7 +596,214 @@ def wan_main_path(pipe, provider, steps, dev):
     return launches[kernel]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: K5, the flash backward
+# ---------------------------------------------------------------------------
+
+def backward_parity(dev):
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def inputs(b, h, sq, skv, d):
+        q, k, v, dout = [torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                         for s in (sq, skv, skv, sq)]
+        out, lse = fa.flash_attention_forward(q, k, v)
+        return q, k, v, out, lse, dout
+
+    def rolled_in_q_tiles(x):
+        n = x.shape[2] // Q_TILE * Q_TILE
+        tiles = x[:, :, :n].unflatten(2, (-1, Q_TILE)).roll(1, dims=3).flatten(2, 3)
+        return torch.cat([tiles, x[:, :, n:]], dim=2).contiguous()
+
+    def errors(got, ref):
+        return [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
+                for g, r in zip(got, ref)]
+
+    shapes = [(1, 48, sq, skv, 64) for sq, skv in PARITY_SHAPES] + [MAIN_SHAPE[:3] + MAIN_SHAPE[2:]]
+    worst = 0.0
+    for b, h, sq, skv, d in shapes:
+        q, k, v, out, lse, dout = inputs(b, h, sq, skv, d)
+        got = fa.flash_attention_backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ref = fa.flash_attention_backward_plain(q, k, v, out, lse, dout)
+        errs = errors(got, ref)
+        del got
+        fault = errors(fa.flash_attention_backward(q, k, v, out, lse, rolled_in_q_tiles(dout)), ref)
+        log(f"  flash_bwd {(b, h, sq, d)} x {skv}: " + ", ".join(
+            f"d{n} max|err| {e:.3e} / max|ref| {m:.3e} = {e / m:.3e} (planted fault {fe / m:.3e})"
+            for n, (e, m), (fe, _) in zip("qkv", errs, fault)) + f" (tol {GRAD_REL_TOL}), "
+            f"finite {finite}")
+        if not (finite and all(e <= GRAD_REL_TOL * m for e, m in errs)):
+            raise AssertionError("flash_bwd disagrees with its plain version")
+        if not all(fe > GRAD_REL_TOL * m for (fe, m) in fault):
+            raise AssertionError("flash_bwd: the limit does not catch dout rows out of place")
+        worst = max([worst] + [e for e, _ in errs])
+        del q, k, v, out, lse, dout, ref
+        torch.cuda.empty_cache()
+
+    b, h, s, d = MAIN_SHAPE
+    q, k, v, out, lse, dout = inputs(b, h, s, s, d)
+    ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, out, lse, dout), iters=1,
+                       warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):  # one PyTorch call: a yardstick
+        o = F.scaled_dot_product_attention(*leaves)
+    library_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), iters=3,
+                         warmup=1)
+    bound_ms, bound_by = bwd_bound(b, h, s, s, d)
+    tflops = 10 * b * h * s * s * d / (ms * 1e-3) / 1e12
+    log(f"  flash_bwd at {MAIN_SHAPE}: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, SDPA flash backward {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by})")
+    del q, k, v, out, lse, dout, leaves, o
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "shape": list(MAIN_SHAPE)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the full-width CogVideoX VAP training step
+# ---------------------------------------------------------------------------
+
+def training_batch(cfg):
+    """One random precomputed item at 49f@480x720, batch 1, in the JAX
+    trainer's cache layout: latents [1,13,16,60,90] (target, its first-frame
+    image latents, the reference and its image latents) and T5 states
+    [1,226,4096] for each prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    frames = (NUM_FRAMES - 1) // 4 + 1
+    lat = (1, frames, cfg.out_channels, HEIGHT // 8, WIDTH // 8)
+    txt = (1, cfg.max_text_seq_length, cfg.text_embed_dim)
+
+    def normal(shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    def first_frame(shape):  # one encoded frame, then zero padding (CogVideoXSpec)
+        x = np.zeros(shape, np.float32)
+        x[:, :1] = normal((1, 1) + shape[2:])
+        return x
+
+    cond = {"encoder_hidden_states": normal(txt), "encoder_hidden_states_mot_ref": normal(txt)}
+    latents = {"latents": normal(lat), "image_latents": first_frame(lat),
+               "latents_mot_ref": normal(lat), "image_latents_mot_ref": first_frame(lat)}
+    return cond, latents
+
+
+def build_trainer(dev, work, steps):
+    """CogVideoX-5B VAP at full width with random bf16 weights from SEED on
+    the card, and an SFTTrainer for ``steps`` optimizer steps of the
+    recipe's AdamW at a constant lr, remat "full", on one random item
+    written as a precomputed cache under ``work``."""
+    import shutil
+
+    import torch
+
+    from vap_tpu_torch.data.precomputation import write_precomputed
+    from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
+    from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = CogVideoXMOTConfig.cogvideox_5b_i2v_vap()
+    write_precomputed(os.path.join(work, "cache"), [training_batch(cfg)])
+    model = build_random(CogVideoXTransformer3DMOTModel, cfg, dev, torch.bfloat16,
+                         torch.Generator(device=dev).manual_seed(SEED + 8))
+    args = TrainingArgs(precomputation_dir=os.path.join(work, "cache"),
+                        output_dir=os.path.join(work, "out"), seed=SEED, train_steps=steps,
+                        optimizer="adamw", lr=TRAIN_LR, lr_scheduler="constant",
+                        lr_warmup_steps=0, beta1=0.9, beta2=0.99, weight_decay=1e-4,
+                        max_grad_norm=1.0, gradient_checkpointing=True,
+                        checkpointing_steps=NEVER, logging_steps=1)
+    return SFTTrainer(args, model)
+
+
+def training_path(dev):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    work = os.path.join(HERE, "build", "chip_smoke_train")
+    t0 = time.perf_counter()
+    trainer = build_trainer(dev, work, TRAIN_STEPS)
+    model, cfg = trainer.model, trainer.model.config
+    params = dict(model.named_parameters())
+    before = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    n_train = sum(params[n].numel() for n in trainer.trainable_names)
+    log(f"  {cfg.num_layers} blocks, MoT in {min(cfg.block_idx_with_mot_ref)}-"
+        f"{max(cfg.block_idx_with_mot_ref)}: {n_params(model)} bf16 parameters, {n_train} "
+        f"trainable in {len(trainer.trainable_names)} tensors, remat "
+        f"{trainer.step_cfg.remat!r}, AdamW fused {trainer.optimizer.inner.defaults['fused']}; "
+        f"{time.perf_counter() - t0:.2f} s to build")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in trainer.history:
+        total = r["forward_s"] + r["backward_s"] + r["update_s"]
+        log(f"  step {r['step']}: loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, lr "
+            f"{r['lr']:.1e}, {total:.3f} s = forward {r['forward_s']:.3f} + backward "
+            f"{r['backward_s']:.3f} + update {r['update_s']:.3f}")
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}, per step K1 {launches['flash_fwd'] / TRAIN_STEPS:g} (expected "
+        f"{2 * cfg.num_layers}: forward and recompute) and K5 "
+        f"{launches['flash_bwd'] / TRAIN_STEPS:g} (expected {cfg.num_layers})")
+    check_launches(launches, {"flash_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
+                              "flash_bwd": cfg.num_layers * TRAIN_STEPS})
+    if not (len(trainer.history) == TRAIN_STEPS == trainer.optimizer.count
+            and all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in trainer.history)):
+        raise AssertionError(f"training: {trainer.optimizer.count} updates, history "
+                             f"{trainer.history}")
+    trainable = set(trainer.trainable_names)
+    frozen_changed = [n for n, p in params.items()
+                      if n not in trainable and not torch.equal(p.detach().cpu(), before[n])]
+    moved = {n: int((params[n].detach().cpu() != before[n]).sum()) for n in trainable}
+    # What must move: a bf16 weight moves only where an lr-sized step passes
+    # half its ulp, so the LayerNorm scales (all 1.0, ulp 2^-7) cannot at lr
+    # 1e-5; and the last MoT block's reference queries, output projection
+    # and feed-forward feed only the reference stream, which no loss reads:
+    # their gradients are zero and they must stay as they were.
+    last = max(cfg.block_idx_with_mot_ref)
+    dead = tuple(f"transformer_blocks.{last}.{m}" for m in (
+        "attn1_mot_ref.to_q", "attn1_mot_ref.norm_q", "attn1_mot_ref.to_out", "norm2_mot_ref",
+        "ff_mot_ref"))
+    scales = ("norm.weight", "norm_q.weight", "norm_k.weight")
+    must = [n for n in trainable if not n.startswith(dead) and not n.endswith(scales)]
+    log(f"  frozen tensors changed: {len(frozen_changed)} of {len(params) - len(trainable)}; "
+        f"trainable tensors moved: {sum(c > 0 for c in moved.values())} of {len(trainable)} "
+        f"({len(must)} must move), {sum(moved.values())} of {n_train} elements "
+        f"({sum(moved.values()) / n_train:.4f}); the last MoT block's reference-only tensors "
+        f"moved: {sum(moved[n] > 0 for n in trainable if n.startswith(dead))}")
+    stuck = [n for n in must if moved[n] == 0]
+    woke = [n for n in trainable if n.startswith(dead) and moved[n]]
+    if frozen_changed or stuck or woke:
+        raise AssertionError(f"training: frozen tensors changed {frozen_changed[:5]}, trainable "
+                             f"tensors that did not move {stuck[:5]}, reference-only tensors "
+                             f"that moved {woke[:5]}")
+    del trainer, model, params, before
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches["flash_bwd"]
+
+
 def main():
+    import gc
+
     import torch
 
     # 1. device
@@ -686,9 +860,21 @@ def main():
     launches["flash_fwd_d128"] = wan_main_path(pipe, "flash", WAN_STEPS, dev)
     log(f"Wan main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd_d128"] = wan_main_path(pipe, "sage", 1, dev)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. K5
+    log("flash backward parity (bf16, vs plain PyTorch):")
+    results["flash_bwd"] = backward_parity(dev)
+
+    # 8. training
+    log(f"training, CogVideoX-5B VAP ({NUM_FRAMES} frames of {HEIGHT}x{WIDTH}, batch 1, "
+        f"{TRAIN_STEPS} optimizer steps):")
+    launches["flash_bwd"] = training_path(dev)
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
-    specs = kernel_specs()
+    specs = {**kernel_specs(), "flash_bwd": BWD_SPEC}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 and K4 flash, K2 sage) against their plain
-PyTorch versions on the card.
+"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K5 flash backward)
+against their plain PyTorch versions on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -119,3 +119,81 @@ def test_flash_raises_at_head_dim_256(cuda):
         tfa.flash_attention_forward(*_qkv(cuda, 8, 8, d=256))
     assert (tfa.flash_attention_forward.launches,
             tfa.flash_attention_forward.launches_d128) == counts
+
+
+# K5: dq, dk and dv each held as max|err| / max|ref|. Kernel and plain version
+# round ds and p to bf16 at the same points from the same out and lse; exp2
+# and the summation order differ, which flips a rounding by one bf16 ulp
+# (2^-8 relative) now and then, and each output is itself rounded to bf16
+GRAD_REL_TOL = 2e-2
+Q_TILE = 64  # queries per tile of the dk/dv kernel
+
+
+def _bwd_inputs(device, sq, skv, d=64, seed=2):
+    q, k, v = _qkv(device, sq, skv, d=d, seed=seed)
+    out, lse = tfa.flash_attention_forward(q, k, v)
+    dout = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(seed),
+                       device=device).to(torch.bfloat16)
+    return q, k, v, out, lse, dout
+
+
+def _grad_errors(got, ref):
+    return [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            for g, r in zip(got, ref)]
+
+
+# not (1, 1): with one key p = 1 and ds = p (dp - delta) is 0 up to rounding,
+# so dq and dk are rounding noise and a relative measure means nothing
+@pytest.mark.parametrize("sq,skv", [(300, 200), (128, 257), (64, 77), (1, 9), (65, 64)])
+@pytest.mark.parametrize("d", [64, 32])
+def test_k5_matches_plain(cuda, sq, skv, d):
+    args = _bwd_inputs(cuda, sq, skv, d=d)
+    before = tfa.flash_attention_backward.launches
+    got = tfa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_backward_plain(*args))
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+def test_k5_limit_catches_dout_rows_out_of_place(cuda):
+    """A planted fault: dout rows rolled by one inside every 64-query tile,
+    as a kernel that mixed up the rows of a dout tile would read them. Held
+    against the plain version on the true dout, dq, dk and dv must each
+    break the limit."""
+    q, k, v, out, lse, dout = _bwd_inputs(cuda, 300, 200)
+    n = dout.shape[2] // Q_TILE * Q_TILE
+    tiles = dout[:, :, :n].unflatten(2, (-1, Q_TILE)).roll(1, dims=3).flatten(2, 3)
+    faulty = torch.cat([tiles, dout[:, :, n:]], dim=2).contiguous()
+    errs = _grad_errors(tfa.flash_attention_backward(q, k, v, out, lse, faulty),
+                        tfa.flash_attention_backward_plain(q, k, v, out, lse, dout))
+    assert min(errs) > GRAD_REL_TOL, errs
+
+
+def test_k5_is_deterministic(cuda):
+    args = _bwd_inputs(cuda, 300, 200)
+    first = tfa.flash_attention_backward(*args)
+    second = tfa.flash_attention_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_function_grads_on_the_card(cuda):
+    """``FlashAttentionFunction`` (K1 then K5) against autograd through
+    plain dense attention in float32 on the same bf16 inputs."""
+    from vap_tpu_torch.ops.attention import dense_attention
+
+    q, k, v = _qkv(cuda, 300, 200)
+    w = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(5), device=cuda)
+    grads = []
+    for attn, dtype in ((tfa.flash_attention, torch.bfloat16), (dense_attention, torch.float32)):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        (attn(*leaves).float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    errs = _grad_errors(*grads)
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+def test_k5_rejects_head_dim_128(cuda):
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_backward(*_bwd_inputs(cuda, 8, 8, d=128))

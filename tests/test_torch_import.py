@@ -33,6 +33,17 @@ SLICE_MODULES = [
     "vap_tpu_torch.pipelines.cogvideox_i2v_mot",
     "vap_tpu_torch.pipelines.offload",
     "vap_tpu_torch.pipelines.wan_i2v_mot",
+    "vap_tpu_torch.models.random_init",
+    "vap_tpu_torch.data",
+    "vap_tpu_torch.data.precomputation",
+    "vap_tpu_torch.data.sampler",
+    "vap_tpu_torch.training",
+    "vap_tpu_torch.training.args",
+    "vap_tpu_torch.training.checkpoint",
+    "vap_tpu_torch.training.optimizer",
+    "vap_tpu_torch.training.train_step",
+    "vap_tpu_torch.training.trainer",
+    "vap_tpu_torch.train",
 ]
 
 _PROBE = """

@@ -18,11 +18,12 @@ patching (``patch_size_t``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import full_attention
 from ...ops.rope import apply_rotary_emb
@@ -274,10 +275,22 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
                 timestep: torch.Tensor, image_rotary_emb: Rope,
                 hidden_states_mot_ref: torch.Tensor, encoder_hidden_states_mot_ref: torch.Tensor,
                 image_rotary_emb_mot_ref: Rope, num_mot_ref: int = 1,
-                timestep_mot_ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+                timestep_mot_ref: Optional[torch.Tensor] = None,
+                remat: Union[bool, str] = False) -> torch.Tensor:
         """hidden_states [B, F, C, H, W] (noisy ‖ image latents); text
         [B, T, D_text]; timestep [B]; refs [B, R*F, C, H, W] and
-        [B, R*T, D_text]; timestep_mot_ref [B, R] defaults to the target's."""
+        [B, R*T, D_text]; timestep_mot_ref [B, R] defaults to the target's.
+
+        ``remat`` (``scan_blocks_with_remat``, ``vap_tpu/models/common.py:273``):
+        False runs the blocks plainly; True or "full" checkpoints each block
+        (``torch.utils.checkpoint``, non-reentrant), so the backward keeps only
+        the block inputs and runs each block's forward again. "ops" and
+        "block_skip:N" are not ported and raise."""
+        if isinstance(remat, str) and remat.startswith(("ops", "block_skip")):
+            raise NotImplementedError(f"remat mode {remat!r} is not ported to PyTorch yet")
+        if remat not in (False, None, True, "full"):
+            raise ValueError(f"unknown remat mode {remat!r}; valid: False, True/'full'")
+        full_remat = remat in (True, "full")
         cfg = self.config
         b, num_frames, _, height, width = hidden_states.shape
         t_text = encoder_hidden_states.shape[1]
@@ -299,8 +312,12 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
         hs_ref = tokens_ref[:, :, t_text:].reshape(b, -1, cfg.inner_dim)
 
         for block in self.transformer_blocks:
-            hs, ehs, hs_ref, ehs_ref = block(hs, ehs, emb, image_rotary_emb, hs_ref, ehs_ref,
-                                             emb_ref, image_rotary_emb_mot_ref, r)
+            args = (hs, ehs, emb, image_rotary_emb, hs_ref, ehs_ref, emb_ref,
+                    image_rotary_emb_mot_ref, r)
+            if full_remat:
+                hs, ehs, hs_ref, ehs_ref = checkpoint(block, *args, use_reentrant=False)
+            else:
+                hs, ehs, hs_ref, ehs_ref = block(*args)
 
         hs = self.norm_final(hs)
         hs = self.proj_out(self.norm_out(hs, emb))

@@ -39,6 +39,10 @@ SOURCES = {
         # q8, k8, sqk, v, o, lse, bh, sq, skv, d, stream
         "vap_sage_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "flash_bwd": {
+        # q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, d, scale_log2, scale, stream
+        "vap_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    },
 }
 
 

@@ -3,13 +3,18 @@
 Port of ``vap_tpu/ops/attention.py:41-110,206-299``. Providers:
 
   * "flash" — K1 (head_dim < 128) or K4 (head_dim 128), the hand-written bf16
-    flash forward (``ops/flash_attention.py``);
-  * "sage"  — K2, the int8-QK SageAttention-style forward (inference only);
-  * "xla"   — plain PyTorch dense attention (the name is the JAX package's);
-  * "null"  — profiling only: skips the attention math.
+    flash forward (``ops/flash_attention.py``); differentiable at head_dim
+    < 128, with K5 as its backward;
+  * "sage"  — K2, the int8-QK SageAttention-style forward (inference only:
+    raises when a gradient is wanted);
+  * "xla"   — plain PyTorch dense attention (the name is the JAX package's),
+    differentiated by autograd;
+  * "null"  — profiling only: skips the attention math (raises when a
+    gradient is wanted).
 
-The default is "flash", as on the TPU; on CPU tensors the kernel wrappers
-run their plain versions. Selection is thread-local and set with the
+The default is "flash", as on the TPU and for training (the JAX trainer's
+``attn_provider_training="auto"``); on CPU tensors the kernel wrappers run
+their plain versions. Selection is thread-local and set with the
 ``attention_provider`` context manager, with optional per-site overrides
 ("sage joint:flash", "sage cross:flash"). Sites: "joint" (the MoT joint
 self-attention of CogVideoX and Wan), "cross" (Wan's text and image
@@ -24,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_int8
+from .flash_attention import flash_attention, flash_attention_int8, wants_grad
 
 _state = threading.local()
 
@@ -93,6 +98,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if provider == "xla":
         return dense_attention(q, k, v, scale)
     if provider == "null":
+        if wants_grad(q, k, v):
+            raise NotImplementedError("the null attention provider is for profiling only "
+                                      "and has no gradient")
         # keeps a data dependency on q and k, as the JAX provider does
         eps = torch.tensor(1e-30, dtype=q.dtype, device=q.device)
         if v.shape[2] == q.shape[2]:

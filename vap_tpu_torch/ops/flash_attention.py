@@ -15,6 +15,14 @@ accumulation, scores in the log2 domain, bf16 P V. CUDA source:
 ``csrc/sage_fwd.cu``; the quantisation pre-pass is plain PyTorch here, as it
 was plain XLA outside the Pallas kernel.
 
+K5 ``flash_attention_backward``: the gradient of K1's function at head_dim
+< 128 (``_flash_attention_backward_t``): P recomputed from the lse, delta =
+rowsum(out * dout), then dq, and dk and dv, each summed inside one block.
+CUDA source: ``csrc/flash_bwd.cu``. ``FlashAttentionFunction`` pairs K1 and
+K5 as an autograd function (the JAX ``custom_vjp`` pair ``_fa_fwd`` /
+``_fa_bwd``); ``flash_attention`` goes through it whenever a gradient is
+wanted. Head_dim 128 has no backward kernel yet (K6) and raises there.
+
 Layout: q [B, H, Sq, D], k and v [B, H, Skv, D]; out [B, H, Sq, D] in the
 input dtype, lse [B, H, Sq] float32.
 
@@ -22,8 +30,9 @@ Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
 raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_forward.launches`` (K1),
-``flash_attention_forward.launches_d128`` (K4) and
-``flash_attention_int8_forward.launches`` (K2).
+``flash_attention_forward.launches_d128`` (K4),
+``flash_attention_int8_forward.launches`` (K2) and
+``flash_attention_backward.launches`` (K5).
 """
 
 from __future__ import annotations
@@ -133,6 +142,43 @@ def flash_attention_forward_plain(q, k, v, scale: Optional[float] = None):
     return _online_softmax_plain(scores, v, q.shape[2])
 
 
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """rowsum(out * dout) [B, H, Sq] in float32, from the saved ``out``
+    (the pre-pass of ``_flash_attention_backward_t``, :1153)."""
+    return torch.linalg.vecdot(out.float(), dout.float())
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[float] = None):
+    """Plain PyTorch version of K5: (dq, dk, dv) in the input dtypes.
+
+    A loop over tiles of PLAIN_BLOCK_K keys that recomputes P from the
+    natural-log lse, as ``_flash_attention_backward_t`` (:1131-1268) does in
+    the log2 domain, with its rounding points: ds = p (dp - delta) rounded to
+    the operand dtype before ds k and ds^T q, p rounded to dout's dtype
+    before p^T dout. Scores of keys past Skv never arise (no padding here)."""
+    _shapes(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    scale_log2 = scale * LOG2_E
+    qf, dof = q.float(), dout.float()
+    lse2 = (lse.float() * LOG2_E)[..., None]
+    delta = attention_delta(out, dout)[..., None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for n0 in range(0, k.shape[2], PLAIN_BLOCK_K):
+        n1 = min(n0 + PLAIN_BLOCK_K, k.shape[2])
+        kt, vt = k[..., n0:n1, :].float(), v[..., n0:n1, :].float()
+        p = torch.exp2(qf @ kt.transpose(-1, -2) * scale_log2 - lse2)
+        ds = (p * (dof @ vt.transpose(-1, -2) - delta)).to(k.dtype).float()
+        dq += ds @ kt
+        dvs.append(p.to(dout.dtype).float().transpose(-1, -2) @ dof)
+        dks.append(ds.transpose(-1, -2) @ qf * scale)
+    if not dks:  # no key: dk and dv are empty
+        return (dq * scale).to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
+    return ((dq * scale).to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
 def sage_quantize(q, k, scale: float):
     """The int8 pre-pass of ``_flash_attention_forward_t_i8`` (:843-852).
 
@@ -227,9 +273,82 @@ flash_attention_forward.launches = 0
 flash_attention_forward.launches_d128 = 0
 
 
+def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None):
+    """K5: (dq, dk, dv) of out = softmax(q k^T scale) v, from the forward's
+    ``out`` and natural-log ``lse``. CUDA tensors launch ``vap_flash_bwd``
+    (bf16, contiguous, head_dim a multiple of 16 below 128) after the delta
+    pre-pass in PyTorch; CPU tensors take ``flash_attention_backward_plain``."""
+    _shapes(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_kind("flash_attention_backward", q) == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if d % 16 or d >= 128:
+        raise ValueError(f"flash backward kernel takes head_dim in 16..112 step 16, got {d}")
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, sq):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
+                         f"{tuple(lse.shape)} must match q {tuple(q.shape)}")
+    delta = attention_delta(out, dout)
+    bf16, f32 = torch.bfloat16, torch.float32
+    _kernel_inputs("flash_attention_backward",
+                   {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta},
+                   {"q": bf16, "k": bf16, "v": bf16, "dout": bf16, "lse": f32, "delta": f32},
+                   b * h, sq)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.library("flash_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.vap_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                dv.data_ptr(), b * h, sq, skv, d, scale * LOG2_E, scale,
+                                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "vap_flash_bwd")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 forward, K5 backward (the JAX ``custom_vjp`` of ``flash_attention``,
+    ``_fa_fwd`` / ``_fa_bwd`` at :1428-1457). Saves q, k, v, out and lse.
+    Under ``torch.utils.checkpoint`` the forward runs again in the backward;
+    it keeps no state between calls, so the recompute gives the out and lse
+    the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_attention_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """Fused full attention (K1 or K4 by head_dim), output only."""
-    return flash_attention_forward(q, k, v, scale)[0]
+    """Fused full attention (K1 or K4 by head_dim), output only; through
+    ``FlashAttentionFunction`` (K1 + K5) when a gradient is wanted."""
+    if not wants_grad(q, k, v):
+        return flash_attention_forward(q, k, v, scale)[0]
+    if q.shape[-1] >= 128:
+        raise NotImplementedError(
+            "flash attention backward at head_dim >= 128 is K6 "
+            "(_flash_attention_backward), not ported yet")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttentionFunction.apply(q, k, v, scale)
 
 
 def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None):
@@ -270,5 +389,10 @@ flash_attention_int8_forward.launches = 0
 
 
 def flash_attention_int8(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """SageAttention-style int8-QK attention (K2), output only."""
+    """SageAttention-style int8-QK attention (K2), output only. Inference
+    only, as ``flash_attention_int8`` is in JAX: it raises when a gradient is
+    wanted, since one through the int8 forward would be wrong."""
+    if wants_grad(q, k, v):
+        raise NotImplementedError("the sage provider (K2) is inference-only and has no "
+                                  "gradient; train with 'flash' or 'xla'")
     return flash_attention_int8_forward(q, k, v, scale)[0]

@@ -1,4 +1,5 @@
-"""Noise-schedule tables (numpy), copied from ``vap_tpu/ops/schedulers/common.py:17-70``.
+"""Noise-schedule tables (numpy), copied from ``vap_tpu/ops/schedulers/common.py:17-70``,
+and the training-time ``add_noise`` and ``get_velocity`` (:76-88) in PyTorch.
 
 Scaled-linear betas in float64, the SD3-style SNR shift and the optional
 zero-terminal-SNR rescale of the reference CogVideoX schedulers.
@@ -7,6 +8,7 @@ zero-terminal-SNR rescale of the reference CogVideoX schedulers.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def make_betas(num_train_timesteps: int, beta_start: float, beta_end: float,
@@ -56,3 +58,28 @@ def make_timesteps(num_train_timesteps: int, num_inference_steps: int,
         step_ratio = num_train_timesteps / num_inference_steps
         return np.round(np.arange(num_train_timesteps, 0, -step_ratio)).astype(np.int64) - 1
     raise ValueError(spacing)
+
+
+def _coefficients(alphas_cumprod: torch.Tensor, timesteps: torch.Tensor, like: torch.Tensor):
+    """sqrt(a_t) and sqrt(1 - a_t), in ``like``'s dtype, shaped to broadcast
+    over ``like``'s trailing dims."""
+    a = alphas_cumprod[timesteps].to(like.dtype)
+    shape = a.shape + (1,) * (like.ndim - a.ndim)
+    return a.sqrt().reshape(shape), (1.0 - a).sqrt().reshape(shape)
+
+
+def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """sqrt(a_t) * sample + sqrt(1 - a_t) * noise."""
+    sqrt_a, sqrt_1ma = _coefficients(alphas_cumprod, timesteps, sample)
+    return sqrt_a * sample + sqrt_1ma * noise
+
+
+def get_velocity(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+    """sqrt(a_t) * noise - sqrt(1 - a_t) * sample, with the JAX package's
+    argument order. The loss calls it as ``get_velocity(ac, velocity, noisy,
+    t)``, which is the x0 prediction sqrt(a_t) * noisy - sqrt(1 - a_t) * v of
+    a v-prediction model, not the textbook velocity."""
+    sqrt_a, sqrt_1ma = _coefficients(alphas_cumprod, timesteps, sample)
+    return sqrt_a * noise - sqrt_1ma * sample

@@ -69,12 +69,13 @@ def dynamic_cfg_schedule(timesteps: np.ndarray, guidance_scale: float,
 
 
 def resolve_device(device) -> torch.device:
-    """The pipelines run on the card unless the caller asks for the CPU;
-    without a card, a CUDA device raises instead of running on the CPU."""
+    """The pipelines and the trainer run on the card unless the caller asks
+    for the CPU; without a card, a CUDA device raises instead of running on
+    the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the pipeline runs on the card; "
-                           "pass device='cpu' to run it on the CPU")
+        raise RuntimeError("no CUDA device: this runs on the card; "
+                           "pass device 'cpu' to run it on the CPU")
     return device
 
 
