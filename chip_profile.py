@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the device time of one main-path call goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [cogvideox] [wan] [train]
+    python3 chip_profile.py [cogvideox] [wan] [train] [w8a8]
 
 Builds the kernels and the same full-width paths as chip_smoke.py (random
 bf16 weights from a seed, one reference): one denoise step of CogVideoX-5B
 VAP at 49 frames of 480x720 under the flash and sage providers; one of
 Wan2.1-I2V-14B VAP at 49 frames of 480x832 with model offload under flash;
 one CogVideoX-5B VAP training step at 49 frames of 480x720, batch 1, remat
-"full", AdamW. Each runs once to warm up and once under torch.profiler. It
+"full", AdamW; one computed step of the bench configuration (CogVideoX-5B
+VAP under sage with its projections in W8A8, the chunk form: K3 beside
+K2). Each runs once to warm up and once under torch.profiler. It
 prints the host wall time and stage seconds, the device's busy time and
 idle share (1 - busy / wall), the device time by category and the costliest
 kernels. With no argument it profiles the two generation paths. It checks
@@ -29,6 +31,7 @@ TOP = 25
 
 # first match wins; names are the device kernels' names as the profiler gives them
 CATEGORIES = [
+    ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_kernel", "w8a8_quantize_kernel")),
     ("attention kernel", ("flash_fwd_kernel", "sage_fwd_kernel")),
     ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("optimizer (fused AdamW)", ("fused_adam", "FusedAdam", "multi_tensor")),
@@ -135,6 +138,15 @@ def main():
         torch.cuda.empty_cache()
     if "train" in models:
         profile_training(dev)
+    if "w8a8" in models:
+        from vap_tpu_torch.models.common import quantize_transformer_linears
+
+        pipe = build_main_pipeline(dev)
+        quantize_transformer_linears(pipe.transformer, act_scale="chunk")
+        with attention_provider("sage"):
+            profile_call(pipe, main_path_args(STEPS), "CogVideoX bench configuration, sage + W8A8")
+        del pipe
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

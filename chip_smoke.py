@@ -14,12 +14,25 @@ Phases, each of which raises on failure:
      x 257 keys), each with a planted fault that must break the limit; the
      kernel's time, the plain version's, torch's SDPA flash backend's (a
      yardstick only, never called by the port) and the card's bound;
+     then K3 (the W8A8 linear) against its plain version at unaligned
+     shapes and at the three projection shapes of a CogVideoX step
+     ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072]),
+     and K9 and K10 (the GEMM rate probe) in int8 (bit for bit) and bf16,
+     each with its times, bound and yardsticks; then the rate probe's entry
+     point (linear_bench --impl diag) with its launch counts;
   4. CogVideoX, "flash": a small pipeline held against plain dense attention
-     (with where its largest error sits and why), then CogVideoX-5B VAP at
-     full width (42 blocks, MoT in 0-40, T5-XXL, the full VAE) at 49 frames
-     of 480x720, random bf16 weights from a seed, through
-     CogVideoXVAPPipeline.__call__, cut to 2 DDIM steps of the path's 50;
-  5. CogVideoX, "sage": the same call with 1 step;
+     (with where its largest error sits and why), and a small W8A8 pipeline
+     under DPM and the adaptive step cache, K3 against its plain version;
+     then CogVideoX-5B VAP at full width (42 blocks, MoT in 0-40, T5-XXL,
+     the full VAE) at 49 frames of 480x720, random bf16 weights from a
+     seed, through CogVideoXVAPPipeline.__call__, cut to 2 DDIM steps of
+     the path's 50;
+  5. CogVideoX, "sage": the same call with 1 step; then the bench
+     configuration on the same pipeline: its 498 projections quantised in
+     place to W8A8 (chunk form, K3), sage, the step cache "uniform:2:1:1"
+     over 4 DDIM steps (K3 and K2 launch on steps 0, 1 and 3 only, the
+     reuse step costs under 5% of a computed one), then 1 step in the row
+     form;
   6. Wan: a small pipeline on the card held against plain dense attention
      under flash and sage, then Wan2.1-I2V-14B VAP at full width (40 blocks,
      MoT in all 40, 40x128 heads, UMT5-XXL, CLIP ViT-H/14, the Wan VAE) at
@@ -96,6 +109,40 @@ TRAIN_LR = 1e-5  # the recipe's lr, constant: the first update is not at lr 0
 NEVER = 2**31 - 1  # checkpointing_steps: no checkpoint (a full-width one holds ~32 GB)
 # H100 SXM dense peaks (NVIDIA data sheet): the bound of each kernel
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
+PEAK_F32 = 67e12  # float32 outside the tensor cores: K3's quantise and fold
+# K3 (W8A8): a CFG-2 CogVideoX step at 49f@480x720 runs every projection on
+# M = 2 * (226 text + 13 * 30 * 45 video tokens) rows of its branch
+W8A8_M = 2 * (226 + 13 * 30 * 45)
+# (K, N) of the projections and their launches per CFG step: q, k, v and out
+# (4 x 83 branch-blocks), the feed-forward's in and out (83 each)
+W8A8_SHAPES = {(3072, 3072): 332, (3072, 12288): 83, (12288, 3072): 83}
+W8A8_PARITY = [(300, k, n) for k in (256, 3072) for n in (128, 384)]  # M, K, N
+# K3 vs plain version, the bf16 output held as max|err| / max|ref|: per chunk
+# the int32 product is exact on both sides and the f32 steps are the same in
+# the same order, so an output can at most round to the neighbouring bf16
+# value, one ulp: at most 2^-7 of the element (8 significant bits). A
+# planted fault (the weight's rows rolled by one inside each 128-row tile)
+# must read above the limit.
+W8A8_REL_TOL = 2.0 ** -7
+W8A8_TILE = 128
+# K9 and K10 at the rate-probe script's shape (M, K, N); int8 is held bit
+# for bit against an exact int64 product; bf16 sums in f32 in another order
+# than the plain version, so an output may round to the neighbouring bf16
+# value, one ulp, at most 2^-7 of it. K10 takes M in multiples of 16: its
+# parity shapes trim M to one
+PROBE_SHAPE = (71168, 3072, 3072)
+PROBE_PARITY = [(300, 256, 128), (144, 3072, 384)]
+GEMM_BF16_REL_TOL = 2.0 ** -7
+# the bench configuration (bench.py's default: sage, W8A8, 42 blocks): DDIM
+# with dynamic CFG over 4 steps under the step cache, which computes 0, 1, 3
+BENCH_STEPS = 4
+BENCH_CACHE = "uniform:2:1:1"
+BENCH_COMPUTED = [0, 1, 3]
+REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
+# the small chunk-form pipeline under DPM and the adaptive cache, K3 against
+# its plain version: both give the same bf16 projections up to an output
+# rounding, which a step moves by at most a few bf16 ulps of the latents
+W8A8_E2E_ATOL = 0.05
 
 
 def log(msg):
@@ -188,6 +235,13 @@ def bwd_bound(b, h, sq, skv, d):
 
 BWD_SPEC = dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
                 replaces="vap_tpu/ops/flash_attention.py:1131")
+W8A8_SPECS = {
+    "w8a8": dict(source="vap_tpu_torch/csrc/w8a8.cu", replaces="vap_tpu/ops/int8_matmul.py:73"),
+    "gemm_probe": dict(source="vap_tpu_torch/csrc/gemm_probe.cu",
+                       replaces="scripts/linear_bench.py:99"),
+    "gemm_probe_t": dict(source="vap_tpu_torch/csrc/gemm_probe.cu",
+                         replaces="scripts/linear_bench.py:142"),
+}
 
 
 def kernel_specs():
@@ -276,6 +330,196 @@ def kernel_parity(dev):
         del q, k, v
         torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: K3 (W8A8), K9 and K10 (the GEMM rate probe)
+# ---------------------------------------------------------------------------
+
+def gemm_bound(m, k, n, in_bytes, out_bytes, peak, extra_ops_f32=0, extra_bytes=0):
+    """(ms, "operations" or "bytes") of an [m, k] x [k, n] product: 2mnk
+    tensor-core operations at ``peak`` (plus any float32 elementwise work at
+    the float32 peak); bytes: both inputs read once, the output written
+    once, plus ``extra_bytes``."""
+    t_ops = 2 * m * n * k / peak + extra_ops_f32 / PEAK_F32
+    t_bytes = ((m * k + n * k) * in_bytes + m * n * out_bytes + extra_bytes) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def w8a8_bound(m, k, n):
+    """K3: the int8 GEMM, plus per x element an abs, a max, a multiply and a
+    rounding and per output element a fold per chunk and the epilogue's
+    multiply-add in float32; bytes: x in bf16, w in int8, s_w and the bias
+    in f32, the output in bf16."""
+    from vap_tpu_torch.ops.int8_matmul import BLOCK_K, _pick
+
+    chunks = k // _pick(k, BLOCK_K)
+    # in_bytes 1 for w; x, in bf16, adds its second byte through extra_bytes
+    return gemm_bound(m, k, n, 1, 2, PEAK_INT8, extra_ops_f32=4 * m * k + 2 * m * n * (chunks + 1),
+                      extra_bytes=m * k + 8 * n)
+
+
+def w8a8_inputs(gen, dev, m, k, n, bias=True):
+    import torch
+
+    from vap_tpu_torch.models.common import quantize_linear_int8
+
+    x = (2 * torch.randn((m, k), generator=gen, device=dev)).to(torch.bfloat16)
+    w = (0.02 * torch.randn((n, k), generator=gen, device=dev)).to(torch.bfloat16)
+    w_i8, s_w = quantize_linear_int8(w)
+    b = torch.randn((n,), generator=gen, device=dev) if bias else None
+    return x, w, w_i8, s_w, b
+
+
+def w8a8_parity(dev):
+    """K3 against its plain version at unaligned shapes and at the three
+    main-path shapes, a planted fault each time; times at the main-path
+    shapes beside the plain version, the bound and two yardsticks the port
+    never calls: torch._int_mm on the operands quantised beforehand, and the
+    bf16 F.linear that W8A8 replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst, by_shape = 0.0, {}
+    shapes = W8A8_PARITY + [(W8A8_M, k, n) for k, n in W8A8_SHAPES]
+    for i, (m, k, n) in enumerate(shapes):
+        x, w, w_i8, s_w, b = w8a8_inputs(gen, dev, m, k, n, bias=i % 2 == 0)
+        out = ti8.int8_linear_chunk(x, w_i8, s_w, b)
+        torch.cuda.synchronize()
+        ref = ti8.int8_linear_chunk_plain(x, w_i8, s_w, b)
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        equal = (out == ref).float().mean().item()
+        rolled = w_i8.unflatten(0, (-1, W8A8_TILE)).roll(1, dims=1).flatten(0, 1).contiguous()
+        fault = (ti8.int8_linear_chunk(x, rolled, s_w, b).float() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        log(f"  w8a8 [{m},{k}]x[{k},{n}] bias {b is not None}: max|err| {err:.3e} / max|ref| "
+            f"{ref_max:.3e} = {err / ref_max:.3e} (tol {W8A8_REL_TOL:.3e}; planted fault "
+            f"{fault / ref_max:.3e}), {equal:.6f} of outputs equal to the bit, finite {finite}")
+        if not (finite and err <= W8A8_REL_TOL * ref_max):
+            raise AssertionError("w8a8 disagrees with its plain version")
+        if fault <= W8A8_REL_TOL * ref_max:
+            raise AssertionError("w8a8: the limit does not catch weight rows out of place")
+        worst = max(worst, err)
+        if m == W8A8_M:
+            x_i8, _ = ti8.quantize_chunks(x, ti8._pick(k, ti8.BLOCK_K))
+            ms = time_ms(lambda: ti8.int8_linear_chunk(x, w_i8, s_w, b), iters=10, warmup=2)
+            plain_ms = time_ms(lambda: ti8.int8_linear_chunk_plain(x, w_i8, s_w, b), iters=2,
+                               warmup=1)
+            int_mm_ms = time_ms(lambda: torch._int_mm(x_i8, w_i8.T), iters=10, warmup=2)
+            b16 = None if b is None else b.to(torch.bfloat16)  # the model's bias dtype
+            bf16_ms = time_ms(lambda: F.linear(x, w, b16), iters=10, warmup=2)
+            bound_ms, bound_by = w8a8_bound(m, k, n)
+            tops = 2 * m * n * k / (ms * 1e-3) / 1e12
+            log(f"  w8a8 at [{m},{k}]x[{k},{n}]: kernel {ms:.3f} ms ({tops:.1f} TOP/s), plain "
+                f"{plain_ms:.3f} ms, torch._int_mm on quantised operands {int_mm_ms:.3f} ms, bf16 "
+                f"F.linear {bf16_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+            by_shape[f"{m}x{k}x{n}"] = {"ms": ms, "plain_ms": plain_ms, "int_mm_ms": int_mm_ms,
+                                        "bf16_linear_ms": bf16_ms, "bound_ms": bound_ms,
+                                        "bound_by": bound_by, "per_step": W8A8_SHAPES[k, n]}
+        del x, w, w_i8, s_w, b, out, ref, rolled
+        torch.cuda.empty_cache()
+    step_ms = sum(r["ms"] * r["per_step"] for r in by_shape.values())
+    step_bound = sum(r["bound_ms"] * r["per_step"] for r in by_shape.values())
+    step_bf16 = sum(r["bf16_linear_ms"] * r["per_step"] for r in by_shape.values())
+    log(f"  w8a8 per CFG step (498 launches): kernel {step_ms:.3f} ms, bound {step_bound:.3f} ms, "
+        f"the same products as bf16 F.linear {step_bf16:.3f} ms")
+    first = by_shape[f"{W8A8_M}x3072x3072"]
+    return {"max_abs_err": worst, **{key: first[key] for key in
+                                     ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "shape": [W8A8_M, 3072, 3072],
+            "yardsticks": {"int_mm_ms": first["int_mm_ms"], "bf16_linear_ms": first["bf16_linear_ms"]},
+            "by_shape": by_shape}
+
+
+def probe_parity(dev):
+    """K9 (x [M, K]) and K10 (x given as xt [K, M]) against their plain
+    versions in int8 (bit for bit) and bf16, at small shapes and at the
+    probe's shape, where they are timed beside one PyTorch call with the
+    same function (torch._int_mm, torch.matmul) and the bound."""
+    import torch
+
+    from vap_tpu_torch.ops import gemm_probe as gp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def operands(dtype, m, k, n):
+        if dtype == torch.int8:
+            return [torch.randint(-128, 128, s, generator=gen, device=dev, dtype=dtype)
+                    for s in ((m, k), (n, k))]
+        return [torch.randn(s, generator=gen, device=dev).to(dtype) for s in ((m, k), (n, k))]
+
+    def timed(name, kernel, trans, dtype, x, a, w):
+        m, k, n = PROBE_SHAPE
+        if dtype == torch.int8:
+            # torch._int_mm takes a row-major A: K10's xt.T is copied first
+            lib, how = ((lambda: torch._int_mm(a.T.contiguous(), w.T)),
+                        "torch._int_mm on xt.T copied to row-major") if trans else (
+                        (lambda: torch._int_mm(x, w.T)), "torch._int_mm")
+            bound_ms, bound_by = gemm_bound(m, k, n, 1, 4, PEAK_INT8)
+        else:
+            lib, how = ((lambda: torch.matmul(a.T, w.T)), "torch.matmul on xt.T (a view)") if trans \
+                else ((lambda: torch.matmul(x, w.T)), "torch.matmul")
+            bound_ms, bound_by = gemm_bound(m, k, n, 2, 2, PEAK_BF16)
+        ms = time_ms(lambda: kernel(a, w), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: gp.gemm_probe_plain(x, w), iters=2, warmup=1)
+        library_ms = time_ms(lib, iters=10, warmup=2)
+        log(f"  {name} {str(dtype)[6:]} at {PROBE_SHAPE}: kernel {ms:.3f} ms "
+            f"({2 * m * n * k / (ms * 1e-3) / 1e12:.1f} TOP/s), plain {plain_ms:.3f} ms, {how} "
+            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    results = {}
+    for name, kernel, trans in (("gemm_probe", gp.gemm_probe, False),
+                                ("gemm_probe_t", gp.gemm_probe_t, True)):
+        per_type = {}
+        for dtype in (torch.int8, torch.bfloat16):
+            worst = 0.0
+            for m, k, n in PROBE_PARITY + [PROBE_SHAPE]:
+                if trans:
+                    m -= m % 16
+                x, w = operands(dtype, m, k, n)
+                a = x.T.contiguous() if trans else x
+                out = kernel(a, w)
+                torch.cuda.synchronize()
+                ref = gp.gemm_probe_plain(x, w)
+                err = (out.float() - ref.float()).abs().max().item()
+                ref_max = ref.float().abs().max().item()
+                exact = dtype == torch.int8
+                log(f"  {name} {str(dtype)[6:]} [{m},{k}]x[{k},{n}]: max|err| {err:.3e} / max|ref| "
+                    f"{ref_max:.3e} ({'bit for bit' if exact else f'tol {GEMM_BF16_REL_TOL:.3e}'}), "
+                    f"{(out == ref).float().mean().item():.6f} equal to the bit")
+                if not (torch.equal(out, ref) if exact else err <= GEMM_BF16_REL_TOL * ref_max):
+                    raise AssertionError(f"{name} ({dtype}) disagrees with its plain version")
+                worst = max(worst, err)
+                if (m, k, n) == PROBE_SHAPE:
+                    per_type[dtype] = {"max_abs_err": worst,
+                                       **timed(name, kernel, trans, dtype, x, a, w)}
+                del x, w, a, out, ref
+                torch.cuda.empty_cache()
+        results[name] = {**per_type[torch.int8], "shape": list(PROBE_SHAPE),
+                         "bf16": per_type[torch.bfloat16]}
+    return results
+
+
+def rate_probe_path():
+    """The rate probe's own entry point, ``python -m
+    vap_tpu_torch.scripts.linear_bench --impl diag``, driven once: K9 and K10
+    in int8 and bf16 at its default shape, each a warm-up and 5 timed calls."""
+    from vap_tpu_torch.scripts import linear_bench
+
+    reset_counts()
+    lines = linear_bench.main(["--impl", "diag"])
+    launches = read_counts()
+    per = (1 + linear_bench.REPS) * 2
+    check_launches(launches, {"gemm_probe": per, "gemm_probe_t": per})
+    if len(lines) != 4:
+        raise AssertionError(f"linear_bench --impl diag printed {lines}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -401,21 +645,37 @@ def main_path_args(steps):
 
 
 def reset_counts():
+    from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
+    from vap_tpu_torch.ops import gemm_probe as gp
+    from vap_tpu_torch.ops import int8_matmul as ti8
 
     fa.flash_attention_forward.launches = 0
     fa.flash_attention_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
     fa.flash_attention_backward.launches = 0
+    ti8.int8_linear_chunk.launches = 0
+    common.int8_linear_row.calls = 0
+    gp.gemm_probe.launches = 0
+    gp.gemm_probe_t.launches = 0
 
 
 def read_counts():
+    """Each kernel's launches, and the calls of the W8A8 row form (no kernel
+    of its own: XLA's product in the JAX package, torch._int_mm here)."""
+    from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
+    from vap_tpu_torch.ops import gemm_probe as gp
+    from vap_tpu_torch.ops import int8_matmul as ti8
 
     return {"flash_fwd": fa.flash_attention_forward.launches,
             "flash_fwd_d128": fa.flash_attention_forward.launches_d128,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
-            "flash_bwd": fa.flash_attention_backward.launches}
+            "flash_bwd": fa.flash_attention_backward.launches,
+            "w8a8": ti8.int8_linear_chunk.launches,
+            "w8a8_row_calls": common.int8_linear_row.calls,
+            "gemm_probe": gp.gemm_probe.launches,
+            "gemm_probe_t": gp.gemm_probe_t.launches}
 
 
 def check_launches(launches, want):
@@ -456,6 +716,172 @@ def main_path(pipe, provider, steps, dev):
     # one joint (MoT) or self attention per block per step
     check_launches(launches, {kernel: steps * cfg.num_layers})
     return launches[kernel]
+
+
+def bench_config_path(pipe, dev):
+    """The bench configuration on the full-width pipeline: the projections
+    quantised in place to W8A8 in the chunk form, then
+    CogVideoXVAPPipeline.__call__ under sage, DDIM with dynamic CFG, the
+    step cache "uniform:2:1:1" over 4 steps; then the row form, 1 step.
+    Returns K3's launches in the cached run."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.common import quantize_transformer_linears, set_int8_act_scale
+    from vap_tpu_torch.ops.attention import attention_provider
+
+    cfg = pipe.transformer.config
+    t0 = time.perf_counter()
+    names = quantize_transformer_linears(pipe.transformer, act_scale="chunk")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  {len(names)} projections quantised in place in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated after")
+    per_step = sum(W8A8_SHAPES.values())
+    if len(names) != per_step:
+        raise AssertionError(f"{len(names)} projections quantised, expected {per_step}")
+
+    # the launch counts at each scheduler step (after that step's forward, if any)
+    at_step = []
+
+    class Counting(type(pipe.scheduler)):
+        def step(self, *args, **kwargs):
+            at_step.append(read_counts())
+            return super().step(*args, **kwargs)
+
+    scheduler, pipe.scheduler = pipe.scheduler, Counting()
+    args = dict(main_path_args(BENCH_STEPS), step_cache=BENCH_CACHE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with attention_provider("sage"):
+            video = pipe(**args)
+    finally:
+        pipe.scheduler = scheduler
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = pipe.stage_seconds
+    steps = st["denoise_steps"]
+    deltas = [{k: v - (at_step[i - 1][k] if i else 0) for k, v in c.items()}
+              for i, c in enumerate(at_step)]
+    per_step_launches = [{k: v for k, v in d.items() if v} for d in deltas]
+    expected = (1, decoded_frames((NUM_FRAMES - 1) // 4 + 1), HEIGHT, WIDTH, 3)
+    log(f"  output {video.shape}, finite {bool(np.isfinite(video).all())}, "
+        f"range [{video.min():.3f}, {video.max():.3f}]")
+    log(f"  stage seconds: text_encode {st['text_encode']:.3f}, vae_encode {st['vae_encode']:.3f}, "
+        f"denoise steps {[round(x, 3) for x in steps]} (computed {st['computed_steps']}), "
+        f"vae_decode {st['vae_decode']:.3f}; call {wall:.3f}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}; per step "
+        f"{per_step_launches}")
+    if video.shape != expected or not np.isfinite(video).all():
+        raise AssertionError(f"bench configuration output {video.shape} (expected {expected}) "
+                             f"or not finite")
+    if st["computed_steps"] != BENCH_COMPUTED:
+        raise AssertionError(f"computed steps {st['computed_steps']}, expected {BENCH_COMPUTED}")
+    n = len(BENCH_COMPUTED)
+    check_launches(launches, {"sage_fwd": n * cfg.num_layers, "w8a8": n * per_step})
+    reuse = [i for i in range(BENCH_STEPS) if i not in BENCH_COMPUTED]
+    if any(per_step_launches[i] for i in reuse):
+        raise AssertionError(f"a reuse step launched kernels: {per_step_launches}")
+    computed_min = min(steps[i] for i in BENCH_COMPUTED)
+    if any(steps[i] >= REUSE_STEP_SHARE * computed_min for i in reuse):
+        raise AssertionError(f"a reuse step took {[steps[i] for i in reuse]} s, not under "
+                             f"{REUSE_STEP_SHARE} of a computed step ({computed_min:.3f} s)")
+    log(f"  reuse step {reuse}: {[round(steps[i], 4) for i in reuse]} s, "
+        f"{max(steps[i] for i in reuse) / computed_min:.5f} of the fastest computed step")
+
+    # the row form on the same int8 weights: no K3 launch, 498 row-form calls
+    set_int8_act_scale(pipe.transformer, "row")
+    reset_counts()
+    with attention_provider("sage"):
+        latents = pipe(**dict(main_path_args(1), output_type="latent"))
+    row = read_counts()
+    log(f"  row form, 1 step: {pipe.stage_seconds['denoise_steps'][0]:.3f} s; launches {row}")
+    check_launches(row, {"sage_fwd": cfg.num_layers, "w8a8_row_calls": per_step})
+    if not torch.isfinite(latents).all():
+        raise AssertionError("row form: latents not finite")
+    return launches["w8a8"]
+
+
+def small_w8a8_check(dev):
+    """A small CogVideoX pipeline on the card in the W8A8 chunk form, under
+    DPM and the adaptive step cache: K3 against its plain version through
+    the pipeline (the plain version swapped in for the reference run only),
+    with the same computed steps."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models import common
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
+    from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+    from vap_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.ops import int8_matmul as ti8
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.ops.schedulers import CogVideoXDPMScheduler
+    from vap_tpu_torch.pipelines.cogvideox_i2v_mot import CogVideoXVAPPipeline
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
+    t_cfg = CogVideoXMOTConfig.tiny(num_attention_heads=2, attention_head_dim=64, in_channels=8,
+                                    out_channels=4, num_layers=3, block_idx_with_mot_ref=(0, 1),
+                                    use_learned_positional_embeddings=True)
+    txt_cfg = T5Config.tiny(d_model=t_cfg.text_embed_dim)
+    transformer = build_random(CogVideoXTransformer3DMOTModel, t_cfg, dev, bf16, gen)
+    n_proj = len(common.quantize_transformer_linears(transformer, act_scale="chunk"))
+    inputs = []
+
+    class Recording(CogVideoXDPMScheduler):
+        def step(self, model_output, sample, *rest):
+            inputs.append(sample.clone())
+            return super().step(model_output, sample, *rest)
+
+    pipe = CogVideoXVAPPipeline(
+        transformer, build_random(AutoencoderKLCogVideoX, CogVideoXVAEConfig.tiny(), dev, bf16, gen),
+        build_random(T5EncoderModel, txt_cfg, dev, bf16, gen), FakeTokenizer(txt_cfg.vocab_size),
+        scheduler=Recording(), dtype=bf16, device=dev)
+    rng = np.random.default_rng(SEED)
+    args = dict(image=rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32), prompt="a cat",
+                ref_videos=[rng.uniform(-1, 1, (9, 64, 64, 3)).astype(np.float32)],
+                prompt_mot_ref=["explode it"], height=64, width=64, num_frames=9,
+                num_inference_steps=BENCH_STEPS, max_sequence_length=t_cfg.max_text_seq_length,
+                output_type="latent", seed=SEED)
+
+    def relative_l1(i):
+        return ((inputs[i] - inputs[i - 1]).abs().mean() / (inputs[i - 1].abs().mean() + 1e-8)).item()
+
+    # an uncached run gives the relative change of the inputs at steps 1 and
+    # 2; a threshold between d1 and d1 + d2 skips step 1 and computes step 2
+    with attention_provider("flash"):
+        pipe(**args)
+    d1, d2 = relative_l1(1), relative_l1(2)
+    spec = f"adaptive:{d1 + d2 / 2:.6g}:1:1"
+    got = {}
+    for version, fn in (("plain", ti8.int8_linear_chunk_plain), ("kernel", ti8.int8_linear_chunk)):
+        common.int8_linear_chunk = fn  # the reference run swaps in the plain version
+        reset_counts()
+        try:
+            with attention_provider("flash"):
+                got[version] = (pipe(**args, step_cache=spec),
+                                list(pipe.stage_seconds["computed_steps"]), read_counts())
+        finally:
+            common.int8_linear_chunk = ti8.int8_linear_chunk
+    (ref, ref_steps, _), (out, steps, launches) = got["plain"], got["kernel"]
+    err = (out - ref).abs().max().item()
+    log(f"  small W8A8 pipeline, DPM, {spec} (d1 {d1:.4f}, d2 {d2:.4f}): computed steps {steps} "
+        f"(plain {ref_steps}); K3 vs its plain version: final latents max|err| {err:.6e} (tol "
+        f"{W8A8_E2E_ATOL}), {int((out != ref).sum())} of {out.numel()} differ, max|ref| "
+        f"{ref.abs().max().item():.3f}; launches {launches}")
+    if steps != ref_steps or steps != [0, 2, BENCH_STEPS - 1]:
+        raise AssertionError(f"adaptive cache computed {steps} (plain {ref_steps}), expected "
+                             f"[0, 2, {BENCH_STEPS - 1}]")
+    check_launches(launches, {"flash_fwd": len(steps) * t_cfg.num_layers,
+                              "w8a8": len(steps) * n_proj})
+    if not (torch.isfinite(out).all() and err <= W8A8_E2E_ATOL):
+        raise AssertionError("small W8A8 pipeline: K3 disagrees with its plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +1227,26 @@ def training_path(dev):
     return launches["flash_bwd"]
 
 
+def build_kernels():
+    """One nvcc per source, all started together; ptxas's registers and
+    spills per kernel, from the compilers' logs."""
+    from vap_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s -> "
+        f"{[os.path.relpath(p, HERE) for p in libs.values()]}")
+    for lib in libs.values():
+        kernel_name = "?"
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            # the mangled name, and its template arguments if any
+            found = re.search(r"\d+([a-z0-9_]+_kernel)(?:I(\w*?)EEv)?", line)
+            if "Compiling entry function" in line and found:
+                kernel_name = found[1] + (f"<{found[2]}>" if found[2] else "")
+            elif "registers" in line or "spill stores" in line:
+                log(f"  ptxas {kernel_name}: {line.replace('ptxas info    :', '').strip()}")
+
+
 def main():
     import gc
 
@@ -815,7 +1261,6 @@ def main():
     log(f"device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {smi}")
     sys.path.insert(0, HERE)
     import vap_tpu_torch
-    from vap_tpu_torch.ops import _build
 
     if not os.path.abspath(vap_tpu_torch.__file__).startswith(HERE + os.sep):
         raise SystemExit(f"chip_smoke: vap_tpu_torch comes from {vap_tpu_torch.__file__}, "
@@ -823,31 +1268,31 @@ def main():
     t_start = time.perf_counter()
 
     # 2. build
-    t0 = time.perf_counter()
-    libs = _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s -> "
-        f"{[os.path.relpath(p, HERE) for p in libs.values()]}")
-    for lib in libs.values():
-        kernel_name = "?"
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            found = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", line)  # mangled template name
-            if "Compiling entry function" in line and found:
-                kernel_name = f"{found[1]}<{found[2]}>"
-            elif "registers" in line or "spill stores" in line:
-                log(f"  ptxas {kernel_name}: {line.replace('ptxas info    :', '').strip()}")
+    build_kernels()
 
     # 3. kernel parity
     log("kernel parity (bf16, vs plain PyTorch):")
     results = kernel_parity(dev)
+    log("W8A8 (K3) parity (vs plain PyTorch):")
+    results["w8a8"] = w8a8_parity(dev)
+    log("GEMM rate probe (K9, K10) parity (vs plain PyTorch):")
+    results.update(probe_parity(dev))
+    log("the rate probe's entry point (linear_bench --impl diag):")
+    launches = rate_probe_path()
 
     # 4-5. CogVideoX
     log("small pipeline check:")
     small_pipeline_check(dev)
+    log("small W8A8 pipeline check (DPM, adaptive step cache):")
+    small_w8a8_check(dev)
     pipe = build_main_pipeline(dev)
     log(f"main path, flash ({NUM_FRAMES} frames, {STEPS} steps):")
-    launches = {"flash_fwd": main_path(pipe, "flash", STEPS, dev)}
+    launches["flash_fwd"] = main_path(pipe, "flash", STEPS, dev)
     log(f"main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd"] = main_path(pipe, "sage", 1, dev)
+    log(f"bench configuration, sage + W8A8 ({NUM_FRAMES} frames, {BENCH_STEPS} steps, "
+        f"step cache {BENCH_CACHE}):")
+    launches["w8a8"] = bench_config_path(pipe, dev)
     del pipe
     torch.cuda.empty_cache()
 
@@ -874,7 +1319,7 @@ def main():
     launches["flash_bwd"] = training_path(dev)
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
-    specs = {**kernel_specs(), "flash_bwd": BWD_SPEC}
+    specs = {**kernel_specs(), "flash_bwd": BWD_SPEC, **W8A8_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K5 flash backward)
-against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K5 flash backward, K3
+W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch versions
+on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -197,3 +198,126 @@ def test_flash_function_grads_on_the_card(cuda):
 def test_k5_rejects_head_dim_128(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_backward(*_bwd_inputs(cuda, 8, 8, d=128))
+
+
+# K3, the W8A8 linear: per chunk the int32 product is exact on both sides and
+# the f32 steps are the same in the same order, so an output of the kernel
+# can at most round to the bf16 value next to its plain version's, one ulp:
+# at most 2^-7 of the element, of max|ref|; held to that
+W8A8_REL_TOL = 2.0 ** -7
+W8A8_TILE = 128  # output channels per tile of the GEMM
+
+
+def _w8a8_inputs(device, m, k, n, bias=True, seed=3):
+    from vap_tpu_torch.models.common import quantize_linear_int8
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32) * 2).to(device, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((n, k), np.float32) * 0.02).to(device)
+    w_i8, s_w = quantize_linear_int8(w)
+    b = torch.from_numpy(rng.standard_normal(n, np.float32)).to(device) if bias else None
+    return x, w_i8, s_w, b
+
+
+@pytest.mark.parametrize("m,k,n,bias", [(300, 256, 128, True), (300, 3072, 384, False),
+                                        (1, 256, 128, True), (129, 12288, 256, True)])
+def test_k3_matches_plain(cuda, m, k, n, bias):
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    x, w_i8, s_w, b = _w8a8_inputs(cuda, m, k, n, bias)
+    before = ti8.int8_linear_chunk.launches
+    out = ti8.int8_linear_chunk(x, w_i8, s_w, b)
+    torch.cuda.synchronize()
+    assert ti8.int8_linear_chunk.launches == before + 1
+    ref = ti8.int8_linear_chunk_plain(x, w_i8, s_w, b)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n) and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=W8A8_REL_TOL * ref.float().abs().max().item())
+
+
+def test_k3_limit_catches_weight_rows_out_of_place(cuda):
+    """A planted fault: the weight's rows rolled by one inside every 128-row
+    tile, as a kernel that mixed up the output channels of a tile would
+    read them. Held against the plain version, it must break the limit."""
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    x, w_i8, s_w, b = _w8a8_inputs(cuda, 300, 3072, 384)
+    rolled = w_i8.unflatten(0, (-1, W8A8_TILE)).roll(1, dims=1).flatten(0, 1).contiguous()
+    ref = ti8.int8_linear_chunk_plain(x, w_i8, s_w, b).float()
+    out = ti8.int8_linear_chunk(x, rolled, s_w, b).float()
+    assert (out - ref).abs().max() > W8A8_REL_TOL * ref.abs().max()
+
+
+def test_k3_rejects_what_it_does_not_take(cuda):
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    x, w_i8, s_w, b = _w8a8_inputs(cuda, 8, 256, 128)
+    before = ti8.int8_linear_chunk.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        ti8.int8_linear_chunk(x.float(), w_i8, s_w, b)
+    with pytest.raises(ValueError, match="tileable"):
+        ti8.int8_linear_chunk(x[:, :96].contiguous(), w_i8[:, :96].contiguous(), s_w, b)
+    assert ti8.int8_linear_chunk.launches == before
+
+
+def test_int8_linear_chunk_form_launches_k3(cuda):
+    """The chunk form of ``Int8Linear`` launches K3 where ``supported`` and
+    takes the row form where not, counting each."""
+    from vap_tpu_torch.models import common as tc
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    wide = tc.Int8Linear.from_linear(torch.nn.Linear(256, 128, device=cuda, dtype=torch.bfloat16))
+    narrow = tc.Int8Linear.from_linear(torch.nn.Linear(96, 128, device=cuda, dtype=torch.bfloat16))
+    launches, calls = ti8.int8_linear_chunk.launches, tc.int8_linear_row.calls
+    wide(torch.randn(2, 5, 256, device=cuda, dtype=torch.bfloat16))
+    narrow(torch.randn(2, 5, 96, device=cuda, dtype=torch.bfloat16))
+    assert (ti8.int8_linear_chunk.launches, tc.int8_linear_row.calls) == (launches + 1, calls + 1)
+
+
+# K9 and K10, the GEMM rate probe: int8 gives the exact int32 product, held
+# bit for bit; bf16 sums in f32 in another order than the plain version and
+# rounds to bf16, so an output may land on the neighbouring bf16 value, one
+# ulp, at most 2^-7 of it
+GEMM_BF16_REL_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(300, 256, 128), (144, 3072, 384), (16, 64, 256)])
+def test_gemm_probe_matches_plain(cuda, trans, dtype, m, k, n):
+    from vap_tpu_torch.ops import gemm_probe as gp
+
+    rng = np.random.default_rng(4)
+    if dtype == torch.int8:
+        x, w = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)).to(cuda)
+                for s in ((m, k), (n, k)))
+    else:
+        x, w = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, dtype)
+                for s in ((m, k), (n, k)))
+    if trans and m % 16:
+        m, x = m - m % 16, x[: m - m % 16].contiguous()
+    kernel = gp.gemm_probe_t if trans else gp.gemm_probe
+    before = kernel.launches
+    out = kernel(x.T.contiguous(), w) if trans else kernel(x, w)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = gp.gemm_probe_plain(x, w)
+    assert out.dtype == ref.dtype and out.shape == (m, n)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=GEMM_BF16_REL_TOL * ref.float().abs().max().item())
+
+
+def test_gemm_probe_rejects_what_it_does_not_take(cuda):
+    from vap_tpu_torch.ops import gemm_probe as gp
+
+    x = torch.zeros((32, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="N %"):
+        gp.gemm_probe(x, torch.zeros((100, 64), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="M % 16"):
+        gp.gemm_probe_t(torch.zeros((64, 30), dtype=torch.int8, device=cuda),
+                        torch.zeros((128, 64), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="int8 or bfloat16"):
+        gp.gemm_probe(x.float(), torch.zeros((128, 64), device=cuda))

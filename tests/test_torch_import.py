@@ -16,10 +16,13 @@ SLICE_MODULES = [
     "vap_tpu_torch.ops._build",
     "vap_tpu_torch.ops.attention",
     "vap_tpu_torch.ops.flash_attention",
+    "vap_tpu_torch.ops.gemm_probe",
+    "vap_tpu_torch.ops.int8_matmul",
     "vap_tpu_torch.ops.rope",
     "vap_tpu_torch.ops.schedulers",
     "vap_tpu_torch.ops.schedulers.common",
     "vap_tpu_torch.ops.schedulers.ddim",
+    "vap_tpu_torch.ops.schedulers.dpm",
     "vap_tpu_torch.ops.schedulers.flow_match",
     "vap_tpu_torch.models.common",
     "vap_tpu_torch.models.cogvideox.config",
@@ -32,6 +35,7 @@ SLICE_MODULES = [
     "vap_tpu_torch.models.wan.vae",
     "vap_tpu_torch.pipelines.cogvideox_i2v_mot",
     "vap_tpu_torch.pipelines.offload",
+    "vap_tpu_torch.pipelines.step_cache",
     "vap_tpu_torch.pipelines.wan_i2v_mot",
     "vap_tpu_torch.models.random_init",
     "vap_tpu_torch.data",
@@ -44,6 +48,7 @@ SLICE_MODULES = [
     "vap_tpu_torch.training.train_step",
     "vap_tpu_torch.training.trainer",
     "vap_tpu_torch.train",
+    "vap_tpu_torch.scripts.linear_bench",
 ]
 
 _PROBE = """
@@ -84,3 +89,15 @@ def test_no_jax_sdpa_or_compile_in_port_sources():
                     hits += [f"{name}:{n}: {line.strip()}" for n, line in enumerate(fh, 1)
                              if banned.search(line)]
     assert not hits, hits
+
+
+def test_linear_bench_raises_without_a_card():
+    """The rate probe's entry point measures the card: with no CUDA device
+    it exits non-zero and prints no timing."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-m", "vap_tpu_torch.scripts.linear_bench",
+                           "--impl", "diag"], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "ms" not in proc.stdout

@@ -150,8 +150,7 @@ def test_invert_scale_latents_only_on_image_latents():
 def test_unported_modes_raise(pipelines):
     port, _ = pipelines
     args, _ = _call_args()
-    for extra in (dict(step_cache="uniform:2"), dict(ablation_single_branch=True),
-                  dict(ref_videos=None)):
+    for extra in (dict(ablation_single_branch=True), dict(ref_videos=None)):
         with pytest.raises(NotImplementedError):
             port(**{**args, **extra})
 

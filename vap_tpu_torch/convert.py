@@ -32,7 +32,14 @@ def _t(x) -> torch.Tensor:
 
 
 def _linear(sd: StateDict, prefix: str, p) -> None:
-    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    """A linear: {"kernel" [in, out], "bias"?}, or the W8A8 leaf of
+    ``quantize_transformer_linears`` {"w_i8" [in, out], "s_w", "bias"?},
+    which goes into an ``Int8Linear``'s buffers (w_i8 as [out, in])."""
+    if "w_i8" in p:
+        sd[f"{prefix}.w_i8"] = _t(np.asarray(p["w_i8"]).T)
+        sd[f"{prefix}.s_w"] = _t(p["s_w"])
+    else:
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -88,7 +95,10 @@ def _index(tree, i: int):
 
 def from_jax_transformer(params: Dict[str, Any], cfg: CogVideoXMOTConfig) -> StateDict:
     """``init_cogvideox_mot`` / ``convert_cogvideox_mot_state_dict`` tree ->
-    ``CogVideoXTransformer3DMOTModel`` state dict."""
+    ``CogVideoXTransformer3DMOTModel`` state dict. A tree quantised by the
+    JAX package's ``quantize_transformer_linears`` gives ``w_i8``/``s_w``
+    keys for its projections: load it into a model quantised with the
+    port's ``quantize_transformer_linears``."""
     sd: StateDict = {}
     _patch_embed(sd, "patch_embed", params["patch_embed"], cfg)
     _patch_embed(sd, "patch_embed_mot_ref", params["patch_embed_mot_ref"], cfg)

@@ -1,2 +1,3 @@
 from .ddim import CogVideoXDDIMScheduler
+from .dpm import CogVideoXDPMScheduler
 from .flow_match import FlowMatchEulerScheduler

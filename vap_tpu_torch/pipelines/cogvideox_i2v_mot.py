@@ -3,13 +3,16 @@
 Port of ``vap_tpu/pipelines/cogvideox_i2v_mot.py:51-631`` (the main path):
 T5-encode the target and per-reference prompts with their CFG negatives;
 VAE-encode the image, the reference videos (clean) and the reference first
-frames; build the target and reference RoPE tables; run the DDIM denoise
-with dynamic CFG, the CFG pair folded into the batch, as a Python loop over
-steps; drop the pad frames, unscale and decode.
+frames; build the target and reference RoPE tables; run the denoise (DDIM
+or DPM, dynamic CFG, the CFG pair folded into the batch) as a Python loop
+over steps, with the optional step cache (``pipelines/step_cache.py``);
+drop the pad frames, unscale and decode. W8A8 needs nothing here: it lives
+in the transformer's modules (``models/common.py``
+``quantize_transformer_linears``).
 
-Not ported yet (they raise ``NotImplementedError``): the step cache, the DPM
-scheduler, ``ablation_single_branch``, ``baseline_single_condition``, the
-plain no-reference mode, temporal patching (``patch_size_t``) and offload.
+Not ported yet (they raise ``NotImplementedError``):
+``ablation_single_branch``, ``baseline_single_condition``, the plain
+no-reference mode, temporal patching (``patch_size_t``) and offload.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from ..models.cogvideox.vae import (AutoencoderKLCogVideoX, posterior_mode, vae_
                                     vae_encode)
 from ..models.text_encoders.t5 import T5EncoderModel
 from ..ops.rope import prepare_cogvideox_rotary_embeddings
-from ..ops.schedulers import CogVideoXDDIMScheduler
+from ..ops.schedulers import CogVideoXDDIMScheduler, CogVideoXDPMScheduler
+from .step_cache import parse_step_cache
 
 DEFAULT_NEGATIVE_PROMPT = (
     "Bright tones, overexposed, static, blurred details, subtitles, style, works, paintings, "
@@ -109,6 +113,13 @@ class CogVideoXVAPPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def step_noise(self, gen: torch.Generator, shape) -> torch.Tensor:
+        """DPM's noise for one step, f32 standard normal, drawn on every step
+        (reuse steps too) after the initial latents. The JAX pipeline draws it
+        from its own key sequence, which torch cannot reproduce: the tests
+        replace this method to feed both pipelines the same noise."""
+        return torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+
     # ------------------------------------------------------------------
     # conditioning
     # ------------------------------------------------------------------
@@ -177,14 +188,17 @@ class CogVideoXVAPPipeline:
         unported = {
             "ablation_single_branch": ablation_single_branch,
             "baseline_single_condition": baseline_single_condition,
-            "step_cache": step_cache is not None,
             "plain mode (no reference videos)": not ref_videos and prompt_embeds_mot_ref is None,
             "image=None (text-to-video)": image is None,
-            "a scheduler other than DDIM": not isinstance(self.scheduler, CogVideoXDDIMScheduler),
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
             raise NotImplementedError(f"not ported to PyTorch yet: {bad}")
+        use_dpm = isinstance(self.scheduler, CogVideoXDPMScheduler)
+        if not use_dpm and not isinstance(self.scheduler, CogVideoXDDIMScheduler):
+            raise ValueError(f"unknown scheduler {type(self.scheduler).__name__}; "
+                             "CogVideoXDDIMScheduler or CogVideoXDPMScheduler")
+        cache = parse_step_cache(step_cache, num_inference_steps)
         times = self.stage_seconds
         times.clear()
         dev, dtype = self.device, self.dtype
@@ -229,8 +243,10 @@ class CogVideoXVAPPipeline:
         ref_image_latents = torch.cat(ref_img_lat_list, dim=1)
         num_mot_ref = ref_latents.shape[1] // num_latent_frames
 
+        # one generator: the initial latents (unless given), then DPM's
+        # per-step noise
+        gen = torch.Generator(device=dev).manual_seed(seed)
         if latents is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
             latents = torch.randn((1, num_latent_frames, latent_channels, lat_h, lat_w),
                                   generator=gen, device=dev, dtype=torch.float32)
         latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
@@ -256,25 +272,52 @@ class CogVideoXVAPPipeline:
         guidance = (dynamic_cfg_schedule(ts, guidance_scale, num_inference_steps)
                     if use_dynamic_cfg else np.full_like(ts, guidance_scale))
 
-        # 4. denoise
-        step_times = []
+        # 4. denoise. The step cache keeps the raw CFG-batch prediction (f32,
+        # before the CFG combine); every step, a reuse step too, recombines
+        # CFG with its own guidance and advances the scheduler
+        # (``cogvideox_i2v_mot.py:271-347``). The adaptive decision is taken
+        # on the host from f32 sums; the loop synchronises every step anyway.
+        step_times, computed = [], []
+        cached = prev = None
+        accum = torch.zeros((), dtype=torch.float32, device=dev)
+        old_x0 = torch.zeros_like(latents)
         for i, t in enumerate(ts):
             t0 = time.perf_counter()
-            latent_in = torch.cat([latents.to(dtype).repeat(mult, 1, 1, 1, 1), image_in], dim=2)
-            timestep = torch.full((mult,), float(t), dtype=torch.float32, device=dev)
-            noise_pred = self.transformer(
-                hidden_states=latent_in, encoder_hidden_states=embeds, timestep=timestep,
-                image_rotary_emb=rope, hidden_states_mot_ref=ref_in,
-                encoder_hidden_states_mot_ref=embeds_ref, image_rotary_emb_mot_ref=rope_ref,
-                num_mot_ref=num_mot_ref).float()
+            compute = cache is None or (cache.kind == "uniform" and bool(cache.mask[i]))
+            if cache is not None and cache.kind == "adaptive":
+                if prev is None:
+                    prev = latents
+                d = (latents - prev).abs().mean() / (prev.abs().mean() + 1e-8)
+                accum = accum + d
+                compute = bool(cache.mask[i]) or bool(accum >= cache.thresh)
+                if compute:
+                    accum = torch.zeros_like(accum)
+                prev = latents
+            if compute:
+                latent_in = torch.cat([latents.to(dtype).repeat(mult, 1, 1, 1, 1), image_in],
+                                      dim=2)
+                timestep = torch.full((mult,), float(t), dtype=torch.float32, device=dev)
+                cached = self.transformer(
+                    hidden_states=latent_in, encoder_hidden_states=embeds, timestep=timestep,
+                    image_rotary_emb=rope, hidden_states_mot_ref=ref_in,
+                    encoder_hidden_states_mot_ref=embeds_ref, image_rotary_emb_mot_ref=rope_ref,
+                    num_mot_ref=num_mot_ref).float()
+                computed.append(i)
+            noise_pred = cached
             if do_cfg:
                 uncond, cond = noise_pred.chunk(2)
                 noise_pred = uncond + float(guidance[i]) * (cond - uncond)
-            latents = self.scheduler.step(noise_pred, latents, coeffs[0][i], coeffs[1][i],
-                                          coeffs[2][i])
+            step_coeffs = tuple(c[i] for c in coeffs)
+            if use_dpm:
+                noise = self.step_noise(gen, latents.shape)
+                latents, old_x0 = self.scheduler.step(noise_pred, latents, old_x0, step_coeffs,
+                                                      noise)
+            else:
+                latents = self.scheduler.step(noise_pred, latents, *step_coeffs)
             self._sync()
             step_times.append(time.perf_counter() - t0)
         times["denoise_steps"] = step_times
+        times["computed_steps"] = computed
 
         if output_type == "latent":
             return latents
