@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one main-path call goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [cogvideox] [wan] [train] [w8a8]
+    python3 chip_profile.py [cogvideox] [wan] [train] [w8a8] [wan_train]
 
 Builds the kernels and the same full-width paths as chip_smoke.py (random
 bf16 weights from a seed, one reference): one denoise step of CogVideoX-5B
@@ -10,7 +10,9 @@ Wan2.1-I2V-14B VAP at 49 frames of 480x832 with model offload under flash;
 one CogVideoX-5B VAP training step at 49 frames of 480x720, batch 1, remat
 "full", AdamW; one computed step of the bench configuration (CogVideoX-5B
 VAP under sage with its projections in W8A8, the chunk form: K3 beside
-K2). Each runs once to warm up and once under torch.profiler. It
+K2); one Wan2.1-I2V-14B LoRA training step at 49 frames of 480x832, batch
+1, the recipe's plain structure and adapters, remat "full" (K4 beside K6).
+Each runs once to warm up and once under torch.profiler. It
 prints the host wall time and stage seconds, the device's busy time and
 idle share (1 - busy / wall), the device time by category and the costliest
 kernels. With no argument it profiles the two generation paths. It checks
@@ -23,8 +25,8 @@ import time
 
 import os
 
-from chip_smoke import (HERE, build_main_pipeline, build_trainer, build_wan_pipeline, log,
-                        main_path_args, power_line, wan_args)
+from chip_smoke import (HERE, build_main_pipeline, build_trainer, build_wan_pipeline,
+                        build_wan_trainer, log, main_path_args, power_line, wan_args)
 
 STEPS = 1
 TOP = 25
@@ -34,6 +36,7 @@ CATEGORIES = [
     ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_kernel", "w8a8_quantize_kernel")),
     ("attention kernel", ("flash_fwd_kernel", "sage_fwd_kernel")),
     ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("attention backward kernel (K6)", ("flash_bwd_d128_dq_kernel", "flash_bwd_d128_dkv_kernel")),
     ("optimizer (fused AdamW)", ("fused_adam", "FusedAdam", "multi_tensor")),
     ("host->device copies (offload staging)", ("Memcpy HtoD",)),
     ("conv layout (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
@@ -100,15 +103,15 @@ def profile_call(pipe, args, label):
     report(f"{label}, {STEPS} step(s)", wall, per_kernel, stages)
 
 
-def profile_training(dev):
+def profile_training(trainer, label):
     """Step 1 warms up (allocator, cuBLAS, the AdamW state); step 2 is traced."""
-    trainer = build_trainer(dev, os.path.join(HERE, "build", "chip_profile_train"), 1)
+    trainer.args.train_steps = 1
     trainer.run()
     trainer.args.train_steps = 2
     wall, per_kernel = profiled(trainer.run)
     r = trainer.history[-1]
     stages = ", ".join(f"{k} {_rounded(r[k])}" for k in ("forward_s", "backward_s", "update_s"))
-    report("CogVideoX training, 1 step", wall, per_kernel, f"loss {r['loss']:.6f}, {stages}")
+    report(f"{label} training, 1 step", wall, per_kernel, f"loss {r['loss']:.6f}, {stages}")
 
 
 def main():
@@ -137,7 +140,9 @@ def main():
         del pipe
         torch.cuda.empty_cache()
     if "train" in models:
-        profile_training(dev)
+        profile_training(build_trainer(dev, os.path.join(HERE, "build", "chip_profile_train"), 1),
+                         "CogVideoX")
+        torch.cuda.empty_cache()
     if "w8a8" in models:
         from vap_tpu_torch.models.common import quantize_transformer_linears
 
@@ -147,6 +152,9 @@ def main():
             profile_call(pipe, main_path_args(STEPS), "CogVideoX bench configuration, sage + W8A8")
         del pipe
         torch.cuda.empty_cache()
+    if "wan_train" in models:
+        profile_training(build_wan_trainer(dev, os.path.join(HERE, "build", "chip_profile_wan")),
+                         "Wan2.1-I2V-14B LoRA")
 
 
 if __name__ == "__main__":

@@ -10,8 +10,10 @@ Phases, each of which raises on failure:
   3. kernel parity: K1 (flash, D=64), K4 (flash, D=128) and K2 (sage, D=64
      and D=128) against their plain PyTorch versions in bf16, at unaligned
      shapes and at the main-path shapes (CogVideoX joint [1,48,35552,64];
-     Wan joint [1,40,40560,128] and Wan cross [1,40,20280,128] x 512 and
-     x 257 keys), each with a planted fault that must break the limit; the
+     Wan joint [1,40,40560,128], Wan cross [1,40,20280,128] x 512 and
+     x 257 keys, and for K4 also Wan training's self-attention
+     [1,40,20280,128] x 20280), each with a planted fault that must break
+     the limit; the
      kernel's time, the plain version's, torch's SDPA flash backend's (a
      yardstick only, never called by the port) and the card's bound;
      then K3 (the W8A8 linear) against its plain version at unaligned
@@ -53,7 +55,23 @@ Phases, each of which raises on failure:
      "full", 3 optimizer steps (the first a warm-up); per step the loss,
      grad_norm, seconds and the forward / backward / update split, the peak
      device memory, K1 and K5 launches (84 and 42 a step), the frozen trunk
-     bit-identical and the MoT expert moved.
+     bit-identical and the MoT expert moved;
+  9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
+     shapes and at the main-path shapes of Wan training, [1,40,20280,128]
+     x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
+     times at the self-attention shape;
+ 10. Wan2.1-I2V-14B LoRA SFT at full width and depth (40 blocks, no MoT:
+     the plain structure of the recipe's config_plain.json, 40x128 heads,
+     ffn 13,824, 36 input channels, random bf16 weights from a seed) on a
+     random precomputed item at 49 frames of 480x832, batch 1, through
+     SFTTrainer.run: rank 16, alpha 16 on to_q, to_k, to_v and to_out,
+     logit-normal sigmas, AdamW (beta 0.9 / 0.99, weight decay 1e-4, clip
+     1.0, a constant lr of 1e-4), remat "full", 3 optimizer steps (the first
+     a warm-up); per step the loss, grad_norm and the forward / backward /
+     update seconds, the peak device memory, K4 and K6 launches (240 and 120
+     a step), the frozen trunk bit-identical, every adapter's B moved at
+     step 1 and its A at step 2; the share of adapted weight elements the
+     bf16 merge changes.
 
 The last three lines are a JSON object with each kernel's launches in its
 main-path run, its largest error against the plain version, and its times
@@ -104,8 +122,19 @@ WAN_E2E_ATOL = {"flash": 0.25, "sage": 0.35}
 # read above the limit in all three.
 GRAD_REL_TOL = 2e-2
 Q_TILE = 64  # queries per tile of the dk/dv kernel
-TRAIN_STEPS = 3  # optimizer steps of phase 8: 1 warm-up, 2 timed
+TRAIN_STEPS = 3  # optimizer steps of phases 8 and 10: 1 warm-up, 2 timed
 TRAIN_LR = 1e-5  # the recipe's lr, constant: the first update is not at lr 0
+# the Wan LoRA recipe (examples/training/sft/wan/crush_smol_lora/train.sh):
+# rank 16, alpha 16 on to_q, to_k, to_v and to_out of every attention, lr
+# 1e-4 (constant here, not over its 100 warmup steps: the first update is
+# not at lr 0), logit-normal sigmas, the plain structure of config_plain.json
+WAN_LORA = dict(rank=16, lora_alpha=16, target_modules="to_q to_k to_v to_out", lr=1e-4,
+                flow_weighting_scheme="logit_normal")
+WAN_STRUCTURE = "examples/training/sft/wan/crush_smol_lora/config_plain.json"
+# K6's main-path shapes (B, H, Sq, Skv, D): one Wan branch at 49f@480x832
+# attends its own 20,280 tokens, then 512 UMT5 and 257 CLIP keys
+WAN_TRAIN_ATTN = [(1, 40, 20280, 20280, 128), (1, 40, 20280, 512, 128),
+                  (1, 40, 20280, 257, 128)]
 NEVER = 2**31 - 1  # checkpointing_steps: no checkpoint (a full-width one holds ~32 GB)
 # H100 SXM dense peaks (NVIDIA data sheet): the bound of each kernel
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
@@ -225,7 +254,7 @@ def bound(kind, b, h, sq, skv, d):
 
 
 def bwd_bound(b, h, sq, skv, d):
-    """(ms, "operations" or "bytes") for K5: 10*B*H*Sq*Skv*D operations (q k^T,
+    """(ms, "operations" or "bytes") for K5 and K6: 10*B*H*Sq*Skv*D operations (q k^T,
     dout v^T, ds k, p^T dout, ds^T q) at the bf16 peak; bytes: q, k, v, out,
     dout, dq, dk, dv in bf16 and lse in f32, each moved once."""
     t_ops = 10 * b * h * sq * skv * d / PEAK_BF16
@@ -233,8 +262,12 @@ def bwd_bound(b, h, sq, skv, d):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-BWD_SPEC = dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
-                replaces="vap_tpu/ops/flash_attention.py:1131")
+BWD_SPECS = {
+    "flash_bwd": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+                      replaces="vap_tpu/ops/flash_attention.py:1131"),
+    "flash_bwd_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_d128.cu",
+                           replaces="vap_tpu/ops/flash_attention.py:1271"),
+}
 W8A8_SPECS = {
     "w8a8": dict(source="vap_tpu_torch/csrc/w8a8.cu", replaces="vap_tpu/ops/int8_matmul.py:73"),
     "gemm_probe": dict(source="vap_tpu_torch/csrc/gemm_probe.cu",
@@ -254,12 +287,14 @@ def kernel_specs():
     d64 = [(1, 48, sq, skv, 64) for sq, skv in PARITY_SHAPES] + [MAIN_SHAPE[:3] + MAIN_SHAPE[2:]]
     d128 = ([(1, 40, sq, skv, 128) for sq, skv in PARITY_SHAPES] + [WAN_JOINT[:3] + WAN_JOINT[2:]]
             + WAN_CROSS)
+    # K4 also runs Wan training's self-attention (one branch, 20,280 tokens)
+    flash_d128 = d128 + WAN_TRAIN_ATTN[:1]
     src = "vap_tpu_torch/csrc/"
     ref = "vap_tpu/ops/flash_attention.py:"
     return {
         "flash_fwd": dict(fns=flash, kind="flash", counter="launches", shapes=d64,
                           timed=MAIN_SHAPE, source=src + "flash_fwd.cu", replaces=ref + "479"),
-        "flash_fwd_d128": dict(fns=flash, kind="flash", counter="launches_d128", shapes=d128,
+        "flash_fwd_d128": dict(fns=flash, kind="flash", counter="launches_d128", shapes=flash_d128,
                                timed=WAN_JOINT, source=src + "flash_fwd.cu", replaces=ref + "225"),
         "sage_fwd": dict(fns=sage, kind="sage", counter="launches", shapes=d64,
                          timed=MAIN_SHAPE, source=src + "sage_fwd.cu", replaces=ref + "816"),
@@ -654,6 +689,7 @@ def reset_counts():
     fa.flash_attention_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
     fa.flash_attention_backward.launches = 0
+    fa.flash_attention_backward.launches_d128 = 0
     ti8.int8_linear_chunk.launches = 0
     common.int8_linear_row.calls = 0
     gp.gemm_probe.launches = 0
@@ -672,6 +708,7 @@ def read_counts():
             "flash_fwd_d128": fa.flash_attention_forward.launches_d128,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
             "flash_bwd": fa.flash_attention_backward.launches,
+            "flash_bwd_d128": fa.flash_attention_backward.launches_d128,
             "w8a8": ti8.int8_linear_chunk.launches,
             "w8a8_row_calls": common.int8_linear_row.calls,
             "gemm_probe": gp.gemm_probe.launches,
@@ -1026,14 +1063,19 @@ def wan_main_path(pipe, provider, steps, dev):
 # phase 7: K5, the flash backward
 # ---------------------------------------------------------------------------
 
-def backward_parity(dev):
+def backward_parity(dev, d128=False):
+    """K5 (head_dim 64) or K6 (``d128``: head_dim 128) against its plain
+    version at the unaligned shapes and the main-path shapes, with the
+    planted fault; then its times at the first main-path shape."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from vap_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + (9 if d128 else 7))
+    name = "flash_bwd_d128" if d128 else "flash_bwd"
+    plain = fa.flash_attention_backward_rows_plain if d128 else fa.flash_attention_backward_plain
 
     def inputs(b, h, sq, skv, d):
         q, k, v, dout = [torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -1050,48 +1092,51 @@ def backward_parity(dev):
         return [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
                 for g, r in zip(got, ref)]
 
-    shapes = [(1, 48, sq, skv, 64) for sq, skv in PARITY_SHAPES] + [MAIN_SHAPE[:3] + MAIN_SHAPE[2:]]
+    if d128:  # Wan's self-attention, then its text and CLIP cross-attentions
+        shapes = [(1, 40, sq, skv, 128) for sq, skv in PARITY_SHAPES] + WAN_TRAIN_ATTN
+    else:
+        shapes = ([(1, 48, sq, skv, 64) for sq, skv in PARITY_SHAPES]
+                  + [MAIN_SHAPE[:3] + MAIN_SHAPE[2:]])
     worst = 0.0
     for b, h, sq, skv, d in shapes:
         q, k, v, out, lse, dout = inputs(b, h, sq, skv, d)
         got = fa.flash_attention_backward(q, k, v, out, lse, dout)
         torch.cuda.synchronize()
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        ref = fa.flash_attention_backward_plain(q, k, v, out, lse, dout)
+        ref = plain(q, k, v, out, lse, dout)
         errs = errors(got, ref)
         del got
         fault = errors(fa.flash_attention_backward(q, k, v, out, lse, rolled_in_q_tiles(dout)), ref)
-        log(f"  flash_bwd {(b, h, sq, d)} x {skv}: " + ", ".join(
+        log(f"  {name} {(b, h, sq, d)} x {skv}: " + ", ".join(
             f"d{n} max|err| {e:.3e} / max|ref| {m:.3e} = {e / m:.3e} (planted fault {fe / m:.3e})"
             for n, (e, m), (fe, _) in zip("qkv", errs, fault)) + f" (tol {GRAD_REL_TOL}), "
             f"finite {finite}")
         if not (finite and all(e <= GRAD_REL_TOL * m for e, m in errs)):
-            raise AssertionError("flash_bwd disagrees with its plain version")
+            raise AssertionError(f"{name} disagrees with its plain version")
         if not all(fe > GRAD_REL_TOL * m for (fe, m) in fault):
-            raise AssertionError("flash_bwd: the limit does not catch dout rows out of place")
+            raise AssertionError(f"{name}: the limit does not catch dout rows out of place")
         worst = max([worst] + [e for e, _ in errs])
         del q, k, v, out, lse, dout, ref
         torch.cuda.empty_cache()
 
-    b, h, s, d = MAIN_SHAPE
-    q, k, v, out, lse, dout = inputs(b, h, s, s, d)
+    b, h, sq, skv, d = shapes[len(PARITY_SHAPES)]
+    q, k, v, out, lse, dout = inputs(b, h, sq, skv, d)
     ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=3, warmup=1)
-    plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, out, lse, dout), iters=1,
-                       warmup=1)
+    plain_ms = time_ms(lambda: plain(q, k, v, out, lse, dout), iters=1, warmup=1)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):  # one PyTorch call: a yardstick
         o = F.scaled_dot_product_attention(*leaves)
     library_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), iters=3,
                          warmup=1)
-    bound_ms, bound_by = bwd_bound(b, h, s, s, d)
-    tflops = 10 * b * h * s * s * d / (ms * 1e-3) / 1e12
-    log(f"  flash_bwd at {MAIN_SHAPE}: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain "
+    bound_ms, bound_by = bwd_bound(b, h, sq, skv, d)
+    tflops = 10 * b * h * sq * skv * d / (ms * 1e-3) / 1e12
+    log(f"  {name} at {(b, h, sq, d)} x {skv}: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain "
         f"{plain_ms:.3f} ms, SDPA flash backward {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by})")
     del q, k, v, out, lse, dout, leaves, o
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "shape": list(MAIN_SHAPE)}
+            "bound_by": bound_by, "library_ms": library_ms, "shape": [b, h, sq, skv, d]}
 
 
 # ---------------------------------------------------------------------------
@@ -1227,6 +1272,142 @@ def training_path(dev):
     return launches["flash_bwd"]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Wan2.1-I2V-14B LoRA SFT at full width
+# ---------------------------------------------------------------------------
+
+def wan_training_batch(cfg):
+    """One random precomputed item at 49f@480x832, batch 1, in WanSpec's
+    layout: latents [1,13,60,104,16]; condition [1,13,60,104,20] (the
+    first-frame mask, then the latent of the first frame and zeros); UMT5
+    states [1,512,4096], zero past a 40-token prompt; CLIP states
+    [1,257,1280]."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+    frames = (NUM_FRAMES - 1) // 4 + 1
+    lat = (1, frames, WAN_HEIGHT // 8, WAN_WIDTH // 8, cfg.out_channels)
+    cond = np.zeros(lat[:-1] + (cfg.in_channels - cfg.out_channels,), np.float32)
+    cond[:, 0, ..., :4] = 1.0  # the mask: the first frame is given
+    cond[:, 0, ..., 4:] = rng.standard_normal(cond[:, 0, ..., 4:].shape, dtype=np.float32)
+    text = np.zeros((1, cfg.text_len, cfg.text_dim), np.float32)
+    text[:, :40] = rng.standard_normal((1, 40, cfg.text_dim), dtype=np.float32)
+    return ({"encoder_hidden_states": text, "encoder_hidden_states_image":
+             rng.standard_normal((1, 257, cfg.image_dim), dtype=np.float32)},
+            {"latents": rng.standard_normal(lat, dtype=np.float32), "condition": cond})
+
+
+def build_wan_trainer(dev, work):
+    """Wan2.1-I2V-14B in the recipe's plain structure, random bf16 weights
+    from SEED on the card, and an SFTTrainer of the LoRA recipe with remat
+    "full", on one random item written as a precomputed cache under ``work``."""
+    import shutil
+
+    import torch
+
+    from vap_tpu_torch.data.precomputation import write_precomputed
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.wan.config import WanMOTConfig
+    from vap_tpu_torch.models.wan.transformer_mot import WanTransformer3DMOTModel
+    from vap_tpu_torch.train import structure_overrides
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    shutil.rmtree(work, ignore_errors=True)
+    args = TrainingArgs(model_name="wan", training_type="lora",
+                        model_structure_config=os.path.join(HERE, WAN_STRUCTURE),
+                        precomputation_dir=os.path.join(work, "cache"),
+                        output_dir=os.path.join(work, "out"), seed=SEED, train_steps=1,
+                        optimizer="adamw", lr_scheduler="constant", lr_warmup_steps=0,
+                        beta1=0.9, beta2=0.99, weight_decay=1e-4, max_grad_norm=1.0,
+                        gradient_checkpointing=True, checkpointing_steps=NEVER,
+                        logging_steps=1, **WAN_LORA)
+    cfg = WanMOTConfig.wan_14b_i2v_vap(**structure_overrides(WanMOTConfig,
+                                                             args.model_structure()))
+    write_precomputed(args.precomputation_dir, [wan_training_batch(cfg)])
+    model = build_random(WanTransformer3DMOTModel, cfg, dev, torch.bfloat16,
+                         torch.Generator(device=dev).manual_seed(SEED + 10))
+    return SFTTrainer(args, model)
+
+
+def wan_training_path(dev):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    work = os.path.join(HERE, "build", "chip_smoke_wan_train")
+    t0 = time.perf_counter()
+    trainer = build_wan_trainer(dev, work)
+    model, cfg = trainer.model, trainer.model.config
+    params = dict(model.named_parameters())
+    trainable = set(trainer.trainable_names)
+    before = {n: p.detach().to("cpu", copy=True) for n, p in params.items() if n not in trainable}
+    n_lora = sum(params[n].numel() for n in trainable)
+    log(f"  {cfg.num_layers} blocks, MoT in {list(cfg.block_idx_with_mot_ref)}, "
+        f"{cfg.num_attention_heads}x{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}, "
+        f"{cfg.in_channels} input channels: {n_params(model) - n_lora} bf16 parameters frozen, "
+        f"{len(trainer.lora)} adapters (rank {trainer.args.rank}) with {n_lora} f32 parameters, "
+        f"remat {trainer.step_cfg.remat!r}, AdamW fused "
+        f"{trainer.optimizer.inner.defaults['fused']}; {time.perf_counter() - t0:.2f} s to build")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    start = {n: ab["A"].detach().clone() for n, ab in trainer.lora.items()}
+    snapshots = []
+    t0 = time.perf_counter()
+    for step in range(1, TRAIN_STEPS + 1):  # one run() per step, to see what each moved
+        trainer.args.train_steps = step
+        trainer.run()
+        snapshots.append({n: {k: v.detach().clone() for k, v in ab.items()}
+                          for n, ab in trainer.lora.items()})
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in trainer.history:
+        total = r["forward_s"] + r["backward_s"] + r["update_s"]
+        log(f"  step {r['step']}: loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, lr "
+            f"{r['lr']:.1e}, {total:.3f} s = forward {r['forward_s']:.3f} + backward "
+            f"{r['backward_s']:.3f} + update {r['update_s']:.3f}")
+    per_step = 3 * cfg.num_layers  # self, text and image attention per block
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}, per step K4 {launches['flash_fwd_d128'] / TRAIN_STEPS:g} (expected "
+        f"{2 * per_step}: forward and recompute) and K6 "
+        f"{launches['flash_bwd_d128'] / TRAIN_STEPS:g} (expected {per_step})")
+    check_launches(launches, {"flash_fwd_d128": 2 * per_step * TRAIN_STEPS,
+                              "flash_bwd_d128": per_step * TRAIN_STEPS})
+    if not (len(trainer.history) == TRAIN_STEPS == trainer.optimizer.count
+            and all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in trainer.history)):
+        raise AssertionError(f"Wan training: {trainer.optimizer.count} updates, history "
+                             f"{trainer.history}")
+    frozen_changed = [n for n, p in params.items()
+                      if n not in trainable and not torch.equal(p.detach().cpu(), before[n])]
+    # B starts at 0, so A's gradient is 0 at step 1: every B moves at step 1
+    # and no A (weight decay at lr 1e-4 moves A by 1e-8, below half an f32
+    # ulp); at step 2 every A moves
+    b_still = [n for n in start if not snapshots[0][n]["B"].any()]
+    a_early = [n for n in start if not torch.equal(snapshots[0][n]["A"], start[n])]
+    a_still = [n for n in start if torch.equal(snapshots[1][n]["A"], start[n])]
+    log(f"  frozen tensors changed: {len(frozen_changed)} of {len(before)}; adapters whose B "
+        f"moved at step 1: {len(start) - len(b_still)} of {len(start)}, whose A moved at step 1: "
+        f"{len(a_early)}, at step 2: {len(start) - len(a_still)}")
+    if frozen_changed or b_still or a_early or a_still:
+        raise AssertionError(f"Wan training: frozen tensors changed {frozen_changed[:5]}, B that "
+                             f"did not move {b_still[:5]}, A that moved early {a_early[:5]} or "
+                             f"not at step 2 {a_still[:5]}")
+    # the merge rounds W + delta to bf16: a delta below half an ulp of W is lost
+    with torch.no_grad():
+        kept = sum(int((model.get_submodule(n).merged_weight() != params[f"{n}.weight"]).sum())
+                   for n in trainer.lora)
+    total = sum(params[f"{n}.weight"].numel() for n in trainer.lora)
+    log(f"  after step {TRAIN_STEPS}: {kept} of {total} adapted weight elements "
+        f"({kept / total:.4f}) differ from the frozen base once merged in bf16")
+    del trainer, model, params, before, snapshots, start
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches["flash_bwd_d128"]
+
+
 def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
     spills per kernel, from the compilers' logs."""
@@ -1317,9 +1498,18 @@ def main():
     log(f"training, CogVideoX-5B VAP ({NUM_FRAMES} frames of {HEIGHT}x{WIDTH}, batch 1, "
         f"{TRAIN_STEPS} optimizer steps):")
     launches["flash_bwd"] = training_path(dev)
+
+    # 9. K6
+    log("flash backward at head_dim 128 (K6) parity (bf16, vs plain PyTorch):")
+    results["flash_bwd_d128"] = backward_parity(dev, d128=True)
+
+    # 10. Wan LoRA training
+    log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
+        f"batch 1, {TRAIN_STEPS} optimizer steps):")
+    launches["flash_bwd_d128"] = wan_training_path(dev)
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
-    specs = {**kernel_specs(), "flash_bwd": BWD_SPEC, **W8A8_SPECS}
+    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

@@ -104,7 +104,12 @@ def test_inference_only_providers_raise_under_grad(provider):
 
 
 def test_head_dim_128_raises_under_grad_naming_k6():
+    """Head_dim 128 takes a gradient through K6 now; above 128 there is no
+    backward, and a gradient raises naming K6's head_dim."""
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(3, 8, 8, d=128))
+    tfa.flash_attention(q, k, v.requires_grad_()).sum().backward()
+    assert v.grad is not None and v.grad.shape == v.shape
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(3, 8, 8, d=256))
     with pytest.raises(NotImplementedError, match="K6"):
         tfa.flash_attention(q, k, v.requires_grad_())
     assert tfa.flash_attention(q, k, v.detach()).shape == q.shape

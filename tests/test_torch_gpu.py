@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K5 flash backward, K3
-W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch versions
-on the card.
+"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K5 and K6 flash
+backward, K3 W8A8, K9 and K10 the GEMM rate probe) against their plain
+PyTorch versions on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -196,8 +196,73 @@ def test_flash_function_grads_on_the_card(cuda):
 
 
 def test_k5_rejects_head_dim_128(cuda):
+    """K5 takes head_dim below 128: at 128 the wrapper launches K6 in its
+    place, and above 128 it raises and launches nothing."""
+    counts = (tfa.flash_attention_backward.launches, tfa.flash_attention_backward.launches_d128)
+    tfa.flash_attention_backward(*_bwd_inputs(cuda, 8, 8, d=128))
+    assert (tfa.flash_attention_backward.launches,
+            tfa.flash_attention_backward.launches_d128) == (counts[0], counts[1] + 1)
+    q, k, v = _qkv(cuda, 8, 8, d=256)
+    lse = torch.zeros(q.shape[:3], device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention_backward(*_bwd_inputs(cuda, 8, 8, d=128))
+        tfa.flash_attention_backward(q, k, v, q, lse, q)
+    assert tfa.flash_attention_backward.launches_d128 == counts[1] + 1
+
+
+# K6, the backward at head_dim 128: the same limit. Kernel and plain version
+# round q * scale, ds and p to bf16 at the same points from the same out and
+# lse; exp and the summation order differ, which flips a rounding by one bf16
+# ulp now and then, and each output is itself rounded to bf16
+@pytest.mark.parametrize("sq,skv", [(300, 200), (128, 257), (64, 77), (1, 9), (65, 64),
+                                    (130, 512)])
+def test_k6_matches_plain(cuda, sq, skv):
+    args = _bwd_inputs(cuda, sq, skv, d=128)
+    before = tfa.flash_attention_backward.launches_d128
+    got = tfa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches_d128 == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_backward_rows_plain(*args))
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+def test_k6_limit_catches_dout_rows_out_of_place(cuda):
+    """The planted fault of K5's test, at head_dim 128: dout rows rolled by
+    one inside every 64-query tile must break the limit in dq, dk and dv."""
+    q, k, v, out, lse, dout = _bwd_inputs(cuda, 300, 200, d=128)
+    n = dout.shape[2] // Q_TILE * Q_TILE
+    tiles = dout[:, :, :n].unflatten(2, (-1, Q_TILE)).roll(1, dims=3).flatten(2, 3)
+    faulty = torch.cat([tiles, dout[:, :, n:]], dim=2).contiguous()
+    errs = _grad_errors(tfa.flash_attention_backward(q, k, v, out, lse, faulty),
+                        tfa.flash_attention_backward_rows_plain(q, k, v, out, lse, dout))
+    assert min(errs) > GRAD_REL_TOL, errs
+
+
+def test_k6_is_deterministic(cuda):
+    args = _bwd_inputs(cuda, 300, 257, d=128)
+    first = tfa.flash_attention_backward(*args)
+    second = tfa.flash_attention_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_function_grads_on_the_card_d128(cuda):
+    """``FlashAttentionFunction`` at head_dim 128 (K4 then K6) against
+    autograd through plain dense attention in float32 on the same bf16
+    inputs, with Wan's unaligned CLIP key count."""
+    from vap_tpu_torch.ops.attention import dense_attention
+
+    q, k, v = _qkv(cuda, 300, 257, d=128)
+    w = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(5), device=cuda)
+    counts = (tfa.flash_attention_forward.launches_d128, tfa.flash_attention_backward.launches_d128)
+    grads = []
+    for attn, dtype in ((tfa.flash_attention, torch.bfloat16), (dense_attention, torch.float32)):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        (attn(*leaves).float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert (tfa.flash_attention_forward.launches_d128,
+            tfa.flash_attention_backward.launches_d128) == (counts[0] + 1, counts[1] + 1)
+    errs = _grad_errors(*grads)
+    assert max(errs) <= GRAD_REL_TOL, errs
 
 
 # K3, the W8A8 linear: per chunk the int32 product is exact on both sides and

@@ -44,6 +44,7 @@ SLICE_MODULES = [
     "vap_tpu_torch.training",
     "vap_tpu_torch.training.args",
     "vap_tpu_torch.training.checkpoint",
+    "vap_tpu_torch.training.lora",
     "vap_tpu_torch.training.optimizer",
     "vap_tpu_torch.training.train_step",
     "vap_tpu_torch.training.trainer",

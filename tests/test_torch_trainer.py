@@ -22,7 +22,7 @@ from vap_tpu_torch.training.args import TrainingArgs
 from vap_tpu_torch.training.trainer import SFTTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CFG = train_cli.MODEL_CONFIGS["tiny"]()
+CFG = train_cli.MODELS["cogvideox"][2]["tiny"]()
 ITEMS = 3
 
 

@@ -23,6 +23,7 @@ from .models.text_encoders.clip_vision import CLIPVisionConfig
 from .models.text_encoders.t5 import T5Config
 from .models.wan.config import WanMOTConfig
 from .models.wan.vae import WanVAEConfig
+from .training.lora import MODULE_SUFFIX
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -253,17 +254,21 @@ def _wan_condition_embedder(sd, prefix, p):
 
 
 def from_jax_wan_transformer(params: Dict[str, Any], cfg: WanMOTConfig) -> StateDict:
-    """``init_wan_mot`` / ``convert_wan_mot_state_dict`` tree ->
+    """``init_wan_mot`` / ``convert_wan_mot_state_dict`` tree, or the plain
+    ``init_wan`` tree (no ``_mot_ref`` entry, one block segment) ->
     ``WanTransformer3DMOTModel`` state dict: the per-segment block stacks
     are unstacked, the patch linear becomes a Conv3d kernel."""
     sd: StateDict = {}
     shape = (cfg.inner_dim, cfg.in_channels, *cfg.patch_size)
     for name in ("patch_embedding", "patch_embedding_mot_ref"):
+        if name not in params:
+            continue
         kernel = np.asarray(params[name]["kernel"])  # [(C, pt, ph, pw), D]
         sd[f"{name}.weight"] = _t(kernel.T.reshape(shape))
         sd[f"{name}.bias"] = _t(params[name]["bias"])
     for name in ("condition_embedder", "condition_embedder_mot_ref"):
-        _wan_condition_embedder(sd, name, params[name])
+        if name in params:
+            _wan_condition_embedder(sd, name, params[name])
     _linear(sd, "proj_out", params["proj_out"])
     sd["scale_shift_table"] = _t(np.asarray(params["scale_shift_table"])[None])
     for (start, length, has_mot), seg in zip(cfg.mot_segments, params["blocks"]):
@@ -310,3 +315,40 @@ def from_jax_wan_vae(params: Dict[str, Any], cfg: WanVAEConfig) -> StateDict:
     for part in ("encoder", "decoder", "quant_conv", "post_quant_conv"):
         _wan_vae_tree(sd, part, params[part])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters
+# ---------------------------------------------------------------------------
+
+def from_jax_lora(lora: Any, cfg) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``init_lora`` tree of ``vap_tpu/training/lora.py`` (the params' structure, with
+    {"A": [..., in, r], "B": [..., r, out]} in place of each adapted linear's
+    ``kernel`` and None elsewhere) -> the port's adapter tree {module name: {"A", "B"}}, the
+    per-segment block stacks unstacked (``blocks.<i>`` for Wan,
+    ``transformer_blocks.<i>`` for CogVideoX)."""
+    blocks = "blocks" if isinstance(cfg, WanMOTConfig) else "transformer_blocks"
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def module(names) -> str:
+        return ".".join(MODULE_SUFFIX.get(str(n), str(n)) for n in names)
+
+    def walk(tree, names) -> None:
+        if tree is None:
+            return
+        if isinstance(tree, dict) and set(tree) == {"A", "B"}:
+            a, b = np.asarray(tree["A"]), np.asarray(tree["B"])
+            names = names[:-1]  # the adapter sits where the linear's "kernel" does
+            if names[0] != "blocks":
+                out[module(names)] = {"A": _t(a), "B": _t(b)}
+                return
+            start, length, _ = cfg.mot_segments[names[1]]
+            for i in range(length):
+                out[f"{blocks}.{start + i}.{module(names[2:])}"] = {"A": _t(a[i]), "B": _t(b[i])}
+            return
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for key, sub in items:
+            walk(sub, names + [key])
+
+    walk(lora, [])
+    return out

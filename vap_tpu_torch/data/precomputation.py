@@ -8,12 +8,20 @@ complete, so the text encoder and the VAE stay off the card while training.
 Each ``.npz`` holds the item's arrays and a ``__meta__`` entry, the ``repr``
 of a dict of its other values, read back with ``ast.literal_eval``.
 
-The keys are those of ``CogVideoXSpec.prepare_conditions`` and
-``prepare_latents`` (``vap_tpu/training/specs.py:187-246``): condition
-``encoder_hidden_states`` [1, T, D_text] and
-``encoder_hidden_states_mot_ref`` [1, R*T, D_text]; latent ``latents``,
-``image_latents`` [1, F, C, h, w] and ``latents_mot_ref``,
-``image_latents_mot_ref`` [1, R*F, C, h, w], VAE-scaled.
+The keys are those of each family's ``prepare_conditions`` and
+``prepare_latents``. CogVideoX (``CogVideoXSpec``,
+``vap_tpu/training/specs.py:187-246``): condition ``encoder_hidden_states``
+[1, T, D_text] and ``encoder_hidden_states_mot_ref`` [1, R*T, D_text];
+latent ``latents``, ``image_latents`` [1, F, C, h, w] and
+``latents_mot_ref``, ``image_latents_mot_ref`` [1, R*F, C, h, w],
+VAE-scaled. Wan (``WanSpec``, specs.py:605-669), channel-last and
+mean/std-normalised: condition ``encoder_hidden_states`` [1, 512, 4096]
+(UMT5, zero past the prompt) and, for I2V, ``encoder_hidden_states_image``
+[1, 257, 1280] (CLIP); latent ``latents`` [1, 13, 60, 104, 16] at 49f@480x832
+and, for I2V, ``condition`` [1, 13, 60, 104, 20] (the 4-channel first-frame
+mask and the 16-channel latent of the first frame then zeros); a VAP item
+adds ``*_mot_ref`` entries of the same layouts. A plain (non-VAP) item has
+no ``*_mot_ref`` entry and trains the trunk alone.
 
 ``write_precomputed`` writes the same layout, for data made without the
 encoders (random latents at a given shape). Decoding, bucketing and the

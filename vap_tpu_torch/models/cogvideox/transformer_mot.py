@@ -23,12 +23,11 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import full_attention
 from ...ops.rope import apply_rotary_emb
 from ..common import (FeedForward, FP32LayerNorm, TimestepEmbedding, get_3d_sincos_pos_embed,
-                      silu, sinusoidal_timestep_embedding)
+                      remat_blocks, run_block, silu, sinusoidal_timestep_embedding)
 from .config import CogVideoXMOTConfig
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -281,16 +280,9 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
         [B, T, D_text]; timestep [B]; refs [B, R*F, C, H, W] and
         [B, R*T, D_text]; timestep_mot_ref [B, R] defaults to the target's.
 
-        ``remat`` (``scan_blocks_with_remat``, ``vap_tpu/models/common.py:273``):
-        False runs the blocks plainly; True or "full" checkpoints each block
-        (``torch.utils.checkpoint``, non-reentrant), so the backward keeps only
-        the block inputs and runs each block's forward again. "ops" and
-        "block_skip:N" are not ported and raise."""
-        if isinstance(remat, str) and remat.startswith(("ops", "block_skip")):
-            raise NotImplementedError(f"remat mode {remat!r} is not ported to PyTorch yet")
-        if remat not in (False, None, True, "full"):
-            raise ValueError(f"unknown remat mode {remat!r}; valid: False, True/'full'")
-        full_remat = remat in (True, "full")
+        ``remat``: False, or True / "full" to checkpoint each block
+        (``remat_blocks``); "ops" and "block_skip:N" raise."""
+        full_remat = remat_blocks(remat)
         cfg = self.config
         b, num_frames, _, height, width = hidden_states.shape
         t_text = encoder_hidden_states.shape[1]
@@ -314,10 +306,7 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
         for block in self.transformer_blocks:
             args = (hs, ehs, emb, image_rotary_emb, hs_ref, ehs_ref, emb_ref,
                     image_rotary_emb_mot_ref, r)
-            if full_remat:
-                hs, ehs, hs_ref, ehs_ref = checkpoint(block, *args, use_reentrant=False)
-            else:
-                hs, ehs, hs_ref, ehs_ref = block(*args)
+            hs, ehs, hs_ref, ehs_ref = run_block(block, full_remat, *args)
 
         hs = self.norm_final(hs)
         hs = self.proj_out(self.norm_out(hs, emb))

@@ -1,5 +1,5 @@
 """Shared building blocks: fp32 norms, GELU-tanh feed-forward, timestep
-embedding, and the W8A8 projection linears.
+embedding, the W8A8 projection linears, and block remat.
 
 Port of ``vap_tpu/models/common.py:44-126,129+``. Linears are ``nn.Linear``
 in the model dtype (bf16 on the main path) until
@@ -17,8 +17,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.int8_matmul import int8_linear_chunk, int8_mm, supported
+
+
+def remat_blocks(remat) -> bool:
+    """Whether ``remat`` (``scan_blocks_with_remat``, ``vap_tpu/models/common.py:273``)
+    checkpoints each block: False runs the blocks plainly; True or "full"
+    checkpoints each one (``run_block``). "ops" and "block_skip:N" are not
+    ported and raise."""
+    if isinstance(remat, str) and remat.startswith(("ops", "block_skip")):
+        raise NotImplementedError(f"remat mode {remat!r} is not ported to PyTorch yet")
+    if remat not in (False, None, True, "full"):
+        raise ValueError(f"unknown remat mode {remat!r}; valid: False, True/'full'")
+    return remat in (True, "full")
+
+
+def run_block(block: nn.Module, remat: bool, *args):
+    """``block(*args)``, under a non-reentrant ``torch.utils.checkpoint`` when
+    ``remat``: the backward then keeps only the block's inputs and runs its
+    forward again."""
+    if remat:
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:

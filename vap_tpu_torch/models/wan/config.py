@@ -2,6 +2,9 @@
 
 Copied from ``vap_tpu/models/wan/config.py`` (``WanMOTConfig``), which
 mirrors ``WanTransformer3DMOTModel`` (transformer_wan_mot.py:745-771).
+``block_idx_with_mot_ref=()`` is the plain structure
+(``WanTransformer3DModel``, the LoRA recipe's ``config_plain.json``):
+no block and no prologue module of the MoT expert.
 """
 
 from __future__ import annotations

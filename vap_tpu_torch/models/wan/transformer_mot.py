@@ -12,6 +12,12 @@ Port of ``vap_tpu/models/wan/transformer_mot.py:54-100,269-610``, the
   * scale-shift-table AdaLN with float32 layer norms;
   * the 36-channel conditioning input of image-to-video VAP.
 
+With no MoT block (``block_idx_with_mot_ref=()``) it is the plain
+``WanTransformer3DModel`` (``init_wan`` / ``wan_forward``, :200-266), which
+builds no ``_mot_ref`` module; a forward without reference inputs runs the
+trunk alone on any model, the MoT blocks' trunk halves included, with or
+without the image context and conditioning channels (T2V).
+
 The forward keeps the JAX package's channel-last layout, [B, F, H, W, C],
 and is split into ``prologue``, the blocks and ``epilogue`` as in JAX.
 Module attributes follow the diffusers state-dict keys
@@ -22,7 +28,7 @@ ported (it raises).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,8 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import full_attention
-from ..common import (FeedForward, FP32LayerNorm, gelu_tanh, layer_norm, rms_norm, silu,
-                      sinusoidal_timestep_embedding)
+from ..common import (FeedForward, FP32LayerNorm, gelu_tanh, layer_norm, remat_blocks, rms_norm,
+                      run_block, silu, sinusoidal_timestep_embedding)
 from .config import WanMOTConfig
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -206,14 +212,15 @@ class WanBlock(nn.Module):
     def forward(self, hs, ctx_text, ctx_img, tproj, rope: Rope, hs_ref=None, ctx_text_ref=None,
                 ctx_img_ref=None, tproj_ref=None, rope_ref: Optional[Rope] = None,
                 num_mot_ref: int = 1):
-        """tproj [B, 6, D] and tproj_ref [B, R, 6, D] in float32."""
+        """tproj [B, 6, D] and tproj_ref [B, R, 6, D] in float32. Without
+        ``hs_ref`` the block runs its trunk alone (``has_mot=False``)."""
         mods = self.scale_shift_table.float() + tproj  # [B, 6, D]
         shift, scale, gate, c_shift, c_scale, c_gate = (mods[:, i][:, None] for i in range(6))
         dtype = hs.dtype
 
         # 1. self-attention (joint when MoT)
         nhs = (self._ln(hs) * (1 + scale) + shift).to(dtype)
-        if not self.with_mot:
+        if not self.with_mot or hs_ref is None:
             attn = self.attn1.out(full_attention(*self.attn1.qkv(nhs, rope)))
             hs = (hs.float() + attn.float() * gate).to(dtype)
             hs = hs + self.attn2.cross(self._cross_norm(self.norm2, hs), ctx_text, ctx_img)
@@ -350,8 +357,9 @@ def unpatchify(x: torch.Tensor, patch, ppf: int, pph: int, ppw: int) -> torch.Te
 
 
 class WanTransformer3DMOTModel(nn.Module):
-    """The Wan VAP transformer. ``forward`` returns the target prediction
-    [B, F, H, W, C_out], channel-last."""
+    """The Wan VAP transformer, or the plain one when no block has MoT.
+    ``forward`` returns the target prediction [B, F, H, W, C_out],
+    channel-last."""
 
     def __init__(self, cfg: WanMOTConfig):
         super().__init__()
@@ -360,21 +368,24 @@ class WanTransformer3DMOTModel(nn.Module):
         self.config = cfg
         dim = cfg.inner_dim
         self.patch_embedding = nn.Conv3d(cfg.in_channels, dim, cfg.patch_size, stride=cfg.patch_size)
-        self.patch_embedding_mot_ref = nn.Conv3d(cfg.in_channels, dim, cfg.patch_size,
-                                                 stride=cfg.patch_size)
         self.condition_embedder = WanConditionEmbedder(cfg)
-        self.condition_embedder_mot_ref = WanConditionEmbedder(cfg)
+        if cfg.block_idx_with_mot_ref:
+            self.patch_embedding_mot_ref = nn.Conv3d(cfg.in_channels, dim, cfg.patch_size,
+                                                     stride=cfg.patch_size)
+            self.condition_embedder_mot_ref = WanConditionEmbedder(cfg)
         mot = set(cfg.block_idx_with_mot_ref)
         self.blocks = nn.ModuleList([WanBlock(cfg, i in mot) for i in range(cfg.num_layers)])
         self.proj_out = nn.Linear(dim, cfg.out_channels * int(np.prod(cfg.patch_size)))
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 2, dim))
 
     def prologue(self, hidden_states, timestep, encoder_hidden_states,
-                 encoder_hidden_states_image, hidden_states_mot_ref, timestep_mot_ref,
-                 encoder_hidden_states_mot_ref, encoder_hidden_states_image_mot_ref,
-                 num_mot_ref: int = 1) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Dict]:
+                 encoder_hidden_states_image=None, hidden_states_mot_ref=None,
+                 timestep_mot_ref=None, encoder_hidden_states_mot_ref=None,
+                 encoder_hidden_states_image_mot_ref=None,
+                 num_mot_ref: int = 1) -> Tuple[Tuple[torch.Tensor, Optional[torch.Tensor]], Dict]:
         """Embeddings, patchify and RoPE (``wan_prologue``, :471-515).
-        Returns ((hs, hs_ref), aux): aux holds what every block reads."""
+        Returns ((hs, hs_ref), aux): aux holds what every block reads;
+        hs_ref is None without reference inputs (the trunk alone)."""
         cfg = self.config
         b, f, h, w, _ = hidden_states.shape
         pt, ph, pw = cfg.patch_size
@@ -386,6 +397,13 @@ class WanTransformer3DMOTModel(nn.Module):
         hs = patchify(self.patch_embedding, hidden_states, cfg.patch_size)
         temb, tproj, ctx_text, ctx_img = self.condition_embedder(
             timestep, encoder_hidden_states, encoder_hidden_states_image, dtype)
+        aux = {"ctx_text": ctx_text, "ctx_img": ctx_img, "tproj": tproj.reshape(b, 6, -1).float(),
+               "rope": rope, "temb": temb, "grid": (ppf, pph, ppw), "dtype": dtype,
+               "num_mot_ref": r}
+        if hidden_states_mot_ref is None:
+            return (hs, None), aux
+        if not cfg.block_idx_with_mot_ref:
+            raise ValueError("reference inputs given to a Wan transformer without MoT blocks")
 
         f_ref = hidden_states_mot_ref.shape[1]
         rope_ref = wan_rope(cfg, f_ref // pt, pph, ppw, negative_time=True, total_ref_frames=f_ref,
@@ -396,19 +414,24 @@ class WanTransformer3DMOTModel(nn.Module):
         _, tproj_ref, ctx_text_ref, ctx_img_ref = self.condition_embedder_mot_ref(
             timestep_mot_ref.reshape(-1), encoder_hidden_states_mot_ref,
             encoder_hidden_states_image_mot_ref, dtype)
-        aux = {"ctx_text": ctx_text, "ctx_img": ctx_img, "tproj": tproj.reshape(b, 6, -1).float(),
-               "rope": rope, "temb": temb, "ctx_text_ref": ctx_text_ref, "ctx_img_ref": ctx_img_ref,
-               "tproj_ref": tproj_ref.reshape(b, r, 6, -1).float(), "rope_ref": rope_ref,
-               "grid": (ppf, pph, ppw), "dtype": dtype, "num_mot_ref": r}
+        aux.update({"ctx_text_ref": ctx_text_ref, "ctx_img_ref": ctx_img_ref,
+                    "tproj_ref": tproj_ref.reshape(b, r, 6, -1).float(), "rope_ref": rope_ref})
         return (hs, hs_ref), aux
 
-    def run_blocks(self, carry, aux):
-        """The MoT blocks (``wan_run_segment`` over every segment)."""
+    def run_blocks(self, carry, aux, remat: Union[bool, str] = False):
+        """The blocks (``wan_run_segment`` over every segment); with
+        ``remat`` True or "full" each block is checkpointed."""
+        full_remat = remat_blocks(remat)
         hs, hs_ref = carry
         for block in self.blocks:
-            hs, hs_ref = block(hs, aux["ctx_text"], aux["ctx_img"], aux["tproj"], aux["rope"],
-                               hs_ref, aux["ctx_text_ref"], aux["ctx_img_ref"], aux["tproj_ref"],
-                               aux["rope_ref"], aux["num_mot_ref"])
+            if hs_ref is None:
+                hs, _ = run_block(block, full_remat, hs, aux["ctx_text"], aux["ctx_img"],
+                                  aux["tproj"], aux["rope"])
+            else:
+                hs, hs_ref = run_block(block, full_remat, hs, aux["ctx_text"], aux["ctx_img"],
+                                       aux["tproj"], aux["rope"], hs_ref, aux["ctx_text_ref"],
+                                       aux["ctx_img_ref"], aux["tproj_ref"], aux["rope_ref"],
+                                       aux["num_mot_ref"])
         return hs, hs_ref
 
     def epilogue(self, carry, aux) -> torch.Tensor:
@@ -422,16 +445,19 @@ class WanTransformer3DMOTModel(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                encoder_hidden_states_image: Optional[torch.Tensor],
-                hidden_states_mot_ref: torch.Tensor, timestep_mot_ref: torch.Tensor,
-                encoder_hidden_states_mot_ref: torch.Tensor,
-                encoder_hidden_states_image_mot_ref: Optional[torch.Tensor],
-                num_mot_ref: int = 1) -> torch.Tensor:
+                encoder_hidden_states_image: Optional[torch.Tensor] = None,
+                hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                timestep_mot_ref: Optional[torch.Tensor] = None,
+                encoder_hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                encoder_hidden_states_image_mot_ref: Optional[torch.Tensor] = None,
+                num_mot_ref: int = 1, remat: Union[bool, str] = False) -> torch.Tensor:
         """hidden_states [B, F, H, W, C_in]; timestep [B]; text [B, L, D_text];
-        image [B, 257, D_img]; refs [B, R*F, H, W, C_in], timestep_mot_ref
-        [B, R], [B, R*L, D_text] and [B, R*257, D_img] (``wan_mot_forward``)."""
+        image [B, 257, D_img] or None (T2V); refs [B, R*F, H, W, C_in],
+        timestep_mot_ref [B, R], [B, R*L, D_text] and [B, R*257, D_img]
+        (``wan_mot_forward``), or no reference at all (``wan_forward``).
+        ``remat``: False, or True / "full" to checkpoint each block."""
         carry, aux = self.prologue(hidden_states, timestep, encoder_hidden_states,
                                    encoder_hidden_states_image, hidden_states_mot_ref,
                                    timestep_mot_ref, encoder_hidden_states_mot_ref,
                                    encoder_hidden_states_image_mot_ref, num_mot_ref)
-        return self.epilogue(self.run_blocks(carry, aux), aux)
+        return self.epilogue(self.run_blocks(carry, aux, remat), aux)

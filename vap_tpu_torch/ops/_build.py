@@ -43,6 +43,10 @@ SOURCES = {
         # q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, d, scale_log2, scale, stream
         "vap_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     },
+    "flash_bwd_d128": {
+        # q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, scale, stream
+        "vap_flash_bwd_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    },
     "w8a8": {
         # x, w, sw, bias (or null), xq, sx, out, m, n, k, chunk, stream
         "vap_w8a8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

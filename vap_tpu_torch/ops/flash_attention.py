@@ -15,13 +15,17 @@ accumulation, scores in the log2 domain, bf16 P V. CUDA source:
 ``csrc/sage_fwd.cu``; the quantisation pre-pass is plain PyTorch here, as it
 was plain XLA outside the Pallas kernel.
 
-K5 ``flash_attention_backward``: the gradient of K1's function at head_dim
-< 128 (``_flash_attention_backward_t``): P recomputed from the lse, delta =
+K5 and K6 ``flash_attention_backward``: the gradient of the forward's
+function from its out and lse: P recomputed from the lse, delta =
 rowsum(out * dout), then dq, and dk and dv, each summed inside one block.
-CUDA source: ``csrc/flash_bwd.cu``. ``FlashAttentionFunction`` pairs K1 and
-K5 as an autograd function (the JAX ``custom_vjp`` pair ``_fa_fwd`` /
+Head_dim < 128 launches K5 (``_flash_attention_backward_t``, CUDA source
+``csrc/flash_bwd.cu``); head_dim 128 launches K6, the row-layout backward
+(``_flash_attention_backward``, ``csrc/flash_bwd_d128.cu``), which rounds
+q * scale to bf16 before q k^T and works in the natural base. Head_dim above
+128 raises. ``FlashAttentionFunction`` pairs the forward and the backward
+as an autograd function (the JAX ``custom_vjp`` pair ``_fa_fwd`` /
 ``_fa_bwd``); ``flash_attention`` goes through it whenever a gradient is
-wanted. Head_dim 128 has no backward kernel yet (K6) and raises there.
+wanted.
 
 Layout: q [B, H, Sq, D], k and v [B, H, Skv, D]; out [B, H, Sq, D] in the
 input dtype, lse [B, H, Sq] float32.
@@ -31,8 +35,9 @@ tensors; on any other device, or on inputs the kernel does not take, it
 raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_forward.launches`` (K1),
 ``flash_attention_forward.launches_d128`` (K4),
-``flash_attention_int8_forward.launches`` (K2) and
-``flash_attention_backward.launches`` (K5).
+``flash_attention_int8_forward.launches`` (K2),
+``flash_attention_backward.launches`` (K5) and
+``flash_attention_backward.launches_d128`` (K6).
 """
 
 from __future__ import annotations
@@ -179,6 +184,39 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[floa
             torch.cat(dvs, dim=2).to(v.dtype))
 
 
+def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional[float] = None):
+    """Plain PyTorch version of K6, the row-layout backward at head_dim >= 128:
+    (dq, dk, dv) in the input dtypes.
+
+    A loop over tiles of PLAIN_BLOCK_K keys with the rounding points of
+    ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` (:985-1061): q * scale rounded to
+    k's dtype before the scores, p = exp(s - lse) in the natural base,
+    ds = p (dp - delta) rounded before ds k and ds^T q (the unscaled q), p
+    rounded to dout's dtype before p^T dout; dq and dk scaled after their
+    sums."""
+    _shapes(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qs = (q.float() * scale).to(k.dtype).float()
+    qf, dof = q.float(), dout.float()
+    lse_ = lse.float()[..., None]
+    delta = attention_delta(out, dout)[..., None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for n0 in range(0, k.shape[2], PLAIN_BLOCK_K):
+        n1 = min(n0 + PLAIN_BLOCK_K, k.shape[2])
+        kt, vt = k[..., n0:n1, :].float(), v[..., n0:n1, :].float()
+        p = torch.exp(qs @ kt.transpose(-1, -2) - lse_)
+        ds = (p * (dof @ vt.transpose(-1, -2) - delta)).to(k.dtype).float()
+        dq += ds @ kt
+        dvs.append(p.to(dout.dtype).float().transpose(-1, -2) @ dof)
+        dks.append(ds.transpose(-1, -2) @ qf)
+    if not dks:  # no key: dk and dv are empty
+        return (dq * scale).to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
+    return ((dq * scale).to(q.dtype), (torch.cat(dks, dim=2) * scale).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
 def sage_quantize(q, k, scale: float):
     """The int8 pre-pass of ``_flash_attention_forward_t_i8`` (:843-852).
 
@@ -274,19 +312,24 @@ flash_attention_forward.launches_d128 = 0
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None):
-    """K5: (dq, dk, dv) of out = softmax(q k^T scale) v, from the forward's
-    ``out`` and natural-log ``lse``. CUDA tensors launch ``vap_flash_bwd``
-    (bf16, contiguous, head_dim a multiple of 16 below 128) after the delta
-    pre-pass in PyTorch; CPU tensors take ``flash_attention_backward_plain``."""
+    """K5 and K6: (dq, dk, dv) of out = softmax(q k^T scale) v, from the
+    forward's ``out`` and natural-log ``lse``. After the delta pre-pass in
+    PyTorch, CUDA tensors (bf16, contiguous) launch ``vap_flash_bwd`` (K5,
+    head_dim a multiple of 16 below 128) or ``vap_flash_bwd_d128`` (K6,
+    head_dim 128); CPU tensors take ``flash_attention_backward_plain`` or,
+    at head_dim 128, ``flash_attention_backward_rows_plain``."""
     _shapes(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _device_kind("flash_attention_backward", q) == "cpu":
-        return flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if d % 16 or d >= 128:
-        raise ValueError(f"flash backward kernel takes head_dim in 16..112 step 16, got {d}")
+    if d > 128:
+        raise ValueError(f"flash backward takes head_dim up to 128, got {d}")
+    if _device_kind("flash_attention_backward", q) == "cpu":
+        plain = flash_attention_backward_rows_plain if d == 128 else flash_attention_backward_plain
+        return plain(q, k, v, out, lse, dout, scale)
+    if d % 16:
+        raise ValueError(f"flash backward kernels take head_dim in 16..128 step 16, got {d}")
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, sq):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} must match q {tuple(q.shape)}")
@@ -297,18 +340,25 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
                    {"q": bf16, "k": bf16, "v": bf16, "dout": bf16, "lse": f32, "delta": f32},
                    b * h, sq)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.library("flash_bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.vap_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                dv.data_ptr(), b * h, sq, skv, d, scale * LOG2_E, scale,
-                                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "vap_flash_bwd")
-    flash_attention_backward.launches += 1
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if d == 128:
+            err = _build.library("flash_bwd_d128").vap_flash_bwd_d128(
+                *ptrs, b * h, sq, skv, scale, stream)
+            _build.check(err, "vap_flash_bwd_d128")
+            flash_attention_backward.launches_d128 += 1
+        else:
+            err = _build.library("flash_bwd").vap_flash_bwd(
+                *ptrs, b * h, sq, skv, d, scale * LOG2_E, scale, stream)
+            _build.check(err, "vap_flash_bwd")
+            flash_attention_backward.launches += 1
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_d128 = 0
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:
@@ -317,7 +367,8 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """K1 forward, K5 backward (the JAX ``custom_vjp`` of ``flash_attention``,
+    """K1 forward and K5 backward, or at head_dim 128 K4 and K6 (the JAX
+    ``custom_vjp`` of ``flash_attention``,
     ``_fa_fwd`` / ``_fa_bwd`` at :1428-1457). Saves q, k, v, out and lse.
     Under ``torch.utils.checkpoint`` the forward runs again in the backward;
     it keeps no state between calls, so the recompute gives the out and lse
@@ -339,13 +390,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """Fused full attention (K1 or K4 by head_dim), output only; through
-    ``FlashAttentionFunction`` (K1 + K5) when a gradient is wanted."""
+    ``FlashAttentionFunction`` (K1 + K5, or K4 + K6 at head_dim 128) when a
+    gradient is wanted. A gradient at head_dim above 128 raises: no model
+    of the port needs one."""
     if not wants_grad(q, k, v):
         return flash_attention_forward(q, k, v, scale)[0]
-    if q.shape[-1] >= 128:
+    if q.shape[-1] > 128:
         raise NotImplementedError(
-            "flash attention backward at head_dim >= 128 is K6 "
-            "(_flash_attention_backward), not ported yet")
+            f"flash attention has no backward at head_dim {q.shape[-1]} (K6 takes 128)")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return FlashAttentionFunction.apply(q, k, v, scale)

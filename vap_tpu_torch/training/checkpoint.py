@@ -3,7 +3,8 @@
 Port of ``vap_tpu/training/checkpoint.py:25-127`` (``TrainState``,
 ``Checkpointer``). A checkpoint is one ``torch.save`` file per step,
 ``step_<step>.pt`` under the checkpoint directory, holding the trainable
-parameters' state dict, the optimizer's state, the train state and the
+parameters' state dict (the MoT expert, or the LoRA adapters'
+``lora_A``/``lora_B``), the optimizer's state, the train state and the
 position of the data stream; it is written to a temporary name and renamed,
 so a crash never leaves a partial file under a step's name. At most
 ``checkpointing_limit`` files are kept, the oldest removed first.
