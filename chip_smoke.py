@@ -21,7 +21,18 @@ Phases, each of which raises on failure:
      ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072]),
      and K9 and K10 (the GEMM rate probe) in int8 (bit for bit) and bf16,
      each with its times, bound and yardsticks; then the rate probe's entry
-     point (linear_bench --impl diag) with its launch counts;
+     point (linear_bench --impl diag) with its launch counts; then K7, the
+     varlen forward (per-sample key lengths), in K4 and K2 at D=128 and in
+     K1 at D=64 against their plain versions, at the unaligned shapes with
+     B=2 and lengths (Skv, 0) and (Skv-37, 1), and in K4 and K2 at
+     HunyuanVideo's joint shape [1,24,32656,128] with the valid key count
+     its pipeline call gives (phase 11); the key suffix past each length is
+     NaN and must not move the output, exact zero rows and the lse -1e4
+     where a sample has no key; two planted faults (the kernel without
+     kv_lens on a suffix of 1e4, and V rolled inside each tile) must break
+     the limit; times at the joint shape beside the plain version, the
+     bound over the valid keys and SDPA's memory-efficient backend with a
+     boolean key mask (a yardstick only);
   4. CogVideoX, "flash": a small pipeline held against plain dense attention
      (with where its largest error sits and why), and a small W8A8 pipeline
      under DPM and the adaptive step cache, K3 against its plain version;
@@ -71,12 +82,23 @@ Phases, each of which raises on failure:
      update seconds, the peak device memory, K4 and K6 launches (240 and 120
      a step), the frozen trunk bit-identical, every adapter's B moved at
      step 1 and its A at step 2; the share of adapted weight elements the
-     bf16 merge changes.
+     bf16 merge changes;
+ 11. HunyuanVideo T2V: a small pipeline on the card at head_dim 128 under
+     flash and sage (K7 in K4 and in K2) held against the plain masked
+     dense attention, then HunyuanVideo at full width and depth (20 dual +
+     40 single blocks, 24x128 heads, LLaMA-8B text states from hidden
+     layer -3, CLIP-L text, the causal VAE's decoder) with random bf16
+     weights from a seed, through HunyuanVideoPipeline.__call__ with model
+     offload, at 33 frames of 720x1280 (the released default is 129: see
+     hunyuan_path), 2 FlowMatch steps under flash (decoded) and 1 under
+     sage (latents); the prompt leaves the text mask padded, so K7 masks
+     keys: 60 launches a step.
 
 The last three lines are a JSON object with each kernel's launches in its
-main-path run, its largest error against the plain version, and its times
-and bound at its main-path shape; the card's name and power limit as
-nvidia-smi gives them; and {"ok": true, "device": {...}}.
+main-path run (K7 in K4 and K2 listed apart from them), its largest error
+against the plain version, and its times and bound at its main-path shape;
+the card's name and power limit as nvidia-smi gives them; and
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -168,6 +190,30 @@ BENCH_STEPS = 4
 BENCH_CACHE = "uniform:2:1:1"
 BENCH_COMPUTED = [0, 1, 3]
 REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
+# the D = 128 forward instances fit three blocks an SM at 168 registers a
+# thread, and two at the 182 (K4) and 188 (K2) of an earlier build, which
+# ran 29% and 15% slower: the build fails past 168 or on a spill
+PINNED_REGISTERS = {"flash_fwd_kernel<Li128E>": 168, "sage_fwd_kernel<Li128E>": 168}
+# HunyuanVideo T2V at 33 frames of 720x1280, cut from the released 129
+# frames (hunyuan_path): 9 latent frames of 90x160, 32,400 image tokens
+# after the 2x2 patch, then 256 text tokens; 24 heads of 128
+HUNYUAN_FRAMES, HUNYUAN_HEIGHT, HUNYUAN_WIDTH = 33, 720, 1280
+HUNYUAN_STEPS = 2
+HUNYUAN_TEXT = 256
+HUNYUAN_IMAGE_TOKENS = ((HUNYUAN_FRAMES - 1) // 4 + 1) * (HUNYUAN_HEIGHT // 16) * (HUNYUAN_WIDTH // 16)
+HUNYUAN_SHAPE = (1, 24, HUNYUAN_IMAGE_TOKENS + HUNYUAN_TEXT, 128)  # B, H, S, D of the joint attention
+HUNYUAN_PROMPT = "a red fox runs through fresh snow"
+# K7 parity at the unaligned shapes: B = 2, lengths (Skv, 0) and (Skv - 37, 1)
+K7_LENS = [lambda skv: [skv, 0], lambda skv: [skv - 37, 1]]
+K7_FLOOR_LSE = -1e4  # the lse of a sample with no valid key (the floored running max)
+# the small Hunyuan pipeline (no CFG: guidance is an embedding) against the
+# plain masked dense attention: FlowMatch's steps move the latents by
+# 0.125 and 0.875 of the predicted velocity (shift 7 over 2 steps), so one
+# bf16 ulp of a velocity near 1 (2^-7) moves a latent by ~0.007. Both
+# providers measured 2^-7 on the H100; the limit is about three times that.
+# The planted fault (flash with the transformer's kv_lens dropped, so the
+# padded text keys are attended) must break it
+HUNYUAN_E2E_ATOL = 0.025
 # the small chunk-form pipeline under DPM and the adaptive cache, K3 against
 # its plain version: both give the same bf16 projections up to an output
 # rounding, which a step moves by at most a few bf16 ulps of the latents
@@ -193,10 +239,27 @@ def mem_total_gib():
 
 
 class FakeTokenizer:
-    """Deterministic character ids in the vocabulary, padded to max_length."""
+    """Deterministic character ids in the vocabulary, padded to max_length.
+    With ``eos`` that id follows the text (CLIP pools at it); with
+    ``prefix`` a text starting with it maps the prefix to ``prefix_tokens``
+    ids, as a real tokenizer maps HunyuanVideo's llava template to its
+    crop_start tokens."""
 
-    def __init__(self, vocab_size):
+    def __init__(self, vocab_size, eos=None, prefix=None, prefix_tokens=0):
         self.vocab_size = vocab_size
+        self.eos, self.prefix, self.prefix_tokens = eos, prefix, prefix_tokens
+
+    def _ids(self, text):
+        head = []
+        if self.prefix and text.startswith(self.prefix):
+            n = len(self.prefix)
+            head = [sum(map(ord, self.prefix[j * n // self.prefix_tokens:
+                                             (j + 1) * n // self.prefix_tokens]))
+                    for j in range(self.prefix_tokens)]
+            text = text[n:]
+        ids = [(c * 7 + j) % (self.vocab_size - 1) + 1
+               for j, c in enumerate(head + [ord(ch) for ch in text])]
+        return ids + ([self.eos] if self.eos is not None else [])
 
     def __call__(self, texts, padding=None, max_length=226, truncation=True,
                  add_special_tokens=True, return_tensors="np"):
@@ -204,8 +267,8 @@ class FakeTokenizer:
 
         ids = np.zeros((len(texts), max_length), np.int64)
         for i, t in enumerate(texts):
-            for j, ch in enumerate(t[:max_length]):
-                ids[i, j] = (ord(ch) * 7 + j) % (self.vocab_size - 1) + 1
+            row = self._ids(t)[:max_length]
+            ids[i, :len(row)] = row
         return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
 
 
@@ -362,6 +425,144 @@ def kernel_parity(dev):
         results[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                          "shape": list(spec["timed"])}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: K7, the varlen forward in K1, K4 and K2
+# ---------------------------------------------------------------------------
+
+VARLEN_SPECS = {
+    "flash_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_fwd.cu",
+                                  replaces="vap_tpu/ops/flash_attention.py:1471"),
+    "sage_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/sage_fwd.cu",
+                                 replaces="vap_tpu/ops/flash_attention.py:957"),
+}
+
+
+def hunyuan_tokenizers():
+    """The LLaMA tokenizer (the llava template's prefix as exactly
+    crop_start tokens, so the prompt leaves the 256 text slots padded) and
+    the CLIP one (EOS after the prompt)."""
+    from vap_tpu_torch.models.text_encoders.clip_text import CLIPTextConfig
+    from vap_tpu_torch.models.text_encoders.llama import LlamaConfig
+    from vap_tpu_torch.pipelines.hunyuan_video import CROP_START, DEFAULT_PROMPT_TEMPLATE_PREFIX
+
+    clip = CLIPTextConfig.clip_vit_l()
+    return (FakeTokenizer(LlamaConfig.llava_llama_8b().vocab_size,
+                          prefix=DEFAULT_PROMPT_TEMPLATE_PREFIX, prefix_tokens=CROP_START),
+            FakeTokenizer(clip.vocab_size, eos=clip.eos_token_id))
+
+
+def hunyuan_kv_len():
+    """The joint attention's valid key count of the Hunyuan call: every
+    image token and the prompt's text tokens (template suffix included)."""
+    from vap_tpu_torch.pipelines.hunyuan_video import (CROP_START, DEFAULT_PROMPT_TEMPLATE_PREFIX,
+                                                       DEFAULT_PROMPT_TEMPLATE_SUFFIX)
+
+    text = DEFAULT_PROMPT_TEMPLATE_PREFIX + HUNYUAN_PROMPT + DEFAULT_PROMPT_TEMPLATE_SUFFIX
+    mask = hunyuan_tokenizers()[0]([text], max_length=HUNYUAN_TEXT + CROP_START)["attention_mask"]
+    return HUNYUAN_IMAGE_TOKENS + int(mask[0, CROP_START:].sum())
+
+
+def varlen_parity(dev, kv_len):
+    """K7 against its plain version in K1 (D=64), K4 and K2 (D=128) at the
+    unaligned shapes with B=2, and in K4 and K2 at the Hunyuan joint shape
+    with ``kv_len`` valid keys: a NaN suffix that must not move the output,
+    zero rows and the floored lse where a sample has no key, two planted
+    faults; then the times at the joint shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    flash = (fa.flash_attention_forward, fa.flash_attention_forward_plain)
+    sage = (fa.flash_attention_int8_forward, fa.flash_attention_int8_forward_plain)
+    b, h, s, d = HUNYUAN_SHAPE
+    specs = {"flash_fwd_varlen": (flash, "flash", 64, False),
+             "flash_fwd_d128_varlen": (flash, "flash", 128, True),
+             "sage_fwd_d128_varlen": (sage, "sage", 128, True)}
+
+    def suffix(x, lens, fill):
+        pad = torch.arange(x.shape[2], device=dev)[None, :] >= lens[:, None]
+        return x.masked_fill(pad[:, None, :, None], fill)
+
+    def rolled_in_tiles(v):
+        n = v.shape[2] // KV_TILE * KV_TILE
+        tiles = v[:, :, :n].unflatten(2, (-1, KV_TILE)).roll(1, dims=3).flatten(2, 3)
+        return torch.cat([tiles, v[:, :, n:]], dim=2)
+
+    def compare(name, kernel, plain, shape, lens):
+        q, k, v = [torch.randn(shape[:2] + (n, shape[-1]), generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (shape[2], shape[3], shape[3])]
+        lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+        k_nan, v_nan = suffix(k, lens, float("nan")), suffix(v, lens, float("nan"))
+        out, lse = kernel(q, k_nan, v_nan, kv_lens=lens)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = plain(q, k_nan, v_nan, kv_lens=lens)
+        ref_max = ref_out.float().abs().max().item()
+        err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        still = torch.equal(out, kernel(q, k, v, kv_lens=lens)[0])  # a random suffix instead
+        empty = lens == 0
+        zero_rows = bool((out[empty] == 0).all()) and bool(
+            ((lse[empty] - K7_FLOOR_LSE).abs() <= LSE_ATOL).all())
+        fault_lens = (kernel(q, suffix(k, lens, 1e4), suffix(v, lens, 1e4))[0].float()
+                      - ref_out.float()).abs().max().item()
+        fault_roll = (kernel(q, k, rolled_in_tiles(v), kv_lens=lens)[0].float()
+                      - ref_out.float()).abs().max().item()
+        log(f"  {name} {tuple(q.shape)} x {k.shape[2]}, kv_lens {lens.tolist()}: out max|err| "
+            f"{err:.3e} / max|ref| {ref_max:.3e} = {err / ref_max:.3e} (tol {OUT_REL_TOL}; planted "
+            f"faults: no kv_lens {fault_lens / ref_max:.3e}, V rolled {fault_roll / ref_max:.3e}), "
+            f"lse max|err| {lse_err:.3e} (tol {LSE_ATOL}), finite {finite}, NaN suffix leaves the "
+            f"output unchanged {still}, empty samples zero with lse {K7_FLOOR_LSE:g} {zero_rows}")
+        if not (finite and still and zero_rows and err <= OUT_REL_TOL * ref_max
+                and lse_err <= LSE_ATOL):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        if fault_lens <= OUT_REL_TOL * ref_max or fault_roll <= OUT_REL_TOL * ref_max:
+            raise AssertionError(f"{name}: the out limit misses a planted fault")
+        return err, (q, k, v, lens)
+
+    results = {}
+    for name, ((kernel, plain), kind, dim, on_path) in specs.items():
+        errs = []
+        for sq, skv in PARITY_SHAPES:
+            for lens in K7_LENS:
+                errs.append(compare(name, kernel, plain, (2, 8, sq, skv, dim), lens(skv))[0])
+        if not on_path:  # K1's varlen form: held, on no model's path
+            continue
+        err, (q, k, v, lens) = compare(name, kernel, plain, (b, h, s, s, d), [kv_len])
+        errs.append(err)
+        ms = time_ms(lambda: kernel(q, k, v, kv_lens=lens), iters=5, warmup=2)
+        # the same kernel over all S keys: what the shorter key loop saves
+        fixed_ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=2)
+        plain_ms = time_ms(lambda: plain(q, k, v, kv_lens=lens), iters=1, warmup=1)
+        # one PyTorch call with the same function, a yardstick: SDPA's
+        # memory-efficient backend takes a boolean key mask (flash takes none)
+        keep = (torch.arange(s, device=dev) < kv_len)[None, None, None, :]
+        library_ms = None
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+                                     iters=5, warmup=2)
+        except RuntimeError as exc:  # the backend refuses these inputs: no yardstick
+            log(f"  {name}: SDPA memory-efficient with a key mask refused: {exc}")
+        bound_ms, bound_by = bound(kind, b, h, s, kv_len, d)
+        tflops = 4 * b * h * s * kv_len * d / (ms * 1e-3) / 1e12
+        log(f"  {name} at {HUNYUAN_SHAPE}, {kv_len} valid keys: kernel {ms:.3f} ms ({tflops:.1f} "
+            f"TFLOP/s over the valid keys; without kv_lens, all {s} keys, {fixed_ms:.3f} ms), plain "
+            f"{plain_ms:.3f} ms, SDPA memory-efficient with a key mask "
+            f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by})")
+        results[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         "shape": list(HUNYUAN_SHAPE), "kv_len": kv_len,
+                         "fixed_length_ms": fixed_ms}
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -687,7 +888,10 @@ def reset_counts():
 
     fa.flash_attention_forward.launches = 0
     fa.flash_attention_forward.launches_d128 = 0
+    fa.flash_attention_forward.launches_varlen = 0
+    fa.flash_attention_forward.launches_d128_varlen = 0
     fa.flash_attention_int8_forward.launches = 0
+    fa.flash_attention_int8_forward.launches_varlen = 0
     fa.flash_attention_backward.launches = 0
     fa.flash_attention_backward.launches_d128 = 0
     ti8.int8_linear_chunk.launches = 0
@@ -697,8 +901,9 @@ def reset_counts():
 
 
 def read_counts():
-    """Each kernel's launches, and the calls of the W8A8 row form (no kernel
-    of its own: XLA's product in the JAX package, torch._int_mm here)."""
+    """Each kernel's launches (K7 on the ``*_varlen`` counters of the kernel
+    it runs in), and the calls of the W8A8 row form (no kernel of its own:
+    XLA's product in the JAX package, torch._int_mm here)."""
     from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
     from vap_tpu_torch.ops import gemm_probe as gp
@@ -706,7 +911,10 @@ def read_counts():
 
     return {"flash_fwd": fa.flash_attention_forward.launches,
             "flash_fwd_d128": fa.flash_attention_forward.launches_d128,
+            "flash_fwd_varlen": fa.flash_attention_forward.launches_varlen,
+            "flash_fwd_d128_varlen": fa.flash_attention_forward.launches_d128_varlen,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
+            "sage_fwd_varlen": fa.flash_attention_int8_forward.launches_varlen,
             "flash_bwd": fa.flash_attention_backward.launches,
             "flash_bwd_d128": fa.flash_attention_backward.launches_d128,
             "w8a8": ti8.int8_linear_chunk.launches,
@@ -1408,15 +1616,182 @@ def wan_training_path(dev):
     return launches["flash_bwd_d128"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: HunyuanVideo T2V
+# ---------------------------------------------------------------------------
+
+def hunyuan_small_check(dev):
+    """A small HunyuanVideo pipeline on the card at head_dim 128, with a
+    padded text mask: K7 in K4 (flash) and in K2 (sage) against the plain
+    masked dense attention, and their launch counts."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.hunyuan_video import transformer as hv_transformer
+    from vap_tpu_torch.models.hunyuan_video.config import HunyuanVideoConfig
+    from vap_tpu_torch.models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+    from vap_tpu_torch.models.hunyuan_video.vae import (AutoencoderKLHunyuanVideo,
+                                                        HunyuanVideoVAEConfig)
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.clip_text import CLIPTextConfig, CLIPTextModel
+    from vap_tpu_torch.models.text_encoders.llama import LlamaConfig, LlamaModel
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.pipelines.hunyuan_video import HunyuanVideoPipeline
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bf16 = torch.bfloat16
+    vae_cfg = HunyuanVideoVAEConfig.tiny()
+    t_cfg = HunyuanVideoConfig.tiny(attention_head_dim=128, in_channels=vae_cfg.latent_channels,
+                                    out_channels=vae_cfg.latent_channels, text_embed_dim=32,
+                                    rope_axes_dim=(32, 48, 48))
+    clip_cfg = CLIPTextConfig.tiny(hidden_size=t_cfg.pooled_projection_dim)
+    pipe = HunyuanVideoPipeline(
+        build_random(HunyuanVideoTransformer3DModel, t_cfg, dev, bf16, gen),
+        build_random(AutoencoderKLHunyuanVideo, vae_cfg, dev, bf16, gen),
+        build_random(LlamaModel, LlamaConfig.tiny(hidden_size=t_cfg.text_embed_dim), dev, bf16, gen),
+        build_random(CLIPTextModel, clip_cfg, dev, bf16, gen),
+        FakeTokenizer(64), FakeTokenizer(clip_cfg.vocab_size, eos=clip_cfg.eos_token_id),
+        dtype=bf16, device=dev)
+    rng = np.random.default_rng(SEED)
+    args = dict(prompt="a cat", height=32, width=32, num_frames=9, num_inference_steps=STEPS,
+                max_sequence_length=64, use_template=False, output_type="latent",
+                latents=torch.from_numpy(rng.standard_normal((1, 4, 3, 16, 16)).astype(np.float32)))
+    with attention_provider("xla"):
+        ref = pipe(**args)
+    want = STEPS * (t_cfg.num_layers + t_cfg.num_single_layers)
+    for provider, counter in (("flash", "flash_fwd_d128_varlen"), ("sage", "sage_fwd_varlen")):
+        reset_counts()
+        with attention_provider(provider):
+            got = pipe(**args)
+        launches = read_counts()
+        err = (got - ref).abs().max().item()
+        log(f"  small Hunyuan pipeline (5 of 64 text tokens valid), {provider} vs plain masked "
+            f"dense attention: final latents max|err| {err:.4e} (tol {HUNYUAN_E2E_ATOL}), "
+            f"max|ref| {ref.abs().max().item():.3f}, launches {launches}")
+        check_launches(launches, {counter: want})
+        if not (torch.isfinite(got).all() and err <= HUNYUAN_E2E_ATOL):
+            raise AssertionError(f"small Hunyuan pipeline under {provider} disagrees with plain "
+                                 f"attention")
+    # planted fault: the joint attention without the transformer's kv_lens
+    masked = hv_transformer.full_attention
+    hv_transformer.full_attention = lambda *a, kv_lens=None, **kw: masked(*a, **kw)
+    try:
+        with attention_provider("flash"):
+            err = (pipe(**args) - ref).abs().max().item()
+    finally:
+        hv_transformer.full_attention = masked
+    log(f"  planted fault (flash, kv_lens dropped): max|err| {err:.4e} (must exceed "
+        f"{HUNYUAN_E2E_ATOL})")
+    if not err > HUNYUAN_E2E_ATOL:
+        raise AssertionError("the small Hunyuan check does not see the key masking")
+
+
+def build_hunyuan_pipeline(dev):
+    """HunyuanVideo T2V at full width and depth with random bf16 weights
+    from SEED, each component built on the card and kept in host memory
+    (model offload)."""
+    import torch
+
+    from vap_tpu_torch.models.hunyuan_video.config import HunyuanVideoConfig
+    from vap_tpu_torch.models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+    from vap_tpu_torch.models.hunyuan_video.vae import (AutoencoderKLHunyuanVideo,
+                                                        HunyuanVideoVAEConfig)
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.clip_text import CLIPTextConfig, CLIPTextModel
+    from vap_tpu_torch.models.text_encoders.llama import LlamaConfig, LlamaModel
+    from vap_tpu_torch.pipelines.hunyuan_video import HunyuanVideoPipeline
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    t_cfg = HunyuanVideoConfig.hunyuan_video_t2v()
+    parts = {}
+    for name, cls, cfg in (("transformer", HunyuanVideoTransformer3DModel, t_cfg),
+                           ("vae", AutoencoderKLHunyuanVideo, HunyuanVideoVAEConfig.hunyuan_video()),
+                           ("text_encoder", LlamaModel, LlamaConfig.llava_llama_8b()),
+                           ("text_encoder_2", CLIPTextModel, CLIPTextConfig.clip_vit_l())):
+        parts[name] = build_random(cls, cfg, dev, torch.bfloat16, gen, host=True)
+        torch.cuda.empty_cache()
+    tok, clip_tok = hunyuan_tokenizers()
+    pipe = HunyuanVideoPipeline(**parts, tokenizer=tok, clip_tokenizer=clip_tok,
+                                dtype=torch.bfloat16, device=dev, enable_model_offload=True)
+    counts = {name: n_params(m) for name, m in parts.items()}
+    log(f"Hunyuan weights: {counts} bf16 in host memory ({sum(counts.values()) * 2 / 2**30:.2f} "
+        f"GiB; host MemTotal {mem_total_gib():.2f} GiB), {time.perf_counter() - t0:.2f} s to "
+        f"build; {t_cfg.num_layers} dual + {t_cfg.num_single_layers} single blocks, "
+        f"{t_cfg.num_attention_heads}x{t_cfg.attention_head_dim} heads, the VAE's decoder only")
+    return pipe
+
+
+def hunyuan_path(pipe, provider, steps, dev, kv_len):
+    """``HunyuanVideoPipeline.__call__`` at 33 frames of 720x1280. The cut:
+    the released default of 129 frames gives 118,800 image tokens, about
+    10.4 PFLOP of joint attention a step, ~82 s a step at K4's 127 TFLOP/s,
+    and a VAE mid attention over 475,200 voxels. Under flash the video is
+    decoded; under sage the latents are returned. Returns K7's launches."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.ops.attention import attention_provider
+
+    text_lens = []
+    hook = pipe.transformer.register_forward_pre_hook(
+        lambda m, a, kw: text_lens.append(int(kw["encoder_attention_mask"].sum().item())),
+        with_kwargs=True)
+    output = "np" if provider == "flash" else "latent"
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with attention_provider(provider):
+            out = pipe(HUNYUAN_PROMPT, height=HUNYUAN_HEIGHT, width=HUNYUAN_WIDTH,
+                       num_frames=HUNYUAN_FRAMES, num_inference_steps=steps,
+                       max_sequence_length=HUNYUAN_TEXT, seed=SEED, output_type=output)
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = pipe.stage_seconds
+    if output == "np":
+        expected = (1, HUNYUAN_FRAMES, HUNYUAN_HEIGHT, HUNYUAN_WIDTH, 3)
+        finite = bool(np.isfinite(out).all())
+        log(f"  video {out.shape}, finite {finite}, range [{out.min():.3f}, {out.max():.3f}]")
+    else:
+        expected = (1, 16, (HUNYUAN_FRAMES - 1) // 4 + 1, HUNYUAN_HEIGHT // 8, HUNYUAN_WIDTH // 8)
+        finite = bool(torch.isfinite(out).all())
+        log(f"  latents {tuple(out.shape)}, finite {finite}, max|x| {out.abs().max().item():.3f}")
+    valid = sorted(set(HUNYUAN_IMAGE_TOKENS + n for n in text_lens))
+    log(f"  joint attention: {HUNYUAN_IMAGE_TOKENS} image + {HUNYUAN_TEXT} text tokens, valid "
+        f"keys {valid} (text {sorted(set(text_lens))} of {HUNYUAN_TEXT}; expected {kv_len})")
+    log(f"  stage seconds: text_encode {st['text_encode']:.3f}, denoise steps "
+        f"{[round(x, 3) for x in st['denoise_steps']]}, vae_decode "
+        f"{st.get('vae_decode', float('nan')):.3f}, host->card staging "
+        f"{ {k: round(v, 3) for k, v in st['staging'].items()} }; call {wall:.3f}")
+    counter = "flash_fwd_d128_varlen" if provider == "flash" else "sage_fwd_varlen"
+    cfg = pipe.transformer.config
+    per_step = cfg.num_layers + cfg.num_single_layers
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}, K7 per step "
+        f"{launches[counter] / steps:g} (expected {per_step})")
+    if tuple(out.shape) != expected or not finite:
+        raise AssertionError(f"Hunyuan output {tuple(out.shape)} (expected {expected}) or not "
+                             f"finite")
+    if valid != [kv_len]:
+        raise AssertionError(f"Hunyuan valid keys {valid}, expected [{kv_len}] (a padded text mask)")
+    check_launches(launches, {counter: steps * per_step})
+    return launches[counter]
+
+
 def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
-    spills per kernel, from the compilers' logs."""
+    spills per kernel, from the compilers' logs. Fails if an instance in
+    PINNED_REGISTERS spills or takes more registers than its cap."""
     from vap_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{[os.path.relpath(p, HERE) for p in libs.values()]}")
+    seen = {}
     for lib in libs.values():
         kernel_name = "?"
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1426,6 +1801,19 @@ def build_kernels():
                 kernel_name = found[1] + (f"<{found[2]}>" if found[2] else "")
             elif "registers" in line or "spill stores" in line:
                 log(f"  ptxas {kernel_name}: {line.replace('ptxas info    :', '').strip()}")
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("spill stores", r"(\d+) bytes spill stores")):
+                    if re.search(pat, line):
+                        seen.setdefault(kernel_name, {})[key] = int(re.search(pat, line)[1])
+    held = {}
+    for kernel_name, cap in PINNED_REGISTERS.items():
+        # the logged names carry the mangled prefix of the anonymous namespace
+        got = next((v for k, v in seen.items() if k.endswith(kernel_name)), {})
+        held[kernel_name] = got
+        if got.get("registers", cap + 1) > cap or got.get("spill stores", 1) != 0:
+            raise AssertionError(f"ptxas gave {kernel_name} {got}: it must take at most {cap} "
+                                 f"registers and no spill (three blocks an SM)")
+    log(f"  occupancy held: {held}")
 
 
 def main():
@@ -1460,6 +1848,10 @@ def main():
     results.update(probe_parity(dev))
     log("the rate probe's entry point (linear_bench --impl diag):")
     launches = rate_probe_path()
+    kv_len = hunyuan_kv_len()
+    log(f"K7, the varlen forward, parity (bf16, vs plain PyTorch; Hunyuan's {kv_len} valid keys "
+        f"of {HUNYUAN_SHAPE[2]}):")
+    results.update(varlen_parity(dev, kv_len))
 
     # 4-5. CogVideoX
     log("small pipeline check:")
@@ -1507,9 +1899,24 @@ def main():
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
         f"batch 1, {TRAIN_STEPS} optimizer steps):")
     launches["flash_bwd_d128"] = wan_training_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11. HunyuanVideo
+    log("small Hunyuan pipeline check:")
+    hunyuan_small_check(dev)
+    torch.cuda.empty_cache()
+    pipe = build_hunyuan_pipeline(dev)
+    log(f"Hunyuan main path, flash ({HUNYUAN_FRAMES} frames of {HUNYUAN_HEIGHT}x{HUNYUAN_WIDTH}, "
+        f"{HUNYUAN_STEPS} steps):")
+    launches["flash_fwd_d128_varlen"] = hunyuan_path(pipe, "flash", HUNYUAN_STEPS, dev, kv_len)
+    log(f"Hunyuan main path, sage ({HUNYUAN_FRAMES} frames, 1 step):")
+    launches["sage_fwd_d128_varlen"] = hunyuan_path(pipe, "sage", 1, dev, kv_len)
+    del pipe
+    gc.collect()
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
-    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS}
+    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

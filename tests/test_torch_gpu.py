@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K5 and K6 flash
-backward, K3 W8A8, K9 and K10 the GEMM rate probe) against their plain
-PyTorch versions on the card.
+"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K7 their varlen form,
+K5 and K6 flash backward, K3 W8A8, K9 and K10 the GEMM rate probe) against
+their plain PyTorch versions on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -120,6 +120,68 @@ def test_flash_raises_at_head_dim_256(cuda):
         tfa.flash_attention_forward(*_qkv(cuda, 8, 8, d=256))
     assert (tfa.flash_attention_forward.launches,
             tfa.flash_attention_forward.launches_d128) == counts
+
+
+# K7: the same kernels given kv_lens [B]. Lengths cover the whole key range,
+# none, a partial last tile and a single key; the suffix past each length
+# holds NaN (the kernels never load it; sage_quantize zeroes it by select)
+K7_LENS = {(300, 200): [200, 0], (128, 257): [220, 1], (64, 77): [40, 77]}
+K7_COUNTERS = {("flash", False): "launches_varlen", ("flash", True): "launches_d128_varlen",
+               ("sage", False): "launches_varlen", ("sage", True): "launches_varlen"}
+
+
+def _k7_inputs(device, sq, skv, d, fill):
+    q, k, v = _qkv(device, sq, skv, d=d, b=2, seed=7)
+    lens = torch.tensor(K7_LENS[sq, skv], device=device)
+    pad = torch.arange(skv, device=device)[None, :] >= lens[:, None]  # [B, Skv]
+    k = k.masked_fill(pad[:, None, :, None], fill)
+    v = v.masked_fill(pad[:, None, :, None], fill)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name", ["flash", "sage"])
+@pytest.mark.parametrize("sq,skv", list(K7_LENS))
+def test_k7_matches_plain(cuda, name, d, sq, skv):
+    """K7 against its plain version (which reads only the valid keys) with a
+    NaN suffix: finite, within the K1/K2 limits, exact zero rows and the
+    floored lse -1e4 where a sample has no key, one launch on the varlen
+    counter and none on the fixed-length one."""
+    kernel, plain = KERNELS[name]
+    q, k, v, lens = _k7_inputs(cuda, sq, skv, d, float("nan"))
+    counter = K7_COUNTERS[name, d == 128]
+    fixed = COUNTERS[name, d == 128]
+    before = getattr(kernel, counter), getattr(kernel, fixed)
+    out, lse = kernel(q, k, v, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert (getattr(kernel, counter), getattr(kernel, fixed)) == (before[0] + 1, before[1])
+    ref_out, ref_lse = plain(q, k, v, kv_lens=lens)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0,
+                               atol=OUT_REL_TOL * ref_out.float().abs().max().item())
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    for b, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+            torch.testing.assert_close(lse[b], torch.full_like(lse[b], -1e4), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["flash", "sage"])
+def test_k7_limit_catches_a_kernel_without_kv_lens(cuda, name):
+    """A planted fault: the kernel run without kv_lens on the same inputs
+    (a suffix of 1e4, finite) must break the out limit."""
+    kernel, plain = KERNELS[name]
+    q, k, v, lens = _k7_inputs(cuda, 128, 257, 128, 1e4)
+    ref = plain(q, k, v, kv_lens=lens)[0].float()
+    out = kernel(q, k, v)[0].float()
+    assert (out - ref).abs().max() > OUT_REL_TOL * ref.abs().max()
+
+
+def test_k7_rejects_bad_kv_lens(cuda):
+    q, k, v = _qkv(cuda, 8, 8, b=2)
+    for lens in (torch.tensor([8], device=cuda), torch.tensor([8.0, 8.0], device=cuda)):
+        with pytest.raises(ValueError, match="kv_lens"):
+            tfa.flash_attention_forward(q, k, v, kv_lens=lens)
 
 
 # K5: dq, dk and dv each held as max|err| / max|ref|. Kernel and plain version

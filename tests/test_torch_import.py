@@ -30,6 +30,11 @@ SLICE_MODULES = [
     "vap_tpu_torch.models.cogvideox.vae",
     "vap_tpu_torch.models.text_encoders.t5",
     "vap_tpu_torch.models.text_encoders.clip_vision",
+    "vap_tpu_torch.models.text_encoders.clip_text",
+    "vap_tpu_torch.models.text_encoders.llama",
+    "vap_tpu_torch.models.hunyuan_video.config",
+    "vap_tpu_torch.models.hunyuan_video.transformer",
+    "vap_tpu_torch.models.hunyuan_video.vae",
     "vap_tpu_torch.models.wan.config",
     "vap_tpu_torch.models.wan.transformer_mot",
     "vap_tpu_torch.models.wan.vae",
@@ -37,6 +42,7 @@ SLICE_MODULES = [
     "vap_tpu_torch.pipelines.offload",
     "vap_tpu_torch.pipelines.step_cache",
     "vap_tpu_torch.pipelines.wan_i2v_mot",
+    "vap_tpu_torch.pipelines.hunyuan_video",
     "vap_tpu_torch.models.random_init",
     "vap_tpu_torch.data",
     "vap_tpu_torch.data.precomputation",
@@ -50,6 +56,7 @@ SLICE_MODULES = [
     "vap_tpu_torch.training.trainer",
     "vap_tpu_torch.train",
     "vap_tpu_torch.scripts.linear_bench",
+    "vap_tpu_torch.scripts.attention_ab",
 ]
 
 _PROBE = """

@@ -43,9 +43,9 @@ GRAD_RTOL = 1e-4  # max|g_port - g_jax| / max|g_jax| per tensor
 PARAM_ATOL = 1e-6
 # below the tiny model's gradient norm (~7e-3), so the clip acts
 MAX_GRAD_NORM = 1e-3
-# the ref patch embedding's learned position table: a JAX parameter, a
-# buffer of the diffusers module (not trained by the reference) in the port
-JAX_ONLY_TRAINABLE = {"patch_embed_mot_ref.pos_embedding"}
+# trained by JAX and not by the port: none (the ref patch embedding's
+# learned position table is a parameter on both sides and trains)
+JAX_ONLY_TRAINABLE = set()
 
 
 @pytest.fixture(scope="module")
@@ -122,9 +122,9 @@ def test_trainable_names_match_jax_mask(setup):
     mask = jts.trainable_mask(params)
     marked = jax.tree.map(lambda p, m: np.full(np.shape(p), m), params, mask)
     jax_names = {k for k, v in convert.from_jax_transformer(marked, cfg).items() if v.all()}
-    assert names == jax_names - JAX_ONLY_TRAINABLE
-    assert JAX_ONLY_TRAINABLE <= jax_names and "patch_embed_mot_ref.pos_embedding" in dict(
-        model.named_buffers())
+    assert names == jax_names and not JAX_ONLY_TRAINABLE
+    assert "patch_embed_mot_ref.pos_embedding" in names
+    assert "patch_embed.pos_embedding" in dict(model.named_parameters())
     frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
     assert frozen and all("_mot_ref" not in n for n in frozen)
 
@@ -184,14 +184,6 @@ def test_unported_remat_modes_raise(setup, remat):
                                batch)
 
 
-def _without_jax_only(grads):
-    """JAX's gradient with the ref position table's leaf zeroed: the port
-    does not train that buffer, so it enters neither norm nor update."""
-    pe = dict(grads["patch_embed_mot_ref"])
-    pe["pos_embedding"] = jnp.zeros_like(pe["pos_embedding"])
-    return {**grads, "patch_embed_mot_ref": pe}
-
-
 @functools.lru_cache(maxsize=None)
 def _jax_apply_fn(lr):
     """optax AdamW with clipping under constant_with_warmup (1 step), and
@@ -226,7 +218,7 @@ def test_adamw_updates_match_optax(setup, accum):
     jgrads, mask = [], None
     for batch, key in zip(batches, keys):
         _, g, mask = _jax_value_and_grad(jcfg, params, batch, key)
-        jgrads.append(_without_jax_only(g))
+        jgrads.append(g)
     new_train, ref_norm = _jax_updates(params, mask, jgrads, accum, lr=lr)
     ref = _as_state_dict(cfg, params, new_train)
 

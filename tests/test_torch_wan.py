@@ -113,10 +113,12 @@ def test_clip_vision_encode_matches_jax():
 
 @pytest.mark.parametrize("src,dst", [((480, 832), (224, 224)), ((64, 64), (28, 28)),
                                      ((50, 40), (28, 28)), ((20, 30), (28, 28)),
-                                     ((28, 28), (28, 28))])
+                                     ((28, 28), (28, 28)), ((300, 200), (224, 224)),
+                                     ((57, 30), (40, 61)), ((480, 100), (224, 224))])
 def test_resize_matches_cv2(src, dst):
     """The CLIP resize: cv2 INTER_AREA when the height shrinks (partial
-    pixels weighted by their overlap at a non-integer ratio), else
+    pixels weighted by their overlap at a non-integer ratio; with a width
+    that grows, cv2's two-tap area-mode weights on both axes), else
     INTER_LINEAR with half-pixel centres. cv2 sums in float32: 1e-6."""
     img = np.random.default_rng(sum(src)).uniform(0, 1, (*src, 3)).astype(np.float32)
     want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA if src[0] > dst[0]

@@ -2,7 +2,9 @@
 
 The inverse direction of ``vap_tpu/models/cogvideox/weights.py``,
 ``cogvideox/vae_weights.py``, ``wan/weights.py``, ``wan/vae_weights.py``,
-``text_encoders/t5.py:172`` and ``text_encoders/clip_vision.py:119``: each
+``hunyuan_video/transformer.py:409`` and ``hunyuan_video/vae.py:294``,
+``text_encoders/t5.py:172``, ``text_encoders/clip_vision.py:119``,
+``text_encoders/llama.py:149`` and ``text_encoders/clip_text.py:112``: each
 function takes the JAX package's parameter tree with numpy (or array-like)
 leaves and returns a ``{diffusers/HF key: torch.Tensor}`` dict for
 ``load_state_dict``. Linear kernels go from [in, out] to [out, in], conv
@@ -19,7 +21,11 @@ import torch
 
 from .models.cogvideox.config import CogVideoXMOTConfig
 from .models.cogvideox.vae import CogVideoXVAEConfig
+from .models.hunyuan_video.config import HunyuanVideoConfig
+from .models.hunyuan_video.vae import HunyuanVideoVAEConfig
+from .models.text_encoders.clip_text import CLIPTextConfig
 from .models.text_encoders.clip_vision import CLIPVisionConfig
+from .models.text_encoders.llama import LlamaConfig
 from .models.text_encoders.t5 import T5Config
 from .models.wan.config import WanMOTConfig
 from .models.wan.vae import WanVAEConfig
@@ -314,6 +320,153 @@ def from_jax_wan_vae(params: Dict[str, Any], cfg: WanVAEConfig) -> StateDict:
     sd: StateDict = {}
     for part in ("encoder", "decoder", "quant_conv", "post_quant_conv"):
         _wan_vae_tree(sd, part, params[part])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# HunyuanVideo transformer and VAE decoder
+# ---------------------------------------------------------------------------
+
+def _mlp(sd, prefix, p):
+    _linear(sd, f"{prefix}.linear_1", p["linear_1"])
+    _linear(sd, f"{prefix}.linear_2", p["linear_2"])
+
+
+def _hunyuan_attention(sd, prefix, p):
+    for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_add_out"):
+        if name in p:
+            _linear(sd, f"{prefix}.{name}", p[name])
+    if "to_out" in p:
+        _linear(sd, f"{prefix}.to_out.0", p["to_out"])
+    for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+        if name in p:
+            sd[f"{prefix}.{name}.weight"] = _t(p[name]["scale"])
+
+
+def _ff(sd, prefix, p):
+    _linear(sd, f"{prefix}.net.0.proj", p["net_0"])
+    _linear(sd, f"{prefix}.net.2", p["net_2"])
+
+
+def from_jax_hunyuan_transformer(params: Dict[str, Any], cfg: HunyuanVideoConfig) -> StateDict:
+    """``init_hunyuan_video`` / ``convert_hunyuan_video_state_dict`` tree ->
+    ``HunyuanVideoTransformer3DModel`` state dict: the dual, single and
+    refiner block stacks unstacked, the patch linear as a Conv3d kernel."""
+    sd: StateDict = {}
+    kernel = np.asarray(params["x_embedder"]["kernel"])  # [(C, pt, p, p), D]
+    sd["x_embedder.proj.weight"] = _t(kernel.T.reshape(
+        cfg.inner_dim, cfg.in_channels, cfg.patch_size_t, cfg.patch_size, cfg.patch_size))
+    sd["x_embedder.proj.bias"] = _t(params["x_embedder"]["bias"])
+    ce = params["context_embedder"]
+    for name, sub in ce["time_text_embed"].items():
+        _mlp(sd, f"context_embedder.time_text_embed.{name}", sub)
+    _linear(sd, "context_embedder.proj_in", ce["proj_in"])
+    for i in range(cfg.num_refiner_layers):
+        b, pre = _index(ce["refiner_blocks"], i), f"context_embedder.token_refiner.refiner_blocks.{i}"
+        _norm(sd, f"{pre}.norm1", b["norm1"])
+        _norm(sd, f"{pre}.norm2", b["norm2"])
+        _hunyuan_attention(sd, f"{pre}.attn", b["attn"])
+        _ff(sd, f"{pre}.ff", b["ff"])
+        _linear(sd, f"{pre}.norm_out.linear", b["norm_out"]["linear"])
+    for name, sub in params["time_text_embed"].items():
+        _mlp(sd, f"time_text_embed.{name}", sub)
+    for i in range(cfg.num_layers):
+        b, pre = _index(params["dual_blocks"], i), f"transformer_blocks.{i}"
+        _linear(sd, f"{pre}.norm1.linear", b["norm1"]["linear"])
+        _linear(sd, f"{pre}.norm1_context.linear", b["norm1_context"]["linear"])
+        _hunyuan_attention(sd, f"{pre}.attn", b["attn"])
+        _ff(sd, f"{pre}.ff", b["ff"])
+        _ff(sd, f"{pre}.ff_context", b["ff_context"])
+    for i in range(cfg.num_single_layers):
+        b, pre = _index(params["single_blocks"], i), f"single_transformer_blocks.{i}"
+        _linear(sd, f"{pre}.norm.linear", b["norm"]["linear"])
+        _linear(sd, f"{pre}.proj_mlp", b["proj_mlp"])
+        _linear(sd, f"{pre}.proj_out", b["proj_out"])
+        _hunyuan_attention(sd, f"{pre}.attn", b["attn"])
+    _linear(sd, "norm_out.linear", params["norm_out"]["linear"])
+    _linear(sd, "proj_out", params["proj_out"])
+    return sd
+
+
+def _conv3d(sd, prefix, p):
+    """A channel-last [kt, kh, kw, I, O] conv kernel -> [O, I, kt, kh, kw]."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _hunyuan_resnet(sd, prefix, p):
+    _norm(sd, f"{prefix}.norm1", p["norm1"])
+    _norm(sd, f"{prefix}.norm2", p["norm2"])
+    for name in ("conv1", "conv2", "conv_shortcut"):
+        if name in p:
+            _conv3d(sd, f"{prefix}.{name}.conv", p[name])
+
+
+def from_jax_hunyuan_vae(params: Dict[str, Any], cfg: HunyuanVideoVAEConfig) -> StateDict:
+    """``init_hunyuan_vae`` / ``convert_hunyuan_vae_state_dict`` tree -> the
+    port's decode-only ``AutoencoderKLHunyuanVideo`` state dict: the
+    decoder and ``post_quant_conv`` (the encoder and ``quant_conv`` are not
+    ported and are left out)."""
+    sd: StateDict = {}
+    d = params["decoder"]
+    _conv3d(sd, "decoder.conv_in.conv", d["conv_in"])
+    mid = d["mid_block"]
+    for j, r in enumerate(mid["resnets"]):
+        _hunyuan_resnet(sd, f"decoder.mid_block.resnets.{j}", r)
+    if cfg.mid_block_add_attention:
+        a, pre = mid["attention"], "decoder.mid_block.attentions.0"
+        _norm(sd, f"{pre}.group_norm", a["group_norm"])
+        for name in ("to_q", "to_k", "to_v"):
+            _linear(sd, f"{pre}.{name}", a[name])
+        _linear(sd, f"{pre}.to_out.0", a["to_out"])
+    for i, blk in enumerate(d["up_blocks"]):
+        for j, r in enumerate(blk["resnets"]):
+            _hunyuan_resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", r)
+        if "upsample" in blk:
+            _conv3d(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv.conv", blk["upsample"]["conv"])
+    _norm(sd, "decoder.conv_norm_out", d["conv_norm_out"])
+    _conv3d(sd, "decoder.conv_out.conv", d["conv_out"])
+    _conv3d(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# LLaMA and CLIP text
+# ---------------------------------------------------------------------------
+
+def from_jax_llama(params: Dict[str, Any], cfg: LlamaConfig) -> StateDict:
+    """``init_llama`` / ``convert_llama_state_dict`` tree -> ``LlamaModel``
+    state dict (HF keys without the ``model.`` prefix)."""
+    sd: StateDict = {"embed_tokens.weight": _t(params["embed_tokens"]),
+                     "norm.weight": _t(params["norm"]["scale"])}
+    for i in range(cfg.num_hidden_layers):
+        b, pre = _index(params["blocks"], i), f"layers.{i}"
+        sd[f"{pre}.input_layernorm.weight"] = _t(b["input_layernorm"]["scale"])
+        sd[f"{pre}.post_attention_layernorm.weight"] = _t(b["post_attention_layernorm"]["scale"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(sd, f"{pre}.self_attn.{name}", b[name])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _linear(sd, f"{pre}.mlp.{name}", b[name])
+    return sd
+
+
+def from_jax_clip_text(params: Dict[str, Any], cfg: CLIPTextConfig) -> StateDict:
+    """``init_clip_text`` / ``convert_clip_text_state_dict`` tree ->
+    ``CLIPTextModel`` state dict (HF keys)."""
+    pre = "text_model"
+    sd: StateDict = {
+        f"{pre}.embeddings.token_embedding.weight": _t(params["token_embedding"]),
+        f"{pre}.embeddings.position_embedding.weight": _t(params["position_embedding"]),
+    }
+    _norm(sd, f"{pre}.final_layer_norm", params["final_layer_norm"])
+    for i in range(cfg.num_hidden_layers):
+        b, bp = _index(params["blocks"], i), f"{pre}.encoder.layers.{i}"
+        _norm(sd, f"{bp}.layer_norm1", b["layer_norm1"])
+        _norm(sd, f"{bp}.layer_norm2", b["layer_norm2"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{bp}.self_attn.{name}", b[name])
+        _linear(sd, f"{bp}.mlp.fc1", b["fc1"])
+        _linear(sd, f"{bp}.mlp.fc2", b["fc2"])
     return sd
 
 

@@ -12,6 +12,16 @@
 // It computes the running-max online softmax; the TPU's bound form is the
 // same function with another reference point.
 //
+// K7, the varlen forward (`flash_attention_varlen`, the `varlen=True` form
+// of the same TPU kernels and of `_fwd_kernel_t`), is this kernel given
+// kv_lens [B] int32: sample b = bh / heads attends keys [0, kv_lens[b])
+// only (suffix padding; queries are never masked). The key loop stops at
+// that length and the last tile's mask takes it as its edge, so keys at or
+// past it are never loaded and a NaN there cannot reach the output. As on
+// the TPU (flash_attention.py:154-158), the running max starts at a floor of
+// -1e4 nats: a sample with no valid key gets exact zero rows (l == 0) and
+// the finite lse -1e4. kv_lens == nullptr is the fixed-length path.
+//
 // Design. One thread block per (bh, 64-query tile), four warps of 16 query
 // rows; a loop over 64-key tiles inside the block takes the place of the
 // TPU's sequential grid axis. Q stays in registers as mma A fragments; each
@@ -27,8 +37,12 @@
 // and the exp2 work per score. At D = 128 the Q fragments (32 registers),
 // the accumulator (64) and the 64-key score tile (32) take about 160
 // registers a thread, so fewer blocks fit on an SM than at D = 64; the two
-// 64x136 bf16 tiles take 34.8 KB of static shared memory. wgmma with a TMA
-// producer warp is the next step.
+// 64x136 bf16 tiles take 34.8 KB of static shared memory. ptxas gives the
+// D = 128 instance 168 registers, so three blocks fit on an SM (3 x 128 x
+// 168 of the 65,536); at 182 only two fit, and the kernel ran 29% slower
+// at the Wan shape. chip_smoke.py fails if that instance takes more than
+// 168 registers or spills. (__launch_bounds__(kThreads, 3) makes ptxas
+// spill 24 bytes here.) wgmma with a TMA producer warp is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +60,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-    int sq, int skv, float scale_log2) {
+    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale_log2) {
   constexpr int kStride = D + 8;  // bf16 elements per smem row; the pad spreads banks
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
@@ -74,12 +88,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  float m[2] = {vap::kNegInf, vap::kNegInf};
+  const int len = vap::kv_length(kv_lens, bh, heads, skv);
+  const float m0 = kv_lens ? vap::kVarlenFloorLog2 : vap::kNegInf;
+  float m[2] = {m0, m0};
   float l[2] = {0.0f, 0.0f};
 
-  for (int n0 = 0; n0 < skv; n0 += kBlockN) {
+  for (int n0 = 0; n0 < len; n0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous tile
-    const int valid = min(kBlockN, skv - n0);
+    const int valid = min(kBlockN, len - n0);
     vap::load_tile<kBlockN, D * 2, kStride * 2, kThreads>(
         reinterpret_cast<char*>(k_s), reinterpret_cast<const char*>(kb + (size_t)n0 * D), valid);
     vap::load_tile<kBlockN, D * 2, kStride * 2, kThreads>(
@@ -108,42 +124,48 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
-                   int skv, float scale_log2, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const int* kv_lens, int bh, int heads, int sq, int skv, float scale_log2,
+                   cudaStream_t stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
   flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, skv,
-      scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, kv_lens, heads,
+      sq, skv, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry points, bound from Python with ctypes. Tensors are contiguous
-// [bh, s, d]; scale_log2 = softmax scale * log2(e). Each returns the CUDA
-// error of the launch (0 on success). bh <= 65535, sq >= 1.
+// [bh, s, d]; kv_lens is a device pointer to [bh / heads] int32 valid key
+// counts (K7) or null (every key valid); scale_log2 = softmax scale *
+// log2(e). Each returns the CUDA error of the launch (0 on success).
+// bh <= 65535, sq >= 1, heads >= 1 divides bh.
 
-// K1: head_dim d in 16..112, step 16.
+// K1 (and K7 at these head dims): head_dim d in 16..112, step 16.
 extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int bh, int sq, int skv, int d, float scale_log2, void* stream) {
+                             const void* kv_lens, int bh, int heads, int sq, int skv, int d,
+                             float scale_log2, void* stream) {
   float* l = static_cast<float*>(lse);
+  const int* lens = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
-    case 32: return launch<32>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
-    case 48: return launch<48>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
-    case 64: return launch<64>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
-    case 80: return launch<80>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
-    case 96: return launch<96>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
-    case 112: return launch<112>(q, k, v, o, l, bh, sq, skv, scale_log2, s);
+    case 16: return launch<16>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
+    case 32: return launch<32>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
+    case 48: return launch<48>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
+    case 64: return launch<64>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
+    case 80: return launch<80>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
+    case 96: return launch<96>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
+    case 112: return launch<112>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// K4: head_dim 128.
+// K4 (and K7 at head_dim 128, HunyuanVideo's joint attention): head_dim 128.
 extern "C" int vap_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, void* lse,
-                                  int bh, int sq, int skv, float scale_log2, void* stream) {
-  return launch<128>(q, k, v, o, static_cast<float*>(lse), bh, sq, skv, scale_log2,
-                     static_cast<cudaStream_t>(stream));
+                                  const void* kv_lens, int bh, int heads, int sq, int skv,
+                                  float scale_log2, void* stream) {
+  return launch<128>(q, k, v, o, static_cast<float*>(lse), static_cast<const int*>(kv_lens), bh,
+                     heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
 }

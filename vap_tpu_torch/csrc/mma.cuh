@@ -23,6 +23,17 @@ namespace vap {
 // inf - inf, so no NaN can arise even when a tile holds no valid key.
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
+// K7's floor of the running max: -1e4 nats (flash_attention.py:154-158) in
+// the log2 domain. A query with no valid key keeps m here, l == 0, and so a
+// zero output row and the finite lse ln2 * m = -1e4.
+constexpr float kVarlenFloorLog2 = -1e4f * 1.4426950408889634f;
+
+// Valid keys of row bh: min(kv_lens[bh / heads], skv) clamped at 0 for K7,
+// or skv when kv_lens is null.
+__device__ __forceinline__ int kv_length(const int* kv_lens, size_t bh, int heads, int skv) {
+  if (kv_lens == nullptr) return skv;
+  return max(0, min(kv_lens[bh / heads], skv));
+}
 
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
                                                uint32_t b0, uint32_t b1) {

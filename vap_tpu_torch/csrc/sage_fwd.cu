@@ -10,6 +10,11 @@
 // and returns out [BH, Sq, D] bf16 and the natural-log lse [BH, Sq] f32.
 // Scores are int32 dot products times sqk, which lands them in the log2
 // domain of the running-max online softmax; keys past Skv are masked.
+// K7's int8 form (`flash_attention_int8(kv_lens=)`): with kv_lens [B]
+// int32, sample b = bh / heads attends keys [0, kv_lens[b]) only, as in
+// flash_fwd.cu: the loop stops there, the keys past it are never loaded, and
+// the running max starts at the -1e4-nat floor. The pre-pass has zeroed
+// those K rows before the smoothing mean, as JAX does.
 //
 // Design: as flash_fwd.cu (one block per (bh, 64-query tile), four warps,
 // a loop over 64-key tiles), with QK^T on the int8 tensor cores as
@@ -17,7 +22,10 @@
 // m16n8k16. What bounds it on an H100 is the same as for K1, minus half of
 // the QK^T issue time and half of the K bytes per tile. At D = 128 (Wan) the
 // int8 Q fragments take 16 registers, the accumulator 64 and the score tile
-// 32; shared memory is 64x144 int8 plus 64x136 bf16, 26.6 KB.
+// 32; shared memory is 64x144 int8 plus 64x136 bf16, 26.6 KB. As in
+// flash_fwd.cu, chip_smoke.py fails if the D = 128 instance takes more
+// than 168 registers (three blocks an SM; at 188 only two fit and it ran
+// 15% slower) or spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +43,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) sage_fwd_kernel(
     const int8_t* __restrict__ q8, const int8_t* __restrict__ k8, const float* __restrict__ sqk,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-    int sq, int skv) {
+    const int* __restrict__ kv_lens, int heads, int sq, int skv) {
   constexpr int kKStride = D + 16;  // bytes per int8 smem row; the pad spreads banks
   constexpr int kVStride = D + 8;   // bf16 elements per smem row
   __shared__ __align__(16) int8_t k_s[kBlockN * kKStride];
@@ -65,12 +73,14 @@ __global__ void __launch_bounds__(kThreads) sage_fwd_kernel(
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  float m[2] = {vap::kNegInf, vap::kNegInf};
+  const int len = vap::kv_length(kv_lens, bh, heads, skv);
+  const float m0 = kv_lens ? vap::kVarlenFloorLog2 : vap::kNegInf;
+  float m[2] = {m0, m0};
   float l[2] = {0.0f, 0.0f};
 
-  for (int n0 = 0; n0 < skv; n0 += kBlockN) {
+  for (int n0 = 0; n0 < len; n0 += kBlockN) {
     __syncthreads();
-    const int valid = min(kBlockN, skv - n0);
+    const int valid = min(kBlockN, len - n0);
     vap::load_tile<kBlockN, D, kKStride, kThreads>(
         reinterpret_cast<char*>(k_s), reinterpret_cast<const char*>(kb + (size_t)n0 * D), valid);
     vap::load_tile<kBlockN, D * 2, kVStride * 2, kThreads>(
@@ -100,29 +110,33 @@ __global__ void __launch_bounds__(kThreads) sage_fwd_kernel(
 
 template <int D>
 cudaError_t launch(const void* q8, const void* k8, const void* sqk, const void* v, void* o,
-                   float* lse, int bh, int sq, int skv, cudaStream_t stream) {
+                   float* lse, const int* kv_lens, int bh, int heads, int sq, int skv,
+                   cudaStream_t stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
   sage_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
       static_cast<const float*>(sqk), static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), lse, sq, skv);
+      static_cast<__nv_bfloat16*>(o), lse, kv_lens, heads, sq, skv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point, bound from Python with ctypes. Tensors are contiguous
-// [bh, s, d] (sqk: [bh]). Returns the CUDA error of the launch (0 on
-// success). bh <= 65535, sq >= 1.
+// [bh, s, d] (sqk: [bh]); kv_lens is a device pointer to [bh / heads]
+// int32 valid key counts, or null. Returns the CUDA error of the launch (0
+// on success). bh <= 65535, sq >= 1, heads >= 1 divides bh.
 extern "C" int vap_sage_fwd(const void* q8, const void* k8, const void* sqk, const void* v,
-                            void* o, void* lse, int bh, int sq, int skv, int d, void* stream) {
+                            void* o, void* lse, const void* kv_lens, int bh, int heads, int sq,
+                            int skv, int d, void* stream) {
   float* l = static_cast<float*>(lse);
+  const int* lens = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch<32>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
-    case 64: return launch<64>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
-    case 96: return launch<96>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
-    case 128: return launch<128>(q8, k8, sqk, v, o, l, bh, sq, skv, s);
+    case 32: return launch<32>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
+    case 64: return launch<64>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
+    case 96: return launch<96>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
+    case 128: return launch<128>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -63,7 +63,7 @@ def sincos_pos_embedding(cfg: CogVideoXMOTConfig, height: int, width: int,
 
 class CogVideoXPatchEmbed(nn.Module):
     """Text projection + 2D patchify of the video, concatenated along tokens,
-    plus the learned joint position buffer when the config has one."""
+    plus the learned joint position table when the config has one."""
 
     def __init__(self, cfg: CogVideoXMOTConfig):
         super().__init__()
@@ -74,7 +74,10 @@ class CogVideoXPatchEmbed(nn.Module):
         if cfg.use_learned_positional_embeddings:
             frames = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
             pos = sincos_pos_embedding(cfg, cfg.sample_height, cfg.sample_width, frames)
-            self.register_buffer("pos_embedding", torch.from_numpy(pos)[None], persistent=True)
+            # a parameter, as in the JAX tree: ``trainable_mask`` trains the
+            # reference branch's table (``patch_embed_mot_ref``) with the expert
+            pos = torch.from_numpy(pos)[None].to(torch.get_default_dtype())
+            self.pos_embedding = nn.Parameter(pos)
 
     def forward(self, text: torch.Tensor, video: torch.Tensor) -> torch.Tensor:
         """text [B, T, D_text], video [B, F, C, H, W] -> [B, T + F*h*w, D]."""

@@ -58,6 +58,18 @@ def rms_norm(x: torch.Tensor, weight, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMS norm over the last dim in float32 with a weight (diffusers RMSNorm)."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.eps = eps
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 

@@ -4,11 +4,13 @@ loader yet).
 
 ``build_random(cls, cfg, device, dtype, generator)`` constructs a model on
 the meta device, allocates it on ``device`` and fills it from
-``generator``: the transformers' linears (and their patch convs) and CLIP's
-linears uniform +-1/sqrt(fan_in); T5's linears and the VAEs' convs normal *
-fan_in^-0.5; zero biases, unit norms, a normal embedding, a 0.02-normal T5
-bias table and CLIP embeddings, normal/sqrt(dim) scale-shift tables, and the
-CogVideoX learned position buffer as its sincos table.
+``generator``: the transformers' linears (and their patch convs), CLIP's
+and LLaMA's linears uniform +-1/sqrt(fan_in); T5's linears and the VAEs'
+convs and linears normal * fan_in^-0.5; zero biases, unit norms, a normal
+embedding (0.02-normal for LLaMA and CLIP text, as JAX draws them), a
+0.02-normal T5 bias table and CLIP embeddings, normal/sqrt(dim)
+scale-shift tables, and the CogVideoX learned position table as its
+sincos table.
 """
 
 from __future__ import annotations
@@ -17,16 +19,22 @@ import torch
 from torch import nn
 
 from .cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel, sincos_pos_embedding
+from .common import RMSNorm
+from .hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+from .text_encoders.clip_text import CLIPTextModel
 from .text_encoders.clip_vision import CLIPVisionModel
+from .text_encoders.llama import LlamaModel
 from .text_encoders.t5 import T5LayerNorm
-from .wan.transformer_mot import RMSNorm, WanTransformer3DMOTModel
+from .wan.transformer_mot import WanTransformer3DMOTModel
 from .wan.vae import RMSNormVideo
 
 
 def init_random_(model, gen):
     """Fill ``model``'s parameters and buffers from ``gen`` in place."""
     uniform = isinstance(model, (CogVideoXTransformer3DMOTModel, WanTransformer3DMOTModel,
-                                 CLIPVisionModel))
+                                 HunyuanVideoTransformer3DModel, CLIPVisionModel, CLIPTextModel,
+                                 LlamaModel))
+    small_embeddings = isinstance(model, (CLIPTextModel, LlamaModel))
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
@@ -47,7 +55,7 @@ def init_random_(model, gen):
                 mod.gamma.fill_(1.0)
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(generator=gen)
-                if mod.weight.shape[0] < 1000:  # T5 bias tables, CLIP positions
+                if mod.weight.shape[0] < 1000 or small_embeddings:  # T5 bias tables, CLIP, LLaMA
                     mod.weight.mul_(0.02)
         for name, p in model.named_parameters():
             if "scale_shift_table" in name:

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import full_attention
-from ..common import (FeedForward, FP32LayerNorm, gelu_tanh, layer_norm, remat_blocks, rms_norm,
+from ..common import (FeedForward, FP32LayerNorm, RMSNorm, gelu_tanh, layer_norm, remat_blocks,
                       run_block, silu, sinusoidal_timestep_embedding)
 from .config import WanMOTConfig
 
@@ -98,18 +98,6 @@ def apply_wan_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> tor
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
-
-class RMSNorm(nn.Module):
-    """RMS norm over the last dim in float32 with a weight (diffusers RMSNorm)."""
-
-    def __init__(self, dim: int, eps: float):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.eps = eps
-
-    def forward(self, x):
-        return rms_norm(x, self.weight, self.eps)
-
 
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     """[B, S, H*D] -> contiguous [B, H, S, D]."""

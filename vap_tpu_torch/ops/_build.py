@@ -30,14 +30,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points, by source file (csrc/<source>.cu)
 SOURCES = {
     "flash_fwd": {
-        # q, k, v, o, lse, bh, sq, skv, d, scale_log2, stream
-        "vap_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-        # q, k, v, o, lse, bh, sq, skv, scale_log2, stream
-        "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+        # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, scale_log2, stream
+        "vap_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream
+        "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "sage_fwd": {
-        # q8, k8, sqk, v, o, lse, bh, sq, skv, d, stream
-        "vap_sage_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # q8, k8, sqk, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, stream
+        "vap_sage_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "flash_bwd": {
         # q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, d, scale_log2, scale, stream

@@ -1,16 +1,23 @@
 """Attention dispatch: one full-attention op with pluggable providers.
 
-Port of ``vap_tpu/ops/attention.py:41-110,206-299``. Providers:
+Port of ``vap_tpu/ops/attention.py:41-110,163-188,206-299``. Providers:
 
   * "flash" — K1 (head_dim < 128) or K4 (head_dim 128), the hand-written bf16
-    flash forward (``ops/flash_attention.py``); differentiable at head_dim
-    < 128, with K5 as its backward;
-  * "sage"  — K2, the int8-QK SageAttention-style forward (inference only:
-    raises when a gradient is wanted);
+    flash forward (``ops/flash_attention.py``), and K7 when the call passes
+    ``kv_lens``; differentiable without ``kv_lens``, with K5 or K6 as its
+    backward. "flash_varlen" and "jax_flash" (JAX's own library kernel
+    there, not a kernel of the repo) take the same kernels;
+  * "sage"  — K2, the int8-QK SageAttention-style forward, K7's int8 form
+    with ``kv_lens`` (inference only: raises when a gradient is wanted);
   * "xla"   — plain PyTorch dense attention (the name is the JAX package's),
-    differentiated by autograd;
+    ``dense_attention_masked`` with ``kv_lens``, differentiated by autograd;
   * "null"  — profiling only: skips the attention math (raises when a
-    gradient is wanted).
+    gradient is wanted);
+  * "ring"  — sequence-parallel attention: not ported (raises).
+
+``kv_lens`` ([B] int) gives per-sample valid key counts (suffix padding);
+``segment_ids`` (packed sequences, K8) is not ported and raises; the two
+together raise, as in JAX.
 
 The default is "flash", as on the TPU and for training (the JAX trainer's
 ``attn_provider_training="auto"``); on CPU tensors the kernel wrappers run
@@ -33,7 +40,7 @@ from .flash_attention import flash_attention, flash_attention_int8, wants_grad
 
 _state = threading.local()
 
-_VALID_PROVIDERS = ("flash", "sage", "xla", "null")
+_VALID_PROVIDERS = ("flash", "flash_varlen", "sage", "jax_flash", "xla", "ring", "null")
 DEFAULT_PROVIDER = "flash"
 
 
@@ -84,18 +91,52 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p.to(v.dtype) @ v).to(q.dtype)
 
 
+def dense_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_lens: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Plain dense attention with per-sample valid key counts: f32 scores
+    and f32 P V; keys at or past kv_lens[b] get the finite bias -1e30, and a
+    sample with no valid key gets exact zero rows (``vap_tpu/ops/attention.py:163-188``)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if kv_lens is not None:
+        lens = kv_lens.to(device=q.device, dtype=torch.int64)
+        keep = torch.arange(k.shape[2], device=q.device)[None, :] < lens[:, None]
+        s = s + torch.where(keep, 0.0, -1e30)[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    if kv_lens is not None:
+        p = p * (lens > 0).float()[:, None, None, None]
+    return (p @ v.float()).to(v.dtype)
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 scale: Optional[float] = None,
-                                 provider: Optional[str] = None,
-                                 site: str = "default") -> torch.Tensor:
+                   scale: Optional[float] = None,
+                   provider: Optional[str] = None,
+                   site: str = "default",
+                   kv_lens: Optional[torch.Tensor] = None,
+                   segment_ids: Optional[tuple] = None) -> torch.Tensor:
     """Full (non-causal) attention over [B, H, S, D] tensors: the JAX
-    package's ``scaled_dot_product_attention`` without kv_lens and segment_ids."""
+    package's ``scaled_dot_product_attention``. ``kv_lens`` ([B] int) masks
+    each sample's keys at or past its length (K7 under the kernel
+    providers); queries are never masked."""
     provider = provider or get_attention_provider(site)
-    if provider == "flash":
-        return flash_attention(q, k, v, scale)
+    if segment_ids is not None and kv_lens is not None:
+        raise ValueError("segment_ids and kv_lens are mutually exclusive; give padding its "
+                         "own out-of-range segment id")
+    if segment_ids is not None:
+        raise NotImplementedError("segment_ids (packed sequences, K8) is not ported yet: "
+                                  "ROADMAP.md Queue 1 item 9")
+    if provider == "ring":
+        raise NotImplementedError("the ring (sequence-parallel) provider is not ported yet: "
+                                  "ROADMAP.md Queue 1 item 9")
+    if provider in ("flash", "flash_varlen", "jax_flash"):
+        return flash_attention(q, k, v, scale, kv_lens)
     if provider == "sage":
-        return flash_attention_int8(q, k, v, scale)
+        return flash_attention_int8(q, k, v, scale, kv_lens)
     if provider == "xla":
+        if kv_lens is not None:
+            return dense_attention_masked(q, k, v, kv_lens, scale)
         return dense_attention(q, k, v, scale)
     if provider == "null":
         if wants_grad(q, k, v):

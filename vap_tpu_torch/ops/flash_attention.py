@@ -30,12 +30,24 @@ wanted.
 Layout: q [B, H, Sq, D], k and v [B, H, Skv, D]; out [B, H, Sq, D] in the
 input dtype, lse [B, H, Sq] float32.
 
+K7, the varlen forward (``flash_attention_varlen`` and
+``flash_attention_int8(kv_lens=)``): the forwards above given ``kv_lens``,
+a [B] integer tensor; sample b attends only keys [0, kv_lens[b]) (suffix
+padding, what a right-padded text mask leaves; queries are never masked).
+The kernels stop their key loop there and never load the keys past it; the
+running max starts at a floor of -1e4 nats, so a sample with no valid key
+gets exact zero rows and the lse -1e4 (``flash_attention.py:154-158``).
+K7 has no backward here yet: a gradient with ``kv_lens`` raises.
+
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
 raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_forward.launches`` (K1),
 ``flash_attention_forward.launches_d128`` (K4),
+``flash_attention_forward.launches_varlen`` (K7 in K1, head_dim < 128),
+``flash_attention_forward.launches_d128_varlen`` (K7 in K4),
 ``flash_attention_int8_forward.launches`` (K2),
+``flash_attention_int8_forward.launches_varlen`` (K7 in K2),
 ``flash_attention_backward.launches`` (K5) and
 ``flash_attention_backward.launches_d128`` (K6).
 """
@@ -52,6 +64,9 @@ LOG2_E = 1.4426950408889634
 LN_2 = 0.6931471805599453
 # masked-score value of the TPU kernels (finite, so no inf - inf arises)
 NEG_INF = -1e30
+# K7's floor of the running max, -1e4 nats (flash_attention.py:154-158), in
+# the log2 domain the kernels work in: the lse of a sample with no valid key
+VARLEN_FLOOR_LOG2 = -1e4 * LOG2_E
 # keys per tile of the plain versions: bounds their score buffer to
 # [B, H, Sq, PLAIN_BLOCK_K], so they also run at the main-path length
 PLAIN_BLOCK_K = 512
@@ -67,6 +82,24 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+
+
+def _kv_lens(kv_lens: Optional[torch.Tensor], batch: int) -> Optional[torch.Tensor]:
+    """Check K7's ``kv_lens``: None, or a [B] integer tensor."""
+    if kv_lens is None:
+        return None
+    if not isinstance(kv_lens, torch.Tensor) or kv_lens.shape != (batch,) \
+            or kv_lens.dtype.is_floating_point or kv_lens.dtype == torch.bool:
+        raise ValueError(f"kv_lens must be a [B] = [{batch}] integer tensor, got "
+                         f"{getattr(kv_lens, 'dtype', type(kv_lens))} "
+                         f"{tuple(getattr(kv_lens, 'shape', ()))}")
+    return kv_lens
+
+
+def _valid_key_counts(kv_lens: torch.Tensor, skv: int):
+    """Each sample's valid key count, min(kv_lens[b], Skv) clamped at 0, as
+    Python ints (``_varlen_valid``, :42; a host read)."""
+    return [max(0, min(int(n), skv)) for n in kv_lens.tolist()]
 
 
 def _kernel_inputs(name: str, tensors: dict, dtypes: dict, bh: int, sq: int) -> None:
@@ -121,10 +154,11 @@ def softmax_finalize(m, l, acc, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, lse
 
 
-def _online_softmax_plain(scores, v: torch.Tensor, sq: int):
-    """Tile loop over keys; ``scores(n0, n1)`` gives log2-domain f32 scores."""
+def _online_softmax_plain(scores, v: torch.Tensor, sq: int, m_init: float = NEG_INF):
+    """Tile loop over the keys of ``v``; ``scores(n0, n1)`` gives log2-domain
+    f32 scores; the running max starts at ``m_init``."""
     lead, d, skv = v.shape[:-2], v.shape[-1], v.shape[-2]
-    m = torch.full((*lead, sq, 1), NEG_INF, dtype=torch.float32, device=v.device)
+    m = torch.full((*lead, sq, 1), m_init, dtype=torch.float32, device=v.device)
     l = torch.zeros((*lead, sq, 1), dtype=torch.float32, device=v.device)
     acc = torch.zeros((*lead, sq, d), dtype=torch.float32, device=v.device)
     for n0 in range(0, skv, PLAIN_BLOCK_K):
@@ -133,18 +167,35 @@ def _online_softmax_plain(scores, v: torch.Tensor, sq: int):
     return softmax_finalize(m, l, acc, v.dtype)
 
 
-def flash_attention_forward_plain(q, k, v, scale: Optional[float] = None):
-    """Plain PyTorch version of K1: returns (out, lse)."""
+def _varlen_plain(run, kv_lens: torch.Tensor, skv: int):
+    """K7's plain form: ``run(b, n)`` gives sample b's (out, lse) over its
+    first n valid keys only, with the running max floored; concatenated."""
+    outs = [run(b, n) for b, n in enumerate(_valid_key_counts(kv_lens, skv))]
+    return torch.cat([o for o, _ in outs]), torch.cat([l for _, l in outs])
+
+
+def flash_attention_forward_plain(q, k, v, scale: Optional[float] = None,
+                                  kv_lens: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K1 and K4, and with ``kv_lens`` of K7:
+    returns (out, lse). With ``kv_lens`` each sample runs over its valid
+    keys only (a suffix of NaN changes nothing), from the floored max."""
     _shapes(q, k, v)
+    kv_lens = _kv_lens(kv_lens, q.shape[0])
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf = q.float()
     scale_log2 = scale * LOG2_E
 
-    def scores(n0, n1):
-        return (qf @ k[..., n0:n1, :].float().transpose(-1, -2)) * scale_log2
+    def run(b: slice, n: int, m_init: float):
+        def scores(n0, n1):
+            return (qf[b] @ k[b, :, n0:n1].float().transpose(-1, -2)) * scale_log2
 
-    return _online_softmax_plain(scores, v, q.shape[2])
+        return _online_softmax_plain(scores, v[b, :, :n], q.shape[2], m_init)
+
+    if kv_lens is None:
+        return run(slice(None), k.shape[2], NEG_INF)
+    return _varlen_plain(lambda b, n: run(slice(b, b + 1), n, VARLEN_FLOOR_LOG2), kv_lens,
+                         k.shape[2])
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -217,13 +268,16 @@ def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional
             torch.cat(dvs, dim=2).to(v.dtype))
 
 
-def sage_quantize(q, k, scale: float):
-    """The int8 pre-pass of ``_flash_attention_forward_t_i8`` (:843-852).
+def sage_quantize(q, k, scale: float, kv_lens: Optional[torch.Tensor] = None):
+    """The int8 pre-pass of ``_flash_attention_forward_t_i8`` (:835-852).
 
     K smoothing (minus the token mean of K per (b, h, d)), then symmetric
     int8 with one scale per (b, h) for Q and for the smoothed K, rounded half
     to even. Returns q_i8, k_i8 (int8, input shapes) and
-    sqk = s_q * s_k * scale * log2(e) [B, H] f32.
+    sqk = s_q * s_k * scale * log2(e) [B, H] f32. With ``kv_lens`` (K7) the
+    key rows at or past kv_lens[b] are zeroed before the smoothing, whose
+    mean still runs over all Skv rows, as in JAX; they are filled with 0, so
+    a NaN there reaches neither the mean nor the scale.
 
     One float32 copy of each input is worked in place, and the abs-max is
     taken as max(max, -min), so the pass holds one f32 copy at a time (at
@@ -235,6 +289,10 @@ def sage_quantize(q, k, scale: float):
     s_q = (absmax(q).float() / 127.0).clamp_min(1e-8)
     q_i8 = q.to(torch.float32, copy=True).div_(s_q).round_().to(torch.int8)
     ks = k.to(torch.float32, copy=True)
+    if kv_lens is not None:
+        keys = torch.arange(k.shape[2], device=k.device)
+        invalid = keys[None, :] >= kv_lens.to(k.device)[:, None]  # [B, Skv]
+        ks.masked_fill_(invalid[:, None, :, None], 0.0)
     ks.sub_(ks.mean(dim=2, keepdim=True))
     s_k = (absmax(ks) / 127.0).clamp_min(1e-8)
     k_i8 = ks.div_(s_k).round_().to(torch.int8)
@@ -242,15 +300,21 @@ def sage_quantize(q, k, scale: float):
     return q_i8, k_i8, sqk
 
 
-def _sage_plain(q_i8, k_i8, sqk, v):
+def _sage_plain(q_i8, k_i8, sqk, v, kv_lens=None):
     qf = q_i8.float()
     s = sqk[..., None, None]
 
-    def scores(n0, n1):
-        # int8 products summed in f32 are exact: |sum| <= D * 127^2 < 2^24
-        return (qf @ k_i8[..., n0:n1, :].float().transpose(-1, -2)) * s
+    def run(b: slice, n: int, m_init: float):
+        def scores(n0, n1):
+            # int8 products summed in f32 are exact: |sum| <= D * 127^2 < 2^24
+            return (qf[b] @ k_i8[b, :, n0:n1].float().transpose(-1, -2)) * s[b]
 
-    return _online_softmax_plain(scores, v, q_i8.shape[2])
+        return _online_softmax_plain(scores, v[b, :, :n], q_i8.shape[2], m_init)
+
+    if kv_lens is None:
+        return run(slice(None), k_i8.shape[2], NEG_INF)
+    return _varlen_plain(lambda b, n: run(slice(b, b + 1), n, VARLEN_FLOOR_LOG2), kv_lens,
+                         k_i8.shape[2])
 
 
 def _sage_checks(q, k, v):
@@ -261,28 +325,34 @@ def _sage_checks(q, k, v):
         raise ValueError("int8 path needs at least one key (K smoothing takes its mean)")
 
 
-def flash_attention_int8_forward_plain(q, k, v, scale: Optional[float] = None):
-    """Plain PyTorch version of K2: returns (out, lse)."""
+def flash_attention_int8_forward_plain(q, k, v, scale: Optional[float] = None,
+                                       kv_lens: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K2, and with ``kv_lens`` of K7's int8 form:
+    returns (out, lse)."""
     _sage_checks(q, k, v)
+    kv_lens = _kv_lens(kv_lens, q.shape[0])
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _sage_plain(*sage_quantize(q, k, scale), v)
+    return _sage_plain(*sage_quantize(q, k, scale, kv_lens), v, kv_lens)
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def flash_attention_forward(q, k, v, scale: Optional[float] = None):
-    """K1 and K4: (out, lse). CUDA tensors launch ``vap_flash_fwd`` (K1,
-    head_dim a multiple of 16 below 128) or ``vap_flash_fwd_d128`` (K4,
-    head_dim 128): bf16, contiguous. CPU tensors take
+def flash_attention_forward(q, k, v, scale: Optional[float] = None,
+                            kv_lens: Optional[torch.Tensor] = None):
+    """K1 and K4, and with ``kv_lens`` K7: (out, lse). CUDA tensors launch
+    ``vap_flash_fwd`` (K1, head_dim a multiple of 16 below 128) or
+    ``vap_flash_fwd_d128`` (K4, head_dim 128): bf16, contiguous; ``kv_lens``
+    goes to the kernel as int32 on the same card. CPU tensors take
     ``flash_attention_forward_plain``."""
     _shapes(q, k, v)
+    kv_lens = _kv_lens(kv_lens, q.shape[0])
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _device_kind("flash_attention_forward", q) == "cpu":
-        return flash_attention_forward_plain(q, k, v, scale)
+        return flash_attention_forward_plain(q, k, v, scale, kv_lens)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d % 16 or d > 128:
@@ -290,25 +360,30 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None):
     bf16 = torch.bfloat16
     _kernel_inputs("flash_attention_forward", {"q": q, "k": k, "v": v},
                    {"q": bf16, "k": bf16, "v": bf16}, b * h, sq)
+    lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_fwd")
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            None if lens is None else lens.data_ptr())
+    counter = "launches_d128" if d == 128 else "launches"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if d == 128:
-            err = lib.vap_flash_fwd_d128(*ptrs, b * h, sq, skv, scale * LOG2_E, stream)
+            err = lib.vap_flash_fwd_d128(*ptrs, b * h, h, sq, skv, scale * LOG2_E, stream)
             _build.check(err, "vap_flash_fwd_d128")
-            flash_attention_forward.launches_d128 += 1
         else:
-            err = lib.vap_flash_fwd(*ptrs, b * h, sq, skv, d, scale * LOG2_E, stream)
+            err = lib.vap_flash_fwd(*ptrs, b * h, h, sq, skv, d, scale * LOG2_E, stream)
             _build.check(err, "vap_flash_fwd")
-            flash_attention_forward.launches += 1
+    counter += "" if lens is None else "_varlen"
+    setattr(flash_attention_forward, counter, getattr(flash_attention_forward, counter) + 1)
     return out, lse
 
 
 flash_attention_forward.launches = 0
 flash_attention_forward.launches_d128 = 0
+flash_attention_forward.launches_varlen = 0
+flash_attention_forward.launches_d128_varlen = 0
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None):
@@ -388,13 +463,17 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """Fused full attention (K1 or K4 by head_dim), output only; through
-    ``FlashAttentionFunction`` (K1 + K5, or K4 + K6 at head_dim 128) when a
-    gradient is wanted. A gradient at head_dim above 128 raises: no model
-    of the port needs one."""
+def flash_attention(q, k, v, scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused full attention (K1 or K4 by head_dim; K7 with ``kv_lens``),
+    output only; through ``FlashAttentionFunction`` (K1 + K5, or K4 + K6 at
+    head_dim 128) when a gradient is wanted. A gradient at head_dim above
+    128, or with ``kv_lens`` (K7's backward is not ported), raises."""
     if not wants_grad(q, k, v):
-        return flash_attention_forward(q, k, v, scale)[0]
+        return flash_attention_forward(q, k, v, scale, kv_lens)[0]
+    if kv_lens is not None:
+        raise NotImplementedError("K7 (kv_lens) has no backward in the port yet: K6 and K5 "
+                                  "with kv_lens are ROADMAP.md Queue 1's next slice")
     if q.shape[-1] > 128:
         raise NotImplementedError(
             f"flash attention has no backward at head_dim {q.shape[-1]} (K6 takes 128)")
@@ -403,17 +482,20 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     return FlashAttentionFunction.apply(q, k, v, scale)
 
 
-def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None):
-    """K2: (out, lse). The int8 pre-pass runs in PyTorch; CUDA tensors then
-    launch ``vap_sage_fwd`` (bf16 v, head_dim 32, 64, 96 or 128, contiguous), CPU
-    tensors take the plain version."""
+def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None,
+                                 kv_lens: Optional[torch.Tensor] = None):
+    """K2, and with ``kv_lens`` K7's int8 form: (out, lse). The int8 pre-pass
+    runs in PyTorch; CUDA tensors then launch ``vap_sage_fwd`` (bf16 v,
+    head_dim 32, 64, 96 or 128, contiguous), CPU tensors take the plain
+    version."""
     _sage_checks(q, k, v)
+    kv_lens = _kv_lens(kv_lens, q.shape[0])
     if scale is None:
         scale = q.shape[-1] ** -0.5
     kind = _device_kind("flash_attention_int8_forward", q)
-    q_i8, k_i8, sqk = sage_quantize(q, k, scale)
+    q_i8, k_i8, sqk = sage_quantize(q, k, scale, kv_lens)
     if kind == "cpu":
-        return _sage_plain(q_i8, k_i8, sqk, v)
+        return _sage_plain(q_i8, k_i8, sqk, v, kv_lens)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d > 128:
@@ -425,26 +507,34 @@ def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None):
                    {"q_i8": q_i8, "k_i8": k_i8, "sqk": sqk, "v": v},
                    {"q_i8": i8, "k_i8": i8, "sqk": torch.float32, "v": torch.bfloat16},
                    b * h, sq)
+    lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.library("sage_fwd")
     with torch.cuda.device(q.device):
         err = lib.vap_sage_fwd(q_i8.data_ptr(), k_i8.data_ptr(), sqk.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), lse.data_ptr(), b * h, sq, skv, d,
+                               out.data_ptr(), lse.data_ptr(),
+                               None if lens is None else lens.data_ptr(), b * h, h, sq, skv, d,
                                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vap_sage_fwd")
-    flash_attention_int8_forward.launches += 1
+    if lens is None:
+        flash_attention_int8_forward.launches += 1
+    else:
+        flash_attention_int8_forward.launches_varlen += 1
     return out, lse
 
 
 flash_attention_int8_forward.launches = 0
+flash_attention_int8_forward.launches_varlen = 0
 
 
-def flash_attention_int8(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """SageAttention-style int8-QK attention (K2), output only. Inference
-    only, as ``flash_attention_int8`` is in JAX: it raises when a gradient is
-    wanted, since one through the int8 forward would be wrong."""
+def flash_attention_int8(q, k, v, scale: Optional[float] = None,
+                         kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SageAttention-style int8-QK attention (K2; K7 with ``kv_lens``),
+    output only. Inference only, as ``flash_attention_int8`` is in JAX: it
+    raises when a gradient is wanted, since one through the int8 forward
+    would be wrong."""
     if wants_grad(q, k, v):
         raise NotImplementedError("the sage provider (K2) is inference-only and has no "
                                   "gradient; train with 'flash' or 'xla'")
-    return flash_attention_int8_forward(q, k, v, scale)[0]
+    return flash_attention_int8_forward(q, k, v, scale, kv_lens)[0]

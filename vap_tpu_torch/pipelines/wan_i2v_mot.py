@@ -84,15 +84,36 @@ def _linear_weights(src: int, dst: int) -> np.ndarray:
     return w
 
 
+def _area_mode_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] weights of cv2's INTER_AREA when an axis grows: cv2 then
+    runs its two-tap linear resize on both axes with the "area mode"
+    coefficients, fx = (i + 1) - (floor(i * s) + 1) / s taken modulo 1,
+    0 where it is not positive, s = 1 / (dst / src) in double, fx rounded
+    to float32 (cv2's resize.cpp)."""
+    inv = dst / src
+    scale = 1.0 / inv
+    w = np.zeros((dst, src), np.float64)
+    for dx in range(dst):
+        sx = int(np.floor(dx * scale))
+        fx = float(np.float32((dx + 1) - (sx + 1) * inv))
+        fx = 0.0 if fx <= 0 else fx - np.floor(fx)
+        if sx >= src - 1:
+            fx, sx = 0.0, src - 1
+        w[dx, sx] += 1.0 - fx
+        w[dx, min(sx + 1, src - 1)] += fx
+    return w
+
+
 def resize_frame(frame: np.ndarray, height: int, width: int) -> np.ndarray:
     """Resize one [H, W, C] float frame as ``resize_frame`` of ``vap_tpu/data/video.py``
-    does with cv2: INTER_AREA when the height shrinks, else INTER_LINEAR.
-    Both are separable: out = Wy @ frame @ Wx^T per channel."""
+    does with cv2: INTER_AREA when the height shrinks (true area averages
+    when neither axis grows, the area-mode linear taps when the width
+    grows), else INTER_LINEAR. All are separable: out = Wy @ frame @ Wx^T
+    per channel."""
     h, w = frame.shape[:2]
     if h > height:
-        if w < width:
-            raise NotImplementedError("INTER_AREA with a growing width is not ported")
-        wy, wx = _area_weights(h, height), _area_weights(w, width)
+        weights = _area_mode_weights if w < width else _area_weights
+        wy, wx = weights(h, height), weights(w, width)
     else:
         wy, wx = _linear_weights(h, height), _linear_weights(w, width)
     rows = np.tensordot(wy, np.asarray(frame, np.float64), axes=(1, 0))  # [height, w, C]

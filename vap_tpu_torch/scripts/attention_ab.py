@@ -1,0 +1,72 @@
+"""Time K4 and K2 at Wan's joint attention shape for several trees on one card.
+
+    python -m vap_tpu_torch.scripts.attention_ab PARENT . . PARENT
+
+Each root given is a checkout (or an unpacked archive) holding
+``vap_tpu_torch/``; each is timed in its own process, in the order given,
+so that two trees are compared in one call on one card (parent, change,
+change, parent). A line per root: K4 (``flash_attention_forward``) and K2
+(``flash_attention_int8_forward``) at [1, 40, 40560, 128] bf16, ms per
+call over 5 calls after 2 of warm-up, with CUDA events. The kernels are
+built from each root's sources. It runs on the card and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+SHAPE = (1, 40, 40560, 128)  # B, H, S, D of Wan2.1-14B's joint attention at 49f@480x832
+
+
+def time_root(root: str) -> None:
+    """Import the port under ``root`` and print K4's and K2's times."""
+    sys.path.insert(0, root)
+    import torch
+
+    import vap_tpu_torch
+
+    if not os.path.abspath(vap_tpu_torch.__file__).startswith(root + os.sep):
+        raise SystemExit(f"attention_ab: imported {vap_tpu_torch.__file__}, not the one under {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("attention_ab: no CUDA device; it times the card")
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = [torch.randn(SHAPE, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+
+    def ms(fn, iters=5, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    k4 = ms(lambda: fa.flash_attention_forward(q, k, v))
+    k2 = ms(lambda: fa.flash_attention_int8_forward(q, k, v))
+    print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}", flush=True)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("roots", nargs="+", help="checkouts holding vap_tpu_torch/, in order")
+    parser.add_argument("--one", action="store_true", help="time the single root in this process")
+    args = parser.parse_args(argv)
+    if args.one:
+        time_root(os.path.abspath(args.roots[0]))
+        return
+    for root in args.roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root)],
+                       check=True)
+
+
+if __name__ == "__main__":
+    main()
