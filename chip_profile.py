@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one main-path call goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [cogvideox] [wan] [train] [w8a8] [wan_train]
+    python3 chip_profile.py [cogvideox] [wan] [train] [w8a8] [wan_train] [hunyuan_train]
 
 Builds the kernels and the same full-width paths as chip_smoke.py (random
 bf16 weights from a seed, one reference): one denoise step of CogVideoX-5B
@@ -11,7 +11,10 @@ one CogVideoX-5B VAP training step at 49 frames of 480x720, batch 1, remat
 "full", AdamW; one computed step of the bench configuration (CogVideoX-5B
 VAP under sage with its projections in W8A8, the chunk form: K3 beside
 K2); one Wan2.1-I2V-14B LoRA training step at 49 frames of 480x832, batch
-1, the recipe's plain structure and adapters, remat "full" (K4 beside K6).
+1, the recipe's plain structure and adapters, remat "full" (K4 beside K6);
+one HunyuanVideo LoRA training step at 49 frames of 480x768, batch 1, the
+modal_labs_dissolve recipe's adapters, remat "full", on random latents
+(K7 in K4 beside K7 in K6).
 Each runs once to warm up and once under torch.profiler. It
 prints the host wall time and stage seconds, the device's busy time and
 idle share (1 - busy / wall), the device time by category and the costliest
@@ -25,8 +28,10 @@ import time
 
 import os
 
-from chip_smoke import (HERE, build_main_pipeline, build_trainer, build_wan_pipeline,
-                        build_wan_trainer, log, main_path_args, power_line, wan_args)
+from chip_smoke import (HERE, HUNYUAN_TRAIN_FRAMES, HUNYUAN_TRAIN_HEIGHT, HUNYUAN_TRAIN_WIDTH, SEED,
+                        build_hunyuan_trainer, build_main_pipeline, build_trainer,
+                        build_wan_pipeline, build_wan_trainer, log, main_path_args, power_line,
+                        wan_args)
 
 STEPS = 1
 TOP = 25
@@ -36,7 +41,8 @@ CATEGORIES = [
     ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_kernel", "w8a8_quantize_kernel")),
     ("attention kernel", ("flash_fwd_kernel", "sage_fwd_kernel")),
     ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
-    ("attention backward kernel (K6)", ("flash_bwd_d128_dq_kernel", "flash_bwd_d128_dkv_kernel")),
+    ("attention backward kernel (K6; K7's at D=128)", ("flash_bwd_d128_dq_kernel",
+                                                        "flash_bwd_d128_dkv_kernel")),
     ("optimizer (fused AdamW)", ("fused_adam", "FusedAdam", "multi_tensor")),
     ("host->device copies (offload staging)", ("Memcpy HtoD",)),
     ("conv layout (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
@@ -155,6 +161,23 @@ def main():
     if "wan_train" in models:
         profile_training(build_wan_trainer(dev, os.path.join(HERE, "build", "chip_profile_wan")),
                          "Wan2.1-I2V-14B LoRA")
+        torch.cuda.empty_cache()
+    if "hunyuan_train" in models:
+        import numpy as np
+
+        from vap_tpu_torch.models.hunyuan_video.config import HunyuanVideoConfig
+        from vap_tpu_torch.models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+        from vap_tpu_torch.models.random_init import build_random
+
+        model = build_random(HunyuanVideoTransformer3DModel, HunyuanVideoConfig.hunyuan_video_t2v(),
+                             dev, torch.bfloat16, torch.Generator(device=dev).manual_seed(SEED))
+        # random latents of the bucket's shape: the step is traced, not the encode
+        shape = (1, 16, (HUNYUAN_TRAIN_FRAMES - 1) // 4 + 1, HUNYUAN_TRAIN_HEIGHT // 8,
+                 HUNYUAN_TRAIN_WIDTH // 8)
+        latents = np.random.default_rng(SEED).standard_normal(shape).astype(np.float32)
+        profile_training(build_hunyuan_trainer(model, os.path.join(HERE, "build",
+                                                                   "chip_profile_hunyuan"),
+                                               latents), "HunyuanVideo LoRA")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@
 Phases, each of which raises on failure:
   1. device: a CUDA device is required (no CPU fallback);
   2. build: one nvcc per vap_tpu_torch/csrc/*.cu, all started together, for
-     sm_90a; ptxas's registers and spills per kernel;
+     sm_90a; ptxas's registers and spills per kernel, the backward instances
+     on a path (K5 at D=64, K6) listed apart;
   3. kernel parity: K1 (flash, D=64), K4 (flash, D=128) and K2 (sage, D=64
      and D=128) against their plain PyTorch versions in bf16, at unaligned
      shapes and at the main-path shapes (CogVideoX joint [1,48,35552,64];
@@ -70,7 +71,17 @@ Phases, each of which raises on failure:
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
-     times at the self-attention shape;
+     times at the self-attention shape; then K7's backward, K6 (D=128) and
+     K5 (D=64) given kv_lens, against their plain versions at the unaligned
+     shapes with B=2 and lengths (Skv, 0) and (Skv-37, 1), and at
+     HunyuanVideo training's joint shape [1,24,18976,128] (K5's form at
+     D=64) with the phase-11 prompt's valid key count: dq, dk and dv within
+     the limit, a NaN key suffix that moves no output, exact zero dk and dv
+     rows past each length and dq = 0 for an empty sample, a planted fault
+     (forward and backward without kv_lens on a suffix of 1e4) that breaks
+     the limit; times beside the plain version, the bound over the valid
+     keys and SDPA's memory-efficient backward with a boolean key mask (a
+     yardstick only);
  10. Wan2.1-I2V-14B LoRA SFT at full width and depth (40 blocks, no MoT:
      the plain structure of the recipe's config_plain.json, 40x128 heads,
      ffn 13,824, 36 input channels, random bf16 weights from a seed) on a
@@ -92,10 +103,27 @@ Phases, each of which raises on failure:
      offload, at 33 frames of 720x1280 (the released default is 129: see
      hunyuan_path), 2 FlowMatch steps under flash (decoded) and 1 under
      sage (latents); the prompt leaves the text mask padded, so K7 masks
-     keys: 60 launches a step.
+     keys: 60 launches a step;
+ 12. the Hunyuan VAE's encoder: the tiny encoder on the card against the
+     CPU in float32, then a seeded random clip of 49 frames at 480x768
+     through phase 11's VAE (prepare_latents: the scaled mean, [1,16,13,60,
+     96]) with its seconds and peak memory;
+ 13. HunyuanVideo LoRA SFT at full width and depth on phase 11's
+     transformer (20 dual + 40 single blocks, 24x128 heads, random bf16
+     weights) on one precomputed item at 49f@480x768 (phase 12's latents,
+     random LLaMA and CLIP states, phase 11's prompt mask: 18,763 of 18,976
+     joint keys valid), batch 1, through SFTTrainer.run: the
+     modal_labs_dissolve recipe's rank 32, alpha 32 on to_q, to_k, to_v and
+     to_out (208 adapters), logit-normal sigmas, AdamW (beta 0.9 / 0.99,
+     weight decay 1e-4, clip 1.0, a constant lr of 3e-5), remat "full", 3
+     optimizer steps; per step the loss, grad_norm and the forward /
+     backward / update seconds, the peak device memory, K7's launches in K4
+     (120 a step: forward and recompute) and in K6 (60), the frozen trunk
+     bit-identical, every adapter's B moved at step 1 and its A at step 2;
+     the share of adapted weight elements the bf16 merge changes.
 
 The last three lines are a JSON object with each kernel's launches in its
-main-path run (K7 in K4 and K2 listed apart from them), its largest error
+main-path run (K7 in K4, K2, K6 and K5 listed apart from them), its largest error
 against the plain version, and its times and bound at its main-path shape;
 the card's name and power limit as nvidia-smi gives them; and
 {"ok": true, "device": {...}}.
@@ -153,6 +181,16 @@ TRAIN_LR = 1e-5  # the recipe's lr, constant: the first update is not at lr 0
 WAN_LORA = dict(rank=16, lora_alpha=16, target_modules="to_q to_k to_v to_out", lr=1e-4,
                 flow_weighting_scheme="logit_normal")
 WAN_STRUCTURE = "examples/training/sft/wan/crush_smol_lora/config_plain.json"
+# the HunyuanVideo LoRA recipe (examples/training/sft/hunyuan_video/
+# modal_labs_dissolve/train.sh): rank 32, alpha 32 on to_q, to_k, to_v and
+# to_out, lr 3e-5 (constant here: under its 1000 warmup steps, which count
+# updates, 3 steps would stay near lr 0), logit-normal sigmas
+HUNYUAN_LORA = dict(rank=32, lora_alpha=32, target_modules="to_q to_k to_v to_out", lr=3e-5,
+                    flow_weighting_scheme="logit_normal")
+# the tiny VAE encoder in float32 on the card against the CPU: the same
+# convs in another summation order (cuDNN, TF32 off), about 1e-6 of the
+# latents' scale
+VAE_CARD_ATOL = 1e-4
 # K6's main-path shapes (B, H, Sq, Skv, D): one Wan branch at 49f@480x832
 # attends its own 20,280 tokens, then 512 UMT5 and 257 CLIP keys
 WAN_TRAIN_ATTN = [(1, 40, 20280, 20280, 128), (1, 40, 20280, 512, 128),
@@ -194,6 +232,12 @@ REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
 # thread, and two at the 182 (K4) and 188 (K2) of an earlier build, which
 # ran 29% and 15% slower: the build fails past 168 or on a spill
 PINNED_REGISTERS = {"flash_fwd_kernel<Li128E>": 168, "sage_fwd_kernel<Li128E>": 168}
+# the backward instances on a path or held (K5 at D=64 without and with
+# kv_lens, K6), printed with their registers and spills since kv_lens (K7's
+# backward) entered them
+BACKWARD_INSTANCES = ("flash_bwd_dq_kernel<Li64ELb0E>", "flash_bwd_dkv_kernel<Li64ELb0E>",
+                      "flash_bwd_dq_kernel<Li64ELb1E>", "flash_bwd_dkv_kernel<Li64ELb1E>",
+                      "flash_bwd_d128_dq_kernel", "flash_bwd_d128_dkv_kernel")
 # HunyuanVideo T2V at 33 frames of 720x1280, cut from the released 129
 # frames (hunyuan_path): 9 latent frames of 90x160, 32,400 image tokens
 # after the 2x2 patch, then 256 text tokens; 24 heads of 128
@@ -206,6 +250,17 @@ HUNYUAN_PROMPT = "a red fox runs through fresh snow"
 # K7 parity at the unaligned shapes: B = 2, lengths (Skv, 0) and (Skv - 37, 1)
 K7_LENS = [lambda skv: [skv, 0], lambda skv: [skv - 37, 1]]
 K7_FLOOR_LSE = -1e4  # the lse of a sample with no valid key (the floored running max)
+# HunyuanVideo LoRA SFT (examples/training/sft/hunyuan_video/
+# modal_labs_dissolve/train.sh): the 49x480x768 bucket is 13 latent frames
+# of 60x96, 13 x 30 x 48 = 18,720 image tokens after the 2x2 patch, then the
+# 256 text tokens of phase 11's prompt
+HUNYUAN_TRAIN_FRAMES, HUNYUAN_TRAIN_HEIGHT, HUNYUAN_TRAIN_WIDTH = 49, 480, 768
+HUNYUAN_TRAIN_IMAGE_TOKENS = (((HUNYUAN_TRAIN_FRAMES - 1) // 4 + 1) * (HUNYUAN_TRAIN_HEIGHT // 16)
+                              * (HUNYUAN_TRAIN_WIDTH // 16))
+HUNYUAN_TRAIN_SHAPE = (1, 24, HUNYUAN_TRAIN_IMAGE_TOKENS + HUNYUAN_TEXT, 128)
+# K7's backward in K5's form, on no model's path (Hunyuan's head_dim is
+# 128): held and timed at the training shape with head_dim 64
+HUNYUAN_TRAIN_SHAPE_D64 = HUNYUAN_TRAIN_SHAPE[:3] + (64,)
 # the small Hunyuan pipeline (no CFG: guidance is an embedding) against the
 # plain masked dense attention: FlowMatch's steps move the latents by
 # 0.125 and 0.875 of the predicted velocity (shift 7 over 2 steps), so one
@@ -456,15 +511,21 @@ def hunyuan_tokenizers():
             FakeTokenizer(clip.vocab_size, eos=clip.eos_token_id))
 
 
-def hunyuan_kv_len():
-    """The joint attention's valid key count of the Hunyuan call: every
-    image token and the prompt's text tokens (template suffix included)."""
+def hunyuan_text_len():
+    """The valid text tokens of phase 11's prompt (template suffix
+    included) in the 256 text slots."""
     from vap_tpu_torch.pipelines.hunyuan_video import (CROP_START, DEFAULT_PROMPT_TEMPLATE_PREFIX,
                                                        DEFAULT_PROMPT_TEMPLATE_SUFFIX)
 
     text = DEFAULT_PROMPT_TEMPLATE_PREFIX + HUNYUAN_PROMPT + DEFAULT_PROMPT_TEMPLATE_SUFFIX
     mask = hunyuan_tokenizers()[0]([text], max_length=HUNYUAN_TEXT + CROP_START)["attention_mask"]
-    return HUNYUAN_IMAGE_TOKENS + int(mask[0, CROP_START:].sum())
+    return int(mask[0, CROP_START:].sum())
+
+
+def hunyuan_kv_len(image_tokens=HUNYUAN_IMAGE_TOKENS):
+    """The joint attention's valid key count of a Hunyuan call with phase
+    11's prompt: every image token and the prompt's text tokens."""
+    return image_tokens + hunyuan_text_len()
 
 
 def varlen_parity(dev, kv_len):
@@ -566,6 +627,146 @@ def varlen_parity(dev, kv_len):
         del q, k, v
         torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: K7's backward, K6 and K5 given kv_lens
+# ---------------------------------------------------------------------------
+
+VARLEN_BWD_SPECS = {
+    "flash_bwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd_d128.cu",
+                                  replaces="vap_tpu/ops/flash_attention.py:1499"),
+    "flash_bwd_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+                             replaces="vap_tpu/ops/flash_attention.py:1131"),
+}
+# the kernels line's K7 forward whose out and lse the backward form is given
+# (K1's varlen form, which feeds K5's, is held but has no entry of its own)
+FORWARD_OF = {"flash_bwd_d128_varlen": "flash_fwd_d128_varlen"}
+
+
+def varlen_backward_parity(dev, kv_len):
+    """K7's backward against its plain version: K6's form (D=128) and K5's
+    (D=64) at the unaligned shapes with B=2, then K6's at the Hunyuan
+    training shape with ``kv_len`` valid keys (and K5's at the same shape
+    with D=64). dq, dk and dv within GRAD_REL_TOL of max|ref|; a NaN key
+    suffix that must not move any output; exact zero dk and dv rows past
+    each length and dq = 0 for a sample with none; the K7 forward that
+    feeds it (K4 or K1) within OUT_REL_TOL and LSE_ATOL of its plain
+    version at every shape, the training shape included; a planted fault
+    (forward and backward without kv_lens on a suffix of 1e4) that must
+    break the limit; then the times at the training shape beside the plain
+    version, the bound over the valid keys and SDPA's memory-efficient
+    backward with a boolean key mask (a yardstick only). Returns the
+    results and K4's varlen max|err| at the training shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    specs = {"flash_bwd_d128_varlen": (fa.flash_attention_backward_rows_plain,
+                                       HUNYUAN_TRAIN_SHAPE),
+             "flash_bwd_varlen": (fa.flash_attention_backward_plain, HUNYUAN_TRAIN_SHAPE_D64)}
+
+    def suffix(x, lens, fill):
+        pad = torch.arange(x.shape[2], device=dev)[None, :] >= lens[:, None]
+        return x.masked_fill(pad[:, None, :, None], fill)
+
+    def inputs(shape, lens):
+        b, h, sq, skv, d = shape
+        q, k, v, dout = [torch.randn((b, h, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                         for n in (sq, skv, skv, sq)]
+        return q, k, v, dout, torch.tensor(lens, device=dev, dtype=torch.int32)
+
+    def errors(got, ref):
+        return [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
+                for g, r in zip(got, ref)]
+
+    def compare(name, plain, shape, lens):
+        q, k, v, dout, lens = inputs(shape, lens)
+        k_nan, v_nan = suffix(k, lens, float("nan")), suffix(v, lens, float("nan"))
+        out, lse = fa.flash_attention_forward(q, k_nan, v_nan, kv_lens=lens)
+        got = fa.flash_attention_backward(q, k_nan, v_nan, out, lse, dout, kv_lens=lens)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        # the forward that feeds the backward, held against its own plain
+        # version at this shape: the backward's check takes out and lse as given
+        ref_out, ref_lse = fa.flash_attention_forward_plain(q, k_nan, v_nan, kv_lens=lens)
+        (fwd_err, fwd_max), = errors([out], [ref_out])
+        lse_err = (lse - ref_lse).abs().max().item()
+        ref = plain(q, k_nan, v_nan, out, lse, dout, kv_lens=lens)
+        errs = errors(got, ref)
+        # the random suffix in place of the NaN one: no output may move
+        still = all(torch.equal(g, r) for g, r in zip(
+            got, fa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)))
+        dq, dk, dv = got
+        zeros = all(not dk[b, :, n:].any() and not dv[b, :, n:].any() and (n > 0 or not dq[b].any())
+                    for b, n in enumerate(lens.tolist()))
+        k_big, v_big = suffix(k, lens, 1e4), suffix(v, lens, 1e4)
+        out_f, lse_f = fa.flash_attention_forward(q, k_big, v_big)
+        # the reference reads no key past the lengths: it holds for this suffix too
+        fault = errors(fa.flash_attention_backward(q, k_big, v_big, out_f, lse_f, dout), ref)
+        log(f"  {name} {tuple(q.shape)} x {k.shape[2]}, kv_lens {lens.tolist()}: " + ", ".join(
+            f"d{n} max|err| {e:.3e} / max|ref| {m:.3e} = {e / m:.3e}" for n, (e, m) in
+            zip("qkv", errs)) + f" (tol {GRAD_REL_TOL}; planted fault, no kv_lens on a 1e4 "
+            f"suffix: {max(e / m for e, m in fault):.3e}), finite {finite}, NaN suffix leaves "
+            f"every output unchanged {still}, dk/dv rows past each length and dq of an empty "
+            f"sample exactly 0 {zeros}; its forward: out max|err| {fwd_err:.3e} / max|ref| "
+            f"{fwd_max:.3e} = {fwd_err / fwd_max:.3e} (tol {OUT_REL_TOL}), lse max|err| "
+            f"{lse_err:.3e} (tol {LSE_ATOL})")
+        if not (finite and still and zeros and all(e <= GRAD_REL_TOL * m for e, m in errs)):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        if not (fwd_err <= OUT_REL_TOL * fwd_max and lse_err <= LSE_ATOL):
+            raise AssertionError(f"{name}: the forward it is given disagrees with its plain version")
+        if not max(e / m for e, m in fault) > GRAD_REL_TOL:
+            raise AssertionError(f"{name}: the limit misses a backward without kv_lens")
+        return max(e for e, _ in errs), fwd_err, (q, k, v, out, lse, dout, lens)
+
+    results, forward_errs = {}, {}
+    for name, (plain, timed) in specs.items():
+        d = timed[-1]
+        errs = []
+        for sq, skv in PARITY_SHAPES:
+            for lens in K7_LENS:
+                errs.append(compare(name, plain, (2, 8, sq, skv, d), lens(skv))[0])
+        b, h, s, _ = timed
+        err, fwd_err, (q, k, v, out, lse, dout, lens) = compare(name, plain, (b, h, s, s, d),
+                                                                [kv_len])
+        errs.append(err)
+        if name in FORWARD_OF:
+            forward_errs[FORWARD_OF[name]] = fwd_err
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens),
+                     iters=3, warmup=1)
+        fixed_ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=3,
+                           warmup=1)
+        plain_ms = time_ms(lambda: plain(q, k, v, out, lse, dout, kv_lens=lens), iters=1, warmup=1)
+        # one PyTorch call with the same function, a yardstick: the backward
+        # of SDPA's memory-efficient backend with a boolean key mask
+        keep = (torch.arange(s, device=dev) < kv_len)[None, None, None, :]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        library_ms = None
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+            library_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                                 iters=3, warmup=1)
+            del o
+        except RuntimeError as exc:  # the backend refuses these inputs: no yardstick
+            log(f"  {name}: SDPA memory-efficient backward with a key mask refused: {exc}")
+        bound_ms, bound_by = bwd_bound(b, h, s, kv_len, d)
+        tflops = 10 * b * h * s * kv_len * d / (ms * 1e-3) / 1e12
+        log(f"  {name} at {(b, h, s, d)}, {kv_len} valid keys: kernel {ms:.3f} ms ({tflops:.1f} "
+            f"TFLOP/s over the valid keys; without kv_lens, all {s} keys, {fixed_ms:.3f} ms), "
+            f"plain {plain_ms:.3f} ms, SDPA memory-efficient backward with a key mask "
+            f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by})")
+        results[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         "shape": [b, h, s, s, d], "kv_len": kv_len, "fixed_length_ms": fixed_ms}
+        del q, k, v, out, lse, dout, leaves
+        torch.cuda.empty_cache()
+    return results, forward_errs
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +1095,8 @@ def reset_counts():
     fa.flash_attention_int8_forward.launches_varlen = 0
     fa.flash_attention_backward.launches = 0
     fa.flash_attention_backward.launches_d128 = 0
+    fa.flash_attention_backward.launches_varlen = 0
+    fa.flash_attention_backward.launches_d128_varlen = 0
     ti8.int8_linear_chunk.launches = 0
     common.int8_linear_row.calls = 0
     gp.gemm_probe.launches = 0
@@ -917,6 +1120,8 @@ def read_counts():
             "sage_fwd_varlen": fa.flash_attention_int8_forward.launches_varlen,
             "flash_bwd": fa.flash_attention_backward.launches,
             "flash_bwd_d128": fa.flash_attention_backward.launches_d128,
+            "flash_bwd_varlen": fa.flash_attention_backward.launches_varlen,
+            "flash_bwd_d128_varlen": fa.flash_attention_backward.launches_d128_varlen,
             "w8a8": ti8.int8_linear_chunk.launches,
             "w8a8_row_calls": common.int8_linear_row.calls,
             "gemm_probe": gp.gemm_probe.launches,
@@ -1538,26 +1743,22 @@ def build_wan_trainer(dev, work):
     return SFTTrainer(args, model)
 
 
-def wan_training_path(dev):
-    import shutil
-
+def run_lora_training(trainer, want_launches):
+    """``TRAIN_STEPS`` optimizer steps of a LoRA trainer on the card, one
+    ``run()`` each, with every launch counter at 0 before the first: per
+    step the loss, grad_norm and the forward / backward / update seconds;
+    the peak device memory; exactly ``want_launches`` per step (none of any
+    other kernel); the frozen trunk bit-identical (a host copy); every
+    adapter's B moved at step 1 and its A at step 2, none at step 1; the
+    share of adapted weight elements the bf16 merge changes. Returns the
+    launches."""
     import numpy as np
     import torch
 
-    work = os.path.join(HERE, "build", "chip_smoke_wan_train")
-    t0 = time.perf_counter()
-    trainer = build_wan_trainer(dev, work)
-    model, cfg = trainer.model, trainer.model.config
+    model, dev = trainer.model, trainer.device
     params = dict(model.named_parameters())
     trainable = set(trainer.trainable_names)
     before = {n: p.detach().to("cpu", copy=True) for n, p in params.items() if n not in trainable}
-    n_lora = sum(params[n].numel() for n in trainable)
-    log(f"  {cfg.num_layers} blocks, MoT in {list(cfg.block_idx_with_mot_ref)}, "
-        f"{cfg.num_attention_heads}x{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}, "
-        f"{cfg.in_channels} input channels: {n_params(model) - n_lora} bf16 parameters frozen, "
-        f"{len(trainer.lora)} adapters (rank {trainer.args.rank}) with {n_lora} f32 parameters, "
-        f"remat {trainer.step_cfg.remat!r}, AdamW fused "
-        f"{trainer.optimizer.inner.defaults['fused']}; {time.perf_counter() - t0:.2f} s to build")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -1577,22 +1778,20 @@ def wan_training_path(dev):
         log(f"  step {r['step']}: loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, lr "
             f"{r['lr']:.1e}, {total:.3f} s = forward {r['forward_s']:.3f} + backward "
             f"{r['backward_s']:.3f} + update {r['update_s']:.3f}")
-    per_step = 3 * cfg.num_layers  # self, text and image attention per block
     log(f"  {TRAIN_STEPS} steps in {wall:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches}, per step K4 {launches['flash_fwd_d128'] / TRAIN_STEPS:g} (expected "
-        f"{2 * per_step}: forward and recompute) and K6 "
-        f"{launches['flash_bwd_d128'] / TRAIN_STEPS:g} (expected {per_step})")
-    check_launches(launches, {"flash_fwd_d128": 2 * per_step * TRAIN_STEPS,
-                              "flash_bwd_d128": per_step * TRAIN_STEPS})
+        f"launches {launches}, per step " + ", ".join(
+            f"{name} {launches[name] / TRAIN_STEPS:g} (expected {n})"
+            for name, n in want_launches.items()))
+    check_launches(launches, {name: n * TRAIN_STEPS for name, n in want_launches.items()})
     if not (len(trainer.history) == TRAIN_STEPS == trainer.optimizer.count
             and all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in trainer.history)):
-        raise AssertionError(f"Wan training: {trainer.optimizer.count} updates, history "
+        raise AssertionError(f"LoRA training: {trainer.optimizer.count} updates, history "
                              f"{trainer.history}")
     frozen_changed = [n for n, p in params.items()
                       if n not in trainable and not torch.equal(p.detach().cpu(), before[n])]
     # B starts at 0, so A's gradient is 0 at step 1: every B moves at step 1
-    # and no A (weight decay at lr 1e-4 moves A by 1e-8, below half an f32
-    # ulp); at step 2 every A moves
+    # and no A (weight decay at these lr moves A by under 1e-8 of itself,
+    # below half an f32 ulp); at step 2 every A moves
     b_still = [n for n in start if not snapshots[0][n]["B"].any()]
     a_early = [n for n in start if not torch.equal(snapshots[0][n]["A"], start[n])]
     a_still = [n for n in start if torch.equal(snapshots[1][n]["A"], start[n])]
@@ -1600,7 +1799,7 @@ def wan_training_path(dev):
         f"moved at step 1: {len(start) - len(b_still)} of {len(start)}, whose A moved at step 1: "
         f"{len(a_early)}, at step 2: {len(start) - len(a_still)}")
     if frozen_changed or b_still or a_early or a_still:
-        raise AssertionError(f"Wan training: frozen tensors changed {frozen_changed[:5]}, B that "
+        raise AssertionError(f"LoRA training: frozen tensors changed {frozen_changed[:5]}, B that "
                              f"did not move {b_still[:5]}, A that moved early {a_early[:5]} or "
                              f"not at step 2 {a_still[:5]}")
     # the merge rounds W + delta to bf16: a delta below half an ulp of W is lost
@@ -1610,7 +1809,35 @@ def wan_training_path(dev):
     total = sum(params[f"{n}.weight"].numel() for n in trainer.lora)
     log(f"  after step {TRAIN_STEPS}: {kept} of {total} adapted weight elements "
         f"({kept / total:.4f}) differ from the frozen base once merged in bf16")
-    del trainer, model, params, before, snapshots, start
+    return launches
+
+
+def describe_lora(trainer, t0):
+    trainable = set(trainer.trainable_names)
+    n_lora = sum(p.numel() for n, p in trainer.model.named_parameters() if n in trainable)
+    return (f"{n_params(trainer.model) - n_lora} bf16 parameters frozen, {len(trainer.lora)} "
+            f"adapters (rank {trainer.args.rank}) with {n_lora} f32 parameters, remat "
+            f"{trainer.step_cfg.remat!r}, AdamW fused {trainer.optimizer.inner.defaults['fused']}; "
+            f"{time.perf_counter() - t0:.2f} s to build")
+
+
+def wan_training_path(dev):
+    import shutil
+
+    import torch
+
+    work = os.path.join(HERE, "build", "chip_smoke_wan_train")
+    t0 = time.perf_counter()
+    trainer = build_wan_trainer(dev, work)
+    cfg = trainer.model.config
+    log(f"  {cfg.num_layers} blocks, MoT in {list(cfg.block_idx_with_mot_ref)}, "
+        f"{cfg.num_attention_heads}x{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}, "
+        f"{cfg.in_channels} input channels: {describe_lora(trainer, t0)}")
+    per_step = 3 * cfg.num_layers  # self, text and image attention per block
+    # K4 runs each attention in the forward and again in the recompute
+    launches = run_lora_training(trainer, {"flash_fwd_d128": 2 * per_step,
+                                           "flash_bwd_d128": per_step})
+    del trainer
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches["flash_bwd_d128"]
@@ -1718,7 +1945,8 @@ def build_hunyuan_pipeline(dev):
     log(f"Hunyuan weights: {counts} bf16 in host memory ({sum(counts.values()) * 2 / 2**30:.2f} "
         f"GiB; host MemTotal {mem_total_gib():.2f} GiB), {time.perf_counter() - t0:.2f} s to "
         f"build; {t_cfg.num_layers} dual + {t_cfg.num_single_layers} single blocks, "
-        f"{t_cfg.num_attention_heads}x{t_cfg.attention_head_dim} heads, the VAE's decoder only")
+        f"{t_cfg.num_attention_heads}x{t_cfg.attention_head_dim} heads; the VAE's encoder runs in "
+        f"phase 12")
     return pipe
 
 
@@ -1781,6 +2009,126 @@ def hunyuan_path(pipe, provider, steps, dev, kv_len):
     return launches[counter]
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: HunyuanVideo's VAE encode and LoRA SFT at full width
+# ---------------------------------------------------------------------------
+
+def hunyuan_encode_path(vae, dev):
+    """A seeded random clip of 49 frames at 480x768 in [-1, 1], made on the
+    card, through the port's encoder (``prepare_latents``: the scaled mean,
+    channel-first) with its seconds and peak memory; first the tiny encoder
+    on the card in float32 against the same on the CPU (the strided,
+    frame-chunked convs on CUDA). Returns the latents [1, 16, 13, 60, 96]."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.hunyuan_video import vae as hvae
+    from vap_tpu_torch.models.random_init import build_random
+
+    tiny = build_random(hvae.AutoencoderKLHunyuanVideo, hvae.HunyuanVideoVAEConfig.tiny(), "cpu",
+                        torch.float32, torch.Generator().manual_seed(SEED + 14))
+    clip = torch.rand((9, 12, 10, 3), generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    ref = hvae.prepare_latents(tiny, {"video": clip}, torch.float32)["latents"]
+    got = hvae.prepare_latents(tiny.to(dev), {"video": clip}, torch.float32)["latents"]
+    err = float(np.abs(got - ref).max())
+    log(f"  tiny encoder, card vs CPU (float32): latents {got.shape}, max|err| {err:.3e} (tol "
+        f"{VAE_CARD_ATOL}), max|ref| {np.abs(ref).max():.3f}")
+    if not err <= VAE_CARD_ATOL:
+        raise AssertionError("the tiny VAE encoder on the card disagrees with the CPU")
+
+    vae.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    shape = (HUNYUAN_TRAIN_FRAMES, HUNYUAN_TRAIN_HEIGHT, HUNYUAN_TRAIN_WIDTH, 3)
+    video = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    latents = hvae.prepare_latents(vae, {"video": video})["latents"]
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = (1, 16, (HUNYUAN_TRAIN_FRAMES - 1) // 4 + 1, HUNYUAN_TRAIN_HEIGHT // 8,
+                HUNYUAN_TRAIN_WIDTH // 8)
+    finite = bool(np.isfinite(latents).all())
+    log(f"  clip {shape} bf16 -> latents {latents.shape} (scaled mean), finite {finite}, "
+        f"std {latents.std():.4f}, max|x| {np.abs(latents).max():.3f}; {secs:.3f} s, peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if latents.shape != expected or not finite:
+        raise AssertionError(f"Hunyuan encode gave {latents.shape} (expected {expected}) or "
+                             f"non-finite latents")
+    vae.to("cpu")
+    del video
+    torch.cuda.empty_cache()
+    return latents
+
+
+def hunyuan_training_item(cfg, latents, text_len):
+    """One cache item in ``HunyuanVideoSpec``'s layout for the transformer
+    config ``cfg``: ``latents`` (the encoded clip, [1, 16, 13, 60, 96]),
+    random LLaMA states [1, 256, 4096], the prompt's mask [1, 256]
+    (``text_len`` ones, then padding) and random CLIP pooled states
+    [1, 768], from SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 16)
+    mask = (np.arange(HUNYUAN_TEXT) < text_len).astype(np.float32)[None]
+    return ({"encoder_hidden_states": rng.standard_normal((1, HUNYUAN_TEXT, cfg.text_embed_dim),
+                                                          np.float32),
+             "prompt_attention_mask": mask,
+             "pooled_projections": rng.standard_normal((1, cfg.pooled_projection_dim),
+                                                       np.float32)},
+            {"latents": np.asarray(latents, np.float32)})
+
+
+def build_hunyuan_trainer(model, work, latents):
+    """An SFTTrainer of the HunyuanVideo LoRA recipe with remat "full" on
+    ``model`` (on the card), reading one item written as a precomputed cache
+    under ``work``: ``latents`` with the phase-11 prompt's text mask."""
+    import shutil
+
+    from vap_tpu_torch.data.precomputation import write_precomputed
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    shutil.rmtree(work, ignore_errors=True)
+    args = TrainingArgs(model_name="hunyuan_video", training_type="lora",
+                        precomputation_dir=os.path.join(work, "cache"),
+                        output_dir=os.path.join(work, "out"), seed=SEED, train_steps=1,
+                        optimizer="adamw", lr_scheduler="constant", lr_warmup_steps=0,
+                        beta1=0.9, beta2=0.99, weight_decay=1e-4, max_grad_norm=1.0,
+                        gradient_checkpointing=True, checkpointing_steps=NEVER,
+                        logging_steps=1, **HUNYUAN_LORA)
+    write_precomputed(args.precomputation_dir,
+                      [hunyuan_training_item(model.config, latents, hunyuan_text_len())])
+    return SFTTrainer(args, model)
+
+
+def hunyuan_training_path(model, latents, dev):
+    """HunyuanVideo LoRA SFT at full width and depth on phase 11's
+    transformer (moved to the card): 3 steps at 49f@480x768 through
+    ``SFTTrainer.run``. Returns K7's launches in K4 and in K6."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(HERE, "build", "chip_smoke_hunyuan_train")
+    t0 = time.perf_counter()
+    model.to(dev)
+    trainer = build_hunyuan_trainer(model, work, latents)
+    cfg = model.config
+    log(f"  {cfg.num_layers} dual + {cfg.num_single_layers} single blocks, "
+        f"{cfg.num_attention_heads}x{cfg.attention_head_dim} heads, joint attention "
+        f"{HUNYUAN_TRAIN_SHAPE} with {hunyuan_kv_len(HUNYUAN_TRAIN_IMAGE_TOKENS)} valid keys: "
+        f"{describe_lora(trainer, t0)}")
+    per_step = cfg.num_layers + cfg.num_single_layers  # one joint attention a block
+    # K7 in K4 runs each attention in the forward and again in the recompute
+    launches = run_lora_training(trainer, {"flash_fwd_d128_varlen": 2 * per_step,
+                                           "flash_bwd_d128_varlen": per_step})
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
     spills per kernel, from the compilers' logs. Fails if an instance in
@@ -1814,6 +2162,9 @@ def build_kernels():
             raise AssertionError(f"ptxas gave {kernel_name} {got}: it must take at most {cap} "
                                  f"registers and no spill (three blocks an SM)")
     log(f"  occupancy held: {held}")
+    log("  backward instances: " + ", ".join(
+        f"{name} {next((v for k, v in seen.items() if k.endswith(name)), {})}"
+        for name in BACKWARD_INSTANCES))
 
 
 def main():
@@ -1894,6 +2245,14 @@ def main():
     # 9. K6
     log("flash backward at head_dim 128 (K6) parity (bf16, vs plain PyTorch):")
     results["flash_bwd_d128"] = backward_parity(dev, d128=True)
+    train_kv_len = hunyuan_kv_len(HUNYUAN_TRAIN_IMAGE_TOKENS)
+    log(f"K7's backward (K6 and K5 given kv_lens) parity (bf16, vs plain PyTorch; Hunyuan "
+        f"training's {train_kv_len} valid keys of {HUNYUAN_TRAIN_SHAPE[2]}):")
+    bwd_results, forward_errs = varlen_backward_parity(dev, train_kv_len)
+    results.update(bwd_results)
+    for name, err in forward_errs.items():  # K7's forward at the training shape as well
+        results[name]["train_shape_max_abs_err"] = err
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     # 10. Wan LoRA training
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
@@ -1912,11 +2271,32 @@ def main():
     launches["flash_fwd_d128_varlen"] = hunyuan_path(pipe, "flash", HUNYUAN_STEPS, dev, kv_len)
     log(f"Hunyuan main path, sage ({HUNYUAN_FRAMES} frames, 1 step):")
     launches["sage_fwd_d128_varlen"] = hunyuan_path(pipe, "sage", 1, dev, kv_len)
+    # the transformer and the VAE go on to phases 12-13; the text encoders
+    # and the offload slot's host copies go with the pipeline
+    transformer, vae = pipe.transformer, pipe.vae
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12. the Hunyuan VAE encode
+    log(f"Hunyuan VAE encode ({HUNYUAN_TRAIN_FRAMES} frames of {HUNYUAN_TRAIN_HEIGHT}x"
+        f"{HUNYUAN_TRAIN_WIDTH}):")
+    latents = hunyuan_encode_path(vae, dev)
+    del vae
+    gc.collect()
+
+    # 13. HunyuanVideo LoRA training
+    log(f"training, HunyuanVideo LoRA ({HUNYUAN_TRAIN_FRAMES} frames of {HUNYUAN_TRAIN_HEIGHT}x"
+        f"{HUNYUAN_TRAIN_WIDTH}, batch 1, {TRAIN_STEPS} optimizer steps):")
+    train_launches = hunyuan_training_path(transformer, latents, dev)
+    launches["flash_bwd_d128_varlen"] = train_launches["flash_bwd_d128_varlen"]
+    # K7's backward in K5 is held, on no model's path: the run checked its count is 0
+    launches["flash_bwd_varlen"] = train_launches["flash_bwd_varlen"]
+    del transformer
     gc.collect()
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
-    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS}
+    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS, **VARLEN_BWD_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 and K4 flash, K2 sage, K7 their varlen form,
-K5 and K6 flash backward, K3 W8A8, K9 and K10 the GEMM rate probe) against
-their plain PyTorch versions on the card.
+K5 and K6 flash backward and K7's backward in them, K3 W8A8, K9 and K10 the
+GEMM rate probe) against their plain PyTorch versions on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -325,6 +325,55 @@ def test_flash_function_grads_on_the_card_d128(cuda):
             tfa.flash_attention_backward.launches_d128) == (counts[0] + 1, counts[1] + 1)
     errs = _grad_errors(*grads)
     assert max(errs) <= GRAD_REL_TOL, errs
+
+
+# K7's backward: K5 and K6 given kv_lens, on the NaN suffix of the K7
+# forward tests, held to the K5/K6 limit against their plain versions
+K7_BWD = {64: ("launches_varlen", "launches", tfa.flash_attention_backward_plain),
+          128: ("launches_d128_varlen", "launches_d128", tfa.flash_attention_backward_rows_plain)}
+
+
+def _k7_bwd_inputs(device, sq, skv, d, fill):
+    q, k, v, lens = _k7_inputs(device, sq, skv, d, fill)
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    dout = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(3),
+                       device=device).to(torch.bfloat16)
+    return q, k, v, out, lse, dout, lens
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", list(K7_LENS))
+def test_k7_backward_matches_plain(cuda, d, sq, skv):
+    """K5 (D = 64) and K6 (D = 128) given kv_lens against their plain
+    versions: finite with NaN past each length, within the limit, one
+    launch on the varlen counter and none on the fixed-length one, exact
+    zero dk and dv rows past each length and dq = 0 for a sample with none."""
+    *args, lens = _k7_bwd_inputs(cuda, sq, skv, d, float("nan"))
+    counter, fixed, plain = K7_BWD[d]
+    kernel = tfa.flash_attention_backward
+    before = getattr(kernel, counter), getattr(kernel, fixed)
+    got = kernel(*args, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert (getattr(kernel, counter), getattr(kernel, fixed)) == (before[0] + 1, before[1])
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, plain(*args, kv_lens=lens))
+    assert max(errs) <= GRAD_REL_TOL, errs
+    dq, dk, dv = got
+    for b, n in enumerate(lens.tolist()):
+        assert not dk[b, :, n:].any() and not dv[b, :, n:].any(), b
+        if n == 0:
+            assert not dq[b].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k7_backward_limit_catches_a_kernel_without_kv_lens(cuda, d):
+    """A planted fault: forward and backward run without kv_lens on a
+    suffix of 1e4 must break the limit against the plain K7 backward."""
+    q, k, v, out, lse, dout, lens = _k7_bwd_inputs(cuda, 128, 257, d, 1e4)
+    ref = K7_BWD[d][2](q, k, v, out, lse, dout, kv_lens=lens)
+    out_f, lse_f = tfa.flash_attention_forward(q, k, v)
+    errs = _grad_errors(tfa.flash_attention_backward(q, k, v, out_f, lse_f, dout), ref)
+    assert max(errs) > GRAD_REL_TOL, errs
 
 
 # K3, the W8A8 linear: per chunk the int32 product is exact on both sides and

@@ -10,12 +10,15 @@ held against these plain versions on the card (``test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch.utils.checkpoint import checkpoint
 
 from vap_tpu.ops.attention import dense_attention_masked as jax_masked
 from vap_tpu.ops.flash_attention import flash_attention_int8 as jax_int8
@@ -119,10 +122,94 @@ def test_k7_rejects_bad_kv_lens():
             tfa.flash_attention_forward(q, k, v, kv_lens=lens)
 
 
-def test_k7_has_no_backward_yet():
-    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(6, 2, 8, 8, 64))
-    with pytest.raises(NotImplementedError, match="K7"):
-        tfa.flash_attention(q, k, v, kv_lens=torch.tensor([8, 3]))
+# ---------------------------------------------------------------------------
+# K7's backward: K5 and K6 given kv_lens
+# ---------------------------------------------------------------------------
+
+# float32 on both sides, held against 1e-4 of the gradient's scale: the same
+# recurrence (P from the lse, delta from out) summed in another order and
+# from each side's own forward, as the K5 and K6 backward tests
+BWD_ATOL = 1e-4
+
+
+def _close_scaled(got, want, atol, name):
+    scale = max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got, want, atol=atol * scale, rtol=0, err_msg=name)
+
+
+def _k7_grads(q, k, v, dout, lens):
+    """The port's K7 forward, then its backward, on CPU tensors (the plain
+    versions: K5's form below head_dim 128, K6's at 128)."""
+    q, k, v, dout = map(torch.from_numpy, (q, k, v, dout))
+    n = torch.from_numpy(np.asarray(lens, np.int32))
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=n)
+    return [g.numpy() for g in tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=n)]
+
+
+def _jax_vjp(fn, q, k, v, dout, lens, interpret):
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    n = jnp.asarray(np.asarray(lens, np.int32))
+    with pltpu.force_tpu_interpret_mode() if interpret else contextlib.nullcontext():
+        _, vjp = jax.vjp(lambda q, k, v: fn(q, k, v, n), *args)
+        return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k7_backward_plain_matches_jax_vjp(d):
+    """D = 64 runs JAX's transposed backward with its per-(b,h) bias column,
+    D = 128 its row kernels with the per-sample bias: ``jax.vjp`` of
+    ``flash_attention_varlen`` in interpret mode, and of
+    ``dense_attention_masked``. The dk and dv rows past each length are
+    exact zeros, and the sample with no key gets dq = 0."""
+    q, k, v = _qkv(20 + d, len(LENS), 130, 200, d)
+    dout = np.random.default_rng(30 + d).standard_normal(q.shape).astype(np.float32)
+    got = _k7_grads(q, k, v, dout, LENS)
+    ref = _jax_vjp(jax_varlen, q, k, v, dout, LENS, interpret=True)
+    dense = _jax_vjp(jax_masked, q, k, v, dout, LENS, interpret=False)
+    for name, g, r, dn in zip("qkv", got, ref, dense):
+        _close_scaled(g, r, BWD_ATOL, f"d{name} vs flash_attention_varlen")
+        _close_scaled(g, dn, BWD_ATOL, f"d{name} vs dense_attention_masked")
+    for b, n in enumerate(LENS):
+        assert not got[1][b, :, n:].any() and not got[2][b, :, n:].any(), b
+    assert not got[0][1].any()
+    assert all(np.isfinite(g).all() for g in got)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("fill", [np.nan, 1e4])
+def test_k7_backward_ignores_the_suffix(fill, d):
+    """Keys and values past each length rewritten to NaN or 1e4: dq, dk and
+    dv do not move, to the bit, and the rows past each length stay 0."""
+    q, k, v = _qkv(40 + d, len(LENS), 70, 200, d)
+    dout = np.random.default_rng(50 + d).standard_normal(q.shape).astype(np.float32)
+    base = _k7_grads(q, k, v, dout, LENS)
+    got = _k7_grads(q, _garbage_suffix(k, LENS, fill), _garbage_suffix(v, LENS, fill), dout, LENS)
+    for g, b in zip(got, base):
+        assert np.array_equal(g, b)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_function_k7_matches_dense_autograd(d):
+    """``flash_attention(kv_lens=)`` under grad (``FlashAttentionFunction``:
+    K7's forward and backward, plain on CPU tensors) against autograd
+    through ``dense_attention_masked``, f32, with a loss that weights every
+    output element differently; then the same through a non-reentrant
+    ``torch.utils.checkpoint``, whose recompute must carry ``kv_lens``."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(60 + d, len(LENS), 50, 200, d))
+    w = torch.from_numpy(np.random.default_rng(70 + d).standard_normal(q.shape).astype(np.float32))
+    lens = torch.tensor(LENS)
+
+    def grads(attn, remat):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn = lambda *x: attn(*x, kv_lens=lens)  # noqa: E731
+        out = checkpoint(fn, *leaves, use_reentrant=False) if remat else fn(*leaves)
+        (out * w).sum().backward()
+        return [t.grad for t in leaves]
+
+    want = grads(tattn.dense_attention_masked, False)
+    for remat in (False, True):
+        for name, g, r in zip("qkv", grads(tfa.flash_attention, remat), want):
+            _close_scaled(g.numpy(), r.numpy(), BWD_ATOL, f"d{name}, remat {remat}")
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +243,24 @@ def test_flash_providers_take_k7(provider):
         fixed = tattn.full_attention(q, k, v)
     assert torch.equal(got, tfa.flash_attention_forward(q, k, v, kv_lens=lens)[0])
     assert torch.equal(fixed, tfa.flash_attention_forward(q, k, v)[0])
+
+
+@pytest.mark.parametrize("provider", ["flash", "flash_varlen", "jax_flash"])
+def test_flash_providers_differentiate_k7(provider):
+    """Under grad the three providers run ``flash_attention`` with
+    ``kv_lens`` (K7's forward and backward): the same gradients, to the
+    bit, and zero dk rows past each length."""
+    q, k, v = _qkv(11, 2, 40, 60, 64)
+    lens = torch.tensor([60, 21])
+    grads = []
+    for fn in (lambda *x: tattn.full_attention(*x, provider=provider, kv_lens=lens),
+               lambda *x: tfa.flash_attention(*x, kv_lens=lens)):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        fn(*leaves).square().sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, r in zip(*grads):
+        assert torch.equal(g, r)
+    assert not grads[0][1][1, :, 21:].any()
 
 
 def test_sage_provider_takes_k7():

@@ -402,23 +402,37 @@ def _hunyuan_resnet(sd, prefix, p):
             _conv3d(sd, f"{prefix}.{name}.conv", p[name])
 
 
-def from_jax_hunyuan_vae(params: Dict[str, Any], cfg: HunyuanVideoVAEConfig) -> StateDict:
-    """``init_hunyuan_vae`` / ``convert_hunyuan_vae_state_dict`` tree -> the
-    port's decode-only ``AutoencoderKLHunyuanVideo`` state dict: the
-    decoder and ``post_quant_conv`` (the encoder and ``quant_conv`` are not
-    ported and are left out)."""
-    sd: StateDict = {}
-    d = params["decoder"]
-    _conv3d(sd, "decoder.conv_in.conv", d["conv_in"])
-    mid = d["mid_block"]
+def _hunyuan_mid(sd, prefix, mid, cfg: HunyuanVideoVAEConfig):
     for j, r in enumerate(mid["resnets"]):
-        _hunyuan_resnet(sd, f"decoder.mid_block.resnets.{j}", r)
+        _hunyuan_resnet(sd, f"{prefix}.resnets.{j}", r)
     if cfg.mid_block_add_attention:
-        a, pre = mid["attention"], "decoder.mid_block.attentions.0"
+        a, pre = mid["attention"], f"{prefix}.attentions.0"
         _norm(sd, f"{pre}.group_norm", a["group_norm"])
         for name in ("to_q", "to_k", "to_v"):
             _linear(sd, f"{pre}.{name}", a[name])
         _linear(sd, f"{pre}.to_out.0", a["to_out"])
+
+
+def from_jax_hunyuan_vae(params: Dict[str, Any], cfg: HunyuanVideoVAEConfig) -> StateDict:
+    """``init_hunyuan_vae`` / ``convert_hunyuan_vae_state_dict`` tree -> the
+    port's ``AutoencoderKLHunyuanVideo`` state dict: the encoder and
+    ``quant_conv``, the decoder and ``post_quant_conv``."""
+    sd: StateDict = {}
+    e = params["encoder"]
+    _conv3d(sd, "encoder.conv_in.conv", e["conv_in"])
+    for i, blk in enumerate(e["down_blocks"]):
+        for j, r in enumerate(blk["resnets"]):
+            _hunyuan_resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}", r)
+        if "downsample" in blk:
+            _conv3d(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv.conv",
+                    blk["downsample"]["conv"])
+    _hunyuan_mid(sd, "encoder.mid_block", e["mid_block"], cfg)
+    _norm(sd, "encoder.conv_norm_out", e["conv_norm_out"])
+    _conv3d(sd, "encoder.conv_out.conv", e["conv_out"])
+    _conv3d(sd, "quant_conv", params["quant_conv"])
+    d = params["decoder"]
+    _conv3d(sd, "decoder.conv_in.conv", d["conv_in"])
+    _hunyuan_mid(sd, "decoder.mid_block", d["mid_block"], cfg)
     for i, blk in enumerate(d["up_blocks"]):
         for j, r in enumerate(blk["resnets"]):
             _hunyuan_resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", r)
@@ -474,17 +488,31 @@ def from_jax_clip_text(params: Dict[str, Any], cfg: CLIPTextConfig) -> StateDict
 # LoRA adapters
 # ---------------------------------------------------------------------------
 
+# HunyuanVideo's stacked block trees -> the port's module lists
+HUNYUAN_STACKS = {("dual_blocks",): "transformer_blocks",
+                  ("single_blocks",): "single_transformer_blocks",
+                  ("context_embedder", "refiner_blocks"):
+                      "context_embedder.token_refiner.refiner_blocks"}
+
+
 def from_jax_lora(lora: Any, cfg) -> Dict[str, Dict[str, torch.Tensor]]:
     """``init_lora`` tree of ``vap_tpu/training/lora.py`` (the params' structure, with
     {"A": [..., in, r], "B": [..., r, out]} in place of each adapted linear's
     ``kernel`` and None elsewhere) -> the port's adapter tree {module name: {"A", "B"}}, the
-    per-segment block stacks unstacked (``blocks.<i>`` for Wan,
-    ``transformer_blocks.<i>`` for CogVideoX)."""
+    block stacks unstacked: per segment ``blocks.<i>`` for Wan and
+    ``transformer_blocks.<i>`` for CogVideoX; for HunyuanVideo ``dual_blocks`` ->
+    ``transformer_blocks.<i>``, ``single_blocks`` -> ``single_transformer_blocks.<i>``
+    and ``context_embedder.refiner_blocks`` ->
+    ``context_embedder.token_refiner.refiner_blocks.<i>``."""
     blocks = "blocks" if isinstance(cfg, WanMOTConfig) else "transformer_blocks"
     out: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def module(names) -> str:
         return ".".join(MODULE_SUFFIX.get(str(n), str(n)) for n in names)
+
+    def unstack(a, b, prefix: str, start: int, rest) -> None:
+        for i in range(a.shape[0]):
+            out[f"{prefix}.{start + i}.{module(rest)}"] = {"A": _t(a[i]), "B": _t(b[i])}
 
     def walk(tree, names) -> None:
         if tree is None:
@@ -492,12 +520,13 @@ def from_jax_lora(lora: Any, cfg) -> Dict[str, Dict[str, torch.Tensor]]:
         if isinstance(tree, dict) and set(tree) == {"A", "B"}:
             a, b = np.asarray(tree["A"]), np.asarray(tree["B"])
             names = names[:-1]  # the adapter sits where the linear's "kernel" does
-            if names[0] != "blocks":
-                out[module(names)] = {"A": _t(a), "B": _t(b)}
-                return
-            start, length, _ = cfg.mot_segments[names[1]]
-            for i in range(length):
-                out[f"{blocks}.{start + i}.{module(names[2:])}"] = {"A": _t(a[i]), "B": _t(b[i])}
+            if isinstance(cfg, HunyuanVideoConfig):
+                for stack, prefix in HUNYUAN_STACKS.items():
+                    if tuple(names[:len(stack)]) == stack:
+                        return unstack(a, b, prefix, 0, names[len(stack):])
+            elif names[0] == "blocks":
+                return unstack(a, b, blocks, cfg.mot_segments[names[1]][0], names[2:])
+            out[module(names)] = {"A": _t(a), "B": _t(b)}
             return
         items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         for key, sub in items:

@@ -25,6 +25,21 @@
 // row of the last tile is zero-filled with lse2 = +1e30, so its p is 0 and
 // it adds nothing to dk and dv (the TPU's padded lse rows).
 //
+// K7's backward at head_dim < 128 (`_fav_bwd` :1499 through
+// `_flash_attention_backward_t(kv_lens=)`, whose per-(b,h) bias column
+// :1188-1192 sends p of an invalid key to 0) is this kernel given kv_lens
+// [B] int32, in the same log2 form: sample b = bh / heads has keys
+// [0, kv_lens[b]) only, clamped to [0, Skv]. Only keys are masked; every
+// query row gets its dq from its sample's valid keys. The dq kernel's key
+// loop stops at the length (no key past it is loaded; a sample with no key
+// gets dq = 0); the dk/dv kernel loads only valid K and V rows, stores
+// zeros for the rows past the length, and a tile that lies wholly past it
+// writes its zero rows and returns (dk and dv come from torch.empty).
+// kv_lens == nullptr is the fixed-length path, a separate instance of each
+// kernel (kVarlen = false) compiled as it was before kv_lens: with the
+// length known only at run time ptxas gave the D = 64 dk/dv kernel 187
+// registers instead of 214 and K5 ran 12.8% slower on CogVideoX's shape.
+//
 // What bounds it on an H100: 10*B*H*Sq*Skv*D FLOP (five products) against
 // about 2*(3*Sq + 2*Skv)*D bytes of bf16 operands per (b,h); at the main
 // path's [1, 48, 35552, 64] that is 39.3 ms of bf16 tensor-core time against
@@ -115,30 +130,32 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[kBlockN / 16][4], const flo
   }
 }
 
-// Store a warp's 16 rows of acc * mul as bf16 (rows at or past `rows` skipped).
+// Store a warp's 16 rows of acc * mul as bf16: rows at or past `valid` as
+// zeros, rows at or past `rows` skipped.
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul, __nv_bfloat16* m,
-                                           int row0, int rows) {
+                                           int row0, int valid, int rows) {
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= rows) continue;
+    const float mr = row < valid ? mul : 0.0f;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(m + (size_t)row * D + i * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+          __floats2bfloat162_rn(acc[i][2 * r] * mr, acc[i][2 * r + 1] * mr);
     }
   }
 }
 
-template <int D>
+template <int D, bool kVarlen>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-    int sq, int skv, float scale_log2, float scale) {
+    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale_log2, float scale) {
   constexpr int kStride = D + 8;  // bf16 elements per smem row; the pad spreads banks
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
@@ -160,14 +177,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
   const __nv_bfloat16* kb = k + bh * skv * D;
   const __nv_bfloat16* vb = v + bh * skv * D;
+  const int len = kVarlen ? vap::kv_length(kv_lens, bh, heads, skv) : skv;
 
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
 
-  for (int n0 = 0; n0 < skv; n0 += kBlockN) {
+  for (int n0 = 0; n0 < len; n0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous tile
-    const int valid = min(kBlockN, skv - n0);
+    const int valid = min(kBlockN, len - n0);
     vap::load_tile<kBlockN, D * 2, kStride * 2, kThreads>(
         reinterpret_cast<char*>(k_s), reinterpret_cast<const char*>(kb + (size_t)n0 * D), valid);
     vap::load_tile<kBlockN, D * 2, kStride * 2, kThreads>(
@@ -190,15 +208,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     c_to_a(dsa, s);
     mma_ab<D, kStride>(acc, dsa, k_s);
   }
-  store_rows<D>(acc, scale, dq + bh * sq * D, row0, sq);
+  store_rows<D>(acc, scale, dq + bh * sq * D, row0, sq, sq);
 }
 
-template <int D>
+template <int D, bool kVarlen>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int sq, int skv, float scale_log2, float scale) {
+    __nv_bfloat16* __restrict__ dv, const int* __restrict__ kv_lens, int heads, int sq, int skv,
+    float scale_log2, float scale) {
   constexpr int kStride = D + 8;
   __shared__ __align__(16) __nv_bfloat16 q_s[kBlockM * kStride];
   __shared__ __align__(16) __nv_bfloat16 do_s[kBlockM * kStride];
@@ -209,10 +228,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = lane & 3;
   const int key0 = blockIdx.x * kBlockN + warp * 16;
+  const int len = kVarlen ? vap::kv_length(kv_lens, bh, heads, skv) : skv;
+  const int tile0 = blockIdx.x * kBlockN;
+  if (kVarlen && tile0 >= len) {  // the whole tile lies past the sample's keys: zero rows
+    vap::zero_rows<D, kThreads>(dk + bh * skv * D, tile0, min(tile0 + kBlockN, skv));
+    vap::zero_rows<D, kThreads>(dv + bh * skv * D, tile0, min(tile0 + kBlockN, skv));
+    return;
+  }
 
   uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k + bh * skv * D, key0, skv);
-  load_a<D>(va, v + bh * skv * D, key0, skv);
+  load_a<D>(ka, k + bh * skv * D, key0, len);
+  load_a<D>(va, v + bh * skv * D, key0, len);
   const __nv_bfloat16* qb = q + bh * sq * D;
   const __nv_bfloat16* db = dout + bh * sq * D;
   const float* lb = lse + bh * sq;
@@ -258,26 +284,30 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     mma_ab<D, kStride>(dv_acc, pa, do_s);
     mma_ab<D, kStride>(dk_acc, dsa, q_s);
   }
-  store_rows<D>(dk_acc, scale, dk + bh * skv * D, key0, skv);
-  store_rows<D>(dv_acc, 1.0f, dv + bh * skv * D, key0, skv);
+  store_rows<D>(dk_acc, scale, dk + bh * skv * D, key0, len, skv);
+  store_rows<D>(dv_acc, 1.0f, dv + bh * skv * D, key0, len, skv);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, void* dq, void* dk, void* dv, int bh, int sq, int skv,
-                   float scale_log2, float scale, cudaStream_t stream) {
+                   const float* delta, void* dq, void* dk, void* dv, const int* kv_lens, int bh,
+                   int heads, int sq, int skv, float scale_log2, float scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   const bf* qp = static_cast<const bf*>(q);
   const bf* kp = static_cast<const bf*>(k);
   const bf* vp = static_cast<const bf*>(v);
   const bf* dp = static_cast<const bf*>(dout);
-  flash_bwd_dq_kernel<D><<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads, 0, stream>>>(
-      qp, kp, vp, dp, lse, delta, static_cast<bf*>(dq), sq, skv, scale_log2, scale);
+  const dim3 dq_grid((sq + kBlockM - 1) / kBlockM, bh), dkv_grid((skv + kBlockN - 1) / kBlockN, bh);
+  // the varlen instance reads kv_lens; the fixed-length one is compiled as before kv_lens
+  const auto dq_kernel = kv_lens ? flash_bwd_dq_kernel<D, true> : flash_bwd_dq_kernel<D, false>;
+  const auto dkv_kernel = kv_lens ? flash_bwd_dkv_kernel<D, true> : flash_bwd_dkv_kernel<D, false>;
+  dq_kernel<<<dq_grid, kThreads, 0, stream>>>(qp, kp, vp, dp, lse, delta, static_cast<bf*>(dq),
+                                               kv_lens, heads, sq, skv, scale_log2, scale);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || skv == 0) return err;  // no key: dk and dv are empty
-  flash_bwd_dkv_kernel<D><<<dim3((skv + kBlockN - 1) / kBlockN, bh), kThreads, 0, stream>>>(
-      qp, kp, vp, dp, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), sq, skv,
-      scale_log2, scale);
+  if (err != cudaSuccess || skv == 0) return err;  // no key row: dk and dv are empty
+  dkv_kernel<<<dkv_grid, kThreads, 0, stream>>>(qp, kp, vp, dp, lse, delta, static_cast<bf*>(dk),
+                                                 static_cast<bf*>(dv), kv_lens, heads, sq, skv,
+                                                 scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -287,23 +317,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 // [bh, s, d] bf16 (q, dout, dq: sq rows; k, v, dk, dv: skv rows), lse and
 // delta [bh, sq] f32; scale_log2 = softmax scale * log2(e). Launches the dq
 // kernel, then the dk/dv kernel, on `stream`, and returns the CUDA error of
-// the launches (0 on success). bh <= 65535, sq >= 1, head_dim d in 16..112,
-// step 16.
+// the launches (0 on success). kv_lens is a device pointer to [bh / heads]
+// int32 valid key counts (K7) or null (every key valid). bh <= 65535,
+// sq >= 1, heads >= 1 divides bh, head_dim d in 16..112, step 16.
 extern "C" int vap_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                             int bh, int sq, int skv, int d, float scale_log2, float scale,
-                             void* stream) {
+                             const void* kv_lens, int bh, int heads, int sq, int skv, int d,
+                             float scale_log2, float scale, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
+  const int* n = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
-    case 32: return launch<32>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
-    case 48: return launch<48>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
-    case 64: return launch<64>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
-    case 80: return launch<80>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
-    case 96: return launch<96>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
-    case 112: return launch<112>(q, k, v, dout, l, de, dq, dk, dv, bh, sq, skv, scale_log2, scale, s);
+    case 16:
+      return launch<16>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                        scale, s);
+    case 32:
+      return launch<32>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                        scale, s);
+    case 48:
+      return launch<48>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                        scale, s);
+    case 64:
+      return launch<64>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                        scale, s);
+    case 80:
+      return launch<80>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                        scale, s);
+    case 96:
+      return launch<96>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                        scale, s);
+    case 112:
+      return launch<112>(q, k, v, dout, l, de, dq, dk, dv, n, bh, heads, sq, skv, scale_log2,
+                         scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

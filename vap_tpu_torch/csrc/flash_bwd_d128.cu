@@ -14,6 +14,21 @@
 //   dv  = bf16(p)^T dout
 // exp(x) is taken as exp2(x * log2(e)) against lse * log2(e).
 //
+// K7's backward at head_dim 128 (`_fav_bwd` :1499, which runs
+// `_flash_attention_backward(kv_lens=)` with `varlen=True` and the
+// per-sample key bias :1306-1317) is this kernel given kv_lens [B] int32:
+// sample b = bh / heads has keys [0, kv_lens[b]) only, clamped to
+// [0, Skv] (`vap::kv_length`). Only keys are masked: every query row, a
+// padded text query too, gets its dq from its sample's valid keys. The dq
+// kernel's key loop stops at the length and its last tile masks there, so
+// no key past it is loaded and a NaN there cannot reach dq; a sample with
+// no key gets dq = 0 exactly (its lse is the forward's floor -1e4). The
+// dk/dv kernel writes exact zeros to the rows past the length: a key tile
+// that lies wholly past it writes its zero rows and returns without
+// loading anything (dk and dv come from torch.empty), and a partial tile
+// loads only the valid keys and stores zeros for the rest. kv_lens ==
+// nullptr is the fixed-length path.
+//
 // Design. Two kernels, as on the TPU, so that every sum is made in one
 // block (no atomics) and comes out the same from run to run:
 //   dq:  one block per (bh, 64-query tile), four warps of 16 query rows, a
@@ -35,7 +50,7 @@
 // in the dq kernel; a padded query row of the last tile is zero-filled with
 // lse2 = +1e30, so its p is 0 and it adds nothing to dk and dv (the TPU's
 // padded lse rows); key rows past Skv in the dk/dv kernel are computed and
-// never stored.
+// never stored, those past a K7 length are computed and stored as zeros.
 //
 // What bounds it on an H100: 10*B*H*Sq*Skv*D FLOP (five products) against
 // about 2*(4*Sq + 4*Skv)*D bytes per (b,h); at Wan's self-attention
@@ -165,20 +180,21 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, int valid) {
                                                      reinterpret_cast<const char*>(src), valid);
 }
 
-// Store a warp's 16 rows [row0, row0 + 16) of acc * mul as bf16 (rows at or
-// past `rows` skipped).
+// Store a warp's 16 rows [row0, row0 + 16) of acc * mul as bf16: rows at
+// or past `valid` as zeros, rows at or past `rows` skipped.
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul, bf16* m,
-                                           int row0, int rows) {
+                                           int row0, int valid, int rows) {
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= rows) continue;
+    const float mr = row < valid ? mul : 0.0f;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(m + (size_t)row * D + i * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+          __floats2bfloat162_rn(acc[i][2 * r] * mr, acc[i][2 * r + 1] * mr);
     }
   }
 }
@@ -186,7 +202,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
 __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int sq, int skv, float scale) {
+    bf16* __restrict__ dq, const int* __restrict__ kv_lens, int heads, int sq, int skv,
+    float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs_s = reinterpret_cast<bf16*>(smem);
   bf16* do_s = qs_s + kTileElems;
@@ -211,14 +228,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
   }
   const bf16* kb = k + bh * skv * D;
   const bf16* vb = v + bh * skv * D;
+  const int len = vap::kv_length(kv_lens, bh, heads, skv);
 
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
 
-  for (int n0 = 0; n0 < skv; n0 += kTile) {
+  for (int n0 = 0; n0 < len; n0 += kTile) {
     __syncthreads();  // every warp is done with the previous tile (and q_s, dout are staged)
-    const int valid = min(kTile, skv - n0);
+    const int valid = min(kTile, len - n0);
     stage(k_s, kb + (size_t)n0 * D, valid);
     stage(v_s, vb + (size_t)n0 * D, valid);
     __syncthreads();
@@ -239,13 +257,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
     c_to_a<kTile>(dsa, s);
     mma_ab<kTile>(acc, dsa, k_s, 0);
   }
-  store_rows(acc, scale, dq + bh * sq * D, m0 + row0, sq);
+  store_rows(acc, scale, dq + bh * sq * D, m0 + row0, sq, sq);
 }
 
 __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int skv, float scale) {
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
+    int sq, int skv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + kTileElems;
@@ -260,7 +279,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
   const int t = lane & 3;
   const int key0 = blockIdx.x * kTile;
   const int row0 = warp * 16;  // the warp's keys in the tile
-  const int valid_k = min(kTile, skv - key0);
+  const int len = vap::kv_length(kv_lens, bh, heads, skv);
+  if (key0 >= len) {  // the whole tile lies past the sample's keys: zero rows
+    vap::zero_rows<D, kThreads>(dk + bh * skv * D, key0, min(key0 + kTile, skv));
+    vap::zero_rows<D, kThreads>(dv + bh * skv * D, key0, min(key0 + kTile, skv));
+    return;
+  }
+  const int valid_k = min(kTile, len - key0);
 
   stage(k_s, k + (bh * skv + key0) * D, valid_k);
   stage(v_s, v + (bh * skv + key0) * D, valid_k);
@@ -310,8 +335,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
       mma_ab<kSub>(dk_acc, dsa, q_s, h);
     }
   }
-  store_rows(dk_acc, scale, dk + bh * skv * D, key0 + row0, skv);
-  store_rows(dv_acc, 1.0f, dv + bh * skv * D, key0 + row0, skv);
+  store_rows(dk_acc, scale, dk + bh * skv * D, key0 + row0, len, skv);
+  store_rows(dv_acc, 1.0f, dv + bh * skv * D, key0 + row0, len, skv);
 }
 
 }  // namespace
@@ -320,28 +345,33 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
 // [bh, s, 128] bf16 (q, dout, dq: sq rows; k, v, dk, dv: skv rows), lse
 // and delta [bh, sq] f32; `scale` is the softmax scale. Launches the dq
 // kernel, then the dk/dv kernel, on `stream`, and returns the CUDA error of
-// the launches (0 on success). bh <= 65535, sq >= 1.
+// the launches (0 on success). kv_lens is a device pointer to [bh / heads]
+// int32 valid key counts (K7) or null (every key valid). bh <= 65535,
+// sq >= 1, heads >= 1 divides bh.
 extern "C" int vap_flash_bwd_d128(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                                  int bh, int sq, int skv, float scale, void* stream) {
+                                  const void* kv_lens, int bh, int heads, int sq, int skv,
+                                  float scale, void* stream) {
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* dp = static_cast<const bf16*>(dout);
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
+  const int* lens = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_d128_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   if (err != cudaSuccess) return err;
   flash_bwd_d128_dq_kernel<<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kDqSmem, s>>>(
-      qp, kp, vp, dp, l, de, static_cast<bf16*>(dq), sq, skv, scale);
+      qp, kp, vp, dp, l, de, static_cast<bf16*>(dq), lens, heads, sq, skv, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || skv == 0) return err;  // no key: dk and dv are empty
+  if (err != cudaSuccess || skv == 0) return err;  // no key row: dk and dv are empty
   err = cudaFuncSetAttribute(flash_bwd_d128_dkv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
   if (err != cudaSuccess) return err;
   flash_bwd_d128_dkv_kernel<<<dim3((skv + kTile - 1) / kTile, bh), kThreads, kDkvSmem, s>>>(
-      qp, kp, vp, dp, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv, scale);
+      qp, kp, vp, dp, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lens, heads, sq,
+      skv, scale);
   return cudaGetLastError();
 }

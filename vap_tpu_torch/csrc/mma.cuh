@@ -75,6 +75,18 @@ __device__ __forceinline__ void load_tile(char* smem, const char* gmem, int vali
   }
 }
 
+// Write zeros to rows [row0, row1) of a [rows, D] bf16 matrix in global
+// memory, 16 bytes a thread at a time (K7's backward: the dk and dv rows of
+// a key tile that lies wholly past a sample's length).
+template <int D, int kThreads>
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* m, int row0, int row1) {
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x; i < (row1 - row0) * kVecs; i += kThreads) {
+    *reinterpret_cast<uint4*>(m + (size_t)(row0 + i / kVecs) * D + (i % kVecs) * 8) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
 // One kv tile of the running-max online softmax for a warp's 16 query rows,
 // shared by the bf16 and int8 kernels once their scores are in the log2
 // domain. s[j][e]: the warp's [16, 64] score tile in C layout (masked keys

@@ -21,11 +21,19 @@ mean/std-normalised: condition ``encoder_hidden_states`` [1, 512, 4096]
 and, for I2V, ``condition`` [1, 13, 60, 104, 20] (the 4-channel first-frame
 mask and the 16-channel latent of the first frame then zeros); a VAP item
 adds ``*_mot_ref`` entries of the same layouts. A plain (non-VAP) item has
-no ``*_mot_ref`` entry and trains the trunk alone.
+no ``*_mot_ref`` entry and trains the trunk alone. HunyuanVideo
+(``HunyuanVideoSpec``, specs.py:304-395): condition
+``encoder_hidden_states`` [1, 256, 4096] (LLaMA hidden state -3, the
+template's first 95 tokens cropped), ``prompt_attention_mask`` [1, 256]
+(float32, a right-padded prefix of ones) and ``pooled_projections``
+[1, 768] (CLIP-L); latent ``latents`` [1, 16, F, H, W], channel-first and
+VAE-scaled (unlike Wan's channel-last), 13 x 60 x 96 at 49f@480x768, as
+``models/hunyuan_video/vae.py`` ``prepare_latents`` makes them.
 
 ``write_precomputed`` writes the same layout, for data made without the
-encoders (random latents at a given shape). Decoding, bucketing and the
-T5/VAE precompute pass itself are not ported.
+encoders (random latents at a given shape, or Hunyuan latents from
+``prepare_latents``). Decoding, bucketing and the text-encoder and VAE
+precompute pass itself are not ported.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ The joint attention goes through ``full_attention`` at the "joint" site
 with ``kv_lens = S_img + sum(text mask)``: the text mask must be a
 contiguous right-padded prefix (the pipeline checks it), so under the
 kernel providers it runs K7, the varlen forward (60 launches a step at the
-released depth). The refiner's attention is the JAX package's plain
-``_masked_attention`` (f32 scores, f32 P V).
+released depth), and under grad K7's backward. The refiner's attention is
+the JAX package's plain ``_masked_attention`` (f32 scores, f32 P V).
+``remat`` True or "full" checkpoints each dual and single block
+(``scan_blocks_with_remat``, :397-399).
 
 Module attributes follow the diffusers ``HunyuanVideoTransformer3DModel``
 state-dict keys. Activations compute in the dtype of
@@ -26,7 +28,7 @@ float32 norms, modulations and gates.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,8 +37,8 @@ from torch import nn
 
 from ...ops.attention import full_attention
 from ...ops.rope import apply_rotary_emb, get_1d_rotary_pos_embed
-from ..common import (RMSNorm, TimestepEmbedding, gelu_tanh, layer_norm, silu,
-                      sinusoidal_timestep_embedding)
+from ..common import (RMSNorm, TimestepEmbedding, gelu_tanh, layer_norm, remat_blocks, run_block,
+                      silu, sinusoidal_timestep_embedding)
 from .config import HunyuanVideoConfig
 
 _EPS = 1e-6
@@ -328,14 +330,16 @@ class HunyuanVideoTransformer3DModel(nn.Module):
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 pooled_projections: torch.Tensor, timestep: torch.Tensor,
                 guidance: Optional[torch.Tensor] = None,
-                encoder_attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_attention_mask: Optional[torch.Tensor] = None,
+                remat: Union[bool, str] = False) -> torch.Tensor:
         """hidden_states [B, C, F, H, W] latents; encoder_hidden_states
         [B, S_txt, text_embed_dim]; pooled_projections [B, pooled dim];
         timestep [B] in [0, 1000]; guidance [B], already x1000;
         encoder_attention_mask [B, S_txt], a contiguous right-padded
-        prefix of ones. Returns [B, out_channels, F, H, W]. Inference only
-        in this slice: block remat comes with the training step."""
+        prefix of ones; ``remat`` False, or True / "full" to checkpoint
+        each block. Returns [B, out_channels, F, H, W]."""
         cfg = self.config
+        full_remat = remat_blocks(remat)
         b, c, f, h, w = hidden_states.shape
         pt, p = cfg.patch_size_t, cfg.patch_size
         dtype = encoder_hidden_states.dtype
@@ -378,10 +382,10 @@ class HunyuanVideoTransformer3DModel(nn.Module):
             sel_img = sel_full[:, :s_img]
 
         for block in self.transformer_blocks:
-            hs, enc = block(hs, enc, mods, rope, kv_lens, sel_img)
+            hs, enc = run_block(block, full_remat, hs, enc, mods, rope, kv_lens, sel_img)
         x = torch.cat([hs, enc], dim=1)
         for block in self.single_transformer_blocks:
-            x = block(x, mods, rope, kv_lens, sel_full, s_img)
+            x = run_block(block, full_remat, x, mods, rope, kv_lens, sel_full, s_img)
         hs = x[:, :s_img]
 
         scale, shift = self.norm_out.mods(temb, 2, dtype)

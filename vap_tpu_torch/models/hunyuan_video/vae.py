@@ -1,32 +1,41 @@
-"""HunyuanVideo causal 3D VAE, the decoder, in PyTorch.
+"""HunyuanVideo causal 3D VAE in PyTorch: the encoder and the decoder.
 
-Port of ``vap_tpu/models/hunyuan_video/vae.py:29-157,176-192``
-(``hunyuan_vae_decode``): the 1x1x1 post-quant conv, replicate-padded
-causal conv3d everywhere (time pad (k-1, 0), space k//2), a mid block
-whose single-head attention over all latent voxels is frame-causal, and
-up blocks whose nearest upsampling keeps the first frame out of the
-temporal repeat. The encoder waits for the training slice.
+Port of ``vap_tpu/models/hunyuan_video/vae.py:29-192``
+(``hunyuan_vae_encode``, ``hunyuan_vae_decode``): replicate-padded causal
+conv3d everywhere (time pad (k-1, 0), space k//2), in the encoder's
+downsamples with a stride of (2 or 1, 2, 2) after the same padding; a mid
+block whose single-head attention over all latent voxels is frame-causal;
+the 1x1x1 quant and post-quant convs; up blocks whose nearest upsampling
+keeps the first frame out of the temporal repeat. ``prepare_latents`` is
+``HunyuanVideoSpec.prepare_latents`` (``vap_tpu/training/specs.py:379-391``):
+the scaled mean of the moments, channel-first, as the training cache holds
+it.
 
-Memory at 33 frames of 720x1280, where one 256-channel activation is
-7.8e9 bf16 values: every causal conv runs over chunks of output frames
-that keep each operand under 2^30 elements (cuDNN indexes with 32 bits),
-padding each chunk in time and space itself; the group norms take their
-two-pass float32 statistics over chunks of groups; the mid attention runs
-one latent frame of queries at a time against the keys of the frames up to
-its own, the same softmax as the JAX function's masked dense one, whose
-whole f32 score matrix (129,600^2 at that size) would not fit.
+Memory at 33 frames of 720x1280, where one 256-channel activation of the
+decoder is 7.8e9 bf16 values, and at the encoder's 49 frames of 480x768,
+where its first 128-channel activation is 2.3e9: every causal conv runs
+over chunks of output frames that keep each operand under 2^30 elements
+(cuDNN indexes with 32 bits), gathering each chunk's input frames (for a
+strided conv the window of its first output frame starts at stride x that
+frame) and padding them in time and space itself; the group norms take
+their two-pass float32 statistics over chunks of groups; the mid attention
+runs one latent frame of queries at a time against the keys of the frames
+up to its own, the same softmax as the JAX function's masked dense one,
+whose whole f32 score matrix (129,600^2 at that size) would not fit.
 
-Tensors are channel-first [B, C, F, H, W] inside; ``hunyuan_vae_decode``
-keeps the JAX package's channel-last [B, F, H, W, C]. Module attributes
-follow the diffusers ``AutoencoderKLHunyuanVideo`` state-dict keys.
+Tensors are channel-first [B, C, F, H, W] inside; ``hunyuan_vae_encode``
+and ``hunyuan_vae_decode`` keep the JAX package's channel-last
+[B, F, H, W, C]. Module attributes follow the diffusers
+``AutoencoderKLHunyuanVideo`` state-dict keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -65,6 +74,18 @@ class HunyuanVideoVAEConfig:
         base.update(overrides)
         return cls(**base)
 
+    def _down_flags(self, i: int):
+        """(add_spatial, add_time) for encoder block i (encoder :448-470)."""
+        n = len(self.block_out_channels)
+        ns = int(math.log2(self.spatial_compression_ratio))
+        nt = int(math.log2(self.temporal_compression_ratio))
+        is_final = i == n - 1
+        if self.temporal_compression_ratio == 4:
+            return i < ns, (i >= n - 1 - nt and not is_final)
+        if self.temporal_compression_ratio == 8:
+            return i < ns, i < nt
+        raise ValueError(self.temporal_compression_ratio)
+
     def _up_flags(self, i: int):
         """(add_spatial, add_time) for decoder block i (decoder :572-590)."""
         n = len(self.block_out_channels)
@@ -88,22 +109,28 @@ def _replicate_pad_space(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     return x
 
 
-def causal_conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 conv3d, replicate-padded: causal in time (the first frame
-    repeated kt - 1 times in front), symmetric in space; over chunks of
-    output frames whose input and output stay under CHUNK_ELEMS each."""
+def causal_conv3d(conv: nn.Conv3d, x: torch.Tensor,
+                  stride: Tuple[int, int, int] = (1, 1, 1)) -> torch.Tensor:
+    """Conv3d with ``stride``, replicate-padded: causal in time (the first
+    frame repeated kt - 1 times in front), symmetric in space (``causal_conv3d``,
+    :81-95). Output frame j reads the padded frames [st j, st j + kt), the
+    input frames st j - (kt - 1) .. st j (clamped at 0); it runs over chunks
+    of output frames whose input and output stay under CHUNK_ELEMS each."""
     kt, kh, kw = conv.kernel_size
+    st, sh, sw = stride
     b, c, f, h, w = x.shape
     cout = conv.out_channels
     hp, wp = h + 2 * (kh // 2), w + 2 * (kw // 2)
-    per_frame = b * max(c * hp * wp, cout * h * w)
-    n = max(1, CHUNK_ELEMS // per_frame - (kt - 1))
-    out = torch.empty((b, cout, f, h, w), dtype=x.dtype, device=x.device)
-    for t0 in range(0, f, n):
-        t1 = min(t0 + n, f)
-        frames = torch.arange(t0 - (kt - 1), t1, device=x.device).clamp_min(0)
+    fo, ho, wo = (f - 1) // st + 1, (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    # n output frames read (n - 1) st + kt input frames
+    n = max(1, min((CHUNK_ELEMS // (b * c * hp * wp) - kt) // st + 1,
+                   CHUNK_ELEMS // (b * cout * ho * wo)))
+    out = torch.empty((b, cout, fo, ho, wo), dtype=x.dtype, device=x.device)
+    for t0 in range(0, fo, n):
+        t1 = min(t0 + n, fo)
+        frames = torch.arange(st * t0 - (kt - 1), st * (t1 - 1) + 1, device=x.device).clamp_min(0)
         chunk = _replicate_pad_space(x.index_select(2, frames), kh // 2, kw // 2)
-        out[:, :, t0:t1] = F.conv3d(chunk, conv.weight, conv.bias)
+        out[:, :, t0:t1] = F.conv3d(chunk, conv.weight, conv.bias, stride=stride)
     return out
 
 
@@ -135,8 +162,8 @@ class CausalConv3d(nn.Module):
         super().__init__()
         self.conv = nn.Conv3d(cin, cout, kernel)
 
-    def forward(self, x):
-        return causal_conv3d(self.conv, x)
+    def forward(self, x, stride=(1, 1, 1)):
+        return causal_conv3d(self.conv, x, stride)
 
 
 class ResnetBlock(nn.Module):
@@ -199,6 +226,37 @@ class MidBlock(nn.Module):
         return self.resnets[1](x)
 
 
+class Downsample(nn.Module):
+    """HunyuanVideoDownsampleCausal3D: a strided causal conv (key ``conv``)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = CausalConv3d(c, c, 3)
+
+
+class DownBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, cfg: HunyuanVideoVAEConfig, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock(cin if j == 0 else cout, cout, cfg.norm_num_groups)
+             for j in range(cfg.layers_per_block)])
+        if downsample:
+            self.downsamplers = nn.ModuleList([Downsample(cout)])
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: HunyuanVideoVAEConfig):
+        super().__init__()
+        chans = cfg.block_out_channels
+        self.conv_in = CausalConv3d(cfg.in_channels, chans[0], 3)
+        self.down_blocks = nn.ModuleList(
+            [DownBlock(chans[max(i - 1, 0)], cout, cfg, any(cfg._down_flags(i)))
+             for i, cout in enumerate(chans)])
+        self.mid_block = MidBlock(chans[-1], cfg)
+        self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, chans[-1], eps=1e-6)
+        self.conv_out = CausalConv3d(chans[-1], 2 * cfg.latent_channels, 3)
+
+
 def _nearest(x: torch.Tensor, dim: int, factor: int) -> torch.Tensor:
     """Repeat every element ``factor`` times along ``dim`` (one copy)."""
     if factor == 1:
@@ -251,14 +309,54 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKLHunyuanVideo(nn.Module):
-    """The decoder half of the HunyuanVideo VAE (the encoder and the
-    ``quant_conv`` are not ported)."""
+    """The HunyuanVideo VAE: encoder, ``quant_conv``, ``post_quant_conv``,
+    decoder."""
 
     def __init__(self, cfg: HunyuanVideoVAEConfig):
         super().__init__()
         self.config = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        self.quant_conv = nn.Conv3d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
         self.post_quant_conv = nn.Conv3d(cfg.latent_channels, cfg.latent_channels, 1)
+
+
+@torch.no_grad()
+@full_float32()
+def hunyuan_vae_encode(vae: AutoencoderKLHunyuanVideo, x: torch.Tensor) -> torch.Tensor:
+    """x [B, F, H, W, in_channels] in [-1, 1] -> moments [B, f, h, w,
+    2 * latent] (mean, then log-variance) with f = 1 + (F - 1) / 4 and
+    h, w = H / 8, W / 8 at the released ratios, in x's dtype."""
+    cfg, e = vae.config, vae.encoder
+    h = e.conv_in(x.permute(0, 4, 1, 2, 3).contiguous())
+    for i, blk in enumerate(e.down_blocks):
+        for r in blk.resnets:
+            h = r(h)
+        if hasattr(blk, "downsamplers"):
+            add_s, add_t = cfg._down_flags(i)
+            h = blk.downsamplers[0].conv(h, (2 if add_t else 1, 2 if add_s else 1,
+                                             2 if add_s else 1))
+    h = e.mid_block(h)
+    h = e.conv_out(F.silu(group_norm(e.conv_norm_out, h), inplace=True))
+    h = F.conv3d(h, vae.quant_conv.weight, vae.quant_conv.bias)
+    return h.permute(0, 2, 3, 4, 1)
+
+
+def prepare_latents(vae: AutoencoderKLHunyuanVideo, sample: Dict[str, Any],
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, np.ndarray]:
+    """``HunyuanVideoSpec.prepare_latents``: the cache's ``latents`` [1, C,
+    f, h, w] float32 of ``sample["video"]`` [F, H, W, 3] in [-1, 1] (an
+    array or a tensor on any device), encoded in ``dtype`` on the VAE's
+    device: the mean half of the moments times
+    ``scaling_factor``, channel-first. A sample that already holds
+    ``latents`` keeps them."""
+    if "latents" in sample:
+        return {"latents": np.asarray(sample["latents"], np.float32)}
+    device = next(vae.parameters()).device
+    video = torch.as_tensor(sample["video"]).to(device, torch.float32)[None].to(dtype)
+    mean = hunyuan_vae_encode(vae, video)[..., :vae.config.latent_channels]
+    lat = mean.float() * vae.config.scaling_factor
+    return {"latents": lat.permute(0, 4, 1, 2, 3).cpu().numpy()}
 
 
 @torch.no_grad()

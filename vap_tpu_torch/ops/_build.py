@@ -40,12 +40,14 @@ SOURCES = {
         "vap_sage_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "flash_bwd": {
-        # q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, d, scale_log2, scale, stream
-        "vap_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, d,
+        # scale_log2, scale, stream
+        "vap_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     },
     "flash_bwd_d128": {
-        # q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, scale, stream
-        "vap_flash_bwd_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, scale,
+        # stream
+        "vap_flash_bwd_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "w8a8": {
         # x, w, sw, bias (or null), xq, sx, out, m, n, k, chunk, stream

@@ -4,9 +4,10 @@ Port of ``vap_tpu/ops/attention.py:41-110,163-188,206-299``. Providers:
 
   * "flash" — K1 (head_dim < 128) or K4 (head_dim 128), the hand-written bf16
     flash forward (``ops/flash_attention.py``), and K7 when the call passes
-    ``kv_lens``; differentiable without ``kv_lens``, with K5 or K6 as its
-    backward. "flash_varlen" and "jax_flash" (JAX's own library kernel
-    there, not a kernel of the repo) take the same kernels;
+    ``kv_lens``; differentiable, with K5 or K6 as its backward (given
+    ``kv_lens``: K7's backward, dk and dv zero past each length).
+    "flash_varlen" and "jax_flash" (JAX's own library kernel there, not a
+    kernel of the repo) take the same kernels;
   * "sage"  — K2, the int8-QK SageAttention-style forward, K7's int8 form
     with ``kv_lens`` (inference only: raises when a gradient is wanted);
   * "xla"   — plain PyTorch dense attention (the name is the JAX package's),

@@ -30,14 +30,16 @@ wanted.
 Layout: q [B, H, Sq, D], k and v [B, H, Skv, D]; out [B, H, Sq, D] in the
 input dtype, lse [B, H, Sq] float32.
 
-K7, the varlen forward (``flash_attention_varlen`` and
-``flash_attention_int8(kv_lens=)``): the forwards above given ``kv_lens``,
+K7, the varlen attention (``flash_attention_varlen`` and
+``flash_attention_int8(kv_lens=)``): the kernels above given ``kv_lens``,
 a [B] integer tensor; sample b attends only keys [0, kv_lens[b]) (suffix
 padding, what a right-padded text mask leaves; queries are never masked).
-The kernels stop their key loop there and never load the keys past it; the
+The forwards stop their key loop there and never load the keys past it; the
 running max starts at a floor of -1e4 nats, so a sample with no valid key
 gets exact zero rows and the lse -1e4 (``flash_attention.py:154-158``).
-K7 has no backward here yet: a gradient with ``kv_lens`` raises.
+Its backward (``_fav_bwd``, :1499) is K5 and K6 given ``kv_lens``: dq of
+every query row from its sample's valid keys only (0 for a sample with
+none), and exact zeros in the dk and dv rows past each length.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
@@ -48,8 +50,10 @@ raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_forward.launches_d128_varlen`` (K7 in K4),
 ``flash_attention_int8_forward.launches`` (K2),
 ``flash_attention_int8_forward.launches_varlen`` (K7 in K2),
-``flash_attention_backward.launches`` (K5) and
-``flash_attention_backward.launches_d128`` (K6).
+``flash_attention_backward.launches`` (K5),
+``flash_attention_backward.launches_d128`` (K6),
+``flash_attention_backward.launches_varlen`` (K7's backward in K5) and
+``flash_attention_backward.launches_d128_varlen`` (K7's backward in K6).
 """
 
 from __future__ import annotations
@@ -204,8 +208,22 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vecdot(out.float(), dout.float())
 
 
-def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[float] = None):
-    """Plain PyTorch version of K5: (dq, dk, dv) in the input dtypes.
+def _varlen_backward_plain(run, q, k, v, out, lse, dout, scale, kv_lens):
+    """K7's backward in plain form: ``run`` (a fixed-length plain backward)
+    on each sample over its first n valid keys only, so a NaN past them
+    reaches nothing; dk and dv rows past n are exact zeros."""
+    dq, dk, dv = torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for b, n in enumerate(_valid_key_counts(kv_lens, k.shape[2])):
+        s = slice(b, b + 1)
+        g = run(q[s], k[s, :, :n], v[s, :, :n], out[s], lse[s], dout[s], scale)
+        dq[b], dk[b, :, :n], dv[b, :, :n] = g[0][0], g[1][0], g[2][0]
+    return dq, dk, dv
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[float] = None,
+                                   kv_lens: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K5, and with ``kv_lens`` of K7's backward at
+    head_dim < 128: (dq, dk, dv) in the input dtypes.
 
     A loop over tiles of PLAIN_BLOCK_K keys that recomputes P from the
     natural-log lse, as ``_flash_attention_backward_t`` (:1131-1268) does in
@@ -213,6 +231,9 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[floa
     the operand dtype before ds k and ds^T q, p rounded to dout's dtype
     before p^T dout. Scores of keys past Skv never arise (no padding here)."""
     _shapes(q, k, v)
+    if kv_lens is not None:
+        return _varlen_backward_plain(flash_attention_backward_plain, q, k, v, out, lse, dout,
+                                      scale, _kv_lens(kv_lens, q.shape[0]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scale_log2 = scale * LOG2_E
@@ -235,9 +256,11 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[floa
             torch.cat(dvs, dim=2).to(v.dtype))
 
 
-def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional[float] = None):
-    """Plain PyTorch version of K6, the row-layout backward at head_dim >= 128:
-    (dq, dk, dv) in the input dtypes.
+def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional[float] = None,
+                                        kv_lens: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K6, the row-layout backward at head_dim >= 128,
+    and with ``kv_lens`` of K7's backward there: (dq, dk, dv) in the input
+    dtypes.
 
     A loop over tiles of PLAIN_BLOCK_K keys with the rounding points of
     ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` (:985-1061): q * scale rounded to
@@ -246,6 +269,9 @@ def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional
     rounded to dout's dtype before p^T dout; dq and dk scaled after their
     sums."""
     _shapes(q, k, v)
+    if kv_lens is not None:
+        return _varlen_backward_plain(flash_attention_backward_rows_plain, q, k, v, out, lse,
+                                      dout, scale, _kv_lens(kv_lens, q.shape[0]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qs = (q.float() * scale).to(k.dtype).float()
@@ -386,14 +412,17 @@ flash_attention_forward.launches_varlen = 0
 flash_attention_forward.launches_d128_varlen = 0
 
 
-def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None):
-    """K5 and K6: (dq, dk, dv) of out = softmax(q k^T scale) v, from the
-    forward's ``out`` and natural-log ``lse``. After the delta pre-pass in
-    PyTorch, CUDA tensors (bf16, contiguous) launch ``vap_flash_bwd`` (K5,
-    head_dim a multiple of 16 below 128) or ``vap_flash_bwd_d128`` (K6,
-    head_dim 128); CPU tensors take ``flash_attention_backward_plain`` or,
-    at head_dim 128, ``flash_attention_backward_rows_plain``."""
+def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None,
+                             kv_lens: Optional[torch.Tensor] = None):
+    """K5 and K6, and with ``kv_lens`` K7's backward: (dq, dk, dv) of out =
+    softmax(q k^T scale) v, from the forward's ``out`` and natural-log
+    ``lse``. After the delta pre-pass in PyTorch, CUDA tensors (bf16,
+    contiguous) launch ``vap_flash_bwd`` (K5, head_dim a multiple of 16
+    below 128) or ``vap_flash_bwd_d128`` (K6, head_dim 128), ``kv_lens`` as
+    int32 on the same card; CPU tensors take ``flash_attention_backward_plain``
+    or, at head_dim 128, ``flash_attention_backward_rows_plain``."""
     _shapes(q, k, v)
+    kv_lens = _kv_lens(kv_lens, q.shape[0])
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, sq, d = q.shape
@@ -402,7 +431,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
         raise ValueError(f"flash backward takes head_dim up to 128, got {d}")
     if _device_kind("flash_attention_backward", q) == "cpu":
         plain = flash_attention_backward_rows_plain if d == 128 else flash_attention_backward_plain
-        return plain(q, k, v, out, lse, dout, scale)
+        return plain(q, k, v, out, lse, dout, scale, kv_lens)
     if d % 16:
         raise ValueError(f"flash backward kernels take head_dim in 16..128 step 16, got {d}")
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, sq):
@@ -414,26 +443,30 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
                    {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta},
                    {"q": bf16, "k": bf16, "v": bf16, "dout": bf16, "lse": f32, "delta": f32},
                    b * h, sq)
+    lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if lens is None else lens.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if d == 128:
             err = _build.library("flash_bwd_d128").vap_flash_bwd_d128(
-                *ptrs, b * h, sq, skv, scale, stream)
+                *ptrs, b * h, h, sq, skv, scale, stream)
             _build.check(err, "vap_flash_bwd_d128")
-            flash_attention_backward.launches_d128 += 1
         else:
             err = _build.library("flash_bwd").vap_flash_bwd(
-                *ptrs, b * h, sq, skv, d, scale * LOG2_E, scale, stream)
+                *ptrs, b * h, h, sq, skv, d, scale * LOG2_E, scale, stream)
             _build.check(err, "vap_flash_bwd")
-            flash_attention_backward.launches += 1
+    counter = ("launches_d128" if d == 128 else "launches") + ("" if lens is None else "_varlen")
+    setattr(flash_attention_backward, counter, getattr(flash_attention_backward, counter) + 1)
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
 flash_attention_backward.launches_d128 = 0
+flash_attention_backward.launches_varlen = 0
+flash_attention_backward.launches_d128_varlen = 0
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:
@@ -443,43 +476,43 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
 
 class FlashAttentionFunction(torch.autograd.Function):
     """K1 forward and K5 backward, or at head_dim 128 K4 and K6 (the JAX
-    ``custom_vjp`` of ``flash_attention``,
-    ``_fa_fwd`` / ``_fa_bwd`` at :1428-1457). Saves q, k, v, out and lse.
-    Under ``torch.utils.checkpoint`` the forward runs again in the backward;
-    it keeps no state between calls, so the recompute gives the out and lse
-    the backward reads."""
+    ``custom_vjp`` of ``flash_attention``, ``_fa_fwd`` / ``_fa_bwd`` at
+    :1428-1457); given ``kv_lens``, K7's forward and backward
+    (``flash_attention_varlen``'s ``_fav_fwd`` / ``_fav_bwd``, :1492-1506).
+    Saves q, k, v, out, lse and kv_lens. Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward with the same inputs, ``kv_lens``
+    among them; it keeps no state between calls, so the recompute gives the
+    out and lse the backward reads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
-        out, lse = flash_attention_forward(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, scale: float, kv_lens: Optional[torch.Tensor] = None):
+        out, lse = flash_attention_forward(q, k, v, scale, kv_lens)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale)
-        return dq, dk, dv, None
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale,
+                                              kv_lens)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
                     kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused full attention (K1 or K4 by head_dim; K7 with ``kv_lens``),
     output only; through ``FlashAttentionFunction`` (K1 + K5, or K4 + K6 at
-    head_dim 128) when a gradient is wanted. A gradient at head_dim above
-    128, or with ``kv_lens`` (K7's backward is not ported), raises."""
+    head_dim 128, each given ``kv_lens`` for K7) when a gradient is wanted.
+    A gradient at head_dim above 128 raises."""
     if not wants_grad(q, k, v):
         return flash_attention_forward(q, k, v, scale, kv_lens)[0]
-    if kv_lens is not None:
-        raise NotImplementedError("K7 (kv_lens) has no backward in the port yet: K6 and K5 "
-                                  "with kv_lens are ROADMAP.md Queue 1's next slice")
     if q.shape[-1] > 128:
         raise NotImplementedError(
             f"flash attention has no backward at head_dim {q.shape[-1]} (K6 takes 128)")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return FlashAttentionFunction.apply(q, k, v, scale)
+    return FlashAttentionFunction.apply(q, k, v, scale, _kv_lens(kv_lens, q.shape[0]))
 
 
 def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None,

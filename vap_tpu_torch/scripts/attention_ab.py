@@ -1,4 +1,4 @@
-"""Time K4 and K2 at Wan's joint attention shape for several trees on one card.
+"""Time the attention kernels at their main-path shapes for several trees on one card.
 
     python -m vap_tpu_torch.scripts.attention_ab PARENT . . PARENT
 
@@ -6,9 +6,12 @@ Each root given is a checkout (or an unpacked archive) holding
 ``vap_tpu_torch/``; each is timed in its own process, in the order given,
 so that two trees are compared in one call on one card (parent, change,
 change, parent). A line per root: K4 (``flash_attention_forward``) and K2
-(``flash_attention_int8_forward``) at [1, 40, 40560, 128] bf16, ms per
-call over 5 calls after 2 of warm-up, with CUDA events. The kernels are
-built from each root's sources. It runs on the card and raises without one.
+(``flash_attention_int8_forward``) at Wan's joint shape [1, 40, 40560, 128],
+K5 (``flash_attention_backward``) at CogVideoX's [1, 48, 35552, 64] and K6
+at Wan's training self-attention [1, 40, 20280, 128], bf16, ms per call
+over 5 calls after 2 of warm-up, with CUDA events (the backward's delta
+pre-pass included). The kernels are built from each root's sources. It runs
+on the card and raises without one.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import subprocess
 import sys
 
 SHAPE = (1, 40, 40560, 128)  # B, H, S, D of Wan2.1-14B's joint attention at 49f@480x832
+K5_SHAPE = (1, 48, 35552, 64)  # CogVideoX-5B's joint attention at 49f@480x720
+K6_SHAPE = (1, 40, 20280, 128)  # one Wan branch's self-attention in training
 
 
 def time_root(root: str) -> None:
-    """Import the port under ``root`` and print K4's and K2's times."""
+    """Import the port under ``root`` and print K4's, K2's, K5's and K6's times."""
     sys.path.insert(0, root)
     import torch
 
@@ -36,7 +41,11 @@ def time_root(root: str) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = [torch.randn(SHAPE, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+
+    def inputs(shape, n=3):
+        return [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(n)]
+
+    q, k, v = inputs(SHAPE)
 
     def ms(fn, iters=5, warmup=2):
         for _ in range(warmup):
@@ -52,7 +61,15 @@ def time_root(root: str) -> None:
 
     k4 = ms(lambda: fa.flash_attention_forward(q, k, v))
     k2 = ms(lambda: fa.flash_attention_int8_forward(q, k, v))
-    print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}", flush=True)
+    del q, k, v
+    backward = []
+    for shape in (K5_SHAPE, K6_SHAPE):
+        q, k, v, dout = inputs(shape, 4)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        backward.append(ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout)))
+        del q, k, v, dout, out, lse
+    print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}; K5 {backward[0]:.3f} ms at "
+          f"{list(K5_SHAPE)}; K6 {backward[1]:.3f} ms at {list(K6_SHAPE)}", flush=True)
 
 
 def main(argv=None) -> None:

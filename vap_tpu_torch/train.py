@@ -1,7 +1,7 @@
 """Train a Video-As-Prompt transformer from a precomputed cache.
 
     python -m vap_tpu_torch.train --precomputation_dir CACHE --output_dir OUT \\
-        [--model_name cogvideox|wan] [--training_type video_as_prompt_mot|lora] \\
+        [--model_name cogvideox|wan|hunyuan_video] [--training_type video_as_prompt_mot|lora] \\
         [--model_structure_config JSON] [--train_steps N] [--lr 1e-5] \\
         [--device cuda|cpu] [--model_config NAME]
 
@@ -9,8 +9,8 @@ The port's counterpart of ``train.py`` for the SFT paths: the flags are the
 fields of ``training.args.TrainingArgs`` (the JAX names and defaults), plus
 ``--device`` (the card unless ``cpu`` is asked for; there is no fallback
 when the card is missing) and ``--model_config`` (the family's released
-structure, ``cogvideox_5b_i2v_vap`` or ``wan_14b_i2v_vap``, by default; or
-``tiny``, for runs on the CPU). ``--model_structure_config`` overrides the
+structure, ``cogvideox_5b_i2v_vap``, ``wan_14b_i2v_vap`` or
+``hunyuan_video_t2v``, by default; or ``tiny``, for runs on the CPU). ``--model_structure_config`` overrides the
 transformer's fields as in JAX's ``train.py`` (a flat JSON, or its
 ``"transformer"`` section): ``examples/training/sft/wan/crush_smol_lora/
 config_plain.json`` makes Wan2.1-I2V-14B the plain model of the LoRA
@@ -32,6 +32,8 @@ import torch
 
 from .models.cogvideox.config import CogVideoXMOTConfig
 from .models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+from .models.hunyuan_video.config import HunyuanVideoConfig
+from .models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
 from .models.random_init import build_random
 from .models.wan.config import WanMOTConfig
 from .models.wan.transformer_mot import WanTransformer3DMOTModel
@@ -53,6 +55,11 @@ MODELS = {
         "wan_14b_i2v_vap": WanMOTConfig.wan_14b_i2v_vap,
         # two blocks, 4 latent + 4 conditioning channels
         "tiny": lambda **kw: WanMOTConfig.tiny(**{"in_channels": 8, "out_channels": 4, **kw}),
+    }),
+    "hunyuan_video": (HunyuanVideoTransformer3DModel, HunyuanVideoConfig, {
+        "hunyuan_video_t2v": HunyuanVideoConfig.hunyuan_video_t2v,
+        # 2 dual + 2 single blocks, 2 heads of 12, 4 latent channels
+        "tiny": HunyuanVideoConfig.tiny,
     }),
 }
 _STRUCTURE_SECTIONS = ("transformer", "vae", "text_encoder", "text_encoder_2", "image_encoder")
@@ -88,7 +95,7 @@ def _parser() -> argparse.ArgumentParser:
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--model_config", default=None,
                         help="the model's configuration: its released structure by default "
-                             "(cogvideox_5b_i2v_vap, wan_14b_i2v_vap) or tiny")
+                             "(cogvideox_5b_i2v_vap, wan_14b_i2v_vap, hunyuan_video_t2v) or tiny")
     return parser
 
 

@@ -1,7 +1,7 @@
 """Training arguments of the port's SFT paths.
 
 The fields of ``vap_tpu/training/args.py`` ``TrainingArgs`` that these paths
-read, with the JAX names, defaults and validation. Two recipes set them:
+read, with the JAX names, defaults and validation. Three recipes set them:
 the CogVideoX VAP expert SFT
 (``examples/training/sft/cogvideox/vap_mot/train_single_node.sh``: AdamW,
 beta (0.9, 0.99), weight decay 1e-4, lr 1e-5 constant_with_warmup, clip
@@ -9,7 +9,12 @@ beta (0.9, 0.99), weight decay 1e-4, lr 1e-5 constant_with_warmup, clip
 (``examples/training/sft/wan/crush_smol_lora/train.sh``: ``--model_name wan
 --training_type lora``, rank 16, alpha 16, ``to_q to_k to_v to_out``, lr
 1e-4 with 100 warmup steps, logit-normal flow weighting, the plain structure
-of ``config_plain.json``).
+of ``config_plain.json``) and the HunyuanVideo LoRA finetune
+(``examples/training/sft/hunyuan_video/modal_labs_dissolve/train.sh``:
+``--model_name hunyuan_video --training_type lora``, rank 32, alpha 32,
+``to_q to_k to_v to_out``, lr 3e-5 with 1000 warmup steps, AdamW beta
+(0.9, 0.99), weight decay 1e-4, logit-normal flow weighting, gradient
+checkpointing).
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ from .train_step import FLOW_WEIGHTING_SCHEMES
 
 # model_name and training_type values of the JAX trainer that the port does
 # not train yet (they raise NotImplementedError; unknown values ValueError)
-MODEL_NAMES = ("cogvideox", "wan")
-UNPORTED_MODEL_NAMES = ("ltx_video", "hunyuan_video", "cogview4", "flux")
+MODEL_NAMES = ("cogvideox", "wan", "hunyuan_video")
+UNPORTED_MODEL_NAMES = ("ltx_video", "cogview4", "flux")
 TRAINING_TYPES = ("video_as_prompt_mot", "lora")
 UNPORTED_TRAINING_TYPES = ("sft", "dpo", "control", "control_lora", "control_full_finetune")
 
@@ -34,7 +39,7 @@ class TrainingArgs:
     output_dir: str = "output"
 
     # models
-    model_name: str = "cogvideox"                 # cogvideox | wan
+    model_name: str = "cogvideox"                 # cogvideox | wan | hunyuan_video
     model_structure_config: Optional[str] = None  # JSON with block_idx_with_mot_ref etc.
     training_type: str = "video_as_prompt_mot"    # | lora
     rank: int = 64            # LoRA rank (lora training type)

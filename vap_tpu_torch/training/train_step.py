@@ -1,5 +1,5 @@
 """The Video-As-Prompt SFT steps in PyTorch: the CogVideoX VAP loss, the Wan
-flow-matching loss and LoRA SFT.
+and HunyuanVideo flow-matching losses and LoRA SFT.
 
 Port of ``vap_tpu/training/train_step.py``. The CogVideoX VAP branch with a
 clean reference (``reference_train_mode=None``):
@@ -20,6 +20,12 @@ density of ``flow_weighting_scheme`` on the FlowMatch training grid, x_t =
 ``flow_loss_weights``; the plain branch (no reference in the batch: the
 trunk alone, T2V without conditioning channels) and the MoT branch (clean
 references at t = 1).
+
+The HunyuanVideo loss (``hunyuan_loss``, :770): the same flow matching on
+channel-first [B, C, F, H, W] latents, with the timestep sigma * 1000, the
+distilled guidance fixed at 1.0 * 1000 and the text mask as the model's
+``encoder_attention_mask`` (so its joint attention runs K7, forward and
+backward).
 
 LoRA SFT (``make_lora_sft_step``, :346): adapters over the targeted
 projections of a frozen model (``training/lora.py``); only they train.
@@ -192,6 +198,32 @@ class WanTrainStepConfig:
     remat: Union[bool, str] = True
 
 
+def _flow_match(cfg, latents: torch.Tensor, generator: Optional[torch.Generator],
+                sigmas: Optional[torch.Tensor], noise: Optional[torch.Tensor],
+                num_train_timesteps: int = 1000):
+    """The flow-matching draws shared by the Wan and Hunyuan losses, for
+    float32 ``latents`` in either layout: sigmas [B] (``sample_flow_sigmas``
+    by ``cfg``'s flow flags) and float32 noise, each drawn from ``generator``
+    when not given. Returns (timesteps = sigma * num_train_timesteps, x_t =
+    (1 - sigma) x0 + sigma n, the target n - x0, the flow loss weights
+    broadcast to the latents' rank)."""
+    b, device = latents.shape[0], latents.device
+    if sigmas is None:
+        sigmas = sample_flow_sigmas(b, scheme=cfg.flow_weighting_scheme,
+                                    logit_mean=cfg.flow_logit_mean, logit_std=cfg.flow_logit_std,
+                                    mode_scale=cfg.flow_mode_scale,
+                                    num_train_timesteps=num_train_timesteps,
+                                    generator=generator, device=device)
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+    sigmas, noise = sigmas.to(device, torch.float32), noise.to(device, torch.float32)
+    s = sigmas.reshape((b,) + (1,) * (latents.ndim - 1))
+    noisy = (1.0 - s) * latents + s * noise  # flow_match_xt
+    loss_w = flow_loss_weights(sigmas, cfg.flow_weighting_scheme).reshape(s.shape)
+    return sigmas * num_train_timesteps, noisy, noise - latents, loss_w
+
+
 def wan_vap_loss(model: nn.Module, cfg: WanTrainStepConfig, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None, *,
                  sigmas: Optional[torch.Tensor] = None,
@@ -209,22 +241,8 @@ def wan_vap_loss(model: nn.Module, cfg: WanTrainStepConfig, batch: Dict[str, tor
     latents = batch["latents"].float()
     b, f_lat = latents.shape[:2]
     device = latents.device
-    if sigmas is None:
-        sigmas = sample_flow_sigmas(b, scheme=cfg.flow_weighting_scheme,
-                                    logit_mean=cfg.flow_logit_mean, logit_std=cfg.flow_logit_std,
-                                    mode_scale=cfg.flow_mode_scale,
-                                    num_train_timesteps=cfg.num_train_timesteps,
-                                    generator=generator, device=device)
-    if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=device,
-                            dtype=torch.float32)
-    sigmas, noise = sigmas.to(device, torch.float32), noise.to(device, torch.float32)
-    timesteps = sigmas * cfg.num_train_timesteps
-    s = sigmas.reshape(b, 1, 1, 1, 1)
-    noisy = (1.0 - s) * latents + s * noise  # flow_match_xt
-    target = noise - latents
-    loss_w = flow_loss_weights(sigmas, cfg.flow_weighting_scheme).reshape(b, 1, 1, 1, 1)
-
+    timesteps, noisy, target, loss_w = _flow_match(cfg, latents, generator, sigmas, noise,
+                                                   cfg.num_train_timesteps)
     dtype = next(model.parameters()).dtype
 
     def states(name):
@@ -251,6 +269,51 @@ def wan_vap_loss(model: nn.Module, cfg: WanTrainStepConfig, batch: Dict[str, tor
     velocity = model(**kwargs)
     loss = torch.mean(loss_w * torch.square(velocity.float() - target))
     return loss, {"loss": loss.detach(), "loss_main": loss.detach()}
+
+
+@dataclasses.dataclass(frozen=True)
+class HunyuanTrainStepConfig:
+    """The JAX ``HunyuanTrainStepConfig`` (train_step.py:759)."""
+    model: Any  # HunyuanVideoConfig
+    guidance: float = 1.0
+    flow_weighting_scheme: str = "none"
+    flow_logit_mean: float = 0.0
+    flow_logit_std: float = 1.0
+    flow_mode_scale: float = 1.29
+    remat: Union[bool, str] = True
+
+
+def hunyuan_loss(model: nn.Module, cfg: HunyuanTrainStepConfig, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None, *,
+                 sigmas: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Metrics]:
+    """The HunyuanVideo flow-matching loss of ``hunyuan_loss``
+    (train_step.py:770-800). batch: ``latents`` [B, C, F, H, W] (VAE-scaled),
+    ``encoder_hidden_states`` [B, S, text_embed_dim] (LLaMA),
+    ``pooled_projections`` [B, P] (CLIP) and optionally
+    ``prompt_attention_mask`` [B, S]. ``sigmas`` [B] and ``noise`` (the
+    latents' shape) are drawn from ``generator`` when not given. The
+    precomputed states go into the model in its dtype."""
+    latents = batch["latents"].float()
+    b = latents.shape[0]
+    timesteps, noisy, target, loss_w = _flow_match(cfg, latents, generator, sigmas, noise)
+    dtype = next(model.parameters()).dtype
+    pred = model(hidden_states=noisy.to(dtype),
+                 encoder_hidden_states=batch["encoder_hidden_states"].to(dtype),
+                 pooled_projections=batch["pooled_projections"].to(dtype),
+                 timestep=timesteps,
+                 guidance=torch.full((b,), cfg.guidance * 1000.0, device=latents.device),
+                 encoder_attention_mask=batch.get("prompt_attention_mask"),
+                 remat=cfg.remat)
+    loss = torch.mean(loss_w * torch.square(pred.float() - target))
+    return loss, {"loss": loss.detach()}
+
+
+def make_hunyuan_train_step(cfg: HunyuanTrainStepConfig, optimizer: Optimizer):
+    """The full-finetune HunyuanVideo step (``make_hunyuan_train_step``,
+    train_step.py:804): ``make_train_step`` on ``hunyuan_loss``. (LoRA:
+    ``make_lora_sft_step(hunyuan_loss, ...)``, as the trainer does.)"""
+    return make_train_step(cfg, optimizer, hunyuan_loss)
 
 
 LossFn = Callable[..., Tuple[torch.Tensor, Metrics]]

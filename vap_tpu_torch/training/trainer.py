@@ -1,4 +1,5 @@
-"""The port's SFT trainer for the Video-As-Prompt families (CogVideoX, Wan).
+"""The port's SFT trainer for the Video-As-Prompt families (CogVideoX, Wan)
+and HunyuanVideo.
 
 Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
 :47, ``_build_step`` :191-235, ``_install_accum`` :252, ``run`` :458-602,
@@ -7,8 +8,8 @@ Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
     (``trainable_mask``); ``lora``: adapters over the ``--target_modules``
     projections of the frozen model (``install_lora``). The optimizer
     holds only what trains;
-  * the loss is the family's: ``cogvideox_vap_loss`` or ``wan_vap_loss``
-    (its flow-matching flags from the arguments);
+  * the loss is the family's: ``cogvideox_vap_loss``, ``wan_vap_loss`` or
+    ``hunyuan_loss`` (the flow-matching flags from the arguments);
   * the batches come from the precomputed ``.npz`` cache, replayed forever
     and bucketed by shape; the text encoder and the VAE never load;
   * ``train_state.step`` counts micro-batches; every
@@ -47,24 +48,27 @@ from .args import TrainingArgs
 from .checkpoint import Checkpointer, TrainState
 from .lora import lora_parameters, merge_lora_into_params
 from .optimizer import get_lr_schedule, get_optimizer
-from .train_step import (TrainStepConfig, WanTrainStepConfig, cogvideox_vap_loss,
-                         install_lora, make_grad_and_apply, parse_target_modules,
-                         trainable_mask, wan_vap_loss)
+from .train_step import (HunyuanTrainStepConfig, TrainStepConfig, WanTrainStepConfig,
+                         cogvideox_vap_loss, hunyuan_loss, install_lora, make_grad_and_apply,
+                         parse_target_modules, trainable_mask, wan_vap_loss)
 
 logger = logging.getLogger("vap_tpu_torch.trainer")
 
 
-FAMILY_LOSSES = {"cogvideox": cogvideox_vap_loss, "wan": wan_vap_loss}
+FAMILY_LOSSES = {"cogvideox": cogvideox_vap_loss, "wan": wan_vap_loss,
+                 "hunyuan_video": hunyuan_loss}
+FLOW_STEP_CONFIGS = {"wan": WanTrainStepConfig, "hunyuan_video": HunyuanTrainStepConfig}
 
 
 def _make_step_config(family: str, args: TrainingArgs, transformer_cfg):
-    """The family's train-step config; the flow-matching flags go to Wan
-    (CogVideoX trains under DDIM with uniform timesteps, as in JAX)."""
-    if family == "wan":
-        return WanTrainStepConfig(model=transformer_cfg, remat=args.remat_mode(),
-                                  flow_weighting_scheme=args.flow_weighting_scheme,
-                                  flow_logit_mean=args.flow_logit_mean,
-                                  flow_logit_std=args.flow_logit_std)
+    """The family's train-step config (trainer.py:47); the flow-matching
+    flags go to the flow families, Wan and HunyuanVideo (CogVideoX trains
+    under DDIM with uniform timesteps, as in JAX)."""
+    if family in FLOW_STEP_CONFIGS:
+        return FLOW_STEP_CONFIGS[family](model=transformer_cfg, remat=args.remat_mode(),
+                                         flow_weighting_scheme=args.flow_weighting_scheme,
+                                         flow_logit_mean=args.flow_logit_mean,
+                                         flow_logit_std=args.flow_logit_std)
     return TrainStepConfig(model=transformer_cfg, remat=args.remat_mode())
 
 
