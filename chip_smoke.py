@@ -33,7 +33,21 @@ Phases, each of which raises on failure:
      kv_lens on a suffix of 1e4, and V rolled inside each tile) must break
      the limit; times at the joint shape beside the plain version, the
      bound over the valid keys and SDPA's memory-efficient backend with a
-     boolean key mask (a yardstick only);
+     boolean key mask (a yardstick only); then K8, the packed-segment
+     forward (K1's kernel at D=64, K4's at D=128, kSegmented), against its
+     plain version at three full-width cases: CogVideoX's joint stream
+     [1,48,35552,64] as target and reference segments (its last 64 tokens
+     padding), Wan's [1,40,40560,128] as two halves, and the Hunyuan LoRA
+     stream [1,24,18976,128] with its padded text slots as padding (there
+     also against K7 at kv_lens = the valid tokens); in-range rows within
+     the limits, padding rows finite, a planted fault (one key's id
+     flipped) that must break the limit; times beside the plain version,
+     the bound over the same-segment pairs and SDPA's memory-efficient
+     backend with a boolean [1,1,S,S] mask (a yardstick only), and the K8
+     instances' registers; then the ring body of sequence-parallel
+     attention on one card (its key blocks passed on by a local rotation)
+     over 2 and 4 blocks of the CogVideoX and Hunyuan cases, and once with
+     kv_lens, against one kernel call;
   4. CogVideoX, "flash": a small pipeline held against plain dense attention
      (with where its largest error sits and why), and a small W8A8 pipeline
      under DPM and the adaptive step cache, K3 against its plain version;
@@ -46,7 +60,11 @@ Phases, each of which raises on failure:
      place to W8A8 (chunk form, K3), sage, the step cache "uniform:2:1:1"
      over 4 DDIM steps (K3 and K2 launch on steps 0, 1 and 3 only, the
      reuse step costs under 5% of a computed one), then 1 step in the row
-     form;
+     form (before it, on the bf16 pipeline: 1 step, latents out, under
+     "flash" and under "ring" with the mesh of a one-rank NCCL process
+     group installed, make_mesh(MeshConfig()) on cuda, for each rotate
+     method: the latents equal flash's bit for bit, with the same 42 K1
+     launches);
   6. Wan: a small pipeline on the card held against plain dense attention
      under flash and sage, then Wan2.1-I2V-14B VAP at full width (40 blocks,
      MoT in all 40, 40x128 heads, UMT5-XXL, CLIP ViT-H/14, the Wan VAE) at
@@ -123,7 +141,8 @@ Phases, each of which raises on failure:
      the share of adapted weight elements the bf16 merge changes.
 
 The last three lines are a JSON object with each kernel's launches in its
-main-path run (K7 in K4, K2, K6 and K5 listed apart from them), its largest error
+main-path run (K7 in K4, K2, K6 and K5 and K8 in K1 and K4 listed apart from
+them; K8 is on no model's path and reads 0 in the ring run), its largest error
 against the plain version, and its times and bound at its main-path shape;
 the card's name and power limit as nvidia-smi gives them; and
 {"ok": true, "device": {...}}.
@@ -230,8 +249,17 @@ BENCH_COMPUTED = [0, 1, 3]
 REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
 # the D = 128 forward instances fit three blocks an SM at 168 registers a
 # thread, and two at the 182 (K4) and 188 (K2) of an earlier build, which
-# ran 29% and 15% slower: the build fails past 168 or on a spill
-PINNED_REGISTERS = {"flash_fwd_kernel<Li128E>": 168, "sage_fwd_kernel<Li128E>": 168}
+# ran 29% and 15% slower (K8's, at 180, 40%): the build fails past 168 or on
+# a spill
+PINNED_REGISTERS = {"flash_fwd_kernel<Li128ELb0E>": 168, "sage_fwd_kernel<Li128E>": 168,
+                    "flash_fwd_seg_d128_kernel": 168}
+# the flash forward's instances on a path: K1 at D=64 and K4 (fixed length
+# and K7), and K8 (kSegmented) at D=64 and D=128, printed with their
+# registers and spills; the K8 ones also go into the kernels line
+FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_kernel<Li64ELb0E>",
+                     "flash_fwd_d128": "flash_fwd_kernel<Li128ELb0E>",
+                     "flash_fwd_seg": "flash_fwd_kernel<Li64ELb1E>",
+                     "flash_fwd_seg_d128": "flash_fwd_seg_d128_kernel"}
 # the backward instances on a path or held (K5 at D=64 without and with
 # kv_lens, K6), printed with their registers and spills since kv_lens (K7's
 # backward) entered them
@@ -269,6 +297,22 @@ HUNYUAN_TRAIN_SHAPE_D64 = HUNYUAN_TRAIN_SHAPE[:3] + (64,)
 # The planted fault (flash with the transformer's kv_lens dropped, so the
 # padded text keys are attended) must break it
 HUNYUAN_E2E_ATOL = 0.025
+# K8 (packed segments) at full width, bf16, each case (shape, segment
+# lengths from token 0, num_segments; the tokens past them are padding, -1):
+# (a) CogVideoX's joint stream, the target [text||video] segment 0 and the
+#     reference [ref_text||ref_video] segment 1, its last 64 tokens padding;
+# (b) Wan's joint stream, its two 20,280-token halves;
+# (c) the Hunyuan LoRA stream: its valid tokens segment 0 (the count comes
+#     from phase 11's prompt at run time), the 213 padded text slots -1
+SEG_CASES = {"a": (MAIN_SHAPE, (MAIN_SHAPE[2] // 2, MAIN_SHAPE[2] // 2 - 64), 2),
+             "b": (WAN_JOINT, (WAN_JOINT[2] // 2, WAN_JOINT[2] // 2), 2),
+             "c": (HUNYUAN_TRAIN_SHAPE, None, 1)}
+# the ring body on one card: key blocks of cases (a) and (c)
+RING_BLOCKS = (2, 4)
+# the CogVideoX main path under "ring" on a one-rank NCCL group: 1 step
+RING_STEPS = 1
+
+
 # the small chunk-form pipeline under DPM and the adaptive cache, K3 against
 # its plain version: both give the same bf16 projections up to an output
 # rounding, which a step moves by at most a few bf16 ulps of the latents
@@ -627,6 +671,256 @@ def varlen_parity(dev, kv_len):
         del q, k, v
         torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: K8, the packed-segment forward in K1 and K4, and the ring body
+# ---------------------------------------------------------------------------
+
+SEG_SPECS = {
+    "flash_fwd_seg": dict(source="vap_tpu_torch/csrc/flash_fwd.cu",
+                          replaces="vap_tpu/ops/flash_attention.py:1539"),
+    "flash_fwd_seg_d128": dict(source="vap_tpu_torch/csrc/flash_fwd.cu",
+                               replaces="vap_tpu/ops/flash_attention.py:1539"),
+}
+
+
+def segment_ids(s, lengths, dev):
+    """[1, s] int32 ids: segment g over its ``lengths[g]`` tokens from token
+    0 on, -1 (padding) after them."""
+    import torch
+
+    ids = torch.full((1, s), -1, dtype=torch.int32, device=dev)
+    pos = 0
+    for g, n in enumerate(lengths):
+        ids[0, pos:pos + n] = g
+        pos += n
+    return ids
+
+
+def seg_bound(h, s, d, ids, num_segments):
+    """(ms, "operations" or "bytes") for K8 with the same ids for queries and
+    keys: 4*H*D*sum_g |q_g|*|k_g| operations over the same-segment pairs at
+    the bf16 peak; bytes: q, k, v, out in bf16, lse in f32 and the two id
+    rows in int32, each moved once."""
+    pairs = sum(int((ids == g).sum()) ** 2 for g in range(num_segments))
+    t_ops = 4 * h * d * pairs / PEAK_BF16
+    t_bytes = (2 * h * 4 * s * d + 4 * h * s + 4 * 2 * s) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), pairs
+
+
+def ring_on_one_card(q, k, v, n, q_seg=None, kv_seg=None, num_segments=None, kv_lens=None):
+    """Every rank's ``ring_attention_body`` of an n-rank ring, run in turn on
+    one card: rank i holds query block i and starts with key block i, and
+    its "pass on" step hands it block (i - t) mod n at step t, the block a
+    send to rank i + 1 and a receive from rank i - 1 would bring. The ranks'
+    (out, lse) concatenated along S."""
+    import torch
+
+    from vap_tpu_torch.parallel import ring_attention_body
+
+    sq, skv = q.shape[2] // n, k.shape[2] // n
+
+    def block(x, j, size, dim=2):  # what rank j holds: a contiguous copy
+        return x.narrow(dim, j * size, size).contiguous()
+
+    keys = [(block(k, j, skv), block(v, j, skv))
+            + (() if kv_seg is None else (block(kv_seg, j, skv, 1),)) for j in range(n)]
+    outs, lses = [], []
+    for my in range(n):
+        held = [my]
+
+        def pass_on(blocks, my=my, held=held):
+            held[0] = (held[0] - 1) % n
+            return keys[held[0]]
+
+        seg = {} if q_seg is None else dict(q_seg=block(q_seg, my, sq, 1), kv_seg=keys[my][2],
+                                            num_segments=num_segments)
+        out, lse = ring_attention_body(block(q, my, sq), *keys[my][:2], n, my, pass_on,
+                                       kv_lens=kv_lens, **seg)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def held_on_rows(name, out, lse, ref_out, ref_lse, rows):
+    """(err, lse_err, ref_max) of out and lse against the reference on the
+    query rows ``rows`` [S] (bool); raises past OUT_REL_TOL of max|ref| or
+    LSE_ATOL, or if any output (padding rows too) is not finite."""
+    import torch
+
+    got, want = out[:, :, rows].float(), ref_out[:, :, rows].float()
+    ref_max = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    lse_err = (lse[:, :, rows] - ref_lse[:, :, rows]).abs().max().item()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    if not (finite and err <= OUT_REL_TOL * ref_max and lse_err <= LSE_ATOL):
+        raise AssertionError(f"{name}: out max|err| {err:.3e} (max|ref| {ref_max:.3e}), lse "
+                             f"{lse_err:.3e}, finite {finite}")
+    return err, lse_err, ref_max
+
+
+def segmented_parity(dev, train_kv_len, registers):
+    """K8 against its plain version at the three full-width cases of
+    SEG_CASES: in-range rows within the limits, padding rows finite, a
+    planted fault (one key's id flipped) that must break the limit, case (c)
+    against K7 at kv_lens = its valid tokens; times beside the plain
+    version, the bound over the same-segment pairs and SDPA's
+    memory-efficient backend with a boolean [1, 1, S, S] mask (a yardstick
+    only). Then the ring body on one card over RING_BLOCKS key blocks of
+    cases (a) and (c), and once with kv_lens, against one kernel call."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    kernel, plain = fa.flash_attention_segmented_forward, fa.flash_attention_segmented_forward_plain
+    results, ring = {}, {}
+    ring_launches = 0
+    for case, (shape, lengths, num_segments) in SEG_CASES.items():
+        b, h, s, d = shape
+        lengths = lengths or (train_kv_len,)
+        q, k, v = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3)]
+        ids = segment_ids(s, lengths, dev)
+        rows = ids[0] >= 0
+        out, lse = kernel(q, k, v, ids, ids, num_segments)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = plain(q, k, v, ids, ids, num_segments)
+        name = "flash_fwd_seg_d128" if d == 128 else "flash_fwd_seg"
+        err, lse_err, ref_max = held_on_rows(f"{name} ({case})", out, lse, ref_out, ref_lse, rows)
+        # the planted fault: the key of segment 0 (among its first 256) with
+        # the largest score for a segment-0 query moved to another id
+        q0 = q[0][:, ids[0] == 0].float()
+        j = int((q0 @ k[0, :, :256].float().transpose(-1, -2)).amax(dim=(0, 1)).argmax())
+        flipped = ids.clone()
+        flipped[0, j] = 1 if num_segments > 1 else -1
+        fault = (kernel(q, k, v, ids, flipped, num_segments)[0][:, :, rows].float()
+                 - ref_out[:, :, rows].float()).abs().max().item()
+        del q0, ref_out, ref_lse
+        line = (f"  {name} ({case}) {tuple(shape)}, segments {list(lengths)} + "
+                f"{s - sum(lengths)} padding: out max|err| {err:.3e} / max|ref| {ref_max:.3e} = "
+                f"{err / ref_max:.3e} (tol {OUT_REL_TOL}; planted fault, key {j}'s id flipped, "
+                f"{fault / ref_max:.3e}), lse max|err| {lse_err:.3e} (tol {LSE_ATOL}) on the "
+                f"in-range rows, padding rows finite")
+        if fault <= OUT_REL_TOL * ref_max:
+            raise AssertionError(f"{name} ({case}): the out limit misses a flipped key id")
+        entry = {"shape": list(shape), "segments": list(lengths), "max_abs_err": err}
+        if case == "c":  # the same function as K7 at kv_lens = the valid tokens
+            lens = torch.tensor([sum(lengths)], device=dev, dtype=torch.int32)
+            out7, lse7 = fa.flash_attention_forward(q, k, v, kv_lens=lens)
+            k7_err = held_on_rows(f"{name} ({case}) vs K7", out, lse, out7, lse7, rows)[0]
+            same = torch.equal(out[:, :, rows], out7[:, :, rows])
+            line += f"; against K7 at kv_lens {sum(lengths)}: {k7_err:.3e}, bit-equal {same}"
+            entry["k7_max_abs_err"] = k7_err
+            del out7, lse7
+        log(line)
+        ms = time_ms(lambda: kernel(q, k, v, ids, ids, num_segments), iters=5, warmup=2)
+        plain_ms = time_ms(lambda: plain(q, k, v, ids, ids, num_segments), iters=1, warmup=1)
+        library_ms = None
+        try:  # one PyTorch call with the same function, a yardstick the port never makes
+            mask = (ids[0][:, None] == ids[0][None, :])[None, None]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                     iters=3, warmup=1)
+            del mask
+        except (RuntimeError, torch.OutOfMemoryError) as exc:  # refused: no yardstick
+            log(f"  {name} ({case}): SDPA memory-efficient with a [1,1,S,S] mask refused: {exc}")
+        bound_ms, bound_by, pairs = seg_bound(h, s, d, ids, num_segments)
+        tflops = 4 * h * d * pairs / (ms * 1e-3) / 1e12
+        log(f"  {name} ({case}): kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s over the same-segment "
+            f"pairs; ptxas {registers.get(name, {})}), plain {plain_ms:.3f} ms, SDPA "
+            f"memory-efficient with a [1,1,S,S] mask "
+            f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by})")
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms)
+        if case in ("a", "b"):
+            results[name] = {**entry, "registers": registers.get(name, {})}
+        else:  # the second D = 128 case rides in K4's form's entry
+            results[name]["hunyuan_case"] = entry
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        if case in ("a", "c"):
+            before = fa.flash_attention_segmented_forward.launches + \
+                fa.flash_attention_segmented_forward.launches_d128
+            for n in RING_BLOCKS:
+                r_out, r_lse = ring_on_one_card(q, k, v, n, q_seg=ids, kv_seg=ids,
+                                                num_segments=num_segments)
+                ring[f"{case}{n}"] = held_on_rows(f"ring body ({case}, n={n})", r_out, r_lse, out,
+                                                  lse, rows)[0]
+            ring_launches += (fa.flash_attention_segmented_forward.launches
+                              + fa.flash_attention_segmented_forward.launches_d128 - before)
+        if case == "c":  # and once with kv_lens, against one K7 call
+            out7, lse7 = fa.flash_attention_forward(q, k, v, kv_lens=lens)
+            r_out, r_lse = ring_on_one_card(q, k, v, RING_BLOCKS[-1], kv_lens=lens)
+            ring[f"kv_lens{RING_BLOCKS[-1]}"] = held_on_rows(
+                "ring body (kv_lens)", r_out, r_lse, out7, lse7, torch.ones_like(rows))[0]
+            del out7, lse7
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    log(f"  the ring body on one card (local rotation) against one kernel call, out max|err|: "
+        f"{ {key: f'{e:.3e}' for key, e in ring.items()} }; K8 launches there {ring_launches}")
+    for name in results:
+        results[name]["ring_body_max_abs_err"] = max(ring.values())
+        results[name]["ring_body_launches"] = ring_launches
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the CogVideoX main path under "ring" on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def ring_main_path(pipe, dev):
+    """CogVideoXVAPPipeline.__call__ for RING_STEPS step (latents out) under
+    "flash", then under "ring" with the mesh of a one-rank NCCL process group
+    installed, for each rotate method: the latents equal flash's bit for bit,
+    with the same K1 launches (one joint attention a block a step) and no
+    other kernel's. Returns the launches of the last ring run."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.parallel import MeshConfig, attention_mesh, make_mesh
+    from vap_tpu_torch.parallel.ring_attention import ROTATE_METHODS
+
+    args = main_path_args(RING_STEPS)
+    want = {"flash_fwd": RING_STEPS * pipe.transformer.config.num_layers}
+
+    def run(provider):
+        reset_counts()
+        t0 = time.perf_counter()
+        with attention_provider(provider):
+            latents = pipe(**args, output_type="latent")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_launches(launches, want)
+        return latents, time.perf_counter() - t0, launches
+
+    ref, wall, _ = run("flash")
+    log(f"  flash: latents {tuple(ref.shape)}, {wall:.3f} s")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device_type="cuda")
+        for method in ROTATE_METHODS:
+            with attention_mesh(mesh, "seq", method):
+                latents, wall, launches = run("ring")
+            same = torch.equal(latents, ref)
+            log(f"  ring ({method}, seq={mesh.size(2)}): {wall:.3f} s, latents equal flash's bit "
+                f"for bit {same}; launches {launches}")
+            if not same:
+                raise AssertionError(f"ring ({method}) latents differ from flash's")
+    finally:
+        dist.destroy_process_group()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1091,6 +1385,8 @@ def reset_counts():
     fa.flash_attention_forward.launches_d128 = 0
     fa.flash_attention_forward.launches_varlen = 0
     fa.flash_attention_forward.launches_d128_varlen = 0
+    fa.flash_attention_segmented_forward.launches = 0
+    fa.flash_attention_segmented_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
     fa.flash_attention_int8_forward.launches_varlen = 0
     fa.flash_attention_backward.launches = 0
@@ -1105,7 +1401,7 @@ def reset_counts():
 
 def read_counts():
     """Each kernel's launches (K7 on the ``*_varlen`` counters of the kernel
-    it runs in), and the calls of the W8A8 row form (no kernel of its own:
+    it runs in, K8 on ``flash_fwd_seg*``), and the calls of the W8A8 row form (no kernel of its own:
     XLA's product in the JAX package, torch._int_mm here)."""
     from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
@@ -1116,6 +1412,8 @@ def read_counts():
             "flash_fwd_d128": fa.flash_attention_forward.launches_d128,
             "flash_fwd_varlen": fa.flash_attention_forward.launches_varlen,
             "flash_fwd_d128_varlen": fa.flash_attention_forward.launches_d128_varlen,
+            "flash_fwd_seg": fa.flash_attention_segmented_forward.launches,
+            "flash_fwd_seg_d128": fa.flash_attention_segmented_forward.launches_d128,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
             "sage_fwd_varlen": fa.flash_attention_int8_forward.launches_varlen,
             "flash_bwd": fa.flash_attention_backward.launches,
@@ -2132,7 +2430,8 @@ def hunyuan_training_path(model, latents, dev):
 def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
     spills per kernel, from the compilers' logs. Fails if an instance in
-    PINNED_REGISTERS spills or takes more registers than its cap."""
+    PINNED_REGISTERS spills or takes more registers than its cap. Returns
+    the registers and spills of FORWARD_INSTANCES by kernel name."""
     from vap_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2165,6 +2464,11 @@ def build_kernels():
     log("  backward instances: " + ", ".join(
         f"{name} {next((v for k, v in seen.items() if k.endswith(name)), {})}"
         for name in BACKWARD_INSTANCES))
+    forward = {name: next((v for k, v in seen.items() if k.endswith(instance)), {})
+               for name, instance in FORWARD_INSTANCES.items()}
+    log("  flash forward instances (K1, K4 with K7, K8 at D=64 and D=128): " + ", ".join(
+        f"{name} {got}" for name, got in forward.items()))
+    return forward
 
 
 def main():
@@ -2188,7 +2492,7 @@ def main():
     t_start = time.perf_counter()
 
     # 2. build
-    build_kernels()
+    registers = build_kernels()
 
     # 3. kernel parity
     log("kernel parity (bf16, vs plain PyTorch):")
@@ -2203,6 +2507,10 @@ def main():
     log(f"K7, the varlen forward, parity (bf16, vs plain PyTorch; Hunyuan's {kv_len} valid keys "
         f"of {HUNYUAN_SHAPE[2]}):")
     results.update(varlen_parity(dev, kv_len))
+    train_kv_len = hunyuan_kv_len(HUNYUAN_TRAIN_IMAGE_TOKENS)
+    log("K8, the packed-segment forward, parity (bf16, vs plain PyTorch), and the ring body on "
+        "one card:")
+    results.update(segmented_parity(dev, train_kv_len, registers))
 
     # 4-5. CogVideoX
     log("small pipeline check:")
@@ -2214,6 +2522,13 @@ def main():
     launches["flash_fwd"] = main_path(pipe, "flash", STEPS, dev)
     log(f"main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd"] = main_path(pipe, "sage", 1, dev)
+    # before the bench configuration, which quantises the pipeline in place
+    log(f"main path under ring, one-rank NCCL group ({NUM_FRAMES} frames, {RING_STEPS} step, "
+        f"latents):")
+    ring_launches = ring_main_path(pipe, dev)
+    # K8 is on no model's path: the ring run read its counters (0)
+    launches["flash_fwd_seg"] = ring_launches["flash_fwd_seg"]
+    launches["flash_fwd_seg_d128"] = ring_launches["flash_fwd_seg_d128"]
     log(f"bench configuration, sage + W8A8 ({NUM_FRAMES} frames, {BENCH_STEPS} steps, "
         f"step cache {BENCH_CACHE}):")
     launches["w8a8"] = bench_config_path(pipe, dev)
@@ -2245,7 +2560,6 @@ def main():
     # 9. K6
     log("flash backward at head_dim 128 (K6) parity (bf16, vs plain PyTorch):")
     results["flash_bwd_d128"] = backward_parity(dev, d128=True)
-    train_kv_len = hunyuan_kv_len(HUNYUAN_TRAIN_IMAGE_TOKENS)
     log(f"K7's backward (K6 and K5 given kv_lens) parity (bf16, vs plain PyTorch; Hunyuan "
         f"training's {train_kv_len} valid keys of {HUNYUAN_TRAIN_SHAPE[2]}):")
     bwd_results, forward_errs = varlen_backward_parity(dev, train_kv_len)
@@ -2296,7 +2610,8 @@ def main():
     gc.collect()
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
-    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS, **VARLEN_BWD_SPECS}
+    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS, **VARLEN_BWD_SPECS,
+             **SEG_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

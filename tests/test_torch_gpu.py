@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 and K4 flash, K2 sage, K7 their varlen form,
-K5 and K6 flash backward and K7's backward in them, K3 W8A8, K9 and K10 the
-GEMM rate probe) against their plain PyTorch versions on the card.
+K8 their packed-segment form and the ring body over it, K5 and K6 flash
+backward and K7's backward in them, K3 W8A8, K9 and K10 the GEMM rate probe)
+against their plain PyTorch versions on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -497,3 +498,155 @@ def test_gemm_probe_rejects_what_it_does_not_take(cuda):
                         torch.zeros((128, 64), dtype=torch.int8, device=cuda))
     with pytest.raises(ValueError, match="int8 or bfloat16"):
         gp.gemm_probe(x.float(), torch.zeros((128, 64), device=cuda))
+
+
+# K8: K1's and K4's kernel given segment ids. Sample 0 packs three segments;
+# sample 1 three on the query side, of which segment 2 has no key, and a
+# padded tail on both; in-range query rows are held against the plain
+# version, padding rows need only be finite
+K8_SHAPES = [(300, 200), (128, 257), (64, 77), (200, 200)]
+
+
+def _k8_ids(device, s, bounds):
+    ids = torch.full((s,), -1, dtype=torch.int32)
+    pos = 0
+    for g, n in enumerate(bounds):
+        ids[pos:pos + n] = g
+        pos += n
+    return ids.to(device)
+
+
+def _k8_inputs(device, sq, skv, d):
+    q, k, v = _qkv(device, sq, skv, d=d, b=2, seed=8)
+    q_ids = torch.stack([_k8_ids(device, sq, [sq // 3, sq // 3, sq - 2 * (sq // 3)]),
+                         _k8_ids(device, sq, [sq // 2, sq // 4, sq // 8])])
+    kv_ids = torch.stack([_k8_ids(device, skv, [skv // 3, skv // 3, skv - 2 * (skv // 3)]),
+                          _k8_ids(device, skv, [skv // 2, skv // 4])])
+    return q, k, v, q_ids, kv_ids
+
+
+def _k8_check(q, k, v, q_ids, kv_ids, out, lse):
+    ref_out, ref_lse = tfa.flash_attention_segmented_forward_plain(q, k, v, q_ids, kv_ids, 3)
+    rows = q_ids >= 0  # [B, Sq]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    got, want = out.float().transpose(1, 2)[rows], ref_out.float().transpose(1, 2)[rows]
+    torch.testing.assert_close(got, want, rtol=0, atol=OUT_REL_TOL * want.abs().max().item())
+    torch.testing.assert_close(lse.transpose(1, 2)[rows], ref_lse.transpose(1, 2)[rows],
+                               atol=LSE_ATOL, rtol=0)
+    return want
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", K8_SHAPES)
+def test_k8_matches_plain(cuda, d, sq, skv):
+    """K8 against its plain version on in-range rows, one launch on its own
+    counter and none on K1's or K4's; a query whose segment has no key gets
+    exact zero rows and the lse -1e4."""
+    q, k, v, q_ids, kv_ids = _k8_inputs(cuda, sq, skv, d)
+    fn = tfa.flash_attention_segmented_forward
+    counter = "launches_d128" if d == 128 else "launches"
+    before = (getattr(fn, counter), tfa.flash_attention_forward.launches,
+              tfa.flash_attention_forward.launches_d128)
+    out, lse = fn(q, k, v, q_ids, kv_ids, 3)
+    torch.cuda.synchronize()
+    assert (getattr(fn, counter), tfa.flash_attention_forward.launches,
+            tfa.flash_attention_forward.launches_d128) == (before[0] + 1,) + before[1:]
+    _k8_check(q, k, v, q_ids, kv_ids, out, lse)
+    empty = q_ids[1] == 2  # sample 1's segment 2 has no key
+    assert empty.any() and not out[1][:, empty].any()
+    torch.testing.assert_close(lse[1][:, empty], torch.full_like(lse[1][:, empty], -1e4),
+                               atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
+def test_k8_head_dims(cuda, d):
+    q, k, v, q_ids, kv_ids = _k8_inputs(cuda, 130, 70, d)
+    _k8_check(q, k, v, q_ids, kv_ids, *tfa.flash_attention_segmented_forward(
+        q, k, v, q_ids, kv_ids, 3))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_cross_segment_invariance_bitexact(cuda, d):
+    """Segment 1 rewritten with finite values up to 1e4: segment 0's rows do
+    not move, to the bit (a cross-segment score is selected to -1e30)."""
+    q, k, v, q_ids, kv_ids = _k8_inputs(cuda, 200, 200, d)
+    base_out, base_lse = tfa.flash_attention_segmented_forward(q, k, v, q_ids, kv_ids, 3)
+    seg1 = (kv_ids == 1)[:, None, :, None]
+    q2, k2, v2 = (x.masked_fill(seg1, 1e4 if i != 1 else -1e4) for i, x in enumerate((q, k, v)))
+    out, lse = tfa.flash_attention_segmented_forward(q2, k2, v2, q_ids, kv_ids, 3)
+    seg0 = q_ids == 0
+    assert torch.equal(out.transpose(1, 2)[seg0], base_out.transpose(1, 2)[seg0])
+    assert torch.equal(lse.transpose(1, 2)[seg0], base_lse.transpose(1, 2)[seg0])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_limit_catches_a_flipped_key_id(cuda, d):
+    """A planted fault: one key moved into another segment must break the out
+    limit. The key is the one with the largest score for segment 0's queries,
+    so the check does not hang on a lucky draw."""
+    q, k, v, q_ids, kv_ids = _k8_inputs(cuda, 200, 200, d)
+    ref = tfa.flash_attention_segmented_forward_plain(q, k, v, q_ids, kv_ids, 3)[0].float()
+    scores = (q[0].float() @ k[0].float().transpose(-1, -2))[:, q_ids[0] == 0]  # [H, n0, Skv]
+    j = int(scores.amax(dim=(0, 1))[kv_ids[0] == 0].argmax())
+    flipped = kv_ids.clone()
+    flipped[0, j] = 1
+    out = tfa.flash_attention_segmented_forward(q, k, v, q_ids, flipped, 3)[0].float()
+    rows = (q_ids >= 0)[:, None, :, None]
+    assert ((out - ref) * rows).abs().max() > OUT_REL_TOL * (ref * rows).abs().max()
+
+
+def test_k8_rejects_what_it_does_not_take(cuda):
+    q, k, v, q_ids, kv_ids = _k8_inputs(cuda, 64, 64, 64)
+    fn = tfa.flash_attention_segmented_forward
+    with pytest.raises(ValueError, match="bfloat16"):
+        fn(q.float(), k.float(), v.float(), q_ids, kv_ids, 3)
+    with pytest.raises(ValueError, match="head_dim"):
+        fn(*_qkv(cuda, 8, 8, d=72), q_ids[:1, :8], kv_ids[:1, :8], 3)
+    with pytest.raises(ValueError, match="kv_segment_ids"):
+        fn(q, k, v, q_ids, kv_ids[:, :10], 3)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("mask", ["segments", "kv_lens", "none"])
+def test_ring_body_on_one_card_matches_one_kernel_call(cuda, n, mask):
+    """The ring body, its blocks handed out by a local rotation, against one
+    kernel call over all keys (K8, K7 or K4), within the kernel limits."""
+    from vap_tpu_torch.parallel import ring_attention_body
+
+    s = 256
+    q, k, v, ids, _ = _k8_inputs(cuda, s, s, 128)
+    lens = torch.tensor([s - 37, 0], device=cuda)
+    kw = {"segments": dict(q_segment_ids=ids, kv_segment_ids=ids, num_segments=3),
+          "kv_lens": dict(kv_lens=lens), "none": {}}[mask]
+    if mask == "segments":
+        ref = tfa.flash_attention_segmented_forward(q, k, v, ids, ids, 3)
+    else:
+        ref = tfa.flash_attention_forward(q, k, v, **kw)
+    blk = s // n
+
+    def block(x, j, dim=2):  # what rank j holds: a contiguous copy
+        return x.narrow(dim, j * blk, blk).contiguous()
+
+    cut = [(block(k, i), block(v, i), block(ids, i, 1)) for i in range(n)]
+    outs, lses = [], []
+    for my in range(n):
+        step = iter(range(1, n))
+
+        def pass_on(blocks, my=my, step=step):
+            j = (my - next(step)) % n
+            return cut[j][:len(blocks)]
+
+        seg = {} if mask != "segments" else dict(q_seg=block(ids, my, 1), kv_seg=cut[my][2],
+                                                 num_segments=3)
+        out, lse = ring_attention_body(block(q, my), cut[my][0], cut[my][1], n, my, pass_on,
+                                       kv_lens=kw.get("kv_lens"), **seg)
+        outs.append(out)
+        lses.append(lse)
+    out, lse = torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+    rows = ((ids >= 0) if mask == "segments" else torch.ones_like(ids, dtype=torch.bool))
+    got, want = out.float().transpose(1, 2)[rows], ref[0].float().transpose(1, 2)[rows]
+    torch.testing.assert_close(got, want, rtol=0, atol=OUT_REL_TOL * want.abs().max().item())
+    torch.testing.assert_close(lse.transpose(1, 2)[rows], ref[1].transpose(1, 2)[rows],
+                               atol=LSE_ATOL, rtol=0)
+    if mask == "kv_lens":
+        assert not out[1].any()

@@ -58,8 +58,9 @@ def _vae_pair_inverted_scale():
     return vae, jparams, jvae_cfg
 
 
-@pytest.fixture(scope="module")
-def pipelines():
+def build_pipelines():
+    """(port, ref): the two pipelines on the same natively initialised
+    tiny weights."""
     key = jax.random.PRNGKey(0)
     t_cfg, jt_cfg = CogVideoXMOTConfig.tiny(**T_CFG), JaxMOTConfig.tiny(**T_CFG)
     txt_cfg = T5Config.tiny(d_model=t_cfg.text_embed_dim)
@@ -82,6 +83,11 @@ def pipelines():
         params={"transformer": jparams_t, "vae": jparams_vae, "text_encoder": jparams_txt},
         tokenizer=FakeTokenizer(), dtype=jnp.float32)
     return port, ref
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    return build_pipelines()
 
 
 def _call_args():

@@ -277,10 +277,11 @@ def test_dispatcher_raises_as_jax_does():
     seg = (torch.zeros(2, 8, dtype=torch.int64), torch.zeros(2, 8, dtype=torch.int64), 1)
     assert set(tattn._VALID_PROVIDERS) == {"flash", "flash_varlen", "sage", "jax_flash", "xla",
                                            "ring", "null"}
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        tattn.full_attention(q, k, v, provider="flash", kv_lens=lens, segment_ids=seg)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tattn.full_attention(q, k, v, provider="flash", segment_ids=seg)
-    with tattn.attention_provider("ring"):
-        with pytest.raises(NotImplementedError, match="ring"):
-            tattn.full_attention(q, k, v)
+    for provider in ("flash", "sage", "xla", "ring"):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            tattn.full_attention(q, k, v, provider=provider, kv_lens=lens, segment_ids=seg)
+    with pytest.raises(ValueError, match="unknown attention provider"):
+        tattn.attention_provider("bogus").__enter__()
+    from vap_tpu_torch.parallel import sequence_parallel_attention
+    with pytest.raises(ValueError, match="unknown rotate_method"):
+        sequence_parallel_attention(q, k, v, mesh=None, rotate_method="alltoall")

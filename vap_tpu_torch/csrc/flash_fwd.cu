@@ -22,6 +22,25 @@
 // -1e4 nats: a sample with no valid key gets exact zero rows (l == 0) and
 // the finite lse -1e4. kv_lens == nullptr is the fixed-length path.
 //
+// K8, the packed-segment forward (`flash_attention_segmented`, which the TPU
+// runs through the same `_fwd_kernel_t` with `segment_ids`: the mask rides
+// extra one-hot contraction dims, `_segment_onehot_ext`, at the cost of a
+// second MXU depth pass at D >= 128), is the instance kSegmented = true
+// (at head_dim 128 through its own entry, flash_fwd_seg_d128_kernel):
+// q_seg [B, Sq] and kv_seg [B, Skv] int32 ids, query i attends key j iff
+// their ids are equal. The ids are compared in the kernel instead: each
+// thread keeps the ids of its two query rows (g, g + 8) in registers, each
+// key tile's 64 ids are staged in shared memory beside K and V, and a score
+// whose ids differ is selected to kNegInf (a select, not a multiply, so a
+// cross-segment key adds exactly 0 and never reaches the running max: one
+// segment's outputs are bit-identical whatever another segment holds, as
+// long as it is finite). The running max starts at the K7 floor, so a query
+// whose segment has no key gets zero rows and the lse -1e4. The wrapper
+// maps ids outside [0, num_segments) to -1 (padding); an in-range query
+// never matches them. Every key tile is loaded and scored: skipping the
+// tiles that hold none of a query tile's ids is later work. The fixed-length
+// and K7 instance (kSegmented = false) compiles to the code it had before.
+//
 // Design. One thread block per (bh, 64-query tile), four warps of 16 query
 // rows; a loop over 64-key tiles inside the block takes the place of the
 // TPU's sequential grid axis. Q stays in registers as mma A fragments; each
@@ -56,14 +75,16 @@ constexpr int kBlockM = 64;
 constexpr int kBlockN = 64;
 constexpr int kThreads = 128;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+template <int D, bool kSegmented>
+__device__ __forceinline__ void flash_fwd_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale_log2) {
+    const int* __restrict__ kv_lens, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale_log2) {
   constexpr int kStride = D + 8;  // bf16 elements per smem row; the pad spreads banks
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
+  __shared__ int seg_s[kSegmented ? kBlockN : 1];  // K8: the key tile's segment ids
 
   const size_t bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -89,9 +110,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
   const int len = vap::kv_length(kv_lens, bh, heads, skv);
-  const float m0 = kv_lens ? vap::kVarlenFloorLog2 : vap::kNegInf;
+  const float m0 = (kSegmented || kv_lens) ? vap::kVarlenFloorLog2 : vap::kNegInf;
   float m[2] = {m0, m0};
   float l[2] = {0.0f, 0.0f};
+  // K8: the segment ids of this thread's two query rows (rows past Sq are
+  // never stored, so any id serves them)
+  int qid[2] = {0, 0};
+  const int* kvs = nullptr;
+  if constexpr (kSegmented) {
+    const size_t b = bh / heads;
+    const int* qs = q_seg + b * sq;
+    qid[0] = row0 + g < sq ? qs[row0 + g] : -1;
+    qid[1] = row0 + g + 8 < sq ? qs[row0 + g + 8] : -1;
+    kvs = kv_seg + b * skv;
+  }
 
   for (int n0 = 0; n0 < len; n0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous tile
@@ -100,6 +132,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         reinterpret_cast<char*>(k_s), reinterpret_cast<const char*>(kb + (size_t)n0 * D), valid);
     vap::load_tile<kBlockN, D * 2, kStride * 2, kThreads>(
         reinterpret_cast<char*>(v_s), reinterpret_cast<const char*>(vb + (size_t)n0 * D), valid);
+    if constexpr (kSegmented) {
+      const int i = threadIdx.x;
+      if (i < kBlockN) seg_s[i] = i < valid ? kvs[n0 + i] : -1;
+    }
     __syncthreads();
 
     float s[kBlockN / 8][4];
@@ -115,7 +151,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t + (e & 1);
-        s[j][e] = col < valid ? s[j][e] * scale_log2 : vap::kNegInf;
+        bool keep = col < valid;
+        if constexpr (kSegmented) keep = keep && seg_s[col] == qid[e >> 1];
+        s[j][e] = keep ? s[j][e] * scale_log2 : vap::kNegInf;
       }
     }
     vap::softmax_pv_tile<D, kBlockN, kStride>(s, m, l, acc, v_s);
@@ -123,49 +161,115 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   vap::store_rows<D>(acc, m, l, o + bh * sq * D, lse + bh * sq, row0, sq);
 }
 
-template <int D>
+// K1, K4 and K7 (kSegmented = false), and K8 below head_dim 128.
+template <int D, bool kSegmented>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ kv_lens, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale_log2) {
+  flash_fwd_body<D, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, heads, sq, skv,
+                                scale_log2);
+}
+
+// K8 at head_dim 128. As one more instance of the template ptxas gives it
+// 180 registers (the ids and their compare), so two blocks fit an SM; asked
+// for three, it fits 168 without a spill, and K8 at Wan's joint shape took
+// 215 ms on an H100 against 302 ms (chip_smoke.py, which fails the build if
+// this entry spills or exceeds 168).
+__global__ void __launch_bounds__(kThreads, 3) flash_fwd_seg_d128_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads, int sq, int skv,
+    float scale_log2) {
+  flash_fwd_body<128, true>(q, k, v, o, lse, nullptr, q_seg, kv_seg, heads, sq, skv, scale_log2);
+}
+
+template <int D, bool kSegmented>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   const int* kv_lens, int bh, int heads, int sq, int skv, float scale_log2,
-                   cudaStream_t stream) {
+                   const int* kv_lens, const int* q_seg, const int* kv_seg, int bh, int heads,
+                   int sq, int skv, float scale_log2, cudaStream_t stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, kv_lens, heads,
-      sq, skv, scale_log2);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  if constexpr (kSegmented && D == 128) {
+    flash_fwd_seg_d128_kernel<<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, lse, q_seg, kv_seg,
+                                                             heads, sq, skv, scale_log2);
+  } else {
+    flash_fwd_kernel<D, kSegmented><<<grid, kThreads, 0, stream>>>(
+        qp, kp, vp, op, lse, kv_lens, q_seg, kv_seg, heads, sq, skv, scale_log2);
+  }
   return cudaGetLastError();
+}
+
+// Head dims of K1 (and of K7 and K8 in its form): 16..112, step 16.
+template <bool kSegmented>
+cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o, float* lse,
+                     const int* kv_lens, const int* q_seg, const int* kv_seg, int bh, int heads,
+                     int sq, int skv, float scale_log2, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch<16, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    case 32: return launch<32, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    case 48: return launch<48, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    case 64: return launch<64, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    case 80: return launch<80, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    case 96: return launch<96, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    case 112: return launch<112, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
+                                            sq, skv, scale_log2, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C entry points, bound from Python with ctypes. Tensors are contiguous
 // [bh, s, d]; kv_lens is a device pointer to [bh / heads] int32 valid key
-// counts (K7) or null (every key valid); scale_log2 = softmax scale *
-// log2(e). Each returns the CUDA error of the launch (0 on success).
-// bh <= 65535, sq >= 1, heads >= 1 divides bh.
+// counts (K7) or null (every key valid); q_seg and kv_seg are device
+// pointers to [bh / heads, sq] and [bh / heads, skv] int32 segment ids (K8);
+// scale_log2 = softmax scale * log2(e). Each returns the CUDA error of the
+// launch (0 on success). bh <= 65535, sq >= 1, heads >= 1 divides bh.
 
 // K1 (and K7 at these head dims): head_dim d in 16..112, step 16.
 extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              const void* kv_lens, int bh, int heads, int sq, int skv, int d,
                              float scale_log2, void* stream) {
-  float* l = static_cast<float*>(lse);
-  const int* lens = static_cast<const int*>(kv_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<16>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    case 32: return launch<32>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    case 48: return launch<48>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    case 64: return launch<64>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    case 80: return launch<80>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    case 96: return launch<96>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    case 112: return launch<112>(q, k, v, o, l, lens, bh, heads, sq, skv, scale_log2, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_d<false>(d, q, k, v, o, static_cast<float*>(lse),
+                         static_cast<const int*>(kv_lens), nullptr, nullptr, bh, heads, sq, skv,
+                         scale_log2, static_cast<cudaStream_t>(stream));
 }
 
 // K4 (and K7 at head_dim 128, HunyuanVideo's joint attention): head_dim 128.
 extern "C" int vap_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, void* lse,
                                   const void* kv_lens, int bh, int heads, int sq, int skv,
                                   float scale_log2, void* stream) {
-  return launch<128>(q, k, v, o, static_cast<float*>(lse), static_cast<const int*>(kv_lens), bh,
-                     heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
+  return launch<128, false>(q, k, v, o, static_cast<float*>(lse),
+                            static_cast<const int*>(kv_lens), nullptr, nullptr, bh, heads, sq,
+                            skv, scale_log2, static_cast<cudaStream_t>(stream));
+}
+
+// K8 in K1's form: head_dim d in 16..112, step 16.
+extern "C" int vap_flash_fwd_seg(const void* q, const void* k, const void* v, const void* q_seg,
+                                 const void* kv_seg, void* o, void* lse, int bh, int heads, int sq,
+                                 int skv, int d, float scale_log2, void* stream) {
+  return launch_d<true>(d, q, k, v, o, static_cast<float*>(lse), nullptr,
+                        static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), bh,
+                        heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
+}
+
+// K8 in K4's form: head_dim 128.
+extern "C" int vap_flash_fwd_seg_d128(const void* q, const void* k, const void* v,
+                                      const void* q_seg, const void* kv_seg, void* o, void* lse,
+                                      int bh, int heads, int sq, int skv, float scale_log2,
+                                      void* stream) {
+  return launch<128, true>(q, k, v, o, static_cast<float*>(lse), nullptr,
+                           static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), bh,
+                           heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
 }

@@ -34,6 +34,10 @@ SOURCES = {
         "vap_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream
         "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, d, scale_log2, stream (K8)
+        "vap_flash_fwd_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, scale_log2, stream (K8, D = 128)
+        "vap_flash_fwd_seg_d128": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "sage_fwd": {
         # q8, k8, sqk, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, stream

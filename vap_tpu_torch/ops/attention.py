@@ -1,24 +1,31 @@
 """Attention dispatch: one full-attention op with pluggable providers.
 
-Port of ``vap_tpu/ops/attention.py:41-110,163-188,206-299``. Providers:
+Port of ``vap_tpu/ops/attention.py:41-110,163-202,206-299``. Providers:
 
   * "flash" — K1 (head_dim < 128) or K4 (head_dim 128), the hand-written bf16
-    flash forward (``ops/flash_attention.py``), and K7 when the call passes
-    ``kv_lens``; differentiable, with K5 or K6 as its backward (given
-    ``kv_lens``: K7's backward, dk and dv zero past each length).
-    "flash_varlen" and "jax_flash" (JAX's own library kernel there, not a
-    kernel of the repo) take the same kernels;
+    flash forward (``ops/flash_attention.py``), K7 when the call passes
+    ``kv_lens`` and K8 when it passes ``segment_ids``; differentiable, with
+    K5 or K6 as its backward (given ``kv_lens``: K7's backward, dk and dv
+    zero past each length; K8 has no backward yet and raises under
+    autograd). "flash_varlen" and "jax_flash" (JAX's own library kernel
+    there, not a kernel of the repo) take the same kernels;
   * "sage"  — K2, the int8-QK SageAttention-style forward, K7's int8 form
     with ``kv_lens`` (inference only: raises when a gradient is wanted);
+    with ``segment_ids`` the bf16 K8, as in JAX;
   * "xla"   — plain PyTorch dense attention (the name is the JAX package's),
-    ``dense_attention_masked`` with ``kv_lens``, differentiated by autograd;
+    ``dense_attention_masked`` with ``kv_lens``, ``dense_attention_segmented``
+    with ``segment_ids``, differentiated by autograd;
   * "null"  — profiling only: skips the attention math (raises when a
-    gradient is wanted);
-  * "ring"  — sequence-parallel attention: not ported (raises).
+    gradient is wanted; ignores ``segment_ids``, as in JAX);
+  * "ring"  — sequence-parallel attention over the mesh installed with
+    ``vap_tpu_torch.parallel.attention_mesh`` (``sequence_parallel_attention``:
+    allgather, ppermute or ulysses), the local kernel (K1/K4, K7, K8) when
+    none is; inference only for now (raises when a gradient is wanted).
 
 ``kv_lens`` ([B] int) gives per-sample valid key counts (suffix padding);
-``segment_ids`` (packed sequences, K8) is not ported and raises; the two
-together raise, as in JAX.
+``segment_ids`` ((q_seg [B, Sq], kv_seg [B, Skv], num_segments)) packed
+sequences, query i attending key j iff their ids match; the two together
+raise, as in JAX.
 
 The default is "flash", as on the TPU and for training (the JAX trainer's
 ``attn_provider_training="auto"``); on CPU tensors the kernel wrappers run
@@ -37,7 +44,9 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_int8, wants_grad
+from ..parallel.ring_attention import get_attention_mesh, sequence_parallel_attention
+from .flash_attention import (flash_attention, flash_attention_int8, flash_attention_segmented,
+                              wants_grad)
 
 _state = threading.local()
 
@@ -111,6 +120,40 @@ def dense_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p @ v.float()).to(v.dtype)
 
 
+def dense_attention_segmented(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain dense attention over packed sequences: query i attends key j iff
+    q_segment_ids[b, i] == kv_segment_ids[b, j]; f32 scores and f32 P V; a
+    query with no matching key gets zero rows
+    (``vap_tpu/ops/attention.py:191-202``)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    same = (q_segment_ids.to(q.device)[:, :, None]
+            == kv_segment_ids.to(q.device)[:, None, :])  # [B, Sq, Skv]
+    s = s + torch.where(same, 0.0, -1e30)[:, None]
+    p = torch.softmax(s, dim=-1) * same.any(dim=-1).float()[:, None, :, None]
+    return (p @ v.float()).to(v.dtype)
+
+
+def _ring(q, k, v, scale, kv_lens, segment_ids):
+    """The "ring" provider: sequence-parallel attention over the installed
+    mesh, or the local kernel when none is (``vap_tpu/ops/attention.py:276-298``)."""
+    if wants_grad(q, k, v):
+        raise NotImplementedError(
+            "the ring (sequence-parallel) provider has no backward yet: sequence-parallel "
+            "training, with K8's backward, is the next slice of the port")
+    ctx = get_attention_mesh()
+    if ctx is not None:
+        mesh, axis, rotate_method = ctx
+        return sequence_parallel_attention(q, k, v, mesh, axis, scale, rotate_method,
+                                           kv_lens=kv_lens, segment_ids=segment_ids)
+    if segment_ids is not None:
+        return flash_attention_segmented(q, k, v, *segment_ids, scale)
+    return flash_attention(q, k, v, scale, kv_lens)
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None,
                    provider: Optional[str] = None,
@@ -120,22 +163,26 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Full (non-causal) attention over [B, H, S, D] tensors: the JAX
     package's ``scaled_dot_product_attention``. ``kv_lens`` ([B] int) masks
     each sample's keys at or past its length (K7 under the kernel
-    providers); queries are never masked."""
+    providers); queries are never masked. ``segment_ids`` ((q_seg, kv_seg,
+    num_segments)) masks every query-key pair whose ids differ (K8 under
+    the kernel providers)."""
     provider = provider or get_attention_provider(site)
     if segment_ids is not None and kv_lens is not None:
         raise ValueError("segment_ids and kv_lens are mutually exclusive; give padding its "
                          "own out-of-range segment id")
-    if segment_ids is not None:
-        raise NotImplementedError("segment_ids (packed sequences, K8) is not ported yet: "
-                                  "ROADMAP.md Queue 1 item 9")
     if provider == "ring":
-        raise NotImplementedError("the ring (sequence-parallel) provider is not ported yet: "
-                                  "ROADMAP.md Queue 1 item 9")
+        return _ring(q, k, v, scale, kv_lens, segment_ids)
+    if segment_ids is not None and provider in ("flash", "flash_varlen", "jax_flash", "sage"):
+        # sage too: its int8 scores take no segment mask in JAX either, which
+        # sends packed segments to the bf16 kernel (attention.py:250-255)
+        return flash_attention_segmented(q, k, v, *segment_ids, scale)
     if provider in ("flash", "flash_varlen", "jax_flash"):
         return flash_attention(q, k, v, scale, kv_lens)
     if provider == "sage":
         return flash_attention_int8(q, k, v, scale, kv_lens)
     if provider == "xla":
+        if segment_ids is not None:
+            return dense_attention_segmented(q, k, v, segment_ids[0], segment_ids[1], scale)
         if kv_lens is not None:
             return dense_attention_masked(q, k, v, kv_lens, scale)
         return dense_attention(q, k, v, scale)

@@ -41,6 +41,18 @@ Its backward (``_fav_bwd``, :1499) is K5 and K6 given ``kv_lens``: dq of
 every query row from its sample's valid keys only (0 for a sample with
 none), and exact zeros in the dk and dv rows past each length.
 
+K8, the packed-segment attention (``flash_attention_segmented``, :1539):
+K1's and K4's kernel given ``q_segment_ids`` [B, Sq] and ``kv_segment_ids``
+[B, Skv] integer ids and ``num_segments``; query i attends key j iff their
+ids are equal. Ids outside [0, num_segments) are padding (mapped to -1):
+padding keys are masked from every in-range query, padding queries' outputs
+are unspecified but finite. The running max starts at K7's floor, so a query
+whose segment has no key gets exact zero rows and the lse -1e4. A
+cross-segment key adds exactly 0, so one segment's outputs do not move,
+to the bit, when another segment's q, k or v change (to finite values).
+Forward only: its backward (``_fas_bwd``, :1581) comes with sequence-parallel
+training.
+
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
 raises. Each kernel counts its launches on its wrapper:
@@ -48,6 +60,8 @@ raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_forward.launches_d128`` (K4),
 ``flash_attention_forward.launches_varlen`` (K7 in K1, head_dim < 128),
 ``flash_attention_forward.launches_d128_varlen`` (K7 in K4),
+``flash_attention_segmented_forward.launches`` (K8 in K1, head_dim < 128),
+``flash_attention_segmented_forward.launches_d128`` (K8 in K4),
 ``flash_attention_int8_forward.launches`` (K2),
 ``flash_attention_int8_forward.launches_varlen`` (K7 in K2),
 ``flash_attention_backward.launches`` (K5),
@@ -68,9 +82,11 @@ LOG2_E = 1.4426950408889634
 LN_2 = 0.6931471805599453
 # masked-score value of the TPU kernels (finite, so no inf - inf arises)
 NEG_INF = -1e30
-# K7's floor of the running max, -1e4 nats (flash_attention.py:154-158), in
-# the log2 domain the kernels work in: the lse of a sample with no valid key
-VARLEN_FLOOR_LOG2 = -1e4 * LOG2_E
+# K7's floor of the running max, -1e4 nats (flash_attention.py:154-158): the
+# lse of a sample with no valid key (K8: of a query whose segment has no key),
+# and the same in the log2 domain the kernels work in
+VARLEN_FLOOR_LSE = -1e4
+VARLEN_FLOOR_LOG2 = VARLEN_FLOOR_LSE * LOG2_E
 # keys per tile of the plain versions: bounds their score buffer to
 # [B, H, Sq, PLAIN_BLOCK_K], so they also run at the main-path length
 PLAIN_BLOCK_K = 512
@@ -200,6 +216,50 @@ def flash_attention_forward_plain(q, k, v, scale: Optional[float] = None,
         return run(slice(None), k.shape[2], NEG_INF)
     return _varlen_plain(lambda b, n: run(slice(b, b + 1), n, VARLEN_FLOOR_LOG2), kv_lens,
                          k.shape[2])
+
+
+def check_segment_args(q, k, q_segment_ids, kv_segment_ids, num_segments) -> None:
+    """K8's argument checks (``_check_segment_args``, :1524-1536)."""
+    if not isinstance(num_segments, int) or isinstance(num_segments, bool) or num_segments < 1:
+        raise ValueError(f"num_segments must be a static positive int, got {num_segments!r}")
+    for name, ids, x, s in (("q_segment_ids", q_segment_ids, q, "Sq"),
+                            ("kv_segment_ids", kv_segment_ids, k, "Skv")):
+        want = (x.shape[0], x.shape[2])
+        if not isinstance(ids, torch.Tensor) or tuple(ids.shape) != want:
+            raise ValueError(f"{name} must be [B, {s}] = {want}, got "
+                             f"{tuple(getattr(ids, 'shape', ())) or type(ids).__name__}")
+    for ids in (q_segment_ids, kv_segment_ids):
+        if ids.dtype.is_floating_point or ids.dtype.is_complex or ids.dtype == torch.bool:
+            raise ValueError(f"segment ids must be integer tensors, got {ids.dtype}")
+
+
+def segment_ids_int32(ids: torch.Tensor, num_segments: int, device) -> torch.Tensor:
+    """K8's ids as the kernel takes them: int32 on ``device``, contiguous,
+    every id outside [0, num_segments) mapped to -1 (padding)."""
+    in_range = (ids >= 0) & (ids < num_segments)
+    return torch.where(in_range, ids, -1).to(device, torch.int32).contiguous()
+
+
+def flash_attention_segmented_forward_plain(q, k, v, q_segment_ids, kv_segment_ids,
+                                            num_segments: int, scale: Optional[float] = None):
+    """Plain PyTorch version of K8: (out, lse). The tile loop of K1 and K4
+    with every score whose query and key ids differ selected to NEG_INF, and
+    the running max starting at K7's floor."""
+    _shapes(q, k, v)
+    check_segment_args(q, k, q_segment_ids, kv_segment_ids, num_segments)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q_ids = segment_ids_int32(q_segment_ids, num_segments, q.device)
+    kv_ids = segment_ids_int32(kv_segment_ids, num_segments, q.device)
+    qf = q.float()
+    scale_log2 = scale * LOG2_E
+
+    def scores(n0, n1):
+        s = (qf @ k[:, :, n0:n1].float().transpose(-1, -2)) * scale_log2
+        same = q_ids[:, None, :, None] == kv_ids[:, None, None, n0:n1]  # [B, 1, Sq, n]
+        return torch.where(same, s, NEG_INF)
+
+    return _online_softmax_plain(scores, v, q.shape[2], VARLEN_FLOOR_LOG2)
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -412,6 +472,53 @@ flash_attention_forward.launches_varlen = 0
 flash_attention_forward.launches_d128_varlen = 0
 
 
+def flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
+                                      num_segments: int, scale: Optional[float] = None):
+    """K8: (out, lse) of packed-segment attention. CUDA tensors launch
+    ``vap_flash_fwd_seg`` (K1's form, head_dim a multiple of 16 below 128)
+    or ``vap_flash_fwd_seg_d128`` (K4's form, head_dim 128): bf16,
+    contiguous; the ids go to the kernel as int32 on the same card, padding
+    mapped to -1. CPU tensors take ``flash_attention_segmented_forward_plain``."""
+    _shapes(q, k, v)
+    check_segment_args(q, k, q_segment_ids, kv_segment_ids, num_segments)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_kind("flash_attention_segmented_forward", q) == "cpu":
+        return flash_attention_segmented_forward_plain(q, k, v, q_segment_ids, kv_segment_ids,
+                                                       num_segments, scale)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if d % 16 or d > 128:
+        raise ValueError(f"flash kernel takes head_dim in 16..128 step 16, got {d}")
+    q_ids = segment_ids_int32(q_segment_ids, num_segments, q.device)
+    kv_ids = segment_ids_int32(kv_segment_ids, num_segments, q.device)
+    bf16, i32 = torch.bfloat16, torch.int32
+    _kernel_inputs("flash_attention_segmented_forward",
+                   {"q": q, "k": k, "v": v, "q_segment_ids": q_ids, "kv_segment_ids": kv_ids},
+                   {"q": bf16, "k": bf16, "v": bf16, "q_segment_ids": i32, "kv_segment_ids": i32},
+                   b * h, sq)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.library("flash_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
+            out.data_ptr(), lse.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if d == 128:
+            err = lib.vap_flash_fwd_seg_d128(*ptrs, b * h, h, sq, skv, scale * LOG2_E, stream)
+            _build.check(err, "vap_flash_fwd_seg_d128")
+            flash_attention_segmented_forward.launches_d128 += 1
+        else:
+            err = lib.vap_flash_fwd_seg(*ptrs, b * h, h, sq, skv, d, scale * LOG2_E, stream)
+            _build.check(err, "vap_flash_fwd_seg")
+            flash_attention_segmented_forward.launches += 1
+    return out, lse
+
+
+flash_attention_segmented_forward.launches = 0
+flash_attention_segmented_forward.launches_d128 = 0
+
+
 def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None,
                              kv_lens: Optional[torch.Tensor] = None):
     """K5 and K6, and with ``kv_lens`` K7's backward: (dq, dk, dv) of out =
@@ -571,3 +678,18 @@ def flash_attention_int8(q, k, v, scale: Optional[float] = None,
         raise NotImplementedError("the sage provider (K2) is inference-only and has no "
                                   "gradient; train with 'flash' or 'xla'")
     return flash_attention_int8_forward(q, k, v, scale, kv_lens)[0]
+
+
+def flash_attention_segmented(q, k, v, q_segment_ids, kv_segment_ids, num_segments: int,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Fused attention over packed sequences (K8), output only: query i
+    attends key j iff their segment ids are equal (see
+    ``flash_attention_segmented_forward``). Forward only for now: it raises
+    when a gradient is wanted, and never falls back to dense attention."""
+    if wants_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention_segmented (K8) has no backward yet: K8's backward comes with "
+            "sequence-parallel training, the next slice of the port; the 'xla' provider "
+            "(dense_attention_segmented) differentiates")
+    return flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
+                                             num_segments, scale)[0]

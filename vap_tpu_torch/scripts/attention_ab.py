@@ -7,11 +7,11 @@ Each root given is a checkout (or an unpacked archive) holding
 so that two trees are compared in one call on one card (parent, change,
 change, parent). A line per root: K4 (``flash_attention_forward``) and K2
 (``flash_attention_int8_forward``) at Wan's joint shape [1, 40, 40560, 128],
-K5 (``flash_attention_backward``) at CogVideoX's [1, 48, 35552, 64] and K6
-at Wan's training self-attention [1, 40, 20280, 128], bf16, ms per call
-over 5 calls after 2 of warm-up, with CUDA events (the backward's delta
-pre-pass included). The kernels are built from each root's sources. It runs
-on the card and raises without one.
+K1 (``flash_attention_forward``) and K5 (``flash_attention_backward``) at
+CogVideoX's [1, 48, 35552, 64] and K6 at Wan's training self-attention
+[1, 40, 20280, 128], bf16, ms per call over 5 calls after 2 of warm-up,
+with CUDA events (the backward's delta pre-pass included). The kernels are
+built from each root's sources. It runs on the card and raises without one.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ K6_SHAPE = (1, 40, 20280, 128)  # one Wan branch's self-attention in training
 
 
 def time_root(root: str) -> None:
-    """Import the port under ``root`` and print K4's, K2's, K5's and K6's times."""
+    """Import the port under ``root`` and print K4's, K2's, K1's, K5's and K6's times."""
     sys.path.insert(0, root)
     import torch
 
@@ -62,14 +62,18 @@ def time_root(root: str) -> None:
     k4 = ms(lambda: fa.flash_attention_forward(q, k, v))
     k2 = ms(lambda: fa.flash_attention_int8_forward(q, k, v))
     del q, k, v
+    q, k, v = inputs(K5_SHAPE)
+    k1 = ms(lambda: fa.flash_attention_forward(q, k, v))
+    del q, k, v
     backward = []
     for shape in (K5_SHAPE, K6_SHAPE):
         q, k, v, dout = inputs(shape, 4)
         out, lse = fa.flash_attention_forward(q, k, v)
         backward.append(ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout)))
         del q, k, v, dout, out, lse
-    print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}; K5 {backward[0]:.3f} ms at "
-          f"{list(K5_SHAPE)}; K6 {backward[1]:.3f} ms at {list(K6_SHAPE)}", flush=True)
+    print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}; K1 {k1:.3f} ms, K5 "
+          f"{backward[0]:.3f} ms at {list(K5_SHAPE)}; K6 {backward[1]:.3f} ms at "
+          f"{list(K6_SHAPE)}", flush=True)
 
 
 def main(argv=None) -> None:
