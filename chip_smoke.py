@@ -47,7 +47,25 @@ Phases, each of which raises on failure:
      instances' registers; then the ring body of sequence-parallel
      attention on one card (its key blocks passed on by a local rotation)
      over 2 and 4 blocks of the CogVideoX and Hunyuan cases, and once with
-     kv_lens, against one kernel call;
+     kv_lens, against one kernel call; then K8's backward (K5's kernels at
+     D=64, K6's at D=128, kSegmented, entries of their own) against its
+     plain version at the unaligned shapes (B=2, three segments, one
+     crossing a 64-row tile edge, a padded tail, a query segment with no
+     key, Sq != Skv) and at the same three full-width cases with dout zero
+     on the padding rows: dq, dk and dv within the limit, dq = 0 where a
+     query's segment has no key, a flipped key id that must break the
+     limit, the Hunyuan case also against K7's backward at kv_lens = its
+     valid tokens (and whether the two are bit-equal); times beside the
+     plain version, the bound over the same-segment pairs, SDPA's
+     memory-efficient backward with a boolean [1,1,S,S] mask (a yardstick
+     only) and the registers; then sequence-parallel attention's step on
+     one card: the ring body, then its backward (ring_backward_steps run in
+     lockstep: each block passed on with its dk/dv accumulators, which
+     arrive home after n passes) from the merged out and lse, over 2 and 4
+     blocks of the CogVideoX case with and without segment ids and of the
+     Hunyuan case with kv_lens and with segment ids, each against one
+     backward call over all keys; its launches are K8's (forward and
+     backward) in the kernels line;
   4. CogVideoX, "flash": a small pipeline held against plain dense attention
      (with where its largest error sits and why), and a small W8A8 pipeline
      under DPM and the adaptive step cache, K3 against its plain version;
@@ -62,8 +80,9 @@ Phases, each of which raises on failure:
      reuse step costs under 5% of a computed one), then 1 step in the row
      form (before it, on the bf16 pipeline: 1 step, latents out, under
      "flash" and under "ring" with the mesh of a one-rank NCCL process
-     group installed, make_mesh(MeshConfig()) on cuda, for each rotate
-     method: the latents equal flash's bit for bit, with the same 42 K1
+     group installed, make_mesh(MeshConfig()) on cuda, with one rotate
+     method, which at one rank is the same local kernel call as the other
+     two: the latents equal flash's bit for bit, with the same 42 K1
      launches);
   6. Wan: a small pipeline on the card held against plain dense attention
      under flash and sage, then Wan2.1-I2V-14B VAP at full width (40 blocks,
@@ -85,7 +104,11 @@ Phases, each of which raises on failure:
      "full", 3 optimizer steps (the first a warm-up); per step the loss,
      grad_norm, seconds and the forward / backward / update split, the peak
      device memory, K1 and K5 launches (84 and 42 a step), the frozen trunk
-     bit-identical and the MoT expert moved;
+     bit-identical and the MoT expert moved; before the steps, one grad_fn
+     on the same model, batch and generator under "flash" and under the
+     trainer's own attention context (``_attn_ctx``) with a one-rank NCCL
+     group's mesh and ``attn_provider_training="ring"``: the loss and every
+     expert gradient bit-equal, with the same K1 and K5 launches;
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
@@ -141,13 +164,16 @@ Phases, each of which raises on failure:
      the share of adapted weight elements the bf16 merge changes.
 
 The last three lines are a JSON object with each kernel's launches in its
-main-path run (K7 in K4, K2, K6 and K5 and K8 in K1 and K4 listed apart from
-them; K8 is on no model's path and reads 0 in the ring run), its largest error
+main-path run (K7 in K4, K2, K6 and K5 and K8 in K1, K4, K5 and K6 listed apart
+from them; K8 is on no model's path: its launches are those of the ring's
+forward and backward on one card), its largest error
 against the plain version, and its times and bound at its main-path shape;
 the card's name and power limit as nvidia-smi gives them; and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -265,7 +291,16 @@ FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_kernel<Li64ELb0E>",
 # backward) entered them
 BACKWARD_INSTANCES = ("flash_bwd_dq_kernel<Li64ELb0E>", "flash_bwd_dkv_kernel<Li64ELb0E>",
                       "flash_bwd_dq_kernel<Li64ELb1E>", "flash_bwd_dkv_kernel<Li64ELb1E>",
-                      "flash_bwd_d128_dq_kernel", "flash_bwd_d128_dkv_kernel")
+                      "flash_bwd_d128_dq_kernel", "flash_bwd_d128_dkv_kernel",
+                      "flash_bwd_seg_dq_kernel<Li64E>", "flash_bwd_seg_dkv_kernel<Li64E>",
+                      "flash_bwd_seg_d128_dq_kernel", "flash_bwd_seg_d128_dkv_kernel")
+# K8's backward (kSegmented, kernels and entries of their own) at D=64 and
+# D=128: its dq and dk/dv instances, whose registers go into the kernels line
+SEG_BACKWARD_INSTANCES = {
+    "flash_bwd_seg": {"dq": "flash_bwd_seg_dq_kernel<Li64E>",
+                      "dkv": "flash_bwd_seg_dkv_kernel<Li64E>"},
+    "flash_bwd_seg_d128": {"dq": "flash_bwd_seg_d128_dq_kernel",
+                           "dkv": "flash_bwd_seg_d128_dkv_kernel"}}
 # HunyuanVideo T2V at 33 frames of 720x1280, cut from the released 129
 # frames (hunyuan_path): 9 latent frames of 90x160, 32,400 image tokens
 # after the 2x2 patch, then 256 text tokens; 24 heads of 128
@@ -309,8 +344,10 @@ SEG_CASES = {"a": (MAIN_SHAPE, (MAIN_SHAPE[2] // 2, MAIN_SHAPE[2] // 2 - 64), 2)
              "c": (HUNYUAN_TRAIN_SHAPE, None, 1)}
 # the ring body on one card: key blocks of cases (a) and (c)
 RING_BLOCKS = (2, 4)
-# the CogVideoX main path under "ring" on a one-rank NCCL group: 1 step
+# the CogVideoX main path under "ring" on a one-rank NCCL group: 1 step, one
+# rotate method (at one rank each method is the same local kernel call)
 RING_STEPS = 1
+RING_METHOD = "allgather"
 
 
 # the small chunk-form pipeline under DPM and the adaptive cache, K3 against
@@ -869,23 +906,320 @@ def segmented_parity(dev, train_kv_len, registers):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: K8's backward in K5 and K6, and the ring body's backward
+# ---------------------------------------------------------------------------
+
+SEG_BWD_SPECS = {
+    "flash_bwd_seg": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+                          replaces="vap_tpu/ops/flash_attention.py:1581"),
+    "flash_bwd_seg_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_d128.cu",
+                               replaces="vap_tpu/ops/flash_attention.py:1581"),
+}
+
+
+def seg_bwd_bound(h, s, d, ids, num_segments):
+    """(ms, "operations" or "bytes") for K8's backward with the same ids for
+    queries and keys: 10*H*D*sum_g |q_g|*|k_g| operations (q k^T, dout v^T,
+    ds k, p^T dout, ds^T q over the same-segment pairs) at the bf16 peak;
+    bytes: q, k, v, out, dout, dq, dk, dv in bf16, lse in f32 and the two
+    id rows in int32, each moved once."""
+    pairs = sum(int((ids == g).sum()) ** 2 for g in range(num_segments))
+    t_ops = 10 * h * d * pairs / PEAK_BF16
+    t_bytes = (2 * h * 8 * s * d + 4 * h * s + 4 * 2 * s) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), pairs
+
+
+def unaligned_seg_ids(sq, skv, dev):
+    """[2, Sq] and [2, Skv] ids at an unaligned shape: sample 0 three
+    segments over every token (the second crosses a 64-row tile edge);
+    sample 1 three query segments, the third with no key, and a padded
+    tail on both sides."""
+    import torch
+
+    def ids(s, lengths):
+        return segment_ids(s, lengths, dev)[0]
+
+    return (torch.stack([ids(sq, [sq // 3, sq // 3, sq - 2 * (sq // 3)]),
+                         ids(sq, [sq // 2, sq // 4, sq // 8])]),
+            torch.stack([ids(skv, [skv // 3, skv // 3, skv - 2 * (skv // 3)]),
+                         ids(skv, [skv // 2, skv // 4])]))
+
+
+def grad_errors(got, ref):
+    """[(max|err|, max|ref|)] of dq, dk and dv."""
+    return [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
+            for g, r in zip(got, ref)]
+
+
+def segmented_backward_parity(dev, train_kv_len, registers):
+    """K8's backward (K5's form at D=64, K6's at D=128) against its plain
+    version: at the unaligned shapes with B=2 (empty segment, padded tail,
+    Sq != Skv), then at the three full-width cases of SEG_CASES with dout
+    zero on the padding rows; dq, dk and dv within GRAD_REL_TOL of max|ref|,
+    dq = 0 where a query's segment has no key, a planted fault (one key's
+    id flipped) that must break the limit; case (c) also against K7's
+    backward at kv_lens = its valid tokens (and whether the two are
+    bit-equal). Times at each case beside the plain version's, the bound
+    over the same-segment pairs, SDPA's memory-efficient backward with a
+    boolean [1, 1, S, S] mask (a yardstick only) and the registers."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    plain = fa.flash_attention_segmented_backward_plain
+
+    def inputs(b, h, sq, skv, d, q_ids, kv_ids, num_segments):
+        q, k, v, dout = [torch.randn((b, h, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                         for n in (sq, skv, skv, sq)]
+        out, lse = fa.flash_attention_segmented_forward(q, k, v, q_ids, kv_ids, num_segments)
+        return q, k, v, out, lse, dout.masked_fill((q_ids < 0)[:, None, :, None], 0)
+
+    def compare(name, args, q_ids, kv_ids, num_segments):
+        seg = (q_ids, kv_ids, num_segments)
+        got = fa.flash_attention_backward(*args, segment_ids=seg)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ref = plain(*args, *seg)
+        errs = grad_errors(got, ref)
+        # no key in a query's segment (the kv side has none of its id): dq = 0
+        lonely = torch.stack([~torch.isin(q_ids[i], kv_ids[i]) for i in range(len(q_ids))])
+        lonely &= q_ids >= 0  # [B, Sq]
+        empty = not got[0].transpose(1, 2)[lonely].any()
+        # the planted fault: the key of segment 0 (among its first 256) with
+        # the largest score for a segment-0 query moved to another id
+        q, k = args[0], args[1]
+        q0 = q[0][:, q_ids[0] == 0].float()
+        scores = (q0 @ k[0, :, :256].float().transpose(-1, -2)).amax(dim=(0, 1))
+        j = int(torch.where(kv_ids[0, :256] == 0, scores, -float("inf")).argmax())
+        flipped = kv_ids.clone()
+        flipped[0, j] = 1 if num_segments > 1 else -1
+        fault = grad_errors(fa.flash_attention_backward(*args, segment_ids=(q_ids, flipped,
+                                                                             num_segments)), ref)
+        worst_fault = max(e / m for e, m in fault)
+        log(f"  {name} {tuple(q.shape)} x {k.shape[2]}: " + ", ".join(
+            f"d{n} max|err| {e:.3e} / max|ref| {m:.3e} = {e / m:.3e}" for n, (e, m) in
+            zip("qkv", errs)) + f" (tol {GRAD_REL_TOL}; planted fault, key {j}'s id flipped, "
+            f"{worst_fault:.3e}), finite {finite}, dq of queries with no key exactly 0 {empty}")
+        if not (finite and empty and all(e <= GRAD_REL_TOL * m for e, m in errs)):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        if worst_fault <= GRAD_REL_TOL:
+            raise AssertionError(f"{name}: the limit misses a flipped key id")
+        return max(e for e, _ in errs), got
+
+    results = {}
+    for name, d in (("flash_bwd_seg", 64), ("flash_bwd_seg_d128", 128)):
+        errs = []
+        for sq, skv in PARITY_SHAPES:
+            q_ids, kv_ids = unaligned_seg_ids(sq, skv, dev)
+            args = inputs(2, 8, sq, skv, d, q_ids, kv_ids, 3)
+            errs.append(compare(name, args, q_ids, kv_ids, 3)[0])
+        results[name] = {"unaligned_max_abs_err": max(errs)}
+    for case, (shape, lengths, num_segments) in SEG_CASES.items():
+        b, h, s, d = shape
+        lengths = lengths or (train_kv_len,)
+        name = "flash_bwd_seg_d128" if d == 128 else "flash_bwd_seg"
+        ids = segment_ids(s, lengths, dev)
+        args = inputs(b, h, s, s, d, ids, ids, num_segments)
+        err, got = compare(f"{name} ({case})", args, ids, ids, num_segments)
+        entry = {"shape": list(shape), "segments": list(lengths), "max_abs_err": err}
+        line = ""
+        if case == "c":  # the same function as K7's backward at kv_lens = the valid tokens
+            q, k, v, _, _, dout = args
+            lens = torch.tensor([sum(lengths)], device=dev, dtype=torch.int32)
+            out7, lse7 = fa.flash_attention_forward(q, k, v, kv_lens=lens)
+            got7 = fa.flash_attention_backward(q, k, v, out7, lse7, dout, kv_lens=lens)
+            k7_err = max(e / m for e, m in grad_errors(got, got7))
+            same = all(torch.equal(g, r) for g, r in zip(got, got7))
+            line = f"; against K7's backward at kv_lens {sum(lengths)}: {k7_err:.3e} of max|K7|, " \
+                   f"bit-equal {same}"
+            if k7_err > GRAD_REL_TOL:
+                raise AssertionError(f"{name} ({case}) disagrees with K7's backward")
+            entry.update(k7_max_rel_err=k7_err, k7_bit_equal=same)
+            del out7, lse7, got7
+        del got
+        seg = (ids, ids, num_segments)
+        ms = time_ms(lambda: fa.flash_attention_backward(*args, segment_ids=seg), iters=3,
+                     warmup=1)
+        plain_ms = time_ms(lambda: plain(*args, *seg), iters=1, warmup=0)
+        library_ms = None
+        try:  # one PyTorch call with the same function, a yardstick the port never makes
+            mask = (ids[0][:, None] == ids[0][None, :])[None, None]
+            leaves = [t.detach().requires_grad_() for t in args[:3]]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            library_ms = time_ms(lambda: torch.autograd.grad(o, leaves, args[5], retain_graph=True),
+                                 iters=3, warmup=1)
+            del mask, leaves, o
+        except (RuntimeError, torch.OutOfMemoryError) as exc:  # refused: no yardstick
+            log(f"  {name} ({case}): SDPA memory-efficient backward with a [1,1,S,S] mask "
+                f"refused: {exc}")
+        bound_ms, bound_by, pairs = seg_bwd_bound(h, s, d, ids, num_segments)
+        tflops = 10 * h * d * pairs / (ms * 1e-3) / 1e12
+        log(f"  {name} ({case}) {tuple(shape)}, segments {list(lengths)} + {s - sum(lengths)} "
+            f"padding: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s over the same-segment pairs; "
+            f"ptxas {registers.get(name, {})}), plain {plain_ms:.3f} ms, SDPA memory-efficient "
+            f"backward with a [1,1,S,S] mask "
+            f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by})" + line)
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms)
+        if case in ("a", "b"):
+            unaligned = results[name]["unaligned_max_abs_err"]
+            results[name] = {**entry, "max_abs_err": max(err, unaligned),
+                             "registers": registers.get(name, {})}
+        else:  # the second D = 128 case rides in K6's form's entry
+            results[name]["hunyuan_case"] = entry
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        del args
+        torch.cuda.empty_cache()
+    return results
+
+
+def ring_backward_on_one_card(q, k, v, out, lse, dout, n, kv_lens=None, ids=None,
+                              num_segments=None):
+    """Every rank's ring backward (``ring_backward_steps``) of an n-rank
+    ring, run in lockstep on one card: rank i holds query block i and key
+    block i, and at each pass receives what rank i - 1 sent (the next key
+    block with its dk/dv accumulators, then the accumulators coming home).
+    The ranks' dq, dk and dv concatenated along S."""
+    import torch
+
+    from vap_tpu_torch.parallel import ring_backward_steps
+
+    blk = q.shape[2] // n
+
+    def block(x, j, dim=2):  # what rank j holds: a contiguous copy
+        return x.narrow(dim, j * blk, blk).contiguous()
+
+    steps = []
+    for my in range(n):
+        seg = {} if ids is None else dict(q_seg=block(ids, my, 1), kv_seg=block(ids, my, 1),
+                                          num_segments=num_segments)
+        steps.append(ring_backward_steps(block(q, my), block(k, my), block(v, my),
+                                         block(out, my), block(lse, my), block(dout, my), n, my,
+                                         kv_lens=kv_lens, **seg))
+    sent = [next(step) for step in steps]
+    done = [None] * n
+    while None in done:
+        received = [sent[(my - 1) % n] for my in range(n)]
+        for my, step in enumerate(steps):
+            try:
+                sent[my] = step.send(received[my])
+            except StopIteration as stop:
+                done[my] = stop.value
+    return [torch.cat([d[i] for d in done], dim=2) for i in range(3)]
+
+
+# the ring backward on one card: (case of SEG_CASES, mask) over RING_BLOCKS
+RING_BWD_CASES = (("a", "segments"), ("a", "none"), ("c", "kv_lens"), ("c", "segments"))
+
+
+def ring_backward_path(dev, train_kv_len):
+    """Sequence-parallel attention's step on one card: the ring body over
+    RING_BLOCKS key blocks of cases (a) and (c) (K8, the fixed-length
+    kernel and K7 in each block), then its backward from the merged out and
+    lse, each against one forward and one backward call over all keys: the
+    path K8's forward and backward take in sequence-parallel training.
+    Counts are zeroed after the references and read after the ring runs:
+    n^2 block calls a run, forward and backward. Returns the launches and
+    the largest gradient error."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    prepared = []
+    for case, mask in RING_BWD_CASES:
+        shape, lengths, num_segments = SEG_CASES[case]
+        lengths = lengths or (train_kv_len,)
+        q, k, v, dout = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                         for _ in range(4)]
+        ids = segment_ids(shape[2], lengths, dev)
+        kw = {}
+        if mask == "segments":
+            out, lse = fa.flash_attention_segmented_forward(q, k, v, ids, ids, num_segments)
+            dout = dout.masked_fill((ids < 0)[:, None, :, None], 0)
+            kw = dict(segment_ids=(ids, ids, num_segments))
+        else:
+            if mask == "kv_lens":
+                kw = dict(kv_lens=torch.tensor([sum(lengths)], device=dev, dtype=torch.int32))
+            out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        want = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        prepared.append((case, mask, (q, k, v), dout, kw, ids, num_segments, want))
+        del out, lse
+    torch.cuda.synchronize()
+    reset_counts()
+    errs = {}
+    t0 = time.perf_counter()
+    for case, mask, (q, k, v), dout, kw, ids, num_segments, want in prepared:
+        seg = {} if mask != "segments" else dict(q_seg=ids, kv_seg=ids, num_segments=num_segments)
+        for n in RING_BLOCKS:
+            out, lse = ring_on_one_card(q, k, v, n, kv_lens=kw.get("kv_lens"), **seg)
+            got = ring_backward_on_one_card(q, k, v, out, lse, dout, n, kv_lens=kw.get("kv_lens"),
+                                            ids=ids if mask == "segments" else None,
+                                            num_segments=num_segments)
+            e = grad_errors(got, want)
+            errs[f"{case}/{mask}/n={n}"] = max(x / m for x, m in e)
+            if any(x > GRAD_REL_TOL * m for x, m in e):
+                raise AssertionError(f"ring backward ({case}, {mask}, n={n}) disagrees with one "
+                                     f"kernel call: {e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    per_run = sum(n * n for n in RING_BLOCKS)
+    check_launches(launches, {name: per_run for name in (
+        "flash_fwd_seg", "flash_bwd_seg", "flash_fwd", "flash_bwd", "flash_fwd_d128_varlen",
+        "flash_bwd_d128_varlen", "flash_fwd_seg_d128", "flash_bwd_seg_d128")})
+    log(f"  the ring forward and backward on one card (the backward's passes in lockstep) "
+        f"against one kernel call each, dq/dk/dv max|err| / max|ref|: "
+        f"{ {key: f'{e:.3e}' for key, e in errs.items()} } (tol {GRAD_REL_TOL}); "
+        f"{wall:.3f} s for the {len(errs)} runs; launches {launches}")
+    del prepared
+    torch.cuda.empty_cache()
+    return launches, max(errs.values())
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: the CogVideoX main path under "ring" on a one-rank NCCL group
 # ---------------------------------------------------------------------------
 
-def ring_main_path(pipe, dev):
-    """CogVideoXVAPPipeline.__call__ for RING_STEPS step (latents out) under
-    "flash", then under "ring" with the mesh of a one-rank NCCL process group
-    installed, for each rotate method: the latents equal flash's bit for bit,
-    with the same K1 launches (one joint attention a block a step) and no
-    other kernel's. Returns the launches of the last ring run."""
+@contextlib.contextmanager
+def one_rank_nccl_group(dev):
+    """A one-rank NCCL process group on ``dev`` (a free localhost port), and
+    the mesh of ``make_mesh(MeshConfig())`` over it; destroyed on exit."""
     import socket
 
     import torch
     import torch.distributed as dist
 
+    from vap_tpu_torch.parallel import MeshConfig, make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh(MeshConfig(), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_main_path(pipe, dev):
+    """CogVideoXVAPPipeline.__call__ for RING_STEPS step (latents out) under
+    "flash", then under "ring" with the mesh of a one-rank NCCL process group
+    installed (RING_METHOD; at one rank every rotate method is the same
+    local kernel call, so one run stands for the three): the latents equal
+    flash's bit for bit, with the same K1 launches (one joint attention a
+    block a step) and no other kernel's."""
+    import torch
+
     from vap_tpu_torch.ops.attention import attention_provider
-    from vap_tpu_torch.parallel import MeshConfig, attention_mesh, make_mesh
-    from vap_tpu_torch.parallel.ring_attention import ROTATE_METHODS
+    from vap_tpu_torch.parallel import attention_mesh
 
     args = main_path_args(RING_STEPS)
     want = {"flash_fwd": RING_STEPS * pipe.transformer.config.num_layers}
@@ -902,25 +1236,75 @@ def ring_main_path(pipe, dev):
 
     ref, wall, _ = run("flash")
     log(f"  flash: latents {tuple(ref.shape)}, {wall:.3f} s")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    torch.cuda.set_device(dev)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
-                            world_size=1)
-    try:
-        mesh = make_mesh(MeshConfig(), device_type="cuda")
-        for method in ROTATE_METHODS:
-            with attention_mesh(mesh, "seq", method):
-                latents, wall, launches = run("ring")
-            same = torch.equal(latents, ref)
-            log(f"  ring ({method}, seq={mesh.size(2)}): {wall:.3f} s, latents equal flash's bit "
-                f"for bit {same}; launches {launches}")
-            if not same:
-                raise AssertionError(f"ring ({method}) latents differ from flash's")
-    finally:
-        dist.destroy_process_group()
-    return launches
+    with one_rank_nccl_group(dev) as mesh, attention_mesh(mesh, "seq", RING_METHOD):
+        latents, wall, launches = run("ring")
+    same = torch.equal(latents, ref)
+    log(f"  ring ({RING_METHOD}, seq={mesh.size(2)}): {wall:.3f} s, latents equal flash's bit "
+        f"for bit {same}; launches {launches}")
+    if not same:
+        raise AssertionError(f"ring ({RING_METHOD}) latents differ from flash's")
+
+
+def ring_training_check(trainer, dev):
+    """One ``grad_fn`` of phase 8's trainer on its batch, with the draws of
+    its first step's generator, under "flash" (the trainer's attention
+    context, ``auto``), then under the trainer's attention context with the
+    mesh of a one-rank NCCL group as its mesh and ``attn_provider_training``
+    "ring" (seq = 1: the local kernel's autograd function): the
+    loss and every expert gradient bit-equal, with the same K1 and K5
+    launches. Leaves no gradient and no data position behind."""
+    import torch
+
+    from vap_tpu_torch.data.precomputation import PrecomputedReader
+    from vap_tpu_torch.data.sampler import ResolutionSampler
+    from vap_tpu_torch.training.train_step import draw_step_noise
+    from vap_tpu_torch.training.trainer import step_generator
+
+    args, model = trainer.args, trainer.model
+    batch = trainer._batch(PrecomputedReader(args.precomputation_dir).stream(0),
+                           ResolutionSampler(args.batch_size))
+    trainer.data_position = 0
+    draws = draw_step_noise(trainer.step_cfg, batch["latents"].shape,
+                            step_generator(args.seed, 1, dev), dev)
+    layers = model.config.num_layers
+    want = {"flash_fwd": 2 * layers, "flash_bwd": layers}  # forward and recompute; backward
+
+    def run(ctx):
+        reset_counts()
+        t0 = time.perf_counter()
+        with ctx:
+            loss = trainer._grad(model, batch, None, None, **draws)["loss"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check_launches(launches, want)
+        grads = [p.grad for p in trainer.optimizer.params]
+        for p in trainer.optimizer.params:
+            p.grad = None
+        return loss, grads, wall, launches
+
+    loss, grads, wall, _ = run(trainer._attn_ctx())
+    with one_rank_nccl_group(dev) as mesh:
+        # the trainer's own context: its mesh installed, the provider "ring"
+        trainer.mesh = mesh
+        trainer.args = dataclasses.replace(args, attn_provider_training="ring",
+                                           cp_rotate_method=RING_METHOD)
+        try:
+            ring_loss, ring_grads, ring_wall, launches = run(trainer._attn_ctx())
+        finally:
+            trainer.mesh, trainer.args = None, args
+    same_loss = torch.equal(loss, ring_loss)
+    same = sum((g is None and r is None) or (g is not None and r is not None
+                                             and torch.equal(g, r))
+               for g, r in zip(grads, ring_grads))
+    log(f"  one grad_fn under flash {wall:.3f} s, loss {loss.item():.6f}; under ring "
+        f"({RING_METHOD}, seq={mesh.size(2)}, one-rank NCCL group) {ring_wall:.3f} s, loss "
+        f"bit-equal {same_loss}, expert gradients bit-equal {same} of {len(grads)}; launches "
+        f"each {launches}")
+    if not (same_loss and same == len(grads)):
+        raise AssertionError("the training step under ring differs from flash's")
+    del grads, ring_grads
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1393,6 +1777,8 @@ def reset_counts():
     fa.flash_attention_backward.launches_d128 = 0
     fa.flash_attention_backward.launches_varlen = 0
     fa.flash_attention_backward.launches_d128_varlen = 0
+    fa.flash_attention_backward.launches_seg = 0
+    fa.flash_attention_backward.launches_d128_seg = 0
     ti8.int8_linear_chunk.launches = 0
     common.int8_linear_row.calls = 0
     gp.gemm_probe.launches = 0
@@ -1401,7 +1787,7 @@ def reset_counts():
 
 def read_counts():
     """Each kernel's launches (K7 on the ``*_varlen`` counters of the kernel
-    it runs in, K8 on ``flash_fwd_seg*``), and the calls of the W8A8 row form (no kernel of its own:
+    it runs in, K8 on ``flash_fwd_seg*`` and ``flash_bwd_seg*``), and the calls of the W8A8 row form (no kernel of its own:
     XLA's product in the JAX package, torch._int_mm here)."""
     from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
@@ -1420,6 +1806,8 @@ def read_counts():
             "flash_bwd_d128": fa.flash_attention_backward.launches_d128,
             "flash_bwd_varlen": fa.flash_attention_backward.launches_varlen,
             "flash_bwd_d128_varlen": fa.flash_attention_backward.launches_d128_varlen,
+            "flash_bwd_seg": fa.flash_attention_backward.launches_seg,
+            "flash_bwd_seg_d128": fa.flash_attention_backward.launches_d128_seg,
             "w8a8": ti8.int8_linear_chunk.launches,
             "w8a8_row_calls": common.int8_linear_row.calls,
             "gemm_probe": gp.gemm_probe.launches,
@@ -1928,6 +2316,7 @@ def training_path(dev):
         f"trainable in {len(trainer.trainable_names)} tensors, remat "
         f"{trainer.step_cfg.remat!r}, AdamW fused {trainer.optimizer.inner.defaults['fused']}; "
         f"{time.perf_counter() - t0:.2f} s to build")
+    ring_training_check(trainer, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -2431,7 +2820,8 @@ def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
     spills per kernel, from the compilers' logs. Fails if an instance in
     PINNED_REGISTERS spills or takes more registers than its cap. Returns
-    the registers and spills of FORWARD_INSTANCES by kernel name."""
+    the registers and spills of FORWARD_INSTANCES, and of
+    SEG_BACKWARD_INSTANCES ({"dq": ..., "dkv": ...}), by kernel name."""
     from vap_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2468,6 +2858,9 @@ def build_kernels():
                for name, instance in FORWARD_INSTANCES.items()}
     log("  flash forward instances (K1, K4 with K7, K8 at D=64 and D=128): " + ", ".join(
         f"{name} {got}" for name, got in forward.items()))
+    for name, parts in SEG_BACKWARD_INSTANCES.items():
+        forward[name] = {part: next((v for k, v in seen.items() if k.endswith(instance)), {})
+                         for part, instance in parts.items()}
     return forward
 
 
@@ -2511,6 +2904,14 @@ def main():
     log("K8, the packed-segment forward, parity (bf16, vs plain PyTorch), and the ring body on "
         "one card:")
     results.update(segmented_parity(dev, train_kv_len, registers))
+    log("K8's backward (K5 and K6 given segment ids) parity (bf16, vs plain PyTorch):")
+    results.update(segmented_backward_parity(dev, train_kv_len, registers))
+    log(f"sequence-parallel attention's step on one card, the ring over {RING_BLOCKS} key "
+        f"blocks, forward and backward (the path K8 takes in sequence-parallel training):")
+    ring_bwd_launches, ring_bwd_err = ring_backward_path(dev, train_kv_len)
+    for name in SEG_BWD_SPECS:
+        launches[name] = ring_bwd_launches[name]
+        results[name]["ring_body_backward_max_rel_err"] = ring_bwd_err
 
     # 4-5. CogVideoX
     log("small pipeline check:")
@@ -2525,10 +2926,11 @@ def main():
     # before the bench configuration, which quantises the pipeline in place
     log(f"main path under ring, one-rank NCCL group ({NUM_FRAMES} frames, {RING_STEPS} step, "
         f"latents):")
-    ring_launches = ring_main_path(pipe, dev)
-    # K8 is on no model's path: the ring run read its counters (0)
-    launches["flash_fwd_seg"] = ring_launches["flash_fwd_seg"]
-    launches["flash_fwd_seg_d128"] = ring_launches["flash_fwd_seg_d128"]
+    ring_main_path(pipe, dev)
+    # K8's forward is on no model's path (the ring generation step reads 0):
+    # its launches are those of the sequence-parallel attention step above
+    for name in SEG_SPECS:
+        launches[name] = ring_bwd_launches[name]
     log(f"bench configuration, sage + W8A8 ({NUM_FRAMES} frames, {BENCH_STEPS} steps, "
         f"step cache {BENCH_CACHE}):")
     launches["w8a8"] = bench_config_path(pipe, dev)
@@ -2611,7 +3013,7 @@ def main():
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
     specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS, **VARLEN_BWD_SPECS,
-             **SEG_SPECS}
+             **SEG_SPECS, **SEG_BWD_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

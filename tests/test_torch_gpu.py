@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 and K4 flash, K2 sage, K7 their varlen form,
 K8 their packed-segment form and the ring body over it, K5 and K6 flash
-backward and K7's backward in them, K3 W8A8, K9 and K10 the GEMM rate probe)
-against their plain PyTorch versions on the card.
+backward and K7's and K8's backward in them, the ring backward over them,
+K3 W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch
+versions on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -650,3 +651,161 @@ def test_ring_body_on_one_card_matches_one_kernel_call(cuda, n, mask):
                                atol=LSE_ATOL, rtol=0)
     if mask == "kv_lens":
         assert not out[1].any()
+
+
+# K8's backward: K5 and K6 given segment ids, on the K8 inputs above with
+# dout zero on the padding query rows (their rows are unspecified), held to
+# the K5/K6 limit against the plain version
+K8_BWD_COUNTERS = {64: "launches_seg", 128: "launches_d128_seg"}
+
+
+def _k8_bwd_inputs(device, sq, skv, d):
+    q, k, v, q_ids, kv_ids = _k8_inputs(device, sq, skv, d)
+    out, lse = tfa.flash_attention_segmented_forward(q, k, v, q_ids, kv_ids, 3)
+    dout = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(9),
+                       device=device).to(torch.bfloat16)
+    dout = dout.masked_fill((q_ids < 0)[:, None, :, None], 0)
+    return q, k, v, out, lse, dout, q_ids, kv_ids
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", K8_SHAPES)
+def test_k8_backward_matches_plain(cuda, d, sq, skv):
+    """K5 (D = 64) and K6 (D = 128) given segment ids against
+    ``flash_attention_segmented_backward_plain``: within the limit, one
+    launch on K8's backward counter and none on the others, dq = 0 for the
+    query segment with no key."""
+    *args, q_ids, kv_ids = _k8_bwd_inputs(cuda, sq, skv, d)
+    kernel = tfa.flash_attention_backward
+    names = ("launches", "launches_d128", "launches_varlen", "launches_d128_varlen",
+             "launches_seg", "launches_d128_seg")
+    before = {n: getattr(kernel, n) for n in names}
+    got = kernel(*args, segment_ids=(q_ids, kv_ids, 3))
+    torch.cuda.synchronize()
+    after = {n: getattr(kernel, n) - before[n] for n in names}
+    assert after == {n: int(n == K8_BWD_COUNTERS[d]) for n in names}, after
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_segmented_backward_plain(*args, q_ids, kv_ids, 3))
+    assert max(errs) <= GRAD_REL_TOL, errs
+    empty = q_ids[1] == 2  # sample 1's segment 2 has no key
+    assert not got[0][1][:, empty].any()
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
+def test_k8_backward_head_dims(cuda, d):
+    *args, q_ids, kv_ids = _k8_bwd_inputs(cuda, 130, 70, d)
+    got = tfa.flash_attention_backward(*args, segment_ids=(q_ids, kv_ids, 3))
+    errs = _grad_errors(got, tfa.flash_attention_segmented_backward_plain(*args, q_ids, kv_ids, 3))
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_backward_cross_segment_invariance_bitexact(cuda, d):
+    """Segment 1's q, k, v and dout rewritten with finite values up to 1e4:
+    segment 0's dq, dk and dv do not move, to the bit."""
+    q, k, v, out, lse, dout, q_ids, kv_ids = _k8_bwd_inputs(cuda, 200, 200, d)
+    seg = (q_ids, kv_ids, 3)
+    base = tfa.flash_attention_backward(q, k, v, out, lse, dout, segment_ids=seg)
+    seg1 = (kv_ids == 1)[:, None, :, None]
+    q2, k2, v2, do2 = (x.masked_fill(seg1, 1e4 if i != 1 else -1e4)
+                       for i, x in enumerate((q, k, v, dout)))
+    out2, lse2 = tfa.flash_attention_segmented_forward(q2, k2, v2, q_ids, kv_ids, 3)
+    got = tfa.flash_attention_backward(q2, k2, v2, out2, lse2, do2, segment_ids=seg)
+    for g, r, ids in zip(got, base, (q_ids, kv_ids, kv_ids)):
+        rows = ids == 0
+        assert torch.equal(g.transpose(1, 2)[rows], r.transpose(1, 2)[rows])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_backward_limit_catches_a_flipped_key_id(cuda, d):
+    """A planted fault: the backward given one key moved into another
+    segment must break the limit against the plain version with the true
+    ids (the key with the largest score for segment 0's queries)."""
+    q, k, v, out, lse, dout, q_ids, kv_ids = _k8_bwd_inputs(cuda, 200, 200, d)
+    ref = tfa.flash_attention_segmented_backward_plain(q, k, v, out, lse, dout, q_ids, kv_ids, 3)
+    scores = (q[0].float() @ k[0].float().transpose(-1, -2))[:, q_ids[0] == 0]
+    j = int(scores.amax(dim=(0, 1))[kv_ids[0] == 0].argmax())
+    flipped = kv_ids.clone()
+    flipped[0, j] = 1
+    got = tfa.flash_attention_backward(q, k, v, out, lse, dout, segment_ids=(q_ids, flipped, 3))
+    assert max(_grad_errors(got, ref)) > GRAD_REL_TOL
+
+
+def test_k8_function_grads_on_the_card(cuda):
+    """``flash_attention_segmented`` under autograd on the card runs K8's
+    forward and backward once each, and agrees with autograd through the
+    dense form in float32 on in-range rows."""
+    from vap_tpu_torch.ops.attention import dense_attention_segmented
+
+    q, k, v, q_ids, kv_ids = _k8_inputs(cuda, 200, 200, 64)
+    w = torch.randn(q.shape, device=cuda) * (q_ids >= 0)[:, None, :, None]
+    counts = (tfa.flash_attention_segmented_forward.launches,
+              tfa.flash_attention_backward.launches_seg)
+    grads = []
+    for attn, dtype in ((tfa.flash_attention_segmented, torch.bfloat16),
+                        (lambda q, k, v, a, b, n: dense_attention_segmented(q, k, v, a, b),
+                         torch.float32)):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        (attn(*leaves, q_ids, kv_ids, 3).float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert (tfa.flash_attention_segmented_forward.launches,
+            tfa.flash_attention_backward.launches_seg) == (counts[0] + 1, counts[1] + 1)
+    errs = _grad_errors(*grads)
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+def ring_backward_on_one_card(q, k, v, out, lse, dout, n, kv_lens=None, ids=None):
+    """Every rank's ring backward (``ring_backward_steps``) of an n-rank
+    ring, advanced in lockstep on one card: at each pass rank i receives
+    what rank i - 1 sent. The ranks' dq, dk and dv concatenated along S."""
+    from vap_tpu_torch.parallel import ring_backward_steps
+
+    blk = q.shape[2] // n
+
+    def block(x, j, dim=2):
+        return x.narrow(dim, j * blk, blk).contiguous()
+
+    steps = []
+    for my in range(n):
+        seg = {} if ids is None else dict(q_seg=block(ids, my, 1), kv_seg=block(ids, my, 1),
+                                          num_segments=3)
+        steps.append(ring_backward_steps(block(q, my), block(k, my), block(v, my),
+                                         block(out, my), block(lse, my), block(dout, my), n, my,
+                                         kv_lens=kv_lens, **seg))
+    sent = [next(s) for s in steps]
+    done = [None] * n
+    while None in done:
+        recv = [sent[(my - 1) % n] for my in range(n)]
+        for my, s in enumerate(steps):
+            try:
+                sent[my] = s.send(recv[my])
+            except StopIteration as stop:
+                done[my] = stop.value
+    return [torch.cat([d[i] for d in done], dim=2) for i in range(3)]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("mask", ["segments", "kv_lens", "none"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_ring_body_backward_on_one_card_matches_one_kernel_call(cuda, d, n, mask):
+    """The ring backward over n key blocks, its blocks and dk/dv accumulators
+    passed on in lockstep, against one backward call over all keys (K8's,
+    K7's or the fixed-length one) from the same out and lse."""
+    s = 256
+    q, k, v, ids, _ = _k8_inputs(cuda, s, s, d)
+    lens = torch.tensor([s - 37, 0], device=cuda)
+    kw = {"segments": dict(segment_ids=(ids, ids, 3)), "kv_lens": dict(kv_lens=lens),
+          "none": {}}[mask]
+    if mask == "segments":
+        out, lse = tfa.flash_attention_segmented_forward(q, k, v, ids, ids, 3)
+    else:
+        out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=kw.get("kv_lens"))
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(5),
+                       device=cuda).to(torch.bfloat16)
+    if mask == "segments":
+        dout = dout.masked_fill((ids < 0)[:, None, :, None], 0)
+    want = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    got = ring_backward_on_one_card(q, k, v, out, lse, dout, n, kv_lens=kw.get("kv_lens"),
+                                    ids=ids if mask == "segments" else None)
+    errs = _grad_errors(got, want)
+    assert max(errs) <= GRAD_REL_TOL, errs

@@ -57,6 +57,9 @@ SLICE_MODULES = [
     "vap_tpu_torch.train",
     "vap_tpu_torch.scripts.linear_bench",
     "vap_tpu_torch.scripts.attention_ab",
+    "vap_tpu_torch.parallel",
+    "vap_tpu_torch.parallel.mesh",
+    "vap_tpu_torch.parallel.ring_attention",
 ]
 
 _PROBE = """

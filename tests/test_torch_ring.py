@@ -1,13 +1,15 @@
-"""Sequence-parallel attention and generation on several CPU processes
-(``torch.distributed`` over gloo) against the JAX package.
+"""Sequence-parallel attention, forward and backward, and generation on
+several CPU processes (``torch.distributed`` over gloo) against the JAX
+package.
 
 Workers are started with ``torch.multiprocessing`` (spawn) on a free
 localhost port; each runs every case of its world in one process group and
 saves what it got, and the test process holds each rank's result against
 JAX's ``sequence_parallel_attention`` on a seq = n mesh of virtual CPU
-devices (``tests/conftest.py`` gives JAX eight), and the CogVideoX pipeline
-of ``test_torch_pipeline.py`` under "ring" on 2 ranks against the JAX
-pipeline under "xla" on one device.
+devices (``tests/conftest.py`` gives JAX eight), its gradients against
+``jax.grad`` of the same, and the CogVideoX pipeline of
+``test_torch_pipeline.py`` under "ring" on 2 ranks against the JAX pipeline
+under "xla" on one device.
 """
 
 import datetime
@@ -21,6 +23,7 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+import torch.utils.checkpoint
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from vap_tpu.ops.attention import attention_provider as jax_attention_provider
@@ -35,6 +38,9 @@ from vap_tpu_torch.parallel import (MeshConfig, attention_mesh, make_mesh,
 # float32 on both sides; the ring merges its blocks by lse where JAX carries
 # one online softmax, and every method sums in another order (the K7/K8 tests)
 F32_ATOL = 2e-5
+# gradients, f32, held as max|err| / max(max|ref|, 1) (``BWD_ATOL`` of
+# test_torch_varlen.py): P recomputed from the merged lse, sums over blocks
+BWD_ATOL = 1e-4
 METHODS = ("allgather", "ppermute", "ulysses")
 MASKS = ("none", "kv_lens", "segments")
 WORLDS = (2, 4)
@@ -61,6 +67,14 @@ def _attention_inputs():
     q, k, v = (rng.standard_normal((B, H, S, D), np.float32) for _ in range(3))
     ids = np.stack([_packed_ids(S, b) for b in SEGMENTS])
     return q, k, v, np.array(LENS, np.int32), ids
+
+
+def _loss_weights(mask, ids):
+    """A weight per output element of the gradient's loss sum(out * w),
+    zero on the padding query rows of the segment case (their rows are
+    unspecified)."""
+    w = np.random.default_rng(22).standard_normal((B, H, S, D)).astype(np.float32)
+    return w * (ids >= 0)[:, None, :, None] if mask == "segments" else w
 
 
 def _mask_kwargs(mask, lens, ids):
@@ -103,10 +117,48 @@ def _worker(rank, world, port, out_dir, pipe_path):
         got["odd_keys"] = _message(lambda: sequence_parallel_attention(
             q, k[:, :, :9], v[:, :, :9], mesh))
         got["small_world"] = _message(lambda: make_mesh(MeshConfig(seq=2 * world), "cpu"))
+        for method in METHODS:  # the gradients of sum(out * w)
+            for mask in MASKS:
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                out = sequence_parallel_attention(*leaves, mesh, "seq", rotate_method=method,
+                                                  **_mask_kwargs(mask, lens, ids))
+                w = torch.from_numpy(_loss_weights(mask, ids.numpy()))
+                got["grad", method, mask] = [g.numpy() for g in torch.autograd.grad(
+                    (out * w).sum(), leaves)]
+        for method in METHODS:  # what the autograd function saves, through the hooks
+            shapes = []
+
+            def pack(t):
+                shapes.append(tuple(t.shape))
+                return t
+
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                sequence_parallel_attention(*leaves, mesh, "seq", rotate_method=method,
+                                            **_mask_kwargs("segments", lens, ids))
+            got["saved", method] = shapes
+        for method in METHODS:  # under a non-reentrant checkpoint
+            for mask in MASKS:
+                calls = []
+
+                def attend(*qkv):
+                    calls.append(1)
+                    return sequence_parallel_attention(*qkv, mesh, "seq", rotate_method=method,
+                                                       **_mask_kwargs(mask, lens, ids))
+
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                out = torch.utils.checkpoint.checkpoint(attend, *leaves, use_reentrant=False)
+                w = torch.from_numpy(_loss_weights(mask, ids.numpy()))
+                grads = torch.autograd.grad((out * w).sum(), leaves)
+                got["checkpoint", method, mask] = len(calls), [g.numpy() for g in grads]
         # a mesh whose seq axis holds one rank: the local kernel, no collective
         flat = make_mesh(MeshConfig(data=world), device_type="cpu")
         got["one_rank_axis"] = sequence_parallel_attention(
             q, k, v, flat, rotate_method="ppermute", kv_lens=lens).numpy()
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = sequence_parallel_attention(*leaves, flat, rotate_method="ppermute", kv_lens=lens)
+        got["one_rank_axis_grad"] = [g.numpy() for g in torch.autograd.grad(
+            (out * torch.from_numpy(_loss_weights("kv_lens", None))).sum(), leaves)]
         if pipe_path is not None:
             pipe, args, latents = torch.load(pipe_path, weights_only=False)
             for method in METHODS:
@@ -224,15 +276,111 @@ def test_pipeline_under_ring_matches_jax(ranks, pipeline_case, method):
         np.testing.assert_allclose(out, want, atol=2e-5, rtol=1e-5, err_msg=f"rank {rank}")
 
 
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_sequence_parallel_gradients_match_jax(ranks, world, method, mask):
+    """Every rank's dq, dk and dv of sum(out * w) against ``jax.grad`` of
+    JAX's ``sequence_parallel_attention`` on a seq = n mesh (dout zero on
+    the padding rows of the segment case), and bit-identical across the
+    ranks, so a replicated model's gradients stay in step."""
+    q, k, v, lens, ids = _attention_inputs()
+    mesh = jax_make_mesh(JaxMeshConfig(seq=world), jax.devices("cpu")[:world])
+    spec = NamedSharding(mesh, P(None, None, "seq", None))
+    kwargs = _mask_kwargs(mask, jnp.asarray(lens), jnp.asarray(ids))
+    w = jnp.asarray(_loss_weights(mask, ids))
+
+    def loss(q, k, v):
+        return jnp.sum(jax_spa(q, k, v, mesh, "seq", rotate_method=method, **kwargs) * w)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*(jax.device_put(jnp.asarray(x), spec)
+                                                        for x in (q, k, v)))
+    got = [r["grad", method, mask] for r in ranks(world)]
+    for name, g, r in zip("qkv", got[0], want):
+        r = np.asarray(r)
+        assert g.shape == r.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, atol=BWD_ATOL * max(np.abs(r).max(), 1.0), rtol=0,
+                                   err_msg=f"d{name}")
+    for rank, other in enumerate(got[1:], 1):
+        assert all(np.array_equal(a, b) for a, b in zip(other, got[0])), f"rank {rank}"
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_sequence_parallel_attention_saves_through_the_hooks(ranks, world, method):
+    """Every tensor the backward reads goes through the saved-tensor hooks
+    (``save_for_backward``), so a non-reentrant checkpoint can free it: this
+    rank's ids, then the method's q, k, v, out and lse (and the gathered
+    ids), at their sharded shapes."""
+    n = world
+    shard, full, heads = (B, H, S // n, D), (B, H, S, D), (B, H // n, S, D)
+    ids = [(B, S // n)] * 2
+    want = {"allgather": ids + [shard, full, full, shard, shard[:3], (B, S)],
+            "ppermute": ids + [shard] * 4 + [shard[:3]],
+            "ulysses": ids + [heads] * 4 + [heads[:3], (B, S), (B, S)]}[method]
+    for rank, got in enumerate(ranks(world)):
+        assert got["saved", method] == want, f"rank {rank}"
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_checkpointed_sequence_parallel_attention(ranks, world, method, mask):
+    """Under ``torch.utils.checkpoint(use_reentrant=False)`` the backward
+    recomputes the forward (two calls: the saved tensors were freed), its
+    collectives in step on every rank, and the gradients equal those of
+    the call without a checkpoint, to the bit, on every rank."""
+    for rank, got in enumerate(ranks(world)):
+        calls, grads = got["checkpoint", method, mask]
+        assert calls == 2, f"rank {rank}: {calls} forward calls"
+        for name, g, r in zip("qkv", grads, got["grad", method, mask]):
+            assert np.array_equal(g, r), f"rank {rank}: d{name}"
+
+
 def test_ring_provider_under_autograd_raises():
-    """No backward yet: the ring provider raises under autograd, with or
-    without a mesh, naming the next slice."""
+    """The ring provider differentiates, with or without a mesh: with none
+    it is the local kernel's autograd function (the same gradients as
+    ``flash``, to the bit). Only a head_dim with no backward kernel raises,
+    before any collective."""
     q, k, v = (torch.randn(1, 2, 8, 16, requires_grad=True) for _ in range(3))
-    with attention_provider("ring"), pytest.raises(NotImplementedError,
-                                                   match="sequence-parallel training"):
-        full_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="sequence-parallel training"):
-        sequence_parallel_attention(q, k, v, mesh=None)
+    w = torch.randn(1, 2, 8, 16)
+    grads = {}
+    for provider in ("flash", "ring"):
+        with attention_provider(provider):
+            grads[provider] = torch.autograd.grad((full_attention(q, k, v) * w).sum(), (q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(grads["ring"], grads["flash"]))
+    wide = [torch.randn(1, 2, 8, 192, requires_grad=True) for _ in range(3)]
+    with attention_provider("ring"), pytest.raises(NotImplementedError, match="K6 takes 128"):
+        full_attention(*wide)
+    with pytest.raises(NotImplementedError, match="K6 takes 128"):
+        sequence_parallel_attention(*wide, mesh=_FakeMesh(2))
+
+
+class _FakeMesh:
+    """A mesh whose ``seq`` axis has n ranks, for the checks made before
+    any collective."""
+
+    mesh_dim_names = ("seq",)
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, dim):
+        return self.n
+
+
+def test_one_rank_seq_axis_carries_gradients(ranks):
+    """At n = 1 under autograd the shortcut goes through the local kernel's
+    autograd function: the gradients are K7's (``flash_attention``'s), to
+    the bit, and not zero."""
+    q, k, v, lens, _ = map(torch.from_numpy, _attention_inputs())
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(*leaves, kv_lens=lens)
+    want = torch.autograd.grad((out * torch.from_numpy(_loss_weights("kv_lens", None))).sum(),
+                               leaves)
+    for got in ranks(2):
+        for g, r in zip(got["one_rank_axis_grad"], want):
+            assert np.array_equal(g, r.numpy()) and np.abs(g).max() > 0
 
 
 def test_ring_provider_without_mesh_is_the_local_kernel():

@@ -1,13 +1,16 @@
-"""K8, the packed-segment attention forward, and the dispatcher's routing of
-``segment_ids`` against the JAX package.
+"""K8, the packed-segment attention, forward and backward, and the
+dispatcher's routing of ``segment_ids`` against the JAX package.
 
-K8's plain version (what ``flash_attention_segmented_forward`` runs on CPU
-tensors) is held against ``flash_attention_segmented`` with JAX's Pallas
-kernels in interpret mode and against ``dense_attention_segmented``, on the
-same numpy inputs and the ids of ``tests/test_attention_segmented.py``. The
-CUDA kernel is held against this plain version on the card
-(``test_torch_gpu.py``, ``chip_smoke.py``).
+K8's plain versions (what ``flash_attention_segmented_forward`` and
+``flash_attention_backward(segment_ids=)`` run on CPU tensors) are held
+against ``flash_attention_segmented`` (``jax.vjp`` for the backward) with
+JAX's Pallas kernels in interpret mode and against
+``dense_attention_segmented``, on the same numpy inputs and the ids of
+``tests/test_attention_segmented.py``. The CUDA kernels are held against
+these plain versions on the card (``test_torch_gpu.py``, ``chip_smoke.py``).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch.utils.checkpoint import checkpoint
 
 from vap_tpu.ops.attention import dense_attention_segmented as jax_dense_segmented
 from vap_tpu.ops.flash_attention import flash_attention_segmented as jax_segmented
@@ -26,6 +30,10 @@ from vap_tpu_torch.ops import flash_attention as tfa
 F32_ATOL = 2e-5
 # the lse of a query whose segment has no key: K7's floor
 FLOOR_LSE = -1e4
+# gradients, f32, held as max|err| / max(max|ref|, 1) (``BWD_ATOL`` of
+# test_torch_varlen.py): the same sums in another order, through P
+# recomputed from a saved lse
+BWD_ATOL = 1e-4
 
 
 def _qkv(seed, b, h, sq, d, skv=None):
@@ -204,17 +212,133 @@ def test_segment_ids_and_kv_lens_mutually_exclusive(provider):
 
 @pytest.mark.parametrize("provider", ["flash", "sage", "ring"])
 def test_k8_under_autograd_raises_naming_the_next_slice(provider):
-    """No backward yet: K8 (and the ring provider) raise under autograd, and
-    never reach the dense path quietly."""
+    """K8 (and every provider that routes segment ids to it) differentiates
+    through ``FlashAttentionSegmentedFunction`` (the same gradients as
+    ``flash_attention_segmented``'s, to the bit), never through the dense
+    path; only a head_dim with no backward kernel raises, naming K6."""
     q, k, v = (x.requires_grad_() for x in _t(*_qkv(13, 1, 2, 64, 16)))
     ids = torch.from_numpy(_packed_ids(64, [30, 34]))[None]
-    with pytest.raises(NotImplementedError, match="K8's backward"):
-        tfa.flash_attention_segmented(q, k, v, ids, ids, 2)
+    w = torch.from_numpy(np.random.default_rng(16).standard_normal((1, 2, 64, 16),
+                                                                   np.float32))
+    want = torch.autograd.grad((tfa.flash_attention_segmented(q, k, v, ids, ids, 2) * w).sum(),
+                               (q, k, v))
+    with tattn.attention_provider(provider):
+        out = tattn.full_attention(q, k, v, segment_ids=(ids, ids, 2))
+    assert out.grad_fn is not None and "Segmented" in type(out.grad_fn).__name__
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
+    wide = [torch.zeros(1, 1, 8, 192, requires_grad=True) for _ in range(3)]
+    ids8 = torch.zeros((1, 8), dtype=torch.int32)
     with tattn.attention_provider(provider), pytest.raises(NotImplementedError,
-                                                           match="K8's backward"):
-        tattn.full_attention(q, k, v, segment_ids=(ids, ids, 2))
+                                                           match="K6 takes 128"):
+        tattn.full_attention(*wide, segment_ids=(ids8, ids8, 1))
     with torch.no_grad():  # the forward itself runs
         assert tfa.flash_attention_segmented(q, k, v, ids, ids, 2).shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# K8's backward
+# ---------------------------------------------------------------------------
+
+def _close_scaled(got, want, name):
+    scale = max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got, want, atol=BWD_ATOL * scale, rtol=0, err_msg=name)
+
+
+def _k8_grads(q, k, v, dout, q_ids, kv_ids, n):
+    """The port's K8 forward, then its backward, on CPU tensors (the plain
+    versions: K5's form below head_dim 128, K6's at 128)."""
+    q, k, v, dout, q_ids, kv_ids = _t(q, k, v, dout, q_ids, kv_ids)
+    out, lse = tfa.flash_attention_segmented_forward(q, k, v, q_ids, kv_ids, n)
+    return [g.numpy() for g in tfa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                            segment_ids=(q_ids, kv_ids, n))]
+
+
+def _jax_vjp(fn, q, k, v, dout, interpret):
+    with pltpu.force_tpu_interpret_mode() if interpret else contextlib.nullcontext():
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+        return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_backward_plain_matches_jax_vjp(d):
+    """``flash_attention_segmented_backward_plain`` against ``jax.vjp`` of
+    ``flash_attention_segmented`` (JAX's transposed backward with the
+    segment one-hots at both head dims, in interpret mode) and of
+    ``dense_attention_segmented``: Sq != Skv, a segment crossing a 64-row
+    tile edge, a padded tail and, in sample 1, a query segment (2) with no
+    key. dout is zero on the padding query rows, whose rows are unspecified
+    (they meet only padding keys here, every key in JAX). The empty
+    segment's dq is exactly 0, and so are the dk and dv of keys no query
+    shares an id with."""
+    b, h, sq, skv = 2, 2, 192, 320
+    q, k, v = _qkv(30 + d, b, h, sq, d, skv=skv)
+    q_ids = np.stack([_packed_ids(sq, [70, 90, 20]), _packed_ids(sq, [60, 60, 40])])
+    kv_ids = np.stack([_packed_ids(skv, [100, 150, 50]), _packed_ids(skv, [200, 100])])
+    dout = np.random.default_rng(40 + d).standard_normal(q.shape).astype(np.float32)
+    dout *= (q_ids >= 0)[:, None, :, None]
+    got = _k8_grads(q, k, v, dout, q_ids, kv_ids, 3)
+    ref = _jax_vjp(lambda q, k, v: jax_segmented(q, k, v, jnp.asarray(q_ids),
+                                                 jnp.asarray(kv_ids), 3), q, k, v, dout, True)
+    dense = _jax_vjp(lambda q, k, v: jax_dense_segmented(q, k, v, jnp.asarray(q_ids),
+                                                         jnp.asarray(kv_ids)), q, k, v, dout,
+                     False)
+    for name, g, r, dn in zip("qkv", got, ref, dense):
+        _close_scaled(g, r, f"d{name} vs flash_attention_segmented")
+        _close_scaled(g, dn, f"d{name} vs dense_attention_segmented")
+    assert not got[0][1, :, 120:160].any()  # sample 1's segment 2 has no key
+    assert not got[1][:, :, 300:].any() and not got[2][:, :, 300:].any()  # padding keys
+    assert all(np.isfinite(x).all() for x in got)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_backward_cross_segment_invariance_bitexact(d):
+    """Segment 1's q, k, v and dout rewritten (finite, up to 1e4): segment
+    0's dq, dk and dv do not move, to the bit (a cross-segment pair's p is
+    selected to 0, never multiplied)."""
+    s = 320
+    q, k, v = _t(*_qkv(50 + d, 1, 2, s, d))
+    dout = torch.from_numpy(np.random.default_rng(60 + d).standard_normal((1, 2, s, d),
+                                                                          np.float32))
+    ids = torch.from_numpy(_packed_ids(s, [130, 190]))[None]
+
+    def grads(q, k, v, dout):
+        out, lse = tfa.flash_attention_segmented_forward(q, k, v, ids, ids, 2)
+        return tfa.flash_attention_backward(q, k, v, out, lse, dout, segment_ids=(ids, ids, 2))
+
+    base = grads(q, k, v, dout)
+    blast = torch.where((torch.arange(s) >= 130)[None, None, :, None], 1e4, 0.0)
+    got = grads(q + blast, k - blast, v + blast, dout + 3 * blast)
+    for g, r in zip(got, base):
+        assert torch.equal(g[:, :, :130], r[:, :, :130])
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_autograd_matches_dense_autograd(d, remat):
+    """``flash_attention_segmented`` under grad
+    (``FlashAttentionSegmentedFunction``: K8's forward and backward, plain
+    on CPU tensors) against autograd through ``dense_attention_segmented``,
+    f32, the loss weighting every in-range output element differently; then
+    through a non-reentrant ``torch.utils.checkpoint``, whose recompute must
+    carry the ids."""
+    b, h, sq, skv = 2, 2, 96, 160
+    q, k, v = _t(*_qkv(70 + d, b, h, sq, d, skv=skv))
+    q_ids = torch.from_numpy(np.stack([_packed_ids(sq, [40, 50]), _packed_ids(sq, [30, 30, 20])]))
+    kv_ids = torch.from_numpy(np.stack([_packed_ids(skv, [64, 90]), _packed_ids(skv, [50, 60, 50])]))
+    w = torch.from_numpy(np.random.default_rng(80 + d).standard_normal(q.shape, np.float32))
+    w = w * (q_ids >= 0)[:, None, :, None]
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = checkpoint(fn, *leaves, use_reentrant=False) if remat else fn(*leaves)
+        (out * w).sum().backward()
+        return [x.grad for x in leaves]
+
+    got = grads(lambda q, k, v: tfa.flash_attention_segmented(q, k, v, q_ids, kv_ids, 3))
+    want = grads(lambda q, k, v: tattn.dense_attention_segmented(q, k, v, q_ids, kv_ids))
+    for name, g, r in zip("qkv", got, want):
+        _close_scaled(g.numpy(), r.numpy(), f"d{name}, remat {remat}")
 
 
 def test_xla_segmented_differentiates_as_jax():

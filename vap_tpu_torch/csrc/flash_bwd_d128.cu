@@ -29,6 +29,26 @@
 // loads only the valid keys and stores zeros for the rest. kv_lens ==
 // nullptr is the fixed-length path.
 //
+// K8's backward at head_dim 128 (`_fas_bwd` :1581; JAX sends segment ids
+// to its transposed, log2-domain form at every head_dim, :1278-1283) is
+// this kernel's arithmetic given q_seg [B, Sq] and kv_seg [B, Skv] int32
+// ids (padding -1), through kernels and an entry of their own
+// (`vap_flash_bwd_seg_d128`), so the two above compile as they did: the dq
+// kernel keeps its two query rows' ids in registers and stages each key
+// tile's ids in shared memory, the dk/dv kernel keeps its two key rows' ids
+// and stages each query tile's beside lse and delta (256 bytes more shared
+// memory for each). A pair whose ids differ gets p = 0 by a select, so it
+// adds an exact 0 to dq, dk and dv (one segment's gradients are
+// bit-identical whatever another holds), and a query whose segment has no
+// key gets dq = 0. It keeps K6's rounding of q * scale to bf16, so it
+// differs from JAX's by that rounding, within the tests' tolerance. Each
+// warp votes on its staged tile (`tile_pairs`), as in K5's form: one id
+// over its rows and the tile runs the fixed-length element loop, a tile
+// whose one id is none of its rows' sets p and ds to 0 without an exp2,
+// and only a tile that mixes ids compares per score (comparing every
+// score cost the first build 28% at Wan's joint shape); the result is the
+// same in the three.
+//
 // Design. Two kernels, as on the TPU, so that every sum is made in one
 // block (no atomics) and comes out the same from run to run:
 //   dq:  one block per (bh, 64-query tile), four warps of 16 query rows, a
@@ -80,6 +100,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kPadLse2 = 1e30f;  // lse2 of a padded query row: p = exp2(s - 1e30) = 0
 constexpr int kDqSmem = 4 * kTileElems * 2;                     // q_s, dout, k, v
 constexpr int kDkvSmem = 5 * kTileElems * 2 + 2 * kTile * 4;    // k, v, q, q_s, dout; lse2, delta
+constexpr int kSegSmem = kTile * 4;  // K8: one tile's int32 segment ids after the above
 
 __device__ __forceinline__ uint32_t u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -157,6 +178,71 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t w, float scale) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// K8's pairs of a warp's tile (`tile_pairs`): all match, some, none.
+constexpr int kAll = 1, kMixed = 0, kNone = -1;
+
+// K8's dq step on a warp's [16, kTile] tile: ds = p (dp - delta) in place of
+// s, p = 0 for a key at or past `valid` and for a pair whose ids differ (a
+// select: the pair adds an exact 0); kPairs says which pairs match.
+template <int kPairs>
+__device__ __forceinline__ void seg_dq_ds(float (&s)[kTile / 8][4], const float (&dp)[kTile / 8][4],
+                                          int valid, const float (&lse2)[2], const float (&dl)[2],
+                                          const int* seg_s, const int (&qid)[2]) {
+  const int t = (threadIdx.x % 32) & 3;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = j * 8 + 2 * t + (e & 1);
+      if constexpr (kPairs == kNone) {  // no pair of the tile matches: ds = 0
+        s[j][e] = 0.0f;
+        continue;
+      }
+      bool keep = col < valid;
+      if constexpr (kPairs == kMixed) keep = keep && seg_s[col] == qid[e >> 1];
+      const float p = keep ? exp2f(fmaf(s[j][e], kLog2e, -lse2[e >> 1])) : 0.0f;
+      s[j][e] = p * (dp[j][e] - dl[e >> 1]);
+    }
+  }
+}
+
+// K8's dk/dv step on a warp's transposed [16 keys, kSub queries] half tile
+// from query h: p in place of s and ds^T in place of dp, p = 0 for a
+// pair whose ids differ; kPairs says which pairs match.
+template <int kPairs>
+__device__ __forceinline__ void seg_dkv_p(float (&s)[kSub / 8][4], float (&dp)[kSub / 8][4], int h,
+                                          const float* lse2_s, const float* dl_s, const int* seg_s,
+                                          const int (&kid)[2]) {
+  const int t = (threadIdx.x % 32) & 3;
+#pragma unroll
+  for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = h + j * 8 + 2 * t + (e & 1);
+      if constexpr (kPairs == kNone) {  // no pair of the tile matches: p = ds = 0
+        dp[j][e] = s[j][e] = 0.0f;
+        continue;
+      }
+      const bool keep = kPairs == kAll || seg_s[col] == kid[e >> 1];
+      const float p = keep ? exp2f(fmaf(s[j][e], kLog2e, -lse2_s[col])) : 0.0f;
+      dp[j][e] = p * (dp[j][e] - dl_s[col]);  // ds^T, in place of dp^T
+      s[j][e] = p;
+    }
+  }
+}
+
+// Which pairs of a warp's tile match, the same on every lane: kAll when
+// the staged tile's 64 ids (`tile`) are one value and so are the warp's
+// rows' (`a0`, `a1` on each lane), kNone when the tile's one value is none
+// of the rows', else kMixed; the first two need no per-score compare.
+__device__ __forceinline__ int tile_pairs(const int* tile, int a0, int a1) {
+  const int lane = threadIdx.x % 32;
+  const int id = tile[0];
+  if (!__all_sync(0xffffffffu, tile[lane] == id && tile[lane + 32] == id)) return kMixed;
+  if (__all_sync(0xffffffffu, a0 == id && a1 == id)) return kAll;
+  return __all_sync(0xffffffffu, a0 != id && a1 != id) ? kNone : kMixed;
+}
+
 // Stage kTile rows of a [rows, D] matrix (`valid` of them in range, the
 // rest zero) as bf16(x * scale) into `scaled`, and as they are into `raw`
 // unless it is null.
@@ -199,16 +285,18 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
+template <bool kSegmented>
+__device__ __forceinline__ void dq_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, const int* __restrict__ kv_lens, int heads, int sq, int skv,
-    float scale) {
+    bf16* __restrict__ dq, const int* __restrict__ kv_lens, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs_s = reinterpret_cast<bf16*>(smem);
   bf16* do_s = qs_s + kTileElems;
   bf16* k_s = do_s + kTileElems;
   bf16* v_s = k_s + kTileElems;
+  int* seg_s = reinterpret_cast<int*>(v_s + kTileElems);  // K8: the key tile's ids
 
   const size_t bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -229,6 +317,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
   const bf16* kb = k + bh * skv * D;
   const bf16* vb = v + bh * skv * D;
   const int len = vap::kv_length(kv_lens, bh, heads, skv);
+  // K8: the ids of this thread's two query rows (rows past Sq are never stored)
+  int qid[2] = {0, 0};
+  const int* kvs = nullptr;
+  if constexpr (kSegmented) {
+    const size_t b = bh / heads;
+    const int row = m0 + row0 + g;
+    qid[0] = row < sq ? q_seg[b * sq + row] : -1;
+    qid[1] = row + 8 < sq ? q_seg[b * sq + row + 8] : -1;
+    kvs = kv_seg + b * skv;
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -239,18 +337,33 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
     const int valid = min(kTile, len - n0);
     stage(k_s, kb + (size_t)n0 * D, valid);
     stage(v_s, vb + (size_t)n0 * D, valid);
+    if constexpr (kSegmented) {
+      const int i = threadIdx.x;
+      if (i < kTile) seg_s[i] = i < valid ? kvs[n0 + i] : -2;
+    }
     __syncthreads();
 
     float s[kTile / 8][4], dp[kTile / 8][4];
     mma_abt<kTile>(s, qs_s, row0, k_s, 0);
     mma_abt<kTile>(dp, do_s, row0, v_s, 0);
+    if constexpr (kSegmented) {  // ds in place of s; the compare only where ids differ
+      const int pairs = tile_pairs(seg_s, qid[0], qid[1]);
+      if (pairs == kAll) {
+        seg_dq_ds<kAll>(s, dp, valid, lse2, dl, seg_s, qid);
+      } else if (pairs == kNone) {
+        seg_dq_ds<kNone>(s, dp, valid, lse2, dl, seg_s, qid);
+      } else {
+        seg_dq_ds<kMixed>(s, dp, valid, lse2, dl, seg_s, qid);
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+      for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const float p = col < valid ? exp2f(fmaf(s[j][e], kLog2e, -lse2[e >> 1])) : 0.0f;
-        s[j][e] = p * (dp[j][e] - dl[e >> 1]);  // ds, in place of s
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * t + (e & 1);
+          const float p = col < valid ? exp2f(fmaf(s[j][e], kLog2e, -lse2[e >> 1])) : 0.0f;
+          s[j][e] = p * (dp[j][e] - dl[e >> 1]);  // ds, in place of s
+        }
       }
     }
     uint32_t dsa[kTile / 16][4];
@@ -260,11 +373,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
   store_rows(acc, scale, dq + bh * sq * D, m0 + row0, sq, sq);
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
+template <bool kSegmented>
+__device__ __forceinline__ void dkv_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
-    int sq, int skv, float scale) {
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ kv_lens,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads, int sq, int skv,
+    float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + kTileElems;
@@ -273,6 +388,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
   bf16* do_s = qs_s + kTileElems;
   float* lse2_s = reinterpret_cast<float*>(do_s + kTileElems);
   float* dl_s = lse2_s + kTile;
+  int* seg_s = reinterpret_cast<int*>(dl_s + kTile);  // K8: the query tile's ids
 
   const size_t bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -293,6 +409,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
   const bf16* db = dout + bh * sq * D;
   const float* lb = lse + bh * sq;
   const float* deb = delta + bh * sq;
+  // K8: the ids of this thread's two key rows (rows past Skv are never
+  // stored); a query row past Sq gets -3 in seg_s and matches none
+  int kid[2] = {0, 0};
+  const int* qsg = nullptr;
+  if constexpr (kSegmented) {
+    const size_t b = bh / heads;
+    const int key = key0 + row0 + (lane >> 2);
+    kid[0] = key < skv ? kv_seg[b * skv + key] : -2;
+    kid[1] = key + 8 < skv ? kv_seg[b * skv + key + 8] : -2;
+    qsg = q_seg + b * sq;
+  }
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -309,8 +436,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       lse2_s[i] = i < valid ? lb[m0 + i] * kLog2e : kPadLse2;
       dl_s[i] = i < valid ? deb[m0 + i] : 0.0f;
+      if constexpr (kSegmented) seg_s[i] = i < valid ? qsg[m0 + i] : -3;
     }
     __syncthreads();
+    const int pairs = kSegmented ? tile_pairs(seg_s, kid[0], kid[1]) : kAll;
 
 #pragma unroll 1
     for (int h = 0; h < kTile; h += kSub) {
@@ -318,14 +447,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
       float s[kSub / 8][4], dp[kSub / 8][4];
       mma_abt<kSub>(s, k_s, row0, qs_s, h);
       mma_abt<kSub>(dp, v_s, row0, do_s, h);
+      if constexpr (kSegmented) {  // the compare only where ids differ
+        if (pairs == kAll) {
+          seg_dkv_p<kAll>(s, dp, h, lse2_s, dl_s, seg_s, kid);
+        } else if (pairs == kNone) {
+          seg_dkv_p<kNone>(s, dp, h, lse2_s, dl_s, seg_s, kid);
+        } else {
+          seg_dkv_p<kMixed>(s, dp, h, lse2_s, dl_s, seg_s, kid);
+        }
+      } else {
 #pragma unroll
-      for (int j = 0; j < kSub / 8; ++j) {
+        for (int j = 0; j < kSub / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = h + j * 8 + 2 * t + (e & 1);
-          const float p = exp2f(fmaf(s[j][e], kLog2e, -lse2_s[col]));
-          dp[j][e] = p * (dp[j][e] - dl_s[col]);  // ds^T, in place of dp^T
-          s[j][e] = p;
+          for (int e = 0; e < 4; ++e) {
+            const int col = h + j * 8 + 2 * t + (e & 1);
+            const float p = exp2f(fmaf(s[j][e], kLog2e, -lse2_s[col]));
+            dp[j][e] = p * (dp[j][e] - dl_s[col]);  // ds^T, in place of dp^T
+            s[j][e] = p;
+          }
         }
       }
       uint32_t pa[kSub / 16][4], dsa[kSub / 16][4];
@@ -339,15 +478,55 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
   store_rows(dv_acc, 1.0f, dv + bh * skv * D, key0 + row0, len, skv);
 }
 
+// K6 and K7's backward in K6's form.
+__global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, const int* __restrict__ kv_lens, int heads, int sq, int skv,
+    float scale) {
+  dq_body<false>(q, k, v, dout, lse, delta, dq, kv_lens, nullptr, nullptr, heads, sq, skv, scale);
+}
+
+__global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
+    int sq, int skv, float scale) {
+  dkv_body<false>(q, k, v, dout, lse, delta, dk, dv, kv_lens, nullptr, nullptr, heads, sq, skv,
+                  scale);
+}
+
+// K8's backward in K6's form: kernels of their own, so the two above
+// compile to what they were before segment ids.
+// Three blocks an SM (at most 168 registers), as K6's dq kernel has: with
+// the tile vote's three element loops ptxas otherwise gives it 216, two.
+__global__ void __launch_bounds__(kThreads, 3) flash_bwd_seg_d128_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+    int heads, int sq, int skv, float scale) {
+  dq_body<true>(q, k, v, dout, lse, delta, dq, nullptr, q_seg, kv_seg, heads, sq, skv, scale);
+}
+
+__global__ void __launch_bounds__(kThreads) flash_bwd_seg_d128_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale) {
+  dkv_body<true>(q, k, v, dout, lse, delta, dk, dv, nullptr, q_seg, kv_seg, heads, sq, skv, scale);
+}
+
 }  // namespace
 
-// C entry point, bound from Python with ctypes. Tensors are contiguous
+// C entry points, bound from Python with ctypes. Tensors are contiguous
 // [bh, s, 128] bf16 (q, dout, dq: sq rows; k, v, dk, dv: skv rows), lse
-// and delta [bh, sq] f32; `scale` is the softmax scale. Launches the dq
-// kernel, then the dk/dv kernel, on `stream`, and returns the CUDA error of
-// the launches (0 on success). kv_lens is a device pointer to [bh / heads]
-// int32 valid key counts (K7) or null (every key valid). bh <= 65535,
-// sq >= 1, heads >= 1 divides bh.
+// and delta [bh, sq] f32; `scale` is the softmax scale. Each launches the
+// dq kernel, then the dk/dv kernel, on `stream`, and returns the CUDA error
+// of the launches (0 on success). bh <= 65535, sq >= 1, heads >= 1 divides
+// bh.
+
+// K6, and K7's backward: kv_lens is a device pointer to [bh / heads] int32
+// valid key counts (K7) or null (every key valid).
 extern "C" int vap_flash_bwd_d128(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                   const void* kv_lens, int bh, int heads, int sq, int skv,
@@ -372,6 +551,42 @@ extern "C" int vap_flash_bwd_d128(const void* q, const void* k, const void* v, c
   if (err != cudaSuccess) return err;
   flash_bwd_d128_dkv_kernel<<<dim3((skv + kTile - 1) / kTile, bh), kThreads, kDkvSmem, s>>>(
       qp, kp, vp, dp, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lens, heads, sq,
+      skv, scale);
+  return cudaGetLastError();
+}
+
+// K8's backward: q_seg and kv_seg are device pointers to [bh / heads, sq]
+// and [bh / heads, skv] int32 segment ids, padding as -1 (not null).
+extern "C" int vap_flash_bwd_seg_d128(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, const void* q_seg,
+                                      const void* kv_seg, int bh, int heads, int sq, int skv,
+                                      float scale, void* stream) {
+  if (q_seg == nullptr || kv_seg == nullptr) return cudaErrorInvalidValue;
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const float* l = static_cast<const float*>(lse);
+  const float* de = static_cast<const float*>(delta);
+  const int* qs = static_cast<const int*>(q_seg);
+  const int* ks = static_cast<const int*>(kv_seg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_seg_d128_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kDqSmem + kSegSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_seg_d128_dq_kernel<<<dim3((sq + kTile - 1) / kTile, bh), kThreads,
+                                 kDqSmem + kSegSmem, s>>>(
+      qp, kp, vp, dp, l, de, static_cast<bf16*>(dq), qs, ks, heads, sq, skv, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || skv == 0) return err;  // no key row: dk and dv are empty
+  err = cudaFuncSetAttribute(flash_bwd_seg_d128_dkv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem + kSegSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_seg_d128_dkv_kernel<<<dim3((skv + kTile - 1) / kTile, bh), kThreads,
+                                  kDkvSmem + kSegSmem, s>>>(
+      qp, kp, vp, dp, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), qs, ks, heads, sq,
       skv, scale);
   return cudaGetLastError();
 }

@@ -47,11 +47,19 @@ SOURCES = {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, d,
         # scale_log2, scale, stream
         "vap_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, bh, heads, sq, skv, d,
+        # scale_log2, scale, stream (K8)
+        "vap_flash_bwd_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _F, _P),
     },
     "flash_bwd_d128": {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, scale,
         # stream
         "vap_flash_bwd_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, bh, heads, sq, skv, scale,
+        # stream (K8, D = 128)
+        "vap_flash_bwd_seg_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                   _P),
     },
     "w8a8": {
         # x, w, sw, bias (or null), xq, sx, out, m, n, k, chunk, stream

@@ -6,12 +6,12 @@ Port of ``vap_tpu/ops/attention.py:41-110,163-202,206-299``. Providers:
     flash forward (``ops/flash_attention.py``), K7 when the call passes
     ``kv_lens`` and K8 when it passes ``segment_ids``; differentiable, with
     K5 or K6 as its backward (given ``kv_lens``: K7's backward, dk and dv
-    zero past each length; K8 has no backward yet and raises under
-    autograd). "flash_varlen" and "jax_flash" (JAX's own library kernel
-    there, not a kernel of the repo) take the same kernels;
+    zero past each length; given ``segment_ids``: K8's backward).
+    "flash_varlen" and "jax_flash" (JAX's own library kernel there, not a
+    kernel of the repo) take the same kernels;
   * "sage"  — K2, the int8-QK SageAttention-style forward, K7's int8 form
     with ``kv_lens`` (inference only: raises when a gradient is wanted);
-    with ``segment_ids`` the bf16 K8, as in JAX;
+    with ``segment_ids`` the bf16 K8, forward and backward, as in JAX;
   * "xla"   — plain PyTorch dense attention (the name is the JAX package's),
     ``dense_attention_masked`` with ``kv_lens``, ``dense_attention_segmented``
     with ``segment_ids``, differentiated by autograd;
@@ -20,7 +20,8 @@ Port of ``vap_tpu/ops/attention.py:41-110,163-202,206-299``. Providers:
   * "ring"  — sequence-parallel attention over the mesh installed with
     ``vap_tpu_torch.parallel.attention_mesh`` (``sequence_parallel_attention``:
     allgather, ppermute or ulysses), the local kernel (K1/K4, K7, K8) when
-    none is; inference only for now (raises when a gradient is wanted).
+    none is; differentiable, each method's backward running the adjoint
+    collectives (sequence-parallel training).
 
 ``kv_lens`` ([B] int) gives per-sample valid key counts (suffix padding);
 ``segment_ids`` ((q_seg [B, Sq], kv_seg [B, Skv], num_segments)) packed
@@ -139,11 +140,8 @@ def dense_attention_segmented(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _ring(q, k, v, scale, kv_lens, segment_ids):
     """The "ring" provider: sequence-parallel attention over the installed
-    mesh, or the local kernel when none is (``vap_tpu/ops/attention.py:276-298``)."""
-    if wants_grad(q, k, v):
-        raise NotImplementedError(
-            "the ring (sequence-parallel) provider has no backward yet: sequence-parallel "
-            "training, with K8's backward, is the next slice of the port")
+    mesh, or the local kernel when none is (``vap_tpu/ops/attention.py:276-298``);
+    differentiable either way."""
     ctx = get_attention_mesh()
     if ctx is not None:
         mesh, axis, rotate_method = ctx

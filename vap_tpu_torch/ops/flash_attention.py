@@ -50,8 +50,11 @@ are unspecified but finite. The running max starts at K7's floor, so a query
 whose segment has no key gets exact zero rows and the lse -1e4. A
 cross-segment key adds exactly 0, so one segment's outputs do not move,
 to the bit, when another segment's q, k or v change (to finite values).
-Forward only: its backward (``_fas_bwd``, :1581) comes with sequence-parallel
-training.
+Its backward (``_fas_bwd``, :1581) is K5 and K6 given the same ids: every
+cross-segment pair gets p = 0 by a select, so one segment's gradients do
+not move, to the bit, when another segment changes, and a query whose
+segment has no key gets dq = 0. ``FlashAttentionSegmentedFunction`` pairs
+the two.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
@@ -66,8 +69,10 @@ raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_int8_forward.launches_varlen`` (K7 in K2),
 ``flash_attention_backward.launches`` (K5),
 ``flash_attention_backward.launches_d128`` (K6),
-``flash_attention_backward.launches_varlen`` (K7's backward in K5) and
-``flash_attention_backward.launches_d128_varlen`` (K7's backward in K6).
+``flash_attention_backward.launches_varlen`` (K7's backward in K5),
+``flash_attention_backward.launches_d128_varlen`` (K7's backward in K6),
+``flash_attention_backward.launches_seg`` (K8's backward in K5) and
+``flash_attention_backward.launches_d128_seg`` (K8's backward in K6).
 """
 
 from __future__ import annotations
@@ -280,6 +285,57 @@ def _varlen_backward_plain(run, q, k, v, out, lse, dout, scale, kv_lens):
     return dq, dk, dv
 
 
+def _backward_plain_t(q, k, v, out, lse, dout, scale, keep=None):
+    """K5's log2-form tile loop (see ``flash_attention_backward_plain``);
+    ``keep(n0, n1)`` gives a [B, 1, Sq, n] bool of the query-key pairs that
+    count (K8), every other p selected to 0."""
+    scale_log2 = scale * LOG2_E
+    qf, dof = q.float(), dout.float()
+    lse2 = (lse.float() * LOG2_E)[..., None]
+    delta = attention_delta(out, dout)[..., None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for n0 in range(0, k.shape[2], PLAIN_BLOCK_K):
+        n1 = min(n0 + PLAIN_BLOCK_K, k.shape[2])
+        kt, vt = k[..., n0:n1, :].float(), v[..., n0:n1, :].float()
+        p = torch.exp2(qf @ kt.transpose(-1, -2) * scale_log2 - lse2)
+        if keep is not None:
+            p = torch.where(keep(n0, n1), p, 0.0)
+        ds = (p * (dof @ vt.transpose(-1, -2) - delta)).to(k.dtype).float()
+        dq += ds @ kt
+        dvs.append(p.to(dout.dtype).float().transpose(-1, -2) @ dof)
+        dks.append(ds.transpose(-1, -2) @ qf * scale)
+    if not dks:  # no key: dk and dv are empty
+        return (dq * scale).to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
+    return ((dq * scale).to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def _backward_plain_rows(q, k, v, out, lse, dout, scale, keep=None):
+    """K6's row-form tile loop (see ``flash_attention_backward_rows_plain``),
+    with ``keep`` as in ``_backward_plain_t``."""
+    qs = (q.float() * scale).to(k.dtype).float()
+    qf, dof = q.float(), dout.float()
+    lse_ = lse.float()[..., None]
+    delta = attention_delta(out, dout)[..., None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for n0 in range(0, k.shape[2], PLAIN_BLOCK_K):
+        n1 = min(n0 + PLAIN_BLOCK_K, k.shape[2])
+        kt, vt = k[..., n0:n1, :].float(), v[..., n0:n1, :].float()
+        p = torch.exp(qs @ kt.transpose(-1, -2) - lse_)
+        if keep is not None:
+            p = torch.where(keep(n0, n1), p, 0.0)
+        ds = (p * (dof @ vt.transpose(-1, -2) - delta)).to(k.dtype).float()
+        dq += ds @ kt
+        dvs.append(p.to(dout.dtype).float().transpose(-1, -2) @ dof)
+        dks.append(ds.transpose(-1, -2) @ qf)
+    if not dks:  # no key: dk and dv are empty
+        return (dq * scale).to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
+    return ((dq * scale).to(q.dtype), (torch.cat(dks, dim=2) * scale).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
 def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[float] = None,
                                    kv_lens: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K5, and with ``kv_lens`` of K7's backward at
@@ -296,24 +352,7 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: Optional[floa
                                       scale, _kv_lens(kv_lens, q.shape[0]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    scale_log2 = scale * LOG2_E
-    qf, dof = q.float(), dout.float()
-    lse2 = (lse.float() * LOG2_E)[..., None]
-    delta = attention_delta(out, dout)[..., None]
-    dq = torch.zeros_like(qf)
-    dks, dvs = [], []
-    for n0 in range(0, k.shape[2], PLAIN_BLOCK_K):
-        n1 = min(n0 + PLAIN_BLOCK_K, k.shape[2])
-        kt, vt = k[..., n0:n1, :].float(), v[..., n0:n1, :].float()
-        p = torch.exp2(qf @ kt.transpose(-1, -2) * scale_log2 - lse2)
-        ds = (p * (dof @ vt.transpose(-1, -2) - delta)).to(k.dtype).float()
-        dq += ds @ kt
-        dvs.append(p.to(dout.dtype).float().transpose(-1, -2) @ dof)
-        dks.append(ds.transpose(-1, -2) @ qf * scale)
-    if not dks:  # no key: dk and dv are empty
-        return (dq * scale).to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
-    return ((dq * scale).to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
-            torch.cat(dvs, dim=2).to(v.dtype))
+    return _backward_plain_t(q, k, v, out, lse, dout, scale)
 
 
 def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional[float] = None,
@@ -334,24 +373,35 @@ def flash_attention_backward_rows_plain(q, k, v, out, lse, dout, scale: Optional
                                       dout, scale, _kv_lens(kv_lens, q.shape[0]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    qs = (q.float() * scale).to(k.dtype).float()
-    qf, dof = q.float(), dout.float()
-    lse_ = lse.float()[..., None]
-    delta = attention_delta(out, dout)[..., None]
-    dq = torch.zeros_like(qf)
-    dks, dvs = [], []
-    for n0 in range(0, k.shape[2], PLAIN_BLOCK_K):
-        n1 = min(n0 + PLAIN_BLOCK_K, k.shape[2])
-        kt, vt = k[..., n0:n1, :].float(), v[..., n0:n1, :].float()
-        p = torch.exp(qs @ kt.transpose(-1, -2) - lse_)
-        ds = (p * (dof @ vt.transpose(-1, -2) - delta)).to(k.dtype).float()
-        dq += ds @ kt
-        dvs.append(p.to(dout.dtype).float().transpose(-1, -2) @ dof)
-        dks.append(ds.transpose(-1, -2) @ qf)
-    if not dks:  # no key: dk and dv are empty
-        return (dq * scale).to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
-    return ((dq * scale).to(q.dtype), (torch.cat(dks, dim=2) * scale).to(k.dtype),
-            torch.cat(dvs, dim=2).to(v.dtype))
+    return _backward_plain_rows(q, k, v, out, lse, dout, scale)
+
+
+def flash_attention_segmented_backward_plain(q, k, v, out, lse, dout, q_segment_ids,
+                                             kv_segment_ids, num_segments: int,
+                                             scale: Optional[float] = None):
+    """Plain PyTorch version of K8's backward: (dq, dk, dv) in the input
+    dtypes, from K8's out and lse. Below head_dim 128 K5's log2 form
+    (``_fas_bwd``, :1581, through ``_flash_attention_backward_t`` with the
+    segment one-hots, :1168-1176), at head_dim 128 K6's row form with its
+    rounding points (JAX runs the transposed form at every head_dim,
+    :1278-1283; the two differ by a rounding of q * scale). Every pair whose
+    query and key ids differ gets p = 0 by a select, not a multiply: one
+    segment's dq, dk and dv do not move, to the bit, when another segment's
+    q, k, v or dout change (to finite values), and a query whose segment has
+    no key gets dq = 0. Ids as the forward takes them (padding -1 meets only
+    padding)."""
+    _shapes(q, k, v)
+    check_segment_args(q, k, q_segment_ids, kv_segment_ids, num_segments)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q_ids = segment_ids_int32(q_segment_ids, num_segments, q.device)
+    kv_ids = segment_ids_int32(kv_segment_ids, num_segments, q.device)
+
+    def keep(n0, n1):
+        return q_ids[:, None, :, None] == kv_ids[:, None, None, n0:n1]  # [B, 1, Sq, n]
+
+    run = _backward_plain_rows if q.shape[-1] == 128 else _backward_plain_t
+    return run(q, k, v, out, lse, dout, scale, keep)
 
 
 def sage_quantize(q, k, scale: float, kv_lens: Optional[torch.Tensor] = None):
@@ -520,23 +570,35 @@ flash_attention_segmented_forward.launches_d128 = 0
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = None,
-                             kv_lens: Optional[torch.Tensor] = None):
-    """K5 and K6, and with ``kv_lens`` K7's backward: (dq, dk, dv) of out =
-    softmax(q k^T scale) v, from the forward's ``out`` and natural-log
+                             kv_lens: Optional[torch.Tensor] = None,
+                             segment_ids: Optional[tuple] = None):
+    """K5 and K6, with ``kv_lens`` K7's backward and with ``segment_ids``
+    ((q_seg [B, Sq], kv_seg [B, Skv], num_segments)) K8's: (dq, dk, dv) of
+    out = softmax(q k^T scale) v, from the forward's ``out`` and natural-log
     ``lse``. After the delta pre-pass in PyTorch, CUDA tensors (bf16,
     contiguous) launch ``vap_flash_bwd`` (K5, head_dim a multiple of 16
     below 128) or ``vap_flash_bwd_d128`` (K6, head_dim 128), ``kv_lens`` as
-    int32 on the same card; CPU tensors take ``flash_attention_backward_plain``
-    or, at head_dim 128, ``flash_attention_backward_rows_plain``."""
+    int32 on the same card, or given segment ids ``vap_flash_bwd_seg`` /
+    ``vap_flash_bwd_seg_d128`` with the ids as the forward maps them; CPU
+    tensors take ``flash_attention_backward_plain``, at head_dim 128
+    ``flash_attention_backward_rows_plain``, or
+    ``flash_attention_segmented_backward_plain``."""
     _shapes(q, k, v)
     kv_lens = _kv_lens(kv_lens, q.shape[0])
+    if kv_lens is not None and segment_ids is not None:
+        raise ValueError("segment_ids and kv_lens are mutually exclusive")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d > 128:
         raise ValueError(f"flash backward takes head_dim up to 128, got {d}")
+    if segment_ids is not None:
+        check_segment_args(q, k, *segment_ids)
     if _device_kind("flash_attention_backward", q) == "cpu":
+        if segment_ids is not None:
+            return flash_attention_segmented_backward_plain(q, k, v, out, lse, dout,
+                                                            *segment_ids, scale)
         plain = flash_attention_backward_rows_plain if d == 128 else flash_attention_backward_plain
         return plain(q, k, v, out, lse, dout, scale, kv_lens)
     if d % 16:
@@ -545,27 +607,36 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} must match q {tuple(q.shape)}")
     delta = attention_delta(out, dout)
-    bf16, f32 = torch.bfloat16, torch.float32
-    _kernel_inputs("flash_attention_backward",
-                   {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta},
-                   {"q": bf16, "k": bf16, "v": bf16, "dout": bf16, "lse": f32, "delta": f32},
-                   b * h, sq)
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    tensors = {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta}
+    dtypes = {"q": bf16, "k": bf16, "v": bf16, "dout": bf16, "lse": f32, "delta": f32}
+    if segment_ids is not None:
+        q_seg, kv_seg, num_segments = segment_ids
+        tensors["q_segment_ids"] = segment_ids_int32(q_seg, num_segments, q.device)
+        tensors["kv_segment_ids"] = segment_ids_int32(kv_seg, num_segments, q.device)
+        dtypes.update(q_segment_ids=i32, kv_segment_ids=i32)
+    _kernel_inputs("flash_attention_backward", tensors, dtypes, b * h, sq)
     lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if lens is None else lens.data_ptr())
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if segment_ids is not None:
+        ptrs += (tensors["q_segment_ids"].data_ptr(), tensors["kv_segment_ids"].data_ptr())
+        entry, suffix = "vap_flash_bwd_seg", "_seg"
+    else:
+        ptrs += (None if lens is None else lens.data_ptr(),)
+        entry, suffix = "vap_flash_bwd", "" if lens is None else "_varlen"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if d == 128:
-            err = _build.library("flash_bwd_d128").vap_flash_bwd_d128(
+            entry += "_d128"
+            err = getattr(_build.library("flash_bwd_d128"), entry)(
                 *ptrs, b * h, h, sq, skv, scale, stream)
-            _build.check(err, "vap_flash_bwd_d128")
         else:
-            err = _build.library("flash_bwd").vap_flash_bwd(
+            err = getattr(_build.library("flash_bwd"), entry)(
                 *ptrs, b * h, h, sq, skv, d, scale * LOG2_E, scale, stream)
-            _build.check(err, "vap_flash_bwd")
-    counter = ("launches_d128" if d == 128 else "launches") + ("" if lens is None else "_varlen")
+        _build.check(err, entry)
+    counter = ("launches_d128" if d == 128 else "launches") + suffix
     setattr(flash_attention_backward, counter, getattr(flash_attention_backward, counter) + 1)
     return dq, dk, dv
 
@@ -574,6 +645,8 @@ flash_attention_backward.launches = 0
 flash_attention_backward.launches_d128 = 0
 flash_attention_backward.launches_varlen = 0
 flash_attention_backward.launches_d128_varlen = 0
+flash_attention_backward.launches_seg = 0
+flash_attention_backward.launches_d128_seg = 0
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:
@@ -586,24 +659,81 @@ class FlashAttentionFunction(torch.autograd.Function):
     ``custom_vjp`` of ``flash_attention``, ``_fa_fwd`` / ``_fa_bwd`` at
     :1428-1457); given ``kv_lens``, K7's forward and backward
     (``flash_attention_varlen``'s ``_fav_fwd`` / ``_fav_bwd``, :1492-1506).
-    Saves q, k, v, out, lse and kv_lens. Under ``torch.utils.checkpoint`` the
-    forward runs again in the backward with the same inputs, ``kv_lens``
-    among them; it keeps no state between calls, so the recompute gives the
-    out and lse the backward reads."""
+    Returns (out, lse), the lse not differentiable. Saves q, k, v, out, lse
+    and kv_lens. Under ``torch.utils.checkpoint`` the forward runs again in
+    the backward with the same inputs, ``kv_lens`` among them; it keeps no
+    state between calls, so the recompute gives the out and lse the backward
+    reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, kv_lens: Optional[torch.Tensor] = None):
         out, lse = flash_attention_forward(q, k, v, scale, kv_lens)
         ctx.save_for_backward(q, k, v, out, lse, kv_lens)
         ctx.scale = scale
-        return out
+        ctx.mark_non_differentiable(lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _dlse):
         q, k, v, out, lse, kv_lens = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale,
                                               kv_lens)
         return dq, dk, dv, None, None
+
+
+class FlashAttentionSegmentedFunction(torch.autograd.Function):
+    """K8's forward and backward (the JAX ``custom_vjp`` of
+    ``flash_attention_segmented``, ``_fas_fwd`` / ``_fas_bwd`` at
+    :1572-1597): K1 and K5 below head_dim 128, K4 and K6 at 128, each in its
+    segmented form. Takes the ids as int32 with padding mapped to -1
+    (``segment_ids_int32``); returns (out, lse), the lse not differentiable.
+    Saves q, k, v, out, lse and both ids, so a ``torch.utils.checkpoint``
+    recompute gives what the backward reads. As in the forward, a padding
+    query (id -1) meets only padding keys here but every key in JAX: its
+    rows, and their gradients, are unspecified, so a loss that reads them
+    differs from JAX's (the tests give dout zero there)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_ids, kv_ids, num_segments: int, scale: float):
+        out, lse = flash_attention_segmented_forward(q, k, v, q_ids, kv_ids, num_segments, scale)
+        ctx.save_for_backward(q, k, v, out, lse, q_ids, kv_ids)
+        ctx.scale, ctx.num_segments = scale, num_segments
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, q_ids, kv_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale,
+                                              segment_ids=(q_ids, kv_ids, ctx.num_segments))
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_with_lse(q, k, v, scale: Optional[float] = None,
+                       kv_lens: Optional[torch.Tensor] = None,
+                       segment_ids: Optional[tuple] = None):
+    """(out, lse) of the flash kernels: K8 given ``segment_ids``, K7 given
+    ``kv_lens``, K1 or K4 otherwise. When a gradient is wanted, through
+    ``FlashAttentionSegmentedFunction`` or ``FlashAttentionFunction`` (out
+    differentiable, lse not); a gradient at head_dim above 128 raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    grad = wants_grad(q, k, v)
+    if grad and q.shape[-1] > 128:
+        raise NotImplementedError(
+            f"flash attention has no backward at head_dim {q.shape[-1]} (K6 takes 128)")
+    if segment_ids is not None:
+        if not grad:
+            return flash_attention_segmented_forward(q, k, v, *segment_ids, scale)
+        _shapes(q, k, v)
+        q_seg, kv_seg, num_segments = segment_ids
+        check_segment_args(q, k, q_seg, kv_seg, num_segments)
+        return FlashAttentionSegmentedFunction.apply(
+            q, k, v, segment_ids_int32(q_seg, num_segments, q.device),
+            segment_ids_int32(kv_seg, num_segments, q.device), num_segments, scale)
+    if not grad:
+        return flash_attention_forward(q, k, v, scale, kv_lens)
+    return FlashAttentionFunction.apply(q, k, v, scale, _kv_lens(kv_lens, q.shape[0]))
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -612,14 +742,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     output only; through ``FlashAttentionFunction`` (K1 + K5, or K4 + K6 at
     head_dim 128, each given ``kv_lens`` for K7) when a gradient is wanted.
     A gradient at head_dim above 128 raises."""
-    if not wants_grad(q, k, v):
-        return flash_attention_forward(q, k, v, scale, kv_lens)[0]
-    if q.shape[-1] > 128:
-        raise NotImplementedError(
-            f"flash attention has no backward at head_dim {q.shape[-1]} (K6 takes 128)")
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    return FlashAttentionFunction.apply(q, k, v, scale, _kv_lens(kv_lens, q.shape[0]))
+    return attention_with_lse(q, k, v, scale, kv_lens)[0]
 
 
 def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None,
@@ -684,12 +807,8 @@ def flash_attention_segmented(q, k, v, q_segment_ids, kv_segment_ids, num_segmen
                               scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention over packed sequences (K8), output only: query i
     attends key j iff their segment ids are equal (see
-    ``flash_attention_segmented_forward``). Forward only for now: it raises
-    when a gradient is wanted, and never falls back to dense attention."""
-    if wants_grad(q, k, v):
-        raise NotImplementedError(
-            "flash_attention_segmented (K8) has no backward yet: K8's backward comes with "
-            "sequence-parallel training, the next slice of the port; the 'xla' provider "
-            "(dense_attention_segmented) differentiates")
-    return flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
-                                             num_segments, scale)[0]
+    ``flash_attention_segmented_forward``); through
+    ``FlashAttentionSegmentedFunction`` (K8's forward and backward) when a
+    gradient is wanted. It never falls back to dense attention."""
+    return attention_with_lse(q, k, v, scale,
+                              segment_ids=(q_segment_ids, kv_segment_ids, num_segments))[0]

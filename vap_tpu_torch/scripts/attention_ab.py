@@ -24,6 +24,7 @@ import sys
 SHAPE = (1, 40, 40560, 128)  # B, H, S, D of Wan2.1-14B's joint attention at 49f@480x832
 K5_SHAPE = (1, 48, 35552, 64)  # CogVideoX-5B's joint attention at 49f@480x720
 K6_SHAPE = (1, 40, 20280, 128)  # one Wan branch's self-attention in training
+K7_SHAPE, K7_LEN = (1, 24, 18976, 128), 18763  # the Hunyuan LoRA stream and its valid keys
 
 
 def time_root(root: str) -> None:
@@ -71,9 +72,54 @@ def time_root(root: str) -> None:
         out, lse = fa.flash_attention_forward(q, k, v)
         backward.append(ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout)))
         del q, k, v, dout, out, lse
+    q, k, v, dout = inputs(K7_SHAPE, 4)
+    lens = torch.tensor([K7_LEN], device=dev, dtype=torch.int32)
+    out, lse = fa.flash_attention_forward(q, k, v, kv_lens=lens)
+    k7 = ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens))
+    del q, k, v, dout, out, lse
+    k8 = []
+    if hasattr(fa.flash_attention_backward, "launches_seg"):  # the root has K8's backward
+        for shape, lengths in ((K5_SHAPE, (K5_SHAPE[2] // 2, K5_SHAPE[2] // 2 - 64)),
+                               (SHAPE, (SHAPE[2] // 2, SHAPE[2] // 2))):
+            ids = torch.full((1, shape[2]), -1, dtype=torch.int32, device=dev)
+            ids[0, :lengths[0]] = 0
+            ids[0, lengths[0]:sum(lengths)] = 1
+            q, k, v, dout = inputs(shape, 4)
+            out, lse = fa.flash_attention_segmented_forward(q, k, v, ids, ids, 2)
+            calls = (3, 1) if shape == SHAPE else (5, 2)
+            k8.append(ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                             segment_ids=(ids, ids, 2)), *calls))
+            del q, k, v, dout, out, lse
+    seg = (f"; K8 backward {k8[0]:.3f} ms at {list(K5_SHAPE)}, {k8[1]:.3f} ms at {list(SHAPE)}"
+           if k8 else "; K8 backward: not in this root")
     print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}; K1 {k1:.3f} ms, K5 "
           f"{backward[0]:.3f} ms at {list(K5_SHAPE)}; K6 {backward[1]:.3f} ms at "
-          f"{list(K6_SHAPE)}", flush=True)
+          f"{list(K6_SHAPE)}; K7 backward in K6 {k7:.3f} ms at {list(K7_SHAPE)}, {K7_LEN} keys"
+          + seg, flush=True)
+    print(f"{root}: backward instances (ptxas): {backward_registers()}", flush=True)
+
+
+def backward_registers():
+    """{kernel: 'N registers, M bytes spill stores'} of every instance in the
+    backward sources' compiler logs (K5 at D=64, K6), as ptxas printed them."""
+    import re
+
+    from vap_tpu_torch.ops import _build
+
+    found = {}
+    for source in ("flash_bwd", "flash_bwd_d128"):
+        name = None
+        for line in _build.library_path(source).with_suffix(".log").read_text().splitlines():
+            entry = re.search(r"\d+([a-z0-9_]+_kernel)(?:I(\w*?)EEv)?", line)
+            if "Compiling entry function" in line and entry:
+                name = entry[1] + (f"<{entry[2]}>" if entry[2] else "")
+            elif name and (source == "flash_bwd_d128" or "<Li64E" in name):
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("spill", r"(\d+) bytes spill stores")):
+                    hit = re.search(pat, line)
+                    if hit:
+                        found.setdefault(name, {})[key] = int(hit[1])
+    return found
 
 
 def main(argv=None) -> None:

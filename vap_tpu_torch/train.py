@@ -5,6 +5,9 @@
         [--model_structure_config JSON] [--train_steps N] [--lr 1e-5] \\
         [--device cuda|cpu] [--model_config NAME]
 
+    torchrun --nproc_per_node N -m vap_tpu_torch.train ... --seq_degree S \\
+        [--data_degree D] [--cp_rotate_method allgather|ppermute|ulysses]   # N = D x S
+
 The port's counterpart of ``train.py`` for the SFT paths: the flags are the
 fields of ``training.args.TrainingArgs`` (the JAX names and defaults), plus
 ``--device`` (the card unless ``cpu`` is asked for; there is no fallback
@@ -18,6 +21,12 @@ recipe. The weights are random, from ``--seed``, until a checkpoint loader
 is ported. The cache is the JAX trainer's precompute output
 (``rank_0/cond_*.npz``, ``lat_*.npz``); its shapes must fit the model
 configuration.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) each process starts
+``torch.distributed`` from the launcher's environment: NCCL on the card
+``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; the world must equal
+``data_degree x seq_degree``. Every rank builds the same random weights
+from ``--seed``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import typing
 from typing import Any, Dict, List, Optional
 
@@ -99,11 +109,36 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def init_distributed(args: TrainingArgs, device: torch.device):
+    """Start ``torch.distributed`` when the launcher (``torchrun``) runs
+    more than one process: NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU;
+    a group the caller started already is kept. Returns (the device of
+    this process, whether this call started the group). Raises when the
+    world is not ``data_degree x seq_degree``."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != args.world_size:
+        raise ValueError(f"the launcher runs {world} processes, but data_degree x seq_degree = "
+                         f"{args.world_size}")
+    if world == 1:
+        return device, False
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return device, False
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method="env://",
+                            world_size=world, rank=int(os.environ["RANK"]))
+    return device, True
+
+
 def main(argv: Optional[List[str]] = None) -> SFTTrainer:
     ns = vars(_parser().parse_args(argv))
     device = resolve_device(ns.pop("device"))
     config_name = ns.pop("model_config")
     args = TrainingArgs(**ns)
+    device, started = init_distributed(args, device)
     model_cls, cfg_cls, configs = MODELS[args.model_name]
     config_name = config_name or next(iter(configs))
     if config_name not in configs:
@@ -115,7 +150,13 @@ def main(argv: Optional[List[str]] = None) -> SFTTrainer:
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = build_random(model_cls, cfg, device, dtype, gen)
     trainer = SFTTrainer(args, model)
-    trainer.run()
+    try:
+        trainer.run()
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return trainer
 
 

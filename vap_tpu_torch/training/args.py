@@ -15,6 +15,15 @@ of ``config_plain.json``) and the HunyuanVideo LoRA finetune
 ``to_q to_k to_v to_out``, lr 3e-5 with 1000 warmup steps, AdamW beta
 (0.9, 0.99), weight decay 1e-4, logit-normal flow weighting, gradient
 checkpointing).
+
+The parallel flags are JAX's (``vap_tpu/training/args.py:21-25``): one
+process per GPU under ``torchrun``; ``data_degree`` ranks take slices of
+one global batch and average their gradients, and ``seq_degree`` ranks
+split each attention's token stream (the ``ring`` provider, with
+``cp_rotate_method``). The world is ``data_degree x seq_degree``;
+``fsdp_degree`` and ``tensor_degree`` above 1 raise (parameter sharding is
+a later slice), and so does ``seq_degree`` above 1 for Wan and
+HunyuanVideo, whose trainers take it in a later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import dataclasses
 import json
 from typing import Any, Dict, Optional, Union
 
+from ..ops.attention import _parse_provider_spec
 from .train_step import FLOW_WEIGHTING_SCHEMES
 
 # model_name and training_type values of the JAX trainer that the port does
@@ -31,10 +41,20 @@ MODEL_NAMES = ("cogvideox", "wan", "hunyuan_video")
 UNPORTED_MODEL_NAMES = ("ltx_video", "cogview4", "flux")
 TRAINING_TYPES = ("video_as_prompt_mot", "lora")
 UNPORTED_TRAINING_TYPES = ("sft", "dpo", "control", "control_lora", "control_full_finetune")
+CP_ROTATE_METHODS = ("allgather", "ppermute", "ulysses")
+# model_name values whose trainer takes --seq_degree > 1 in this port
+SEQ_PARALLEL_MODEL_NAMES = ("cogvideox",)
 
 
 @dataclasses.dataclass
 class TrainingArgs:
+    # parallel (torchrun: one process per GPU; world = data x seq)
+    data_degree: int = 1
+    fsdp_degree: int = 1      # > 1 not ported (parameter sharding, a later slice)
+    seq_degree: int = 1
+    tensor_degree: int = 1    # > 1 not ported (tensor parallelism, a later slice)
+    cp_rotate_method: str = "allgather"  # | ppermute | ulysses
+
     precomputation_dir: Optional[str] = None
     output_dir: str = "output"
 
@@ -45,6 +65,11 @@ class TrainingArgs:
     rank: int = 64            # LoRA rank (lora training type)
     lora_alpha: int = 64
     target_modules: str = "default"  # "none" | regex-ish module list (reference style)
+
+    # attention provider of the training step: "auto" (the port's default,
+    # "flash"; "ring" under --seq_degree > 1), a bare provider or a per-site
+    # spec ("ring cross:flash")
+    attn_provider_training: str = "auto"
 
     # training
     seed: int = 42
@@ -91,6 +116,27 @@ class TrainingArgs:
         if self.flow_weighting_scheme not in FLOW_WEIGHTING_SCHEMES:
             raise ValueError(f"unknown flow_weighting_scheme {self.flow_weighting_scheme!r}; "
                              f"valid: {FLOW_WEIGHTING_SCHEMES}")
+        if self.cp_rotate_method not in CP_ROTATE_METHODS:
+            raise ValueError(f"unknown cp_rotate_method {self.cp_rotate_method!r}; "
+                             f"valid: {', '.join(CP_ROTATE_METHODS)}")
+        for name in ("data_degree", "fsdp_degree", "seq_degree", "tensor_degree"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        for name, what in (("fsdp_degree", "parameter sharding (FSDP2/HSDP)"),
+                           ("tensor_degree", "tensor parallelism")):
+            if getattr(self, name) > 1:
+                raise NotImplementedError(f"{name} > 1 is not ported to PyTorch yet: {what} is "
+                                          f"a later slice of the port")
+        if self.seq_degree > 1 and self.model_name not in SEQ_PARALLEL_MODEL_NAMES:
+            raise NotImplementedError(f"seq_degree > 1 for {self.model_name!r} is not ported "
+                                      f"yet: its trainer under --seq_degree is a later slice")
+        if self.attn_provider_training not in ("", "auto"):
+            _parse_provider_spec(self.attn_provider_training)  # raises on an unknown provider
+
+    @property
+    def world_size(self) -> int:
+        """The processes a run takes: data_degree x seq_degree."""
+        return self.data_degree * self.seq_degree
 
     def model_structure(self) -> Dict[str, Any]:
         """The ``--model_structure_config`` JSON, or {} when none is given."""

@@ -309,6 +309,29 @@ def hunyuan_loss(model: nn.Module, cfg: HunyuanTrainStepConfig, batch: Dict[str,
     return loss, {"loss": loss.detach()}
 
 
+def draw_step_noise(cfg, latents_shape: Sequence[int], generator: torch.Generator,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The random draws of one micro-batch, as the family's loss makes them
+    from ``generator`` when it is given none, in the same order: CogVideoX
+    (``TrainStepConfig``) ``timesteps`` [B] then ``noise``; the flow
+    families ``sigmas`` [B] (``sample_flow_sigmas`` by ``cfg``'s flags)
+    then ``noise``, of the latents' shape. The data-parallel trainer draws
+    them for the whole global batch and gives each rank its rows."""
+    b = latents_shape[0]
+    if isinstance(cfg, TrainStepConfig):
+        draws = {"timesteps": torch.randint(0, cfg.num_train_timesteps, (b,), generator=generator,
+                                            device=device)}
+    else:
+        draws = {"sigmas": sample_flow_sigmas(
+            b, scheme=cfg.flow_weighting_scheme, logit_mean=cfg.flow_logit_mean,
+            logit_std=cfg.flow_logit_std, mode_scale=cfg.flow_mode_scale,
+            num_train_timesteps=getattr(cfg, "num_train_timesteps", 1000), generator=generator,
+            device=device)}
+    draws["noise"] = torch.randn(tuple(latents_shape), generator=generator, device=device,
+                                 dtype=torch.float32)
+    return draws
+
+
 def make_hunyuan_train_step(cfg: HunyuanTrainStepConfig, optimizer: Optimizer):
     """The full-finetune HunyuanVideo step (``make_hunyuan_train_step``,
     train_step.py:804): ``make_train_step`` on ``hunyuan_loss``. (LoRA:

@@ -2,8 +2,9 @@
 and HunyuanVideo.
 
 Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
-:47, ``_build_step`` :191-235, ``_install_accum`` :252, ``run`` :458-602,
-``_merged_params`` :605) on one device:
+:47, ``local_batch_size`` :91, the mesh :136-161, ``_build_step`` :191-235,
+``_install_accum`` :252, ``_attn_ctx`` :260-280, ``run`` :458-602,
+``_merged_params`` :605), one process per device:
   * ``--training_type video_as_prompt_mot``: only the MoT expert trains
     (``trainable_mask``); ``lora``: adapters over the ``--target_modules``
     projections of the frozen model (``install_lora``). The optimizer
@@ -25,14 +26,28 @@ Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
   * a checkpoint every ``checkpointing_steps`` holds what trains (the
     expert, or the adapters) and the optimizer state; ``resume_from_checkpoint``
     ("latest" or a step) restores them, the train state and the data
-    position.
+    position;
+  * several processes (``torchrun``, ``torch.distributed`` started first):
+    a ``DeviceMesh`` of ``data_degree`` x ``seq_degree`` ranks. Every rank
+    reads the same global batch of ``batch_size x data_degree`` items and
+    draws that batch's timesteps (or sigmas) and noise from the step's
+    generator; each data rank keeps its ``batch_size`` rows, and the seq
+    ranks of one data group hold the same rows. With ``seq_degree > 1`` the
+    training step runs under the attention mesh and the ``ring`` provider
+    (``auto`` becomes ``ring``), whose backward gives every seq rank the
+    same gradients. Each update averages the trainable gradients over the
+    ``data`` group once (with accumulation, once per update), before the
+    norm, the clip and AdamW, so every rank applies the same update; the
+    logged loss is the data group's mean. Only rank 0 (data rank 0, seq
+    rank 0) writes checkpoints and logs; every rank resumes from them.
 
-Not ported: validation sampling, DPO, the exports, the device mesh, the
-profiler window and the trackers.
+Not ported: validation sampling, DPO, the exports, parameter sharding
+(FSDP, tensor parallelism), the profiler window and the trackers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -44,13 +59,15 @@ from torch import nn
 
 from ..data.precomputation import PrecomputedReader
 from ..data.sampler import ResolutionSampler, collate_tensor_dicts
+from ..ops.attention import attention_provider
+from ..parallel import MeshConfig, attention_mesh, make_mesh
 from .args import TrainingArgs
 from .checkpoint import Checkpointer, TrainState
 from .lora import lora_parameters, merge_lora_into_params
 from .optimizer import get_lr_schedule, get_optimizer
 from .train_step import (HunyuanTrainStepConfig, TrainStepConfig, WanTrainStepConfig,
-                         cogvideox_vap_loss, hunyuan_loss, install_lora, make_grad_and_apply,
-                         parse_target_modules, trainable_mask, wan_vap_loss)
+                         cogvideox_vap_loss, draw_step_noise, hunyuan_loss, install_lora,
+                         make_grad_and_apply, parse_target_modules, trainable_mask, wan_vap_loss)
 
 logger = logging.getLogger("vap_tpu_torch.trainer")
 
@@ -84,6 +101,7 @@ class SFTTrainer:
         self.args = args
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = self._make_mesh()
         self.step_cfg = _make_step_config(args.model_name, args, model.config)
         self.accum_steps = args.gradient_accumulation_steps
         self._build_step()
@@ -92,6 +110,57 @@ class SFTTrainer:
         self.checkpointer = Checkpointer(os.path.join(args.output_dir, "checkpoints"),
                                          args.checkpointing_limit)
         self.history: List[Dict[str, float]] = []
+
+    def _make_mesh(self):
+        """The (data, 1, seq, 1) ``DeviceMesh`` when the run takes more than
+        one process (JAX trainer.py:136-143), else None."""
+        args = self.args
+        self.data_rank = 0
+        self.rank = 0
+        if args.world_size == 1:
+            return None
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() != args.world_size:
+            raise ValueError(
+                f"data_degree x seq_degree = {args.world_size} needs torch.distributed started "
+                f"on that many processes (torchrun --nproc_per_node {args.world_size}), got "
+                f"{dist.get_world_size() if dist.is_initialized() else 'none'}")
+        mesh = make_mesh(MeshConfig(data=args.data_degree, seq=args.seq_degree),
+                         self.device.type)
+        self.data_rank = mesh.get_local_rank("data")
+        self.rank = dist.get_rank()
+        return mesh
+
+    def _attn_ctx(self):
+        """The training step's attention context (JAX ``_attn_ctx``,
+        trainer.py:260-280): with a mesh the attention mesh is installed
+        (JAX installs it only at ``seq_degree > 1``; at one seq rank
+        ``ring`` is the local kernel either way), and with ``seq_degree > 1``
+        ``auto`` becomes ``ring``; any other provider spec is installed as
+        given."""
+        name = self.args.attn_provider_training
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(attention_mesh(self.mesh, "seq",
+                                               rotate_method=self.args.cp_rotate_method))
+            if self.args.seq_degree > 1 and name in ("", "auto"):
+                name = "ring"
+        if name not in ("", "auto"):
+            stack.enter_context(attention_provider(name))
+        return stack
+
+    def _data_mean(self, tensors) -> None:
+        """Average ``tensors`` in place over the ``data`` group (all-reduce,
+        then the same division on every rank)."""
+        if self.mesh is None or self.args.data_degree == 1:
+            return
+        import torch.distributed as dist
+
+        group = self.mesh.get_group("data")
+        for t in tensors:
+            dist.all_reduce(t, group=group)
+            t.div_(self.args.data_degree)
 
     def _build_step(self) -> None:
         """The optimizer and the grad/apply pair of this training type; what
@@ -163,17 +232,23 @@ class SFTTrainer:
         return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()
                 if not isinstance(v, list)}
 
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This data rank's rows of a global-batch tensor."""
+        size = self.args.batch_size
+        return x[self.data_rank * size:(self.data_rank + 1) * size]
+
     def run(self) -> TrainState:
         args = self.args
         if args.resume_from_checkpoint:
             self._resume()
         reader = PrecomputedReader(args.precomputation_dir)
         stream = reader.stream(self.data_position)
-        sampler = ResolutionSampler(args.batch_size)
+        global_batch = args.batch_size * args.data_degree
+        sampler = ResolutionSampler(global_batch)
         while self.train_state.step < args.train_steps:
             batch = self._batch(stream, sampler)
             self.train_state.step += 1
-            self.train_state.observed_data_samples += args.batch_size
+            self.train_state.observed_data_samples += global_batch
             step = self.train_state.step
             marks = {}
 
@@ -181,25 +256,41 @@ class SFTTrainer:
                 self._sync()
                 marks[name] = time.perf_counter()
 
+            draws = draw_step_noise(self.step_cfg, batch["latents"].shape,
+                                    step_generator(args.seed, step, self.device), self.device)
+            batch = {k: self._local(v) for k, v in batch.items()}
             clock("start")
-            metrics = self._grad(self.model, batch, step_generator(args.seed, step, self.device),
-                                 clock)
-            record = {"step": step, "loss": float(metrics["loss"]),
+            with self._attn_ctx():
+                metrics = self._grad(self.model, batch, None, clock,
+                                     **{k: self._local(v) for k, v in draws.items()})
+            loss = metrics["loss"].detach().clone()
+            self._data_mean([loss])
+            record = {"step": step, "loss": float(loss),
                       "forward_s": marks["forward"] - marks["start"],
                       "backward_s": marks["backward"] - marks["forward"]}
             if step % self.accum_steps == 0:
                 record["lr"] = self.optimizer.lr
+                if self.mesh is not None:  # every rank takes part, with zeros where none
+                    for p in self.optimizer.params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    self._data_mean([p.grad for p in self.optimizer.params])
                 record["grad_norm"] = float(self._apply(1.0 / self.accum_steps))
                 clock("update")
                 record["update_s"] = marks["update"] - marks["backward"]
                 record["updates"] = self.optimizer.count
             self.history.append(record)
 
-            if step % args.logging_steps == 0:
+            if self.rank == 0 and step % args.logging_steps == 0:
                 logger.info("step %d: %s", step, {k: v for k, v in record.items() if k != "step"})
             if step % args.checkpointing_steps == 0:
-                self.checkpointer.save(step, params=self.trainable_state_dict(),
-                                       opt_state=self.optimizer.state_dict(),
-                                       train_state=self.train_state,
-                                       data_position=self.data_position)
+                if self.rank == 0:
+                    self.checkpointer.save(step, params=self.trainable_state_dict(),
+                                           opt_state=self.optimizer.state_dict(),
+                                           train_state=self.train_state,
+                                           data_position=self.data_position)
+                if self.mesh is not None:  # no rank goes on before the file is whole
+                    import torch.distributed as dist
+
+                    dist.barrier()
         return self.train_state
