@@ -7,7 +7,9 @@ Phases, each of which raises on failure:
   1. device: a CUDA device is required (no CPU fallback);
   2. build: one nvcc per vap_tpu_torch/csrc/*.cu, all started together, for
      sm_90a; ptxas's registers and spills per kernel, the backward instances
-     on a path (K5 at D=64, K6) listed apart;
+     on a path (K5 at D=64, K6) listed apart; the HGMMA (wgmma) and UTMALDG
+     (TMA load) instructions in K4's and K6's SASS, counted by cuobjdump,
+     and no wgmma serialised by ptxas (C7513) there;
   3. kernel parity: K1 (flash, D=64), K4 (flash, D=128) and K2 (sage, D=64
      and D=128) against their plain PyTorch versions in bf16, at unaligned
      shapes and at the main-path shapes (CogVideoX joint [1,48,35552,64];
@@ -16,7 +18,8 @@ Phases, each of which raises on failure:
      [1,40,20280,128] x 20280), each with a planted fault that must break
      the limit; the
      kernel's time, the plain version's, torch's SDPA flash backend's (a
-     yardstick only, never called by the port) and the card's bound;
+     yardstick only, never called by the port) and the card's bound, for
+     K4 also at Wan's two cross shapes;
      then K3 (the W8A8 linear) against its plain version at unaligned
      shapes and at the three projection shapes of a CogVideoX step
      ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072]),
@@ -112,7 +115,7 @@ Phases, each of which raises on failure:
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
-     times at the self-attention shape; then K7's backward, K6 (D=128) and
+     times at the three shapes; then K7's backward, K6 (D=128) and
      K5 (D=64) given kv_lens, against their plain versions at the unaligned
      shapes with B=2 and lengths (Skv, 0) and (Skv-37, 1), and at
      HunyuanVideo training's joint shape [1,24,18976,128] (K5's form at
@@ -177,6 +180,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -273,17 +277,20 @@ BENCH_STEPS = 4
 BENCH_CACHE = "uniform:2:1:1"
 BENCH_COMPUTED = [0, 1, 3]
 REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
-# the D = 128 forward instances fit three blocks an SM at 168 registers a
-# thread, and two at the 182 (K4) and 188 (K2) of an earlier build, which
-# ran 29% and 15% slower (K8's, at 180, 40%): the build fails past 168 or on
-# a spill
-PINNED_REGISTERS = {"flash_fwd_kernel<Li128ELb0E>": 168, "sage_fwd_kernel<Li128E>": 168,
-                    "flash_fwd_seg_d128_kernel": 168}
+# the mma.sync D = 128 forward instances fit three blocks an SM at 168
+# registers a thread, and two at the 188 (K2) and 180 (K8) of an earlier
+# build, which ran 15% and 40% slower; the wgmma kernels of K4 and K6 (384
+# threads, one block an SM) launch at 168, the most that lets setmaxnreg
+# give the two consumer warpgroups 232 and the producer 40. The build fails
+# past these counts or on a spill
+PINNED_REGISTERS = {"sage_fwd_kernel<Li128E>": 168, "flash_fwd_seg_d128_kernel": 168,
+                    "flash_fwd_sm90_kernel": 168, "flash_bwd_sm90_dq_kernel": 168,
+                    "flash_bwd_sm90_dkv_kernel": 168}
 # the flash forward's instances on a path: K1 at D=64 and K4 (fixed length
 # and K7), and K8 (kSegmented) at D=64 and D=128, printed with their
 # registers and spills; the K8 ones also go into the kernels line
 FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_kernel<Li64ELb0E>",
-                     "flash_fwd_d128": "flash_fwd_kernel<Li128ELb0E>",
+                     "flash_fwd_d128": "flash_fwd_sm90_kernel",
                      "flash_fwd_seg": "flash_fwd_kernel<Li64ELb1E>",
                      "flash_fwd_seg_d128": "flash_fwd_seg_d128_kernel"}
 # the backward instances on a path or held (K5 at D=64 without and with
@@ -291,12 +298,16 @@ FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_kernel<Li64ELb0E>",
 # backward) entered them
 BACKWARD_INSTANCES = ("flash_bwd_dq_kernel<Li64ELb0E>", "flash_bwd_dkv_kernel<Li64ELb0E>",
                       "flash_bwd_dq_kernel<Li64ELb1E>", "flash_bwd_dkv_kernel<Li64ELb1E>",
-                      "flash_bwd_d128_dq_kernel", "flash_bwd_d128_dkv_kernel",
+                      "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
                       "flash_bwd_seg_dq_kernel<Li64E>", "flash_bwd_seg_dkv_kernel<Li64E>",
                       "flash_bwd_seg_d128_dq_kernel", "flash_bwd_seg_d128_dkv_kernel")
-# K8's backward (kSegmented, kernels and entries of their own) at D=64 and
-# D=128: its dq and dk/dv instances, whose registers go into the kernels line
-SEG_BACKWARD_INSTANCES = {
+# the sources of the wgmma kernels (K4, K6), whose SASS the build phase reads
+WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
+# K6's wgmma kernels, and K8's backward (kSegmented, kernels and entries of
+# their own) at D=64 and D=128: their dq and dk/dv instances, whose
+# registers go into the kernels line
+BACKWARD_PAIRS = {
+    "flash_bwd_d128": {"dq": "flash_bwd_sm90_dq_kernel", "dkv": "flash_bwd_sm90_dkv_kernel"},
     "flash_bwd_seg": {"dq": "flash_bwd_seg_dq_kernel<Li64E>",
                       "dkv": "flash_bwd_seg_dkv_kernel<Li64E>"},
     "flash_bwd_seg_d128": {"dq": "flash_bwd_seg_d128_dq_kernel",
@@ -464,7 +475,7 @@ def bwd_bound(b, h, sq, skv, d):
 BWD_SPECS = {
     "flash_bwd": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
                       replaces="vap_tpu/ops/flash_attention.py:1131"),
-    "flash_bwd_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_d128.cu",
+    "flash_bwd_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90.cu",
                            replaces="vap_tpu/ops/flash_attention.py:1271"),
 }
 W8A8_SPECS = {
@@ -494,7 +505,8 @@ def kernel_specs():
         "flash_fwd": dict(fns=flash, kind="flash", counter="launches", shapes=d64,
                           timed=MAIN_SHAPE, source=src + "flash_fwd.cu", replaces=ref + "479"),
         "flash_fwd_d128": dict(fns=flash, kind="flash", counter="launches_d128", shapes=flash_d128,
-                               timed=WAN_JOINT, source=src + "flash_fwd.cu", replaces=ref + "225"),
+                               timed=WAN_JOINT, source=src + "flash_fwd_sm90.cu",
+                               replaces=ref + "225", timed_cross=WAN_CROSS),
         "sage_fwd": dict(fns=sage, kind="sage", counter="launches", shapes=d64,
                          timed=MAIN_SHAPE, source=src + "sage_fwd.cu", replaces=ref + "816"),
         "sage_fwd_d128": dict(fns=sage, kind="sage", counter="launches", shapes=d128,
@@ -563,6 +575,21 @@ def kernel_parity(dev):
                          "shape": list(spec["timed"])}
         del q, k, v
         torch.cuda.empty_cache()
+        cross = []
+        for b, h, sq, skv, d in spec.get("timed_cross", ()):  # K4 at Wan's cross shapes
+            q, k, v = qkv(b, h, sq, skv, d)
+            c_ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=2)
+            c_plain = time_ms(lambda: plain(q, k, v), iters=1, warmup=1)
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                c_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5, warmup=2)
+            c_bound, c_by = bound(spec["kind"], b, h, sq, skv, d)
+            log(f"  {name} at {(b, h, sq, d)} x {skv}: kernel {c_ms:.3f} ms, plain "
+                f"{c_plain:.3f} ms, SDPA flash {c_lib:.3f} ms, bound {c_bound:.3f} ms ({c_by})")
+            cross.append({"shape": [b, h, sq, skv, d], "ms": c_ms, "plain_ms": c_plain,
+                          "library_ms": c_lib, "bound_ms": c_bound, "bound_by": c_by})
+            del q, k, v
+        if cross:
+            results[name]["cross"] = cross
     return results
 
 
@@ -571,7 +598,7 @@ def kernel_parity(dev):
 # ---------------------------------------------------------------------------
 
 VARLEN_SPECS = {
-    "flash_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_fwd.cu",
+    "flash_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_fwd_sm90.cu",
                                   replaces="vap_tpu/ops/flash_attention.py:1471"),
     "sage_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/sage_fwd.cu",
                                  replaces="vap_tpu/ops/flash_attention.py:957"),
@@ -1312,7 +1339,7 @@ def ring_training_check(trainer, dev):
 # ---------------------------------------------------------------------------
 
 VARLEN_BWD_SPECS = {
-    "flash_bwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd_d128.cu",
+    "flash_bwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90.cu",
                                   replaces="vap_tpu/ops/flash_attention.py:1499"),
     "flash_bwd_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
                              replaces="vap_tpu/ops/flash_attention.py:1131"),
@@ -2234,8 +2261,28 @@ def backward_parity(dev, d128=False):
         f"({bound_by})")
     del q, k, v, out, lse, dout, leaves, o
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "shape": [b, h, sq, skv, d]}
+    result = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms, "shape": [b, h, sq, skv, d]}
+    if d128:  # K6 at Wan's cross shapes (512 UMT5 and 257 CLIP keys) as well
+        result["cross"] = []
+        for b, h, sq, skv, d in shapes[len(PARITY_SHAPES) + 1:]:
+            q, k, v, out, lse, dout = inputs(b, h, sq, skv, d)
+            c_ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=5,
+                           warmup=2)
+            c_plain = time_ms(lambda: plain(q, k, v, out, lse, dout), iters=1, warmup=1)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                o = F.scaled_dot_product_attention(*leaves)
+            c_lib = time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                            iters=5, warmup=2)
+            c_bound, c_by = bwd_bound(b, h, sq, skv, d)
+            log(f"  {name} at {(b, h, sq, d)} x {skv}: kernel {c_ms:.3f} ms, plain {c_plain:.3f} "
+                f"ms, SDPA flash backward {c_lib:.3f} ms, bound {c_bound:.3f} ms ({c_by})")
+            result["cross"].append({"shape": [b, h, sq, skv, d], "ms": c_ms, "plain_ms": c_plain,
+                                    "library_ms": c_lib, "bound_ms": c_bound, "bound_by": c_by})
+            del q, k, v, out, lse, dout, leaves, o
+        torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -2821,7 +2868,7 @@ def build_kernels():
     spills per kernel, from the compilers' logs. Fails if an instance in
     PINNED_REGISTERS spills or takes more registers than its cap. Returns
     the registers and spills of FORWARD_INSTANCES, and of
-    SEG_BACKWARD_INSTANCES ({"dq": ..., "dkv": ...}), by kernel name."""
+    BACKWARD_PAIRS ({"dq": ..., "dkv": ...}), by kernel name."""
     from vap_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2849,7 +2896,7 @@ def build_kernels():
         held[kernel_name] = got
         if got.get("registers", cap + 1) > cap or got.get("spill stores", 1) != 0:
             raise AssertionError(f"ptxas gave {kernel_name} {got}: it must take at most {cap} "
-                                 f"registers and no spill (three blocks an SM)")
+                                 f"registers and no spill")
     log(f"  occupancy held: {held}")
     log("  backward instances: " + ", ".join(
         f"{name} {next((v for k, v in seen.items() if k.endswith(name)), {})}"
@@ -2858,9 +2905,26 @@ def build_kernels():
                for name, instance in FORWARD_INSTANCES.items()}
     log("  flash forward instances (K1, K4 with K7, K8 at D=64 and D=128): " + ", ".join(
         f"{name} {got}" for name, got in forward.items()))
-    for name, parts in SEG_BACKWARD_INSTANCES.items():
+    for name, parts in BACKWARD_PAIRS.items():
         forward[name] = {part: next((v for k, v in seen.items() if k.endswith(instance)), {})
                          for part, instance in parts.items()}
+    # ptxas serialises a wgmma kernel's products when another instruction
+    # defines a wgmma input while products are in flight (warning C7513)
+    for source in WGMMA_SOURCES:
+        if "C7513" in libs[source].with_suffix(".log").read_text():
+            raise AssertionError(f"{source}: ptxas serialised its wgmma (C7513): see its log")
+    # K4's and K6's libraries must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        for source in WGMMA_SOURCES:
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[source])], capture_output=True,
+                                  text=True, check=True, timeout=120).stdout
+            ops = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "UTMALDG")}
+            log(f"  {source}: SASS instructions {ops}")
+            if not all(ops.values()):
+                raise AssertionError(f"{source}: no HGMMA or UTMALDG in its SASS: {ops}")
+    else:
+        log(f"  no cuobjdump: the SASS of {WGMMA_SOURCES} is not checked")
     return forward
 
 
@@ -3012,6 +3076,11 @@ def main():
     gc.collect()
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
+    # the wgmma kernels' registers (their K7 forms are the same kernels)
+    for name, kernel in (("flash_fwd_d128", "flash_fwd_d128"), ("flash_bwd_d128", "flash_bwd_d128"),
+                         ("flash_fwd_d128_varlen", "flash_fwd_d128"),
+                         ("flash_bwd_d128_varlen", "flash_bwd_d128")):
+        results[name]["registers"] = registers[kernel]
     specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS, **VARLEN_BWD_SPECS,
              **SEG_SPECS, **SEG_BWD_SPECS}
     print(json.dumps({"kernels": [

@@ -2,7 +2,7 @@
 K8 their packed-segment form and the ring body over it, K5 and K6 flash
 backward and K7's and K8's backward in them, the ring backward over them,
 K3 W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch
-versions on the card.
+versions on the card; K4 and K6 (wgmma and TMA) also at their tile edges.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -28,7 +28,7 @@ COUNTERS = {("flash", False): "launches", ("flash", True): "launches_d128",
 # about one bf16 ulp, at most 2^-7 of max|ref|
 OUT_REL_TOL = 2e-2
 LSE_ATOL = 1e-2
-KV_TILE = 64  # keys per tile of both kernels
+KV_TILE = 64  # keys per tile of K1 and K2 (K4's are 128): the planted faults roll rows in these
 
 pytestmark = pytest.mark.gpu
 
@@ -194,8 +194,8 @@ GRAD_REL_TOL = 2e-2
 Q_TILE = 64  # queries per tile of the dk/dv kernel
 
 
-def _bwd_inputs(device, sq, skv, d=64, seed=2):
-    q, k, v = _qkv(device, sq, skv, d=d, seed=seed)
+def _bwd_inputs(device, sq, skv, d=64, seed=2, b=1, h=2):
+    q, k, v = _qkv(device, sq, skv, d=d, b=b, h=h, seed=seed)
     out, lse = tfa.flash_attention_forward(q, k, v)
     dout = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(seed),
                        device=device).to(torch.bfloat16)
@@ -376,6 +376,105 @@ def test_k7_backward_limit_catches_a_kernel_without_kv_lens(cuda, d):
     out_f, lse_f = tfa.flash_attention_forward(q, k, v)
     errs = _grad_errors(tfa.flash_attention_backward(q, k, v, out_f, lse_f, dout), ref)
     assert max(errs) > GRAD_REL_TOL, errs
+
+
+# K4 and K6 (and K7 in them) are wgmma kernels over tiles of 128 queries and
+# 128 keys (K6's dq pass: 64-key tiles; its dk/dv pass: 64-query tiles), fed
+# by TMA from [B*H, S, 128] tensor maps whose out-of-range rows read zeros.
+# Their tile edges, at B = 2 and H = 3: a tensor map whose (b, h) stride were
+# wrong would read another head's rows there
+EDGE_SHAPES = [(127, 129), (128, 128), (129, 255), (255, 257)]
+# K7 at the edges of a 128-key tile, the keys past each length NaN
+K7_EDGE_LENS = [0, 127, 128, 129]
+
+
+@pytest.mark.parametrize("sq,skv", EDGE_SHAPES + [(1, 1)])
+def test_k4_at_tile_edges(cuda, sq, skv):
+    _check("flash", *_qkv(cuda, sq, skv, d=128, b=2, h=3))
+
+
+@pytest.mark.parametrize("sq,skv", EDGE_SHAPES)
+def test_k6_at_tile_edges(cuda, sq, skv):
+    args = _bwd_inputs(cuda, sq, skv, d=128, b=2, h=3)
+    before = tfa.flash_attention_backward.launches_d128
+    got = tfa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches_d128 == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_backward_rows_plain(*args))
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+def test_k6_with_one_key(cuda):
+    """(Sq, Skv) = (1, 1): with one key p = 1 and out = v, so ds = p (dp -
+    delta) is 0 up to the order of two f32 sums, and dq and dk are rounding
+    noise on both sides: dv is held to the limit, dq and dk (kernel and
+    plain version) to 1e-2 of max|dv|."""
+    args = _bwd_inputs(cuda, 1, 1, d=128, b=2, h=3)
+    got = tfa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_backward_rows_plain(*args)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert _grad_errors(got[2:], ref[2:])[0] <= GRAD_REL_TOL
+    scale = ref[2].float().abs().max().item()
+    for g in got[:2] + ref[:2]:
+        assert g.float().abs().max().item() <= 1e-2 * scale
+
+
+def _k7_edge_inputs(device):
+    q, k, v = _qkv(device, 200, 257, d=128, b=len(K7_EDGE_LENS), h=3, seed=11)
+    lens = torch.tensor(K7_EDGE_LENS, device=device)
+    pad = torch.arange(k.shape[2], device=device)[None, :] >= lens[:, None]  # [B, Skv]
+    k = k.masked_fill(pad[:, None, :, None], float("nan"))
+    v = v.masked_fill(pad[:, None, :, None], float("nan"))
+    return q, k, v, lens
+
+
+def test_k7_forward_at_tile_edges(cuda):
+    """K7 in K4 at lengths 0, 127, 128 and 129 of 257 keys, NaN past each:
+    finite, within the K4 limits, zero rows and the lse -1e4 at length 0."""
+    q, k, v, lens = _k7_edge_inputs(cuda)
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tfa.flash_attention_forward_plain(q, k, v, kv_lens=lens)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0,
+                               atol=OUT_REL_TOL * ref_out.float().abs().max().item())
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(lse[0], torch.full_like(lse[0], -1e4), atol=1e-2, rtol=0)
+
+
+def test_k7_backward_at_tile_edges(cuda):
+    """K7's backward in K6 at the same lengths: finite with NaN past each,
+    within the limit, exact zero dk and dv rows past each length, dq = 0
+    for the sample with none."""
+    q, k, v, lens = _k7_edge_inputs(cuda)
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(12),
+                       device=cuda).to(torch.bfloat16)
+    args = (q, k, v, out, lse, dout)
+    got = tfa.flash_attention_backward(*args, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_backward_rows_plain(*args, kv_lens=lens))
+    assert max(errs) <= GRAD_REL_TOL, errs
+    dq, dk, dv = got
+    for b, n in enumerate(lens.tolist()):
+        assert not dk[b, :, n:].any() and not dv[b, :, n:].any(), b
+    assert not dq[0].any()
+
+
+def test_k6_is_deterministic_with_kv_lens(cuda):
+    """K7's backward in K6 sums each gradient in one block (no atomics):
+    two runs give the same bits."""
+    q, k, v, lens = _k7_edge_inputs(cuda)
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(13),
+                       device=cuda).to(torch.bfloat16)
+    first = tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)
+    second = tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # K3, the W8A8 linear: per chunk the int32 product is exact on both sides and

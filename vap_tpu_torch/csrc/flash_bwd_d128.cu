@@ -1,53 +1,38 @@
-// K6: bf16 flash-attention backward at head_dim 128, in the row layout.
+// K8's backward at head_dim 128: the bf16 flash-attention backward in the
+// row layout, given packed-segment ids.
 //
-// Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
-// `_flash_attention_backward` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`): the
-// gradient of out = softmax(q k^T * scale) v over [BH, S, 128], non-causal,
-// keys past Skv masked, from the natural-log lse that K4 saved; delta =
-// rowsum(out * dout) comes in from the wrapper, f32. The arithmetic is the
-// row-layout kernels', not K5's log2-domain one:
+// Replaces, at head_dim 128, the TPU's `_fas_bwd` (vap_tpu/ops/
+// flash_attention.py:1581; JAX sends segment ids to its transposed,
+// log2-domain form at every head_dim, :1278-1283) with the arithmetic of
+// the row-layout backward `_flash_attention_backward` (:1271;
+// `_bwd_dq_kernel` :985, `_bwd_dkv_kernel` :1016), entry
+// `vap_flash_bwd_seg_d128`: the gradient of out = softmax(q k^T * scale) v
+// over [BH, S, 128], non-causal, from the natural-log lse of K8's forward;
+// delta = rowsum(out * dout) comes in from the wrapper, f32:
 //   q_s = bf16(q * scale)              (rounded before q k^T)
 //   p   = exp(q_s k^T - lse)           (natural base, natural-log lse)
 //   ds  = p (dout v^T - delta)
 //   dq  = scale * bf16(ds) k
 //   dk  = scale * bf16(ds)^T q         (the unscaled q)
 //   dv  = bf16(p)^T dout
-// exp(x) is taken as exp2(x * log2(e)) against lse * log2(e).
+// exp(x) is taken as exp2(x * log2(e)) against lse * log2(e). It differs
+// from JAX's by the rounding of q * scale, within the tests' tolerance. K6
+// and K7's backward, the same arithmetic without segment ids, ran here too
+// until they moved to the wgmma kernels of flash_bwd_sm90.cu (entry
+// `vap_flash_bwd_d128`), the model for a later redesign of this one.
 //
-// K7's backward at head_dim 128 (`_fav_bwd` :1499, which runs
-// `_flash_attention_backward(kv_lens=)` with `varlen=True` and the
-// per-sample key bias :1306-1317) is this kernel given kv_lens [B] int32:
-// sample b = bh / heads has keys [0, kv_lens[b]) only, clamped to
-// [0, Skv] (`vap::kv_length`). Only keys are masked: every query row, a
-// padded text query too, gets its dq from its sample's valid keys. The dq
-// kernel's key loop stops at the length and its last tile masks there, so
-// no key past it is loaded and a NaN there cannot reach dq; a sample with
-// no key gets dq = 0 exactly (its lse is the forward's floor -1e4). The
-// dk/dv kernel writes exact zeros to the rows past the length: a key tile
-// that lies wholly past it writes its zero rows and returns without
-// loading anything (dk and dv come from torch.empty), and a partial tile
-// loads only the valid keys and stores zeros for the rest. kv_lens ==
-// nullptr is the fixed-length path.
-//
-// K8's backward at head_dim 128 (`_fas_bwd` :1581; JAX sends segment ids
-// to its transposed, log2-domain form at every head_dim, :1278-1283) is
-// this kernel's arithmetic given q_seg [B, Sq] and kv_seg [B, Skv] int32
-// ids (padding -1), through kernels and an entry of their own
-// (`vap_flash_bwd_seg_d128`), so the two above compile as they did: the dq
-// kernel keeps its two query rows' ids in registers and stages each key
+// Segments: q_seg [B, Sq] and kv_seg [B, Skv] int32 ids (padding -1). The
+// dq kernel keeps its two query rows' ids in registers and stages each key
 // tile's ids in shared memory, the dk/dv kernel keeps its two key rows' ids
-// and stages each query tile's beside lse and delta (256 bytes more shared
-// memory for each). A pair whose ids differ gets p = 0 by a select, so it
-// adds an exact 0 to dq, dk and dv (one segment's gradients are
-// bit-identical whatever another holds), and a query whose segment has no
-// key gets dq = 0. It keeps K6's rounding of q * scale to bf16, so it
-// differs from JAX's by that rounding, within the tests' tolerance. Each
-// warp votes on its staged tile (`tile_pairs`), as in K5's form: one id
-// over its rows and the tile runs the fixed-length element loop, a tile
-// whose one id is none of its rows' sets p and ds to 0 without an exp2,
-// and only a tile that mixes ids compares per score (comparing every
-// score cost the first build 28% at Wan's joint shape); the result is the
-// same in the three.
+// and stages each query tile's beside lse and delta. A pair whose ids differ
+// gets p = 0 by a select, so it adds an exact 0 to dq, dk and dv (one
+// segment's gradients are bit-identical whatever another holds), and a
+// query whose segment has no key gets dq = 0. Each warp votes on its staged
+// tile (`tile_pairs`), as in K5's form: one id over its rows and the tile
+// runs the plain element loop, a tile whose one id is none of its rows'
+// sets p and ds to 0 without an exp2, and only a tile that mixes ids
+// compares per score (comparing every score cost the first build 28% at
+// Wan's joint shape); the result is the same in the three.
 //
 // Design. Two kernels, as on the TPU, so that every sum is made in one
 // block (no atomics) and comes out the same from run to run:
@@ -62,23 +47,21 @@
 // Registers are what D = 128 makes scarce: the dk and dv accumulators of a
 // warp's 16 keys are 128 floats a thread. So every A operand is read from
 // shared memory (none stays in registers), and the dk/dv kernel holds the
-// scores of 32 queries at a time (two halves of each staged tile): about
-// 128 + 32 live floats, against K5's layout that would need ~290 here. The
+// scores of 32 queries at a time (two halves of each staged tile). The
 // staged tiles take 68 KB (dq) and 85.5 KB (dk/dv) of dynamic shared
-// memory, so two blocks fit on an SM. All five products run on the tensor
-// cores as mma.sync m16n8k16 with f32 accumulation. A masked key gets p = 0
-// in the dq kernel; a padded query row of the last tile is zero-filled with
-// lse2 = +1e30, so its p is 0 and it adds nothing to dk and dv (the TPU's
-// padded lse rows); key rows past Skv in the dk/dv kernel are computed and
-// never stored, those past a K7 length are computed and stored as zeros.
+// memory, plus 256 bytes of ids each, so two blocks fit on an SM. All five
+// products run on the tensor cores as mma.sync m16n8k16 with f32
+// accumulation. A key past Skv gets p = 0 in the dq kernel; a padded query
+// row of the last tile is zero-filled with lse2 = +1e30, so its p is 0 and
+// it adds nothing to dk and dv (the TPU's padded lse rows); key rows past
+// Skv in the dk/dv kernel are computed and never stored.
 //
-// What bounds it on an H100: 10*B*H*Sq*Skv*D FLOP (five products) against
-// about 2*(4*Sq + 4*Skv)*D bytes per (b,h); at Wan's self-attention
-// [1, 40, 20280, 128] that is 21.3 ms of bf16 tensor-core time against
-// 0.4 ms of memory traffic: compute bound. This first kernel is limited by
+// What bounds it on an H100: 10*H*D*sum_g |q_g|*|k_g| FLOP over the
+// same-segment pairs against the bytes of the eight tensors; compute bound
+// at the full-width cases. This kernel scores every pair; it is limited by
 // mma.sync issue rate, the scalar shared-memory reads of the transposed B
 // operands, the un-pipelined global->shared copies and the exp2 work per
-// score; wgmma with TMA is the next step.
+// score.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -285,12 +268,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
   }
 }
 
-template <bool kSegmented>
-__device__ __forceinline__ void dq_body(
+// K8's backward in K6's row form: the dq kernel (see the note above).
+// Three blocks an SM (at most 168 registers): with the tile vote's three
+// element loops ptxas otherwise gives it 216, two.
+__global__ void __launch_bounds__(kThreads, 3) flash_bwd_seg_d128_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, const int* __restrict__ kv_lens, const int* __restrict__ q_seg,
-    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale) {
+    bf16* __restrict__ dq, const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+    int heads, int sq, int skv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs_s = reinterpret_cast<bf16*>(smem);
   bf16* do_s = qs_s + kTileElems;
@@ -300,7 +285,7 @@ __device__ __forceinline__ void dq_body(
 
   const size_t bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const int m0 = blockIdx.x * kTile;
   const int row0 = warp * 16;  // the warp's rows in the tile
   const int valid_q = min(kTile, sq - m0);
@@ -316,55 +301,38 @@ __device__ __forceinline__ void dq_body(
   }
   const bf16* kb = k + bh * skv * D;
   const bf16* vb = v + bh * skv * D;
-  const int len = vap::kv_length(kv_lens, bh, heads, skv);
-  // K8: the ids of this thread's two query rows (rows past Sq are never stored)
-  int qid[2] = {0, 0};
-  const int* kvs = nullptr;
-  if constexpr (kSegmented) {
-    const size_t b = bh / heads;
-    const int row = m0 + row0 + g;
-    qid[0] = row < sq ? q_seg[b * sq + row] : -1;
-    qid[1] = row + 8 < sq ? q_seg[b * sq + row + 8] : -1;
-    kvs = kv_seg + b * skv;
-  }
+  // the ids of this thread's two query rows (rows past Sq are never stored)
+  int qid[2];
+  const size_t b = bh / heads;
+  const int row = m0 + row0 + g;
+  qid[0] = row < sq ? q_seg[b * sq + row] : -1;
+  qid[1] = row + 8 < sq ? q_seg[b * sq + row + 8] : -1;
+  const int* kvs = kv_seg + b * skv;
 
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
 
-  for (int n0 = 0; n0 < len; n0 += kTile) {
+  for (int n0 = 0; n0 < skv; n0 += kTile) {
     __syncthreads();  // every warp is done with the previous tile (and q_s, dout are staged)
-    const int valid = min(kTile, len - n0);
+    const int valid = min(kTile, skv - n0);
     stage(k_s, kb + (size_t)n0 * D, valid);
     stage(v_s, vb + (size_t)n0 * D, valid);
-    if constexpr (kSegmented) {
-      const int i = threadIdx.x;
-      if (i < kTile) seg_s[i] = i < valid ? kvs[n0 + i] : -2;
-    }
+    const int i = threadIdx.x;
+    if (i < kTile) seg_s[i] = i < valid ? kvs[n0 + i] : -2;
     __syncthreads();
 
     float s[kTile / 8][4], dp[kTile / 8][4];
     mma_abt<kTile>(s, qs_s, row0, k_s, 0);
     mma_abt<kTile>(dp, do_s, row0, v_s, 0);
-    if constexpr (kSegmented) {  // ds in place of s; the compare only where ids differ
-      const int pairs = tile_pairs(seg_s, qid[0], qid[1]);
-      if (pairs == kAll) {
-        seg_dq_ds<kAll>(s, dp, valid, lse2, dl, seg_s, qid);
-      } else if (pairs == kNone) {
-        seg_dq_ds<kNone>(s, dp, valid, lse2, dl, seg_s, qid);
-      } else {
-        seg_dq_ds<kMixed>(s, dp, valid, lse2, dl, seg_s, qid);
-      }
+    // ds in place of s; the compare only where ids differ
+    const int pairs = tile_pairs(seg_s, qid[0], qid[1]);
+    if (pairs == kAll) {
+      seg_dq_ds<kAll>(s, dp, valid, lse2, dl, seg_s, qid);
+    } else if (pairs == kNone) {
+      seg_dq_ds<kNone>(s, dp, valid, lse2, dl, seg_s, qid);
     } else {
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * 8 + 2 * t + (e & 1);
-          const float p = col < valid ? exp2f(fmaf(s[j][e], kLog2e, -lse2[e >> 1])) : 0.0f;
-          s[j][e] = p * (dp[j][e] - dl[e >> 1]);  // ds, in place of s
-        }
-      }
+      seg_dq_ds<kMixed>(s, dp, valid, lse2, dl, seg_s, qid);
     }
     uint32_t dsa[kTile / 16][4];
     c_to_a<kTile>(dsa, s);
@@ -373,13 +341,12 @@ __device__ __forceinline__ void dq_body(
   store_rows(acc, scale, dq + bh * sq * D, m0 + row0, sq, sq);
 }
 
-template <bool kSegmented>
-__device__ __forceinline__ void dkv_body(
+// K8's backward in K6's row form: the dk/dv kernel.
+__global__ void __launch_bounds__(kThreads) flash_bwd_seg_d128_dkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ kv_lens,
-    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads, int sq, int skv,
-    float scale) {
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + kTileElems;
@@ -392,16 +359,9 @@ __device__ __forceinline__ void dkv_body(
 
   const size_t bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
   const int key0 = blockIdx.x * kTile;
   const int row0 = warp * 16;  // the warp's keys in the tile
-  const int len = vap::kv_length(kv_lens, bh, heads, skv);
-  if (key0 >= len) {  // the whole tile lies past the sample's keys: zero rows
-    vap::zero_rows<D, kThreads>(dk + bh * skv * D, key0, min(key0 + kTile, skv));
-    vap::zero_rows<D, kThreads>(dv + bh * skv * D, key0, min(key0 + kTile, skv));
-    return;
-  }
-  const int valid_k = min(kTile, len - key0);
+  const int valid_k = min(kTile, skv - key0);
 
   stage(k_s, k + (bh * skv + key0) * D, valid_k);
   stage(v_s, v + (bh * skv + key0) * D, valid_k);
@@ -409,17 +369,14 @@ __device__ __forceinline__ void dkv_body(
   const bf16* db = dout + bh * sq * D;
   const float* lb = lse + bh * sq;
   const float* deb = delta + bh * sq;
-  // K8: the ids of this thread's two key rows (rows past Skv are never
+  // the ids of this thread's two key rows (rows past Skv are never
   // stored); a query row past Sq gets -3 in seg_s and matches none
-  int kid[2] = {0, 0};
-  const int* qsg = nullptr;
-  if constexpr (kSegmented) {
-    const size_t b = bh / heads;
-    const int key = key0 + row0 + (lane >> 2);
-    kid[0] = key < skv ? kv_seg[b * skv + key] : -2;
-    kid[1] = key + 8 < skv ? kv_seg[b * skv + key + 8] : -2;
-    qsg = q_seg + b * sq;
-  }
+  int kid[2];
+  const size_t b = bh / heads;
+  const int key = key0 + row0 + (lane >> 2);
+  kid[0] = key < skv ? kv_seg[b * skv + key] : -2;
+  kid[1] = key + 8 < skv ? kv_seg[b * skv + key + 8] : -2;
+  const int* qsg = q_seg + b * sq;
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -436,10 +393,10 @@ __device__ __forceinline__ void dkv_body(
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       lse2_s[i] = i < valid ? lb[m0 + i] * kLog2e : kPadLse2;
       dl_s[i] = i < valid ? deb[m0 + i] : 0.0f;
-      if constexpr (kSegmented) seg_s[i] = i < valid ? qsg[m0 + i] : -3;
+      seg_s[i] = i < valid ? qsg[m0 + i] : -3;
     }
     __syncthreads();
-    const int pairs = kSegmented ? tile_pairs(seg_s, kid[0], kid[1]) : kAll;
+    const int pairs = tile_pairs(seg_s, kid[0], kid[1]);
 
 #pragma unroll 1
     for (int h = 0; h < kTile; h += kSub) {
@@ -447,25 +404,12 @@ __device__ __forceinline__ void dkv_body(
       float s[kSub / 8][4], dp[kSub / 8][4];
       mma_abt<kSub>(s, k_s, row0, qs_s, h);
       mma_abt<kSub>(dp, v_s, row0, do_s, h);
-      if constexpr (kSegmented) {  // the compare only where ids differ
-        if (pairs == kAll) {
-          seg_dkv_p<kAll>(s, dp, h, lse2_s, dl_s, seg_s, kid);
-        } else if (pairs == kNone) {
-          seg_dkv_p<kNone>(s, dp, h, lse2_s, dl_s, seg_s, kid);
-        } else {
-          seg_dkv_p<kMixed>(s, dp, h, lse2_s, dl_s, seg_s, kid);
-        }
+      if (pairs == kAll) {  // the compare only where ids differ
+        seg_dkv_p<kAll>(s, dp, h, lse2_s, dl_s, seg_s, kid);
+      } else if (pairs == kNone) {
+        seg_dkv_p<kNone>(s, dp, h, lse2_s, dl_s, seg_s, kid);
       } else {
-#pragma unroll
-        for (int j = 0; j < kSub / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = h + j * 8 + 2 * t + (e & 1);
-            const float p = exp2f(fmaf(s[j][e], kLog2e, -lse2_s[col]));
-            dp[j][e] = p * (dp[j][e] - dl_s[col]);  // ds^T, in place of dp^T
-            s[j][e] = p;
-          }
-        }
+        seg_dkv_p<kMixed>(s, dp, h, lse2_s, dl_s, seg_s, kid);
       }
       uint32_t pa[kSub / 16][4], dsa[kSub / 16][4];
       c_to_a<kSub>(pa, s);
@@ -474,89 +418,19 @@ __device__ __forceinline__ void dkv_body(
       mma_ab<kSub>(dk_acc, dsa, q_s, h);
     }
   }
-  store_rows(dk_acc, scale, dk + bh * skv * D, key0 + row0, len, skv);
-  store_rows(dv_acc, 1.0f, dv + bh * skv * D, key0 + row0, len, skv);
-}
-
-// K6 and K7's backward in K6's form.
-__global__ void __launch_bounds__(kThreads) flash_bwd_d128_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, const int* __restrict__ kv_lens, int heads, int sq, int skv,
-    float scale) {
-  dq_body<false>(q, k, v, dout, lse, delta, dq, kv_lens, nullptr, nullptr, heads, sq, skv, scale);
-}
-
-__global__ void __launch_bounds__(kThreads) flash_bwd_d128_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
-    int sq, int skv, float scale) {
-  dkv_body<false>(q, k, v, dout, lse, delta, dk, dv, kv_lens, nullptr, nullptr, heads, sq, skv,
-                  scale);
-}
-
-// K8's backward in K6's form: kernels of their own, so the two above
-// compile to what they were before segment ids.
-// Three blocks an SM (at most 168 registers), as K6's dq kernel has: with
-// the tile vote's three element loops ptxas otherwise gives it 216, two.
-__global__ void __launch_bounds__(kThreads, 3) flash_bwd_seg_d128_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-    int heads, int sq, int skv, float scale) {
-  dq_body<true>(q, k, v, dout, lse, delta, dq, nullptr, q_seg, kv_seg, heads, sq, skv, scale);
-}
-
-__global__ void __launch_bounds__(kThreads) flash_bwd_seg_d128_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ q_seg,
-    const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale) {
-  dkv_body<true>(q, k, v, dout, lse, delta, dk, dv, nullptr, q_seg, kv_seg, heads, sq, skv, scale);
+  store_rows(dk_acc, scale, dk + bh * skv * D, key0 + row0, skv, skv);
+  store_rows(dv_acc, 1.0f, dv + bh * skv * D, key0 + row0, skv, skv);
 }
 
 }  // namespace
 
-// C entry points, bound from Python with ctypes. Tensors are contiguous
+// C entry point, bound from Python with ctypes. Tensors are contiguous
 // [bh, s, 128] bf16 (q, dout, dq: sq rows; k, v, dk, dv: skv rows), lse
-// and delta [bh, sq] f32; `scale` is the softmax scale. Each launches the
-// dq kernel, then the dk/dv kernel, on `stream`, and returns the CUDA error
-// of the launches (0 on success). bh <= 65535, sq >= 1, heads >= 1 divides
-// bh.
-
-// K6, and K7's backward: kv_lens is a device pointer to [bh / heads] int32
-// valid key counts (K7) or null (every key valid).
-extern "C" int vap_flash_bwd_d128(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                                  const void* kv_lens, int bh, int heads, int sq, int skv,
-                                  float scale, void* stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dp = static_cast<const bf16*>(dout);
-  const float* l = static_cast<const float*>(lse);
-  const float* de = static_cast<const float*>(delta);
-  const int* lens = static_cast<const int*>(kv_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_d128_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_d128_dq_kernel<<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kDqSmem, s>>>(
-      qp, kp, vp, dp, l, de, static_cast<bf16*>(dq), lens, heads, sq, skv, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || skv == 0) return err;  // no key row: dk and dv are empty
-  err = cudaFuncSetAttribute(flash_bwd_d128_dkv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_d128_dkv_kernel<<<dim3((skv + kTile - 1) / kTile, bh), kThreads, kDkvSmem, s>>>(
-      qp, kp, vp, dp, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lens, heads, sq,
-      skv, scale);
-  return cudaGetLastError();
-}
-
-// K8's backward: q_seg and kv_seg are device pointers to [bh / heads, sq]
-// and [bh / heads, skv] int32 segment ids, padding as -1 (not null).
+// and delta [bh, sq] f32; `scale` is the softmax scale; q_seg and kv_seg
+// are device pointers to [bh / heads, sq] and [bh / heads, skv] int32
+// segment ids, padding as -1 (not null). Launches the dq kernel, then the
+// dk/dv kernel, on `stream`, and returns the CUDA error of the launches (0
+// on success). bh <= 65535, sq >= 1, heads >= 1 divides bh.
 extern "C" int vap_flash_bwd_seg_d128(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, void* dk, void* dv, const void* q_seg,

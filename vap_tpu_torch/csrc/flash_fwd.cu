@@ -1,16 +1,17 @@
-// K1 and K4: bf16 flash-attention forward, one kernel templated on head_dim.
+// K1: bf16 flash-attention forward below head_dim 128, one kernel templated
+// on head_dim, and K8's forward at every head_dim.
 //
 // K1 (head_dim < 128, a multiple of 16, entry `vap_flash_fwd`) replaces the
 // TPU kernels of vap_tpu/ops/flash_attention.py `_flash_attention_forward_t`
-// (`_fwd_kernel_t`, `_fwd_kernel_t_bound`). K4 (head_dim 128, entry
-// `vap_flash_fwd_d128`) replaces `_flash_attention_forward` (`_fwd_kernel`,
-// `_fwd_kernel_scalar_bound`, with its running-max fallback), the TPU's
-// row-layout forward for head_dim >= 128 that Wan's joint and cross
-// attention take. The TPU's kv-bias row that masks padded keys becomes the
-// in-register mask of the ragged last tile. Same contract for both: q [BH, Sq, D], k/v [BH, Skv, D] bf16 -> out [BH, Sq, D] bf16
-// and the natural-log lse [BH, Sq] f32, non-causal, keys past Skv masked.
-// It computes the running-max online softmax; the TPU's bound form is the
-// same function with another reference point.
+// (`_fwd_kernel_t`, `_fwd_kernel_t_bound`). K4, the same function at head_dim
+// 128 (`_flash_attention_forward`), ran here as the D = 128 instance until
+// it moved to the wgmma kernel of flash_fwd_sm90.cu (entry
+// `vap_flash_fwd_d128`); K8's D = 128 instance below keeps this design. The
+// TPU's kv-bias row that masks padded keys becomes the in-register mask of
+// the ragged last tile. The contract: q [BH, Sq, D], k/v [BH, Skv, D] bf16
+// -> out [BH, Sq, D] bf16 and the natural-log lse [BH, Sq] f32, non-causal,
+// keys past Skv masked. It computes the running-max online softmax; the
+// TPU's bound form is the same function with another reference point.
 //
 // K7, the varlen forward (`flash_attention_varlen`, the `varlen=True` form
 // of the same TPU kernels and of `_fwd_kernel_t`), is this kernel given
@@ -53,15 +54,14 @@
 // against 4*D bytes of K/V per key, far above the card's ~295 FLOP/byte
 // ridge, so it is compute bound; this first kernel is limited by mma.sync
 // issue rate, the un-pipelined global->shared copies (no cp.async/TMA yet)
-// and the exp2 work per score. At D = 128 the Q fragments (32 registers),
-// the accumulator (64) and the 64-key score tile (32) take about 160
-// registers a thread, so fewer blocks fit on an SM than at D = 64; the two
-// 64x136 bf16 tiles take 34.8 KB of static shared memory. ptxas gives the
-// D = 128 instance 168 registers, so three blocks fit on an SM (3 x 128 x
-// 168 of the 65,536); at 182 only two fit, and the kernel ran 29% slower
-// at the Wan shape. chip_smoke.py fails if that instance takes more than
-// 168 registers or spills. (__launch_bounds__(kThreads, 3) makes ptxas
-// spill 24 bytes here.) wgmma with a TMA producer warp is the next step.
+// and the exp2 work per score. At D = 128 (K8's instance) the Q fragments
+// (32 registers), the accumulator (64) and the 64-key score tile (32) take
+// about 160 registers a thread, so fewer blocks fit on an SM than at D = 64;
+// the two 64x136 bf16 tiles take 34.8 KB of static shared memory. Three
+// blocks fit on an SM at 168 registers (3 x 128 x 168 of the 65,536); at
+// 182 only two fit, and K4 ran 29% slower at the Wan shape. chip_smoke.py
+// fails if K8's D = 128 entry takes more than 168 registers or spills. The
+// wgmma redesign of flash_fwd_sm90.cu (K4) is the model for K1's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,7 +161,7 @@ __device__ __forceinline__ void flash_fwd_body(
   vap::store_rows<D>(acc, m, l, o + bh * sq * D, lse + bh * sq, row0, sq);
 }
 
-// K1, K4 and K7 (kSegmented = false), and K8 below head_dim 128.
+// K1 and K7 (kSegmented = false), and K8 below head_dim 128.
 template <int D, bool kSegmented>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -246,15 +246,6 @@ extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* 
                          scale_log2, static_cast<cudaStream_t>(stream));
 }
 
-// K4 (and K7 at head_dim 128, HunyuanVideo's joint attention): head_dim 128.
-extern "C" int vap_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, void* lse,
-                                  const void* kv_lens, int bh, int heads, int sq, int skv,
-                                  float scale_log2, void* stream) {
-  return launch<128, false>(q, k, v, o, static_cast<float*>(lse),
-                            static_cast<const int*>(kv_lens), nullptr, nullptr, bh, heads, sq,
-                            skv, scale_log2, static_cast<cudaStream_t>(stream));
-}
-
 // K8 in K1's form: head_dim d in 16..112, step 16.
 extern "C" int vap_flash_fwd_seg(const void* q, const void* k, const void* v, const void* q_seg,
                                  const void* kv_seg, void* o, void* lse, int bh, int heads, int sq,
@@ -264,7 +255,7 @@ extern "C" int vap_flash_fwd_seg(const void* q, const void* k, const void* v, co
                         heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
 }
 
-// K8 in K4's form: head_dim 128.
+// K8 at head_dim 128.
 extern "C" int vap_flash_fwd_seg_d128(const void* q, const void* k, const void* v,
                                       const void* q_seg, const void* kv_seg, void* o, void* lse,
                                       int bh, int heads, int sq, int skv, float scale_log2,

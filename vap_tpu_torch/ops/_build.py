@@ -32,8 +32,6 @@ SOURCES = {
     "flash_fwd": {
         # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, scale_log2, stream
         "vap_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-        # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream
-        "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
         # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, d, scale_log2, stream (K8)
         "vap_flash_fwd_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, scale_log2, stream (K8, D = 128)
@@ -52,10 +50,16 @@ SOURCES = {
         "vap_flash_bwd_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               _F, _P),
     },
-    "flash_bwd_d128": {
+    "flash_fwd_sm90": {
+        # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream (K4, K7)
+        "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+    "flash_bwd_sm90": {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, scale,
-        # stream
+        # stream (K6, K7's backward)
         "vap_flash_bwd_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+    "flash_bwd_d128": {
         # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, bh, heads, sq, skv, scale,
         # stream (K8, D = 128)
         "vap_flash_bwd_seg_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

@@ -4,8 +4,9 @@ K1 and K4 ``flash_attention_forward``: non-causal softmax(Q K^T * scale) V
 with the natural-log lse, bf16. Head_dim < 128 launches K1, the forward of
 ``vap_tpu/ops/flash_attention.py`` ``flash_attention`` at D < 128
 (``_flash_attention_forward_t``); head_dim 128 launches K4, its row-layout
-forward at D >= 128 (``_flash_attention_forward``). Both are one CUDA
-kernel templated on head_dim, ``csrc/flash_fwd.cu``, with one entry point
+forward at D >= 128 (``_flash_attention_forward``). K1 is an ``mma.sync``
+kernel templated on head_dim, ``csrc/flash_fwd.cu``; K4 a warp-specialised
+``wgmma`` kernel fed by TMA, ``csrc/flash_fwd_sm90.cu``; one entry point
 each.
 
 K2 ``flash_attention_int8_forward``: the SageAttention-style forward of
@@ -20,8 +21,11 @@ function from its out and lse: P recomputed from the lse, delta =
 rowsum(out * dout), then dq, and dk and dv, each summed inside one block.
 Head_dim < 128 launches K5 (``_flash_attention_backward_t``, CUDA source
 ``csrc/flash_bwd.cu``); head_dim 128 launches K6, the row-layout backward
-(``_flash_attention_backward``, ``csrc/flash_bwd_d128.cu``), which rounds
-q * scale to bf16 before q k^T and works in the natural base. Head_dim above
+(``_flash_attention_backward``, ``csrc/flash_bwd_sm90.cu``: a q * scale
+pre-pass and two warp-specialised ``wgmma`` kernels fed by TMA, dk/dv then
+dq, no atomics), which rounds q * scale to bf16 before q k^T and works in
+the natural base; its segmented form (K8's backward) stays in
+``csrc/flash_bwd_d128.cu``. Head_dim above
 128 raises. ``FlashAttentionFunction`` pairs the forward and the backward
 as an autograd function (the JAX ``custom_vjp`` pair ``_fa_fwd`` /
 ``_fa_bwd``); ``flash_attention`` goes through it whenever a gradient is
@@ -499,17 +503,18 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None,
     lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_fwd")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             None if lens is None else lens.data_ptr())
     counter = "launches_d128" if d == 128 else "launches"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if d == 128:
-            err = lib.vap_flash_fwd_d128(*ptrs, b * h, h, sq, skv, scale * LOG2_E, stream)
+            err = _build.library("flash_fwd_sm90").vap_flash_fwd_d128(
+                *ptrs, b * h, h, sq, skv, scale * LOG2_E, stream)
             _build.check(err, "vap_flash_fwd_d128")
         else:
-            err = lib.vap_flash_fwd(*ptrs, b * h, h, sq, skv, d, scale * LOG2_E, stream)
+            err = _build.library("flash_fwd").vap_flash_fwd(*ptrs, b * h, h, sq, skv, d,
+                                                            scale * LOG2_E, stream)
             _build.check(err, "vap_flash_fwd")
     counter += "" if lens is None else "_varlen"
     setattr(flash_attention_forward, counter, getattr(flash_attention_forward, counter) + 1)
@@ -630,8 +635,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if d == 128:
             entry += "_d128"
-            err = getattr(_build.library("flash_bwd_d128"), entry)(
-                *ptrs, b * h, h, sq, skv, scale, stream)
+            source = "flash_bwd_d128" if segment_ids is not None else "flash_bwd_sm90"
+            err = getattr(_build.library(source), entry)(*ptrs, b * h, h, sq, skv, scale, stream)
         else:
             err = getattr(_build.library("flash_bwd"), entry)(
                 *ptrs, b * h, h, sq, skv, d, scale * LOG2_E, scale, stream)

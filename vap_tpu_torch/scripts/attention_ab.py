@@ -6,12 +6,18 @@ Each root given is a checkout (or an unpacked archive) holding
 ``vap_tpu_torch/``; each is timed in its own process, in the order given,
 so that two trees are compared in one call on one card (parent, change,
 change, parent). A line per root: K4 (``flash_attention_forward``) and K2
-(``flash_attention_int8_forward``) at Wan's joint shape [1, 40, 40560, 128],
-K1 (``flash_attention_forward``) and K5 (``flash_attention_backward``) at
-CogVideoX's [1, 48, 35552, 64] and K6 at Wan's training self-attention
-[1, 40, 20280, 128], bf16, ms per call over 5 calls after 2 of warm-up,
-with CUDA events (the backward's delta pre-pass included). The kernels are
-built from each root's sources. It runs on the card and raises without one.
+(``flash_attention_int8_forward``) at Wan's joint shape [1, 40, 40560, 128];
+K4 and K6 (``flash_attention_backward``) at Wan's cross shapes (20,280
+queries x 512 and x 257 keys); K7 in K4 (given kv_lens) at HunyuanVideo
+generation's [1, 24, 32656, 128] with 32,443 valid keys; K1 and K5 at
+CogVideoX's [1, 48, 35552, 64]; K6 at Wan's training self-attention
+[1, 40, 20280, 128]; K7's backward in K6 at HunyuanVideo training's
+[1, 24, 18976, 128] with 18,763 valid keys; K8's backward where the root
+has it. bf16, ms per call over 5 calls after 2 of warm-up (20 at the cross
+shapes), with CUDA events (the backward's delta pre-pass included). Then
+the registers and spills ptxas gave the root's attention kernels (K1, K2,
+K4, K5, K6, K8). The kernels are built from each root's sources. It runs on
+the card and raises without one.
 """
 
 from __future__ import annotations
@@ -25,10 +31,12 @@ SHAPE = (1, 40, 40560, 128)  # B, H, S, D of Wan2.1-14B's joint attention at 49f
 K5_SHAPE = (1, 48, 35552, 64)  # CogVideoX-5B's joint attention at 49f@480x720
 K6_SHAPE = (1, 40, 20280, 128)  # one Wan branch's self-attention in training
 K7_SHAPE, K7_LEN = (1, 24, 18976, 128), 18763  # the Hunyuan LoRA stream and its valid keys
+K7_FWD_SHAPE, K7_FWD_LEN = (1, 24, 32656, 128), 32443  # Hunyuan generation at 33f@720x1280
+CROSS_KEYS = (512, 257)  # Wan's UMT5 and CLIP keys over one branch's 20,280 queries
 
 
 def time_root(root: str) -> None:
-    """Import the port under ``root`` and print K4's, K2's, K1's, K5's and K6's times."""
+    """Import the port under ``root`` and print its attention kernels' times."""
     sys.path.insert(0, root)
     import torch
 
@@ -63,6 +71,18 @@ def time_root(root: str) -> None:
     k4 = ms(lambda: fa.flash_attention_forward(q, k, v))
     k2 = ms(lambda: fa.flash_attention_int8_forward(q, k, v))
     del q, k, v
+    cross_fwd, cross_bwd = [], []
+    for skv in CROSS_KEYS:
+        q, dout = inputs(K6_SHAPE, 2)
+        k, v = inputs(K6_SHAPE[:2] + (skv, K6_SHAPE[3]), 2)
+        cross_fwd.append(ms(lambda: fa.flash_attention_forward(q, k, v), iters=20))
+        out, lse = fa.flash_attention_forward(q, k, v)
+        cross_bwd.append(ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=20))
+        del q, k, v, dout, out, lse
+    q, k, v = inputs(K7_FWD_SHAPE)
+    lens = torch.tensor([K7_FWD_LEN], device=dev, dtype=torch.int32)
+    k7_fwd = ms(lambda: fa.flash_attention_forward(q, k, v, kv_lens=lens))
+    del q, k, v
     q, k, v = inputs(K5_SHAPE)
     k1 = ms(lambda: fa.flash_attention_forward(q, k, v))
     del q, k, v
@@ -92,28 +112,38 @@ def time_root(root: str) -> None:
             del q, k, v, dout, out, lse
     seg = (f"; K8 backward {k8[0]:.3f} ms at {list(K5_SHAPE)}, {k8[1]:.3f} ms at {list(SHAPE)}"
            if k8 else "; K8 backward: not in this root")
+    cross = ", ".join(f"x {n} keys {f:.3f} / {b:.3f} ms"
+                      for n, f, b in zip(CROSS_KEYS, cross_fwd, cross_bwd))
     print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}; K1 {k1:.3f} ms, K5 "
           f"{backward[0]:.3f} ms at {list(K5_SHAPE)}; K6 {backward[1]:.3f} ms at "
-          f"{list(K6_SHAPE)}; K7 backward in K6 {k7:.3f} ms at {list(K7_SHAPE)}, {K7_LEN} keys"
-          + seg, flush=True)
-    print(f"{root}: backward instances (ptxas): {backward_registers()}", flush=True)
+          f"{list(K6_SHAPE)}; K4 / K6 at {K6_SHAPE[2]} queries {cross}; K7 in K4 {k7_fwd:.3f} ms "
+          f"at {list(K7_FWD_SHAPE)}, {K7_FWD_LEN} keys; K7 backward in K6 {k7:.3f} ms at "
+          f"{list(K7_SHAPE)}, {K7_LEN} keys" + seg, flush=True)
+    print(f"{root}: attention kernels (ptxas): {kernel_registers()}", flush=True)
 
 
-def backward_registers():
-    """{kernel: 'N registers, M bytes spill stores'} of every instance in the
-    backward sources' compiler logs (K5 at D=64, K6), as ptxas printed them."""
+def kernel_registers():
+    """{kernel: {"registers": N, "spill": M}} of the root's attention
+    kernels, as ptxas printed them: every instance of the backward sources
+    and of the wgmma sources (where the root has them), and the D=64 and
+    D=128 instances (and the untemplated ones) of the others (K1, K2, K5,
+    K8)."""
     import re
 
     from vap_tpu_torch.ops import _build
 
     found = {}
-    for source in ("flash_bwd", "flash_bwd_d128"):
+    every = ("flash_bwd_d128", "flash_fwd_sm90", "flash_bwd_sm90")
+    for source in ("flash_fwd", "sage_fwd", "flash_bwd") + every:
+        if source not in _build.SOURCES:  # a root from before this source
+            continue
         name = None
         for line in _build.library_path(source).with_suffix(".log").read_text().splitlines():
             entry = re.search(r"\d+([a-z0-9_]+_kernel)(?:I(\w*?)EEv)?", line)
             if "Compiling entry function" in line and entry:
                 name = entry[1] + (f"<{entry[2]}>" if entry[2] else "")
-            elif name and (source == "flash_bwd_d128" or "<Li64E" in name):
+            elif name and (source in every or "<" not in name or "<Li64E" in name
+                           or "<Li128E" in name):
                 for key, pat in (("registers", r"Used (\d+) registers"),
                                  ("spill", r"(\d+) bytes spill stores")):
                     hit = re.search(pat, line)
