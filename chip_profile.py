@@ -39,8 +39,11 @@ TOP = 25
 # first match wins; names are the device kernels' names as the profiler gives them
 CATEGORIES = [
     ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_kernel", "w8a8_quantize_kernel")),
-    ("attention kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "sage_fwd_kernel")),
-    ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("attention kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_sm90_d64_kernel",
+                          "sage_fwd_kernel")),
+    ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                                        "flash_bwd_sm90_d64_dq_kernel",
+                                        "flash_bwd_sm90_d64_dkv_kernel")),
     ("attention backward kernel (K6; K7's at D=128)", ("flash_bwd_sm90_dq_kernel",
                                                         "flash_bwd_sm90_dkv_kernel",
                                                         "scale_q_kernel")),

@@ -8,9 +8,11 @@ Phases, each of which raises on failure:
   2. build: one nvcc per vap_tpu_torch/csrc/*.cu, all started together, for
      sm_90a; ptxas's registers and spills per kernel, the backward instances
      on a path (K5 at D=64, K6) listed apart; the HGMMA (wgmma) and UTMALDG
-     (TMA load) instructions in K4's and K6's SASS, counted by cuobjdump,
-     and no wgmma serialised by ptxas (C7513) there;
-  3. kernel parity: K1 (flash, D=64), K4 (flash, D=128) and K2 (sage, D=64
+     (TMA load) instructions in the SASS of K1 and K5 at D=64 and of K4 and
+     K6, counted by cuobjdump per kernel function, and no wgmma serialised
+     by ptxas there (warnings C7512, C7513, any C751x);
+  3. kernel parity: K1 (flash, D=64: the wgmma kernel of
+     flash_fwd_sm90_d64.cu), K4 (flash, D=128) and K2 (sage, D=64
      and D=128) against their plain PyTorch versions in bf16, at unaligned
      shapes and at the main-path shapes (CogVideoX joint [1,48,35552,64];
      Wan joint [1,40,40560,128], Wan cross [1,40,20280,128] x 512 and
@@ -94,12 +96,14 @@ Phases, each of which raises on failure:
      random bf16 weights from a seed, through WanVAPPipeline.__call__ with
      model offload (one component on the card at a time), cut to 2 steps
      under flash and 1 under sage;
-  7. K5 (the flash backward, D=64) against its plain PyTorch version in
-     bf16 at the unaligned shapes and at the main-path shape [1,48,35552,64],
-     dq, dk and dv each within a limit of max|ref|, with a planted fault
-     (dout rows out of place inside each 64-query tile) that must break it;
-     its time, the plain version's, the backward of torch's SDPA flash
-     backend (a yardstick only) and the card's bound;
+  7. K5 (the flash backward, D=64: the wgmma kernels of
+     flash_bwd_sm90_d64.cu) against its plain PyTorch version in bf16 at
+     the unaligned shapes and at the main-path shape [1,48,35552,64], dq, dk
+     and dv each within a limit of max|ref|, with a planted fault (dout rows
+     out of place inside each 64-query tile) that must break it, and bit-
+     equal from run to run at the main-path shape; its time, the plain
+     version's, the backward of torch's SDPA flash backend (a yardstick
+     only) and the card's bound;
   8. CogVideoX-5B VAP training at full width (42 blocks, MoT in 0-40,
      random bf16 weights from a seed) on a random precomputed batch at 49
      frames of 480x720, batch 1, through SFTTrainer.run: AdamW (beta 0.9 /
@@ -281,32 +285,39 @@ REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
 # registers a thread, and two at the 188 (K2) and 180 (K8) of an earlier
 # build, which ran 15% and 40% slower; the wgmma kernels of K4 and K6 (384
 # threads, one block an SM) launch at 168, the most that lets setmaxnreg
-# give the two consumer warpgroups 232 and the producer 40. The build fails
-# past these counts or on a spill
+# give the two consumer warpgroups 232 and the producer 40; K1's at D=64
+# (512 threads: three consumer warpgroups) at 128, setmaxnreg 160 / 32; K5's
+# at D=64 (384 threads) at 168. The build fails past these counts or on a
+# spill
 PINNED_REGISTERS = {"sage_fwd_kernel<Li128E>": 168, "flash_fwd_seg_d128_kernel": 168,
                     "flash_fwd_sm90_kernel": 168, "flash_bwd_sm90_dq_kernel": 168,
-                    "flash_bwd_sm90_dkv_kernel": 168}
+                    "flash_bwd_sm90_dkv_kernel": 168, "flash_fwd_sm90_d64_kernel": 128,
+                    "flash_bwd_sm90_d64_dq_kernel": 168, "flash_bwd_sm90_d64_dkv_kernel": 168}
 # the flash forward's instances on a path: K1 at D=64 and K4 (fixed length
 # and K7), and K8 (kSegmented) at D=64 and D=128, printed with their
-# registers and spills; the K8 ones also go into the kernels line
-FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_kernel<Li64ELb0E>",
+# registers and spills; they also go into the kernels line
+FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_sm90_d64_kernel",
                      "flash_fwd_d128": "flash_fwd_sm90_kernel",
                      "flash_fwd_seg": "flash_fwd_kernel<Li64ELb1E>",
                      "flash_fwd_seg_d128": "flash_fwd_seg_d128_kernel"}
-# the backward instances on a path or held (K5 at D=64 without and with
-# kv_lens, K6), printed with their registers and spills since kv_lens (K7's
-# backward) entered them
-BACKWARD_INSTANCES = ("flash_bwd_dq_kernel<Li64ELb0E>", "flash_bwd_dkv_kernel<Li64ELb0E>",
-                      "flash_bwd_dq_kernel<Li64ELb1E>", "flash_bwd_dkv_kernel<Li64ELb1E>",
+# the backward instances on a path or held (K5 at D=64 and K6, each with
+# and without kv_lens, K8), printed with their registers and spills
+BACKWARD_INSTANCES = ("flash_bwd_sm90_d64_dq_kernel", "flash_bwd_sm90_d64_dkv_kernel",
                       "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
                       "flash_bwd_seg_dq_kernel<Li64E>", "flash_bwd_seg_dkv_kernel<Li64E>",
                       "flash_bwd_seg_d128_dq_kernel", "flash_bwd_seg_d128_dkv_kernel")
-# the sources of the wgmma kernels (K4, K6), whose SASS the build phase reads
-WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
-# K6's wgmma kernels, and K8's backward (kSegmented, kernels and entries of
-# their own) at D=64 and D=128: their dq and dk/dv instances, whose
-# registers go into the kernels line
+# the wgmma kernels (K1 and K5 at D=64, K4, K6) by source, whose SASS and
+# ptxas logs the build phase reads per kernel function
+WGMMA_KERNELS = {"flash_fwd_sm90_d64": ("flash_fwd_sm90_d64_kernel",),
+                 "flash_bwd_sm90_d64": ("flash_bwd_sm90_d64_dq_kernel",
+                                        "flash_bwd_sm90_d64_dkv_kernel"),
+                 "flash_fwd_sm90": ("flash_fwd_sm90_kernel",),
+                 "flash_bwd_sm90": ("flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel")}
+# K5's and K6's wgmma kernels, and K8's backward (kSegmented, kernels and
+# entries of their own) at D=64 and D=128: their dq and dk/dv instances,
+# whose registers go into the kernels line
 BACKWARD_PAIRS = {
+    "flash_bwd": {"dq": "flash_bwd_sm90_d64_dq_kernel", "dkv": "flash_bwd_sm90_d64_dkv_kernel"},
     "flash_bwd_d128": {"dq": "flash_bwd_sm90_dq_kernel", "dkv": "flash_bwd_sm90_dkv_kernel"},
     "flash_bwd_seg": {"dq": "flash_bwd_seg_dq_kernel<Li64E>",
                       "dkv": "flash_bwd_seg_dkv_kernel<Li64E>"},
@@ -473,7 +484,7 @@ def bwd_bound(b, h, sq, skv, d):
 
 
 BWD_SPECS = {
-    "flash_bwd": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90_d64.cu",
                       replaces="vap_tpu/ops/flash_attention.py:1131"),
     "flash_bwd_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90.cu",
                            replaces="vap_tpu/ops/flash_attention.py:1271"),
@@ -502,8 +513,9 @@ def kernel_specs():
     src = "vap_tpu_torch/csrc/"
     ref = "vap_tpu/ops/flash_attention.py:"
     return {
-        "flash_fwd": dict(fns=flash, kind="flash", counter="launches", shapes=d64,
-                          timed=MAIN_SHAPE, source=src + "flash_fwd.cu", replaces=ref + "479"),
+        "flash_fwd": dict(fns=flash, kind="flash", counter="launches_d64", shapes=d64,
+                          timed=MAIN_SHAPE, source=src + "flash_fwd_sm90_d64.cu",
+                          replaces=ref + "479"),
         "flash_fwd_d128": dict(fns=flash, kind="flash", counter="launches_d128", shapes=flash_d128,
                                timed=WAN_JOINT, source=src + "flash_fwd_sm90.cu",
                                replaces=ref + "225", timed_cross=WAN_CROSS),
@@ -1341,7 +1353,7 @@ def ring_training_check(trainer, dev):
 VARLEN_BWD_SPECS = {
     "flash_bwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90.cu",
                                   replaces="vap_tpu/ops/flash_attention.py:1499"),
-    "flash_bwd_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_varlen": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90_d64.cu",
                              replaces="vap_tpu/ops/flash_attention.py:1131"),
 }
 # the kernels line's K7 forward whose out and lse the backward form is given
@@ -1713,12 +1725,12 @@ def small_pipeline_check(dev):
     with attention_provider("xla"):
         ref = pipe(**args)
     got = {}
-    for provider, kernel in (("flash", fa.flash_attention_forward),
-                             ("sage", fa.flash_attention_int8_forward)):
-        before = kernel.launches
+    for provider, kernel, counter in (("flash", fa.flash_attention_forward, "launches_d64"),
+                                      ("sage", fa.flash_attention_int8_forward, "launches")):
+        before = getattr(kernel, counter)
         with attention_provider(provider):
             got[provider] = pipe(**args)
-        launched = kernel.launches - before
+        launched = getattr(kernel, counter) - before
         diff = (got[provider] - ref).abs()
         err = diff.max().item()
         at = tuple(int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape))
@@ -1793,16 +1805,20 @@ def reset_counts():
     from vap_tpu_torch.ops import int8_matmul as ti8
 
     fa.flash_attention_forward.launches = 0
+    fa.flash_attention_forward.launches_d64 = 0
     fa.flash_attention_forward.launches_d128 = 0
     fa.flash_attention_forward.launches_varlen = 0
+    fa.flash_attention_forward.launches_d64_varlen = 0
     fa.flash_attention_forward.launches_d128_varlen = 0
     fa.flash_attention_segmented_forward.launches = 0
     fa.flash_attention_segmented_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
     fa.flash_attention_int8_forward.launches_varlen = 0
     fa.flash_attention_backward.launches = 0
+    fa.flash_attention_backward.launches_d64 = 0
     fa.flash_attention_backward.launches_d128 = 0
     fa.flash_attention_backward.launches_varlen = 0
+    fa.flash_attention_backward.launches_d64_varlen = 0
     fa.flash_attention_backward.launches_d128_varlen = 0
     fa.flash_attention_backward.launches_seg = 0
     fa.flash_attention_backward.launches_d128_seg = 0
@@ -1814,24 +1830,31 @@ def reset_counts():
 
 def read_counts():
     """Each kernel's launches (K7 on the ``*_varlen`` counters of the kernel
-    it runs in, K8 on ``flash_fwd_seg*`` and ``flash_bwd_seg*``), and the calls of the W8A8 row form (no kernel of its own:
-    XLA's product in the JAX package, torch._int_mm here)."""
+    it runs in, K8 on ``flash_fwd_seg*`` and ``flash_bwd_seg*``; K1 and K5
+    at D=64, the wgmma kernels, on ``flash_fwd`` and ``flash_bwd``, their
+    ``mma.sync`` forms at the other head dims below 128 on ``*_mma``, which
+    no path may reach), and the calls of the W8A8 row form (no kernel of its
+    own: XLA's product in the JAX package, torch._int_mm here)."""
     from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
     from vap_tpu_torch.ops import gemm_probe as gp
     from vap_tpu_torch.ops import int8_matmul as ti8
 
-    return {"flash_fwd": fa.flash_attention_forward.launches,
+    return {"flash_fwd": fa.flash_attention_forward.launches_d64,
+            "flash_fwd_mma": fa.flash_attention_forward.launches,
             "flash_fwd_d128": fa.flash_attention_forward.launches_d128,
-            "flash_fwd_varlen": fa.flash_attention_forward.launches_varlen,
+            "flash_fwd_varlen": fa.flash_attention_forward.launches_d64_varlen,
+            "flash_fwd_mma_varlen": fa.flash_attention_forward.launches_varlen,
             "flash_fwd_d128_varlen": fa.flash_attention_forward.launches_d128_varlen,
             "flash_fwd_seg": fa.flash_attention_segmented_forward.launches,
             "flash_fwd_seg_d128": fa.flash_attention_segmented_forward.launches_d128,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
             "sage_fwd_varlen": fa.flash_attention_int8_forward.launches_varlen,
-            "flash_bwd": fa.flash_attention_backward.launches,
+            "flash_bwd": fa.flash_attention_backward.launches_d64,
+            "flash_bwd_mma": fa.flash_attention_backward.launches,
             "flash_bwd_d128": fa.flash_attention_backward.launches_d128,
-            "flash_bwd_varlen": fa.flash_attention_backward.launches_varlen,
+            "flash_bwd_varlen": fa.flash_attention_backward.launches_d64_varlen,
+            "flash_bwd_mma_varlen": fa.flash_attention_backward.launches_varlen,
             "flash_bwd_d128_varlen": fa.flash_attention_backward.launches_d128_varlen,
             "flash_bwd_seg": fa.flash_attention_backward.launches_seg,
             "flash_bwd_seg_d128": fa.flash_attention_backward.launches_d128_seg,
@@ -2247,6 +2270,14 @@ def backward_parity(dev, d128=False):
 
     b, h, sq, skv, d = shapes[len(PARITY_SHAPES)]
     q, k, v, out, lse, dout = inputs(b, h, sq, skv, d)
+    # every sum in one block in a fixed order: two runs give the same bits
+    first = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    same = all(torch.equal(a, c) for a, c in
+               zip(first, fa.flash_attention_backward(q, k, v, out, lse, dout)))
+    log(f"  {name} at {(b, h, sq, d)} x {skv}: two runs bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    del first
     ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=3, warmup=1)
     plain_ms = time_ms(lambda: plain(q, k, v, out, lse, dout), iters=1, warmup=1)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -2863,6 +2894,23 @@ def hunyuan_training_path(model, latents, dev):
     return launches
 
 
+def serialised_wgmma(log_text, kernels):
+    """[(kernel, line)] for every warning in a ptxas log that it serialised
+    the wgmma (C7513: an input defined while a product is in flight; C7512:
+    too few registers; any C751x): the kernel of ``kernels`` whose name the
+    line holds, else the one ptxas was compiling, else "unattributed".
+    ptxas prints the mangled names of kernels in an anonymous namespace, so
+    a kernel is found by its name inside the line."""
+    hits, current = [], "unattributed"
+    for line in log_text.splitlines():
+        named = next((k for k in kernels if k in line), None)
+        if "Compiling entry function" in line:
+            current = named or "unattributed"
+        elif re.search(r"\bC751\d\b", line):
+            hits.append((named or current, line.strip()))
+    return hits
+
+
 def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
     spills per kernel, from the compilers' logs. Fails if an instance in
@@ -2909,22 +2957,29 @@ def build_kernels():
         forward[name] = {part: next((v for k, v in seen.items() if k.endswith(instance)), {})
                          for part, instance in parts.items()}
     # ptxas serialises a wgmma kernel's products when another instruction
-    # defines a wgmma input while products are in flight (warning C7513)
-    for source in WGMMA_SOURCES:
-        if "C7513" in libs[source].with_suffix(".log").read_text():
-            raise AssertionError(f"{source}: ptxas serialised its wgmma (C7513): see its log")
-    # K4's and K6's libraries must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+    # defines a wgmma input while products are in flight (warning C7513) or
+    # registers run short (C7512): any such warning in a wgmma source's log
+    # fails the build
+    for source, kernels in WGMMA_KERNELS.items():
+        hits = serialised_wgmma(libs[source].with_suffix(".log").read_text(), kernels)
+        if hits:
+            raise AssertionError(f"{source}: ptxas serialised the wgmma (C751x) of " + "; ".join(
+                f"{kernel}: {line}" for kernel, line in hits))
+    # each wgmma kernel's SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
-        for source in WGMMA_SOURCES:
+        for source, kernels in WGMMA_KERNELS.items():
             sass = subprocess.run([cuobjdump, "-sass", str(libs[source])], capture_output=True,
                                   text=True, check=True, timeout=120).stdout
-            ops = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "UTMALDG")}
-            log(f"  {source}: SASS instructions {ops}")
-            if not all(ops.values()):
-                raise AssertionError(f"{source}: no HGMMA or UTMALDG in its SASS: {ops}")
+            functions = re.split(r"\n\s*Function : ", sass)[1:]
+            for kernel in kernels:
+                body = next((f for f in functions if kernel in f.split("\n", 1)[0]), "")
+                ops = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HGMMA", "UTMALDG")}
+                log(f"  {kernel}: SASS instructions {ops}")
+                if not all(ops.values()):
+                    raise AssertionError(f"{kernel}: no HGMMA or UTMALDG in its SASS: {ops}")
     else:
-        log(f"  no cuobjdump: the SASS of {WGMMA_SOURCES} is not checked")
+        log(f"  no cuobjdump: the SASS of {list(WGMMA_KERNELS)} is not checked")
     return forward
 
 
@@ -3077,7 +3132,9 @@ def main():
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
     # the wgmma kernels' registers (their K7 forms are the same kernels)
-    for name, kernel in (("flash_fwd_d128", "flash_fwd_d128"), ("flash_bwd_d128", "flash_bwd_d128"),
+    for name, kernel in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
+                         ("flash_bwd_varlen", "flash_bwd"),
+                         ("flash_fwd_d128", "flash_fwd_d128"), ("flash_bwd_d128", "flash_bwd_d128"),
                          ("flash_fwd_d128_varlen", "flash_fwd_d128"),
                          ("flash_bwd_d128_varlen", "flash_bwd_d128")):
         results[name]["registers"] = registers[kernel]

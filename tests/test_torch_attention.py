@@ -21,6 +21,7 @@ from vap_tpu.ops.flash_attention import (
     _flash_attention_forward_t,
     _flash_attention_forward_t_i8,
 )
+from vap_tpu_torch.ops import _build
 from vap_tpu_torch.ops import attention as tattn
 from vap_tpu_torch.ops import flash_attention as tfa
 
@@ -28,6 +29,9 @@ from vap_tpu_torch.ops import flash_attention as tfa
 SHAPES = [(300, 200), (128, 257), (64, 77)]
 # head_dim 128 (Wan): the same, plus Wan's 512 text keys at an unaligned Sq
 SHAPES_D128 = SHAPES + [(130, 512)]
+# head_dim 64 at the edges of the card kernel's tiles (192 queries, 128
+# keys): the plain version the card holds K1 against, held to JAX there
+D64_EDGES = [(127, 129), (129, 193), (193, 127)]
 # float32 inputs: both sides compute the same softmax in f32 and differ only
 # in summation order (tiles of 512 keys vs the TPU blocks)
 F32_ATOL = 2e-5
@@ -81,7 +85,7 @@ def _jax_k2(q, k, v, use_bound=True, dtype=jnp.float32):
 
 
 @pytest.mark.parametrize("use_bound", [True, False], ids=["bound", "runmax"])
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + D64_EDGES)
 def test_k1_plain_matches_jax_f32(sq, skv, use_bound):
     q, k, v = _qkv(sq + skv, sq, skv)
     ref_out, ref_lse = _jax_k1(q, k, v, use_bound)
@@ -98,6 +102,49 @@ def test_k1_plain_matches_jax_bf16():
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref_out, atol=BF16_OUT_ATOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), ref_lse, atol=BF16_LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("sq,skv", D64_EDGES)
+def test_k1_plain_matches_jax_bf16_at_tile_edges(sq, skv):
+    q, k, v = _qkv(sq * 3 + skv, sq, skv)
+    ref_out, ref_lse = _jax_k1(q, k, v, True, jnp.bfloat16)
+    out, lse = tfa.flash_attention_forward(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)))
+    np.testing.assert_allclose(out.float().numpy(), ref_out, atol=BF16_OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=BF16_LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_kernel_entry_dispatch(backward):
+    """The CUDA dispatch as a pure function of (head_dim, kv_lens, segment
+    ids): head_dim 64 without segment ids, with or without kv_lens, goes to
+    the wgmma entries; 64 with segment ids and every other head_dim keep
+    theirs; every entry named has a C signature in ``_build.SOURCES`` and its
+    counter exists on the wrapper."""
+    d64 = "flash_bwd_sm90_d64" if backward else "flash_fwd_sm90_d64"
+    mma = "flash_bwd" if backward else "flash_fwd"
+    d128 = "flash_bwd_sm90" if backward else "flash_fwd_sm90"
+    seg128 = "flash_bwd_d128" if backward else "flash_fwd"
+    for d in range(16, 129, 16):
+        for varlen, segmented in ((False, False), (True, False), (False, True)):
+            source, entry, counter = tfa.kernel_entry(backward, d, varlen, segmented)
+            assert entry in _build.SOURCES[source], (source, entry)
+            wrapper = (tfa.flash_attention_backward if backward else
+                       tfa.flash_attention_segmented_forward if segmented else
+                       tfa.flash_attention_forward)
+            assert isinstance(getattr(wrapper, counter), int), counter
+            suffix = "_varlen" if varlen else ""
+            if segmented:
+                want = (seg128 if d == 128 else mma, entry.endswith("_d128") == (d == 128))
+                assert (source, True) == want and "seg" in entry
+                assert counter.endswith("_seg") or not backward
+            elif d == 64:
+                assert (source, counter) == (d64, "launches_d64" + suffix)
+                assert entry == ("vap_flash_bwd_d64" if backward else "vap_flash_fwd_d64")
+            elif d == 128:
+                assert (source, counter) == (d128, "launches_d128" + suffix)
+            else:
+                assert (source, counter) == (mma, "launches" + suffix)
 
 
 @pytest.mark.parametrize("sq,skv", SHAPES)

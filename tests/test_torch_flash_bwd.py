@@ -19,8 +19,11 @@ from vap_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from vap_tpu_torch.ops import attention as tattn
 from vap_tpu_torch.ops import flash_attention as tfa
 
-# unaligned (Sq, Skv) pairs: ragged last q and kv tiles on both sides
+# unaligned (Sq, Skv) pairs: ragged last q and kv tiles on both sides; then
+# head_dim 64 at the edges of the card kernels' tiles (128 keys and 64
+# queries in the dk/dv pass, 128 queries and 128 keys in the dq pass)
 SHAPES = [(300, 200), (128, 257), (64, 77)]
+D64_EDGES = [(127, 129), (129, 193), (193, 127)]
 # float32: the same recurrence (P from the lse, delta from out) summed in
 # another order and from the two sides' own forwards, which agree to 2e-5
 F32_ATOL = 1e-4
@@ -49,7 +52,7 @@ def _port_grads(q, k, v, dout, dtype):
     return [g.float().numpy() for g in tfa.flash_attention_backward(q, k, v, out, lse, dout)]
 
 
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + D64_EDGES)
 def test_k5_plain_matches_jax_vjp_f32(sq, skv):
     x = _inputs(sq * 7 + skv, sq, skv)
     for name, got, ref in zip("qkv", _port_grads(*x, torch.float32),
@@ -57,7 +60,7 @@ def test_k5_plain_matches_jax_vjp_f32(sq, skv):
         np.testing.assert_allclose(got, ref, atol=F32_ATOL, rtol=0, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + D64_EDGES)
 def test_k5_plain_matches_jax_vjp_bf16(sq, skv):
     x = [a.astype(jnp.bfloat16).astype(np.float32) for a in _inputs(sq + 3 * skv, sq, skv)]
     for name, got, ref in zip("qkv", _port_grads(*x, torch.bfloat16),
@@ -81,6 +84,7 @@ def test_flash_function_matches_dense_autograd(sq, skv):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0, msg=f"d{name}")
     # the launch counters count kernel launches only: CPU tensors launch none
     assert tfa.flash_attention_backward.launches == 0
+    assert tfa.flash_attention_backward.launches_d64 == 0
 
 
 def test_full_attention_flash_and_xla_grads_agree():

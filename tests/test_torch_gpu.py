@@ -2,7 +2,8 @@
 K8 their packed-segment form and the ring body over it, K5 and K6 flash
 backward and K7's and K8's backward in them, the ring backward over them,
 K3 W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch
-versions on the card; K4 and K6 (wgmma and TMA) also at their tile edges.
+versions on the card; the wgmma and TMA kernels (K1 and K5 at head_dim 64,
+K4 and K6 at 128, and K7 in them) also at their tile edges.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -20,9 +21,17 @@ KERNELS = {
     "flash": (tfa.flash_attention_forward, tfa.flash_attention_forward_plain),
     "sage": (tfa.flash_attention_int8_forward, tfa.flash_attention_int8_forward_plain),
 }
-# the launch counter of each kernel: K1 below head_dim 128, K4 at 128
-COUNTERS = {("flash", False): "launches", ("flash", True): "launches_d128",
-            ("sage", False): "launches", ("sage", True): "launches"}
+
+
+def _counter(name, d, varlen=False):
+    """The launch counter a call takes: the flash entry ``kernel_entry``
+    names by head_dim (K1 at 64, K1's mma.sync form below 128 else, K4 at
+    128); K2's one kernel at every head_dim."""
+    if name == "flash":
+        return tfa.kernel_entry(False, d, varlen=varlen)[2]
+    return "launches_varlen" if varlen else "launches"
+
+
 # bf16 output, held as max|out - ref| / max|ref|: kernel and plain version
 # round P to bf16 against different running maxima, which moves an output by
 # about one bf16 ulp, at most 2^-7 of max|ref|
@@ -48,7 +57,7 @@ def _qkv(device, sq, skv, d=64, b=1, h=2, seed=1):
 
 def _check(name, q, k, v):
     kernel, plain = KERNELS[name]
-    counter = COUNTERS[name, q.shape[-1] == 128]
+    counter = _counter(name, q.shape[-1])
     before = getattr(kernel, counter)
     out, lse = kernel(q, k, v)
     torch.cuda.synchronize()
@@ -128,8 +137,6 @@ def test_flash_raises_at_head_dim_256(cuda):
 # none, a partial last tile and a single key; the suffix past each length
 # holds NaN (the kernels never load it; sage_quantize zeroes it by select)
 K7_LENS = {(300, 200): [200, 0], (128, 257): [220, 1], (64, 77): [40, 77]}
-K7_COUNTERS = {("flash", False): "launches_varlen", ("flash", True): "launches_d128_varlen",
-               ("sage", False): "launches_varlen", ("sage", True): "launches_varlen"}
 
 
 def _k7_inputs(device, sq, skv, d, fill):
@@ -151,8 +158,8 @@ def test_k7_matches_plain(cuda, name, d, sq, skv):
     counter and none on the fixed-length one."""
     kernel, plain = KERNELS[name]
     q, k, v, lens = _k7_inputs(cuda, sq, skv, d, float("nan"))
-    counter = K7_COUNTERS[name, d == 128]
-    fixed = COUNTERS[name, d == 128]
+    counter = _counter(name, d, varlen=True)
+    fixed = _counter(name, d)
     before = getattr(kernel, counter), getattr(kernel, fixed)
     out, lse = kernel(q, k, v, kv_lens=lens)
     torch.cuda.synchronize()
@@ -213,10 +220,11 @@ def _grad_errors(got, ref):
 @pytest.mark.parametrize("d", [64, 32])
 def test_k5_matches_plain(cuda, sq, skv, d):
     args = _bwd_inputs(cuda, sq, skv, d=d)
-    before = tfa.flash_attention_backward.launches
+    counter = tfa.kernel_entry(True, d)[2]  # the wgmma kernels at 64, mma.sync at 32
+    before = getattr(tfa.flash_attention_backward, counter)
     got = tfa.flash_attention_backward(*args)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_backward.launches == before + 1
+    assert getattr(tfa.flash_attention_backward, counter) == before + 1
     assert all(torch.isfinite(g).all() for g in got)
     errs = _grad_errors(got, tfa.flash_attention_backward_plain(*args))
     assert max(errs) <= GRAD_REL_TOL, errs
@@ -331,7 +339,7 @@ def test_flash_function_grads_on_the_card_d128(cuda):
 
 # K7's backward: K5 and K6 given kv_lens, on the NaN suffix of the K7
 # forward tests, held to the K5/K6 limit against their plain versions
-K7_BWD = {64: ("launches_varlen", "launches", tfa.flash_attention_backward_plain),
+K7_BWD = {64: ("launches_d64_varlen", "launches_d64", tfa.flash_attention_backward_plain),
           128: ("launches_d128_varlen", "launches_d128", tfa.flash_attention_backward_rows_plain)}
 
 
@@ -421,8 +429,8 @@ def test_k6_with_one_key(cuda):
         assert g.float().abs().max().item() <= 1e-2 * scale
 
 
-def _k7_edge_inputs(device):
-    q, k, v = _qkv(device, 200, 257, d=128, b=len(K7_EDGE_LENS), h=3, seed=11)
+def _k7_edge_inputs(device, d=128):
+    q, k, v = _qkv(device, 200, 257, d=d, b=len(K7_EDGE_LENS), h=3, seed=11)
     lens = torch.tensor(K7_EDGE_LENS, device=device)
     pad = torch.arange(k.shape[2], device=device)[None, :] >= lens[:, None]  # [B, Skv]
     k = k.masked_fill(pad[:, None, :, None], float("nan"))
@@ -475,6 +483,121 @@ def test_k6_is_deterministic_with_kv_lens(cuda):
     first = tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)
     second = tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# K1 and K5 at head_dim 64 (and K7 in them) are wgmma kernels too: K1 over
+# tiles of 192 queries (three consumer warpgroups of 64) and 128 keys, K5's
+# dk/dv pass over 128 keys and 64-query tiles, its dq pass over 128 queries
+# and 128-key tiles. Sq and Skv at 1, at both sides of 64, 128 and 192, and
+# at 35,552 mod the tiles (mod 192 = 32, mod 128 = 96), at B = 2 and H = 3
+D64_EDGE_SHAPES = [(63, 65), (64, 64), (65, 63), (127, 129), (128, 128), (129, 127),
+                   (191, 193), (192, 192), (193, 191), (224, 224)]
+
+
+@pytest.mark.parametrize("sq,skv", D64_EDGE_SHAPES + [(1, 1)])
+def test_k1_at_tile_edges(cuda, sq, skv):
+    _check("flash", *_qkv(cuda, sq, skv, d=64, b=2, h=3))
+
+
+@pytest.mark.parametrize("sq,skv", D64_EDGE_SHAPES)
+def test_k5_at_tile_edges(cuda, sq, skv):
+    args = _bwd_inputs(cuda, sq, skv, d=64, b=2, h=3)
+    before = tfa.flash_attention_backward.launches_d64
+    got = tfa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches_d64 == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_backward_plain(*args))
+    assert max(errs) <= GRAD_REL_TOL, errs
+
+
+def test_k5_with_one_key(cuda):
+    """(Sq, Skv) = (1, 1) at head_dim 64, as ``test_k6_with_one_key``: dv
+    held to the limit, dq and dk (kernel and plain version) to 1e-2 of
+    max|dv|, both being rounding noise."""
+    args = _bwd_inputs(cuda, 1, 1, d=64, b=2, h=3)
+    got = tfa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_backward_plain(*args)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert _grad_errors(got[2:], ref[2:])[0] <= GRAD_REL_TOL
+    scale = ref[2].float().abs().max().item()
+    for g in got[:2] + ref[:2]:
+        assert g.float().abs().max().item() <= 1e-2 * scale
+
+
+def test_k7_forward_at_tile_edges_d64(cuda):
+    """K7 in K1 at head_dim 64 at lengths 0, 127, 128 and 129 of 257 keys,
+    NaN past each: finite, within the K1 limits, zero rows and the lse -1e4
+    at length 0, one launch on the varlen counter."""
+    q, k, v, lens = _k7_edge_inputs(cuda, d=64)
+    before = tfa.flash_attention_forward.launches_d64_varlen
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_forward.launches_d64_varlen == before + 1
+    ref_out, ref_lse = tfa.flash_attention_forward_plain(q, k, v, kv_lens=lens)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0,
+                               atol=OUT_REL_TOL * ref_out.float().abs().max().item())
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(lse[0], torch.full_like(lse[0], -1e4), atol=1e-2, rtol=0)
+
+
+def test_k7_backward_at_tile_edges_d64(cuda):
+    """K7's backward in K5 at head_dim 64 at the same lengths: finite with
+    NaN past each, within the limit, exact zero dk and dv rows past each
+    length, dq = 0 for the sample with none."""
+    q, k, v, lens = _k7_edge_inputs(cuda, d=64)
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(12),
+                       device=cuda).to(torch.bfloat16)
+    args = (q, k, v, out, lse, dout)
+    before = tfa.flash_attention_backward.launches_d64_varlen
+    got = tfa.flash_attention_backward(*args, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches_d64_varlen == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_backward_plain(*args, kv_lens=lens))
+    assert max(errs) <= GRAD_REL_TOL, errs
+    dq, dk, dv = got
+    for b, n in enumerate(lens.tolist()):
+        assert not dk[b, :, n:].any() and not dv[b, :, n:].any(), b
+    assert not dq[0].any()
+
+
+def test_k5_is_deterministic_with_kv_lens(cuda):
+    """K7's backward in K5 at head_dim 64 sums each gradient in one block
+    (no atomics): two runs give the same bits."""
+    q, k, v, lens = _k7_edge_inputs(cuda, d=64)
+    out, lse = tfa.flash_attention_forward(q, k, v, kv_lens=lens)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(13),
+                       device=cuda).to(torch.bfloat16)
+    first = tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)
+    second = tfa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_d64_never_reaches_the_mma_sync_kernels(cuda):
+    """A CUDA call at head_dim 64 launches only the wgmma kernels: the
+    mma.sync entries refuse d = 64 and their counters stay."""
+    fwd, bwd = tfa.flash_attention_forward, tfa.flash_attention_backward
+    counts = (fwd.launches, fwd.launches_varlen, bwd.launches, bwd.launches_varlen)
+    q, k, v, out, lse, dout = _bwd_inputs(cuda, 130, 70, d=64)
+    lens = torch.tensor([50], device=cuda)
+    fwd(q, k, v)
+    fwd(q, k, v, kv_lens=lens)
+    bwd(q, k, v, out, lse, dout)
+    bwd(q, k, v, out, lse, dout, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.launches_varlen, bwd.launches, bwd.launches_varlen) == counts
+    from vap_tpu_torch.ops import _build
+
+    lse2 = torch.empty_like(lse)
+    err = _build.library("flash_fwd").vap_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse2.data_ptr(), None, 2, 2,
+        130, 70, 64, 0.18, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 # K3, the W8A8 linear: per chunk the int32 product is exact on both sides and
@@ -776,8 +899,8 @@ def test_k8_backward_matches_plain(cuda, d, sq, skv):
     query segment with no key."""
     *args, q_ids, kv_ids = _k8_bwd_inputs(cuda, sq, skv, d)
     kernel = tfa.flash_attention_backward
-    names = ("launches", "launches_d128", "launches_varlen", "launches_d128_varlen",
-             "launches_seg", "launches_d128_seg")
+    names = ("launches", "launches_d64", "launches_d128", "launches_varlen",
+             "launches_d64_varlen", "launches_d128_varlen", "launches_seg", "launches_d128_seg")
     before = {n: getattr(kernel, n) for n in names}
     got = kernel(*args, segment_ids=(q_ids, kv_ids, 3))
     torch.cuda.synchronize()

@@ -1,12 +1,15 @@
-// K1: bf16 flash-attention forward below head_dim 128, one kernel templated
-// on head_dim, and K8's forward at every head_dim.
+// K1: bf16 flash-attention forward below head_dim 128 except 64, one kernel
+// templated on head_dim, and K8's forward at every head_dim.
 //
 // K1 (head_dim < 128, a multiple of 16, entry `vap_flash_fwd`) replaces the
 // TPU kernels of vap_tpu/ops/flash_attention.py `_flash_attention_forward_t`
 // (`_fwd_kernel_t`, `_fwd_kernel_t_bound`). K4, the same function at head_dim
 // 128 (`_flash_attention_forward`), ran here as the D = 128 instance until
 // it moved to the wgmma kernel of flash_fwd_sm90.cu (entry
-// `vap_flash_fwd_d128`); K8's D = 128 instance below keeps this design. The
+// `vap_flash_fwd_d128`); K8's D = 128 instance below keeps this design. K1
+// at head_dim 64, the main path's (CogVideoX), and K7 there moved to the
+// wgmma kernel of flash_fwd_sm90_d64.cu (entry `vap_flash_fwd_d64`), so
+// `vap_flash_fwd` refuses d = 64 and only K8 instances this kernel at 64. The
 // TPU's kv-bias row that masks padded keys becomes the in-register mask of
 // the ragged last tile. The contract: q [BH, Sq, D], k/v [BH, Skv, D] bf16
 // -> out [BH, Sq, D] bf16 and the natural-log lse [BH, Sq] f32, non-causal,
@@ -60,8 +63,7 @@
 // the two 64x136 bf16 tiles take 34.8 KB of static shared memory. Three
 // blocks fit on an SM at 168 registers (3 x 128 x 168 of the 65,536); at
 // 182 only two fit, and K4 ran 29% slower at the Wan shape. chip_smoke.py
-// fails if K8's D = 128 entry takes more than 168 registers or spills. The
-// wgmma redesign of flash_fwd_sm90.cu (K4) is the model for K1's.
+// fails if K8's D = 128 entry takes more than 168 registers or spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -204,7 +206,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-// Head dims of K1 (and of K7 and K8 in its form): 16..112, step 16.
+// Head dims of K1 (and of K7 in its form): 16..112, step 16, but 64 (the
+// wgmma kernel's); of K8: 16..112.
 template <bool kSegmented>
 cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o, float* lse,
                      const int* kv_lens, const int* q_seg, const int* kv_seg, int bh, int heads,
@@ -216,8 +219,13 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o
                                             sq, skv, scale_log2, s);
     case 48: return launch<48, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
                                             sq, skv, scale_log2, s);
-    case 64: return launch<64, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
-                                            sq, skv, scale_log2, s);
+    case 64:
+      if constexpr (kSegmented) {
+        return launch<64, true>(q, k, v, o, lse, nullptr, q_seg, kv_seg, bh, heads, sq, skv,
+                                scale_log2, s);
+      } else {
+        return cudaErrorInvalidValue;  // flash_fwd_sm90_d64.cu
+      }
     case 80: return launch<80, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
                                             sq, skv, scale_log2, s);
     case 96: return launch<96, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
@@ -237,7 +245,7 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o
 // scale_log2 = softmax scale * log2(e). Each returns the CUDA error of the
 // launch (0 on success). bh <= 65535, sq >= 1, heads >= 1 divides bh.
 
-// K1 (and K7 at these head dims): head_dim d in 16..112, step 16.
+// K1 (and K7 at these head dims): head_dim d in 16..112, step 16, but 64.
 extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              const void* kv_lens, int bh, int heads, int sq, int skv, int d,
                              float scale_log2, void* stream) {

@@ -129,6 +129,14 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// 2^x on the MUFU unit, denormal results flushed to zero (a p that small
+// rounds to nothing in a bf16 sum of ones).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Orders this thread's generic stores to shared memory before later reads
 // by the async proxy (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -151,6 +159,24 @@ __device__ __forceinline__ void zero_rows(unsigned char* tile, int boxes, int bo
 }
 
 // ---- wgmma ----
+
+// A operands (the mma.sync A layout, 4 k16 steps) of this warp's 16 rows
+// of a [64, 64] bf16 tile in one 128-byte-swizzled box at the generic
+// address `tile` (1 KB aligned): rows 16 w + g and + 8 of warp w (of its
+// warpgroup), columns 16 kk + 2t (+ 8) in 16-byte chunk 2kk (+ 1), which
+// the swizzle stores at chunk ^ (row % 8).
+__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4][4], const unsigned char* tile) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * warp + g + 8 * (r & 1), chunk = 2 * kk + (r >> 1);
+      a[kk][r] = *reinterpret_cast<const uint32_t*>(tile + row * 128 + ((chunk ^ g) << 4) + 4 * t);
+    }
+  }
+}
 
 // Descriptor of a 128-byte-swizzled operand at shared address `addr`;
 // `lbo` and `sbo` in bytes (see the layout note above).
@@ -268,6 +294,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// d[64, 72] (+)= A[64, 16] . B[16, 72], A in registers: P V with a column
+// of ones beside V's 64, whose accumulator columns 64..71 are P's row sum.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,"
+      "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35"
+      "}, {%36,%37,%38,%39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 

@@ -54,6 +54,16 @@ SOURCES = {
         # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream (K4, K7)
         "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
+    "flash_fwd_sm90_d64": {
+        # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream (K1, K7 at
+        # head_dim 64)
+        "vap_flash_fwd_d64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+    "flash_bwd_sm90_d64": {
+        # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv,
+        # scale_log2, scale, stream (K5, K7's backward at head_dim 64)
+        "vap_flash_bwd_d64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    },
     "flash_bwd_sm90": {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, scale,
         # stream (K6, K7's backward)

@@ -4,10 +4,11 @@ K1 and K4 ``flash_attention_forward``: non-causal softmax(Q K^T * scale) V
 with the natural-log lse, bf16. Head_dim < 128 launches K1, the forward of
 ``vap_tpu/ops/flash_attention.py`` ``flash_attention`` at D < 128
 (``_flash_attention_forward_t``); head_dim 128 launches K4, its row-layout
-forward at D >= 128 (``_flash_attention_forward``). K1 is an ``mma.sync``
-kernel templated on head_dim, ``csrc/flash_fwd.cu``; K4 a warp-specialised
-``wgmma`` kernel fed by TMA, ``csrc/flash_fwd_sm90.cu``; one entry point
-each.
+forward at D >= 128 (``_flash_attention_forward``). K1 at head_dim 64 (the
+main path's) and K4 are warp-specialised ``wgmma`` kernels fed by TMA,
+``csrc/flash_fwd_sm90_d64.cu`` and ``csrc/flash_fwd_sm90.cu``; K1 at the
+other head dims an ``mma.sync`` kernel templated on head_dim,
+``csrc/flash_fwd.cu``; one entry point each (``kernel_entry``).
 
 K2 ``flash_attention_int8_forward``: the SageAttention-style forward of
 ``flash_attention_int8`` (``_flash_attention_forward_t_i8``): K smoothing,
@@ -19,8 +20,11 @@ was plain XLA outside the Pallas kernel.
 K5 and K6 ``flash_attention_backward``: the gradient of the forward's
 function from its out and lse: P recomputed from the lse, delta =
 rowsum(out * dout), then dq, and dk and dv, each summed inside one block.
-Head_dim < 128 launches K5 (``_flash_attention_backward_t``, CUDA source
-``csrc/flash_bwd.cu``); head_dim 128 launches K6, the row-layout backward
+Head_dim < 128 launches K5 (``_flash_attention_backward_t``: at head_dim
+64 two warp-specialised ``wgmma`` kernels fed by TMA, dk/dv then dq, no
+atomics, ``csrc/flash_bwd_sm90_d64.cu``; at the other head dims
+``mma.sync`` kernels, ``csrc/flash_bwd.cu``); head_dim 128 launches K6, the
+row-layout backward
 (``_flash_attention_backward``, ``csrc/flash_bwd_sm90.cu``: a q * scale
 pre-pass and two warp-specialised ``wgmma`` kernels fed by TMA, dk/dv then
 dq, no atomics), which rounds q * scale to bf16 before q k^T and works in
@@ -63,17 +67,25 @@ the two.
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; on any other device, or on inputs the kernel does not take, it
 raises. Each kernel counts its launches on its wrapper:
-``flash_attention_forward.launches`` (K1),
+``flash_attention_forward.launches_d64`` (K1 at head_dim 64),
+``flash_attention_forward.launches`` (K1 at the other head dims below 128),
 ``flash_attention_forward.launches_d128`` (K4),
-``flash_attention_forward.launches_varlen`` (K7 in K1, head_dim < 128),
+``flash_attention_forward.launches_d64_varlen`` (K7 in K1 at head_dim 64),
+``flash_attention_forward.launches_varlen`` (K7 in K1 at the other head
+dims below 128),
 ``flash_attention_forward.launches_d128_varlen`` (K7 in K4),
 ``flash_attention_segmented_forward.launches`` (K8 in K1, head_dim < 128),
 ``flash_attention_segmented_forward.launches_d128`` (K8 in K4),
 ``flash_attention_int8_forward.launches`` (K2),
 ``flash_attention_int8_forward.launches_varlen`` (K7 in K2),
-``flash_attention_backward.launches`` (K5),
+``flash_attention_backward.launches_d64`` (K5 at head_dim 64),
+``flash_attention_backward.launches`` (K5 at the other head dims below
+128),
 ``flash_attention_backward.launches_d128`` (K6),
-``flash_attention_backward.launches_varlen`` (K7's backward in K5),
+``flash_attention_backward.launches_d64_varlen`` (K7's backward in K5 at
+head_dim 64),
+``flash_attention_backward.launches_varlen`` (K7's backward in K5 at the
+other head dims below 128),
 ``flash_attention_backward.launches_d128_varlen`` (K7's backward in K6),
 ``flash_attention_backward.launches_seg`` (K8's backward in K5) and
 ``flash_attention_backward.launches_d128_seg`` (K8's backward in K6).
@@ -480,10 +492,43 @@ def flash_attention_int8_forward_plain(q, k, v, scale: Optional[float] = None,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def kernel_entry(backward: bool, head_dim: int, varlen: bool = False,
+                 segmented: bool = False) -> Tuple[str, str, str]:
+    """(source, entry, counter) of a CUDA call: the library of
+    ``csrc/<source>.cu``, its C entry point (a signature in
+    ``_build.SOURCES``) and the launch counter on the wrapper
+    (``flash_attention_backward`` for ``backward``, else
+    ``flash_attention_segmented_forward`` given ``segmented``, else
+    ``flash_attention_forward``). Head_dim 64 without segment ids takes the
+    ``wgmma`` kernels of K1 and K5, 128 those of K4 and K6, with or without
+    ``varlen`` (K7's ``kv_lens``); segment ids (K8) and the other head dims
+    take the ``mma.sync`` kernels, K8 at 128 its own entries."""
+    d64, d128 = head_dim == 64, head_dim == 128
+    if segmented:
+        if backward:
+            return (("flash_bwd_d128", "vap_flash_bwd_seg_d128", "launches_d128_seg") if d128
+                    else ("flash_bwd", "vap_flash_bwd_seg", "launches_seg"))
+        return (("flash_fwd", "vap_flash_fwd_seg_d128", "launches_d128") if d128
+                else ("flash_fwd", "vap_flash_fwd_seg", "launches"))
+    suffix = "_varlen" if varlen else ""
+    if backward:
+        source, entry, counter = (
+            ("flash_bwd_sm90", "vap_flash_bwd_d128", "launches_d128") if d128
+            else ("flash_bwd_sm90_d64", "vap_flash_bwd_d64", "launches_d64") if d64
+            else ("flash_bwd", "vap_flash_bwd", "launches"))
+    else:
+        source, entry, counter = (
+            ("flash_fwd_sm90", "vap_flash_fwd_d128", "launches_d128") if d128
+            else ("flash_fwd_sm90_d64", "vap_flash_fwd_d64", "launches_d64") if d64
+            else ("flash_fwd", "vap_flash_fwd", "launches"))
+    return source, entry, counter + suffix
+
+
 def flash_attention_forward(q, k, v, scale: Optional[float] = None,
                             kv_lens: Optional[torch.Tensor] = None):
     """K1 and K4, and with ``kv_lens`` K7: (out, lse). CUDA tensors launch
-    ``vap_flash_fwd`` (K1, head_dim a multiple of 16 below 128) or
+    the entry ``kernel_entry`` names: ``vap_flash_fwd_d64`` (K1 at head_dim
+    64), ``vap_flash_fwd`` (K1 at the other multiples of 16 below 128) or
     ``vap_flash_fwd_d128`` (K4, head_dim 128): bf16, contiguous; ``kv_lens``
     goes to the kernel as int32 on the same card. CPU tensors take
     ``flash_attention_forward_plain``."""
@@ -505,25 +550,21 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             None if lens is None else lens.data_ptr())
-    counter = "launches_d128" if d == 128 else "launches"
+    source, entry, counter = kernel_entry(False, d, varlen=lens is not None)
+    dims = (b * h, h, sq, skv) + ((d,) if source == "flash_fwd" else ())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if d == 128:
-            err = _build.library("flash_fwd_sm90").vap_flash_fwd_d128(
-                *ptrs, b * h, h, sq, skv, scale * LOG2_E, stream)
-            _build.check(err, "vap_flash_fwd_d128")
-        else:
-            err = _build.library("flash_fwd").vap_flash_fwd(*ptrs, b * h, h, sq, skv, d,
-                                                            scale * LOG2_E, stream)
-            _build.check(err, "vap_flash_fwd")
-    counter += "" if lens is None else "_varlen"
+        err = getattr(_build.library(source), entry)(*ptrs, *dims, scale * LOG2_E, stream)
+    _build.check(err, entry)
     setattr(flash_attention_forward, counter, getattr(flash_attention_forward, counter) + 1)
     return out, lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.launches_d64 = 0
 flash_attention_forward.launches_d128 = 0
 flash_attention_forward.launches_varlen = 0
+flash_attention_forward.launches_d64_varlen = 0
 flash_attention_forward.launches_d128_varlen = 0
 
 
@@ -554,19 +595,16 @@ def flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
                    b * h, sq)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_fwd")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
             out.data_ptr(), lse.data_ptr())
+    source, entry, counter = kernel_entry(False, d, segmented=True)
+    dims = (b * h, h, sq, skv) + (() if d == 128 else (d,))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if d == 128:
-            err = lib.vap_flash_fwd_seg_d128(*ptrs, b * h, h, sq, skv, scale * LOG2_E, stream)
-            _build.check(err, "vap_flash_fwd_seg_d128")
-            flash_attention_segmented_forward.launches_d128 += 1
-        else:
-            err = lib.vap_flash_fwd_seg(*ptrs, b * h, h, sq, skv, d, scale * LOG2_E, stream)
-            _build.check(err, "vap_flash_fwd_seg")
-            flash_attention_segmented_forward.launches += 1
+        err = getattr(_build.library(source), entry)(*ptrs, *dims, scale * LOG2_E, stream)
+    _build.check(err, entry)
+    setattr(flash_attention_segmented_forward, counter,
+            getattr(flash_attention_segmented_forward, counter) + 1)
     return out, lse
 
 
@@ -581,10 +619,12 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
     ((q_seg [B, Sq], kv_seg [B, Skv], num_segments)) K8's: (dq, dk, dv) of
     out = softmax(q k^T scale) v, from the forward's ``out`` and natural-log
     ``lse``. After the delta pre-pass in PyTorch, CUDA tensors (bf16,
-    contiguous) launch ``vap_flash_bwd`` (K5, head_dim a multiple of 16
-    below 128) or ``vap_flash_bwd_d128`` (K6, head_dim 128), ``kv_lens`` as
-    int32 on the same card, or given segment ids ``vap_flash_bwd_seg`` /
-    ``vap_flash_bwd_seg_d128`` with the ids as the forward maps them; CPU
+    contiguous) launch the entry ``kernel_entry`` names:
+    ``vap_flash_bwd_d64`` (K5 at head_dim 64), ``vap_flash_bwd`` (K5 at the
+    other multiples of 16 below 128) or ``vap_flash_bwd_d128`` (K6, head_dim
+    128), ``kv_lens`` as int32 on the same card, or given segment ids
+    ``vap_flash_bwd_seg`` / ``vap_flash_bwd_seg_d128`` with the ids as the
+    forward maps them; CPU
     tensors take ``flash_attention_backward_plain``, at head_dim 128
     ``flash_attention_backward_rows_plain``, or
     ``flash_attention_segmented_backward_plain``."""
@@ -627,28 +667,26 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if segment_ids is not None:
         ptrs += (tensors["q_segment_ids"].data_ptr(), tensors["kv_segment_ids"].data_ptr())
-        entry, suffix = "vap_flash_bwd_seg", "_seg"
     else:
         ptrs += (None if lens is None else lens.data_ptr(),)
-        entry, suffix = "vap_flash_bwd", "" if lens is None else "_varlen"
+    source, entry, counter = kernel_entry(True, d, varlen=lens is not None,
+                                          segmented=segment_ids is not None)
+    # K6's row form takes the scale; K5's log2 form scale * log2(e) and the scale
+    dims = (b * h, h, sq, skv) + ((d,) if source == "flash_bwd" else ())
+    scales = (scale,) if d == 128 else (scale * LOG2_E, scale)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if d == 128:
-            entry += "_d128"
-            source = "flash_bwd_d128" if segment_ids is not None else "flash_bwd_sm90"
-            err = getattr(_build.library(source), entry)(*ptrs, b * h, h, sq, skv, scale, stream)
-        else:
-            err = getattr(_build.library("flash_bwd"), entry)(
-                *ptrs, b * h, h, sq, skv, d, scale * LOG2_E, scale, stream)
-        _build.check(err, entry)
-    counter = ("launches_d128" if d == 128 else "launches") + suffix
+        err = getattr(_build.library(source), entry)(*ptrs, *dims, *scales, stream)
+    _build.check(err, entry)
     setattr(flash_attention_backward, counter, getattr(flash_attention_backward, counter) + 1)
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_d64 = 0
 flash_attention_backward.launches_d128 = 0
 flash_attention_backward.launches_varlen = 0
+flash_attention_backward.launches_d64_varlen = 0
 flash_attention_backward.launches_d128_varlen = 0
 flash_attention_backward.launches_seg = 0
 flash_attention_backward.launches_d128_seg = 0

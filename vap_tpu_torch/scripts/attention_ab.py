@@ -1,6 +1,7 @@
 """Time the attention kernels at their main-path shapes for several trees on one card.
 
     python -m vap_tpu_torch.scripts.attention_ab PARENT . . PARENT
+    python -m vap_tpu_torch.scripts.attention_ab --d64 A B A B ...
 
 Each root given is a checkout (or an unpacked archive) holding
 ``vap_tpu_torch/``; each is timed in its own process, in the order given,
@@ -16,8 +17,12 @@ CogVideoX's [1, 48, 35552, 64]; K6 at Wan's training self-attention
 has it. bf16, ms per call over 5 calls after 2 of warm-up (20 at the cross
 shapes), with CUDA events (the backward's delta pre-pass included). Then
 the registers and spills ptxas gave the root's attention kernels (K1, K2,
-K4, K5, K6, K8). The kernels are built from each root's sources. It runs on
-the card and raises without one.
+K4, K5, K6, K8; K1 and K5 at head_dim 64 from their wgmma sources where
+the root has them). With ``--d64`` only K1 and K5 at CogVideoX's shape are
+timed, and only the head_dim-64 wgmma kernels' registers printed: a root
+listed ten times in turns with another gives ten alternating pairs. The
+kernels are built from each root's sources. It runs on the card and raises
+without one.
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ K7_FWD_SHAPE, K7_FWD_LEN = (1, 24, 32656, 128), 32443  # Hunyuan generation at 3
 CROSS_KEYS = (512, 257)  # Wan's UMT5 and CLIP keys over one branch's 20,280 queries
 
 
-def time_root(root: str) -> None:
-    """Import the port under ``root`` and print its attention kernels' times."""
+def time_root(root: str, d64: bool = False) -> None:
+    """Import the port under ``root`` and print its attention kernels' times
+    (with ``d64``, K1's and K5's only)."""
     sys.path.insert(0, root)
     import torch
 
@@ -54,8 +60,6 @@ def time_root(root: str) -> None:
     def inputs(shape, n=3):
         return [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(n)]
 
-    q, k, v = inputs(SHAPE)
-
     def ms(fn, iters=5, warmup=2):
         for _ in range(warmup):
             fn()
@@ -68,6 +72,16 @@ def time_root(root: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    if d64:
+        q, k, v, dout = inputs(K5_SHAPE, 4)
+        k1 = ms(lambda: fa.flash_attention_forward(q, k, v))
+        out, lse = fa.flash_attention_forward(q, k, v)
+        k5 = ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout))
+        regs = {name: got for name, got in kernel_registers().items() if "_d64_" in name}
+        print(f"{root}: K1 {k1:.3f} ms, K5 {k5:.3f} ms at {list(K5_SHAPE)}; ptxas {regs}",
+              flush=True)
+        return
+    q, k, v = inputs(SHAPE)
     k4 = ms(lambda: fa.flash_attention_forward(q, k, v))
     k2 = ms(lambda: fa.flash_attention_int8_forward(q, k, v))
     del q, k, v
@@ -125,15 +139,16 @@ def time_root(root: str) -> None:
 def kernel_registers():
     """{kernel: {"registers": N, "spill": M}} of the root's attention
     kernels, as ptxas printed them: every instance of the backward sources
-    and of the wgmma sources (where the root has them), and the D=64 and
-    D=128 instances (and the untemplated ones) of the others (K1, K2, K5,
-    K8)."""
+    and of the wgmma sources (K1 and K5 at head_dim 64, K4, K6; where the
+    root has them), and the D=64 and D=128 instances (and the untemplated
+    ones) of the others (K1's and K5's mma.sync forms, K2, K8)."""
     import re
 
     from vap_tpu_torch.ops import _build
 
     found = {}
-    every = ("flash_bwd_d128", "flash_fwd_sm90", "flash_bwd_sm90")
+    every = ("flash_bwd_d128", "flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_sm90_d64",
+             "flash_bwd_sm90_d64")
     for source in ("flash_fwd", "sage_fwd", "flash_bwd") + every:
         if source not in _build.SOURCES:  # a root from before this source
             continue
@@ -156,13 +171,15 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("roots", nargs="+", help="checkouts holding vap_tpu_torch/, in order")
     parser.add_argument("--one", action="store_true", help="time the single root in this process")
+    parser.add_argument("--d64", action="store_true",
+                        help="time only K1 and K5 at head_dim 64 (their wgmma kernels' registers)")
     args = parser.parse_args(argv)
     if args.one:
-        time_root(os.path.abspath(args.roots[0]))
+        time_root(os.path.abspath(args.roots[0]), args.d64)
         return
     for root in args.roots:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root)],
-                       check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root)]
+                       + ["--d64"] * args.d64, check=True)
 
 
 if __name__ == "__main__":
