@@ -40,7 +40,9 @@ TOP = 25
 CATEGORIES = [
     ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_kernel", "w8a8_quantize_kernel")),
     ("attention kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_sm90_d64_kernel",
-                          "sage_fwd_kernel")),
+                          "sage_fwd_kernel", "sage_fwd_sm90_kernel", "sage_fwd_sm90_d64_kernel")),
+    ("K2's pre-pass (sage_quant: statistics, scales, quantise)",
+     ("sage_stats_kernel", "sage_scales_kernel", "sage_quant_kernel")),
     ("attention backward kernel (K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                                         "flash_bwd_sm90_d64_dq_kernel",
                                         "flash_bwd_sm90_d64_dkv_kernel")),

@@ -8,12 +8,16 @@ Phases, each of which raises on failure:
   2. build: one nvcc per vap_tpu_torch/csrc/*.cu, all started together, for
      sm_90a; ptxas's registers and spills per kernel, the backward instances
      on a path (K5 at D=64, K6) listed apart; the HGMMA (wgmma) and UTMALDG
-     (TMA load) instructions in the SASS of K1 and K5 at D=64 and of K4 and
-     K6, counted by cuobjdump per kernel function, and no wgmma serialised
-     by ptxas there (warnings C7512, C7513, any C751x);
+     (TMA load) instructions in the SASS of K1, K2 and K5 at D=64 and of
+     K4, K2 and K6 at D=128, and IGMMA (int8 wgmma) in K2's, counted by
+     cuobjdump per kernel function, K2's int32 -> f32 conversions (I2F,
+     I2FP) printed, and no wgmma serialised by ptxas there (warnings C7512,
+     C7513, any C751x);
   3. kernel parity: K1 (flash, D=64: the wgmma kernel of
      flash_fwd_sm90_d64.cu), K4 (flash, D=128) and K2 (sage, D=64
-     and D=128) against their plain PyTorch versions in bf16, at unaligned
+     and D=128: the wgmma kernels of sage_fwd_sm90_d64.cu and
+     sage_fwd_sm90.cu, after the pre-pass kernel of sage_quant.cu) against
+     their plain PyTorch versions in bf16, at unaligned
      shapes and at the main-path shapes (CogVideoX joint [1,48,35552,64];
      Wan joint [1,40,40560,128], Wan cross [1,40,20280,128] x 512 and
      x 257 keys, and for K4 also Wan training's self-attention
@@ -21,7 +25,11 @@ Phases, each of which raises on failure:
      the limit; the
      kernel's time, the plain version's, torch's SDPA flash backend's (a
      yardstick only, never called by the port) and the card's bound, for
-     K4 also at Wan's two cross shapes;
+     K4 and K2 also at Wan's two cross shapes, and for K2 its pre-pass's
+     time apart at every timed shape; then the pre-pass kernel against the
+     plain sage_quantize (q_i8 equal, k_i8 within one step, sqk within rtol
+     1e-6, with and without kv_lens over a NaN suffix; a planted fault, q
+     rows rolled, must break the equality), its time and bound;
      then K3 (the W8A8 linear) against its plain version at unaligned
      shapes and at the three projection shapes of a CogVideoX step
      ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072]),
@@ -36,9 +44,10 @@ Phases, each of which raises on failure:
      NaN and must not move the output, exact zero rows and the lse -1e4
      where a sample has no key; two planted faults (the kernel without
      kv_lens on a suffix of 1e4, and V rolled inside each tile) must break
-     the limit; times at the joint shape beside the plain version, the
-     bound over the valid keys and SDPA's memory-efficient backend with a
-     boolean key mask (a yardstick only); then K8, the packed-segment
+     the limit; times at the joint shape beside the plain version (K2's
+     pre-pass apart), the bound over the valid keys and SDPA's
+     memory-efficient backend with a boolean key mask (a yardstick only);
+     then K8, the packed-segment
      forward (K1's kernel at D=64, K4's at D=128, kSegmented), against its
      plain version at three full-width cases: CogVideoX's joint stream
      [1,48,35552,64] as target and reference segments (its last 64 tokens
@@ -281,38 +290,48 @@ BENCH_STEPS = 4
 BENCH_CACHE = "uniform:2:1:1"
 BENCH_COMPUTED = [0, 1, 3]
 REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
-# the mma.sync D = 128 forward instances fit three blocks an SM at 168
-# registers a thread, and two at the 188 (K2) and 180 (K8) of an earlier
-# build, which ran 15% and 40% slower; the wgmma kernels of K4 and K6 (384
-# threads, one block an SM) launch at 168, the most that lets setmaxnreg
-# give the two consumer warpgroups 232 and the producer 40; K1's at D=64
-# (512 threads: three consumer warpgroups) at 128, setmaxnreg 160 / 32; K5's
-# at D=64 (384 threads) at 168. The build fails past these counts or on a
+# the mma.sync D = 128 forward instance (K8's) fits three blocks an SM at
+# 168 registers a thread, and two at the 180 of an earlier build, which ran
+# 40% slower; the wgmma kernels of K4, K6 and K2 at D=128 (384 threads, one
+# block an SM) launch at 168, the most that lets setmaxnreg give the two
+# consumer warpgroups 232 and the producer 40; K1's and K2's at D=64 (512
+# threads: three consumer warpgroups) at 128, setmaxnreg 160 / 32; K5's at
+# D=64 (384 threads) at 168. The build fails past these counts or on a
 # spill
-PINNED_REGISTERS = {"sage_fwd_kernel<Li128E>": 168, "flash_fwd_seg_d128_kernel": 168,
+PINNED_REGISTERS = {"flash_fwd_seg_d128_kernel": 168,
                     "flash_fwd_sm90_kernel": 168, "flash_bwd_sm90_dq_kernel": 168,
                     "flash_bwd_sm90_dkv_kernel": 168, "flash_fwd_sm90_d64_kernel": 128,
-                    "flash_bwd_sm90_d64_dq_kernel": 168, "flash_bwd_sm90_d64_dkv_kernel": 168}
-# the flash forward's instances on a path: K1 at D=64 and K4 (fixed length
-# and K7), and K8 (kSegmented) at D=64 and D=128, printed with their
-# registers and spills; they also go into the kernels line
+                    "flash_bwd_sm90_d64_dq_kernel": 168, "flash_bwd_sm90_d64_dkv_kernel": 168,
+                    "sage_fwd_sm90_kernel": 168, "sage_fwd_sm90_d64_kernel": 128}
+# the forward instances on a path: K1 at D=64 and K4 (fixed length and K7),
+# K8 (kSegmented) at D=64 and D=128, and K2 at D=64 and D=128 (and K7 in
+# it), printed with their registers and spills; they also go into the
+# kernels line
 FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_sm90_d64_kernel",
                      "flash_fwd_d128": "flash_fwd_sm90_kernel",
                      "flash_fwd_seg": "flash_fwd_kernel<Li64ELb1E>",
-                     "flash_fwd_seg_d128": "flash_fwd_seg_d128_kernel"}
+                     "flash_fwd_seg_d128": "flash_fwd_seg_d128_kernel",
+                     "sage_fwd": "sage_fwd_sm90_d64_kernel",
+                     "sage_fwd_d128": "sage_fwd_sm90_kernel"}
 # the backward instances on a path or held (K5 at D=64 and K6, each with
 # and without kv_lens, K8), printed with their registers and spills
 BACKWARD_INSTANCES = ("flash_bwd_sm90_d64_dq_kernel", "flash_bwd_sm90_d64_dkv_kernel",
                       "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
                       "flash_bwd_seg_dq_kernel<Li64E>", "flash_bwd_seg_dkv_kernel<Li64E>",
                       "flash_bwd_seg_d128_dq_kernel", "flash_bwd_seg_d128_dkv_kernel")
-# the wgmma kernels (K1 and K5 at D=64, K4, K6) by source, whose SASS and
-# ptxas logs the build phase reads per kernel function
+# the wgmma kernels (K1, K2 and K5 at D=64, K4, K2 and K6 at D=128) by
+# source, whose SASS and ptxas logs the build phase reads per kernel function
 WGMMA_KERNELS = {"flash_fwd_sm90_d64": ("flash_fwd_sm90_d64_kernel",),
                  "flash_bwd_sm90_d64": ("flash_bwd_sm90_d64_dq_kernel",
                                         "flash_bwd_sm90_d64_dkv_kernel"),
                  "flash_fwd_sm90": ("flash_fwd_sm90_kernel",),
-                 "flash_bwd_sm90": ("flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel")}
+                 "flash_bwd_sm90": ("flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel"),
+                 "sage_fwd_sm90_d64": ("sage_fwd_sm90_d64_kernel",),
+                 "sage_fwd_sm90": ("sage_fwd_sm90_kernel",)}
+# K2's wgmma kernels: their Q K^T on the int8 tensor cores (IGMMA) besides
+# the bf16 P V (HGMMA); the int32 -> f32 conversions (I2F, and I2FP, which
+# ptxas may emit for it) counted in their SASS and printed
+INT8_WGMMA_KERNELS = ("sage_fwd_sm90_d64_kernel", "sage_fwd_sm90_kernel")
 # K5's and K6's wgmma kernels, and K8's backward (kSegmented, kernels and
 # entries of their own) at D=64 and D=128: their dq and dk/dv instances,
 # whose registers go into the kernels line
@@ -520,10 +539,19 @@ def kernel_specs():
                                timed=WAN_JOINT, source=src + "flash_fwd_sm90.cu",
                                replaces=ref + "225", timed_cross=WAN_CROSS),
         "sage_fwd": dict(fns=sage, kind="sage", counter="launches", shapes=d64,
-                         timed=MAIN_SHAPE, source=src + "sage_fwd.cu", replaces=ref + "816"),
+                         timed=MAIN_SHAPE, source=src + "sage_fwd_sm90_d64.cu",
+                         replaces=ref + "816"),
         "sage_fwd_d128": dict(fns=sage, kind="sage", counter="launches", shapes=d128,
-                              timed=WAN_JOINT, source=src + "sage_fwd.cu", replaces=ref + "816"),
+                              timed=WAN_JOINT, source=src + "sage_fwd_sm90.cu",
+                              replaces=ref + "816", timed_cross=WAN_CROSS),
     }
+
+
+def prepass_ms(q, k, kv_lens=None):
+    """K2's pre-pass kernel alone on these inputs, ms a call."""
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    return time_ms(lambda: fa.sage_prepass(q, k, q.shape[-1] ** -0.5, kv_lens), iters=5, warmup=2)
 
 
 def kernel_parity(dev):
@@ -579,30 +607,114 @@ def kernel_parity(dev):
                                      warmup=2)
         bound_ms, bound_by = bound(spec["kind"], b, h, s, s, d)
         tflops = 4 * b * h * s * s * d / (ms * 1e-3) / 1e12
-        log(f"  {name} at {spec['timed']}: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-            f"plain {plain_ms:.3f} ms, SDPA flash {library_ms if library_ms is None else round(library_ms, 3)} ms, "
+        # K2's time includes its pre-pass kernel, timed alone beside it
+        pre = prepass_ms(q, k) if spec["kind"] == "sage" else None
+        log(f"  {name} at {spec['timed']}: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s)"
+            + (f" of which the pre-pass {pre:.3f} ms" if pre is not None else "")
+            + f", plain {plain_ms:.3f} ms, SDPA flash "
+            f"{library_ms if library_ms is None else round(library_ms, 3)} ms, "
             f"bound {bound_ms:.3f} ms ({bound_by})")
         results[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                          "shape": list(spec["timed"])}
+        if pre is not None:
+            results[name]["prepass_ms"] = pre
         del q, k, v
         torch.cuda.empty_cache()
         cross = []
-        for b, h, sq, skv, d in spec.get("timed_cross", ()):  # K4 at Wan's cross shapes
+        for b, h, sq, skv, d in spec.get("timed_cross", ()):  # K4 and K2 at Wan's cross shapes
             q, k, v = qkv(b, h, sq, skv, d)
             c_ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=2)
             c_plain = time_ms(lambda: plain(q, k, v), iters=1, warmup=1)
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-                c_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5, warmup=2)
+            c_lib = c_pre = None
+            if spec["kind"] == "flash":
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    c_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5,
+                                    warmup=2)
+            else:
+                c_pre = prepass_ms(q, k)
             c_bound, c_by = bound(spec["kind"], b, h, sq, skv, d)
-            log(f"  {name} at {(b, h, sq, d)} x {skv}: kernel {c_ms:.3f} ms, plain "
-                f"{c_plain:.3f} ms, SDPA flash {c_lib:.3f} ms, bound {c_bound:.3f} ms ({c_by})")
+            log(f"  {name} at {(b, h, sq, d)} x {skv}: kernel {c_ms:.3f} ms"
+                + (f" of which the pre-pass {c_pre:.3f} ms" if c_pre is not None else "")
+                + f", plain {c_plain:.3f} ms, SDPA flash "
+                f"{c_lib if c_lib is None else round(c_lib, 3)} ms, bound {c_bound:.3f} ms ({c_by})")
             cross.append({"shape": [b, h, sq, skv, d], "ms": c_ms, "plain_ms": c_plain,
                           "library_ms": c_lib, "bound_ms": c_bound, "bound_by": c_by})
+            if c_pre is not None:
+                cross[-1]["prepass_ms"] = c_pre
             del q, k, v
         if cross:
             results[name]["cross"] = cross
     return results
+
+
+# K2's pre-pass (csrc/sage_quant.cu), the quantisation of
+# _flash_attention_forward_t_i8 (:835-852) that ran in XLA outside its
+# Pallas kernel
+PREPASS_SPECS = {
+    "sage_quant": dict(source="vap_tpu_torch/csrc/sage_quant.cu",
+                       replaces="vap_tpu/ops/flash_attention.py:835"),
+}
+
+
+def prepass_bound(b, h, sq, skv, d):
+    """(ms, "bytes"): q and k read once in bf16, q_i8 and k_i8 written once
+    and sqk in f32, over the card's memory rate."""
+    return 1e3 * (b * h * (sq + skv) * d * 3 + 4 * b * h) / HBM_BYTES_PER_S, "bytes"
+
+
+def prepass_parity(dev):
+    """K2's pre-pass kernel against ``sage_quantize`` at the parity shapes
+    (D=64 and 128, B=2, with and without kv_lens over a NaN suffix) and at
+    the main-path shape: q_i8 equal, k_i8 within one step (the k mean summed
+    in another order), sqk within rtol 1e-6; a planted fault (q rows rolled
+    by one) must break the equality. Its time beside the plain version's
+    and the bound at CogVideoX's joint shape."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    steps = []
+
+    def compare(b, h, sq, skv, d, lens):
+        q, k = [torch.randn((b, h, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                for n in (sq, skv)]
+        k = k + torch.linspace(-2, 2, d, device=dev).to(torch.bfloat16)  # channel offsets
+        if lens is not None:
+            lens = torch.tensor(lens, device=dev)
+            pad = torch.arange(skv, device=dev)[None, :] >= lens[:, None]
+            k = k.masked_fill(pad[:, None, :, None], float("nan"))
+        got = fa.sage_prepass(q, k, d ** -0.5, lens)
+        torch.cuda.synchronize()
+        ref = fa.sage_quantize(q, k, d ** -0.5, lens)
+        q_equal = torch.equal(got[0], ref[0])
+        step = (got[1].int() - ref[1].int()).abs().max().item()
+        sqk_rel = ((got[2] - ref[2]).abs() / ref[2]).max().item()
+        fault = torch.equal(fa.sage_prepass(q.roll(1, dims=2), k, d ** -0.5, lens)[0], ref[0])
+        log(f"  sage_quant {(b, h, sq, d)} x {skv}, kv_lens {None if lens is None else lens.tolist()}: "
+            f"q_i8 equal {q_equal}, k_i8 max step {step}, sqk max rel err {sqk_rel:.3e} (tol 1e-6); "
+            f"planted fault (q rows rolled) q_i8 equal {fault}")
+        if not (q_equal and step <= 1 and sqk_rel <= 1e-6 and bool(torch.isfinite(got[2]).all())):
+            raise AssertionError("sage_quant disagrees with sage_quantize")
+        if fault:
+            raise AssertionError("sage_quant: the check misses q rows out of place")
+        steps.append(step)
+        return q, k
+
+    for d in (64, 128):
+        for sq, skv in PARITY_SHAPES:
+            for lens in (None, *(fn(skv) for fn in K7_LENS)):
+                compare(2, 8, sq, skv, d, lens)
+    b, h, s, d = MAIN_SHAPE
+    q, k = compare(b, h, s, s, d, None)
+    ms = prepass_ms(q, k)
+    plain_ms = time_ms(lambda: fa.sage_quantize(q, k, d ** -0.5), iters=2, warmup=1)
+    bound_ms, bound_by = prepass_bound(b, h, s, s, d)
+    log(f"  sage_quant at {MAIN_SHAPE}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by})")
+    return {"max_abs_err": max(steps), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": list(MAIN_SHAPE)}
 
 
 # ---------------------------------------------------------------------------
@@ -612,7 +724,7 @@ def kernel_parity(dev):
 VARLEN_SPECS = {
     "flash_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/flash_fwd_sm90.cu",
                                   replaces="vap_tpu/ops/flash_attention.py:1471"),
-    "sage_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/sage_fwd.cu",
+    "sage_fwd_d128_varlen": dict(source="vap_tpu_torch/csrc/sage_fwd_sm90.cu",
                                  replaces="vap_tpu/ops/flash_attention.py:957"),
 }
 
@@ -735,8 +847,11 @@ def varlen_parity(dev, kv_len):
             log(f"  {name}: SDPA memory-efficient with a key mask refused: {exc}")
         bound_ms, bound_by = bound(kind, b, h, s, kv_len, d)
         tflops = 4 * b * h * s * kv_len * d / (ms * 1e-3) / 1e12
+        pre = prepass_ms(q, k, lens) if kind == "sage" else None
         log(f"  {name} at {HUNYUAN_SHAPE}, {kv_len} valid keys: kernel {ms:.3f} ms ({tflops:.1f} "
-            f"TFLOP/s over the valid keys; without kv_lens, all {s} keys, {fixed_ms:.3f} ms), plain "
+            f"TFLOP/s over the valid keys"
+            + (f"; of which the pre-pass {pre:.3f} ms" if pre is not None else "")
+            + f"; without kv_lens, all {s} keys, {fixed_ms:.3f} ms), plain "
             f"{plain_ms:.3f} ms, SDPA memory-efficient with a key mask "
             f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by})")
@@ -744,6 +859,8 @@ def varlen_parity(dev, kv_len):
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                          "shape": list(HUNYUAN_SHAPE), "kv_len": kv_len,
                          "fixed_length_ms": fixed_ms}
+        if pre is not None:
+            results[name]["prepass_ms"] = pre
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -1814,6 +1931,9 @@ def reset_counts():
     fa.flash_attention_segmented_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
     fa.flash_attention_int8_forward.launches_varlen = 0
+    fa.flash_attention_int8_forward.launches_mma = 0
+    fa.flash_attention_int8_forward.launches_mma_varlen = 0
+    fa.sage_prepass.launches = 0
     fa.flash_attention_backward.launches = 0
     fa.flash_attention_backward.launches_d64 = 0
     fa.flash_attention_backward.launches_d128 = 0
@@ -1833,8 +1953,11 @@ def read_counts():
     it runs in, K8 on ``flash_fwd_seg*`` and ``flash_bwd_seg*``; K1 and K5
     at D=64, the wgmma kernels, on ``flash_fwd`` and ``flash_bwd``, their
     ``mma.sync`` forms at the other head dims below 128 on ``*_mma``, which
-    no path may reach), and the calls of the W8A8 row form (no kernel of its
-    own: XLA's product in the JAX package, torch._int_mm here)."""
+    no path may reach; K2 at D=64 and 128, the wgmma kernels, on
+    ``sage_fwd``, its ``mma.sync`` form at 32 and 96 on ``sage_fwd_mma``;
+    K2's pre-pass on ``sage_quant``), and the calls of the W8A8 row form (no
+    kernel of its own: XLA's product in the JAX package, torch._int_mm
+    here)."""
     from vap_tpu_torch.models import common
     from vap_tpu_torch.ops import flash_attention as fa
     from vap_tpu_torch.ops import gemm_probe as gp
@@ -1850,6 +1973,9 @@ def read_counts():
             "flash_fwd_seg_d128": fa.flash_attention_segmented_forward.launches_d128,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
             "sage_fwd_varlen": fa.flash_attention_int8_forward.launches_varlen,
+            "sage_fwd_mma": fa.flash_attention_int8_forward.launches_mma,
+            "sage_fwd_mma_varlen": fa.flash_attention_int8_forward.launches_mma_varlen,
+            "sage_quant": fa.sage_prepass.launches,
             "flash_bwd": fa.flash_attention_backward.launches_d64,
             "flash_bwd_mma": fa.flash_attention_backward.launches,
             "flash_bwd_d128": fa.flash_attention_backward.launches_d128,
@@ -1865,7 +1991,9 @@ def read_counts():
 
 
 def check_launches(launches, want):
-    """Exactly ``want`` launches of the named counters and none of the rest."""
+    """Exactly ``want`` launches of the named counters and none of the rest;
+    K2's pre-pass once with every K2 launch."""
+    want = dict(want, sage_quant=sum(n for name, n in want.items() if name.startswith("sage_fwd")))
     expected = {name: want.get(name, 0) for name in launches}
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
@@ -2951,7 +3079,7 @@ def build_kernels():
         for name in BACKWARD_INSTANCES))
     forward = {name: next((v for k, v in seen.items() if k.endswith(instance)), {})
                for name, instance in FORWARD_INSTANCES.items()}
-    log("  flash forward instances (K1, K4 with K7, K8 at D=64 and D=128): " + ", ".join(
+    log("  forward instances (K1, K4 with K7, K8 and K2 with K7 at D=64 and D=128): " + ", ".join(
         f"{name} {got}" for name, got in forward.items()))
     for name, parts in BACKWARD_PAIRS.items():
         forward[name] = {part: next((v for k, v in seen.items() if k.endswith(instance)), {})
@@ -2974,10 +3102,13 @@ def build_kernels():
             functions = re.split(r"\n\s*Function : ", sass)[1:]
             for kernel in kernels:
                 body = next((f for f in functions if kernel in f.split("\n", 1)[0]), "")
-                ops = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HGMMA", "UTMALDG")}
-                log(f"  {kernel}: SASS instructions {ops}")
+                need = ("HGMMA", "UTMALDG") + (("IGMMA",) if kernel in INT8_WGMMA_KERNELS else ())
+                ops = {op: len(re.findall(rf"\b{op}\.", body)) for op in need}
+                conv = ({op: len(re.findall(rf"\b{op}[.\s]", body)) for op in ("I2F", "I2FP")}
+                        if kernel in INT8_WGMMA_KERNELS else {})
+                log(f"  {kernel}: SASS instructions {ops}" + (f", conversions {conv}" if conv else ""))
                 if not all(ops.values()):
-                    raise AssertionError(f"{kernel}: no HGMMA or UTMALDG in its SASS: {ops}")
+                    raise AssertionError(f"{kernel}: no {'/'.join(need)} in its SASS: {ops}")
     else:
         log(f"  no cuobjdump: the SASS of {list(WGMMA_KERNELS)} is not checked")
     return forward
@@ -3009,6 +3140,8 @@ def main():
     # 3. kernel parity
     log("kernel parity (bf16, vs plain PyTorch):")
     results = kernel_parity(dev)
+    log("K2's pre-pass (sage_quant) parity (vs plain PyTorch's sage_quantize):")
+    results["sage_quant"] = prepass_parity(dev)
     log("W8A8 (K3) parity (vs plain PyTorch):")
     results["w8a8"] = w8a8_parity(dev)
     log("GEMM rate probe (K9, K10) parity (vs plain PyTorch):")
@@ -3042,6 +3175,7 @@ def main():
     launches["flash_fwd"] = main_path(pipe, "flash", STEPS, dev)
     log(f"main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd"] = main_path(pipe, "sage", 1, dev)
+    launches["sage_quant"] = read_counts()["sage_quant"]  # K2's pre-pass in that run
     # before the bench configuration, which quantises the pipeline in place
     log(f"main path under ring, one-rank NCCL group ({NUM_FRAMES} frames, {RING_STEPS} step, "
         f"latents):")
@@ -3136,10 +3270,12 @@ def main():
                          ("flash_bwd_varlen", "flash_bwd"),
                          ("flash_fwd_d128", "flash_fwd_d128"), ("flash_bwd_d128", "flash_bwd_d128"),
                          ("flash_fwd_d128_varlen", "flash_fwd_d128"),
-                         ("flash_bwd_d128_varlen", "flash_bwd_d128")):
+                         ("flash_bwd_d128_varlen", "flash_bwd_d128"), ("sage_fwd", "sage_fwd"),
+                         ("sage_fwd_d128", "sage_fwd_d128"),
+                         ("sage_fwd_d128_varlen", "sage_fwd_d128")):
         results[name]["registers"] = registers[kernel]
-    specs = {**kernel_specs(), **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS, **VARLEN_BWD_SPECS,
-             **SEG_SPECS, **SEG_BWD_SPECS}
+    specs = {**kernel_specs(), **PREPASS_SPECS, **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS,
+             **VARLEN_BWD_SPECS, **SEG_SPECS, **SEG_BWD_SPECS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
          "launches": launches[name], **results[name]} for name, spec in specs.items()]}))

@@ -1,9 +1,9 @@
-"""The port's CUDA kernels (K1 and K4 flash, K2 sage, K7 their varlen form,
+"""The port's CUDA kernels (K1 and K4 flash, K2 sage and its pre-pass, K7 their varlen form,
 K8 their packed-segment form and the ring body over it, K5 and K6 flash
 backward and K7's and K8's backward in them, the ring backward over them,
 K3 W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch
-versions on the card; the wgmma and TMA kernels (K1 and K5 at head_dim 64,
-K4 and K6 at 128, and K7 in them) also at their tile edges.
+versions on the card; the wgmma and TMA kernels (K1, K2 and K5 at head_dim
+64, K4, K2 and K6 at 128, and K7 in them) also at their tile edges.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -24,12 +24,13 @@ KERNELS = {
 
 
 def _counter(name, d, varlen=False):
-    """The launch counter a call takes: the flash entry ``kernel_entry``
-    names by head_dim (K1 at 64, K1's mma.sync form below 128 else, K4 at
-    128); K2's one kernel at every head_dim."""
+    """The launch counter a call takes: the entry ``kernel_entry`` names by
+    head_dim for flash (K1 at 64, K1's mma.sync form below 128 else, K4 at
+    128), ``sage_entry`` for sage (K2's wgmma kernels at 64 and 128, its
+    mma.sync kernel at 32 and 96)."""
     if name == "flash":
         return tfa.kernel_entry(False, d, varlen=varlen)[2]
-    return "launches_varlen" if varlen else "launches"
+    return tfa.sage_entry(d, varlen=varlen)[2]
 
 
 # bf16 output, held as max|out - ref| / max|ref|: kernel and plain version
@@ -598,6 +599,123 @@ def test_d64_never_reaches_the_mma_sync_kernels(cuda):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse2.data_ptr(), None, 2, 2,
         130, 70, 64, 0.18, torch.cuda.current_stream().cuda_stream)
     assert err != 0
+
+
+# K2 at head_dim 64 and 128 (and K7 in it) is a wgmma kernel too, with an
+# int8 Q K^T: at 64 over tiles of 192 queries and 128 keys, at 128 over 128
+# and 128, fed by TMA from [B*H, S, D] int8 and bf16 tensor maps. Sq and Skv
+# at both sides of 128 and 192, at 257, and Skv = 1, at B = 2 and 4 with
+# H = 3 (a tensor map whose (b, h) stride were wrong would read another
+# head's rows there)
+K2_EDGE_SHAPES = [(127, 129), (128, 128), (129, 127), (191, 193), (192, 192), (193, 191),
+                  (257, 257), (130, 1)]
+
+
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("sq,skv", K2_EDGE_SHAPES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_k2_at_tile_edges(cuda, d, sq, skv, b):
+    _check("sage", *_qkv(cuda, sq, skv, d=d, b=b, h=3))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k7_in_k2_at_tile_edges(cuda, d):
+    """K7 in K2 at lengths 0, 127, 128 and 129 of 257 keys, NaN past each:
+    finite, within the K2 limits, zero rows and the lse -1e4 at length 0,
+    one launch on the varlen counter and one of the pre-pass."""
+    q, k, v, lens = _k7_edge_inputs(cuda, d=d)
+    kernel = tfa.flash_attention_int8_forward
+    before = kernel.launches_varlen, tfa.sage_prepass.launches
+    out, lse = kernel(q, k, v, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert (kernel.launches_varlen, tfa.sage_prepass.launches) == (before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = tfa.flash_attention_int8_forward_plain(q, k, v, kv_lens=lens)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0,
+                               atol=OUT_REL_TOL * ref_out.float().abs().max().item())
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(lse[0], torch.full_like(lse[0], -1e4), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("varlen", [False, True], ids=["fixed", "kv_lens"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k2_is_deterministic(cuda, d, varlen):
+    """The pre-pass reduces its partials in a fixed order and the forward
+    sums each row in one block (no atomics): two launches give the same
+    bits (without kv_lens on finite keys: a NaN key reaches every row)."""
+    q, k, v, lens = _k7_edge_inputs(cuda, d=d) if varlen else (
+        *_qkv(cuda, 200, 257, d=d, b=4, h=3, seed=11), None)
+    first = tfa.flash_attention_int8_forward(q, k, v, kv_lens=lens)
+    second = tfa.flash_attention_int8_forward(q, k, v, kv_lens=lens)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k2_at_the_int8_extremes(cuda, d):
+    """Every |q_i8| = |k_i8| = 127: q of ±1 (s_q = 1/127) and k of ±1 in
+    rows of zero mean per channel (the smoothing moves nothing, s_k =
+    1/127), so the int32 scores reach ±D * 127^2 where signs agree; held
+    against the plain version on the same inputs."""
+    rng = np.random.default_rng(d)
+    sq, skv = 200, 258
+    sign_q = rng.choice(np.array([-1.0, 1.0], np.float32), (2, 3, sq, d))
+    half = rng.choice(np.array([-1.0, 1.0], np.float32), (2, 3, skv // 2, d))
+    sign_k = np.concatenate([half, -half], axis=2)  # each channel sums to 0
+    sign_k[:, :, :8] = sign_q[:, :, :8]  # keys equal to queries: the largest scores
+    sign_k[:, :, skv // 2:skv // 2 + 8] = -sign_q[:, :, :8]
+    q, k = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (sign_q, sign_k))
+    v = _qkv(cuda, sq, skv, d=d, b=2, h=3)[2]
+    q_i8, k_i8, _ = tfa.sage_prepass(q, k, d ** -0.5)
+    assert bool((q_i8.abs() == 127).all()) and bool((k_i8.abs() == 127).all())
+    scores = q_i8[:, :, :8].float() @ k_i8[:, :, :8].float().transpose(-1, -2)
+    assert scores.diagonal(dim1=-2, dim2=-1).eq(d * 127 * 127).all()
+    _check("sage", q, k, v)
+
+
+@pytest.mark.parametrize("lens", [None, [300, 0], [263, 1]], ids=["fixed", "empty", "partial"])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_sage_prepass_matches_sage_quantize(cuda, d, lens):
+    """The pre-pass kernel against the plain version: q_i8 equal (the
+    abs-max is exact, the division IEEE, rounded half to even), sqk within
+    rtol 1e-6 and k_i8 within one step (the k mean summed in another
+    order); with kv_lens, a NaN suffix past each length reaches nothing."""
+    q, k, _ = _qkv(cuda, 200, 300, d=d, b=2, h=3, seed=d)
+    k = k * 3 + torch.linspace(-2, 2, d, device=cuda).to(torch.bfloat16)  # channel offsets
+    if lens is not None:
+        lens = torch.tensor(lens, device=cuda)
+        pad = torch.arange(300, device=cuda)[None, :] >= lens[:, None]
+        k = k.masked_fill(pad[:, None, :, None], float("nan"))
+    before = tfa.sage_prepass.launches
+    got = tfa.sage_prepass(q, k, d ** -0.5, lens)
+    torch.cuda.synchronize()
+    assert tfa.sage_prepass.launches == before + 1
+    q_i8, k_i8, sqk = tfa.sage_quantize(q, k, d ** -0.5, lens)
+    assert torch.equal(got[0], q_i8)
+    assert (got[1].int() - k_i8.int()).abs().max().item() <= 1
+    torch.testing.assert_close(got[2], sqk, rtol=1e-6, atol=0)
+    assert torch.isfinite(got[2]).all()
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_k2_at_head_dims_32_and_96_stays_on_the_mma_sync_kernel(cuda, d):
+    """Head_dim 32 and 96 launch sage_fwd.cu's mma.sync kernel (counter
+    ``launches_mma``), and its entry refuses 64 and 128, whose instances are
+    no longer compiled."""
+    kernel = tfa.flash_attention_int8_forward
+    counts = kernel.launches, kernel.launches_mma
+    _check("sage", *_qkv(cuda, 130, 70, d=d))
+    assert (kernel.launches, kernel.launches_mma) == (counts[0], counts[1] + 1)
+    from vap_tpu_torch.ops import _build
+
+    q, k, v = _qkv(cuda, 130, 70, d=64)
+    q_i8, k_i8, sqk = tfa.sage_prepass(q, k, 0.125)
+    out, lse = torch.empty_like(q), torch.empty((1, 2, 130), device=cuda)
+    for dd in (64, 128):
+        err = _build.library("sage_fwd").vap_sage_fwd(
+            q_i8.data_ptr(), k_i8.data_ptr(), sqk.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), None, 2, 2, 130, 70, dd, torch.cuda.current_stream().cuda_stream)
+        assert err != 0
 
 
 # K3, the W8A8 linear: per chunk the int32 product is exact on both sides and

@@ -1,11 +1,13 @@
 // K2: SageAttention-style forward, int8 QK^T with int32 accumulation and
-// bf16 PV, for head_dim 32, 64, 96 and 128.
+// bf16 PV, for head_dim 32 and 96 (no model path takes them): head_dim 64
+// and 128 take the wgmma kernels of sage_fwd_sm90_d64.cu and
+// sage_fwd_sm90.cu, and this file no longer compiles those instances.
 //
 // Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
 // `_flash_attention_forward_t_i8` (`_fwd_kernel_t_i8`, `_fwd_kernel_t_i8_bound`).
 // The quantisation pre-pass (K smoothing, one symmetric int8 scale per (b,h)
-// for Q and for K) runs in PyTorch in the wrapper, as it ran in XLA outside
-// the Pallas kernel. The kernel takes q8 [BH, Sq, D] and k8 [BH, Skv, D]
+// for Q and for K) runs before it in a kernel of its own (sage_quant.cu),
+// as it ran in XLA outside the Pallas kernel. The kernel takes q8 [BH, Sq, D] and k8 [BH, Skv, D]
 // int8, v [BH, Skv, D] bf16 and sqk [BH] f32 (s_q * s_k * scale * log2 e),
 // and returns out [BH, Sq, D] bf16 and the natural-log lse [BH, Sq] f32.
 // Scores are int32 dot products times sqk, which lands them in the log2
@@ -20,12 +22,7 @@
 // a loop over 64-key tiles), with QK^T on the int8 tensor cores as
 // mma.sync m16n8k32 s8 -> s32 at twice the bf16 rate, and PV as bf16
 // m16n8k16. What bounds it on an H100 is the same as for K1, minus half of
-// the QK^T issue time and half of the K bytes per tile. At D = 128 (Wan) the
-// int8 Q fragments take 16 registers, the accumulator 64 and the score tile
-// 32; shared memory is 64x144 int8 plus 64x136 bf16, 26.6 KB. As in
-// flash_fwd.cu, chip_smoke.py fails if the D = 128 instance takes more
-// than 168 registers (three blocks an SM; at 188 only two fit and it ran
-// 15% slower) or spills.
+// the QK^T issue time and half of the K bytes per tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,7 +122,7 @@ cudaError_t launch(const void* q8, const void* k8, const void* sqk, const void* 
 // C entry point, bound from Python with ctypes. Tensors are contiguous
 // [bh, s, d] (sqk: [bh]); kv_lens is a device pointer to [bh / heads]
 // int32 valid key counts, or null. Returns the CUDA error of the launch (0
-// on success). bh <= 65535, sq >= 1, heads >= 1 divides bh.
+// on success; d must be 32 or 96). bh <= 65535, sq >= 1, heads >= 1 divides bh.
 extern "C" int vap_sage_fwd(const void* q8, const void* k8, const void* sqk, const void* v,
                             void* o, void* lse, const void* kv_lens, int bh, int heads, int sq,
                             int skv, int d, void* stream) {
@@ -134,9 +131,7 @@ extern "C" int vap_sage_fwd(const void* q8, const void* k8, const void* sqk, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch<32>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
-    case 64: return launch<64>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
     case 96: return launch<96>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
-    case 128: return launch<128>(q8, k8, sqk, v, o, l, lens, bh, heads, sq, skv, s);
-    default: return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;  // 64 and 128: sage_fwd_sm90*.cu
   }
 }

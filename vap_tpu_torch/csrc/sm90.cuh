@@ -317,6 +317,58 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
+// ---- int8 operands (K2's Q K^T) ----
+//
+// An int8 [rows, D] tile lies in shared memory with one row of D bytes a
+// row, as a TMA load of a [rows, D] box with the swizzle of that width
+// writes it: at D = 128, 128-byte swizzle (the layout above, 8-row groups
+// of 1024 bytes); at D = 64, 64-byte swizzle: the 16-byte chunk c (of 4) of
+// row r sits at chunk c ^ ((r / 2) % 4), 8-row groups of 512 bytes, a tile
+// starting on a 512-byte boundary. Both operands of Q K^T are K-major (the
+// only layout 8-bit wgmma takes, and the one q_i8 and k_i8 [S, D] have):
+// the k32 step kk of a tile starts 32 * kk bytes into it.
+
+// Descriptor of a 64-byte-swizzled K-major operand at shared address
+// `addr`; `sbo` in bytes (512 for rows of 64 bytes; LBO unused).
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
+// d[64, 128] (+)= A[64, 32] . B[32, 128], int8 in, int32 out, both operands
+// K-major in shared memory; scale_d = 0 overwrites d. One wgmma of the
+// warpgroup, not waited for. The accumulator layout is the f32 one above.
+__device__ __forceinline__ void wgmma_ss_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The int32 x (|x| <= 2^22) as the float x, exactly, with no conversion
+// instruction (I2F issues at 16 a clock an SM, the rate of ex2; the I2FP
+// ptxas may pick instead has no published rate): x added to the bits of
+// 1.5 * 2^23, whose ulp is 1, then 1.5 * 2^23 taken off; an integer add and
+// an FADD. An int8 dot product over D <= 128 is within
+// D * 127^2 = 2,064,512 < 2^22.
+__device__ __forceinline__ float s32_to_f32(uint32_t x) {
+  return __int_as_float(static_cast<int>(x + 0x4B400000u)) - 12582912.0f;
+}
 
 // ---- host ----
 
@@ -362,6 +414,29 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int planes, int 
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous [planes, rows, d] int8 tensor at `base` (16-byte aligned;
+// d = 64 or 128) as a 3-D tensor map whose box is [1, box_rows, d]: a row of
+// d bytes, 128-byte swizzle at d = 128 and 64-byte at d = 64 (the layouts
+// desc_sw128 and desc_sw64 read). As make_map: a box past `rows` reads zeros
+// there; rows == 0 is mapped as one row (never read).
+inline cudaError_t make_map_i8(CUtensorMap* map, const void* base, int planes, int rows, int d,
+                               int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  const cuuint64_t r = rows > 0 ? rows : 1;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), r, static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d), r * d};  // bytes
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(d), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              d == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

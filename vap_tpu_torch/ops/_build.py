@@ -38,8 +38,23 @@ SOURCES = {
         "vap_flash_fwd_seg_d128": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "sage_fwd": {
-        # q8, k8, sqk, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, stream
+        # q8, k8, sqk, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, stream (K2 and K7's
+        # int8 form at head_dim 32 and 96)
         "vap_sage_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "sage_fwd_sm90": {
+        # q8, k8, sqk, v, o, lse, kv_lens (or null), bh, heads, sq, skv, stream (K2, K7's int8
+        # form at head_dim 128)
+        "vap_sage_fwd_d128": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "sage_fwd_sm90_d64": {
+        # the same at head_dim 64
+        "vap_sage_fwd_d64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "sage_quant": {
+        # q, k, kv_lens (or null), q8, k8, sqk, scratch, bh, heads, sq, skv, d, chunks, scale,
+        # stream (K2's pre-pass)
+        "vap_sage_quant": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "flash_bwd": {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, d,

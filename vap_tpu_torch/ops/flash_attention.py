@@ -13,9 +13,13 @@ other head dims an ``mma.sync`` kernel templated on head_dim,
 K2 ``flash_attention_int8_forward``: the SageAttention-style forward of
 ``flash_attention_int8`` (``_flash_attention_forward_t_i8``): K smoothing,
 symmetric int8 Q and K with one scale per (b, h), int8 Q K^T with int32
-accumulation, scores in the log2 domain, bf16 P V. CUDA source:
-``csrc/sage_fwd.cu``; the quantisation pre-pass is plain PyTorch here, as it
-was plain XLA outside the Pallas kernel.
+accumulation, scores in the log2 domain, bf16 P V. On the card the
+quantisation pre-pass is a kernel of its own (``sage_prepass``,
+``csrc/sage_quant.cu``; plain: ``sage_quantize``), then the forward: at
+head_dim 64 and 128 (the main paths') warp-specialised kernels with an int8
+``wgmma`` Q K^T fed by TMA, ``csrc/sage_fwd_sm90_d64.cu`` and
+``csrc/sage_fwd_sm90.cu``; at 32 and 96 an ``mma.sync`` kernel,
+``csrc/sage_fwd.cu`` (``sage_entry``).
 
 K5 and K6 ``flash_attention_backward``: the gradient of the forward's
 function from its out and lse: P recomputed from the lse, delta =
@@ -76,8 +80,11 @@ dims below 128),
 ``flash_attention_forward.launches_d128_varlen`` (K7 in K4),
 ``flash_attention_segmented_forward.launches`` (K8 in K1, head_dim < 128),
 ``flash_attention_segmented_forward.launches_d128`` (K8 in K4),
-``flash_attention_int8_forward.launches`` (K2),
-``flash_attention_int8_forward.launches_varlen`` (K7 in K2),
+``flash_attention_int8_forward.launches`` (K2 at head_dim 64 and 128),
+``flash_attention_int8_forward.launches_mma`` (K2 at 32 and 96),
+``flash_attention_int8_forward.launches_varlen`` (K7 in K2 at 64 and 128),
+``flash_attention_int8_forward.launches_mma_varlen`` (K7 in K2 at 32 and
+96), ``sage_prepass.launches`` (K2's pre-pass),
 ``flash_attention_backward.launches_d64`` (K5 at head_dim 64),
 ``flash_attention_backward.launches`` (K5 at the other head dims below
 128),
@@ -438,7 +445,13 @@ def sage_quantize(q, k, scale: float, kv_lens: Optional[torch.Tensor] = None):
     def absmax(x):
         return torch.maximum(x.amax(dim=(2, 3), keepdim=True), -x.amin(dim=(2, 3), keepdim=True))
 
-    s_q = (absmax(q).float() / 127.0).clamp_min(1e-8)
+    def over127(x):
+        # a true division on every device, as JAX's and the kernel's: torch
+        # divides a CUDA tensor by a Python number as a multiply by its
+        # reciprocal, which can move the scale by an ulp
+        return x / torch.full((), 127.0, device=x.device)
+
+    s_q = over127(absmax(q).float()).clamp_min(1e-8)
     q_i8 = q.to(torch.float32, copy=True).div_(s_q).round_().to(torch.int8)
     ks = k.to(torch.float32, copy=True)
     if kv_lens is not None:
@@ -446,7 +459,7 @@ def sage_quantize(q, k, scale: float, kv_lens: Optional[torch.Tensor] = None):
         invalid = keys[None, :] >= kv_lens.to(k.device)[:, None]  # [B, Skv]
         ks.masked_fill_(invalid[:, None, :, None], 0.0)
     ks.sub_(ks.mean(dim=2, keepdim=True))
-    s_k = (absmax(ks) / 127.0).clamp_min(1e-8)
+    s_k = over127(absmax(ks)).clamp_min(1e-8)
     k_i8 = ks.div_(s_k).round_().to(torch.int8)
     sqk = (s_q * s_k * scale * LOG2_E).reshape(q.shape[:2])
     return q_i8, k_i8, sqk
@@ -788,50 +801,101 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     return attention_with_lse(q, k, v, scale, kv_lens)[0]
 
 
+# rows of q (and of k) per block of the pre-pass kernel: at the main-path
+# shapes some 1,600 blocks of 256 threads, each thread moving 16 bytes a row
+SAGE_PREPASS_ROWS = 1024
+
+
+def sage_prepass(q, k, scale: float, kv_lens: Optional[torch.Tensor] = None):
+    """K2's int8 pre-pass: (q_i8, k_i8, sqk) as ``sage_quantize`` gives them.
+    CUDA tensors (bf16, contiguous, head_dim a multiple of 8 up to 128)
+    launch ``vap_sage_quant`` (``csrc/sage_quant.cu``: statistics, scales,
+    quantise; q_i8 and sqk's s_q bit-equal to the plain version, k_i8 within
+    one step), ``kv_lens`` as int32 on the same card; CPU tensors take
+    ``sage_quantize``."""
+    _sage_checks(q, k, k)
+    kv_lens = _kv_lens(kv_lens, q.shape[0])
+    if _device_kind("sage_prepass", q) == "cpu":
+        return sage_quantize(q, k, scale, kv_lens)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if d > 128:
+        raise ValueError(f"sage pre-pass takes head_dim up to 128, got {d}")
+    bf16 = torch.bfloat16
+    _kernel_inputs("sage_prepass", {"q": q, "k": k}, {"q": bf16, "k": bf16}, b * h, sq)
+    lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
+    chunks = -(-max(sq, skv) // SAGE_PREPASS_ROWS)
+    q_i8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
+    k_i8 = torch.empty(k.shape, dtype=torch.int8, device=q.device)
+    sqk = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(b * h * (chunks * (1 + 3 * d) + 2 + d), dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.library("sage_quant").vap_sage_quant(
+            q.data_ptr(), k.data_ptr(), None if lens is None else lens.data_ptr(),
+            q_i8.data_ptr(), k_i8.data_ptr(), sqk.data_ptr(), scratch.data_ptr(), b * h, h, sq,
+            skv, d, chunks, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "vap_sage_quant")
+    sage_prepass.launches += 1
+    return q_i8, k_i8, sqk
+
+
+sage_prepass.launches = 0
+
+
+def sage_entry(head_dim: int, varlen: bool = False) -> Tuple[str, str, str]:
+    """(source, entry, counter) of K2's CUDA call, as ``kernel_entry`` gives
+    the flash kernels': head_dim 64 and 128 take the ``wgmma`` kernels
+    (``vap_sage_fwd_d64``, ``vap_sage_fwd_d128``; counter ``launches``),
+    32 and 96 the ``mma.sync`` kernel (``vap_sage_fwd``, ``launches_mma``);
+    ``varlen`` (K7's ``kv_lens``) adds ``_varlen`` to the counter."""
+    source, entry, counter = (
+        ("sage_fwd_sm90", "vap_sage_fwd_d128", "launches") if head_dim == 128
+        else ("sage_fwd_sm90_d64", "vap_sage_fwd_d64", "launches") if head_dim == 64
+        else ("sage_fwd", "vap_sage_fwd", "launches_mma"))
+    return source, entry, counter + ("_varlen" if varlen else "")
+
+
 def flash_attention_int8_forward(q, k, v, scale: Optional[float] = None,
                                  kv_lens: Optional[torch.Tensor] = None):
-    """K2, and with ``kv_lens`` K7's int8 form: (out, lse). The int8 pre-pass
-    runs in PyTorch; CUDA tensors then launch ``vap_sage_fwd`` (bf16 v,
-    head_dim 32, 64, 96 or 128, contiguous), CPU tensors take the plain
-    version."""
+    """K2, and with ``kv_lens`` K7's int8 form: (out, lse). CUDA tensors
+    (bf16, contiguous, head_dim 32, 64, 96 or 128) run the pre-pass kernel
+    (``sage_prepass``), then launch the entry ``sage_entry`` names; CPU
+    tensors take the plain version."""
     _sage_checks(q, k, v)
     kv_lens = _kv_lens(kv_lens, q.shape[0])
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    kind = _device_kind("flash_attention_int8_forward", q)
-    q_i8, k_i8, sqk = sage_quantize(q, k, scale, kv_lens)
-    if kind == "cpu":
-        return _sage_plain(q_i8, k_i8, sqk, v, kv_lens)
+    if _device_kind("flash_attention_int8_forward", q) == "cpu":
+        return _sage_plain(*sage_quantize(q, k, scale, kv_lens), v, kv_lens)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d > 128:
         raise ValueError(f"sage kernel takes head_dim 32, 64, 96 or 128, got {d}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_int8_forward: q must be bfloat16, got {q.dtype}")
-    i8 = torch.int8
-    _kernel_inputs("flash_attention_int8_forward",
-                   {"q_i8": q_i8, "k_i8": k_i8, "sqk": sqk, "v": v},
-                   {"q_i8": i8, "k_i8": i8, "sqk": torch.float32, "v": torch.bfloat16},
-                   b * h, sq)
+    bf16 = torch.bfloat16
+    _kernel_inputs("flash_attention_int8_forward", {"q": q, "k": k, "v": v},
+                   {"q": bf16, "k": bf16, "v": bf16}, b * h, sq)
+    q_i8, k_i8, sqk = sage_prepass(q, k, scale, kv_lens)
     lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.library("sage_fwd")
+    source, entry, counter = sage_entry(d, varlen=lens is not None)
+    dims = (b * h, h, sq, skv) + ((d,) if source == "sage_fwd" else ())
     with torch.cuda.device(q.device):
-        err = lib.vap_sage_fwd(q_i8.data_ptr(), k_i8.data_ptr(), sqk.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), lse.data_ptr(),
-                               None if lens is None else lens.data_ptr(), b * h, h, sq, skv, d,
-                               torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "vap_sage_fwd")
-    if lens is None:
-        flash_attention_int8_forward.launches += 1
-    else:
-        flash_attention_int8_forward.launches_varlen += 1
+        err = getattr(_build.library(source), entry)(
+            q_i8.data_ptr(), k_i8.data_ptr(), sqk.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), None if lens is None else lens.data_ptr(), *dims,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, entry)
+    setattr(flash_attention_int8_forward, counter,
+            getattr(flash_attention_int8_forward, counter) + 1)
     return out, lse
 
 
 flash_attention_int8_forward.launches = 0
 flash_attention_int8_forward.launches_varlen = 0
+flash_attention_int8_forward.launches_mma = 0
+flash_attention_int8_forward.launches_mma_varlen = 0
 
 
 def flash_attention_int8(q, k, v, scale: Optional[float] = None,

@@ -2,6 +2,7 @@
 
     python -m vap_tpu_torch.scripts.attention_ab PARENT . . PARENT
     python -m vap_tpu_torch.scripts.attention_ab --d64 A B A B ...
+    python -m vap_tpu_torch.scripts.attention_ab --sage A B B A ...
 
 Each root given is a checkout (or an unpacked archive) holding
 ``vap_tpu_torch/``; each is timed in its own process, in the order given,
@@ -20,9 +21,15 @@ the registers and spills ptxas gave the root's attention kernels (K1, K2,
 K4, K5, K6, K8; K1 and K5 at head_dim 64 from their wgmma sources where
 the root has them). With ``--d64`` only K1 and K5 at CogVideoX's shape are
 timed, and only the head_dim-64 wgmma kernels' registers printed: a root
-listed ten times in turns with another gives ten alternating pairs. The
-kernels are built from each root's sources. It runs on the card and raises
-without one.
+listed ten times in turns with another gives ten alternating pairs. With
+``--sage`` only K2 (``flash_attention_int8_forward``, its pre-pass
+included) is timed: at CogVideoX's [1, 48, 35552, 64], at Wan's joint
+shape, at Wan's two cross shapes and, given kv_lens, at HunyuanVideo
+generation's shape (K7 in K2); beside each, the pre-pass alone (the root's
+``sage_prepass``, or the plain ``sage_quantize`` a root without it runs);
+then K2's kernels' registers and spills and their conversion instructions
+in the SASS (I2F and I2FP, by cuobjdump). The kernels are built from each
+root's sources. It runs on the card and raises without one.
 """
 
 from __future__ import annotations
@@ -40,9 +47,9 @@ K7_FWD_SHAPE, K7_FWD_LEN = (1, 24, 32656, 128), 32443  # Hunyuan generation at 3
 CROSS_KEYS = (512, 257)  # Wan's UMT5 and CLIP keys over one branch's 20,280 queries
 
 
-def time_root(root: str, d64: bool = False) -> None:
+def time_root(root: str, d64: bool = False, sage: bool = False) -> None:
     """Import the port under ``root`` and print its attention kernels' times
-    (with ``d64``, K1's and K5's only)."""
+    (with ``d64``, K1's and K5's only; with ``sage``, K2's only)."""
     sys.path.insert(0, root)
     import torch
 
@@ -72,6 +79,29 @@ def time_root(root: str, d64: bool = False) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    if sage:
+        prepass = getattr(fa, "sage_prepass", fa.sage_quantize)
+        times = []
+        for shape, lens in ((K5_SHAPE, None), (SHAPE, None),
+                            *((K6_SHAPE[:2] + (n, K6_SHAPE[3]), None) for n in CROSS_KEYS),
+                            (K7_FWD_SHAPE, K7_FWD_LEN)):
+            q = inputs(K6_SHAPE if shape[2] in CROSS_KEYS else shape, 1)[0]
+            k, v = inputs(shape, 2)
+            n = None if lens is None else torch.tensor([lens], device=dev, dtype=torch.int32)
+            iters = 20 if shape[2] in CROSS_KEYS else 5
+            times.append((ms(lambda: fa.flash_attention_int8_forward(q, k, v, kv_lens=n), iters),
+                          ms(lambda: prepass(q, k, q.shape[-1] ** -0.5, n), iters)))
+            del q, k, v
+        (d64_ms, d64_pre), (joint, joint_pre), *cross, (k7, k7_pre) = times
+        cross_txt = ", ".join(f"x {n} keys {t:.3f} ms (pre-pass {p:.3f})"
+                              for n, (t, p) in zip(CROSS_KEYS, cross))
+        print(f"{root}: K2 {d64_ms:.3f} ms (pre-pass {d64_pre:.3f}) at {list(K5_SHAPE)}; "
+              f"{joint:.3f} ms (pre-pass {joint_pre:.3f}) at {list(SHAPE)}; at {K6_SHAPE[2]} "
+              f"queries {cross_txt}; K7 in K2 {k7:.3f} ms (pre-pass {k7_pre:.3f}) at "
+              f"{list(K7_FWD_SHAPE)}, {K7_FWD_LEN} keys", flush=True)
+        regs = {name: got for name, got in kernel_registers().items() if "sage" in name}
+        print(f"{root}: K2 (ptxas) {regs}; SASS {sage_conversions()}", flush=True)
+        return
     if d64:
         q, k, v, dout = inputs(K5_SHAPE, 4)
         k1 = ms(lambda: fa.flash_attention_forward(q, k, v))
@@ -148,7 +178,7 @@ def kernel_registers():
 
     found = {}
     every = ("flash_bwd_d128", "flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_sm90_d64",
-             "flash_bwd_sm90_d64")
+             "flash_bwd_sm90_d64", "sage_fwd_sm90", "sage_fwd_sm90_d64")
     for source in ("flash_fwd", "sage_fwd", "flash_bwd") + every:
         if source not in _build.SOURCES:  # a root from before this source
             continue
@@ -167,19 +197,45 @@ def kernel_registers():
     return found
 
 
+def sage_conversions():
+    """{kernel: {op: count}} of the int32 -> f32 conversions (I2F, and I2FP,
+    which ptxas may emit for it) and the ex2 (MUFU.EX2) in the SASS of the
+    root's K2 kernels, by cuobjdump."""
+    import re
+    import shutil
+
+    from vap_tpu_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    found = {}
+    for source in ("sage_fwd", "sage_fwd_sm90", "sage_fwd_sm90_d64"):
+        if source not in _build.SOURCES:
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(source))],
+                              capture_output=True, text=True, check=True).stdout
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = re.search(r"([a-z0-9_]+_kernel)(?:I(\w*?)EEv)?", body.split("\n", 1)[0])
+            found[name[1] + (f"<{name[2]}>" if name[2] else "")] = {
+                op: len(re.findall(rf"\b{op}[.\s]", body)) for op in ("I2F", "I2FP", "MUFU.EX2")}
+    return found
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("roots", nargs="+", help="checkouts holding vap_tpu_torch/, in order")
     parser.add_argument("--one", action="store_true", help="time the single root in this process")
     parser.add_argument("--d64", action="store_true",
                         help="time only K1 and K5 at head_dim 64 (their wgmma kernels' registers)")
+    parser.add_argument("--sage", action="store_true",
+                        help="time only K2, with its pre-pass apart (its kernels' registers and "
+                             "conversions)")
     args = parser.parse_args(argv)
     if args.one:
-        time_root(os.path.abspath(args.roots[0]), args.d64)
+        time_root(os.path.abspath(args.roots[0]), args.d64, args.sage)
         return
     for root in args.roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root)]
-                       + ["--d64"] * args.d64, check=True)
+                       + ["--d64"] * args.d64 + ["--sage"] * args.sage, check=True)
 
 
 if __name__ == "__main__":
