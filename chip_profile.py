@@ -38,7 +38,7 @@ TOP = 25
 
 # first match wins; names are the device kernels' names as the profiler gives them
 CATEGORIES = [
-    ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_kernel", "w8a8_quantize_kernel")),
+    ("W8A8 kernel (K3: quantise + GEMM)", ("w8a8_gemm_sm90_kernel", "w8a8_quantize_kernel")),
     ("attention kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_sm90_d64_kernel",
                           "sage_fwd_kernel", "sage_fwd_sm90_kernel", "sage_fwd_sm90_d64_kernel")),
     ("K2's pre-pass (sage_quant: statistics, scales, quantise)",

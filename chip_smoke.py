@@ -8,11 +8,12 @@ Phases, each of which raises on failure:
   2. build: one nvcc per vap_tpu_torch/csrc/*.cu, all started together, for
      sm_90a; ptxas's registers and spills per kernel, the backward instances
      on a path (K5 at D=64, K6) listed apart; the HGMMA (wgmma) and UTMALDG
-     (TMA load) instructions in the SASS of K1, K2 and K5 at D=64 and of
-     K4, K2 and K6 at D=128, and IGMMA (int8 wgmma) in K2's, counted by
+     (TMA load) instructions in the SASS of K1, K2 and K5 at D=64, of K4,
+     K2 and K6 at D=128 and of K9/K10's bf16 GEMM kernels, and IGMMA (int8
+     wgmma) in K2's and in K3's and K9's int8 GEMM kernels, counted by
      cuobjdump per kernel function, K2's int32 -> f32 conversions (I2F,
-     I2FP) printed, and no wgmma serialised by ptxas there (warnings C7512,
-     C7513, any C751x);
+     I2FP) printed, and no wgmma serialised and no wait injected by ptxas
+     there (C7512, C7513, C7517, any C751x);
   3. kernel parity: K1 (flash, D=64: the wgmma kernel of
      flash_fwd_sm90_d64.cu), K4 (flash, D=128) and K2 (sage, D=64
      and D=128: the wgmma kernels of sage_fwd_sm90_d64.cu and
@@ -30,9 +31,10 @@ Phases, each of which raises on failure:
      plain sage_quantize (q_i8 equal, k_i8 within one step, sqk within rtol
      1e-6, with and without kv_lens over a NaN suffix; a planted fault, q
      rows rolled, must break the equality), its time and bound;
-     then K3 (the W8A8 linear) against its plain version at unaligned
-     shapes and at the three projection shapes of a CogVideoX step
+     then K3 (the W8A8 linear) against its plain version, bit for bit, at
+     unaligned shapes and at the three projection shapes of a CogVideoX step
      ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072]),
+     its quantise pass and GEMM timed apart (profiler device time),
      and K9 and K10 (the GEMM rate probe) in int8 (bit for bit) and bf16,
      each with its times, bound and yardsticks; then the rate probe's entry
      point (linear_bench --impl diag) with its launch counts; then K7, the
@@ -268,12 +270,12 @@ W8A8_M = 2 * (226 + 13 * 30 * 45)
 # (4 x 83 branch-blocks), the feed-forward's in and out (83 each)
 W8A8_SHAPES = {(3072, 3072): 332, (3072, 12288): 83, (12288, 3072): 83}
 W8A8_PARITY = [(300, k, n) for k in (256, 3072) for n in (128, 384)]  # M, K, N
-# K3 vs plain version, the bf16 output held as max|err| / max|ref|: per chunk
-# the int32 product is exact on both sides and the f32 steps are the same in
-# the same order, so an output can at most round to the neighbouring bf16
-# value, one ulp: at most 2^-7 of the element (8 significant bits). A
-# planted fault (the weight's rows rolled by one inside each 128-row tile)
-# must read above the limit.
+# K3 vs plain version: per chunk the int32 product is exact on both sides
+# and the f32 steps are the same, uncontracted, in the same order, so the
+# bf16 outputs are equal to the bit; they are also held as max|err| /
+# max|ref| within one bf16 ulp, 2^-7 of the element (8 significant bits),
+# the limit a planted fault (the weight's rows rolled by one inside each
+# 128-row tile) must read above.
 W8A8_REL_TOL = 2.0 ** -7
 W8A8_TILE = 128
 # K9 and K10 at the rate-probe script's shape (M, K, N); int8 is held bit
@@ -302,7 +304,9 @@ PINNED_REGISTERS = {"flash_fwd_seg_d128_kernel": 168,
                     "flash_fwd_sm90_kernel": 168, "flash_bwd_sm90_dq_kernel": 168,
                     "flash_bwd_sm90_dkv_kernel": 168, "flash_fwd_sm90_d64_kernel": 128,
                     "flash_bwd_sm90_d64_dq_kernel": 168, "flash_bwd_sm90_d64_dkv_kernel": 168,
-                    "sage_fwd_sm90_kernel": 168, "sage_fwd_sm90_d64_kernel": 128}
+                    "sage_fwd_sm90_kernel": 168, "sage_fwd_sm90_d64_kernel": 128,
+                    "w8a8_gemm_sm90_kernel": 168, "gemm_probe_i8_kernel": 168,
+                    "gemm_probe_bf16_kernel": 168, "gemm_probe_bf16_t_kernel": 168}
 # the forward instances on a path: K1 at D=64 and K4 (fixed length and K7),
 # K8 (kSegmented) at D=64 and D=128, and K2 at D=64 and D=128 (and K7 in
 # it), printed with their registers and spills; they also go into the
@@ -319,19 +323,31 @@ BACKWARD_INSTANCES = ("flash_bwd_sm90_d64_dq_kernel", "flash_bwd_sm90_d64_dkv_ke
                       "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
                       "flash_bwd_seg_dq_kernel<Li64E>", "flash_bwd_seg_dkv_kernel<Li64E>",
                       "flash_bwd_seg_d128_dq_kernel", "flash_bwd_seg_d128_dkv_kernel")
-# the wgmma kernels (K1, K2 and K5 at D=64, K4, K2 and K6 at D=128) by
-# source, whose SASS and ptxas logs the build phase reads per kernel function
+# the wgmma kernels (K1, K2 and K5 at D=64, K4, K2 and K6 at D=128; K3's
+# GEMM and K9/K10's three, 384 threads, setmaxnreg 40 / 232, pinned at 168)
+# by source, whose SASS and ptxas logs the build phase reads per kernel
+# function
 WGMMA_KERNELS = {"flash_fwd_sm90_d64": ("flash_fwd_sm90_d64_kernel",),
                  "flash_bwd_sm90_d64": ("flash_bwd_sm90_d64_dq_kernel",
                                         "flash_bwd_sm90_d64_dkv_kernel"),
                  "flash_fwd_sm90": ("flash_fwd_sm90_kernel",),
                  "flash_bwd_sm90": ("flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel"),
                  "sage_fwd_sm90_d64": ("sage_fwd_sm90_d64_kernel",),
-                 "sage_fwd_sm90": ("sage_fwd_sm90_kernel",)}
+                 "sage_fwd_sm90": ("sage_fwd_sm90_kernel",),
+                 "w8a8": ("w8a8_gemm_sm90_kernel",),
+                 "gemm_probe": ("gemm_probe_i8_kernel", "gemm_probe_bf16_kernel",
+                                "gemm_probe_bf16_t_kernel")}
 # K2's wgmma kernels: their Q K^T on the int8 tensor cores (IGMMA) besides
 # the bf16 P V (HGMMA); the int32 -> f32 conversions (I2F, and I2FP, which
 # ptxas may emit for it) counted in their SASS and printed
 INT8_WGMMA_KERNELS = ("sage_fwd_sm90_d64_kernel", "sage_fwd_sm90_kernel")
+# the int8 GEMMs (K3, K9 and K10 in int8): int8 wgmma (IGMMA) only
+INT8_GEMM_KERNELS = ("w8a8_gemm_sm90_kernel", "gemm_probe_i8_kernel")
+# the GEMM kernels whose registers go into the kernels line
+GEMM_INSTANCES = {"w8a8": {"gemm": "w8a8_gemm_sm90_kernel"},
+                  "gemm_probe": {"int8": "gemm_probe_i8_kernel", "bf16": "gemm_probe_bf16_kernel"},
+                  "gemm_probe_t": {"bf16": "gemm_probe_bf16_t_kernel",
+                                   "int8 transpose": "transpose_i8_kernel"}}
 # K5's and K6's wgmma kernels, and K8's backward (kSegmented, kernels and
 # entries of their own) at D=64 and D=128: their dq and dk/dv instances,
 # whose registers go into the kernels line
@@ -1644,14 +1660,16 @@ def w8a8_inputs(gen, dev, m, k, n, bias=True):
 
 def w8a8_parity(dev):
     """K3 against its plain version at unaligned shapes and at the three
-    main-path shapes, a planted fault each time; times at the main-path
-    shapes beside the plain version, the bound and two yardsticks the port
-    never calls: torch._int_mm on the operands quantised beforehand, and the
-    bf16 F.linear that W8A8 replaces."""
+    main-path shapes, equal to the bit (and within the limit), a planted
+    fault each time; times at the main-path shapes beside the plain version,
+    the bound and two yardsticks the port never calls: torch._int_mm on the
+    operands quantised beforehand, and the bf16 F.linear that W8A8 replaces;
+    the quantise pass and the GEMM apart (device time by kernel name)."""
     import torch
     import torch.nn.functional as F
 
     from vap_tpu_torch.ops import int8_matmul as ti8
+    from vap_tpu_torch.scripts.attention_ab import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst, by_shape = 0.0, {}
@@ -1670,8 +1688,9 @@ def w8a8_parity(dev):
         log(f"  w8a8 [{m},{k}]x[{k},{n}] bias {b is not None}: max|err| {err:.3e} / max|ref| "
             f"{ref_max:.3e} = {err / ref_max:.3e} (tol {W8A8_REL_TOL:.3e}; planted fault "
             f"{fault / ref_max:.3e}), {equal:.6f} of outputs equal to the bit, finite {finite}")
-        if not (finite and err <= W8A8_REL_TOL * ref_max):
-            raise AssertionError("w8a8 disagrees with its plain version")
+        if not (finite and err <= W8A8_REL_TOL * ref_max and torch.equal(out, ref)):
+            raise AssertionError("w8a8 disagrees with its plain version (it must equal it to "
+                                 "the bit)")
         if fault <= W8A8_REL_TOL * ref_max:
             raise AssertionError("w8a8: the limit does not catch weight rows out of place")
         worst = max(worst, err)
@@ -1683,14 +1702,19 @@ def w8a8_parity(dev):
             int_mm_ms = time_ms(lambda: torch._int_mm(x_i8, w_i8.T), iters=10, warmup=2)
             b16 = None if b is None else b.to(torch.bfloat16)  # the model's bias dtype
             bf16_ms = time_ms(lambda: F.linear(x, w, b16), iters=10, warmup=2)
+            parts = device_ms(lambda: ti8.int8_linear_chunk(x, w_i8, s_w, b), 5,
+                              ("w8a8_quantize", "w8a8_gemm"))
             bound_ms, bound_by = w8a8_bound(m, k, n)
             tops = 2 * m * n * k / (ms * 1e-3) / 1e12
-            log(f"  w8a8 at [{m},{k}]x[{k},{n}]: kernel {ms:.3f} ms ({tops:.1f} TOP/s), plain "
+            log(f"  w8a8 at [{m},{k}]x[{k},{n}]: kernel {ms:.3f} ms ({tops:.1f} TOP/s; quantise "
+                f"pass {parts['w8a8_quantize']:.3f} ms, GEMM {parts['w8a8_gemm']:.3f} ms), plain "
                 f"{plain_ms:.3f} ms, torch._int_mm on quantised operands {int_mm_ms:.3f} ms, bf16 "
                 f"F.linear {bf16_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
-            by_shape[f"{m}x{k}x{n}"] = {"ms": ms, "plain_ms": plain_ms, "int_mm_ms": int_mm_ms,
-                                        "bf16_linear_ms": bf16_ms, "bound_ms": bound_ms,
-                                        "bound_by": bound_by, "per_step": W8A8_SHAPES[k, n]}
+            by_shape[f"{m}x{k}x{n}"] = {"ms": ms, "quantize_ms": parts["w8a8_quantize"],
+                                        "gemm_ms": parts["w8a8_gemm"], "plain_ms": plain_ms,
+                                        "int_mm_ms": int_mm_ms, "bf16_linear_ms": bf16_ms,
+                                        "bound_ms": bound_ms, "bound_by": bound_by,
+                                        "per_step": W8A8_SHAPES[k, n]}
         del x, w, w_i8, s_w, b, out, ref, rolled
         torch.cuda.empty_cache()
     step_ms = sum(r["ms"] * r["per_step"] for r in by_shape.values())
@@ -1700,7 +1724,7 @@ def w8a8_parity(dev):
         f"the same products as bf16 F.linear {step_bf16:.3f} ms")
     first = by_shape[f"{W8A8_M}x3072x3072"]
     return {"max_abs_err": worst, **{key: first[key] for key in
-                                     ("ms", "plain_ms", "bound_ms", "bound_by")},
+                                     ("ms", "plain_ms", "bound_ms", "bound_by", "quantize_ms")},
             "library_ms": None, "shape": [W8A8_M, 3072, 3072],
             "yardsticks": {"int_mm_ms": first["int_mm_ms"], "bf16_linear_ms": first["bf16_linear_ms"]},
             "by_shape": by_shape}
@@ -3039,12 +3063,21 @@ def serialised_wgmma(log_text, kernels):
     return hits
 
 
+def sass_needs(kernel):
+    """The SASS instructions a wgmma kernel must hold: TMA loads (UTMALDG)
+    and its wgmma, IGMMA for the int8 GEMMs, HGMMA for the others (K2's
+    also IGMMA)."""
+    if kernel in INT8_GEMM_KERNELS:
+        return ("IGMMA", "UTMALDG")
+    return ("HGMMA", "UTMALDG") + (("IGMMA",) if kernel in INT8_WGMMA_KERNELS else ())
+
+
 def build_kernels():
     """One nvcc per source, all started together; ptxas's registers and
     spills per kernel, from the compilers' logs. Fails if an instance in
     PINNED_REGISTERS spills or takes more registers than its cap. Returns
-    the registers and spills of FORWARD_INSTANCES, and of
-    BACKWARD_PAIRS ({"dq": ..., "dkv": ...}), by kernel name."""
+    the registers and spills of FORWARD_INSTANCES, of BACKWARD_PAIRS
+    ({"dq": ..., "dkv": ...}) and of GEMM_INSTANCES, by kernel name."""
     from vap_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -3081,7 +3114,7 @@ def build_kernels():
                for name, instance in FORWARD_INSTANCES.items()}
     log("  forward instances (K1, K4 with K7, K8 and K2 with K7 at D=64 and D=128): " + ", ".join(
         f"{name} {got}" for name, got in forward.items()))
-    for name, parts in BACKWARD_PAIRS.items():
+    for name, parts in {**BACKWARD_PAIRS, **GEMM_INSTANCES}.items():
         forward[name] = {part: next((v for k, v in seen.items() if k.endswith(instance)), {})
                          for part, instance in parts.items()}
     # ptxas serialises a wgmma kernel's products when another instruction
@@ -3102,7 +3135,7 @@ def build_kernels():
             functions = re.split(r"\n\s*Function : ", sass)[1:]
             for kernel in kernels:
                 body = next((f for f in functions if kernel in f.split("\n", 1)[0]), "")
-                need = ("HGMMA", "UTMALDG") + (("IGMMA",) if kernel in INT8_WGMMA_KERNELS else ())
+                need = sass_needs(kernel)
                 ops = {op: len(re.findall(rf"\b{op}\.", body)) for op in need}
                 conv = ({op: len(re.findall(rf"\b{op}[.\s]", body)) for op in ("I2F", "I2FP")}
                         if kernel in INT8_WGMMA_KERNELS else {})
@@ -3274,6 +3307,8 @@ def main():
                          ("sage_fwd_d128", "sage_fwd_d128"),
                          ("sage_fwd_d128_varlen", "sage_fwd_d128")):
         results[name]["registers"] = registers[kernel]
+    for name in GEMM_INSTANCES:  # K3's GEMM, K9's and K10's kernels
+        results[name]["registers"] = registers[name]
     specs = {**kernel_specs(), **PREPASS_SPECS, **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS,
              **VARLEN_BWD_SPECS, **SEG_SPECS, **SEG_BWD_SPECS}
     print(json.dumps({"kernels": [

@@ -43,3 +43,37 @@ def test_serialised_wgmma_attributes_mangled_names(log, expected):
     hits = chip_smoke.serialised_wgmma(log, (DQ, DKV))
     assert [kernel for kernel, _ in hits] == expected
     assert all("serialized" in line for _, line in hits)
+
+
+W8A8 = "w8a8_gemm_sm90_kernel"
+# as ptxas printed it for the GEMM kernel whose consumer loop could leave
+# its last chunk without waiting for the products
+INJECTED_WAIT = (
+    "ptxas info    : (C7517) warpgroup.wait is injected in around line 1586 by compiler to allow "
+    "use of registers defined by GMMA in function '_ZN39_GLOBAL__N__87a74225_7_w8a8_cu_vap_w8a821"
+    "w8a8_gemm_sm90_kernelE14CUtensorMap_stS0_S0_PKfS2_S2_iiii'")
+
+
+def test_injected_wait_in_a_gemm_kernel_fails_the_build():
+    """ptxas's C7517 (a wait it injected because registers a wgmma defines are
+    read before the products are waited for) is a C751x line too: caught and
+    put down to the GEMM kernel it names."""
+    hits = chip_smoke.serialised_wgmma(f"{INJECTED_WAIT}\n{REGISTERS}", (W8A8,))
+    assert [kernel for kernel, _ in hits] == [W8A8]
+
+
+@pytest.mark.parametrize("kernel, needs", [
+    ("w8a8_gemm_sm90_kernel", ("IGMMA", "UTMALDG")),
+    ("gemm_probe_i8_kernel", ("IGMMA", "UTMALDG")),
+    ("gemm_probe_bf16_kernel", ("HGMMA", "UTMALDG")),
+    ("gemm_probe_bf16_t_kernel", ("HGMMA", "UTMALDG")),
+    ("sage_fwd_sm90_kernel", ("HGMMA", "UTMALDG", "IGMMA")),
+    ("flash_fwd_sm90_kernel", ("HGMMA", "UTMALDG")),
+])
+def test_sass_gate_asks_each_kernel_for_its_wgmma(kernel, needs):
+    """The SASS gate asks K3's and K9's int8 kernels for the int8 wgmma
+    (IGMMA), the bf16 GEMM kernels and the attention kernels for HGMMA, K2's
+    for both, every one for TMA loads; every wgmma kernel is pinned."""
+    assert chip_smoke.sass_needs(kernel) == needs
+    assert any(kernel in kernels for kernels in chip_smoke.WGMMA_KERNELS.values())
+    assert kernel in chip_smoke.PINNED_REGISTERS

@@ -3,7 +3,8 @@ K8 their packed-segment form and the ring body over it, K5 and K6 flash
 backward and K7's and K8's backward in them, the ring backward over them,
 K3 W8A8, K9 and K10 the GEMM rate probe) against their plain PyTorch
 versions on the card; the wgmma and TMA kernels (K1, K2 and K5 at head_dim
-64, K4, K2 and K6 at 128, and K7 in them) also at their tile edges.
+64, K4, K2 and K6 at 128, and K7 in them; K3, K9 and K10) also at their
+tile edges.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only the port is installed:
@@ -719,11 +720,11 @@ def test_k2_at_head_dims_32_and_96_stays_on_the_mma_sync_kernel(cuda, d):
 
 
 # K3, the W8A8 linear: per chunk the int32 product is exact on both sides and
-# the f32 steps are the same in the same order, so an output of the kernel
-# can at most round to the bf16 value next to its plain version's, one ulp:
-# at most 2^-7 of the element, of max|ref|; held to that
+# the f32 steps are the same, uncontracted, in the same order, so the kernel's
+# outputs equal its plain version's to the bit. A planted fault is measured
+# against one bf16 ulp, 2^-7 of max|ref|
 W8A8_REL_TOL = 2.0 ** -7
-W8A8_TILE = 128  # output channels per tile of the GEMM
+W8A8_TILE = 128  # the planted fault rolls the weight's rows inside blocks of 128
 
 
 def _w8a8_inputs(device, m, k, n, bias=True, seed=3):
@@ -737,9 +738,23 @@ def _w8a8_inputs(device, m, k, n, bias=True, seed=3):
     return x, w_i8, s_w, b
 
 
-@pytest.mark.parametrize("m,k,n,bias", [(300, 256, 128, True), (300, 3072, 384, False),
-                                        (1, 256, 128, True), (129, 12288, 256, True)])
+# K3 on the wgmma main loop (csrc/gemm_sm90.cuh): 128-row tiles in 2-tile
+# clusters along M, 192 columns wide, K in 128-byte stages; TMA's zero fill
+# makes M, N and K ragged, TMA stores clip the output. Rows around the tile
+# and the cluster and the 35,552 rows of a CogVideoX projection (277 tiles
+# and a tail of 96); N inside one tile, ragged in a second (128 leaves 64
+# columns of the tile past N) and 16 tiles; K of one 128-column chunk, 13
+# chunks of 128 (1664), two and eight chunks of 1536.
+K3_CASES = ([(300, 256, 128, True), (300, 3072, 384, False), (1, 256, 128, True),
+             (129, 12288, 256, True)]
+            + [(m, 3072, 384, m % 2 == 1) for m in (127, 128, 255, 256, 257, 35552)]
+            + [(257, 1664, n, bias) for n in (128, 384, 3072) for bias in (True, False)]
+            + [(129, k, 384, True) for k in (128, 1664, 3072)])
+
+
+@pytest.mark.parametrize("m,k,n,bias", K3_CASES)
 def test_k3_matches_plain(cuda, m, k, n, bias):
+    """Equal to the plain version to the bit."""
     from vap_tpu_torch.ops import int8_matmul as ti8
 
     x, w_i8, s_w, b = _w8a8_inputs(cuda, m, k, n, bias)
@@ -749,8 +764,7 @@ def test_k3_matches_plain(cuda, m, k, n, bias):
     assert ti8.int8_linear_chunk.launches == before + 1
     ref = ti8.int8_linear_chunk_plain(x, w_i8, s_w, b)
     assert out.dtype == torch.bfloat16 and out.shape == (m, n) and torch.isfinite(out).all()
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=W8A8_REL_TOL * ref.float().abs().max().item())
+    assert torch.equal(out, ref)
 
 
 def test_k3_limit_catches_weight_rows_out_of_place(cuda):
@@ -799,21 +813,34 @@ def test_int8_linear_chunk_form_launches_k3(cuda):
 GEMM_BF16_REL_TOL = 2.0 ** -7
 
 
+def _probe_operands(cuda, dtype, m, k, n, seed=5):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int8:
+        return (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)).to(cuda)
+                for s in ((m, k), (n, k)))
+    return (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, dtype)
+            for s in ((m, k), (n, k)))
+
+
+# K9/K10 on the same main loop, 256 columns wide: rows around the tile and
+# the cluster, N ragged inside a tile (128, 384) and 12 tiles, K of half an
+# int8 stage (64: the rest of the box is TMA's zeros), one stage, 13, 24.
+# K10 takes M in multiples of 16: it runs the multiple of 16 at or above M.
+PROBE_CASES = ([(300, 256, 128), (144, 3072, 384), (16, 64, 256)]
+               + [(m, 256, 384) for m in (1, 127, 128, 129, 255, 256, 257)]
+               + [(272, 640, n) for n in (128, 384, 3072)]
+               + [(144, k, 256) for k in (64, 128, 1664)])
+
+
 @pytest.mark.parametrize("trans", [False, True])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(300, 256, 128), (144, 3072, 384), (16, 64, 256)])
+@pytest.mark.parametrize("m,k,n", PROBE_CASES)
 def test_gemm_probe_matches_plain(cuda, trans, dtype, m, k, n):
     from vap_tpu_torch.ops import gemm_probe as gp
 
-    rng = np.random.default_rng(4)
-    if dtype == torch.int8:
-        x, w = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)).to(cuda)
-                for s in ((m, k), (n, k)))
-    else:
-        x, w = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, dtype)
-                for s in ((m, k), (n, k)))
-    if trans and m % 16:
-        m, x = m - m % 16, x[: m - m % 16].contiguous()
+    if trans:
+        m = -(-m // 16) * 16
+    x, w = _probe_operands(cuda, dtype, m, k, n, seed=4)
     kernel = gp.gemm_probe_t if trans else gp.gemm_probe
     before = kernel.launches
     out = kernel(x.T.contiguous(), w) if trans else kernel(x, w)
@@ -824,6 +851,7 @@ def test_gemm_probe_matches_plain(cuda, trans, dtype, m, k, n):
     if dtype == torch.int8:
         assert torch.equal(out, ref)
     else:
+        assert torch.isfinite(out).all()
         torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                    atol=GEMM_BF16_REL_TOL * ref.float().abs().max().item())
 
@@ -839,6 +867,113 @@ def test_gemm_probe_rejects_what_it_does_not_take(cuda):
                         torch.zeros((128, 64), dtype=torch.int8, device=cuda))
     with pytest.raises(ValueError, match="int8 or bfloat16"):
         gp.gemm_probe(x.float(), torch.zeros((128, 64), device=cuda))
+
+
+# K3's, K9's and K10's persistent walk and determinism; K10's int8 transpose
+
+
+def _poisoned(shape, dtype, device):
+    """An output buffer poisoned with NaN (int32: 2^31 - 1, which no int8
+    product reaches): an element the kernel does not write keeps it."""
+    return torch.full(shape, 2 ** 31 - 1 if dtype == torch.int32 else float("nan"), dtype=dtype,
+                      device=device)
+
+
+def test_k3_is_deterministic(cuda):
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    x, w_i8, s_w, b = _w8a8_inputs(cuda, 300, 3072, 384)
+    first = ti8.int8_linear_chunk(x, w_i8, s_w, b)
+    assert torch.equal(first, ti8.int8_linear_chunk(x, w_i8, s_w, b))
+
+
+def test_k3_writes_every_output(cuda):
+    """The persistent walk covers every tile: the C entry, given an output
+    poisoned with NaN, leaves it equal to the plain version."""
+    from vap_tpu_torch.ops import _build
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    m, k, n = 1000, 1536, 640
+    x, w_i8, s_w, b = _w8a8_inputs(cuda, m, k, n)
+    out = _poisoned((m, n), torch.bfloat16, cuda)
+    x_i8 = torch.empty((m, k), dtype=torch.int8, device=cuda)
+    s_x = torch.empty((m, 1), dtype=torch.float32, device=cuda)
+    err = _build.library("w8a8").vap_w8a8(
+        x.data_ptr(), w_i8.data_ptr(), s_w.data_ptr(), b.data_ptr(), x_i8.data_ptr(),
+        s_x.data_ptr(), out.data_ptr(), m, n, k, k, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, ti8.int8_linear_chunk_plain(x, w_i8, s_w, b))
+
+
+PROBE_FORMS = [(False, torch.int8), (False, torch.bfloat16), (True, torch.int8),
+               (True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("trans,dtype", PROBE_FORMS)
+def test_gemm_probe_is_deterministic(cuda, trans, dtype):
+    from vap_tpu_torch.ops import gemm_probe as gp
+
+    x, w = _probe_operands(cuda, dtype, 1040, 768, 640)
+    a = x.T.contiguous() if trans else x
+    kernel = gp.gemm_probe_t if trans else gp.gemm_probe
+    assert torch.equal(kernel(a, w), kernel(a, w))
+
+
+@pytest.mark.parametrize("trans,dtype", [(False, torch.int8), (False, torch.bfloat16),
+                                         (True, torch.bfloat16)])
+def test_gemm_probe_writes_every_output(cuda, trans, dtype):
+    """The C entry, given an output poisoned with NaN, leaves it equal to the
+    plain version: the persistent walk covers every tile (K10 in int8 is
+    K9's kernel after the transpose, so only bf16 runs it transposed)."""
+    from vap_tpu_torch.ops import _build
+    from vap_tpu_torch.ops import gemm_probe as gp
+
+    m, k, n = 1040, 768, 640
+    x, w = _probe_operands(cuda, dtype, m, k, n)
+    a = x.T.contiguous() if trans else x
+    int8 = dtype == torch.int8
+    out = _poisoned((m, n), torch.int32 if int8 else torch.bfloat16, cuda)
+    err = _build.library("gemm_probe").vap_gemm_probe(
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, int(not int8), int(trans),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = gp.gemm_probe_plain(x, w)
+    if int8:
+        assert torch.equal(out, ref)
+    else:
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=GEMM_BF16_REL_TOL * ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("rows,cols", [(64, 16), (128, 272), (3072, 1040)])
+def test_k10_int8_transpose_kernel(cuda, rows, cols):
+    """K10 in int8 transposes xt [K, M] into x [M, K] with its own kernel
+    before K9's: the result is xt.T, byte for byte."""
+    from vap_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(6)
+    xt = torch.from_numpy(rng.integers(-128, 128, (rows, cols), dtype=np.int8)).to(cuda)
+    x = torch.empty((cols, rows), dtype=torch.int8, device=cuda)
+    err = _build.library("gemm_probe").vap_transpose_i8(
+        xt.data_ptr(), x.data_ptr(), rows, cols, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(x, xt.T)
+
+
+def test_gemm_probe_entry_refuses_an_int8_transposed_operand(cuda):
+    """8-bit wgmma takes no MN-major operand: the C entry refuses int8 with
+    trans_a (the wrapper transposes first)."""
+    from vap_tpu_torch.ops import _build
+
+    a = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
+    w = torch.zeros((128, 64), dtype=torch.int8, device=cuda)
+    out = torch.empty((32, 128), dtype=torch.int32, device=cuda)
+    err = _build.library("gemm_probe").vap_gemm_probe(
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), 32, 128, 64, 0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 # K8: K1's and K4's kernel given segment ids. Sample 0 packs three segments;

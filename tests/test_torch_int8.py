@@ -85,6 +85,8 @@ def _pallas(jq, x):
     (64, 256, 128, True),      # one chunk, one N tile
     (130, 3072, 256, False),   # a ragged M and two 1536-column chunks
     (8, 512, 384, True),       # N tiled by 128
+    (8, 12288, 128, True),     # the feed-forward's out projection: eight 1536-column chunks
+    (130, 1664, 128, False),   # K = 13 x 128: thirteen 128-column chunks
 ])
 def test_chunk_plain_matches_pallas_interpret(m, k, n, bias):
     p = _linear(k, n, 3, bias)

@@ -97,6 +97,8 @@ SOURCES = {
     "gemm_probe": {
         # a, b, out, m, n, k, bf16, trans_a, stream
         "vap_gemm_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # src, dst, rows, cols, stream (K10 in int8: xt [K, M] -> x [M, K])
+        "vap_transpose_i8": (_P, _P, _I, _I, _P),
     },
 }
 

@@ -6,10 +6,15 @@ K9 ``gemm_probe`` (``run``, ``dot_kernel``: x [M, K]) and K10
 xt [K, M]). Both compute ``x @ w^T`` for a weight w [N, K]: int8 inputs
 give the exact int32 product, bf16 inputs an f32 sum rounded to bf16. They
 measure the card's tensor-core rate, the yardstick of K3's bound; no model
-path calls them. CUDA source: ``csrc/gemm_probe.cu``, one kernel templated
-on the input type and on the layout of x. CUDA tensors launch it, CPU
-tensors take the plain version, any other device raises. Launches are
-counted on ``gemm_probe.launches`` and ``gemm_probe_t.launches``.
+path calls them. CUDA source: ``csrc/gemm_probe.cu``, the ``wgmma`` main
+loop of ``csrc/gemm_sm90.cuh`` (TMA, a persistent grid) in three kernels:
+int8, bf16, and bf16 with xt read MN-major. 8-bit ``wgmma`` takes no
+MN-major operand, so K10 in int8 first transposes xt into a scratch [M, K]
+(``vap_transpose_i8``, a hand-written kernel) and then runs K9's int8
+kernel; the wrapper allocates the scratch and counts the pair as one
+launch. CUDA tensors launch the kernels, CPU tensors take the plain
+version, any other device raises. Launches are counted on
+``gemm_probe.launches`` and ``gemm_probe_t.launches``.
 """
 
 from __future__ import annotations
@@ -18,9 +23,9 @@ import torch
 
 from . import _build
 
-# the output tile of csrc/gemm.cuh, which the probe script prints
-TILE_M, TILE_N, TILE_K_BYTES = 128, 128, 64
-_MAX_GRID_Y = 65535
+# the output tile of csrc/gemm_probe.cu and the bytes of K a stage of its
+# ring holds, which the probe script prints
+TILE_M, TILE_N, TILE_K_BYTES = 128, 256, 128
 _DTYPES = (torch.int8, torch.bfloat16)
 
 
@@ -48,17 +53,21 @@ def _launch(name: str, a: torch.Tensor, w: torch.Tensor, m: int, k: int, trans_a
         raise ValueError(f"{name}: takes int8 or bfloat16, got {a.dtype}")
     if w.shape[1] != k:
         raise ValueError(f"{name}: x has K={k}, w {tuple(w.shape)}")
-    if (k % 64 or n % TILE_N or m < 1 or (trans_a and m % 16)
-            or (m + TILE_M - 1) // TILE_M > _MAX_GRID_Y):
-        raise ValueError(f"{name}: needs K % 64 == 0, N % {TILE_N} == 0"
+    if k % 64 or n % 128 or m < 1 or (trans_a and m % 16):
+        raise ValueError(f"{name}: needs K % 64 == 0, N % 128 == 0"
                          f"{', M % 16 == 0' if trans_a else ''}; got M={m}, K={k}, N={n}")
-    out_dtype = torch.int32 if a.dtype == torch.int8 else torch.bfloat16
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    int8 = a.dtype == torch.int8
+    out = torch.empty((m, n), dtype=torch.int32 if int8 else torch.bfloat16, device=a.device)
     lib = _build.library("gemm_probe")
     with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if trans_a and int8:  # xt [K, M] -> a scratch x [M, K], then K9's int8 kernel
+            x = torch.empty((m, k), dtype=torch.int8, device=a.device)
+            _build.check(lib.vap_transpose_i8(a.data_ptr(), x.data_ptr(), k, m, stream),
+                         "vap_transpose_i8")
+            a, trans_a = x, False
         err = lib.vap_gemm_probe(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                                 int(a.dtype == torch.bfloat16), int(trans_a),
-                                 torch.cuda.current_stream(a.device).cuda_stream)
+                                 int(not int8), int(trans_a), stream)
     _build.check(err, "vap_gemm_probe")
     return out
 

@@ -8,12 +8,13 @@ amax))``, ``s_x = amax * (1 / 127)``), an int8 x int8 -> int32 product per
 chunk, each chunk's int32 partial turned into f32 times its ``s_x`` and
 added to an f32 sum in chunk order, then ``y = acc * s_w + bias`` in f32,
 cast to x's dtype. The weight is ``w_i8 [N, K]`` int8 (nn.Linear's layout,
-K contiguous: the B operand of ``mma.m16n8k32.row.col`` as it lies) with
+K contiguous: the K-major B operand of the int8 ``wgmma`` as it lies) with
 one f32 scale per output channel ``s_w [N]``.
 
-CUDA source: ``csrc/w8a8.cu`` (a quantise pass, then a tiled int8
-``mma.sync`` GEMM that folds its int32 fragments into f32 at each chunk
-boundary). CUDA tensors launch it, CPU tensors take
+CUDA source: ``csrc/w8a8.cu`` (a quantise pass, then the int8 ``wgmma``
+GEMM of ``csrc/gemm_sm90.cuh``, TMA-fed and persistent, that folds its
+int32 accumulator into f32 at each chunk boundary; bit-equal to the plain
+version). CUDA tensors launch it, CPU tensors take
 ``int8_linear_chunk_plain``, any other device raises. The kernel counts its
 launches on ``int8_linear_chunk.launches``.
 
@@ -36,9 +37,9 @@ from . import _build
 # BLOCK_N only enters ``supported``
 BLOCK_N = 1024
 BLOCK_K = 1536
-# rows and columns of one output tile of the CUDA GEMM (csrc/gemm.cuh)
-TILE = 128
-_MAX_GRID_Y = 65535
+# rows and columns of one output tile of the CUDA GEMM (csrc/w8a8.cu on
+# csrc/gemm_sm90.cuh), which ``linear_bench --impl diag`` prints
+TILE_M, TILE_N = 128, 192
 
 
 # --- copied from vap_tpu/ops/int8_matmul.py:65-69 --------------------------
@@ -139,8 +140,8 @@ def int8_linear_chunk(x: torch.Tensor, w_i8: torch.Tensor, s_w: torch.Tensor,
     if not x2d.is_contiguous():
         x2d = x2d.contiguous()
     m = x2d.shape[0]
-    if m < 1 or (m + TILE - 1) // TILE > _MAX_GRID_Y:
-        raise ValueError(f"int8_linear_chunk: needs 1 <= M <= {_MAX_GRID_Y * TILE}, got {m}")
+    if m < 1:
+        raise ValueError(f"int8_linear_chunk: needs M >= 1, got {m}")
     bias32 = None if bias is None else bias.float().contiguous()
     _check_kernel_inputs(x2d, w_i8, s_w, bias32)
     x_i8 = torch.empty((m, k), dtype=torch.int8, device=x.device)

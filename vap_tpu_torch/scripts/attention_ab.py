@@ -1,8 +1,9 @@
-"""Time the attention kernels at their main-path shapes for several trees on one card.
+"""Time the attention and GEMM kernels at their main-path shapes for several trees on one card.
 
     python -m vap_tpu_torch.scripts.attention_ab PARENT . . PARENT
     python -m vap_tpu_torch.scripts.attention_ab --d64 A B A B ...
     python -m vap_tpu_torch.scripts.attention_ab --sage A B B A ...
+    python -m vap_tpu_torch.scripts.attention_ab --gemm A B B A ...
 
 Each root given is a checkout (or an unpacked archive) holding
 ``vap_tpu_torch/``; each is timed in its own process, in the order given,
@@ -28,7 +29,14 @@ shape, at Wan's two cross shapes and, given kv_lens, at HunyuanVideo
 generation's shape (K7 in K2); beside each, the pre-pass alone (the root's
 ``sage_prepass``, or the plain ``sage_quantize`` a root without it runs);
 then K2's kernels' registers and spills and their conversion instructions
-in the SASS (I2F and I2FP, by cuobjdump). The kernels are built from each
+in the SASS (I2F and I2FP, by cuobjdump). With ``--gemm`` only the GEMM
+kernels are timed: K3 (``int8_linear_chunk``) at the three projection
+shapes of a CogVideoX CFG step ([35552, 3072] x [3072, 3072 | 12288],
+[35552, 12288] x [12288, 3072]), bias included, its quantise pass and GEMM
+apart (device time by kernel name under torch.profiler, the median of 5),
+and K9 (``gemm_probe``) and K10 (``gemm_probe_t``) in int8 and bf16 at the
+rate probe's (71168, 3072, 3072), 10 calls after 2; then the registers and
+spills ptxas gave the root's GEMM kernels. The kernels are built from each
 root's sources. It runs on the card and raises without one.
 """
 
@@ -45,11 +53,15 @@ K6_SHAPE = (1, 40, 20280, 128)  # one Wan branch's self-attention in training
 K7_SHAPE, K7_LEN = (1, 24, 18976, 128), 18763  # the Hunyuan LoRA stream and its valid keys
 K7_FWD_SHAPE, K7_FWD_LEN = (1, 24, 32656, 128), 32443  # Hunyuan generation at 33f@720x1280
 CROSS_KEYS = (512, 257)  # Wan's UMT5 and CLIP keys over one branch's 20,280 queries
+W8A8_M = 2 * (226 + 13 * 30 * 45)  # the rows of a CogVideoX CFG step's projections
+W8A8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))  # (K, N)
+PROBE_SHAPE = (71168, 3072, 3072)  # M, K, N of the rate probe
 
 
-def time_root(root: str, d64: bool = False, sage: bool = False) -> None:
+def time_root(root: str, d64: bool = False, sage: bool = False, gemm: bool = False) -> None:
     """Import the port under ``root`` and print its attention kernels' times
-    (with ``d64``, K1's and K5's only; with ``sage``, K2's only)."""
+    (with ``d64``, K1's and K5's only; with ``sage``, K2's only; with
+    ``gemm``, K3's, K9's and K10's instead)."""
     sys.path.insert(0, root)
     import torch
 
@@ -79,6 +91,9 @@ def time_root(root: str, d64: bool = False, sage: bool = False) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    if gemm:
+        time_gemms(root, dev, gen, ms)
+        return
     if sage:
         prepass = getattr(fa, "sage_prepass", fa.sage_quantize)
         times = []
@@ -166,20 +181,87 @@ def time_root(root: str, d64: bool = False, sage: bool = False) -> None:
     print(f"{root}: attention kernels (ptxas): {kernel_registers()}", flush=True)
 
 
-def kernel_registers():
+def device_ms(fn, iters, keys):
+    """{key: device ms a call} of the kernel whose name holds each key (one
+    launch a call), the median over ``iters`` calls of ``fn`` under
+    torch.profiler after one warm-up: a mean let one slow launch in five
+    read above the CUDA-event time of the whole call."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = {key: [] for key in keys}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            for key in keys:
+                if key in evt.name:
+                    times[key].append(evt.time_range.elapsed_us() / 1e3)
+    return {key: statistics.median(got) if got else 0.0 for key, got in times.items()}
+
+
+def time_gemms(root, dev, gen, ms) -> None:
+    """K3 at the three projection shapes (its quantise pass and GEMM apart),
+    K9 and K10 in int8 and bf16 at the probe's shape, and the registers of
+    the root's GEMM kernels."""
+    import torch
+
+    from vap_tpu_torch.models.common import quantize_linear_int8
+    from vap_tpu_torch.ops import gemm_probe as gp
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    k3 = []
+    for k, n in W8A8_SHAPES:
+        x = (2 * torch.randn((W8A8_M, k), generator=gen, device=dev)).to(torch.bfloat16)
+        w = (0.02 * torch.randn((n, k), generator=gen, device=dev)).to(torch.bfloat16)
+        w_i8, s_w = quantize_linear_int8(w)
+        b = torch.randn((n,), generator=gen, device=dev)
+        total = ms(lambda: ti8.int8_linear_chunk(x, w_i8, s_w, b), iters=10)
+        parts = device_ms(lambda: ti8.int8_linear_chunk(x, w_i8, s_w, b), 5,
+                          ("w8a8_quantize", "w8a8_gemm"))
+        k3.append(f"[{W8A8_M},{k}]x[{k},{n}] {total:.3f} ms (quantise {parts['w8a8_quantize']:.3f}"
+                  f", GEMM {parts['w8a8_gemm']:.3f})")
+        del x, w, w_i8, s_w, b
+    m, k, n = PROBE_SHAPE
+    probe = []
+    for dtype in (torch.int8, torch.bfloat16):
+        if dtype == torch.int8:
+            x, w = (torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=dtype)
+                    for shape in ((m, k), (n, k)))
+        else:
+            x, w = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                    for shape in ((m, k), (n, k)))
+        xt = x.T.contiguous()
+        probe.append(f"K9 {str(dtype)[6:]} {ms(lambda: gp.gemm_probe(x, w), iters=10):.3f} ms, "
+                     f"K10 {str(dtype)[6:]} {ms(lambda: gp.gemm_probe_t(xt, w), iters=10):.3f} ms")
+        del x, w, xt
+    print(f"{root}: K3 {'; '.join(k3)}; at {list(PROBE_SHAPE)} {'; '.join(probe)}", flush=True)
+    print(f"{root}: GEMM kernels (ptxas): {kernel_registers(('w8a8', 'gemm_probe'))}", flush=True)
+
+
+def kernel_registers(gemm_sources=()):
     """{kernel: {"registers": N, "spill": M}} of the root's attention
     kernels, as ptxas printed them: every instance of the backward sources
     and of the wgmma sources (K1 and K5 at head_dim 64, K4, K6; where the
     root has them), and the D=64 and D=128 instances (and the untemplated
-    ones) of the others (K1's and K5's mma.sync forms, K2, K8)."""
+    ones) of the others (K1's and K5's mma.sync forms, K2, K8). Given
+    ``gemm_sources``, every kernel of those sources instead."""
     import re
 
     from vap_tpu_torch.ops import _build
 
     found = {}
-    every = ("flash_bwd_d128", "flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_sm90_d64",
-             "flash_bwd_sm90_d64", "sage_fwd_sm90", "sage_fwd_sm90_d64")
-    for source in ("flash_fwd", "sage_fwd", "flash_bwd") + every:
+    every = gemm_sources or ("flash_bwd_d128", "flash_fwd_sm90", "flash_bwd_sm90",
+                             "flash_fwd_sm90_d64", "flash_bwd_sm90_d64", "sage_fwd_sm90",
+                             "sage_fwd_sm90_d64")
+    for source in (() if gemm_sources else ("flash_fwd", "sage_fwd", "flash_bwd")) + every:
         if source not in _build.SOURCES:  # a root from before this source
             continue
         name = None
@@ -229,13 +311,17 @@ def main(argv=None) -> None:
     parser.add_argument("--sage", action="store_true",
                         help="time only K2, with its pre-pass apart (its kernels' registers and "
                              "conversions)")
+    parser.add_argument("--gemm", action="store_true",
+                        help="time only K3 (its quantise pass apart), K9 and K10 (their kernels' "
+                             "registers)")
     args = parser.parse_args(argv)
     if args.one:
-        time_root(os.path.abspath(args.roots[0]), args.d64, args.sage)
+        time_root(os.path.abspath(args.roots[0]), args.d64, args.sage, args.gemm)
         return
     for root in args.roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root)]
-                       + ["--d64"] * args.d64 + ["--sage"] * args.sage, check=True)
+                       + ["--d64"] * args.d64 + ["--sage"] * args.sage + ["--gemm"] * args.gemm,
+                       check=True)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ events after a warm-up:
                 JAX package's ``_int8_linear``) and K3 (``int8_linear_chunk``);
   * ``kernel``: K3 alone (the JAX script's ``pallas``);
   * ``diag``:   the tiled GEMM rate probe, K9 (x [M, K]) and K10 (x given
-                as xt [K, M]), each in int8 and in bf16, with its tile;
+                as xt [K, M]), each in int8 and in bf16, with its tile and
+                the bytes of K a stage of its ring holds;
   * ``nsweep``: bf16 dense and the int8 product at N = 6,144 and 12,288.
 
 Each line gives ms per call and TOP/s (2MNK operations). Weights are
@@ -28,6 +29,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..models.common import int8_linear_row, quantize_linear_int8
+from ..ops import int8_matmul
 from ..ops.gemm_probe import TILE_K_BYTES, TILE_M, TILE_N, gemm_probe, gemm_probe_t
 from ..ops.int8_matmul import int8_linear_chunk
 
@@ -67,10 +69,11 @@ def run(m: int, k: int, n: int, impl: str, device: torch.device) -> List[str]:
         lines.append(_line("row form (int8_linear_row) ",
                            timed_ms(lambda: int8_linear_row(x, w_i8, s_w)), ops))
     if impl in ("all", "kernel"):
-        lines.append(_line("K3 W8A8 (int8_linear_chunk)",
+        k3_tile = f"tile {int8_matmul.TILE_M}x{int8_matmul.TILE_N}"
+        lines.append(_line(f"K3 W8A8 (int8_linear_chunk, {k3_tile})",
                            timed_ms(lambda: int8_linear_chunk(x, w_i8, s_w)), ops))
     if impl == "diag":
-        tile = f"tile {TILE_M}x{TILE_N}, K by {TILE_K_BYTES} bytes"
+        tile = f"tile {TILE_M}x{TILE_N}, K by {TILE_K_BYTES} bytes a stage"
         xt_i8, xt = x_i8.T.contiguous(), x.T.contiguous()
         lines.append(_line(f"K9  i8 dot   ({tile})", timed_ms(lambda: gemm_probe(x_i8, w_i8)), ops))
         lines.append(_line(f"K9  bf16 dot ({tile})", timed_ms(lambda: gemm_probe(x, w)), ops))
@@ -100,8 +103,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"{torch.cuda.get_device_name(0)} ({smi}); M={args.m} K={args.k} N={args.n}",
-          flush=True)
+    print(f"{torch.cuda.get_device_name(0)} ({smi}); M={args.m} K={args.k} N={args.n}; tiles: "
+          f"K3 {int8_matmul.TILE_M}x{int8_matmul.TILE_N}, K9/K10 {TILE_M}x{TILE_N}", flush=True)
     lines = run(args.m, args.k, args.n, args.impl, device)
     for line in lines:
         print(line, flush=True)
