@@ -50,7 +50,9 @@ Phases, each of which raises on failure:
      pre-pass apart), the bound over the valid keys and SDPA's
      memory-efficient backend with a boolean key mask (a yardstick only);
      then K8, the packed-segment
-     forward (K1's kernel at D=64, K4's at D=128, kSegmented), against its
+     forward (the wgmma kernels of K1 at D=64 and K4 at D=128, in their
+     segmented instances, which walk only the key tiles whose id ranges
+     meet the query block's), against its
      plain version at three full-width cases: CogVideoX's joint stream
      [1,48,35552,64] as target and reference segments (its last 64 tokens
      padding), Wan's [1,40,40560,128] as two halves, and the Hunyuan LoRA
@@ -59,12 +61,18 @@ Phases, each of which raises on failure:
      the limits, padding rows finite, a planted fault (one key's id
      flipped) that must break the limit; times beside the plain version,
      the bound over the same-segment pairs and SDPA's memory-efficient
-     backend with a boolean [1,1,S,S] mask (a yardstick only), and the K8
-     instances' registers; then the ring body of sequence-parallel
+     backend with a boolean [1,1,S,S] mask (a yardstick only), each case's
+     share of tile pairs the tile rule walks (the rule's count), and the K8
+     instances' registers; the kernels' tile sizes held against the rule's,
+     and in each case NaN in the v rows of every tile a block's run leaves
+     out must not move that block's rows (no tile outside the rule read);
+     then the ring body of sequence-parallel
      attention on one card (its key blocks passed on by a local rotation)
      over 2 and 4 blocks of the CogVideoX and Hunyuan cases, and once with
-     kv_lens, against one kernel call; then K8's backward (K5's kernels at
-     D=64, K6's at D=128, kSegmented, entries of their own) against its
+     kv_lens, against one kernel call, and the time of one block call whose
+     queries and keys share a segment beside one whose share none; then
+     K8's backward (the wgmma kernels of K5 at D=64 and K6 at D=128, in
+     their segmented instances, entries of their own) against its
      plain version at the unaligned shapes (B=2, three segments, one
      crossing a 64-row tile edge, a padded tail, a query segment with no
      key, Sq != Skv) and at the same three full-width cases with dout zero
@@ -74,7 +82,9 @@ Phases, each of which raises on failure:
      valid tokens (and whether the two are bit-equal); times beside the
      plain version, the bound over the same-segment pairs, SDPA's
      memory-efficient backward with a boolean [1,1,S,S] mask (a yardstick
-     only) and the registers; then sequence-parallel attention's step on
+     only), the shares of tile pairs the rule walks (dq and dk/dv kernels),
+     the same NaN check (in k for dq, in dout for dk/dv) and the
+     registers; then sequence-parallel attention's step on
      one card: the ring body, then its backward (ring_backward_steps run in
      lockstep: each block passed on with its dk/dv accumulators, which
      arrive home after n passes) from the merged out and lse, over 2 and 4
@@ -292,46 +302,53 @@ BENCH_STEPS = 4
 BENCH_CACHE = "uniform:2:1:1"
 BENCH_COMPUTED = [0, 1, 3]
 REUSE_STEP_SHARE = 0.05  # a reuse step costs under 5% of a computed one
-# the mma.sync D = 128 forward instance (K8's) fits three blocks an SM at
-# 168 registers a thread, and two at the 180 of an earlier build, which ran
-# 40% slower; the wgmma kernels of K4, K6 and K2 at D=128 (384 threads, one
-# block an SM) launch at 168, the most that lets setmaxnreg give the two
-# consumer warpgroups 232 and the producer 40; K1's and K2's at D=64 (512
-# threads: three consumer warpgroups) at 128, setmaxnreg 160 / 32; K5's at
-# D=64 (384 threads) at 168. The build fails past these counts or on a
+# the wgmma kernels of K4, K6 and K2 at D=128 (384 threads, one block an
+# SM) launch at 168, the most that lets setmaxnreg give the two consumer
+# warpgroups 232 and the producer 40; K1's and K2's at D=64 (512 threads:
+# three consumer warpgroups) at 128, setmaxnreg 160 / 32; K5's at D=64 (384
+# threads) at 168; K8's segmented instances of K1, K4, K5 and K6 as the
+# kernels they are instances of. The build fails past these counts or on a
 # spill
-PINNED_REGISTERS = {"flash_fwd_seg_d128_kernel": 168,
-                    "flash_fwd_sm90_kernel": 168, "flash_bwd_sm90_dq_kernel": 168,
+PINNED_REGISTERS = {"flash_fwd_sm90_kernel": 168, "flash_bwd_sm90_dq_kernel": 168,
                     "flash_bwd_sm90_dkv_kernel": 168, "flash_fwd_sm90_d64_kernel": 128,
                     "flash_bwd_sm90_d64_dq_kernel": 168, "flash_bwd_sm90_d64_dkv_kernel": 168,
+                    "flash_fwd_sm90_d64_seg_kernel": 128, "flash_fwd_sm90_seg_kernel": 168,
+                    "flash_bwd_sm90_d64_seg_dq_kernel": 168,
+                    "flash_bwd_sm90_d64_seg_dkv_kernel": 168,
+                    "flash_bwd_sm90_seg_dq_kernel": 168, "flash_bwd_sm90_seg_dkv_kernel": 168,
                     "sage_fwd_sm90_kernel": 168, "sage_fwd_sm90_d64_kernel": 128,
                     "w8a8_gemm_sm90_kernel": 168, "gemm_probe_i8_kernel": 168,
                     "gemm_probe_bf16_kernel": 168, "gemm_probe_bf16_t_kernel": 168}
 # the forward instances on a path: K1 at D=64 and K4 (fixed length and K7),
-# K8 (kSegmented) at D=64 and D=128, and K2 at D=64 and D=128 (and K7 in
-# it), printed with their registers and spills; they also go into the
-# kernels line
+# K8 (their segmented instances) at D=64 and D=128, and K2 at D=64 and D=128
+# (and K7 in it), printed with their registers and spills; they also go
+# into the kernels line
 FORWARD_INSTANCES = {"flash_fwd": "flash_fwd_sm90_d64_kernel",
                      "flash_fwd_d128": "flash_fwd_sm90_kernel",
-                     "flash_fwd_seg": "flash_fwd_kernel<Li64ELb1E>",
-                     "flash_fwd_seg_d128": "flash_fwd_seg_d128_kernel",
+                     "flash_fwd_seg": "flash_fwd_sm90_d64_seg_kernel",
+                     "flash_fwd_seg_d128": "flash_fwd_sm90_seg_kernel",
                      "sage_fwd": "sage_fwd_sm90_d64_kernel",
                      "sage_fwd_d128": "sage_fwd_sm90_kernel"}
 # the backward instances on a path or held (K5 at D=64 and K6, each with
 # and without kv_lens, K8), printed with their registers and spills
 BACKWARD_INSTANCES = ("flash_bwd_sm90_d64_dq_kernel", "flash_bwd_sm90_d64_dkv_kernel",
                       "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
-                      "flash_bwd_seg_dq_kernel<Li64E>", "flash_bwd_seg_dkv_kernel<Li64E>",
-                      "flash_bwd_seg_d128_dq_kernel", "flash_bwd_seg_d128_dkv_kernel")
-# the wgmma kernels (K1, K2 and K5 at D=64, K4, K2 and K6 at D=128; K3's
-# GEMM and K9/K10's three, 384 threads, setmaxnreg 40 / 232, pinned at 168)
-# by source, whose SASS and ptxas logs the build phase reads per kernel
-# function
-WGMMA_KERNELS = {"flash_fwd_sm90_d64": ("flash_fwd_sm90_d64_kernel",),
+                      "flash_bwd_sm90_d64_seg_dq_kernel", "flash_bwd_sm90_d64_seg_dkv_kernel",
+                      "flash_bwd_sm90_seg_dq_kernel", "flash_bwd_sm90_seg_dkv_kernel")
+# the wgmma kernels (K1, K2 and K5 at D=64, K4, K2 and K6 at D=128, K8's
+# instances of K1, K4, K5 and K6; K3's GEMM and K9/K10's three, 384
+# threads, setmaxnreg 40 / 232, pinned at 168) by source, whose SASS and
+# ptxas logs the build phase reads per kernel function
+WGMMA_KERNELS = {"flash_fwd_sm90_d64": ("flash_fwd_sm90_d64_kernel",
+                                        "flash_fwd_sm90_d64_seg_kernel"),
                  "flash_bwd_sm90_d64": ("flash_bwd_sm90_d64_dq_kernel",
-                                        "flash_bwd_sm90_d64_dkv_kernel"),
-                 "flash_fwd_sm90": ("flash_fwd_sm90_kernel",),
-                 "flash_bwd_sm90": ("flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel"),
+                                        "flash_bwd_sm90_d64_dkv_kernel",
+                                        "flash_bwd_sm90_d64_seg_dq_kernel",
+                                        "flash_bwd_sm90_d64_seg_dkv_kernel"),
+                 "flash_fwd_sm90": ("flash_fwd_sm90_kernel", "flash_fwd_sm90_seg_kernel"),
+                 "flash_bwd_sm90": ("flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
+                                    "flash_bwd_sm90_seg_dq_kernel",
+                                    "flash_bwd_sm90_seg_dkv_kernel"),
                  "sage_fwd_sm90_d64": ("sage_fwd_sm90_d64_kernel",),
                  "sage_fwd_sm90": ("sage_fwd_sm90_kernel",),
                  "w8a8": ("w8a8_gemm_sm90_kernel",),
@@ -348,16 +365,16 @@ GEMM_INSTANCES = {"w8a8": {"gemm": "w8a8_gemm_sm90_kernel"},
                   "gemm_probe": {"int8": "gemm_probe_i8_kernel", "bf16": "gemm_probe_bf16_kernel"},
                   "gemm_probe_t": {"bf16": "gemm_probe_bf16_t_kernel",
                                    "int8 transpose": "transpose_i8_kernel"}}
-# K5's and K6's wgmma kernels, and K8's backward (kSegmented, kernels and
-# entries of their own) at D=64 and D=128: their dq and dk/dv instances,
-# whose registers go into the kernels line
+# K5's and K6's wgmma kernels, and K8's backward (their segmented
+# instances, entries of their own) at D=64 and D=128: their dq and dk/dv
+# instances, whose registers go into the kernels line
 BACKWARD_PAIRS = {
     "flash_bwd": {"dq": "flash_bwd_sm90_d64_dq_kernel", "dkv": "flash_bwd_sm90_d64_dkv_kernel"},
     "flash_bwd_d128": {"dq": "flash_bwd_sm90_dq_kernel", "dkv": "flash_bwd_sm90_dkv_kernel"},
-    "flash_bwd_seg": {"dq": "flash_bwd_seg_dq_kernel<Li64E>",
-                      "dkv": "flash_bwd_seg_dkv_kernel<Li64E>"},
-    "flash_bwd_seg_d128": {"dq": "flash_bwd_seg_d128_dq_kernel",
-                           "dkv": "flash_bwd_seg_d128_dkv_kernel"}}
+    "flash_bwd_seg": {"dq": "flash_bwd_sm90_d64_seg_dq_kernel",
+                      "dkv": "flash_bwd_sm90_d64_seg_dkv_kernel"},
+    "flash_bwd_seg_d128": {"dq": "flash_bwd_sm90_seg_dq_kernel",
+                           "dkv": "flash_bwd_sm90_seg_dkv_kernel"}}
 # HunyuanVideo T2V at 33 frames of 720x1280, cut from the released 129
 # frames (hunyuan_path): 9 latent frames of 90x160, 32,400 image tokens
 # after the 2x2 patch, then 256 text tokens; 24 heads of 128
@@ -887,11 +904,72 @@ def varlen_parity(dev, kv_len):
 # ---------------------------------------------------------------------------
 
 SEG_SPECS = {
-    "flash_fwd_seg": dict(source="vap_tpu_torch/csrc/flash_fwd.cu",
-                          replaces="vap_tpu/ops/flash_attention.py:1539"),
-    "flash_fwd_seg_d128": dict(source="vap_tpu_torch/csrc/flash_fwd.cu",
-                               replaces="vap_tpu/ops/flash_attention.py:1539"),
+    "flash_fwd_seg": dict(source="vap_tpu_torch/csrc/flash_fwd_sm90_d64.cu",
+                          replaces="vap_tpu/ops/flash_attention.py:1572"),
+    "flash_fwd_seg_d128": dict(source="vap_tpu_torch/csrc/flash_fwd_sm90.cu",
+                               replaces="vap_tpu/ops/flash_attention.py:1572"),
 }
+
+
+def walked_share(ids, d, kernel):
+    """The share of (block, tile) pairs the tile rule (``segment_tile_span``)
+    lets K8's wgmma kernel ``kernel`` ("fwd", "dq" or "dkv") walk at
+    head_dim d for the same ids on both sides: the rule's count, not a
+    measurement; ``walk_checked`` shows that the kernel reads no tile
+    outside it."""
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    walked = fa.segment_tile_span(ids, ids, *fa.SEGMENT_TILES[(d, kernel)])
+    return walked.float().mean().item()
+
+
+# the input a K8 kernel reads in the tiles it walks, poisoned by
+# walk_checked: v for the forward, k for the dq kernel, dout for the dk/dv
+# kernel (index in (q, k, v, out, lse, dout))
+POISONED_INPUT = {"fwd": 2, "dq": 1, "dkv": 5}
+
+
+def walk_checked(name, kernel, d, args, q_ids, kv_ids, num_segments, clean):
+    """K8's walk held to the tile rule: per round of ``segment_walk_rounds``
+    (at the kernel's tile sizes), the rows of the tiles the round's blocks
+    leave out set to NaN in the input ``kernel`` reads there
+    (POISONED_INPUT); the blocks' rows must equal ``clean`` (the outputs
+    of ``args`` = (q, k, v[, out, lse, dout]): (out, lse), (dq,) or (dk, dv))
+    to the bit, as a tile the kernel loaded and scored would multiply a zero
+    p by NaN. Then NaN in the tiles the first round's blocks walk must reach
+    their rows (the check can see). Returns the number of rounds."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    seg = (q_ids, kv_ids, num_segments)
+
+    def run(a):
+        if kernel == "fwd":
+            return fa.flash_attention_segmented_forward(*a[:3], *seg)
+        dq, dk, dv = fa.flash_attention_backward(*a, segment_ids=seg)
+        return (dq,) if kernel == "dq" else (dk, dv)
+
+    def poisoned(rows):
+        a = list(args)
+        x = POISONED_INPUT[kernel]
+        a[x] = a[x].masked_fill(rows[:, None, :, None], float("nan"))
+        return run(a)
+
+    blocks, tiles = (kv_ids, q_ids) if kernel == "dkv" else (q_ids, kv_ids)
+    rounds = fa.segment_walk_rounds(blocks, tiles, *fa.SEGMENT_TILES[(d, kernel)])
+    for r, (in_round, skipped) in enumerate(rounds):
+        if not all(torch.equal(got.transpose(1, 2)[in_round], want.transpose(1, 2)[in_round])
+                   for got, want in zip(poisoned(skipped), clean)):
+            raise AssertionError(f"{name} {kernel}: a block read a tile the rule leaves out "
+                                 f"(round {r})")
+        if r == 0:
+            walked = ~skipped & in_round.any(1, keepdim=True)
+            got = poisoned(walked)[0].transpose(1, 2)[in_round]
+            if walked.any() and bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} {kernel}: NaN in the tiles walked did not show")
+            del got
+    return len(rounds)
 
 
 def segment_ids(s, lengths, dev):
@@ -986,6 +1064,11 @@ def segmented_parity(dev, train_kv_len, registers):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     kernel, plain = fa.flash_attention_segmented_forward, fa.flash_attention_segmented_forward_plain
+    built = fa.segment_tiles_built()
+    if built != fa.SEGMENT_TILES:
+        raise AssertionError(f"K8's kernels tile by {built}, the tile rule by {fa.SEGMENT_TILES}")
+    log(f"  K8's (block, tile) rows as the built kernels give them, equal to the tile rule's: "
+        f"{ {f'{kern} D={d}': rows for (d, kern), rows in built.items()} }")
     results, ring = {}, {}
     ring_launches = 0
     for case, (shape, lengths, num_segments) in SEG_CASES.items():
@@ -1000,6 +1083,8 @@ def segmented_parity(dev, train_kv_len, registers):
         ref_out, ref_lse = plain(q, k, v, ids, ids, num_segments)
         name = "flash_fwd_seg_d128" if d == 128 else "flash_fwd_seg"
         err, lse_err, ref_max = held_on_rows(f"{name} ({case})", out, lse, ref_out, ref_lse, rows)
+        rounds = walk_checked(f"{name} ({case})", "fwd", d, (q, k, v), ids, ids, num_segments,
+                              (out, lse))
         # the planted fault: the key of segment 0 (among its first 256) with
         # the largest score for a segment-0 query moved to another id
         q0 = q[0][:, ids[0] == 0].float()
@@ -1013,7 +1098,8 @@ def segmented_parity(dev, train_kv_len, registers):
                 f"{s - sum(lengths)} padding: out max|err| {err:.3e} / max|ref| {ref_max:.3e} = "
                 f"{err / ref_max:.3e} (tol {OUT_REL_TOL}; planted fault, key {j}'s id flipped, "
                 f"{fault / ref_max:.3e}), lse max|err| {lse_err:.3e} (tol {LSE_ATOL}) on the "
-                f"in-range rows, padding rows finite")
+                f"in-range rows, padding rows finite; no tile outside the rule read (NaN in "
+                f"those tiles' v, {rounds} rounds, bit-equal)")
         if fault <= OUT_REL_TOL * ref_max:
             raise AssertionError(f"{name} ({case}): the out limit misses a flipped key id")
         entry = {"shape": list(shape), "segments": list(lengths), "max_abs_err": err}
@@ -1039,8 +1125,10 @@ def segmented_parity(dev, train_kv_len, registers):
             log(f"  {name} ({case}): SDPA memory-efficient with a [1,1,S,S] mask refused: {exc}")
         bound_ms, bound_by, pairs = seg_bound(h, s, d, ids, num_segments)
         tflops = 4 * h * d * pairs / (ms * 1e-3) / 1e12
+        share = walked_share(ids, d, "fwd")
         log(f"  {name} ({case}): kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s over the same-segment "
-            f"pairs; ptxas {registers.get(name, {})}), plain {plain_ms:.3f} ms, SDPA "
+            f"pairs, {100 * bound_ms / ms:.1f}% of the bound; the rule walks {100 * share:.1f}% "
+            f"of the tile pairs; ptxas {registers.get(name, {})}), plain {plain_ms:.3f} ms, SDPA "
             f"memory-efficient with a [1,1,S,S] mask "
             f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by})")
@@ -1052,15 +1140,17 @@ def segmented_parity(dev, train_kv_len, registers):
             results[name]["hunyuan_case"] = entry
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         if case in ("a", "c"):
-            before = fa.flash_attention_segmented_forward.launches + \
-                fa.flash_attention_segmented_forward.launches_d128
+            counts = fa.flash_attention_segmented_forward
+            before = counts.launches + counts.launches_d64 + counts.launches_d128
             for n in RING_BLOCKS:
                 r_out, r_lse = ring_on_one_card(q, k, v, n, q_seg=ids, kv_seg=ids,
                                                 num_segments=num_segments)
                 ring[f"{case}{n}"] = held_on_rows(f"ring body ({case}, n={n})", r_out, r_lse, out,
                                                   lse, rows)[0]
-            ring_launches += (fa.flash_attention_segmented_forward.launches
-                              + fa.flash_attention_segmented_forward.launches_d128 - before)
+            ring_launches += (counts.launches + counts.launches_d64 + counts.launches_d128
+                              - before)
+            if case == "a":
+                ring_calls = ring_block_times(q, k, v, ids, num_segments)
         if case == "c":  # and once with kv_lens, against one K7 call
             out7, lse7 = fa.flash_attention_forward(q, k, v, kv_lens=lens)
             r_out, r_lse = ring_on_one_card(q, k, v, RING_BLOCKS[-1], kv_lens=lens)
@@ -1074,7 +1164,43 @@ def segmented_parity(dev, train_kv_len, registers):
     for name in results:
         results[name]["ring_body_max_abs_err"] = max(ring.values())
         results[name]["ring_body_launches"] = ring_launches
+    results["flash_fwd_seg"]["ring_block_calls_ms"] = ring_calls
     return results
+
+
+def ring_block_times(q, k, v, ids, num_segments):
+    """{"n=..": {"shared": ms, "none": ms}}: K8's forward and backward on
+    one ring block call of case (a) over RING_BLOCKS blocks, query block 0
+    against its own key block (one segment on both sides) and against the
+    last key block (no segment in common: no tile walked)."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    fwd, bwd = fa.flash_attention_segmented_forward, fa.flash_attention_backward
+    times = {}
+    for n in RING_BLOCKS:
+        blk = q.shape[2] // n
+
+        def block(x, j, dim=2):
+            return x.narrow(dim, j * blk, blk).contiguous()
+
+        q0, ids0 = block(q, 0), block(ids, 0, 1)
+        dout = torch.ones_like(q0)
+        got = {}
+        for which, j in (("shared", 0), ("none", n - 1)):
+            kj, vj, idsj = block(k, j), block(v, j), block(ids, j, 1)
+            if which == "none" and bool(torch.isin(ids0, idsj).any()):
+                raise AssertionError(f"ring blocks 0 and {j} of {n} share a segment")
+            out, lse = fwd(q0, kj, vj, ids0, idsj, num_segments)
+            seg = (ids0, idsj, num_segments)
+            got[which] = (time_ms(lambda: fwd(q0, kj, vj, ids0, idsj, num_segments), 5, 1),
+                          time_ms(lambda: bwd(q0, kj, vj, out, lse, dout, segment_ids=seg), 3, 1))
+        times[f"n={n}"] = {w: {"forward_ms": f, "backward_ms": b} for w, (f, b) in got.items()}
+        log(f"  ring block call, case (a) over {n} blocks, query block 0 of {blk} rows: "
+            + "; ".join(f"{w} segment: forward {f:.3f} ms, backward {b:.3f} ms"
+                        for w, (f, b) in got.items()))
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -1082,9 +1208,9 @@ def segmented_parity(dev, train_kv_len, registers):
 # ---------------------------------------------------------------------------
 
 SEG_BWD_SPECS = {
-    "flash_bwd_seg": dict(source="vap_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_seg": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90_d64.cu",
                           replaces="vap_tpu/ops/flash_attention.py:1581"),
-    "flash_bwd_seg_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_d128.cu",
+    "flash_bwd_seg_d128": dict(source="vap_tpu_torch/csrc/flash_bwd_sm90.cu",
                                replaces="vap_tpu/ops/flash_attention.py:1581"),
 }
 
@@ -1196,6 +1322,10 @@ def segmented_backward_parity(dev, train_kv_len, registers):
         ids = segment_ids(s, lengths, dev)
         args = inputs(b, h, s, s, d, ids, ids, num_segments)
         err, got = compare(f"{name} ({case})", args, ids, ids, num_segments)
+        rounds = {kern: walk_checked(f"{name} ({case})", kern, d, args, ids, ids, num_segments,
+                                     clean) for kern, clean in (("dq", got[:1]), ("dkv", got[1:]))}
+        log(f"  {name} ({case}): no tile outside the rule read (NaN in those tiles' k for dq, "
+            f"dout for dk/dv; rounds {rounds}, bit-equal)")
         entry = {"shape": list(shape), "segments": list(lengths), "max_abs_err": err}
         line = ""
         if case == "c":  # the same function as K7's backward at kv_lens = the valid tokens
@@ -1230,8 +1360,11 @@ def segmented_backward_parity(dev, train_kv_len, registers):
                 f"refused: {exc}")
         bound_ms, bound_by, pairs = seg_bwd_bound(h, s, d, ids, num_segments)
         tflops = 10 * h * d * pairs / (ms * 1e-3) / 1e12
+        shares = {kernel: walked_share(ids, d, kernel) for kernel in ("dq", "dkv")}
         log(f"  {name} ({case}) {tuple(shape)}, segments {list(lengths)} + {s - sum(lengths)} "
-            f"padding: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s over the same-segment pairs; "
+            f"padding: kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s over the same-segment pairs, "
+            f"{100 * bound_ms / ms:.1f}% of the bound; the rule walks {100 * shares['dq']:.1f}% "
+            f"of the tile pairs in dq, {100 * shares['dkv']:.1f}% in dk/dv; "
             f"ptxas {registers.get(name, {})}), plain {plain_ms:.3f} ms, SDPA memory-efficient "
             f"backward with a [1,1,S,S] mask "
             f"{library_ms if library_ms is None else round(library_ms, 3)} ms, bound "
@@ -1952,6 +2085,7 @@ def reset_counts():
     fa.flash_attention_forward.launches_d64_varlen = 0
     fa.flash_attention_forward.launches_d128_varlen = 0
     fa.flash_attention_segmented_forward.launches = 0
+    fa.flash_attention_segmented_forward.launches_d64 = 0
     fa.flash_attention_segmented_forward.launches_d128 = 0
     fa.flash_attention_int8_forward.launches = 0
     fa.flash_attention_int8_forward.launches_varlen = 0
@@ -1965,6 +2099,7 @@ def reset_counts():
     fa.flash_attention_backward.launches_d64_varlen = 0
     fa.flash_attention_backward.launches_d128_varlen = 0
     fa.flash_attention_backward.launches_seg = 0
+    fa.flash_attention_backward.launches_d64_seg = 0
     fa.flash_attention_backward.launches_d128_seg = 0
     ti8.int8_linear_chunk.launches = 0
     common.int8_linear_row.calls = 0
@@ -1974,10 +2109,10 @@ def reset_counts():
 
 def read_counts():
     """Each kernel's launches (K7 on the ``*_varlen`` counters of the kernel
-    it runs in, K8 on ``flash_fwd_seg*`` and ``flash_bwd_seg*``; K1 and K5
-    at D=64, the wgmma kernels, on ``flash_fwd`` and ``flash_bwd``, their
-    ``mma.sync`` forms at the other head dims below 128 on ``*_mma``, which
-    no path may reach; K2 at D=64 and 128, the wgmma kernels, on
+    it runs in, K8 on ``flash_fwd_seg*`` and ``flash_bwd_seg*``; K1, K5 and
+    K8 at D=64, the wgmma kernels, on ``flash_fwd``, ``flash_bwd`` and
+    ``*_seg``, their ``mma.sync`` forms at the other head dims below 128 on
+    ``*_mma``, which no path may reach; K2 at D=64 and 128, the wgmma kernels, on
     ``sage_fwd``, its ``mma.sync`` form at 32 and 96 on ``sage_fwd_mma``;
     K2's pre-pass on ``sage_quant``), and the calls of the W8A8 row form (no
     kernel of its own: XLA's product in the JAX package, torch._int_mm
@@ -1993,7 +2128,8 @@ def read_counts():
             "flash_fwd_varlen": fa.flash_attention_forward.launches_d64_varlen,
             "flash_fwd_mma_varlen": fa.flash_attention_forward.launches_varlen,
             "flash_fwd_d128_varlen": fa.flash_attention_forward.launches_d128_varlen,
-            "flash_fwd_seg": fa.flash_attention_segmented_forward.launches,
+            "flash_fwd_seg": fa.flash_attention_segmented_forward.launches_d64,
+            "flash_fwd_seg_mma": fa.flash_attention_segmented_forward.launches,
             "flash_fwd_seg_d128": fa.flash_attention_segmented_forward.launches_d128,
             "sage_fwd": fa.flash_attention_int8_forward.launches,
             "sage_fwd_varlen": fa.flash_attention_int8_forward.launches_varlen,
@@ -2006,7 +2142,8 @@ def read_counts():
             "flash_bwd_varlen": fa.flash_attention_backward.launches_d64_varlen,
             "flash_bwd_mma_varlen": fa.flash_attention_backward.launches_varlen,
             "flash_bwd_d128_varlen": fa.flash_attention_backward.launches_d128_varlen,
-            "flash_bwd_seg": fa.flash_attention_backward.launches_seg,
+            "flash_bwd_seg": fa.flash_attention_backward.launches_d64_seg,
+            "flash_bwd_seg_mma": fa.flash_attention_backward.launches_seg,
             "flash_bwd_seg_d128": fa.flash_attention_backward.launches_d128_seg,
             "w8a8": ti8.int8_linear_chunk.launches,
             "w8a8_row_calls": common.int8_linear_row.calls,

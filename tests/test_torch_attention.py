@@ -117,14 +117,15 @@ def test_k1_plain_matches_jax_bf16_at_tile_edges(sq, skv):
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_kernel_entry_dispatch(backward):
     """The CUDA dispatch as a pure function of (head_dim, kv_lens, segment
-    ids): head_dim 64 without segment ids, with or without kv_lens, goes to
-    the wgmma entries; 64 with segment ids and every other head_dim keep
-    theirs; every entry named has a C signature in ``_build.SOURCES`` and its
-    counter exists on the wrapper."""
+    ids): head_dim 64 and 128 go to the wgmma sources, with or without
+    kv_lens, and with segment ids to their K8 entries (``*_seg``, counters of
+    their own); every other head_dim keeps the mma.sync entries, K8's
+    included; every entry named has a C signature in ``_build.SOURCES`` and
+    its counter exists on the wrapper."""
     d64 = "flash_bwd_sm90_d64" if backward else "flash_fwd_sm90_d64"
     mma = "flash_bwd" if backward else "flash_fwd"
     d128 = "flash_bwd_sm90" if backward else "flash_fwd_sm90"
-    seg128 = "flash_bwd_d128" if backward else "flash_fwd"
+    kind = "bwd" if backward else "fwd"
     for d in range(16, 129, 16):
         for varlen, segmented in ((False, False), (True, False), (False, True)):
             source, entry, counter = tfa.kernel_entry(backward, d, varlen, segmented)
@@ -135,9 +136,14 @@ def test_kernel_entry_dispatch(backward):
             assert isinstance(getattr(wrapper, counter), int), counter
             suffix = "_varlen" if varlen else ""
             if segmented:
-                want = (seg128 if d == 128 else mma, entry.endswith("_d128") == (d == 128))
-                assert (source, True) == want and "seg" in entry
-                assert counter.endswith("_seg") or not backward
+                seg = "_seg" if backward else ""
+                if d in (64, 128):
+                    assert (source, entry) == ({64: d64, 128: d128}[d],
+                                               f"vap_flash_{kind}_d{d}_seg")
+                    assert counter == f"launches_d{d}{seg}"
+                else:
+                    assert (source, entry, counter) == (mma, f"vap_flash_{kind}_seg",
+                                                        "launches" + seg)
             elif d == 64:
                 assert (source, counter) == (d64, "launches_d64" + suffix)
                 assert entry == ("vap_flash_bwd_d64" if backward else "vap_flash_fwd_d64")
@@ -145,6 +151,8 @@ def test_kernel_entry_dispatch(backward):
                 assert (source, counter) == (d128, "launches_d128" + suffix)
             else:
                 assert (source, counter) == (mma, "launches" + suffix)
+    # K8's D = 128 backward has no source of its own any more
+    assert "flash_bwd_d128" not in _build.SOURCES
 
 
 @pytest.mark.parametrize("sq,skv", SHAPES)

@@ -1020,13 +1020,15 @@ def test_k8_matches_plain(cuda, d, sq, skv):
     exact zero rows and the lse -1e4."""
     q, k, v, q_ids, kv_ids = _k8_inputs(cuda, sq, skv, d)
     fn = tfa.flash_attention_segmented_forward
-    counter = "launches_d128" if d == 128 else "launches"
-    before = (getattr(fn, counter), tfa.flash_attention_forward.launches,
-              tfa.flash_attention_forward.launches_d128)
+    names = [(fn, "launches_d64"), (fn, "launches_d128"), (fn, "launches"),
+             (tfa.flash_attention_forward, "launches_d64"),
+             (tfa.flash_attention_forward, "launches_d128")]
+    before = [getattr(f, n) for f, n in names]
     out, lse = fn(q, k, v, q_ids, kv_ids, 3)
     torch.cuda.synchronize()
-    assert (getattr(fn, counter), tfa.flash_attention_forward.launches,
-            tfa.flash_attention_forward.launches_d128) == (before[0] + 1,) + before[1:]
+    want = [b + int(f is fn and n == ("launches_d128" if d == 128 else "launches_d64"))
+            for (f, n), b in zip(names, before)]
+    assert [getattr(f, n) for f, n in names] == want
     _k8_check(q, k, v, q_ids, kv_ids, out, lse)
     empty = q_ids[1] == 2  # sample 1's segment 2 has no key
     assert empty.any() and not out[1][:, empty].any()
@@ -1131,7 +1133,7 @@ def test_ring_body_on_one_card_matches_one_kernel_call(cuda, n, mask):
 # K8's backward: K5 and K6 given segment ids, on the K8 inputs above with
 # dout zero on the padding query rows (their rows are unspecified), held to
 # the K5/K6 limit against the plain version
-K8_BWD_COUNTERS = {64: "launches_seg", 128: "launches_d128_seg"}
+K8_BWD_COUNTERS = {64: "launches_d64_seg", 128: "launches_d128_seg"}
 
 
 def _k8_bwd_inputs(device, sq, skv, d):
@@ -1153,7 +1155,8 @@ def test_k8_backward_matches_plain(cuda, d, sq, skv):
     *args, q_ids, kv_ids = _k8_bwd_inputs(cuda, sq, skv, d)
     kernel = tfa.flash_attention_backward
     names = ("launches", "launches_d64", "launches_d128", "launches_varlen",
-             "launches_d64_varlen", "launches_d128_varlen", "launches_seg", "launches_d128_seg")
+             "launches_d64_varlen", "launches_d128_varlen", "launches_seg", "launches_d64_seg",
+             "launches_d128_seg")
     before = {n: getattr(kernel, n) for n in names}
     got = kernel(*args, segment_ids=(q_ids, kv_ids, 3))
     torch.cuda.synchronize()
@@ -1214,8 +1217,8 @@ def test_k8_function_grads_on_the_card(cuda):
 
     q, k, v, q_ids, kv_ids = _k8_inputs(cuda, 200, 200, 64)
     w = torch.randn(q.shape, device=cuda) * (q_ids >= 0)[:, None, :, None]
-    counts = (tfa.flash_attention_segmented_forward.launches,
-              tfa.flash_attention_backward.launches_seg)
+    counts = (tfa.flash_attention_segmented_forward.launches_d64,
+              tfa.flash_attention_backward.launches_d64_seg)
     grads = []
     for attn, dtype in ((tfa.flash_attention_segmented, torch.bfloat16),
                         (lambda q, k, v, a, b, n: dense_attention_segmented(q, k, v, a, b),
@@ -1223,10 +1226,180 @@ def test_k8_function_grads_on_the_card(cuda):
         leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
         (attn(*leaves, q_ids, kv_ids, 3).float() * w).sum().backward()
         grads.append([t.grad for t in leaves])
-    assert (tfa.flash_attention_segmented_forward.launches,
-            tfa.flash_attention_backward.launches_seg) == (counts[0] + 1, counts[1] + 1)
+    assert (tfa.flash_attention_segmented_forward.launches_d64,
+            tfa.flash_attention_backward.launches_d64_seg) == (counts[0] + 1, counts[1] + 1)
     errs = _grad_errors(*grads)
     assert max(errs) <= GRAD_REL_TOL, errs
+
+
+# K8's wgmma kernels at head_dim 64 and 128 walk only the tiles whose id
+# ranges meet their block's (blocks of 192 or 128 rows, tiles of 64 or 128):
+# segment edges at and beside 64, 128 and 192 rows, B = 2 and H = 3 (a
+# table or map whose sample stride were wrong would read another sample's
+# ids or another head's rows), Sq != Skv and a padded tail
+K8_EDGE_IDS = {"q": ([64, 128, 129], [127, 65, 100]), "kv": ([128, 64, 108], [63, 129, 90])}
+
+
+def _k8_case(device, d, q_ids, kv_ids, num_segments, h=3, seed=11):
+    """q, k, v at the ids' shapes, K8's out and lse, dout zero on padding
+    query rows."""
+    b, sq = q_ids.shape
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, h, s, d), np.float32))
+                     .to(device, torch.bfloat16) for s in (sq, kv_ids.shape[1],
+                                                           kv_ids.shape[1], sq))
+    out, lse = tfa.flash_attention_segmented_forward(q, k, v, q_ids, kv_ids, num_segments)
+    return q, k, v, out, lse, dout.masked_fill((q_ids < 0)[:, None, :, None], 0)
+
+
+def _k8_held(q_ids, kv_ids, num_segments, args):
+    """K8's forward (in-range rows) and backward against their plain
+    versions, within the limits."""
+    q, k, v, out, lse, dout = args
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tfa.flash_attention_segmented_forward_plain(q, k, v, q_ids, kv_ids,
+                                                                   num_segments)
+    rows = q_ids >= 0
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    got, want = out.float().transpose(1, 2)[rows], ref_out.float().transpose(1, 2)[rows]
+    torch.testing.assert_close(got, want, rtol=0, atol=OUT_REL_TOL * want.abs().max().item())
+    torch.testing.assert_close(lse.transpose(1, 2)[rows], ref_lse.transpose(1, 2)[rows],
+                               atol=LSE_ATOL, rtol=0)
+    seg = (q_ids, kv_ids, num_segments)
+    got = tfa.flash_attention_backward(*args, segment_ids=seg)
+    assert all(torch.isfinite(g).all() for g in got)
+    errs = _grad_errors(got, tfa.flash_attention_segmented_backward_plain(*args, *seg))
+    assert max(errs) <= GRAD_REL_TOL, errs
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_at_tile_edges(cuda, d):
+    q_ids = torch.stack([_k8_ids(cuda, 321, n) for n in K8_EDGE_IDS["q"]])
+    kv_ids = torch.stack([_k8_ids(cuda, 300, n) for n in K8_EDGE_IDS["kv"]])
+    _k8_held(q_ids, kv_ids, 3, _k8_case(cuda, d, q_ids, kv_ids, 3))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_with_unsorted_ids(cuda, d):
+    """Ids drawn at random per row (padding among them): every tile pair
+    holds several ids, so every score is compared, and the run of tiles a
+    block walks holds tiles that meet none of its ids."""
+    gen = torch.Generator().manual_seed(12)
+    q_ids = torch.randint(-1, 4, (2, 300), generator=gen).to(cuda, torch.int32)
+    kv_ids = torch.randint(-1, 4, (2, 450), generator=gen).to(cuda, torch.int32)
+    kv_ids[1, 200:] = 5  # sample 1: tiles past 200 meet no query id
+    _k8_held(q_ids, kv_ids, 6, _k8_case(cuda, d, q_ids, kv_ids, 6))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_blocks_with_no_tile_to_walk(cuda, d):
+    """Sample 0's first 192 queries (segment 0) have no key and walk no key
+    tile: zero rows, the lse -1e4 and dq = 0; its keys 128-255 (segment 2)
+    have no query, so that key block walks no query tile: dk = dv = 0."""
+    q_ids = torch.stack([_k8_ids(cuda, 384, [192, 192]), _k8_ids(cuda, 384, [384])])
+    kv_row = torch.tensor([1] * 128 + [2] * 128 + [1] * 64, dtype=torch.int32, device=cuda)
+    kv_ids = torch.stack([kv_row, torch.zeros_like(kv_row)])
+    args = _k8_case(cuda, d, q_ids, kv_ids, 3)
+    dq, dk, dv = _k8_held(q_ids, kv_ids, 3, args)
+    out, lse = args[3], args[4]
+    assert not out[0, :, :192].any() and not dq[0, :, :192].any()
+    assert torch.equal(lse[0, :, :192], torch.full_like(lse[0, :, :192], -1e4))
+    assert not dk[0, :, 128:256].any() and not dv[0, :, 128:256].any()
+
+
+@pytest.mark.parametrize("sq,skv", [(300, 257), (192, 192), (129, 64)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_one_segment_is_k1_k4_k5_k6_to_the_bit(cuda, d, sq, skv):
+    """Every row in one segment: every tile pair is pure, so K8's kernels
+    take K1's / K4's and K5's / K6's path and give their bits."""
+    q_ids = torch.zeros((2, sq), dtype=torch.int32, device=cuda)
+    kv_ids = torch.zeros((2, skv), dtype=torch.int32, device=cuda)
+    q, k, v, out, lse, dout = _k8_case(cuda, d, q_ids, kv_ids, 1)
+    ref_out, ref_lse = tfa.flash_attention_forward(q, k, v)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    got = tfa.flash_attention_backward(q, k, v, out, lse, dout, segment_ids=(q_ids, kv_ids, 1))
+    want = tfa.flash_attention_backward(q, k, v, out, lse, dout)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_backward_is_deterministic(cuda, d):
+    q_ids = torch.stack([_k8_ids(cuda, 321, n) for n in K8_EDGE_IDS["q"]])
+    kv_ids = torch.stack([_k8_ids(cuda, 300, n) for n in K8_EDGE_IDS["kv"]])
+    args = _k8_case(cuda, d, q_ids, kv_ids, 3)
+    seg = (q_ids, kv_ids, 3)
+    first = tfa.flash_attention_backward(*args, segment_ids=seg)
+    again = tfa.flash_attention_backward(*args, segment_ids=seg)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k8_tile_sizes_are_the_kernels(cuda):
+    """The tile sizes the CPU's copy of the tile rule counts in are those
+    the built kernels report."""
+    assert tfa.segment_tiles_built() == tfa.SEGMENT_TILES
+
+
+# K8's walk against the tile rule: (q ids, kv ids, num_segments) by kind,
+# each [2, S]: packed segments with Sq != Skv and a padded tail; segment
+# edges at and beside 64, 128 and 192 rows; blocks with no tile to walk
+K8_WALK_IDS = {
+    "packed": (([300, 250, 350], [500, 400]), ([280, 270, 300], [450, 400]), (1000, 900)),
+    "edges": (K8_EDGE_IDS["q"], K8_EDGE_IDS["kv"], (321, 300)),
+    "lonely": None,
+}
+# the input a kernel reads in the tiles it walks, poisoned by the check: v
+# for the forward, k for the dq kernel, dout for the dk/dv kernel (index in
+# _k8_case's tuple)
+K8_POISONED = {"fwd": 2, "dq": 1, "dkv": 5}
+
+
+def _k8_walk_ids(device, kind):
+    if kind == "lonely":  # as in test_k8_blocks_with_no_tile_to_walk
+        q_ids = torch.stack([_k8_ids(device, 384, [192, 192]), _k8_ids(device, 384, [384])])
+        kv_row = torch.tensor([1] * 128 + [2] * 128 + [1] * 64, dtype=torch.int32, device=device)
+        return q_ids, torch.stack([kv_row, torch.zeros_like(kv_row)])
+    q_bounds, kv_bounds, (sq, skv) = K8_WALK_IDS[kind]
+    return (torch.stack([_k8_ids(device, sq, n) for n in q_bounds]),
+            torch.stack([_k8_ids(device, skv, n) for n in kv_bounds]))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("kind", list(K8_WALK_IDS))
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_walks_no_tile_outside_the_rule(cuda, d, kind, kernel):
+    """The rows of every tile a block's run leaves out (``segment_walk_rounds``
+    at the kernel's own tile sizes) set to NaN in the input the kernel reads
+    there: the block's rows equal the clean run's to the bit, as a tile the
+    kernel loaded and scored would multiply a zero p by NaN. The same NaN in
+    the tiles the blocks walk must reach their rows (the check can see)."""
+    q_ids, kv_ids = _k8_walk_ids(cuda, kind)
+    args = _k8_case(cuda, d, q_ids, kv_ids, 3)
+    seg = (q_ids, kv_ids, 3)
+
+    def run(a):
+        if kernel == "fwd":
+            return tfa.flash_attention_segmented_forward(*a[:3], *seg)
+        dq, dk, dv = tfa.flash_attention_backward(*a, segment_ids=seg)
+        return (dq,) if kernel == "dq" else (dk, dv)
+
+    def poisoned(rows):
+        a = list(args)
+        x = K8_POISONED[kernel]
+        a[x] = a[x].masked_fill(rows[:, None, :, None], float("nan"))
+        return run(a)
+
+    blocks, tiles = (kv_ids, q_ids) if kernel == "dkv" else (q_ids, kv_ids)
+    rounds = tfa.segment_walk_rounds(blocks, tiles, *tfa.SEGMENT_TILES[(d, kernel)])
+    assert rounds
+    clean = run(args)
+    for in_round, skipped in rounds:
+        for got, want in zip(poisoned(skipped), clean):
+            assert torch.equal(got.transpose(1, 2)[in_round], want.transpose(1, 2)[in_round])
+        walked = ~skipped & in_round.any(1, keepdim=True)
+        if walked.any():
+            got = poisoned(walked)[0].transpose(1, 2)[in_round]
+            assert not torch.isfinite(got).all()
 
 
 def ring_backward_on_one_card(q, k, v, out, lse, dout, n, kv_lens=None, ids=None):

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from torch.utils.checkpoint import checkpoint
 
 from vap_tpu.ops.attention import dense_attention_segmented as jax_dense_segmented
@@ -211,7 +213,7 @@ def test_segment_ids_and_kv_lens_mutually_exclusive(provider):
 
 
 @pytest.mark.parametrize("provider", ["flash", "sage", "ring"])
-def test_k8_under_autograd_raises_naming_the_next_slice(provider):
+def test_k8_under_autograd_differentiates_and_raises_only_past_head_dim_128(provider):
     """K8 (and every provider that routes segment ids to it) differentiates
     through ``FlashAttentionSegmentedFunction`` (the same gradients as
     ``flash_attention_segmented``'s, to the bit), never through the dense
@@ -362,3 +364,131 @@ def test_xla_segmented_differentiates_as_jax():
     (out * torch.from_numpy(w * valid)).sum().backward()
     for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K8's tile rule: which (block, tile) pairs the wgmma kernels walk
+# ---------------------------------------------------------------------------
+
+def _rows(mask, block_rows, tile_rows, sb, st_):
+    """A [B, blocks, tiles] mask spread over the [B, Sb, St] rows."""
+    return (mask.repeat_interleave(block_rows, 1)[:, :sb]
+            .repeat_interleave(tile_rows, 2)[:, :, :st_])
+
+
+@st.composite
+def _tile_rule_ids(draw):
+    """[B, Sq] and [B, Skv] ids, Sq != Skv in general: sorted (contiguous
+    segments, some of length 0, some only on one side, a padded -1 tail) or
+    unsorted (an id in [-1, 5) per row)."""
+    b = draw(st.integers(1, 2))
+    sq, skv = draw(st.integers(1, 420)), draw(st.integers(1, 420))
+    if draw(st.booleans()):
+        def side(s):
+            lengths = draw(st.lists(st.integers(0, 160), min_size=1, max_size=5))
+            return [_packed_ids(s, lengths)[:s] for _ in range(b)]
+        q, kv = side(sq), side(skv)
+    else:
+        rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+        q = [rng.integers(-1, 5, sq) for _ in range(b)]
+        kv = [rng.integers(-1, 5, skv) for _ in range(b)]
+    return (torch.from_numpy(np.stack(q).astype(np.int32)),
+            torch.from_numpy(np.stack(kv).astype(np.int32)))
+
+
+def _check_tile_rule(q_ids, kv_ids):
+    """Every equal-id (query, key) pair lies in a kept tile pair and in the
+    run each kernel walks, at every block and tile size of the kernels (the
+    dk/dv kernel's blocks are key blocks); for sorted ids the run is exactly
+    the kept tiles."""
+    same = q_ids[:, :, None] == kv_ids[:, None, :]  # [B, Sq, Skv]
+    sorted_ids = all(bool((x[:, 1:] >= x[:, :-1]).all()) or x.shape[1] < 2
+                     for x in (torch.where(q_ids < 0, 10 ** 6, q_ids),
+                               torch.where(kv_ids < 0, 10 ** 6, kv_ids)))
+    for (d, kernel), (block_rows, tile_rows) in tfa.SEGMENT_TILES.items():
+        blocks, tiles, pairs = ((kv_ids, q_ids, same.transpose(1, 2)) if kernel == "dkv"
+                                else (q_ids, kv_ids, same))
+        kept = tfa.segment_tiles_kept(blocks, tiles, block_rows, tile_rows)
+        walked = tfa.segment_tile_span(blocks, tiles, block_rows, tile_rows)
+        assert not (pairs & ~_rows(kept, block_rows, tile_rows, *pairs.shape[1:])).any()
+        assert not (kept & ~walked).any()
+        if sorted_ids:
+            assert torch.equal(kept, walked), (d, kernel)
+
+
+@settings(max_examples=60, deadline=None)
+@given(_tile_rule_ids())
+def test_segment_tile_rule_keeps_every_equal_id_pair(ids):
+    _check_tile_rule(*ids)
+
+
+@settings(max_examples=30, deadline=None)
+@given(_tile_rule_ids(), st.sampled_from([2, 3, 4]))
+def test_segment_tile_rule_on_ring_blocks(ids, n):
+    """The ring hands each rank's query block every key block of the same
+    stream in turn: the rule holds on every (query block, key block) pair
+    of the slices, and for sorted ids a pair of blocks that shares no id
+    walks no tile at all, in every kernel."""
+    ids = ids[0]
+    blk = -(-ids.shape[1] // n)
+    is_sorted = bool((torch.where(ids < 0, 10 ** 6, ids).diff(dim=1) >= 0).all())
+    for i in range(n):
+        for j in range(n):
+            q_blk, kv_blk = ids[:, i * blk:(i + 1) * blk], ids[:, j * blk:(j + 1) * blk]
+            if q_blk.shape[1] == 0 or kv_blk.shape[1] == 0:
+                continue
+            _check_tile_rule(q_blk, kv_blk)
+            shared = (q_blk[:, :, None] == kv_blk[:, None, :]).any(dim=(1, 2))  # [B]
+            for (_, kernel), rows in tfa.SEGMENT_TILES.items():
+                pair = (kv_blk, q_blk) if kernel == "dkv" else (q_blk, kv_blk)
+                walked = tfa.segment_tile_span(*pair, *rows).flatten(1).any(1)
+                if is_sorted:
+                    assert torch.equal(walked, shared), (kernel, i, j)
+
+
+@settings(max_examples=40, deadline=None)
+@given(_tile_rule_ids())
+def test_segment_walk_rounds_name_each_skipping_block_once(ids):
+    """The card's poisoning check (``segment_walk_rounds``) at every
+    kernel's tile sizes: each block that skips a tile is in exactly one
+    round, with the rows of the tiles its run leaves out; a block that
+    walks every tile is in none; and no equal-id pair joins a round's
+    block rows and its skipped rows, so what the check poisons moves no
+    right output."""
+    q_ids, kv_ids = ids
+    for (d, kernel), (block_rows, tile_rows) in tfa.SEGMENT_TILES.items():
+        blocks, tiles = (kv_ids, q_ids) if kernel == "dkv" else (q_ids, kv_ids)
+        span = tfa.segment_tile_span(blocks, tiles, block_rows, tile_rows)
+        rounds = tfa.segment_walk_rounds(blocks, tiles, block_rows, tile_rows)
+        seen = torch.zeros(span.shape[:2], dtype=torch.int64)
+        for in_round, skipped in rounds:
+            assert in_round.any() and skipped.any()
+            same = blocks[:, :, None] == tiles[:, None, :]
+            assert not (same & in_round[:, :, None] & skipped[:, None, :]).any(), (d, kernel)
+            for i in range(span.shape[0]):
+                members = in_round[i, ::block_rows]
+                seen[i] += members
+                want = (~span[i, members]).repeat_interleave(tile_rows, 1)[:, :tiles.shape[1]]
+                assert (want == skipped[i]).all(), (d, kernel, i)
+                assert torch.equal(in_round[i], members.repeat_interleave(block_rows)
+                                   [:blocks.shape[1]])
+        assert torch.equal(seen, (~span.all(-1)).long()), (d, kernel)
+
+
+def test_segment_tile_ranges_match_the_rows():
+    """Each tile's (least, largest) id over its rows below S, padding after
+    every segment; a tile with no row has lo > hi and meets nothing."""
+    pad = tfa.SEGMENT_PAD
+    ids = torch.from_numpy(np.stack([_packed_ids(200, [70, 0, 90]), _packed_ids(200, [200])]))
+    lo, hi = tfa.segment_tile_ranges(ids, 64)
+    assert lo.tolist() == [[0, 0, 2, pad], [0, 0, 0, 0]]
+    assert hi.tolist() == [[0, 2, pad, pad], [0, 0, 0, 0]]
+    lo, hi = tfa.segment_tile_ranges(ids[:, :100], 128)
+    assert lo.tolist() == [[0], [0]] and hi.tolist() == [[2], [0]]
+    # the padded tail's tile meets segment 2 and padding, not segment 0
+    kept = tfa.segment_tiles_kept(ids[:1], ids[:1], 64, 64)[0]
+    assert kept[0].tolist() == [True, True, False, False]
+    assert kept[3].tolist() == [False, False, True, True]
+    none = tfa.segment_tiles_kept(ids[:1, :64], torch.full((1, 64), 7, dtype=torch.int32), 64, 64)
+    assert not none.any()
+

@@ -1,8 +1,9 @@
 // K5: bf16 flash-attention backward at head_dim < 128 except 64, and K8's
-// backward below head_dim 128. K5 at head_dim 64, the main path's
-// (CogVideoX training), and K7's backward there moved to the wgmma kernels
-// of flash_bwd_sm90_d64.cu (entry `vap_flash_bwd_d64`): `vap_flash_bwd`
-// refuses d = 64, and only K8's kernels are instanced at 64.
+// backward at the same head dims. K5 at head_dim 64, the main path's
+// (CogVideoX training), and K7's and K8's backward there moved to the wgmma
+// kernels of flash_bwd_sm90_d64.cu (entries `vap_flash_bwd_d64`,
+// `vap_flash_bwd_d64_seg`): both entries here refuse d = 64, which no
+// instance here takes.
 //
 // Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
 // `_flash_attention_backward_t` (`_bwd_dq_kernel_t`, `_bwd_dkv_kernel_t`):
@@ -503,23 +504,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         qp, kp, vp, dp, lse, delta, dkp, dvp, q_seg, kv_seg, heads, sq, skv, scale_log2, scale);
     return cudaGetLastError();
   }
-  if constexpr (D == 64) {  // K5 at 64: flash_bwd_sm90_d64.cu
-    return cudaErrorInvalidValue;
-  } else {
-    // the varlen instance reads kv_lens; the fixed-length one is compiled as before kv_lens
-    const auto dq_kernel = kv_lens ? flash_bwd_dq_kernel<D, true> : flash_bwd_dq_kernel<D, false>;
-    dq_kernel<<<dq_grid, kThreads, 0, stream>>>(qp, kp, vp, dp, lse, delta, dqp, kv_lens, heads,
-                                                 sq, skv, scale_log2, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || skv == 0) return err;  // no key row: dk and dv are empty
-    const auto dkv_kernel = kv_lens ? flash_bwd_dkv_kernel<D, true> : flash_bwd_dkv_kernel<D, false>;
-    dkv_kernel<<<dkv_grid, kThreads, 0, stream>>>(qp, kp, vp, dp, lse, delta, dkp, dvp, kv_lens,
-                                                   heads, sq, skv, scale_log2, scale);
-    return cudaGetLastError();
-  }
+  // the varlen instance reads kv_lens; the fixed-length one is compiled as before kv_lens
+  const auto dq_kernel = kv_lens ? flash_bwd_dq_kernel<D, true> : flash_bwd_dq_kernel<D, false>;
+  dq_kernel<<<dq_grid, kThreads, 0, stream>>>(qp, kp, vp, dp, lse, delta, dqp, kv_lens, heads,
+                                               sq, skv, scale_log2, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || skv == 0) return err;  // no key row: dk and dv are empty
+  const auto dkv_kernel = kv_lens ? flash_bwd_dkv_kernel<D, true> : flash_bwd_dkv_kernel<D, false>;
+  dkv_kernel<<<dkv_grid, kThreads, 0, stream>>>(qp, kp, vp, dp, lse, delta, dkp, dvp, kv_lens,
+                                                 heads, sq, skv, scale_log2, scale);
+  return cudaGetLastError();
 }
 
-// Head dims 16..112, step 16 (K5 not at 64: see launch).
+// Head dims 16..112, step 16, but 64 (flash_bwd_sm90_d64.cu).
 cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv,
                      const int* kv_lens, const int* q_seg, const int* kv_seg, int bh, int heads,
@@ -532,7 +529,6 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const v
     VAP_LAUNCH(16)
     VAP_LAUNCH(32)
     VAP_LAUNCH(48)
-    VAP_LAUNCH(64)
     VAP_LAUNCH(80)
     VAP_LAUNCH(96)
     VAP_LAUNCH(112)
@@ -548,8 +544,8 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const v
 // delta [bh, sq] f32; scale_log2 = softmax scale * log2(e). Each launches
 // the dq kernel, then the dk/dv kernel, on `stream`, and returns the CUDA
 // error of the launches (0 on success). bh <= 65535, sq >= 1, heads >= 1
-// divides bh, head_dim d in 16..112, step 16 (K5 and K7's backward not at
-// 64: vap_flash_bwd_d64).
+// divides bh, head_dim d in 16..112, step 16, but 64 (vap_flash_bwd_d64,
+// vap_flash_bwd_d64_seg).
 
 // K5, and K7's backward: kv_lens is a device pointer to [bh / heads] int32
 // valid key counts (K7) or null (every key valid).

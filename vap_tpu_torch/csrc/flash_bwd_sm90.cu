@@ -1,12 +1,13 @@
-// K6 and K7's backward in its form: the bf16 flash-attention backward at
-// head_dim 128, redesigned for Hopper on wgmma, TMA and warp specialisation.
+// K6, and K7's and K8's backward in its form: the bf16 flash-attention
+// backward at head_dim 128, redesigned for Hopper on wgmma, TMA and warp
+// specialisation.
 //
 // Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
 // `_flash_attention_backward` (:1271; `_bwd_dq_kernel` :985,
 // `_bwd_dkv_kernel` :1016), and, given kv_lens, K7's backward at head_dim
 // 128 (`_fav_bwd` :1499). Entry `vap_flash_bwd_d128`; the contract is the
-// row-layout backward's (flash_bwd_d128.cu, whose K8 form stays there): the
-// gradient of out = softmax(q k^T * scale) v over [BH, S, 128], non-causal,
+// row-layout backward's (`_flash_attention_backward` :1271): the gradient of
+// out = softmax(q k^T * scale) v over [BH, S, 128], non-causal,
 // keys past Skv masked, from the natural-log lse of the forward; delta =
 // rowsum(out * dout) comes in f32 from the wrapper. Its rounding points:
 //   q_s = bf16(q * scale)              (rounded before q k^T)
@@ -61,6 +62,17 @@
 // the cost of run-to-run identical gradients). The mma.sync kernels it
 // replaces took 149.8 ms, SDPA's flash backward 72.9 ms, these 51.0 ms
 // (58% of the ceiling, on an H100 at 700 W).
+//
+// K8's backward (`_fas_bwd` :1581) at head_dim 128 is the instance kSeg of
+// both kernels (flash_bwd_sm90_seg_dkv_kernel, flash_bwd_sm90_seg_dq_kernel,
+// entry `vap_flash_bwd_d128_seg`), in this row form (JAX runs the
+// transposed form at every head_dim, :1278-1283; the two differ by the
+// rounding of q * scale): as in flash_bwd_sm90_d64.cu, the entry builds the
+// id range tables, each block walks the run of tiles that meets its own
+// rows, a consumer whose 64 rows and the tile hold one id, the same, takes
+// K6's path unchanged, and a mixed tile pair selects p and ds of every
+// cross-segment pair to 0. A key block with no query tile to walk writes
+// dk = dv = 0, a query block with no key tile dq = 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -95,7 +107,8 @@ constexpr int kKvQBytes = kKvQBox * (D / kBox);
 constexpr int kKvRowsOffset = 2 * kKvKBytes + 3 * kKvStages * kKvQBytes;
 constexpr int kKvBarOffset = kKvRowsOffset + 2 * kKvStages * kKvM * 4;
 constexpr int kKvBars = 1 + 2 * kKvStages;  // kv_full; full and empty per stage
-constexpr int kKvSmem = kKvBarOffset + 8 * kKvBars + 1024;
+constexpr int kKvSpanOffset = kKvBarOffset + 8 * kKvBars;  // K8: the block's run of query tiles
+constexpr int kKvSmem = kKvSpanOffset + 16 + 1024;
 
 // the dq kernel: 128 queries a block, key tiles of 64
 constexpr int kDqM = 128;
@@ -107,7 +120,8 @@ constexpr int kDqQBytes = kDqQBox * (D / kBox);
 constexpr int kDqKBytes = kDqKBox * (D / kBox);
 constexpr int kDqBarOffset = 2 * kDqQBytes + 2 * kDqStages * kDqKBytes;
 constexpr int kDqBars = 1 + 3 * kDqStages;  // q_full; k_full, v_full, empty per stage
-constexpr int kDqSmem = kDqBarOffset + 8 * kDqBars + 1024;
+constexpr int kDqSpanOffset = kDqBarOffset + 8 * kDqBars;  // K8: the block's run of key tiles
+constexpr int kDqSmem = kDqSpanOffset + 16 + 1024;
 
 // S-type product of a consumer warpgroup: d[64, 64] = A[64 rows, 128] .
 // B[64 rows, 128]^T, both K-major tiles of two boxes (box strides in bytes).
@@ -184,12 +198,13 @@ __global__ void scale_q_kernel(const uint4* __restrict__ q, uint4* __restrict__ 
   q_s[i] = make_uint4(y[0], y[1], y[2], y[3]);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
-    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_qs,
-    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
+template <bool kSeg>
+__device__ __forceinline__ void dkv_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_qs, const CUtensorMap& map_do,
+    const CUtensorMap& map_k, const CUtensorMap& map_v, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale) {
+    const int* __restrict__ kv_lens, const sm90::Segments seg, int heads, int sq, int skv,
+    float scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = sm90::aligned_base(smem_raw, &smem);
@@ -214,7 +229,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
     vap::zero_rows<D, kThreads>(dv_b, key0, min(key0 + kKvN, skv));
     return;
   }
-  const int ntiles = (sq + kKvM - 1) / kKvM;
+  int ntiles = (sq + kKvM - 1) / kKvM;
+  int j0 = 0;  // the first query tile walked (K8)
+  sm90::SegTable q_tab{}, kv_tab{};
+  const int sample = bh / heads;
+  int2& span_s = *reinterpret_cast<int2*>(smem + kKvSpanOffset);
+  if constexpr (kSeg) {
+    q_tab = seg.q_table(sample, sq);
+    kv_tab = seg.kv_table(sample, skv);
+    if (threadIdx.x < 32) {
+      const int2 span = sm90::seg_span<kKvM>(q_tab, ntiles, kv_tab.range<kKvN>(key0));
+      if (threadIdx.x == 0) span_s = span;
+    }
+  }
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kv_full, 1);
@@ -225,6 +252,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
     sm90::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (kSeg) {
+    j0 = span_s.x;
+    ntiles = span_s.y - span_s.x;
+  }
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     sm90::reg_dealloc<kProducerRegs>();
@@ -243,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
         sm90::mbar_wait(empty(s), ((j / kKvStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(full(s), 3 * kKvQBytes);
         for (int b = 0; b < D / kBox; ++b) {
-          const int c0 = b * kBox, c1 = j * kKvM;
+          const int c0 = b * kBox, c1 = (j0 + j) * kKvM;
           sm90::tma_load_3d(stage_tile(s, 0) + b * kKvQBox, &map_q, full(s), c0, c1, bh);
           sm90::tma_load_3d(stage_tile(s, 1) + b * kKvQBox, &map_qs, full(s), c0, c1, bh);
           sm90::tma_load_3d(stage_tile(s, 2) + b * kKvQBox, &map_do, full(s), c0, c1, bh);
@@ -257,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
         sm90::mbar_wait(empty(s), ((j / kKvStages) & 1) ^ 1);
 #pragma unroll
         for (int h = 0; h < kKvM / 32; ++h) {
-          const int i = lane + 32 * h, row = j * kKvM + i;
+          const int i = lane + 32 * h, row = (j0 + j) * kKvM + i;
           lse2_s[s * kKvM + i] = row < sq ? lb[row] * kLog2e : kPadLse2;
           dl_s[s * kKvM + i] = row < sq ? db[row] : 0.0f;
         }
@@ -276,9 +307,36 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
 #pragma unroll
     for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
+    // K8: this warpgroup's keys' one id (or none) and the thread's two key
+    // rows' ids; the queries' ids are read per tile where the pair is mixed
+    int k_one = 0, kid[2] = {0, 0};
+    const int* qs = nullptr;
+    if constexpr (kSeg) {
+      k_one = sm90::seg_single(kv_tab.range<64>(key0 + cw * 64));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = key0 + cw * 64 + warp * 16 + (lane >> 2) + 8 * r;
+        kid[r] = row < skv ? __ldg(seg.kv_seg + static_cast<size_t>(sample) * skv + row) : -2;
+      }
+      qs = seg.q_seg + static_cast<size_t>(sample) * sq;
+    }
+
     sm90::mbar_wait(kv_full, 0);
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % kKvStages;
+      // K8, decided before the tile's products are issued: whether the tile
+      // pair is mixed, and then which of its pairs share an id
+      bool pure = true;
+      uint64_t keep = 0;
+      if constexpr (kSeg) {
+        const int m1 = (j0 + j) * kKvM;
+        pure = sm90::seg_pure(k_one, q_tab.range<kKvM>(m1));
+        if (!pure) {
+          keep = sm90::seg_keep<kKvM>(kid, [&](int col) {
+            return m1 + col < sq ? __ldg(qs + m1 + col) : -3;
+          });
+        }
+      }
       sm90::mbar_wait(full(s), (j / kKvStages) & 1);
 
       // transposed scores: rows the warpgroup's keys, columns the tile's queries
@@ -301,6 +359,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
         const float p = exp2f(fmaf(st[i], kLog2e, -l2[col]));
         dpt[i] = p * (dpt[i] - dl[col]);  // ds^T, in place of dp^T
         st[i] = p;
+      }
+      if (!pure) {  // K8: a mixed tile pair's cross-segment p^T and ds^T selected to 0
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const bool k = (keep >> i) & 1;
+          st[i] = k ? st[i] : 0.0f;
+          dpt[i] = k ? dpt[i] : 0.0f;
+        }
       }
       uint32_t pa[4][4], dsa[4][4];
       to_frags(pa, st);
@@ -327,11 +393,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
-    const __grid_constant__ CUtensorMap map_qs, const __grid_constant__ CUtensorMap map_do,
-    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
-    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
-    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale) {
+template <bool kSeg>
+__device__ __forceinline__ void dq_body(const CUtensorMap& map_qs, const CUtensorMap& map_do,
+                                        const CUtensorMap& map_k, const CUtensorMap& map_v,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                                        const int* __restrict__ kv_lens, const sm90::Segments seg,
+                                        int heads, int sq, int skv, float scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = sm90::aligned_base(smem_raw, &smem);
@@ -347,7 +415,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kDqM;
   const int len = vap::kv_length(kv_lens, bh, heads, skv);
-  const int ntiles = (len + kDqN - 1) / kDqN;
+  int ntiles = (len + kDqN - 1) / kDqN;
+  int j0 = 0;  // the first key tile walked (K8)
+  sm90::SegTable q_tab{}, kv_tab{};
+  const int sample = bh / heads;
+  int2& span_s = *reinterpret_cast<int2*>(smem + kDqSpanOffset);
+  if constexpr (kSeg) {
+    q_tab = seg.q_table(sample, sq);
+    kv_tab = seg.kv_table(sample, skv);
+    if (threadIdx.x < 32) {
+      const int2 span = sm90::seg_span<kDqN>(kv_tab, ntiles, q_tab.range<kDqM>(m0));
+      if (threadIdx.x == 0) span_s = span;
+    }
+  }
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -359,6 +439,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
     sm90::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (kSeg) {
+    j0 = span_s.x;
+    ntiles = span_s.y - span_s.x;
+  }
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     sm90::reg_dealloc<kProducerRegs>();
@@ -375,11 +459,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
         sm90::mbar_wait(empty(s), ((j / kDqStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(k_full(s), kDqKBytes);
         for (int b = 0; b < D / kBox; ++b) {
-          sm90::tma_load_3d(k_tile(s) + b * kDqKBox, &map_k, k_full(s), b * kBox, j * kDqN, bh);
+          sm90::tma_load_3d(k_tile(s) + b * kDqKBox, &map_k, k_full(s), b * kBox,
+                            (j0 + j) * kDqN, bh);
         }
         sm90::mbar_arrive_expect_tx(v_full(s), kDqKBytes);
         for (int b = 0; b < D / kBox; ++b) {
-          sm90::tma_load_3d(v_tile(s) + b * kDqKBox, &map_v, v_full(s), b * kBox, j * kDqN, bh);
+          sm90::tma_load_3d(v_tile(s) + b * kDqKBox, &map_v, v_full(s), b * kBox,
+                            (j0 + j) * kDqN, bh);
         }
       }
     }
@@ -404,11 +490,38 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
+    // K8: this warpgroup's rows' one id (or none) and the thread's two rows'
+    // ids; the keys' ids are read per tile where the pair is mixed
+    int q_one = 0, qid[2] = {0, 0};
+    const int* kvs = nullptr;
+    if constexpr (kSeg) {
+      q_one = sm90::seg_single(q_tab.range<64>(m0 + cw * 64));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        qid[r] = row < sq ? __ldg(seg.q_seg + static_cast<size_t>(sample) * sq + row) : -3;
+      }
+      kvs = seg.kv_seg + static_cast<size_t>(sample) * skv;
+    }
+
     sm90::mbar_wait(q_full, 0);
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % kDqStages;
       const uint32_t parity = (j / kDqStages) & 1;
-      const int valid = len - j * kDqN;  // keys of this tile below the length (>= 1)
+      const int valid = len - (j0 + j) * kDqN;  // keys of this tile below the length (>= 1)
+      // K8, decided before the tile's products are issued: whether the tile
+      // pair is mixed, and then which of its pairs share an id
+      bool pure = true;
+      uint64_t keep = 0;
+      if constexpr (kSeg) {
+        const int k0 = (j0 + j) * kDqN;
+        pure = sm90::seg_pure(q_one, kv_tab.range<kDqN>(k0));
+        keep = ~0ull;
+        if (!pure) {
+          keep = sm90::seg_keep<kDqN>(
+              qid, [&](int col) { return col < valid ? __ldg(kvs + k0 + col) : -2; });
+        }
+      }
 
       sm90::mbar_wait(k_full(s), parity);
       if (len < skv && valid < kDqN) {
@@ -449,6 +562,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
           sc[i] = exp2f(fmaf(sc[i], kLog2e, -lse2[r])) * (dp[i] - dl[r]);
         }
       }
+      // K8: a mixed tile pair's cross-segment ds selected to 0. The select
+      // runs on pure tiles too, its mask all ones: skipped there by a branch,
+      // ptxas injected a warpgroup arrive and wait into this kernel (C7519,
+      // C7517), which it does not with the select unconditional
+      if constexpr (kSeg) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = (keep >> i) & 1 ? sc[i] : 0.0f;
+      }
       uint32_t dsa[4][4];
       to_frags(dsa, sc);
 
@@ -466,6 +587,75 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
     // load completed before the loop
     store_rows(acc, scale, dq + static_cast<size_t>(bh) * sq * D, row0, sq, sq);
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dkv_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_qs,
+    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale) {
+  dkv_body<false>(map_q, map_qs, map_do, map_k, map_v, lse, delta, dk, dv, kv_lens,
+                  sm90::Segments{}, heads, sq, skv, scale);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_dq_kernel(
+    const __grid_constant__ CUtensorMap map_qs, const __grid_constant__ CUtensorMap map_do,
+    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale) {
+  dq_body<false>(map_qs, map_do, map_k, map_v, lse, delta, dq, kv_lens, sm90::Segments{}, heads,
+                 sq, skv, scale);
+}
+
+// K8's backward (kSeg): no kv_lens, every key below Skv.
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_seg_dkv_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_qs,
+    const __grid_constant__ CUtensorMap map_do, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    const sm90::Segments seg, int heads, int sq, int skv, float scale) {
+  dkv_body<true>(map_q, map_qs, map_do, map_k, map_v, lse, delta, dk, dv, nullptr, seg, heads,
+                 sq, skv, scale);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_seg_dq_kernel(
+    const __grid_constant__ CUtensorMap map_qs, const __grid_constant__ CUtensorMap map_do,
+    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+    const sm90::Segments seg, int heads, int sq, int skv, float scale) {
+  dq_body<true>(map_qs, map_do, map_k, map_v, lse, delta, dq, nullptr, seg, heads, sq, skv, scale);
+}
+
+// The tensor maps of both kernels (q_s is read from dq's buffer).
+struct Maps {
+  CUtensorMap kv_q, kv_qs, kv_do, kv_k, kv_v, dq_qs, dq_do, dq_k, dq_v;
+};
+
+cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout,
+                      const void* dq, int bh, int sq, int skv) {
+  // no key at all: the key maps are never read; q stands in for k and v
+  const void* kp = skv ? k : q;
+  const void* vp = skv ? v : q;
+  const int krows = skv ? skv : sq;
+  cudaError_t err = sm90::make_map(&m->kv_q, q, bh, sq, D, kKvM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_qs, dq, bh, sq, D, kKvM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_do, dout, bh, sq, D, kKvM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_k, kp, bh, krows, D, kKvN);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_v, vp, bh, krows, D, kKvN);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_qs, dq, bh, sq, D, kDqM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_do, dout, bh, sq, D, kDqM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_k, kp, bh, krows, D, kDqN);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_v, vp, bh, krows, D, kDqN);
+  return err;
+}
+
+// q_s = bf16(q * scale) into dq's buffer, on `stream`.
+cudaError_t scale_q(const void* q, void* dq, int bh, int sq, float scale, cudaStream_t stream) {
+  const size_t n8 = static_cast<size_t>(bh) * sq * D / 8;
+  scale_q_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, stream>>>(
+      static_cast<const uint4*>(q), static_cast<uint4*>(dq), n8, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -486,34 +676,17 @@ extern "C" int vap_flash_bwd_d128(const void* q, const void* k, const void* v, c
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
   const int* lens = static_cast<const int*>(kv_lens);
-  // no key at all: the key maps are never read; q stands in for k and v
-  const void* kp = skv ? k : q;
-  const void* vp = skv ? v : q;
-  const int krows = skv ? skv : sq;
-  CUtensorMap kv_q, kv_qs, kv_do, kv_k, kv_v, dq_qs, dq_do, dq_k, dq_v;
-  cudaError_t err = sm90::make_map(&kv_q, q, bh, sq, D, kKvM);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_qs, dq, bh, sq, D, kKvM);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_do, dout, bh, sq, D, kKvM);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_k, kp, bh, krows, D, kKvN);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_v, vp, bh, krows, D, kKvN);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_qs, dq, bh, sq, D, kDqM);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_do, dout, bh, sq, D, kDqM);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_k, kp, bh, krows, D, kDqN);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_v, vp, bh, krows, D, kDqN);
-  if (err != cudaSuccess) return err;
-
-  const size_t n8 = static_cast<size_t>(bh) * sq * D / 8;
-  scale_q_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, st>>>(
-      static_cast<const uint4*>(q), static_cast<uint4*>(dq), n8, scale);
-  err = cudaGetLastError();
+  Maps m;
+  cudaError_t err = make_maps(&m, q, k, v, dout, dq, bh, sq, skv);
+  if (err == cudaSuccess) err = scale_q(q, dq, bh, sq, scale, st);
   if (err != cudaSuccess) return err;
   if (skv > 0) {  // no key row: dk and dv are empty
     err = cudaFuncSetAttribute(flash_bwd_sm90_dkv_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
     if (err != cudaSuccess) return err;
     flash_bwd_sm90_dkv_kernel<<<dim3((skv + kKvN - 1) / kKvN, bh), kThreads, kKvSmem, st>>>(
-        kv_q, kv_qs, kv_do, kv_k, kv_v, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        lens, heads, sq, skv, scale);
+        m.kv_q, m.kv_qs, m.kv_do, m.kv_k, m.kv_v, l, de, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), lens, heads, sq, skv, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -521,6 +694,59 @@ extern "C" int vap_flash_bwd_d128(const void* q, const void* k, const void* v, c
                              kDqSmem);
   if (err != cudaSuccess) return err;
   flash_bwd_sm90_dq_kernel<<<dim3((sq + kDqM - 1) / kDqM, bh), kThreads, kDqSmem, st>>>(
-      dq_qs, dq_do, dq_k, dq_v, l, de, static_cast<bf16*>(dq), lens, heads, sq, skv, scale);
+      m.dq_qs, m.dq_do, m.dq_k, m.dq_v, l, de, static_cast<bf16*>(dq), lens, heads, sq, skv, scale);
   return cudaGetLastError();
+}
+
+// C entry point of K8's backward at head_dim 128: the tensors as above;
+// q_seg [bh / heads, sq] and kv_seg [bh / heads, skv] int32 segment ids
+// (padding -1); ranges a device scratch of (bh / heads) * (ceil(sq / 64) +
+// ceil(skv / 64)) int2, which the entry fills (sm90::seg_tables) before the
+// kernels read it. Launches the range tables, the q_s pre-pass (into dq),
+// the dk/dv kernel and the dq kernel, and returns the CUDA error of the
+// launches.
+extern "C" int vap_flash_bwd_d128_seg(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, const void* q_seg,
+                                      const void* kv_seg, void* ranges, int bh, int heads, int sq,
+                                      int skv, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* de = static_cast<const float*>(delta);
+  Maps m;
+  sm90::Segments seg;
+  cudaError_t err = make_maps(&m, q, k, v, dout, dq, bh, sq, skv);
+  if (err == cudaSuccess) {
+    err = sm90::seg_tables(&seg, q_seg, kv_seg, ranges, bh / heads, sq, skv, st);
+  }
+  if (err == cudaSuccess) err = scale_q(q, dq, bh, sq, scale, st);
+  if (err != cudaSuccess) return err;
+  if (skv > 0) {  // no key row: dk and dv are empty
+    err = cudaFuncSetAttribute(flash_bwd_sm90_seg_dkv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_sm90_seg_dkv_kernel<<<dim3((skv + kKvN - 1) / kKvN, bh), kThreads, kKvSmem, st>>>(
+        m.kv_q, m.kv_qs, m.kv_do, m.kv_k, m.kv_v, l, de, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), seg, heads, sq, skv, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(flash_bwd_sm90_seg_dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_sm90_seg_dq_kernel<<<dim3((sq + kDqM - 1) / kDqM, bh), kThreads, kDqSmem, st>>>(
+      m.dq_qs, m.dq_do, m.dq_k, m.dq_v, l, de, static_cast<bf16*>(dq), seg, heads, sq, skv, scale);
+  return cudaGetLastError();
+}
+
+// The (query block rows, key tile rows) of the K8 dq kernel above and the
+// (key block rows, query tile rows) of its dk/dv kernel, the sizes their
+// tile rule counts in; SEGMENT_TILES in ops/flash_attention.py repeats them
+// for the CPU and is held against this on the card.
+extern "C" int vap_flash_bwd_d128_seg_tiles(int* tiles) {
+  tiles[0] = kDqM;
+  tiles[1] = kDqN;
+  tiles[2] = kKvN;
+  tiles[3] = kKvM;
+  return 0;
 }

@@ -1,5 +1,6 @@
-// K5 and K7's backward in its form at head_dim 64: the bf16 flash-attention
-// backward redesigned for Hopper on wgmma, TMA and warp specialisation.
+// K5, and K7's and K8's backward in its form, at head_dim 64: the bf16
+// flash-attention backward redesigned for Hopper on wgmma, TMA and warp
+// specialisation.
 //
 // Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
 // `_flash_attention_backward_t` (:1131; `_bwd_dq_kernel_t` :1065,
@@ -61,6 +62,22 @@
 // wholly past the length writes its zero rows and returns; in the block
 // that holds it, the rows past the length are computed from whatever they
 // hold (a NaN stays in its own key's row) and stored as zeros by a select.
+//
+// K8's backward (`_fas_bwd` :1581, the same TPU kernels given segment ids)
+// is the instance kSeg of both bodies (flash_bwd_sm90_d64_seg_dkv_kernel,
+// flash_bwd_sm90_d64_seg_dq_kernel, entry `vap_flash_bwd_d64_seg`): q_seg
+// [B, Sq] and kv_seg [B, Skv] int32 ids, padding -1. The entry builds the
+// id range tables (sm90.cuh); warp 0 of a block finds the run of tiles that
+// meets its own rows (the dq kernel: key tiles of its 128 queries; the dk/dv
+// kernel: query tiles of its 128 keys), and every role walks that run only,
+// the stage and barrier parity counting the tiles walked. Per tile, a
+// consumer whose 64 rows and the tile hold one id, the same, takes K5's path
+// unchanged; else each pair whose ids differ gets p = 0 and ds = 0 by a
+// select (after the exponentials, before the products read them), the other
+// side's ids read from global memory (-2 for a key past Skv, -3 for a query
+// past Sq). So a cross-segment pair adds an exact 0 to dq, dk and dv; a key
+// block with no query tile to walk writes dk = dv = 0, a query block with no
+// key tile dq = 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -95,7 +112,8 @@ constexpr int kKvQBytes = kKvM * kRow;  // a q or dout tile
 constexpr int kKvRowsOffset = 2 * kKvKBytes + 2 * kKvStages * kKvQBytes;
 constexpr int kKvBarOffset = kKvRowsOffset + 2 * kKvStages * kKvM * 4;
 constexpr int kKvBars = 1 + 2 * kKvStages;  // kv_full; full and empty per stage
-constexpr int kKvSmem = kKvBarOffset + 8 * kKvBars + 1024;
+constexpr int kKvSpanOffset = kKvBarOffset + 8 * kKvBars;  // K8: the block's run of query tiles
+constexpr int kKvSmem = kKvSpanOffset + 16 + 1024;
 // the dq kernel: 128 queries a block, key tiles of kDqN through a ring of
 // kDqStages. With key tiles of 64 ptxas puts a tile's bf16 dS into the
 // registers of dout's A operands, which the next tile's dP then reads
@@ -108,7 +126,8 @@ constexpr int kDqQBytes = kDqM * kRow;
 constexpr int kDqKBytes = kDqN * kRow;
 constexpr int kDqBarOffset = 2 * kDqQBytes + 2 * kDqStages * kDqKBytes;
 constexpr int kDqBars = 1 + 3 * kDqStages;  // q_full; k_full, v_full, empty per stage
-constexpr int kDqSmem = kDqBarOffset + 8 * kDqBars + 1024;
+constexpr int kDqSpanOffset = kDqBarOffset + 8 * kDqBars;  // K8: the block's run of key tiles
+constexpr int kDqSmem = kDqSpanOffset + 16 + 1024;
 
 template <int N>
 __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
@@ -134,6 +153,17 @@ __device__ __forceinline__ void scores(float (&d)[R], const uint32_t (&a)[4][4],
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     sm90::wgmma_rs<0>(d, a[kk], sm90::desc_sw128(b + kk * 32, 16, 1024), kk > 0);
+  }
+}
+
+// d[64, N] = A[64 rows, 64] . B[N rows, 64]^T, both K-major tiles (one box)
+// at shared addresses a and b.
+template <int R>
+__device__ __forceinline__ void scores_ss(float (&d)[R], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    sm90::wgmma_ss<0>(d, sm90::desc_sw128(a + kk * 32, 16, 1024),
+                      sm90::desc_sw128(b + kk * 32, 16, 1024), kk > 0);
   }
 }
 
@@ -170,13 +200,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[32], float mul, bf
   }
 }
 
+template <bool kSeg>
 __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtensorMap& map_do,
                                          const CUtensorMap& map_k, const CUtensorMap& map_v,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, const int* __restrict__ kv_lens,
-                                         int heads, int sq, int skv, float scale_log2,
-                                         float scale) {
+                                         const sm90::Segments seg, int heads, int sq, int skv,
+                                         float scale_log2, float scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = sm90::aligned_base(smem_raw, &smem);
@@ -201,7 +232,19 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
     vap::zero_rows<D, kThreads>(dv_b, key0, min(key0 + kKvN, skv));
     return;
   }
-  const int ntiles = (sq + kKvM - 1) / kKvM;
+  int ntiles = (sq + kKvM - 1) / kKvM;
+  int j0 = 0;  // the first query tile walked (K8)
+  sm90::SegTable q_tab{}, kv_tab{};
+  const int sample = bh / heads;
+  int2& span_s = *reinterpret_cast<int2*>(smem + kKvSpanOffset);
+  if constexpr (kSeg) {
+    q_tab = seg.q_table(sample, sq);
+    kv_tab = seg.kv_table(sample, skv);
+    if (threadIdx.x < 32) {
+      const int2 span = sm90::seg_span<kKvM>(q_tab, ntiles, kv_tab.range<kKvN>(key0));
+      if (threadIdx.x == 0) span_s = span;
+    }
+  }
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kv_full, 1);
@@ -212,6 +255,10 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
     sm90::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (kSeg) {
+    j0 = span_s.x;
+    ntiles = span_s.y - span_s.x;
+  }
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     sm90::reg_dealloc<kProducerRegs>();
@@ -226,8 +273,8 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
         const int s = j % kKvStages;
         sm90::mbar_wait(empty(s), ((j / kKvStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(full(s), 2 * kKvQBytes);
-        sm90::tma_load_3d(stage_tile(s, 0), &map_q, full(s), 0, j * kKvM, bh);
-        sm90::tma_load_3d(stage_tile(s, 1), &map_do, full(s), 0, j * kKvM, bh);
+        sm90::tma_load_3d(stage_tile(s, 0), &map_q, full(s), 0, (j0 + j) * kKvM, bh);
+        sm90::tma_load_3d(stage_tile(s, 1), &map_do, full(s), 0, (j0 + j) * kKvM, bh);
       }
     } else if (warp == 1) {  // each tile's lse * log2 e and delta rows
       const float* lb = lse + static_cast<size_t>(bh) * sq;
@@ -237,7 +284,7 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
         sm90::mbar_wait(empty(s), ((j / kKvStages) & 1) ^ 1);
 #pragma unroll
         for (int h = 0; h < kKvM / 32; ++h) {
-          const int i = lane + 32 * h, row = j * kKvM + i;
+          const int i = lane + 32 * h, row = (j0 + j) * kKvM + i;
           lse2_s[s * kKvM + i] = row < sq ? lb[row] * kLog2e : kPadLse2;
           dl_s[s * kKvM + i] = row < sq ? db[row] : 0.0f;
         }
@@ -255,26 +302,67 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
+    // K8: this warpgroup's keys' one id (or none) and the thread's two key
+    // rows' ids; the queries' ids are read per tile where the pair is mixed
+    int k_one = 0, kid[2] = {0, 0};
+    const int* qs = nullptr;
+    if constexpr (kSeg) {
+      k_one = sm90::seg_single(kv_tab.range<64>(key0 + cw * 64));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = key0 + cw * 64 + warp * 16 + (lane >> 2) + 8 * r;
+        kid[r] = row < skv ? __ldg(seg.kv_seg + static_cast<size_t>(sample) * skv + row) : -2;
+      }
+      qs = seg.q_seg + static_cast<size_t>(sample) * sq;
+    }
+
     sm90::mbar_wait(kv_full, 0);
-    uint32_t ka[4][4], va[4][4];  // this warpgroup's K and V rows as A operands
-    sm90::load_a_sw128(ka, smem + (k_tile - base) + cw * 64 * kRow);
-    sm90::load_a_sw128(va, smem + (v_tile - base) + cw * 64 * kRow);
+    // this warpgroup's K and V rows as A operands: in registers, or (K8) read
+    // from shared memory by each product, as K6's are (kept in registers
+    // beside the segmented form's state, ptxas gave wrong dk and dv)
+    const uint32_t k_rows = k_tile + cw * 64 * kRow, v_rows = v_tile + cw * 64 * kRow;
+    uint32_t ka[4][4], va[4][4];
+    if constexpr (!kSeg) {
+      sm90::load_a_sw128(ka, smem + (k_tile - base) + cw * 64 * kRow);
+      sm90::load_a_sw128(va, smem + (v_tile - base) + cw * 64 * kRow);
+    }
 
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % kKvStages;
       const uint32_t q_s = stage_tile(s, 0), do_s = stage_tile(s, 1);
+      // K8, decided before the tile's products are issued: whether the tile
+      // pair is mixed, and then which of its pairs share an id
+      bool pure = true;
+      uint64_t keep = 0;
+      if constexpr (kSeg) {
+        const int m1 = (j0 + j) * kKvM;
+        pure = sm90::seg_pure(k_one, q_tab.range<kKvM>(m1));
+        if (!pure) {
+          keep = sm90::seg_keep<kKvM>(kid, [&](int col) {
+            return m1 + col < sq ? __ldg(qs + m1 + col) : -3;
+          });
+        }
+      }
       sm90::mbar_wait(full(s), (j / kKvStages) & 1);
 
       // transposed scores: rows the warpgroup's keys, columns the tile's queries
       float st[kKvM / 2], dpt[kKvM / 2];
       sm90::fence_regs(st);
       sm90::fence_regs(dpt);
-      fence_frags(ka);
-      fence_frags(va);
+      if constexpr (!kSeg) {
+        fence_frags(ka);
+        fence_frags(va);
+      }
       sm90::wgmma_fence();
-      scores(st, ka, q_s);
-      sm90::wgmma_commit();
-      scores(dpt, va, do_s);
+      if constexpr (kSeg) {
+        scores_ss(st, k_rows, q_s);
+        sm90::wgmma_commit();
+        scores_ss(dpt, v_rows, do_s);
+      } else {
+        scores(st, ka, q_s);
+        sm90::wgmma_commit();
+        scores(dpt, va, do_s);
+      }
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // S^T done; dP^T may still run
       sm90::fence_regs(st);
@@ -285,6 +373,10 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
       for (int i = 0; i < kKvM / 2; ++i) {
         const int col = 8 * (i / 4) + 2 * t + (i & 1);
         st[i] = sm90::ex2(fmaf(st[i], scale_log2, -l2[col]));  // p^T
+      }
+      if (!pure) {  // K8: a mixed tile pair's cross-segment p^T (and below ds^T) to 0
+#pragma unroll
+        for (int i = 0; i < kKvM / 2; ++i) st[i] = (keep >> i) & 1 ? st[i] : 0.0f;
       }
       uint32_t pa[kKvM / 16][4], dsa[kKvM / 16][4];
       to_frags<kKvM / 8>(pa, st);
@@ -301,6 +393,10 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
         const int col = 8 * (i / 4) + 2 * t + (i & 1);
         dpt[i] = st[i] * (dpt[i] - dl[col]);  // ds^T, in place of dp^T
       }
+      if (!pure) {
+#pragma unroll
+        for (int i = 0; i < kKvM / 2; ++i) dpt[i] = (keep >> i) & 1 ? dpt[i] : 0.0f;
+      }
       to_frags<kKvM / 8>(dsa, dpt);
       fence_frags(dsa);
       sm90::fence_regs(dk_acc);
@@ -310,8 +406,10 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dv_acc);
       sm90::fence_regs(dk_acc);
-      fence_frags(ka);
-      fence_frags(va);
+      if constexpr (!kSeg) {
+        fence_frags(ka);
+        fence_frags(va);
+      }
       fence_frags(pa);
       fence_frags(dsa);
       sm90::mbar_arrive(empty(s));
@@ -322,12 +420,14 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& map_q, const CUtenso
   }
 }
 
+template <bool kSeg>
 __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensorMap& map_do,
                                         const CUtensorMap& map_k, const CUtensorMap& map_v,
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta, bf16* __restrict__ dq,
-                                        const int* __restrict__ kv_lens, int heads, int sq, int skv,
-                                        float scale_log2, float scale) {
+                                        const int* __restrict__ kv_lens, const sm90::Segments seg,
+                                        int heads, int sq, int skv, float scale_log2,
+                                        float scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = sm90::aligned_base(smem_raw, &smem);
@@ -345,7 +445,19 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensor
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kDqM;
   const int len = vap::kv_length(kv_lens, bh, heads, skv);
-  const int ntiles = (len + kDqN - 1) / kDqN;
+  int ntiles = (len + kDqN - 1) / kDqN;
+  int j0 = 0;  // the first key tile walked (K8)
+  sm90::SegTable q_tab{}, kv_tab{};
+  const int sample = bh / heads;
+  int2& span_s = *reinterpret_cast<int2*>(smem + kDqSpanOffset);
+  if constexpr (kSeg) {
+    q_tab = seg.q_table(sample, sq);
+    kv_tab = seg.kv_table(sample, skv);
+    if (threadIdx.x < 32) {
+      const int2 span = sm90::seg_span<kDqN>(kv_tab, ntiles, q_tab.range<kDqM>(m0));
+      if (threadIdx.x == 0) span_s = span;
+    }
+  }
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -357,6 +469,10 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensor
     sm90::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (kSeg) {
+    j0 = span_s.x;
+    ntiles = span_s.y - span_s.x;
+  }
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     sm90::reg_dealloc<kProducerRegs>();
@@ -370,9 +486,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensor
         const int s = j % kDqStages;
         sm90::mbar_wait(empty(s), ((j / kDqStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(k_full(s), kDqKBytes);
-        sm90::tma_load_3d(k_tile(s), &map_k, k_full(s), 0, j * kDqN, bh);
+        sm90::tma_load_3d(k_tile(s), &map_k, k_full(s), 0, (j0 + j) * kDqN, bh);
         sm90::mbar_arrive_expect_tx(v_full(s), kDqKBytes);
-        sm90::tma_load_3d(v_tile(s), &map_v, v_full(s), 0, j * kDqN, bh);
+        sm90::tma_load_3d(v_tile(s), &map_v, v_full(s), 0, (j0 + j) * kDqN, bh);
       }
     }
   } else {  // the two consumer warpgroups, 64 query rows each
@@ -395,6 +511,20 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensor
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 
+    // K8: this warpgroup's rows' one id (or none) and the thread's two rows'
+    // ids; the keys' ids are read per tile where the pair is mixed
+    int q_one = 0, qid[2] = {0, 0};
+    const int* kvs = nullptr;
+    if constexpr (kSeg) {
+      q_one = sm90::seg_single(q_tab.range<64>(m0 + cw * 64));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        qid[r] = row < sq ? __ldg(seg.q_seg + static_cast<size_t>(sample) * sq + row) : -3;
+      }
+      kvs = seg.kv_seg + static_cast<size_t>(sample) * skv;
+    }
+
     sm90::mbar_wait(q_full, 0);
     uint32_t qa[4][4], da[4][4];  // this warpgroup's q and dout rows as A operands
     sm90::load_a_sw128(qa, smem + (q_tile - base) + cw * 64 * kRow);
@@ -403,7 +533,19 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensor
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % kDqStages;
       const uint32_t parity = (j / kDqStages) & 1;
-      const int valid = len - j * kDqN;  // keys of this tile below the length (>= 1)
+      const int valid = len - (j0 + j) * kDqN;  // keys of this tile below the length (>= 1)
+      // K8, decided before the tile's products are issued: whether the tile
+      // pair is mixed, and then which of its pairs share an id
+      bool pure = true;
+      uint64_t keep = 0;
+      if constexpr (kSeg) {
+        const int k0 = (j0 + j) * kDqN;
+        pure = sm90::seg_pure(q_one, kv_tab.range<kDqN>(k0));
+        if (!pure) {
+          keep = sm90::seg_keep<kDqN>(
+              qid, [&](int col) { return col < valid ? __ldg(kvs + k0 + col) : -2; });
+        }
+      }
 
       sm90::mbar_wait(k_full(s), parity);
       if (len < skv && valid < kDqN) {
@@ -456,6 +598,10 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& map_q, const CUtensor
 #pragma unroll
         for (int i = 0; i < kDqN / 2; ++i) sc[i] *= dp[i] - dl[(i >> 1) & 1];
       }
+      if (!pure) {  // K8: a mixed tile pair's cross-segment ds selected to 0
+#pragma unroll
+        for (int i = 0; i < kDqN / 2; ++i) sc[i] = (keep >> i) & 1 ? sc[i] : 0.0f;
+      }
       uint32_t dsa[kDqN / 16][4];
       to_frags<kDqN / 8>(dsa, sc);
 
@@ -479,8 +625,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_d64_dkv_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, const int* __restrict__ kv_lens, int heads, int sq, int skv,
     float scale_log2, float scale) {
-  dkv_body(map_q, map_do, map_k, map_v, lse, delta, dk, dv, kv_lens, heads, sq, skv,
-                scale_log2, scale);
+  dkv_body<false>(map_q, map_do, map_k, map_v, lse, delta, dk, dv, kv_lens, sm90::Segments{},
+                  heads, sq, skv, scale_log2, scale);
 }
 
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_d64_dq_kernel(
@@ -488,8 +634,51 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_d64_dq_kernel(
     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
     const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale_log2, float scale) {
-  dq_body(map_q, map_do, map_k, map_v, lse, delta, dq, kv_lens, heads, sq, skv, scale_log2,
-               scale);
+  dq_body<false>(map_q, map_do, map_k, map_v, lse, delta, dq, kv_lens, sm90::Segments{}, heads,
+                 sq, skv, scale_log2, scale);
+}
+
+// K8's backward (kSeg): no kv_lens, every key below Skv.
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_d64_seg_dkv_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, const sm90::Segments seg, int heads, int sq, int skv, float scale_log2,
+    float scale) {
+  dkv_body<true>(map_q, map_do, map_k, map_v, lse, delta, dk, dv, nullptr, seg, heads, sq, skv,
+                 scale_log2, scale);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_sm90_d64_seg_dq_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+    const sm90::Segments seg, int heads, int sq, int skv, float scale_log2, float scale) {
+  dq_body<true>(map_q, map_do, map_k, map_v, lse, delta, dq, nullptr, seg, heads, sq, skv,
+                scale_log2, scale);
+}
+
+// The tensor maps of both kernels: the dk/dv kernel's q, dout, k, v, then
+// the dq kernel's.
+struct Maps {
+  CUtensorMap kv_q, kv_do, kv_k, kv_v, dq_q, dq_do, dq_k, dq_v;
+};
+
+cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout,
+                      int bh, int sq, int skv) {
+  // no key at all: the key maps are never read; q stands in for k and v
+  const void* kp = skv ? k : q;
+  const void* vp = skv ? v : q;
+  const int krows = skv ? skv : sq;
+  cudaError_t err = sm90::make_map(&m->kv_q, q, bh, sq, D, kKvM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_do, dout, bh, sq, D, kKvM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_k, kp, bh, krows, D, kKvN);
+  if (err == cudaSuccess) err = sm90::make_map(&m->kv_v, vp, bh, krows, D, kKvN);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_q, q, bh, sq, D, kDqM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_do, dout, bh, sq, D, kDqM);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_k, kp, bh, krows, D, kDqN);
+  if (err == cudaSuccess) err = sm90::make_map(&m->dq_v, vp, bh, krows, D, kDqN);
+  return err;
 }
 
 }  // namespace
@@ -511,19 +700,8 @@ extern "C" int vap_flash_bwd_d64(const void* q, const void* k, const void* v, co
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
   const int* lens = static_cast<const int*>(kv_lens);
-  // no key at all: the key maps are never read; q stands in for k and v
-  const void* kp = skv ? k : q;
-  const void* vp = skv ? v : q;
-  const int krows = skv ? skv : sq;
-  CUtensorMap kv_q, kv_do, kv_k, kv_v, dq_q, dq_do, dq_k, dq_v;
-  cudaError_t err = sm90::make_map(&kv_q, q, bh, sq, D, kKvM);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_do, dout, bh, sq, D, kKvM);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_k, kp, bh, krows, D, kKvN);
-  if (err == cudaSuccess) err = sm90::make_map(&kv_v, vp, bh, krows, D, kKvN);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_q, q, bh, sq, D, kDqM);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_do, dout, bh, sq, D, kDqM);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_k, kp, bh, krows, D, kDqN);
-  if (err == cudaSuccess) err = sm90::make_map(&dq_v, vp, bh, krows, D, kDqN);
+  Maps m;
+  cudaError_t err = make_maps(&m, q, k, v, dout, bh, sq, skv);
   if (err != cudaSuccess) return err;
 
   if (skv > 0) {  // no key row: dk and dv are empty
@@ -532,8 +710,8 @@ extern "C" int vap_flash_bwd_d64(const void* q, const void* k, const void* v, co
     if (err != cudaSuccess) return err;
     flash_bwd_sm90_d64_dkv_kernel<<<dim3((skv + kKvN - 1) / kKvN, bh), kThreads,
                                     kKvSmem, st>>>(
-        kv_q, kv_do, kv_k, kv_v, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lens,
-        heads, sq, skv, scale_log2, scale);
+        m.kv_q, m.kv_do, m.kv_k, m.kv_v, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        lens, heads, sq, skv, scale_log2, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -541,8 +719,61 @@ extern "C" int vap_flash_bwd_d64(const void* q, const void* k, const void* v, co
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   if (err != cudaSuccess) return err;
   flash_bwd_sm90_d64_dq_kernel<<<dim3((sq + kDqM - 1) / kDqM, bh), kThreads,
-                                 kDqSmem, st>>>(dq_q, dq_do, dq_k, dq_v, l, de,
-                                                     static_cast<bf16*>(dq), lens, heads, sq, skv,
-                                                     scale_log2, scale);
+                                 kDqSmem, st>>>(m.dq_q, m.dq_do, m.dq_k, m.dq_v, l, de,
+                                                static_cast<bf16*>(dq), lens, heads, sq, skv,
+                                                scale_log2, scale);
   return cudaGetLastError();
+}
+
+// C entry point of K8's backward at head_dim 64: the tensors as above;
+// q_seg [bh / heads, sq] and kv_seg [bh / heads, skv] int32 segment ids
+// (padding -1); ranges a device scratch of (bh / heads) * (ceil(sq / 64) +
+// ceil(skv / 64)) int2, which the entry fills (sm90::seg_tables) before the
+// kernels read it. Launches the range tables, the dk/dv kernel and the dq
+// kernel, and returns the CUDA error of the launches.
+extern "C" int vap_flash_bwd_d64_seg(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, void* dk, void* dv, const void* q_seg,
+                                     const void* kv_seg, void* ranges, int bh, int heads, int sq,
+                                     int skv, float scale_log2, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* de = static_cast<const float*>(delta);
+  Maps m;
+  sm90::Segments seg;
+  cudaError_t err = make_maps(&m, q, k, v, dout, bh, sq, skv);
+  if (err == cudaSuccess) {
+    err = sm90::seg_tables(&seg, q_seg, kv_seg, ranges, bh / heads, sq, skv, st);
+  }
+  if (err != cudaSuccess) return err;
+  if (skv > 0) {  // no key row: dk and dv are empty
+    err = cudaFuncSetAttribute(flash_bwd_sm90_d64_seg_dkv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_sm90_d64_seg_dkv_kernel<<<dim3((skv + kKvN - 1) / kKvN, bh), kThreads, kKvSmem,
+                                        st>>>(m.kv_q, m.kv_do, m.kv_k, m.kv_v, l, de,
+                                              static_cast<bf16*>(dk), static_cast<bf16*>(dv), seg,
+                                              heads, sq, skv, scale_log2, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(flash_bwd_sm90_d64_seg_dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_sm90_d64_seg_dq_kernel<<<dim3((sq + kDqM - 1) / kDqM, bh), kThreads, kDqSmem, st>>>(
+      m.dq_q, m.dq_do, m.dq_k, m.dq_v, l, de, static_cast<bf16*>(dq), seg, heads, sq, skv,
+      scale_log2, scale);
+  return cudaGetLastError();
+}
+
+// The (query block rows, key tile rows) of the K8 dq kernel above and the
+// (key block rows, query tile rows) of its dk/dv kernel, the sizes their
+// tile rule counts in; SEGMENT_TILES in ops/flash_attention.py repeats them
+// for the CPU and is held against this on the card.
+extern "C" int vap_flash_bwd_d64_seg_tiles(int* tiles) {
+  tiles[0] = kDqM;
+  tiles[1] = kDqN;
+  tiles[2] = kKvN;
+  tiles[3] = kKvM;
+  return 0;
 }

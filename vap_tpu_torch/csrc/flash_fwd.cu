@@ -1,15 +1,16 @@
 // K1: bf16 flash-attention forward below head_dim 128 except 64, one kernel
-// templated on head_dim, and K8's forward at every head_dim.
+// templated on head_dim, and K8's forward at the same head dims.
 //
 // K1 (head_dim < 128, a multiple of 16, entry `vap_flash_fwd`) replaces the
 // TPU kernels of vap_tpu/ops/flash_attention.py `_flash_attention_forward_t`
 // (`_fwd_kernel_t`, `_fwd_kernel_t_bound`). K4, the same function at head_dim
 // 128 (`_flash_attention_forward`), ran here as the D = 128 instance until
 // it moved to the wgmma kernel of flash_fwd_sm90.cu (entry
-// `vap_flash_fwd_d128`); K8's D = 128 instance below keeps this design. K1
-// at head_dim 64, the main path's (CogVideoX), and K7 there moved to the
-// wgmma kernel of flash_fwd_sm90_d64.cu (entry `vap_flash_fwd_d64`), so
-// `vap_flash_fwd` refuses d = 64 and only K8 instances this kernel at 64. The
+// `vap_flash_fwd_d128`). K1 at head_dim 64, the main path's (CogVideoX), and
+// K7 there moved to the wgmma kernel of flash_fwd_sm90_d64.cu (entry
+// `vap_flash_fwd_d64`), and K8 at 64 and 128 to the wgmma kernels' segmented
+// instances (`vap_flash_fwd_d64_seg`, `vap_flash_fwd_d128_seg`): both
+// entries here refuse d = 64, which no instance here takes. The
 // TPU's kv-bias row that masks padded keys becomes the in-register mask of
 // the ragged last tile. The contract: q [BH, Sq, D], k/v [BH, Skv, D] bf16
 // -> out [BH, Sq, D] bf16 and the natural-log lse [BH, Sq] f32, non-causal,
@@ -29,8 +30,7 @@
 // K8, the packed-segment forward (`flash_attention_segmented`, which the TPU
 // runs through the same `_fwd_kernel_t` with `segment_ids`: the mask rides
 // extra one-hot contraction dims, `_segment_onehot_ext`, at the cost of a
-// second MXU depth pass at D >= 128), is the instance kSegmented = true
-// (at head_dim 128 through its own entry, flash_fwd_seg_d128_kernel):
+// second MXU depth pass at D >= 128), is the instance kSegmented = true:
 // q_seg [B, Sq] and kv_seg [B, Skv] int32 ids, query i attends key j iff
 // their ids are equal. The ids are compared in the kernel instead: each
 // thread keeps the ids of its two query rows (g, g + 8) in registers, each
@@ -41,9 +41,10 @@
 // long as it is finite). The running max starts at the K7 floor, so a query
 // whose segment has no key gets zero rows and the lse -1e4. The wrapper
 // maps ids outside [0, num_segments) to -1 (padding); an in-range query
-// never matches them. Every key tile is loaded and scored: skipping the
-// tiles that hold none of a query tile's ids is later work. The fixed-length
-// and K7 instance (kSegmented = false) compiles to the code it had before.
+// never matches them. Every key tile is loaded and scored (the wgmma
+// instances at 64 and 128 skip the tiles that share no id). The
+// fixed-length and K7 instance (kSegmented = false) compiles to the code it
+// had before.
 //
 // Design. One thread block per (bh, 64-query tile), four warps of 16 query
 // rows; a loop over 64-key tiles inside the block takes the place of the
@@ -52,18 +53,11 @@
 // cores as mma.sync m16n8k16 with f32 accumulation; the softmax stays in
 // registers (the m16n8 C layout of S is reused as the A layout of P).
 //
-// What bounds it on an H100: at the main-path shapes (CogVideoX S = 35,552,
-// D = 64; Wan S = 40,560, D = 128) attention does 4*S*D FLOP per query row
+// What bounds it on an H100: attention does 4*S*D FLOP per query row
 // against 4*D bytes of K/V per key, far above the card's ~295 FLOP/byte
-// ridge, so it is compute bound; this first kernel is limited by mma.sync
-// issue rate, the un-pipelined global->shared copies (no cp.async/TMA yet)
-// and the exp2 work per score. At D = 128 (K8's instance) the Q fragments
-// (32 registers), the accumulator (64) and the 64-key score tile (32) take
-// about 160 registers a thread, so fewer blocks fit on an SM than at D = 64;
-// the two 64x136 bf16 tiles take 34.8 KB of static shared memory. Three
-// blocks fit on an SM at 168 registers (3 x 128 x 168 of the 65,536); at
-// 182 only two fit, and K4 ran 29% slower at the Wan shape. chip_smoke.py
-// fails if K8's D = 128 entry takes more than 168 registers or spills.
+// ridge, so it is compute bound; this kernel is limited by mma.sync issue
+// rate, the un-pipelined global->shared copies (no cp.async/TMA) and the
+// exp2 work per score. It runs at no model's head dim.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,7 +157,7 @@ __device__ __forceinline__ void flash_fwd_body(
   vap::store_rows<D>(acc, m, l, o + bh * sq * D, lse + bh * sq, row0, sq);
 }
 
-// K1 and K7 (kSegmented = false), and K8 below head_dim 128.
+// K1 and K7 (kSegmented = false), and K8 at the same head dims.
 template <int D, bool kSegmented>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -172,19 +166,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int* __restrict__ kv_seg, int heads, int sq, int skv, float scale_log2) {
   flash_fwd_body<D, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, heads, sq, skv,
                                 scale_log2);
-}
-
-// K8 at head_dim 128. As one more instance of the template ptxas gives it
-// 180 registers (the ids and their compare), so two blocks fit an SM; asked
-// for three, it fits 168 without a spill, and K8 at Wan's joint shape took
-// 215 ms on an H100 against 302 ms (chip_smoke.py, which fails the build if
-// this entry spills or exceeds 168).
-__global__ void __launch_bounds__(kThreads, 3) flash_fwd_seg_d128_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads, int sq, int skv,
-    float scale_log2) {
-  flash_fwd_body<128, true>(q, k, v, o, lse, nullptr, q_seg, kv_seg, heads, sq, skv, scale_log2);
 }
 
 template <int D, bool kSegmented>
@@ -196,18 +177,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
-  if constexpr (kSegmented && D == 128) {
-    flash_fwd_seg_d128_kernel<<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, lse, q_seg, kv_seg,
-                                                             heads, sq, skv, scale_log2);
-  } else {
-    flash_fwd_kernel<D, kSegmented><<<grid, kThreads, 0, stream>>>(
-        qp, kp, vp, op, lse, kv_lens, q_seg, kv_seg, heads, sq, skv, scale_log2);
-  }
+  flash_fwd_kernel<D, kSegmented><<<grid, kThreads, 0, stream>>>(
+      qp, kp, vp, op, lse, kv_lens, q_seg, kv_seg, heads, sq, skv, scale_log2);
   return cudaGetLastError();
 }
 
-// Head dims of K1 (and of K7 in its form): 16..112, step 16, but 64 (the
-// wgmma kernel's); of K8: 16..112.
+// Head dims of K1 (and of K7 and K8 in its form): 16..112, step 16, but 64
+// (the wgmma kernels').
 template <bool kSegmented>
 cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o, float* lse,
                      const int* kv_lens, const int* q_seg, const int* kv_seg, int bh, int heads,
@@ -219,13 +195,6 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o
                                             sq, skv, scale_log2, s);
     case 48: return launch<48, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
                                             sq, skv, scale_log2, s);
-    case 64:
-      if constexpr (kSegmented) {
-        return launch<64, true>(q, k, v, o, lse, nullptr, q_seg, kv_seg, bh, heads, sq, skv,
-                                scale_log2, s);
-      } else {
-        return cudaErrorInvalidValue;  // flash_fwd_sm90_d64.cu
-      }
     case 80: return launch<80, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
                                             sq, skv, scale_log2, s);
     case 96: return launch<96, kSegmented>(q, k, v, o, lse, kv_lens, q_seg, kv_seg, bh, heads,
@@ -254,21 +223,11 @@ extern "C" int vap_flash_fwd(const void* q, const void* k, const void* v, void* 
                          scale_log2, static_cast<cudaStream_t>(stream));
 }
 
-// K8 in K1's form: head_dim d in 16..112, step 16.
+// K8 in K1's form: head_dim d in 16..112, step 16, but 64.
 extern "C" int vap_flash_fwd_seg(const void* q, const void* k, const void* v, const void* q_seg,
                                  const void* kv_seg, void* o, void* lse, int bh, int heads, int sq,
                                  int skv, int d, float scale_log2, void* stream) {
   return launch_d<true>(d, q, k, v, o, static_cast<float*>(lse), nullptr,
                         static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), bh,
                         heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
-}
-
-// K8 at head_dim 128.
-extern "C" int vap_flash_fwd_seg_d128(const void* q, const void* k, const void* v,
-                                      const void* q_seg, const void* kv_seg, void* o, void* lse,
-                                      int bh, int heads, int sq, int skv, float scale_log2,
-                                      void* stream) {
-  return launch<128, true>(q, k, v, o, static_cast<float*>(lse), nullptr,
-                           static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), bh,
-                           heads, sq, skv, scale_log2, static_cast<cudaStream_t>(stream));
 }

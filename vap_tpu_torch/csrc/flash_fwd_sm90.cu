@@ -1,5 +1,5 @@
-// K4 and K7's form of it: the bf16 flash-attention forward at head_dim 128,
-// redesigned for Hopper on wgmma, TMA and warp specialisation.
+// K4, and K7's and K8's forms of it: the bf16 flash-attention forward at
+// head_dim 128, redesigned for Hopper on wgmma, TMA and warp specialisation.
 //
 // Replaces the TPU kernels of vap_tpu/ops/flash_attention.py
 // `_flash_attention_forward` (:225; `_fwd_kernel` :115,
@@ -55,6 +55,17 @@
 // slower and are not kept (PERF.md); writing P's bf16 registers while
 // products are in flight makes ptxas serialise them (C7513). Left for
 // later: persistent scheduling, a TMA-store epilogue.
+//
+// K8, the packed-segment forward (`flash_attention_segmented` :1539), is
+// the instance kSeg (flash_fwd_sm90_seg_kernel, entry
+// `vap_flash_fwd_d128_seg`), as in flash_fwd_sm90_d64.cu: the entry builds
+// the id range tables (sm90.cuh), warp 0 finds the block's run of key tiles
+// whose range meets its 128 rows', producer and consumers walk that run
+// only; per tile, a consumer whose 64 rows and the key tile hold one id, the
+// same, takes K4's path unchanged, else each score whose ids differ is
+// selected to -1e30 where K4's mask runs (keys' ids from global memory, -2
+// past Skv). The running max starts at K7's floor: a query with no key of
+// its segment gets zero rows and the lse -1e4.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,15 +92,19 @@ constexpr int kQBytes = kQBox * (D / kBox);
 constexpr int kKVBytes = kKVBox * (D / kBox);
 constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
 constexpr int kBars = 1 + 3 * kStages;  // q_full; k_full, v_full, empty per stage
-// the tiles plus the barriers, and 1 KB to align the base to the swizzle
-constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
+constexpr int kSpanOffset = kBarOffset + 8 * kBars;  // K8: the block's run of key tiles
+// the tiles, the barriers and the run, and 1 KB to align the base to the swizzle
+constexpr int kSmem = kSpanOffset + 16 + 1024;
+
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
-    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, float* __restrict__ lse,
-    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale_log2) {
+template <bool kSeg>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                         const CUtensorMap& map_v, bf16* __restrict__ o,
+                                         float* __restrict__ lse, const int* __restrict__ kv_lens,
+                                         const sm90::Segments seg, int heads, int sq, int skv,
+                                         float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = sm90::aligned_base(smem_raw, &smem);
@@ -105,7 +120,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kBlockM;
   const int len = vap::kv_length(kv_lens, bh, heads, skv);
-  const int ntiles = (len + kBlockN - 1) / kBlockN;
+  int ntiles = (len + kBlockN - 1) / kBlockN;
+  int j0 = 0;  // the first key tile walked (K8)
+  sm90::SegTable q_tab{}, kv_tab{};
+  const int sample = bh / heads;
+  int2& span_s = *reinterpret_cast<int2*>(smem + kSpanOffset);
+  if constexpr (kSeg) {
+    q_tab = seg.q_table(sample, sq);
+    kv_tab = seg.kv_table(sample, skv);
+    if (threadIdx.x < 32) {
+      const int2 span = sm90::seg_span<kBlockN>(kv_tab, ntiles, q_tab.range<kBlockM>(m0));
+      if (threadIdx.x == 0) span_s = span;
+    }
+  }
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -117,6 +144,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
     sm90::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (kSeg) {
+    j0 = span_s.x;
+    ntiles = span_s.y - span_s.x;
+  }
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     sm90::reg_dealloc<kProducerRegs>();
@@ -133,11 +164,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
         sm90::mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(k_full(s), kKVBytes);
         for (int b = 0; b < D / kBox; ++b) {
-          sm90::tma_load_3d(k_tile(s) + b * kKVBox, &map_k, k_full(s), b * kBox, j * kBlockN, bh);
+          sm90::tma_load_3d(k_tile(s) + b * kKVBox, &map_k, k_full(s), b * kBox,
+                            (j0 + j) * kBlockN, bh);
         }
         sm90::mbar_arrive_expect_tx(v_full(s), kKVBytes);
         for (int b = 0; b < D / kBox; ++b) {
-          sm90::tma_load_3d(v_tile(s) + b * kKVBox, &map_v, v_full(s), b * kBox, j * kBlockN, bh);
+          sm90::tma_load_3d(v_tile(s) + b * kKVBox, &map_v, v_full(s), b * kBox,
+                            (j0 + j) * kBlockN, bh);
         }
       }
     }
@@ -152,15 +185,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    const float m_init = kv_lens ? vap::kVarlenFloorLog2 : vap::kNegInf;
+    const float m_init = (kSeg || kv_lens) ? vap::kVarlenFloorLog2 : vap::kNegInf;
     float m[2] = {m_init, m_init};
     float l[2] = {0.0f, 0.0f};
+
+    // K8: this warpgroup's rows' one id (or none) and the thread's two rows' ids
+    int q_one = 0, qid[2] = {0, 0};
+    const int* kvs = nullptr;
+    if constexpr (kSeg) {
+      q_one = sm90::seg_single(q_tab.range<64>(m0 + cw * 64));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + cw * 64 + warp * 16 + g + 8 * r;
+        qid[r] = row < sq ? __ldg(seg.q_seg + static_cast<size_t>(sample) * sq + row) : -3;
+      }
+      kvs = seg.kv_seg + static_cast<size_t>(sample) * skv;
+    }
 
     sm90::mbar_wait(q_full, 0);
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % kStages;
       const uint32_t parity = (j / kStages) & 1;
-      const int valid = len - j * kBlockN;  // keys of this tile below the length (>= 1)
+      const int valid = len - (j0 + j) * kBlockN;  // keys of this tile below the length (>= 1)
 
       // S = Q K^T over D = 128: 8 k16 steps, 4 per box
       float sc[64];
@@ -178,8 +224,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
 
-      // scores in the log2 domain; keys at or past the length selected out
-      if (valid < kBlockN) {
+      // scores in the log2 domain; keys at or past the length selected out,
+      // and (K8) every score whose ids differ unless the tile pair is pure
+      bool pure = true;
+      uint64_t keep = 0;
+      if constexpr (kSeg) {
+        const int k0 = (j0 + j) * kBlockN;
+        pure = sm90::seg_pure(q_one, kv_tab.range<kBlockN>(k0));
+        if (!pure) {
+          keep = sm90::seg_keep<kBlockN>(
+              qid, [&](int col) { return col < valid ? __ldg(kvs + k0 + col) : -2; });
+        }
+      }
+      if (!pure) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] = (keep >> i) & 1 ? sc[i] * scale_log2 : vap::kNegInf;
+      } else if (valid < kBlockN) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
           const int col = 8 * (i / 4) + 2 * t + (i & 1);
@@ -277,6 +337,31 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ kv_lens, int heads, int sq, int skv, float scale_log2) {
+  fwd_body<false>(map_q, map_k, map_v, o, lse, kv_lens, sm90::Segments{}, heads, sq, skv,
+                  scale_log2);
+}
+
+// K8 (kSeg): no kv_lens, every key below Skv.
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90_seg_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, float* __restrict__ lse,
+    const sm90::Segments seg, int heads, int sq, int skv, float scale_log2) {
+  fwd_body<true>(map_q, map_k, map_v, o, lse, nullptr, seg, heads, sq, skv, scale_log2);
+}
+
+cudaError_t make_maps(CUtensorMap* map_q, CUtensorMap* map_k, CUtensorMap* map_v, const void* q,
+                      const void* k, const void* v, int bh, int sq, int skv) {
+  cudaError_t err = sm90::make_map(map_q, q, bh, sq, D, kBlockM);
+  // no key at all: the maps are never read; q stands in for k and v
+  if (err == cudaSuccess) err = sm90::make_map(map_k, skv ? k : q, bh, skv ? skv : sq, D, kBlockN);
+  if (err == cudaSuccess) err = sm90::make_map(map_v, skv ? v : q, bh, skv ? skv : sq, D, kBlockN);
+  return err;
+}
+
 }  // namespace
 
 // C entry point, bound from Python with ctypes: K4, and K7 at head_dim 128.
@@ -290,10 +375,7 @@ extern "C" int vap_flash_fwd_d128(const void* q, const void* k, const void* v, v
                                   const void* kv_lens, int bh, int heads, int sq, int skv,
                                   float scale_log2, void* stream) {
   CUtensorMap map_q, map_k, map_v;
-  cudaError_t err = sm90::make_map(&map_q, q, bh, sq, D, kBlockM);
-  // no key at all: the maps are never read; q stands in for k and v
-  if (err == cudaSuccess) err = sm90::make_map(&map_k, skv ? k : q, bh, skv ? skv : sq, D, kBlockN);
-  if (err == cudaSuccess) err = sm90::make_map(&map_v, skv ? v : q, bh, skv ? skv : sq, D, kBlockN);
+  cudaError_t err = make_maps(&map_q, &map_k, &map_v, q, k, v, bh, sq, skv);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmem);
@@ -303,4 +385,40 @@ extern "C" int vap_flash_fwd_d128(const void* q, const void* k, const void* v, v
       map_q, map_k, map_v, static_cast<bf16*>(o), static_cast<float*>(lse),
       static_cast<const int*>(kv_lens), heads, sq, skv, scale_log2);
   return cudaGetLastError();
+}
+
+// C entry point of K8 at head_dim 128: q, k, v, o and lse as above; q_seg
+// [bh / heads, sq] and kv_seg [bh / heads, skv] int32 segment ids (padding
+// -1); ranges a device scratch of (bh / heads) * (ceil(sq / 64) + ceil(skv /
+// 64)) int2, which the entry fills (the query table, then the key table)
+// before the forward reads it. Returns the CUDA error of the launches.
+extern "C" int vap_flash_fwd_d128_seg(const void* q, const void* k, const void* v,
+                                      const void* q_seg, const void* kv_seg, void* ranges, void* o,
+                                      void* lse, int bh, int heads, int sq, int skv,
+                                      float scale_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  sm90::Segments seg;
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_maps(&map_q, &map_k, &map_v, q, k, v, bh, sq, skv);
+  if (err == cudaSuccess) {
+    err = sm90::seg_tables(&seg, q_seg, kv_seg, ranges, bh / heads, sq, skv, st);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_fwd_sm90_seg_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  }
+  if (err != cudaSuccess) return err;
+  flash_fwd_sm90_seg_kernel<<<dim3((sq + kBlockM - 1) / kBlockM, bh), kThreads, kSmem, st>>>(
+      map_q, map_k, map_v, static_cast<bf16*>(o), static_cast<float*>(lse), seg, heads, sq, skv,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+// The (query block rows, key tile rows) of the K8 kernel above, the sizes
+// its tile rule counts in; SEGMENT_TILES in ops/flash_attention.py repeats
+// them for the CPU and is held against this on the card.
+extern "C" int vap_flash_fwd_d128_seg_tiles(int* tiles) {
+  tiles[0] = kBlockM;
+  tiles[1] = kBlockN;
+  return 0;
 }

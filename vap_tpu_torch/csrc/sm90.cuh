@@ -541,6 +541,168 @@ __device__ __forceinline__ float s32_to_f32(uint32_t x) {
   return __int_as_float(static_cast<int>(x + 0x4B400000u)) - 12582912.0f;
 }
 
+// ---- packed segments (K8) ----
+//
+// K8's kernels skip the (query, key) tile pairs that share no segment id.
+// Ids are per sample ([B, S] int32, padding -1 as the wrapper maps it, so
+// every id is at least -1). A table holds, for each kSegChunk rows of a
+// sample, the least and the largest id of its rows below S ({kSegNoLo,
+// kSegNoHi} where it has none), padding counted as kSegPad, after every
+// segment: a packed stream's padded tail then does not widen the range of
+// the tile that holds its last segment's end down to -1. A tile of any multiple of kSegChunk rows
+// takes the union of its chunks, and two tiles can hold a pair of equal ids
+// only if their ranges meet. A block walks one run of tiles, from the first
+// that meets its own range to the last (seg_span): for sorted ids
+// (contiguous packing) exactly the tiles that meet it; for unsorted ids a
+// tile inside the run that meets no id is loaded too, and its scores
+// selected out. A tile pair in which both sides hold one id, the same, is
+// pure: every score counts and none is compared.
+
+constexpr int kSegChunk = 64;
+constexpr int kSegNoLo = 0x7fffffff;           // the range of no row: meets nothing
+constexpr int kSegNoHi = -0x7fffffff - 1;
+constexpr int kSegPad = 0x7ffffffe;            // padding (-1) in a range
+
+// One warp per chunk of kChunk rows of the [batch, s] ids: ranges[b * chunks
+// + c] = {min, max} of the ids of rows [c kChunk, (c + 1) kChunk) below s.
+template <int kChunk>
+__global__ void seg_ranges_kernel(const int* __restrict__ ids, int2* __restrict__ ranges, int s,
+                                  int chunks, int total) {
+  const int w = static_cast<int>((static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32);
+  const int lane = threadIdx.x % 32;
+  if (w >= total) return;  // whole warps: blockDim is a multiple of 32
+  const int b = w / chunks, c = w % chunks;
+  int lo = kSegNoLo, hi = kSegNoHi;
+#pragma unroll
+  for (int i = lane; i < kChunk; i += 32) {
+    const int row = c * kChunk + i;
+    if (row < s) {
+      const int raw = ids[static_cast<size_t>(b) * s + row];
+      const int id = raw < 0 ? kSegPad : raw;
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) ranges[w] = make_int2(lo, hi);
+}
+
+// The range table of [batch, s] ids into `ranges` (batch * ceil(s /
+// kChunk) entries), on `stream`; the CUDA error of the launch. (A template,
+// so that only the sources that call it compile the kernel.)
+template <int kChunk = kSegChunk>
+cudaError_t seg_ranges(const int* ids, int2* ranges, int batch, int s, cudaStream_t stream) {
+  const int chunks = (s + kChunk - 1) / kChunk;
+  const int total = batch * chunks;
+  if (total == 0) return cudaSuccess;
+  seg_ranges_kernel<kChunk><<<(total + 7) / 8, 256, 0, stream>>>(ids, ranges, s, chunks, total);
+  return cudaGetLastError();
+}
+
+// One sample's range table.
+struct SegTable {
+  const int2* ranges;
+  int chunks;
+
+  // The ids range of rows [r0, r0 + kRows), both multiples of kSegChunk:
+  // predicated loads, no loop or branch.
+  template <int kRows>
+  __device__ __forceinline__ int2 range(int r0) const {
+    int lo = kSegNoLo, hi = kSegNoHi;
+#pragma unroll
+    for (int i = 0; i < kRows / kSegChunk; ++i) {
+      const int c = r0 / kSegChunk + i;
+      const int2 r = c < chunks ? __ldg(ranges + c) : make_int2(kSegNoLo, kSegNoHi);
+      lo = min(lo, r.x);
+      hi = max(hi, r.y);
+    }
+    return make_int2(lo, hi);
+  }
+};
+
+// K8's ids and their range tables, as a kernel takes them.
+struct Segments {
+  const int* q_seg;    // [B, Sq]
+  const int* kv_seg;   // [B, Skv]
+  const int2* q_rng;   // [B, ceil(Sq / kSegChunk)]
+  const int2* kv_rng;  // [B, ceil(Skv / kSegChunk)]
+
+  __device__ __forceinline__ SegTable q_table(int sample, int sq) const {
+    const int chunks = (sq + kSegChunk - 1) / kSegChunk;
+    return {q_rng + static_cast<size_t>(sample) * chunks, chunks};
+  }
+  __device__ __forceinline__ SegTable kv_table(int sample, int skv) const {
+    const int chunks = (skv + kSegChunk - 1) / kSegChunk;
+    return {kv_rng + static_cast<size_t>(sample) * chunks, chunks};
+  }
+};
+
+// *seg for the [batch, sq] and [batch, skv] ids q_seg and kv_seg, their
+// range tables built on `stream` into `ranges` (batch * (ceil(sq /
+// kSegChunk) + ceil(skv / kSegChunk)) int2: the query table, then the key
+// table); the CUDA error of the launches.
+template <int kChunk = kSegChunk>
+cudaError_t seg_tables(Segments* seg, const void* q_seg, const void* kv_seg, void* ranges,
+                       int batch, int sq, int skv, cudaStream_t stream) {
+  int2* q_rng = static_cast<int2*>(ranges);
+  int2* kv_rng = q_rng + static_cast<size_t>(batch) * ((sq + kChunk - 1) / kChunk);
+  *seg = {static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), q_rng, kv_rng};
+  const cudaError_t err = seg_ranges<kChunk>(seg->q_seg, q_rng, batch, sq, stream);
+  return err == cudaSuccess ? seg_ranges<kChunk>(seg->kv_seg, kv_rng, batch, skv, stream) : err;
+}
+
+__device__ __forceinline__ bool seg_meet(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
+
+// The one id of every row of range r, or kSegNoHi where it holds none or
+// several (no tile's range has a single id of kSegNoHi).
+__device__ __forceinline__ int seg_single(int2 r) { return r.x == r.y ? r.x : kSegNoHi; }
+
+// Whether the tile of range k is pure against rows of single id `one`.
+__device__ __forceinline__ bool seg_pure(int one, int2 k) { return k.x == one && k.y == one; }
+
+// {first, last + 1} of the `ntiles` tiles of kRows rows of table t whose
+// range meets r, or {0, 0}; every lane of the calling warp takes part and
+// gets it.
+template <int kRows>
+__device__ __forceinline__ int2 seg_span(const SegTable& t, int ntiles, int2 r) {
+  const int lane = threadIdx.x % 32;
+  int first = -1, last = -1;
+  for (int j0 = 0; j0 < ntiles; j0 += 32) {
+    const int j = j0 + lane;
+    const bool hit = j < ntiles && seg_meet(t.range<kRows>(j * kRows), r);
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (m) {
+      if (first < 0) first = j0 + __ffs(m) - 1;
+      last = j0 + 31 - __clz(m);
+    }
+  }
+  return first < 0 ? make_int2(0, 0) : make_int2(first, last + 1);
+}
+
+// Bit i: whether score i of this thread's share of a [64, N] accumulator
+// (row 16w + g + 8 ((i >> 1) & 1), column 8 (i / 4) + 2t + (i & 1)) pairs
+// equal ids: the row's id rid[(i >> 1) & 1] and col_id(column).
+template <int N, typename ColId>
+__device__ __forceinline__ uint64_t seg_keep(const int (&rid)[2], ColId col_id) {
+  static_assert(N <= 128, "one bit a score of the thread's N / 2");
+  const int t = threadIdx.x % 4;
+  uint64_t keep = 0;
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int id = col_id(8 * c + 2 * t + e);
+      keep |= static_cast<uint64_t>(id == rid[0]) << (4 * c + e);
+      keep |= static_cast<uint64_t>(id == rid[1]) << (4 * c + 2 + e);
+    }
+  }
+  return keep;
+}
+
 // ---- host ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

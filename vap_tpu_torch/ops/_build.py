@@ -32,10 +32,9 @@ SOURCES = {
     "flash_fwd": {
         # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, scale_log2, stream
         "vap_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-        # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, d, scale_log2, stream (K8)
+        # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, d, scale_log2, stream (K8 at the
+        # head dims of no model)
         "vap_flash_fwd_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-        # q, k, v, q_seg, kv_seg, o, lse, bh, heads, sq, skv, scale_log2, stream (K8, D = 128)
-        "vap_flash_fwd_seg_d128": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "sage_fwd": {
         # q8, k8, sqk, v, o, lse, kv_lens (or null), bh, heads, sq, skv, d, stream (K2 and K7's
@@ -61,34 +60,47 @@ SOURCES = {
         # scale_log2, scale, stream
         "vap_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
         # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, bh, heads, sq, skv, d,
-        # scale_log2, scale, stream (K8)
+        # scale_log2, scale, stream (K8 at the head dims of no model)
         "vap_flash_bwd_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               _F, _P),
     },
     "flash_fwd_sm90": {
         # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream (K4, K7)
         "vap_flash_fwd_d128": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # q, k, v, q_seg, kv_seg, ranges (scratch), o, lse, bh, heads, sq, skv, scale_log2, stream
+        # (K8)
+        "vap_flash_fwd_d128_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # tiles: int[2], K8's (query block, key tile) rows
+        "vap_flash_fwd_d128_seg_tiles": (_P,),
     },
     "flash_fwd_sm90_d64": {
         # q, k, v, o, lse, kv_lens (or null), bh, heads, sq, skv, scale_log2, stream (K1, K7 at
         # head_dim 64)
         "vap_flash_fwd_d64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # the same as vap_flash_fwd_d128_seg at head_dim 64 (K8)
+        "vap_flash_fwd_d64_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        "vap_flash_fwd_d64_seg_tiles": (_P,),
     },
     "flash_bwd_sm90_d64": {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv,
         # scale_log2, scale, stream (K5, K7's backward at head_dim 64)
         "vap_flash_bwd_d64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, ranges (scratch), bh, heads, sq,
+        # skv, scale_log2, scale, stream (K8's backward)
+        "vap_flash_bwd_d64_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _F, _P),
+        "vap_flash_bwd_d64_seg_tiles": (_P,),
     },
     "flash_bwd_sm90": {
         # q, k, v, dout, lse, delta, dq, dk, dv, kv_lens (or null), bh, heads, sq, skv, scale,
         # stream (K6, K7's backward)
         "vap_flash_bwd_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    },
-    "flash_bwd_d128": {
-        # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, bh, heads, sq, skv, scale,
-        # stream (K8, D = 128)
-        "vap_flash_bwd_seg_d128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                   _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, ranges (scratch), bh, heads, sq,
+        # skv, scale, stream (K8's backward)
+        "vap_flash_bwd_d128_seg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _F, _P),
+        # tiles: int[4], K8's dq (query block, key tile) and dk/dv (key block, query tile) rows
+        "vap_flash_bwd_d128_seg_tiles": (_P,),
     },
     "w8a8": {
         # x, w, sw, bias (or null), xq, sx, out, m, n, k, chunk, stream

@@ -32,12 +32,10 @@ row-layout backward
 (``_flash_attention_backward``, ``csrc/flash_bwd_sm90.cu``: a q * scale
 pre-pass and two warp-specialised ``wgmma`` kernels fed by TMA, dk/dv then
 dq, no atomics), which rounds q * scale to bf16 before q k^T and works in
-the natural base; its segmented form (K8's backward) stays in
-``csrc/flash_bwd_d128.cu``. Head_dim above
-128 raises. ``FlashAttentionFunction`` pairs the forward and the backward
-as an autograd function (the JAX ``custom_vjp`` pair ``_fa_fwd`` /
-``_fa_bwd``); ``flash_attention`` goes through it whenever a gradient is
-wanted.
+the natural base. Head_dim above 128 raises. ``FlashAttentionFunction``
+pairs the forward and the backward as an autograd function (the JAX
+``custom_vjp`` pair ``_fa_fwd`` / ``_fa_bwd``); ``flash_attention`` goes
+through it whenever a gradient is wanted.
 
 Layout: q [B, H, Sq, D], k and v [B, H, Skv, D]; out [B, H, Sq, D] in the
 input dtype, lse [B, H, Sq] float32.
@@ -56,10 +54,16 @@ none), and exact zeros in the dk and dv rows past each length.
 K8, the packed-segment attention (``flash_attention_segmented``, :1539):
 K1's and K4's kernel given ``q_segment_ids`` [B, Sq] and ``kv_segment_ids``
 [B, Skv] integer ids and ``num_segments``; query i attends key j iff their
-ids are equal. Ids outside [0, num_segments) are padding (mapped to -1):
-padding keys are masked from every in-range query, padding queries' outputs
-are unspecified but finite. The running max starts at K7's floor, so a query
-whose segment has no key gets exact zero rows and the lse -1e4. A
+ids are equal. At head_dim 64 and 128 the instances of the ``wgmma``
+kernels of K1 and K4 (K5 and K6 for the backward) with whole-tile skipping:
+a block walks only the run of tiles whose id ranges meet its own
+(``segment_tiles_kept``, ``segment_tile_span``), and compares ids per score
+only in a tile pair that holds more than one id; at the other head dims the
+``mma.sync`` kernels, which score every tile. Ids outside [0,
+num_segments) are padding (mapped to -1): padding keys are masked from
+every in-range query, padding queries' outputs are unspecified but finite.
+The running max starts at K7's floor, so a query whose segment has no key
+gets exact zero rows and the lse -1e4. A
 cross-segment key adds exactly 0, so one segment's outputs do not move,
 to the bit, when another segment's q, k or v change (to finite values).
 Its backward (``_fas_bwd``, :1581) is K5 and K6 given the same ids: every
@@ -78,8 +82,10 @@ raises. Each kernel counts its launches on its wrapper:
 ``flash_attention_forward.launches_varlen`` (K7 in K1 at the other head
 dims below 128),
 ``flash_attention_forward.launches_d128_varlen`` (K7 in K4),
-``flash_attention_segmented_forward.launches`` (K8 in K1, head_dim < 128),
-``flash_attention_segmented_forward.launches_d128`` (K8 in K4),
+``flash_attention_segmented_forward.launches_d64`` (K8 in K1 at head_dim
+64), ``flash_attention_segmented_forward.launches`` (K8 in K1 at the other
+head dims below 128), ``flash_attention_segmented_forward.launches_d128``
+(K8 in K4),
 ``flash_attention_int8_forward.launches`` (K2 at head_dim 64 and 128),
 ``flash_attention_int8_forward.launches_mma`` (K2 at 32 and 96),
 ``flash_attention_int8_forward.launches_varlen`` (K7 in K2 at 64 and 128),
@@ -94,13 +100,16 @@ head_dim 64),
 ``flash_attention_backward.launches_varlen`` (K7's backward in K5 at the
 other head dims below 128),
 ``flash_attention_backward.launches_d128_varlen`` (K7's backward in K6),
-``flash_attention_backward.launches_seg`` (K8's backward in K5) and
+``flash_attention_backward.launches_d64_seg`` (K8's backward in K5 at
+head_dim 64), ``flash_attention_backward.launches_seg`` (K8's backward in
+K5 at the other head dims below 128) and
 ``flash_attention_backward.launches_d128_seg`` (K8's backward in K6).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -266,6 +275,115 @@ def segment_ids_int32(ids: torch.Tensor, num_segments: int, device) -> torch.Ten
     every id outside [0, num_segments) mapped to -1 (padding)."""
     in_range = (ids >= 0) & (ids < num_segments)
     return torch.where(in_range, ids, -1).to(device, torch.int32).contiguous()
+
+
+# rows per entry of the wgmma kernels' segment-range tables (sm90.cuh,
+# kSegChunk): each tile's least and largest id over its rows below S, with
+# padding (-1) counted as SEGMENT_PAD, after every segment id, so that a
+# packed stream's padded tail does not widen its last tile's range to -1
+SEGMENT_CHUNK = 64
+SEGMENT_PAD = 2 ** 31 - 2
+# (rows of a block, rows of each tile it walks) of K8's wgmma kernels, by
+# head_dim and kernel: the forward's and the dq kernel's query block and key
+# tiles, the dk/dv kernel's key block and query tiles
+SEGMENT_TILES = {(64, "fwd"): (192, 128), (128, "fwd"): (128, 128),
+                 (64, "dq"): (128, 128), (128, "dq"): (128, 64),
+                 (64, "dkv"): (128, 64), (128, "dkv"): (128, 64)}
+
+
+def segment_tile_ranges(ids: torch.Tensor, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi), each [B, ceil(S / rows)]: the least and the largest id of
+    each tile of ``rows`` rows of the [B, S] ids (as the kernel takes them,
+    padding -1 counted as SEGMENT_PAD), over its rows below S; a tile with
+    no row has lo > hi."""
+    b, s = ids.shape
+    n = -(-s // rows)
+    x = torch.where(ids < 0, SEGMENT_PAD, ids.to(torch.int64))
+    big = 2 ** 40
+    pad = n * rows - s
+    lo = torch.nn.functional.pad(x, (0, pad), value=big).reshape(b, n, rows).amin(-1)
+    hi = torch.nn.functional.pad(x, (0, pad), value=-big).reshape(b, n, rows).amax(-1)
+    return lo, hi
+
+
+def segment_tiles_kept(block_ids: torch.Tensor, tile_ids: torch.Tensor, block_rows: int,
+                       tile_rows: int) -> torch.Tensor:
+    """K8's tile rule: [B, ceil(Sb / block_rows), ceil(St / tile_rows)] bool,
+    whether the id ranges of a block of ``block_ids`` and a tile of
+    ``tile_ids`` meet. Only such a pair can hold two equal ids; every other
+    pair is neither loaded nor scored."""
+    blo, bhi = segment_tile_ranges(block_ids, block_rows)
+    tlo, thi = segment_tile_ranges(tile_ids, tile_rows)
+    return (blo[:, :, None] <= thi[:, None, :]) & (tlo[:, None, :] <= bhi[:, :, None])
+
+
+def segment_tile_span(block_ids: torch.Tensor, tile_ids: torch.Tensor, block_rows: int,
+                      tile_rows: int) -> torch.Tensor:
+    """The tiles a block of K8's wgmma kernels walks (the same shape as
+    ``segment_tiles_kept``): the run from its first kept tile to its last,
+    none if none is kept. For sorted ids that is exactly the kept tiles; for
+    unsorted ids a tile inside the run that meets no id is walked too, its
+    scores all selected out."""
+    kept = segment_tiles_kept(block_ids, tile_ids, block_rows, tile_rows)
+    idx = torch.arange(kept.shape[-1], device=kept.device)
+    first = torch.where(kept, idx, kept.shape[-1]).amin(-1, keepdim=True)
+    last = torch.where(kept, idx, -1).amax(-1, keepdim=True)
+    return (idx >= first) & (idx <= last)
+
+
+def segment_walk_rounds(block_ids: torch.Tensor, tile_ids: torch.Tensor, block_rows: int,
+                        tile_rows: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``segment_tile_span`` by rows, for a check that poisons what a K8
+    kernel must not read: a list of rounds (blocks [B, Sb], skipped [B, St]),
+    bool. In a round each sample's ``blocks`` rows are those of blocks that
+    walk one and the same run of tiles, and its ``skipped`` rows those of
+    the tiles that run leaves out. A block that walks every tile is in no
+    round; a sample has rows in as many rounds as it has such runs."""
+    span = segment_tile_span(block_ids, tile_ids, block_rows, tile_rows)
+    groups = []
+    for walks in span:  # per sample: (blocks, tiles skipped) of each run that skips a tile
+        runs, which = torch.unique(walks, dim=0, return_inverse=True)
+        groups.append([(which == g, ~run) for g, run in enumerate(runs) if not run.all()])
+    rounds = []
+    for r in range(max(map(len, groups), default=0)):
+        blocks = torch.zeros(block_ids.shape, dtype=torch.bool, device=block_ids.device)
+        skipped = torch.zeros(tile_ids.shape, dtype=torch.bool, device=tile_ids.device)
+        for i, sample in enumerate(groups):
+            if r < len(sample):
+                blocks[i] = sample[r][0].repeat_interleave(block_rows)[:block_ids.shape[1]]
+                skipped[i] = sample[r][1].repeat_interleave(tile_rows)[:tile_ids.shape[1]]
+        rounds.append((blocks, skipped))
+    return rounds
+
+
+# K8's wgmma entries whose tile sizes SEGMENT_TILES repeats, by head_dim:
+# (forward source, its entry), (backward source, its entry)
+_SEGMENT_TILE_ENTRIES = {
+    64: (("flash_fwd_sm90_d64", "vap_flash_fwd_d64_seg_tiles"),
+         ("flash_bwd_sm90_d64", "vap_flash_bwd_d64_seg_tiles")),
+    128: (("flash_fwd_sm90", "vap_flash_fwd_d128_seg_tiles"),
+          ("flash_bwd_sm90", "vap_flash_bwd_d128_seg_tiles")),
+}
+
+
+def segment_tiles_built() -> Dict[Tuple[int, str], Tuple[int, int]]:
+    """SEGMENT_TILES as the built K8 kernels give it (their ``*_seg_tiles``
+    entries): the card's own block and tile sizes. Builds the kernels."""
+    tiles = {}
+    for d, ((fwd_src, fwd), (bwd_src, bwd)) in _SEGMENT_TILE_ENTRIES.items():
+        rows = (ctypes.c_int * 4)()
+        _build.check(getattr(_build.library(fwd_src), fwd)(rows), fwd)
+        tiles[(d, "fwd")] = (rows[0], rows[1])
+        _build.check(getattr(_build.library(bwd_src), bwd)(rows), bwd)
+        tiles[(d, "dq")], tiles[(d, "dkv")] = (rows[0], rows[1]), (rows[2], rows[3])
+    return tiles
+
+
+def _segment_scratch(b: int, sq: int, skv: int, device) -> torch.Tensor:
+    """The range tables' scratch of a wgmma K8 entry: B * (ceil(Sq / 64) +
+    ceil(Skv / 64)) int2, as int32."""
+    chunks = -(-sq // SEGMENT_CHUNK) + -(-skv // SEGMENT_CHUNK)
+    return torch.empty(2 * b * max(chunks, 1), dtype=torch.int32, device=device)
 
 
 def flash_attention_segmented_forward_plain(q, k, v, q_segment_ids, kv_segment_ids,
@@ -512,16 +630,19 @@ def kernel_entry(backward: bool, head_dim: int, varlen: bool = False,
     ``_build.SOURCES``) and the launch counter on the wrapper
     (``flash_attention_backward`` for ``backward``, else
     ``flash_attention_segmented_forward`` given ``segmented``, else
-    ``flash_attention_forward``). Head_dim 64 without segment ids takes the
-    ``wgmma`` kernels of K1 and K5, 128 those of K4 and K6, with or without
-    ``varlen`` (K7's ``kv_lens``); segment ids (K8) and the other head dims
-    take the ``mma.sync`` kernels, K8 at 128 its own entries."""
+    ``flash_attention_forward``). Head_dim 64 takes the ``wgmma`` kernels of
+    K1 and K5, 128 those of K4 and K6, with or without ``varlen`` (K7's
+    ``kv_lens``) and with or without ``segmented`` (K8's ids: their
+    instances with tile skipping, entries of their own); the other head dims
+    take the ``mma.sync`` kernels."""
     d64, d128 = head_dim == 64, head_dim == 128
     if segmented:
         if backward:
-            return (("flash_bwd_d128", "vap_flash_bwd_seg_d128", "launches_d128_seg") if d128
-                    else ("flash_bwd", "vap_flash_bwd_seg", "launches_seg"))
-        return (("flash_fwd", "vap_flash_fwd_seg_d128", "launches_d128") if d128
+            return (("flash_bwd_sm90", "vap_flash_bwd_d128_seg", "launches_d128_seg") if d128
+                    else ("flash_bwd_sm90_d64", "vap_flash_bwd_d64_seg", "launches_d64_seg")
+                    if d64 else ("flash_bwd", "vap_flash_bwd_seg", "launches_seg"))
+        return (("flash_fwd_sm90", "vap_flash_fwd_d128_seg", "launches_d128") if d128
+                else ("flash_fwd_sm90_d64", "vap_flash_fwd_d64_seg", "launches_d64") if d64
                 else ("flash_fwd", "vap_flash_fwd_seg", "launches"))
     suffix = "_varlen" if varlen else ""
     if backward:
@@ -583,9 +704,11 @@ flash_attention_forward.launches_d128_varlen = 0
 
 def flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
                                       num_segments: int, scale: Optional[float] = None):
-    """K8: (out, lse) of packed-segment attention. CUDA tensors launch
-    ``vap_flash_fwd_seg`` (K1's form, head_dim a multiple of 16 below 128)
-    or ``vap_flash_fwd_seg_d128`` (K4's form, head_dim 128): bf16,
+    """K8: (out, lse) of packed-segment attention. CUDA tensors launch the
+    entry ``kernel_entry`` names: ``vap_flash_fwd_d64_seg`` (K1's wgmma
+    kernel, head_dim 64), ``vap_flash_fwd_d128_seg`` (K4's, head_dim 128),
+    each with a scratch for its id range tables, or ``vap_flash_fwd_seg``
+    (K1's mma.sync form, the other multiples of 16 below 128): bf16,
     contiguous; the ids go to the kernel as int32 on the same card, padding
     mapped to -1. CPU tensors take ``flash_attention_segmented_forward_plain``."""
     _shapes(q, k, v)
@@ -608,10 +731,12 @@ def flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
                    b * h, sq)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
-            out.data_ptr(), lse.data_ptr())
     source, entry, counter = kernel_entry(False, d, segmented=True)
-    dims = (b * h, h, sq, skv) + (() if d == 128 else (d,))
+    mma = source == "flash_fwd"
+    ranges = () if mma else (_segment_scratch(b, sq, skv, q.device).data_ptr(),)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
+            *ranges, out.data_ptr(), lse.data_ptr())
+    dims = (b * h, h, sq, skv) + ((d,) if mma else ())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(_build.library(source), entry)(*ptrs, *dims, scale * LOG2_E, stream)
@@ -622,6 +747,7 @@ def flash_attention_segmented_forward(q, k, v, q_segment_ids, kv_segment_ids,
 
 
 flash_attention_segmented_forward.launches = 0
+flash_attention_segmented_forward.launches_d64 = 0
 flash_attention_segmented_forward.launches_d128 = 0
 
 
@@ -636,8 +762,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
     ``vap_flash_bwd_d64`` (K5 at head_dim 64), ``vap_flash_bwd`` (K5 at the
     other multiples of 16 below 128) or ``vap_flash_bwd_d128`` (K6, head_dim
     128), ``kv_lens`` as int32 on the same card, or given segment ids
-    ``vap_flash_bwd_seg`` / ``vap_flash_bwd_seg_d128`` with the ids as the
-    forward maps them; CPU
+    ``vap_flash_bwd_d64_seg`` / ``vap_flash_bwd_d128_seg`` (with a scratch
+    for their id range tables) or ``vap_flash_bwd_seg`` at the other head
+    dims, with the ids as the forward maps them; CPU
     tensors take ``flash_attention_backward_plain``, at head_dim 128
     ``flash_attention_backward_rows_plain``, or
     ``flash_attention_segmented_backward_plain``."""
@@ -676,14 +803,16 @@ def flash_attention_backward(q, k, v, out, lse, dout, scale: Optional[float] = N
     _kernel_inputs("flash_attention_backward", tensors, dtypes, b * h, sq)
     lens = None if kv_lens is None else kv_lens.to(q.device, torch.int32).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    source, entry, counter = kernel_entry(True, d, varlen=lens is not None,
+                                          segmented=segment_ids is not None)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if segment_ids is not None:
         ptrs += (tensors["q_segment_ids"].data_ptr(), tensors["kv_segment_ids"].data_ptr())
+        if source != "flash_bwd":  # the wgmma entries' range tables
+            ptrs += (_segment_scratch(b, sq, skv, q.device).data_ptr(),)
     else:
         ptrs += (None if lens is None else lens.data_ptr(),)
-    source, entry, counter = kernel_entry(True, d, varlen=lens is not None,
-                                          segmented=segment_ids is not None)
     # K6's row form takes the scale; K5's log2 form scale * log2(e) and the scale
     dims = (b * h, h, sq, skv) + ((d,) if source == "flash_bwd" else ())
     scales = (scale,) if d == 128 else (scale * LOG2_E, scale)
@@ -702,6 +831,7 @@ flash_attention_backward.launches_varlen = 0
 flash_attention_backward.launches_d64_varlen = 0
 flash_attention_backward.launches_d128_varlen = 0
 flash_attention_backward.launches_seg = 0
+flash_attention_backward.launches_d64_seg = 0
 flash_attention_backward.launches_d128_seg = 0
 
 
@@ -741,8 +871,9 @@ class FlashAttentionSegmentedFunction(torch.autograd.Function):
     """K8's forward and backward (the JAX ``custom_vjp`` of
     ``flash_attention_segmented``, ``_fas_fwd`` / ``_fas_bwd`` at
     :1572-1597): K1 and K5 below head_dim 128, K4 and K6 at 128, each in its
-    segmented form. Takes the ids as int32 with padding mapped to -1
-    (``segment_ids_int32``); returns (out, lse), the lse not differentiable.
+    segmented form (the wgmma kernels at 64 and 128). Takes the ids as int32
+    with padding mapped to -1 (``segment_ids_int32``); returns (out, lse),
+    the lse not differentiable.
     Saves q, k, v, out, lse and both ids, so a ``torch.utils.checkpoint``
     recompute gives what the backward reads. As in the forward, a padding
     query (id -1) meets only padding keys here but every key in JAX: its

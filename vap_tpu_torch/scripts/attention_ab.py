@@ -4,6 +4,7 @@
     python -m vap_tpu_torch.scripts.attention_ab --d64 A B A B ...
     python -m vap_tpu_torch.scripts.attention_ab --sage A B B A ...
     python -m vap_tpu_torch.scripts.attention_ab --gemm A B B A ...
+    python -m vap_tpu_torch.scripts.attention_ab --seg A B B A ...
 
 Each root given is a checkout (or an unpacked archive) holding
 ``vap_tpu_torch/``; each is timed in its own process, in the order given,
@@ -15,9 +16,9 @@ queries x 512 and x 257 keys); K7 in K4 (given kv_lens) at HunyuanVideo
 generation's [1, 24, 32656, 128] with 32,443 valid keys; K1 and K5 at
 CogVideoX's [1, 48, 35552, 64]; K6 at Wan's training self-attention
 [1, 40, 20280, 128]; K7's backward in K6 at HunyuanVideo training's
-[1, 24, 18976, 128] with 18,763 valid keys; K8's backward where the root
-has it. bf16, ms per call over 5 calls after 2 of warm-up (20 at the cross
-shapes), with CUDA events (the backward's delta pre-pass included). Then
+[1, 24, 18976, 128] with 18,763 valid keys (K8: ``--seg``). bf16, ms per
+call over 5 calls after 2 of warm-up (20 at the cross shapes), with CUDA
+events (the backward's delta pre-pass included). Then
 the registers and spills ptxas gave the root's attention kernels (K1, K2,
 K4, K5, K6, K8; K1 and K5 at head_dim 64 from their wgmma sources where
 the root has them). With ``--d64`` only K1 and K5 at CogVideoX's shape are
@@ -36,8 +37,18 @@ shapes of a CogVideoX CFG step ([35552, 3072] x [3072, 3072 | 12288],
 apart (device time by kernel name under torch.profiler, the median of 5),
 and K9 (``gemm_probe``) and K10 (``gemm_probe_t``) in int8 and bf16 at the
 rate probe's (71168, 3072, 3072), 10 calls after 2; then the registers and
-spills ptxas gave the root's GEMM kernels. The kernels are built from each
-root's sources. It runs on the card and raises without one.
+spills ptxas gave the root's GEMM kernels. With ``--seg`` only K8 is
+timed, forward (``flash_attention_segmented_forward``) and backward
+(``flash_attention_backward(segment_ids=)``, its delta pre-pass included),
+at three packed streams: (a) CogVideoX's [1, 48, 35552, 64] as two segments
+of 17,776 and 17,712 tokens and 64 of padding, (b) Wan's [1, 40, 40560,
+128] as two halves, (c) HunyuanVideo training's [1, 24, 18976, 128] as one
+segment of 18,763 tokens and 213 of padding; 5 calls after 2 (forward) and
+3 after 1 (backward), each with its share of the bound over the
+same-segment pairs (4 and 10 x H x D x pairs at 989 TFLOP/s; SDPA's masked
+form, the yardstick, is timed by ``chip_smoke.py``, outside the port); then
+the registers of the root's K8 kernels. The kernels are
+built from each root's sources. It runs on the card and raises without one.
 """
 
 from __future__ import annotations
@@ -56,12 +67,18 @@ CROSS_KEYS = (512, 257)  # Wan's UMT5 and CLIP keys over one branch's 20,280 que
 W8A8_M = 2 * (226 + 13 * 30 * 45)  # the rows of a CogVideoX CFG step's projections
 W8A8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))  # (K, N)
 PROBE_SHAPE = (71168, 3072, 3072)  # M, K, N of the rate probe
+# K8's packed streams: shape and segment lengths from token 0 (padding after)
+SEG_CASES = {"a": (K5_SHAPE, (K5_SHAPE[2] // 2, K5_SHAPE[2] // 2 - 64)),
+             "b": (SHAPE, (SHAPE[2] // 2, SHAPE[2] // 2)),
+             "c": (K7_SHAPE, (K7_LEN,))}
+PEAK_BF16 = 989e12  # H100 SXM dense bf16, FLOP/s
 
 
-def time_root(root: str, d64: bool = False, sage: bool = False, gemm: bool = False) -> None:
+def time_root(root: str, d64: bool = False, sage: bool = False, gemm: bool = False,
+              seg: bool = False) -> None:
     """Import the port under ``root`` and print its attention kernels' times
     (with ``d64``, K1's and K5's only; with ``sage``, K2's only; with
-    ``gemm``, K3's, K9's and K10's instead)."""
+    ``gemm``, K3's, K9's and K10's instead; with ``seg``, K8's only)."""
     sys.path.insert(0, root)
     import torch
 
@@ -93,6 +110,9 @@ def time_root(root: str, d64: bool = False, sage: bool = False, gemm: bool = Fal
 
     if gemm:
         time_gemms(root, dev, gen, ms)
+        return
+    if seg:
+        time_segmented(root, dev, inputs, ms)
         return
     if sage:
         prepass = getattr(fa, "sage_prepass", fa.sage_quantize)
@@ -156,29 +176,48 @@ def time_root(root: str, d64: bool = False, sage: bool = False, gemm: bool = Fal
     out, lse = fa.flash_attention_forward(q, k, v, kv_lens=lens)
     k7 = ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, kv_lens=lens))
     del q, k, v, dout, out, lse
-    k8 = []
-    if hasattr(fa.flash_attention_backward, "launches_seg"):  # the root has K8's backward
-        for shape, lengths in ((K5_SHAPE, (K5_SHAPE[2] // 2, K5_SHAPE[2] // 2 - 64)),
-                               (SHAPE, (SHAPE[2] // 2, SHAPE[2] // 2))):
-            ids = torch.full((1, shape[2]), -1, dtype=torch.int32, device=dev)
-            ids[0, :lengths[0]] = 0
-            ids[0, lengths[0]:sum(lengths)] = 1
-            q, k, v, dout = inputs(shape, 4)
-            out, lse = fa.flash_attention_segmented_forward(q, k, v, ids, ids, 2)
-            calls = (3, 1) if shape == SHAPE else (5, 2)
-            k8.append(ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
-                                                             segment_ids=(ids, ids, 2)), *calls))
-            del q, k, v, dout, out, lse
-    seg = (f"; K8 backward {k8[0]:.3f} ms at {list(K5_SHAPE)}, {k8[1]:.3f} ms at {list(SHAPE)}"
-           if k8 else "; K8 backward: not in this root")
     cross = ", ".join(f"x {n} keys {f:.3f} / {b:.3f} ms"
                       for n, f, b in zip(CROSS_KEYS, cross_fwd, cross_bwd))
     print(f"{root}: K4 {k4:.3f} ms, K2 {k2:.3f} ms at {list(SHAPE)}; K1 {k1:.3f} ms, K5 "
           f"{backward[0]:.3f} ms at {list(K5_SHAPE)}; K6 {backward[1]:.3f} ms at "
           f"{list(K6_SHAPE)}; K4 / K6 at {K6_SHAPE[2]} queries {cross}; K7 in K4 {k7_fwd:.3f} ms "
           f"at {list(K7_FWD_SHAPE)}, {K7_FWD_LEN} keys; K7 backward in K6 {k7:.3f} ms at "
-          f"{list(K7_SHAPE)}, {K7_LEN} keys" + seg, flush=True)
+          f"{list(K7_SHAPE)}, {K7_LEN} keys", flush=True)
     print(f"{root}: attention kernels (ptxas): {kernel_registers()}", flush=True)
+
+
+def time_segmented(root, dev, inputs, ms) -> None:
+    """K8's forward and backward at SEG_CASES, each beside its bound over the
+    same-segment pairs, then the registers of the root's K8 kernels."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    parts = []
+    for case, (shape, lengths) in SEG_CASES.items():
+        _, h, s, d = shape
+        ids = torch.full((1, s), -1, dtype=torch.int32, device=dev)
+        pos = 0
+        for g, n in enumerate(lengths):
+            ids[0, pos:pos + n] = g
+            pos += n
+        n = len(lengths)
+        q, k, v, dout = inputs(shape, 4)
+        dout = dout.masked_fill((ids < 0)[:, None, :, None], 0)
+        out, lse = fa.flash_attention_segmented_forward(q, k, v, ids, ids, n)
+        fwd = ms(lambda: fa.flash_attention_segmented_forward(q, k, v, ids, ids, n))
+        bwd = ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                     segment_ids=(ids, ids, n)), 3, 1)
+        pairs = sum(int((ids == g).sum()) ** 2 for g in range(n))
+        f_bound, b_bound = (1e3 * c * h * d * pairs / PEAK_BF16 for c in (4, 10))
+        parts.append(f"({case}) forward {fwd:.3f} ms ({100 * f_bound / fwd:.1f}% of "
+                     f"{f_bound:.3f}), backward {bwd:.3f} ms ({100 * b_bound / bwd:.1f}% of "
+                     f"{b_bound:.3f})")
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    print(f"{root}: K8 " + "; ".join(parts), flush=True)
+    regs = {name: got for name, got in kernel_registers().items() if "seg" in name}
+    print(f"{root}: K8 kernels (ptxas): {regs}", flush=True)
 
 
 def device_ms(fn, iters, keys):
@@ -314,14 +353,16 @@ def main(argv=None) -> None:
     parser.add_argument("--gemm", action="store_true",
                         help="time only K3 (its quantise pass apart), K9 and K10 (their kernels' "
                              "registers)")
+    parser.add_argument("--seg", action="store_true",
+                        help="time only K8, forward and backward, at three packed streams")
     args = parser.parse_args(argv)
     if args.one:
-        time_root(os.path.abspath(args.roots[0]), args.d64, args.sage, args.gemm)
+        time_root(os.path.abspath(args.roots[0]), args.d64, args.sage, args.gemm, args.seg)
         return
     for root in args.roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root)]
-                       + ["--d64"] * args.d64 + ["--sage"] * args.sage + ["--gemm"] * args.gemm,
-                       check=True)
+                       + ["--d64"] * args.d64 + ["--sage"] * args.sage + ["--gemm"] * args.gemm
+                       + ["--seg"] * args.seg, check=True)
 
 
 if __name__ == "__main__":
