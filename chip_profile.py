@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Where the device time of one main-path call goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [cogvideox] [wan] [train] [w8a8] [wan_train] [hunyuan_train]
+    python3 chip_profile.py [cogvideox] [wan] [wan_w8a8] [train] [w8a8] [wan_train] [hunyuan_train]
 
 Builds the kernels and the same full-width paths as chip_smoke.py (random
 bf16 weights from a seed, one reference): one denoise step of CogVideoX-5B
 VAP at 49 frames of 480x720 under the flash and sage providers; one of
-Wan2.1-I2V-14B VAP at 49 frames of 480x832 with model offload under flash;
+Wan2.1-I2V-14B VAP at 49 frames of 480x832 with model offload under flash
+(with wan_w8a8 also under sage, then its bench configuration: the 804
+projections quantised on the card to W8A8, the chunk form, under sage and
+UniPC: K3 beside K2; before that it times one FFN weight's quantisation in
+host memory and on the card, the choice that quantize_transformer_linears'
+device= makes);
 one CogVideoX-5B VAP training step at 49 frames of 480x720, batch 1, remat
 "full", AdamW; one computed step of the bench configuration (CogVideoX-5B
 VAP under sage with its projections in W8A8, the chunk form: K3 beside
@@ -145,10 +150,33 @@ def main():
                 profile_call(pipe, main_path_args(STEPS), f"CogVideoX, {provider}")
         del pipe
         torch.cuda.empty_cache()
-    if "wan" in models:
+    if "wan" in models or "wan_w8a8" in models:
         pipe = build_wan_pipeline(dev)
         with attention_provider("flash"):
             profile_call(pipe, wan_args(STEPS), "Wan, flash, model offload")
+        if "wan_w8a8" in models:
+            from vap_tpu_torch.models.common import (quantize_linear_int8,
+                                                     quantize_transformer_linears)
+            from vap_tpu_torch.ops.schedulers import UniPCScheduler
+
+            with attention_provider("sage"):
+                profile_call(pipe, wan_args(STEPS), "Wan, sage, model offload")
+                weight = pipe.transformer.blocks[0].ffn.net[2].weight  # in host memory
+                t0 = time.perf_counter()
+                quantize_linear_int8(weight)
+                host_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                w_i8, s_w = quantize_linear_int8(weight.to(dev))
+                w_i8.cpu(), s_w.cpu()
+                card_s = time.perf_counter() - t0
+                log(f"one {list(weight.shape)} weight quantised in host memory {host_s:.3f} s, "
+                    f"on the card (copies included) {card_s:.3f} s")
+                t0 = time.perf_counter()
+                quantize_transformer_linears(pipe.transformer, act_scale="chunk", device=dev)
+                log(f"{time.perf_counter() - t0:.2f} s to quantise the projections on the card")
+                pipe.scheduler = UniPCScheduler(shift=3.0)
+                profile_call(pipe, wan_args(STEPS),
+                             "Wan bench configuration, sage + W8A8 + UniPC, model offload")
         del pipe
         torch.cuda.empty_cache()
     if "train" in models:

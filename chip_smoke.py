@@ -32,9 +32,13 @@ Phases, each of which raises on failure:
      1e-6, with and without kv_lens over a NaN suffix; a planted fault, q
      rows rolled, must break the equality), its time and bound;
      then K3 (the W8A8 linear) against its plain version, bit for bit, at
-     unaligned shapes and at the three projection shapes of a CogVideoX step
-     ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072]),
-     its quantise pass and GEMM timed apart (profiler device time),
+     unaligned shapes, at the three projection shapes of a CogVideoX step
+     ([35552, 3072] x [3072, 3072 | 12288], [35552, 12288] x [12288, 3072])
+     and at the six of a Wan2.1-14B step ([40560 | 1024, 5120] x [5120,
+     5120], [40560, 5120] x [5120, 13824], [40560, 13824] x [13824, 5120],
+     [514, 1280] x [1280, 1280 | 5120]; N = 5120 ends on a ragged 128-column
+     tile), a planted fault each time, its quantise pass and GEMM timed
+     apart (profiler device time),
      and K9 and K10 (the GEMM rate probe) in int8 (bit for bit) and bf16,
      each with its times, bound and yardsticks; then the rate probe's entry
      point (linear_bench --impl diag) with its launch counts; then K7, the
@@ -95,6 +99,13 @@ Phases, each of which raises on failure:
   4. CogVideoX, "flash": a small pipeline held against plain dense attention
      (with where its largest error sits and why), and a small W8A8 pipeline
      under DPM and the adaptive step cache, K3 against its plain version;
+     the other sampling modes on a small pipeline, each against plain dense
+     attention: ablation_single_branch, baseline_single_condition, plain
+     image-to-video, text-to-video (a T2V-shaped model),
+     discrete_long_reference; plain equal to baseline_single_condition,
+     model offload equal to resident and the tiled and sliced decode of one
+     tile equal to the default decode, to the bit; the tiled decode of a 2
+     x 2 tile grid on the card against the CPU;
      then CogVideoX-5B VAP at full width (42 blocks, MoT in 0-40, T5-XXL,
      the full VAE) at 49 frames of 480x720, random bf16 weights from a
      seed, through CogVideoXVAPPipeline.__call__, cut to 2 DDIM steps of
@@ -116,7 +127,14 @@ Phases, each of which raises on failure:
      49 frames of 480x832, one reference, FlowMatch shift 3, guidance 5,
      random bf16 weights from a seed, through WanVAPPipeline.__call__ with
      model offload (one component on the card at a time), cut to 2 steps
-     under flash and 1 under sage;
+     under flash and 1 under sage; then (6b) its bench configuration on the
+     same pipeline: the 804 projections quantised to W8A8 (chunk form) on
+     the card, one weight at a time, the int8 copies kept in host memory;
+     sage, UniPC (shift 3, guidance 5), the step cache "uniform:2:1:1" over
+     4 steps, decoded; per step K3's launches (804 on a computed step), the
+     row form's calls (0), K2's and its pre-pass's; K3 and K2 launch on
+     steps 0, 1 and 3 only and the reuse step costs under 5% of a computed
+     one;
   7. K5 (the flash backward, D=64: the wgmma kernels of
      flash_bwd_sm90_d64.cu) against its plain PyTorch version in bf16 at
      the unaligned shapes and at the main-path shape [1,48,35552,64], dq, dk
@@ -162,7 +180,12 @@ Phases, each of which raises on failure:
      update seconds, the peak device memory, K4 and K6 launches (240 and 120
      a step), the frozen trunk bit-identical, every adapter's B moved at
      step 1 and its A at step 2; the share of adapted weight elements the
-     bf16 merge changes;
+     bf16 merge changes; then (10b) that trained model, its adapters in
+     place, sampled through WanVAPPipeline.__call__ without a reference
+     (plain image-to-video) with phase 6's UMT5, CLIP and VAE under
+     offload, 49 frames of 480x832, UniPC, 2 steps under flash, latents
+     out: K4's launches (self-attention at [2,40,20280,128] and the two
+     cross-attentions of each block, 120 a step) and the peak memory;
  11. HunyuanVideo T2V: a small pipeline on the card at head_dim 128 under
      flash and sage (K7 in K4 and in K2) held against the plain masked
      dense attention, then HunyuanVideo at full width and depth (20 dual +
@@ -194,7 +217,8 @@ Phases, each of which raises on failure:
 The last three lines are a JSON object with each kernel's launches in its
 main-path run (K7 in K4, K2, K6 and K5 and K8 in K1, K4, K5 and K6 listed apart
 from them; K8 is on no model's path: its launches are those of the ring's
-forward and backward on one card), its largest error
+forward and backward on one card; K3 twice, "w8a8" at CogVideoX's shapes
+with phase 5's launches, "w8a8_wan" at Wan's with phase 6b's), its largest error
 against the plain version, and its times and bound at its main-path shape;
 the card's name and power limit as nvidia-smi gives them; and
 {"ok": true, "device": {...}}.
@@ -280,6 +304,16 @@ W8A8_M = 2 * (226 + 13 * 30 * 45)
 # (4 x 83 branch-blocks), the feed-forward's in and out (83 each)
 W8A8_SHAPES = {(3072, 3072): 332, (3072, 12288): 83, (12288, 3072): 83}
 W8A8_PARITY = [(300, k, n) for k in (256, 3072) for n in (128, 384)]  # M, K, N
+# K3 at Wan2.1-I2V-14B's projections (the Wan bench configuration, 49f@480x832,
+# one reference, CFG batch 2): (M, K, N) and the launches per computed step.
+# Each branch (target, reference) runs 2 x 20,280 video rows through attn1's
+# q, k, v, out and attn2's q, out (6 x 80 branch-blocks), 2 x 512 text rows
+# through attn2's k, v (2 x 80), the FFN up and down (80 each); each image
+# embedder 2 x 257 CLIP rows through its two (K, N = 1280 | 5120). N = 5120
+# leaves a ragged last column tile of 128 (26 x 192 + 128).
+WAN_W8A8_SHAPES = {(40560, 5120, 5120): 480, (1024, 5120, 5120): 160,
+                   (40560, 5120, 13824): 80, (40560, 13824, 5120): 80,
+                   (514, 1280, 1280): 2, (514, 1280, 5120): 2}
 # K3 vs plain version: per chunk the int32 product is exact on both sides
 # and the f32 steps are the same, uncontracted, in the same order, so the
 # bf16 outputs are equal to the bit; they are also held as max|err| /
@@ -543,6 +577,8 @@ BWD_SPECS = {
 }
 W8A8_SPECS = {
     "w8a8": dict(source="vap_tpu_torch/csrc/w8a8.cu", replaces="vap_tpu/ops/int8_matmul.py:73"),
+    "w8a8_wan": dict(source="vap_tpu_torch/csrc/w8a8.cu",
+                     replaces="vap_tpu/ops/int8_matmul.py:73"),
     "gemm_probe": dict(source="vap_tpu_torch/csrc/gemm_probe.cu",
                        replaces="scripts/linear_bench.py:99"),
     "gemm_probe_t": dict(source="vap_tpu_torch/csrc/gemm_probe.cu",
@@ -1792,12 +1828,14 @@ def w8a8_inputs(gen, dev, m, k, n, bias=True):
 
 
 def w8a8_parity(dev):
-    """K3 against its plain version at unaligned shapes and at the three
-    main-path shapes, equal to the bit (and within the limit), a planted
-    fault each time; times at the main-path shapes beside the plain version,
-    the bound and two yardsticks the port never calls: torch._int_mm on the
-    operands quantised beforehand, and the bf16 F.linear that W8A8 replaces;
-    the quantise pass and the GEMM apart (device time by kernel name)."""
+    """K3 against its plain version at unaligned shapes and at the main-path
+    shapes of CogVideoX's and Wan's W8A8 steps, equal to the bit (and within
+    the limit), a planted fault each time; times at the main-path shapes
+    beside the plain version, the bound and two yardsticks the port never
+    calls: torch._int_mm on the operands quantised beforehand, and the bf16
+    F.linear that W8A8 replaces; the quantise pass and the GEMM apart
+    (device time by kernel name). Returns the "w8a8" (CogVideoX) and
+    "w8a8_wan" entries of the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -1805,9 +1843,12 @@ def w8a8_parity(dev):
     from vap_tpu_torch.scripts.attention_ab import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    worst, by_shape = 0.0, {}
-    shapes = W8A8_PARITY + [(W8A8_M, k, n) for k, n in W8A8_SHAPES]
-    for i, (m, k, n) in enumerate(shapes):
+    models = {"w8a8": {(W8A8_M, k, n): per for (k, n), per in W8A8_SHAPES.items()},
+              "w8a8_wan": WAN_W8A8_SHAPES}
+    timed = {shape: (name, per) for name, main in models.items() for shape, per in main.items()}
+    worst = dict.fromkeys(models, 0.0)
+    by_shape = {name: {} for name in models}
+    for i, (m, k, n) in enumerate(W8A8_PARITY + list(timed)):
         x, w, w_i8, s_w, b = w8a8_inputs(gen, dev, m, k, n, bias=i % 2 == 0)
         out = ti8.int8_linear_chunk(x, w_i8, s_w, b)
         torch.cuda.synchronize()
@@ -1826,8 +1867,9 @@ def w8a8_parity(dev):
                                  "the bit)")
         if fault <= W8A8_REL_TOL * ref_max:
             raise AssertionError("w8a8: the limit does not catch weight rows out of place")
-        worst = max(worst, err)
-        if m == W8A8_M:
+        if (m, k, n) in timed:
+            name, per_step = timed[m, k, n]
+            worst[name] = max(worst[name], err)
             x_i8, _ = ti8.quantize_chunks(x, ti8._pick(k, ti8.BLOCK_K))
             ms = time_ms(lambda: ti8.int8_linear_chunk(x, w_i8, s_w, b), iters=10, warmup=2)
             plain_ms = time_ms(lambda: ti8.int8_linear_chunk_plain(x, w_i8, s_w, b), iters=2,
@@ -1839,28 +1881,37 @@ def w8a8_parity(dev):
                               ("w8a8_quantize", "w8a8_gemm"))
             bound_ms, bound_by = w8a8_bound(m, k, n)
             tops = 2 * m * n * k / (ms * 1e-3) / 1e12
-            log(f"  w8a8 at [{m},{k}]x[{k},{n}]: kernel {ms:.3f} ms ({tops:.1f} TOP/s; quantise "
-                f"pass {parts['w8a8_quantize']:.3f} ms, GEMM {parts['w8a8_gemm']:.3f} ms), plain "
-                f"{plain_ms:.3f} ms, torch._int_mm on quantised operands {int_mm_ms:.3f} ms, bf16 "
-                f"F.linear {bf16_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
-            by_shape[f"{m}x{k}x{n}"] = {"ms": ms, "quantize_ms": parts["w8a8_quantize"],
-                                        "gemm_ms": parts["w8a8_gemm"], "plain_ms": plain_ms,
-                                        "int_mm_ms": int_mm_ms, "bf16_linear_ms": bf16_ms,
-                                        "bound_ms": bound_ms, "bound_by": bound_by,
-                                        "per_step": W8A8_SHAPES[k, n]}
+            log(f"  w8a8 at [{m},{k}]x[{k},{n}] ({per_step} a step): kernel {ms:.3f} ms "
+                f"({tops:.1f} TOP/s; quantise pass {parts['w8a8_quantize']:.3f} ms, GEMM "
+                f"{parts['w8a8_gemm']:.3f} ms), plain {plain_ms:.3f} ms, torch._int_mm on "
+                f"quantised operands {int_mm_ms:.3f} ms, bf16 F.linear {bf16_ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms ({bound_by})")
+            by_shape[name][f"{m}x{k}x{n}"] = {
+                "ms": ms, "quantize_ms": parts["w8a8_quantize"], "gemm_ms": parts["w8a8_gemm"],
+                "plain_ms": plain_ms, "int_mm_ms": int_mm_ms, "bf16_linear_ms": bf16_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "per_step": per_step}
         del x, w, w_i8, s_w, b, out, ref, rolled
         torch.cuda.empty_cache()
-    step_ms = sum(r["ms"] * r["per_step"] for r in by_shape.values())
-    step_bound = sum(r["bound_ms"] * r["per_step"] for r in by_shape.values())
-    step_bf16 = sum(r["bf16_linear_ms"] * r["per_step"] for r in by_shape.values())
-    log(f"  w8a8 per CFG step (498 launches): kernel {step_ms:.3f} ms, bound {step_bound:.3f} ms, "
-        f"the same products as bf16 F.linear {step_bf16:.3f} ms")
-    first = by_shape[f"{W8A8_M}x3072x3072"]
-    return {"max_abs_err": worst, **{key: first[key] for key in
-                                     ("ms", "plain_ms", "bound_ms", "bound_by", "quantize_ms")},
-            "library_ms": None, "shape": [W8A8_M, 3072, 3072],
-            "yardsticks": {"int_mm_ms": first["int_mm_ms"], "bf16_linear_ms": first["bf16_linear_ms"]},
-            "by_shape": by_shape}
+    entries = {}
+    for name, main in models.items():
+        rows = by_shape[name].values()
+        step = {key: sum(r[key] * r["per_step"] for r in rows)
+                for key in ("ms", "bound_ms", "bf16_linear_ms")}
+        log(f"  {name} per computed CFG step ({sum(main.values())} launches): kernel "
+            f"{step['ms']:.3f} ms, bound {step['bound_ms']:.3f} ms, the same products as bf16 "
+            f"F.linear {step['bf16_linear_ms']:.3f} ms")
+        first_shape = next(iter(main))
+        first = by_shape[name]["x".join(map(str, first_shape))]
+        entries[name] = {
+            "max_abs_err": worst[name],
+            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "quantize_ms")},
+            "library_ms": None, "shape": list(first_shape),
+            "yardsticks": {"int_mm_ms": first["int_mm_ms"],
+                           "bf16_linear_ms": first["bf16_linear_ms"]},
+            "per_step_ms": step["ms"], "per_step_bound_ms": step["bound_ms"],
+            "by_shape": by_shape[name]}
+    return entries
 
 
 def probe_parity(dev):
@@ -2193,6 +2244,55 @@ def main_path(pipe, provider, steps, dev):
     return launches[kernel]
 
 
+def counted_call(pipe, args, provider, dev):
+    """``pipe(**args)`` under ``provider`` with every count at 0 before, its
+    scheduler swapped for a subclass that reads the counts at each step
+    (after that step's forward, if any). Returns the output, the call's
+    seconds, the peak device memory, the launches and each step's share."""
+    import torch
+
+    from vap_tpu_torch.ops.attention import attention_provider
+
+    at_step = []
+    scheduler = pipe.scheduler
+
+    class Counting(type(scheduler)):
+        def step(self, *a, **kw):
+            at_step.append(read_counts())
+            return super().step(*a, **kw)
+
+    pipe.scheduler = Counting(**{f.name: getattr(scheduler, f.name)
+                                 for f in dataclasses.fields(scheduler)})
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with attention_provider(provider):
+            out = pipe(**args)
+    finally:
+        pipe.scheduler = scheduler
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    deltas = [{k: v - (at_step[i - 1][k] if i else 0) for k, v in c.items()}
+              for i, c in enumerate(at_step)]
+    return out, wall, torch.cuda.max_memory_allocated(dev), launches, deltas
+
+
+def check_reuse_steps(step_seconds, deltas):
+    """The step cache's reuse steps (those not in BENCH_COMPUTED) launch no
+    kernel and each costs under REUSE_STEP_SHARE of the fastest computed
+    step."""
+    reuse = [i for i in range(BENCH_STEPS) if i not in BENCH_COMPUTED]
+    if any(v for i in reuse for v in deltas[i].values()):
+        raise AssertionError(f"a reuse step launched kernels: {deltas}")
+    computed_min = min(step_seconds[i] for i in BENCH_COMPUTED)
+    if any(step_seconds[i] >= REUSE_STEP_SHARE * computed_min for i in reuse):
+        raise AssertionError(f"a reuse step took {[step_seconds[i] for i in reuse]} s, not "
+                             f"under {REUSE_STEP_SHARE} of a computed step ({computed_min:.3f} s)")
+    log(f"  reuse step {reuse}: {[round(step_seconds[i], 4) for i in reuse]} s, "
+        f"{max(step_seconds[i] for i in reuse) / computed_min:.5f} of the fastest computed step")
+
+
 def bench_config_path(pipe, dev):
     """The bench configuration on the full-width pipeline: the projections
     quantised in place to W8A8 in the chunk form, then
@@ -2216,31 +2316,10 @@ def bench_config_path(pipe, dev):
     if len(names) != per_step:
         raise AssertionError(f"{len(names)} projections quantised, expected {per_step}")
 
-    # the launch counts at each scheduler step (after that step's forward, if any)
-    at_step = []
-
-    class Counting(type(pipe.scheduler)):
-        def step(self, *args, **kwargs):
-            at_step.append(read_counts())
-            return super().step(*args, **kwargs)
-
-    scheduler, pipe.scheduler = pipe.scheduler, Counting()
     args = dict(main_path_args(BENCH_STEPS), step_cache=BENCH_CACHE)
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
-    t0 = time.perf_counter()
-    try:
-        with attention_provider("sage"):
-            video = pipe(**args)
-    finally:
-        pipe.scheduler = scheduler
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    video, wall, peak, launches, deltas = counted_call(pipe, args, "sage", dev)
     st = pipe.stage_seconds
     steps = st["denoise_steps"]
-    deltas = [{k: v - (at_step[i - 1][k] if i else 0) for k, v in c.items()}
-              for i, c in enumerate(at_step)]
     per_step_launches = [{k: v for k, v in d.items() if v} for d in deltas]
     expected = (1, decoded_frames((NUM_FRAMES - 1) // 4 + 1), HEIGHT, WIDTH, 3)
     log(f"  output {video.shape}, finite {bool(np.isfinite(video).all())}, "
@@ -2257,15 +2336,7 @@ def bench_config_path(pipe, dev):
         raise AssertionError(f"computed steps {st['computed_steps']}, expected {BENCH_COMPUTED}")
     n = len(BENCH_COMPUTED)
     check_launches(launches, {"sage_fwd": n * cfg.num_layers, "w8a8": n * per_step})
-    reuse = [i for i in range(BENCH_STEPS) if i not in BENCH_COMPUTED]
-    if any(per_step_launches[i] for i in reuse):
-        raise AssertionError(f"a reuse step launched kernels: {per_step_launches}")
-    computed_min = min(steps[i] for i in BENCH_COMPUTED)
-    if any(steps[i] >= REUSE_STEP_SHARE * computed_min for i in reuse):
-        raise AssertionError(f"a reuse step took {[steps[i] for i in reuse]} s, not under "
-                             f"{REUSE_STEP_SHARE} of a computed step ({computed_min:.3f} s)")
-    log(f"  reuse step {reuse}: {[round(steps[i], 4) for i in reuse]} s, "
-        f"{max(steps[i] for i in reuse) / computed_min:.5f} of the fastest computed step")
+    check_reuse_steps(steps, deltas)
 
     # the row form on the same int8 weights: no K3 launch, 498 row-form calls
     set_int8_act_scale(pipe.transformer, "row")
@@ -2357,6 +2428,112 @@ def small_w8a8_check(dev):
                               "w8a8": len(steps) * n_proj})
     if not (torch.isfinite(out).all() and err <= W8A8_E2E_ATOL):
         raise AssertionError("small W8A8 pipeline: K3 disagrees with its plain version")
+
+
+def small_modes_check(dev):
+    """The CogVideoX pipeline's other sampling modes on a small pipeline on
+    the card, each held against the same call under plain dense attention
+    (the limit of ``small_pipeline_check``), with K1's launches: the
+    single-branch ablation (the trunk over target ‖ reference, six latent
+    frames where the learned table holds three), baseline_single_condition,
+    plain image-to-video, text-to-video on a T2V-shaped model, the
+    discrete_long_reference RoPE; plain equal to baseline_single_condition,
+    model offload equal to resident and the tiled and sliced decode of a
+    single tile equal to the default decode, each to the bit; the tiled
+    decode of a 2 x 2 tile grid in float32 on the card against the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.cogvideox import vae as cvae
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
+    from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.pipelines.cogvideox_i2v_mot import CogVideoXVAPPipeline
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    tiny = dict(num_attention_heads=2, attention_head_dim=64, num_layers=3,
+                use_learned_positional_embeddings=True)
+    t_cfg = CogVideoXMOTConfig.tiny(in_channels=8, out_channels=4, block_idx_with_mot_ref=(0, 1),
+                                    **tiny)
+    t2v_cfg = CogVideoXMOTConfig.tiny(in_channels=4, out_channels=4, block_idx_with_mot_ref=(),
+                                      **tiny)
+    txt_cfg = T5Config.tiny(d_model=t_cfg.text_embed_dim)
+    vae = build_random(cvae.AutoencoderKLCogVideoX, cvae.CogVideoXVAEConfig.tiny(), dev, bf16, gen)
+    text = build_random(T5EncoderModel, txt_cfg, dev, bf16, gen)
+    transformer = build_random(CogVideoXTransformer3DMOTModel, t_cfg, dev, bf16, gen)
+    t2v = build_random(CogVideoXTransformer3DMOTModel, t2v_cfg, dev, bf16, gen)
+
+    def pipeline(model, **kw):
+        return CogVideoXVAPPipeline(model, vae, text, FakeTokenizer(txt_cfg.vocab_size),
+                                    dtype=bf16, device=dev, **kw)
+
+    pipe = pipeline(transformer)
+    rng = np.random.default_rng(SEED)
+    base = dict(image=rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32), prompt="a cat",
+                ref_videos=[rng.uniform(-1, 1, (9, 64, 64, 3)).astype(np.float32)],
+                prompt_mot_ref=["explode it"], height=64, width=64, num_frames=9,
+                num_inference_steps=STEPS, max_sequence_length=t_cfg.max_text_seq_length,
+                output_type="latent",
+                latents=torch.from_numpy(rng.standard_normal((1, 3, 4, 8, 8)).astype(np.float32)))
+    plain = dict(ref_videos=None, prompt_mot_ref=None)
+    modes = {"ablation_single_branch": (pipe, dict(ablation_single_branch=True)),
+             "baseline_single_condition": (pipe, dict(baseline_single_condition=True)),
+             "plain i2v": (pipe, plain),
+             "t2v": (pipeline(t2v), dict(plain, image=None)),
+             "discrete_long_reference": (pipe, dict(ref_type="discrete_long_reference"))}
+    got = {}
+    for mode, (p, extra) in modes.items():
+        args = dict(base, **extra)
+        with attention_provider("xla"):
+            ref = torch.as_tensor(p(**args))
+        reset_counts()
+        with attention_provider("flash"):
+            out = torch.as_tensor(p(**args))
+        launches = read_counts()
+        err = (out.float() - ref.float()).abs().max().item()
+        got[mode] = out
+        log(f"  {mode}: {tuple(out.shape)}, flash vs plain dense attention max|err| {err:.4e} "
+            f"(tol {E2E_ATOL['flash']}), max|ref| {ref.abs().max().item():.3f}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check_launches(launches, {"flash_fwd": STEPS * t_cfg.num_layers})
+        if not (torch.isfinite(out).all() and err <= E2E_ATOL["flash"]):
+            raise AssertionError(f"small pipeline, {mode}: flash disagrees with plain attention")
+    if not torch.equal(got["plain i2v"], got["baseline_single_condition"]):
+        raise AssertionError("plain sampling differs from baseline_single_condition")
+    offloaded = CogVideoXVAPPipeline(copy.deepcopy(transformer).cpu(), copy.deepcopy(vae).cpu(),
+                                     copy.deepcopy(text).cpu(), FakeTokenizer(txt_cfg.vocab_size),
+                                     dtype=bf16, device=dev, enable_model_offload=True)
+    tiled = pipeline(transformer, enable_vae_tiling=True, enable_vae_slicing=True)
+    with attention_provider("flash"):
+        resident = pipe(**base)
+        moved = offloaded(**base)
+        video = pipe(**dict(base, output_type="np"))
+        tiled_video = tiled(**dict(base, output_type="np"))
+    log(f"  plain == baseline_single_condition to the bit; offload vs resident: equal to the bit "
+        f"{torch.equal(moved, resident)}, staged {sorted(offloaded.stage_seconds['staging'])}; "
+        f"tiled + sliced decode of one tile vs the default decode: {video.shape}, equal to the "
+        f"bit {np.array_equal(tiled_video, video)}")
+    if not torch.equal(moved, resident):
+        raise AssertionError("model offload changed the latents")
+    if not (np.isfinite(video).all() and np.array_equal(tiled_video, video)):
+        raise AssertionError("the tiled and sliced decode of one tile differs from the default")
+
+    vae32 = build_random(cvae.AutoencoderKLCogVideoX, cvae.CogVideoXVAEConfig.tiny(), "cpu",
+                         torch.float32, torch.Generator().manual_seed(SEED + 6))
+    z = torch.from_numpy(rng.standard_normal((1, 2, 32, 40, 4)).astype(np.float32))
+    with torch.no_grad():
+        ref = cvae.vae_decode_tiled(vae32, z)
+        out = cvae.vae_decode_tiled(vae32.to(dev), z.to(dev)).cpu()
+    err = (out - ref).abs().max().item()
+    log(f"  tiled decode, 2 x 2 tiles, card vs CPU (float32): {tuple(out.shape)}, max|err| "
+        f"{err:.3e} (tol {VAE_CARD_ATOL}), max|ref| {ref.abs().max().item():.3f}")
+    if not err <= VAE_CARD_ATOL:
+        raise AssertionError("the tiled decode on the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -2495,6 +2672,113 @@ def wan_main_path(pipe, provider, steps, dev):
     want = steps * pipe.transformer.config.num_layers * 5
     check_launches(launches, {kernel: want})
     return launches[kernel]
+
+
+def wan_bench_path(pipe, dev):
+    """Phase 6b, the Wan bench configuration on phase 6's pipeline (its
+    weights in host memory): the projections quantised to W8A8 in the chunk
+    form, each weight on the card and its int8 copy back in host memory, then
+    WanVAPPipeline.__call__ under sage, UniPC (shift 3, guidance 5) and the
+    step cache "uniform:2:1:1" over 4 steps, decoded. K3 and K2 (with its
+    pre-pass) launch on the computed steps 0, 1 and 3 only, the row form
+    never, and the reuse step costs under 5% of a computed one. Returns K3's
+    launches."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.common import quantize_transformer_linears
+    from vap_tpu_torch.ops.schedulers import UniPCScheduler
+
+    if pipe._staged and pipe._staged[0][0] == "transformer":
+        raise AssertionError("the transformer is staged: quantise its host weights, not a copy")
+    model = pipe.transformer
+    t0 = time.perf_counter()
+    names = quantize_transformer_linears(model, act_scale="chunk", device=dev)
+    quantize_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    n_int8 = sum(model.get_submodule(n).w_i8.numel() for n in names)
+    log(f"  {len(names)} projections "
+        f"({n_int8} weights) quantised on the card, int8 kept in host memory, in {quantize_s:.2f} "
+        f"s; the transformer now {sum(t.numel() * t.element_size() for t in model.state_dict().values()) / 2**30:.2f} GiB")
+    per_step = sum(WAN_W8A8_SHAPES.values())
+    if len(names) != per_step:
+        raise AssertionError(f"{len(names)} projections quantised, expected {per_step}")
+
+    flow_match, pipe.scheduler = pipe.scheduler, UniPCScheduler(shift=3.0)
+    try:
+        video, wall, peak, launches, deltas = counted_call(
+            pipe, dict(wan_args(BENCH_STEPS), step_cache=BENCH_CACHE), "sage", dev)
+    finally:
+        pipe.scheduler = flow_match
+    st = pipe.stage_seconds
+    steps = st["denoise_steps"]
+    shown = ("w8a8", "w8a8_row_calls", "sage_fwd", "sage_quant")
+    expected = (1, NUM_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3)
+    log(f"  output {video.shape}, finite {bool(np.isfinite(video).all())}, "
+        f"range [{video.min():.3f}, {video.max():.3f}]")
+    log(f"  stage seconds: text_encode {st['text_encode']:.3f}, image_encode "
+        f"{st['image_encode']:.3f}, vae_encode {st['vae_encode']:.3f}, denoise steps "
+        f"{[round(x, 3) for x in steps]} (computed {st['computed_steps']}), vae_decode "
+        f"{st['vae_decode']:.3f}, host->card staging "
+        f"{ {k: round(v, 3) for k, v in st['staging'].items()} }; call {wall:.3f}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; per step " + "; ".join(
+        f"step {i}: " + ", ".join(f"{k} {d[k]}" for k in shown) for i, d in enumerate(deltas)))
+    if video.shape != expected or not np.isfinite(video).all():
+        raise AssertionError(f"Wan bench configuration output {video.shape} (expected "
+                             f"{expected}) or not finite")
+    if st["computed_steps"] != BENCH_COMPUTED:
+        raise AssertionError(f"computed steps {st['computed_steps']}, expected {BENCH_COMPUTED}")
+    n = len(BENCH_COMPUTED)
+    # per MoT block and step: the joint attention and four cross-attentions
+    check_launches(launches, {"sage_fwd": n * model.config.num_layers * 5, "w8a8": n * per_step})
+    check_reuse_steps(steps, deltas)
+    return launches["w8a8"]
+
+
+def wan_plain_sampling_path(model, parts, dev):
+    """Phase 10b: phase 10's trained plain transformer (40 blocks, its LoRA
+    adapters in place, on the card) sampled through WanVAPPipeline.__call__
+    without a reference, with phase 6's UMT5, CLIP and VAE under offload:
+    plain image-to-video at 49f@480x832, UniPC (shift 3, guidance 5), 2
+    steps under flash, latents out. K4 runs each block's self-attention
+    ([2,40,20280,128]) and its two cross-attentions (512 text, 257 CLIP
+    keys): 120 launches a step."""
+    import torch
+
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.ops.schedulers import UniPCScheduler
+    from vap_tpu_torch.pipelines.wan_i2v_mot import WanVAPPipeline
+
+    pipe = WanVAPPipeline(model.eval(), parts["vae"], parts["text_encoder"],
+                          parts["image_encoder"],
+                          FakeTokenizer(parts["text_encoder"].config.vocab_size),
+                          scheduler=UniPCScheduler(shift=3.0), dtype=torch.bfloat16, device=dev,
+                          enable_model_offload=True)
+    args = dict(wan_args(WAN_STEPS), ref_videos=None, prompt_mot_ref=None, output_type="latent")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with attention_provider("flash"):
+        latents = pipe(**args)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = pipe.stage_seconds
+    cfg = model.config
+    expected = (1, (NUM_FRAMES - 1) // 4 + 1, WAN_HEIGHT // 8, WAN_WIDTH // 8, cfg.out_channels)
+    log(f"  latents {tuple(latents.shape)}, finite {bool(torch.isfinite(latents).all())}, max "
+        f"{latents.abs().max().item():.3f}; stage seconds: text_encode {st['text_encode']:.3f}, "
+        f"image_encode {st['image_encode']:.3f}, vae_encode {st['vae_encode']:.3f}, denoise "
+        f"steps {[round(x, 3) for x in st['denoise_steps']]}, host->card staging "
+        f"{ {k: round(v, 3) for k, v in st['staging'].items()} }; call {wall:.3f}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if tuple(latents.shape) != expected or not torch.isfinite(latents).all():
+        raise AssertionError(f"plain Wan sampling: latents {tuple(latents.shape)} (expected "
+                             f"{expected}) or not finite")
+    check_launches(launches, {"flash_fwd_d128": WAN_STEPS * cfg.num_layers * 3})
+    pipe._staged.clear()  # the slot's host references go with the pipeline
 
 
 # ---------------------------------------------------------------------------
@@ -2891,10 +3175,14 @@ def wan_training_path(dev):
     # K4 runs each attention in the forward and again in the recompute
     launches = run_lora_training(trainer, {"flash_fwd_d128": 2 * per_step,
                                            "flash_bwd_d128": per_step})
+    # the model goes on to phase 10b; its gradients and the optimizer state do not
+    model = trainer.model
+    for p in model.parameters():
+        p.grad = None
     del trainer
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches["flash_bwd_d128"]
+    return launches["flash_bwd_d128"], model
 
 
 # ---------------------------------------------------------------------------
@@ -3312,8 +3600,8 @@ def main():
     results = kernel_parity(dev)
     log("K2's pre-pass (sage_quant) parity (vs plain PyTorch's sage_quantize):")
     results["sage_quant"] = prepass_parity(dev)
-    log("W8A8 (K3) parity (vs plain PyTorch):")
-    results["w8a8"] = w8a8_parity(dev)
+    log("W8A8 (K3) parity (vs plain PyTorch), at CogVideoX's and Wan's projections:")
+    results.update(w8a8_parity(dev))
     log("GEMM rate probe (K9, K10) parity (vs plain PyTorch):")
     results.update(probe_parity(dev))
     log("the rate probe's entry point (linear_bench --impl diag):")
@@ -3340,6 +3628,8 @@ def main():
     small_pipeline_check(dev)
     log("small W8A8 pipeline check (DPM, adaptive step cache):")
     small_w8a8_check(dev)
+    log("small pipeline, the other sampling modes:")
+    small_modes_check(dev)
     pipe = build_main_pipeline(dev)
     log(f"main path, flash ({NUM_FRAMES} frames, {STEPS} steps):")
     launches["flash_fwd"] = main_path(pipe, "flash", STEPS, dev)
@@ -3369,6 +3659,11 @@ def main():
     launches["flash_fwd_d128"] = wan_main_path(pipe, "flash", WAN_STEPS, dev)
     log(f"Wan main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd_d128"] = wan_main_path(pipe, "sage", 1, dev)
+    log(f"Wan bench configuration, sage + W8A8 + UniPC ({NUM_FRAMES} frames, {BENCH_STEPS} "
+        f"steps, step cache {BENCH_CACHE}):")
+    launches["w8a8_wan"] = wan_bench_path(pipe, dev)
+    # UMT5, CLIP and the VAE stay in host memory for phase 10b
+    wan_parts = {name: getattr(pipe, name) for name in ("vae", "text_encoder", "image_encoder")}
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -3396,7 +3691,13 @@ def main():
     # 10. Wan LoRA training
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
         f"batch 1, {TRAIN_STEPS} optimizer steps):")
-    launches["flash_bwd_d128"] = wan_training_path(dev)
+    launches["flash_bwd_d128"], model = wan_training_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"plain Wan I2V sampling of the trained LoRA model ({NUM_FRAMES} frames of "
+        f"{WAN_HEIGHT}x{WAN_WIDTH}, UniPC, {WAN_STEPS} steps, latents):")
+    wan_plain_sampling_path(model, wan_parts, dev)
+    del model, wan_parts
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3446,6 +3747,7 @@ def main():
         results[name]["registers"] = registers[kernel]
     for name in GEMM_INSTANCES:  # K3's GEMM, K9's and K10's kernels
         results[name]["registers"] = registers[name]
+    results["w8a8_wan"]["registers"] = registers["w8a8"]
     specs = {**kernel_specs(), **PREPASS_SPECS, **BWD_SPECS, **W8A8_SPECS, **VARLEN_SPECS,
              **VARLEN_BWD_SPECS, **SEG_SPECS, **SEG_BWD_SPECS}
     print(json.dumps({"kernels": [

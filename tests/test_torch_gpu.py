@@ -1457,3 +1457,122 @@ def test_ring_body_backward_on_one_card_matches_one_kernel_call(cuda, d, n, mask
                                     ids=ids if mask == "segments" else None)
     errs = _grad_errors(got, want)
     assert max(errs) <= GRAD_REL_TOL, errs
+
+
+# K3 at Wan2.1-14B's projection widths: N = 5120 is 26 full 192-column tiles
+# and a ragged one of 128; K = 5120 quantises in 1024-column chunks, K =
+# 13,824 (the FFN's down projection) in 1536; the text rows of the
+# cross-attention's K/V (1024) and an unaligned row count
+K3_WAN_CASES = [(m, k, n) for m in (300, 1024) for k, n in ((5120, 5120), (5120, 13824),
+                                                          (13824, 5120))]
+
+
+@pytest.mark.parametrize("m,k,n", K3_WAN_CASES)
+def test_k3_at_wan_widths(cuda, m, k, n):
+    """Equal to the plain version to the bit, the ragged last column tile
+    included."""
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    x, w_i8, s_w, b = _w8a8_inputs(cuda, m, k, n, bias=m % 2 == 0, seed=6)
+    before = ti8.int8_linear_chunk.launches
+    out = ti8.int8_linear_chunk(x, w_i8, s_w, b)
+    torch.cuda.synchronize()
+    assert ti8.int8_linear_chunk.launches == before + 1
+    ref = ti8.int8_linear_chunk_plain(x, w_i8, s_w, b)
+    assert torch.isfinite(out).all() and torch.equal(out, ref)
+    assert torch.equal(out[:, -128:], ref[:, -128:])  # the last, ragged tile at N = 5120
+
+
+class _Tokenizer:
+    """Deterministic character ids, padded with 0 (masked)."""
+
+    def __call__(self, texts, padding=None, max_length=16, truncation=True,
+                 add_special_tokens=True, return_tensors="np"):
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for i, t in enumerate(texts):
+            for j, ch in enumerate(t[:max_length]):
+                ids[i, j] = (ord(ch) * 7 + j) % 127 + 1
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+
+def small_wan_pipeline(device, **kw):
+    """A small Wan VAP pipeline in bf16 with random weights from a seed: one
+    128-wide head, so every projection, the image embedder's included,
+    tiles to K3's 128 and the attention runs in K4."""
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.models.wan.config import WanMOTConfig
+    from vap_tpu_torch.models.wan.transformer_mot import WanTransformer3DMOTModel
+    from vap_tpu_torch.models.wan.vae import AutoencoderKLWan, WanVAEConfig
+    from vap_tpu_torch.pipelines.wan_i2v_mot import WanVAPPipeline
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16 = torch.bfloat16
+    t_cfg = WanMOTConfig.tiny(num_attention_heads=1, attention_head_dim=128, in_channels=12,
+                              out_channels=4, text_dim=32, image_dim=128, added_kv_proj_dim=128,
+                              ffn_dim=256)
+    clip_cfg = CLIPVisionConfig.tiny(hidden_size=128, intermediate_size=256)
+    return WanVAPPipeline(
+        build_random(WanTransformer3DMOTModel, t_cfg, device, bf16, gen),
+        build_random(AutoencoderKLWan, WanVAEConfig.tiny(), device, bf16, gen),
+        build_random(T5EncoderModel, T5Config.tiny(per_layer_relative_bias=True), device, bf16,
+                     gen),
+        build_random(CLIPVisionModel, clip_cfg, device, bf16, gen),
+        _Tokenizer(), dtype=bf16, device=device, **kw)
+
+
+def small_wan_args(steps):
+    rng = np.random.default_rng(0)
+    return dict(image=rng.uniform(-1, 1, (32, 32, 3)).astype(np.float32), prompt="a cat",
+                ref_videos=[rng.uniform(-1, 1, (9, 32, 32, 3)).astype(np.float32)],
+                prompt_mot_ref=["explode it"], height=32, width=32, num_frames=9,
+                num_inference_steps=steps, guidance_scale=5.0, max_sequence_length=16,
+                output_type="latent",
+                latents=torch.from_numpy(rng.standard_normal((1, 3, 4, 4, 4)).astype(np.float32)))
+
+
+# the W8A8 pipeline against the bf16 one: the cosine of the final latents,
+# the gate tests/test_int8_linear.py puts on JAX's W8A8 Wan forward
+W8A8_MIN_COS = 0.999
+
+
+def test_small_wan_pipeline_in_w8a8_chunk_form(cuda):
+    """All 44 projections in K3 (20 in each MoT block's two branches, 2 in
+    each image embedder), 2 steps: K3 launches 88 times, the row form never;
+    the latents within the cosine gate of the bf16 pipeline's (0.99980 in
+    the same run on the CPU, where K3's plain version runs)."""
+    from vap_tpu_torch.models import common as tc
+    from vap_tpu_torch.ops import int8_matmul as ti8
+
+    pipe = small_wan_pipeline(cuda)
+    want = pipe(**small_wan_args(2))
+    names = tc.quantize_transformer_linears(pipe.transformer, act_scale="chunk")
+    launches, calls = ti8.int8_linear_chunk.launches, tc.int8_linear_row.calls
+    got = pipe(**small_wan_args(2))
+    assert len(names) == 44
+    assert ti8.int8_linear_chunk.launches - launches == 2 * len(names)
+    assert tc.int8_linear_row.calls == calls
+    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0).item()
+    assert torch.isfinite(got).all() and cos >= W8A8_MIN_COS, cos
+
+
+def test_small_wan_pipeline_under_unipc_and_the_step_cache(cuda):
+    """UniPC with "uniform:2:1:1" over 4 steps: steps 0, 1 and 3 run the
+    transformer (K4: the joint attention and four cross-attentions of each
+    MoT block), step 2 reuses step 1's prediction and launches nothing; the latents as the plain dense attention's, within the limit
+    chip_smoke.py's small Wan check holds flash to."""
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.ops.schedulers import UniPCScheduler
+
+    pipe = small_wan_pipeline(cuda, scheduler=UniPCScheduler(shift=3.0))
+    args = dict(small_wan_args(4), step_cache="uniform:2:1:1")
+    with attention_provider("xla"):
+        ref = pipe(**args)
+    before = tfa.flash_attention_forward.launches_d128
+    with attention_provider("flash"):
+        got = pipe(**args)
+    assert pipe.stage_seconds["computed_steps"] == [0, 1, 3]
+    assert (tfa.flash_attention_forward.launches_d128 - before
+            == 3 * 5 * pipe.transformer.config.num_layers)
+    assert torch.isfinite(got).all() and (got - ref).abs().max().item() <= 0.25

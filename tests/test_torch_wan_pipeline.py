@@ -143,13 +143,15 @@ def test_clip_preprocess_matches_jax(pipelines):
 
 
 def test_unported_modes_raise(pipelines):
+    """What the port still lacks raises: streamed block offload and the MoT
+    option ``reference_train_mode``."""
     port, _ = pipelines
     args, _ = _call_args()
-    for extra in (dict(step_cache="uniform:2"), dict(ref_videos=None)):
-        with pytest.raises(NotImplementedError):
-            port()(**{**args, **extra})
+    with pytest.raises(NotImplementedError, match="offload_blocks_chunk"):
+        port(offload_blocks_chunk=2)(**args)
     with pytest.raises(NotImplementedError):
-        port(enable_vae_tiling=True)(**args)
+        WanTransformer3DMOTModel(WanMOTConfig.tiny(**T_CFG,
+                                                   reference_train_mode="reference_independent"))
 
 
 def test_pipeline_without_device_needs_a_card(monkeypatch):

@@ -8,12 +8,18 @@ tokens. Blocks listed in ``block_idx_with_mot_ref`` are joint MoT blocks;
 the others are plain trunk blocks (the released structure: MoT in 0-40 of
 42).
 
+Without reference inputs the forward runs the base trunk alone over
+``hidden_states`` (``cogvideox_mot_forward(single_branch=True)``, :597-620):
+the MoT blocks skip their expert and no reference stream is built. The
+pipeline's plain, T2V and single-branch ablation modes call it so.
+
 Module attributes follow the diffusers state-dict keys of
 ``CogVideoXTransformer3DMOTModel`` (``transformer_blocks.{i}.attn1.to_q``,
 ``patch_embed.proj``, ...), so a checkpoint loads with ``load_state_dict``.
-Not ported (they raise): the ablation modes, ``reference_independent``,
-effect and reference-slot embeddings, the ofs embedding and temporal
-patching (``patch_size_t``).
+Not ported (they raise): the block ablations (``ablation_single_encoder``,
+``ablation_residual_addition``), ``reference_independent``, effect and
+reference-slot embeddings, the ofs embedding and temporal patching
+(``patch_size_t``).
 """
 
 from __future__ import annotations
@@ -194,7 +200,7 @@ class CogVideoXBlock(nn.Module):
         nhs = _modulate(self.norm1.norm, hs, scale, shift)
         nehs = _modulate(self.norm1.norm, ehs, e_scale, e_shift)
 
-        if not self.with_mot:
+        if not self.with_mot or hs_ref is None:
             q, k, v = self.attn1.qkv(torch.cat([nehs, nhs], dim=1), rope, text_len)
             attn = self.attn1.out(full_attention(q, k, v))
             hs = hs + gate[:, None] * attn[:, text_len:]
@@ -275,13 +281,17 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 timestep: torch.Tensor, image_rotary_emb: Rope,
-                hidden_states_mot_ref: torch.Tensor, encoder_hidden_states_mot_ref: torch.Tensor,
-                image_rotary_emb_mot_ref: Rope, num_mot_ref: int = 1,
+                hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                encoder_hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                image_rotary_emb_mot_ref: Rope = None, num_mot_ref: int = 1,
                 timestep_mot_ref: Optional[torch.Tensor] = None,
                 remat: Union[bool, str] = False) -> torch.Tensor:
         """hidden_states [B, F, C, H, W] (noisy ‖ image latents); text
         [B, T, D_text]; timestep [B]; refs [B, R*F, C, H, W] and
         [B, R*T, D_text]; timestep_mot_ref [B, R] defaults to the target's.
+        Without ``hidden_states_mot_ref`` the trunk runs alone over
+        ``hidden_states`` (which the single-branch ablation makes target ‖
+        references along frames, with the two RoPE tables concatenated).
 
         ``remat``: False, or True / "full" to checkpoint each block
         (``remat_blocks``); "ops" and "block_skip:N" raise."""
@@ -293,18 +303,19 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
         r = num_mot_ref
 
         emb = self._time_embed(self.time_embedding, timestep, dtype)
-        if timestep_mot_ref is None:
-            timestep_mot_ref = timestep[:, None].expand(b, r)
-        emb_ref = self._time_embed(self.time_embedding_mot_ref, timestep_mot_ref.reshape(-1),
-                                   dtype).reshape(b, r, -1)
-
         tokens = self.patch_embed(encoder_hidden_states, hidden_states)
         ehs, hs = tokens[:, :t_text], tokens[:, t_text:]
-        vid_ref = hidden_states_mot_ref.reshape(b * r, num_frames, *hidden_states_mot_ref.shape[2:])
-        txt_ref = encoder_hidden_states_mot_ref.reshape(b * r, t_text, -1)
-        tokens_ref = self.patch_embed_mot_ref(txt_ref, vid_ref).reshape(b, r, -1, cfg.inner_dim)
-        ehs_ref = tokens_ref[:, :, :t_text].reshape(b, r * t_text, cfg.inner_dim)
-        hs_ref = tokens_ref[:, :, t_text:].reshape(b, -1, cfg.inner_dim)
+        hs_ref = ehs_ref = emb_ref = None
+        if hidden_states_mot_ref is not None:
+            if timestep_mot_ref is None:
+                timestep_mot_ref = timestep[:, None].expand(b, r)
+            emb_ref = self._time_embed(self.time_embedding_mot_ref, timestep_mot_ref.reshape(-1),
+                                       dtype).reshape(b, r, -1)
+            vid_ref = hidden_states_mot_ref.reshape(b * r, num_frames, *hidden_states_mot_ref.shape[2:])
+            txt_ref = encoder_hidden_states_mot_ref.reshape(b * r, t_text, -1)
+            tokens_ref = self.patch_embed_mot_ref(txt_ref, vid_ref).reshape(b, r, -1, cfg.inner_dim)
+            ehs_ref = tokens_ref[:, :, :t_text].reshape(b, r * t_text, cfg.inner_dim)
+            hs_ref = tokens_ref[:, :, t_text:].reshape(b, -1, cfg.inner_dim)
 
         for block in self.transformer_blocks:
             args = (hs, ehs, emb, image_rotary_emb, hs_ref, ehs_ref, emb_ref,

@@ -8,10 +8,11 @@ card), as they were XLA in JAX.
 
 Inside, tensors are channel-first [B, C, F, H, W]; the public functions
 (``vae_encode``, ``vae_decode_streamed``, ``vae_decode_wsplit``,
-``posterior_mode``) keep the JAX package's channel-last [B, F, H, W, C].
-Module attributes follow the diffusers keys of ``AutoencoderKLCogVideoX``.
-The conv cache is an explicit dict keyed by each causal conv's module path.
-The tiled encode and decode paths are not ported.
+``vae_decode_tiled``, ``posterior_mode``) keep the JAX package's
+channel-last [B, F, H, W, C]. Module attributes follow the diffusers keys
+of ``AutoencoderKLCogVideoX``. The conv cache is an explicit dict keyed by
+each causal conv's module path. The tiled encode is not ported (no
+pipeline calls it).
 """
 
 from __future__ import annotations
@@ -360,14 +361,40 @@ def vae_decode_streamed(vae: AutoencoderKLCogVideoX, latents: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
-def _blend_h(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
-    """Blend the right columns of tile a into the left columns of tile b (W axis 3)."""
-    extent = min(a.shape[3], b.shape[3], extent)
+def blend_axis(a: torch.Tensor, b: torch.Tensor, extent: int, axis: int) -> torch.Tensor:
+    """Blend the last ``extent`` entries of tile a along ``axis`` (2: rows,
+    3: columns of [B, F, H, W, C]) into the first ones of tile b, linearly
+    and in float32."""
+    extent = min(a.shape[axis], b.shape[axis], extent)
     if extent == 0:
         return b
-    w = (torch.arange(extent, dtype=torch.float32, device=b.device) / extent).reshape(1, 1, 1, extent, 1)
-    left = a[:, :, :, -extent:].float() * (1 - w) + b[:, :, :, :extent].float() * w
-    return torch.cat([left.to(b.dtype), b[:, :, :, extent:]], dim=3)
+    shape = [1] * b.ndim
+    shape[axis] = extent
+    w = (torch.arange(extent, dtype=torch.float32, device=b.device) / extent).reshape(shape)
+    a_tail = a.narrow(axis, a.shape[axis] - extent, extent).float()
+    b_head = b.narrow(axis, 0, extent).float()
+    blended = (a_tail * (1 - w) + b_head * w).to(b.dtype)
+    return torch.cat([blended, b.narrow(axis, extent, b.shape[axis] - extent)], dim=axis)
+
+
+def stitch_tiles(rows, blend_h: int, blend_w: int, crop_h: int, crop_w: int) -> torch.Tensor:
+    """A grid of decoded tiles (rows of [B, F, h, w, 3]) as one video: each
+    tile blended into its upper and left neighbours, which later tiles see
+    blended (the reference's blend writes the tile in place), then cropped
+    to ``crop_h`` x ``crop_w`` and concatenated."""
+    out_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j in range(len(row)):
+            tile = row[j]
+            if i > 0:
+                tile = blend_axis(rows[i - 1][j], tile, blend_h, axis=2)
+            if j > 0:
+                tile = blend_axis(row[j - 1], tile, blend_w, axis=3)
+            row[j] = tile
+            out_row.append(tile[:, :, :crop_h, :crop_w])
+        out_rows.append(torch.cat(out_row, dim=3))
+    return torch.cat(out_rows, dim=2)
 
 
 def vae_decode_wsplit(vae: AutoencoderKLCogVideoX, latents: torch.Tensor, n_splits: int = 2,
@@ -390,12 +417,36 @@ def vae_decode_wsplit(vae: AutoencoderKLCogVideoX, latents: torch.Tensor, n_spli
     for i in range(n_splits):
         tile = tiles[i]
         if i > 0:
-            tile = _blend_h(tiles[i - 1], tile, (starts[i - 1] + span - starts[i]) * 8)
+            tile = blend_axis(tiles[i - 1], tile, (starts[i - 1] + span - starts[i]) * 8, axis=3)
             tiles[i] = tile  # later splits blend against the blended tile
         if i < n_splits - 1:
             tile = tile[:, :, :, :(starts[i + 1] - starts[i]) * 8]
         pieces.append(tile)
     return torch.cat(pieces, dim=3)
+
+
+# spatial tiles of the reference's low-memory decode (tiled_decode,
+# autoencoder_kl_cogvideox.py:1255-1444), ``vae.py:625-628``
+TILE_SAMPLE_MIN_H = 240
+TILE_SAMPLE_MIN_W = 360
+TILE_OVERLAP_H = 1 / 6
+TILE_OVERLAP_W = 1 / 5
+
+
+def vae_decode_tiled(vae: AutoencoderKLCogVideoX, latents: torch.Tensor) -> torch.Tensor:
+    """Spatially tiled decode with overlap blending (``vae_decode_tiled``,
+    ``vae.py:652-698``): latent tiles of 30 x 45 every 25 x 36, each
+    decoded by ``vae_decode_streamed``, blended over 40 rows and 72 columns
+    and cropped to 200 x 288 (``stitch_tiles``). latents channel-last."""
+    h, w = latents.shape[2:4]
+    tlh, tlw = TILE_SAMPLE_MIN_H // 8, TILE_SAMPLE_MIN_W // 8
+    blend_h = int(TILE_SAMPLE_MIN_H * TILE_OVERLAP_H)
+    blend_w = int(TILE_SAMPLE_MIN_W * TILE_OVERLAP_W)
+    rows = [[vae_decode_streamed(vae, latents[:, :, i:i + tlh, j:j + tlw])
+             for j in range(0, w, int(tlw * (1 - TILE_OVERLAP_W)))]
+            for i in range(0, h, int(tlh * (1 - TILE_OVERLAP_H)))]
+    return stitch_tiles(rows, blend_h, blend_w, TILE_SAMPLE_MIN_H - blend_h,
+                        TILE_SAMPLE_MIN_W - blend_w)
 
 
 def posterior_mode(moments: torch.Tensor) -> torch.Tensor:

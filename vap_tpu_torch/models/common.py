@@ -219,12 +219,16 @@ class Int8Linear(nn.Module):
         self._act_scale = value
 
     @classmethod
-    def from_linear(cls, linear: nn.Linear, act_scale: str = "chunk") -> "Int8Linear":
+    def from_linear(cls, linear: nn.Linear, act_scale: str = "chunk",
+                    device: Optional[torch.device] = None) -> "Int8Linear":
+        """The W8A8 form of ``linear``, its buffers where its weight is; the
+        quantisation runs on ``device`` when given (the card, for a weight
+        kept in host memory)."""
         w = linear.weight
         out = cls(linear.in_features, linear.out_features, linear.bias is not None, act_scale,
                   device=w.device, bias_dtype=w.dtype)
         with torch.no_grad():
-            w_i8, s_w = quantize_linear_int8(w)
+            w_i8, s_w = quantize_linear_int8(w if device is None else w.to(device))
             out.w_i8.copy_(w_i8)
             out.s_w.copy_(s_w)
             if linear.bias is not None:
@@ -248,18 +252,22 @@ def is_int8_projection(name: str) -> bool:
     return any(name == s or name.endswith("." + s) for s in INT8_LINEAR_SUFFIXES)
 
 
-def quantize_transformer_linears(module: nn.Module, act_scale: str = "chunk") -> List[str]:
+def quantize_transformer_linears(module: nn.Module, act_scale: str = "chunk",
+                                 device: Optional[torch.device] = None) -> List[str]:
     """Replace, in place, every ``nn.Linear`` named like one of the JAX
     package's ``INT8_LINEAR_NAMES`` (``map_transformer_linears``, :107-126)
     by an ``Int8Linear``; returns their qualified names. In place, one
     linear at a time, so the peak stays at the bf16 model's: each bf16
-    weight is freed as its int8 copy is made. Inference only."""
+    weight is freed as its int8 copy is made. With ``device`` each weight
+    is quantised there and its int8 copy returns to where the weight was
+    (a model kept in host memory under offload, quantised on the card).
+    Inference only."""
     names = [n for n, m in module.named_modules()
              if isinstance(m, nn.Linear) and is_int8_projection(n)]
     for name in names:
         parent_name, _, child = name.rpartition(".")
         parent = module.get_submodule(parent_name) if parent_name else module
-        setattr(parent, child, Int8Linear.from_linear(getattr(parent, child), act_scale))
+        setattr(parent, child, Int8Linear.from_linear(getattr(parent, child), act_scale, device))
     return names
 
 

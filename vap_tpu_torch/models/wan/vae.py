@@ -11,11 +11,11 @@ and cuBLAS on the card), as they were XLA in JAX; the public functions run
 them in full float32 precision (no TF32) and restore the caller's settings.
 
 Inside, tensors are channel-first [B, C, F, H, W]; the public functions
-(``wan_vae_encode``, ``wan_vae_decode_streamed``, ``normalize_latents``,
-``denormalize_latents``) keep the JAX package's channel-last [B, F, H, W, C].
-Module attributes follow the diffusers keys of ``AutoencoderKLWan``. The
-feature cache is a flat dict keyed by each causal conv's module path.
-Spatial tiling and slicing are not ported.
+(``wan_vae_encode``, ``wan_vae_decode_streamed``, ``wan_vae_decode_tiled``,
+``normalize_latents``, ``denormalize_latents``) keep the JAX package's
+channel-last [B, F, H, W, C]. Module attributes follow the diffusers keys of
+``AutoencoderKLWan``. The feature cache is a flat dict keyed by each causal
+conv's module path. The tiled encode is not ported (no pipeline calls it).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cogvideox.vae import full_float32
+from ..cogvideox.vae import full_float32, stitch_tiles
 
 CACHE_T = 2
 REP = "Rep"  # sentinel: the upsampler's first chunk is done, zero-pad mode
@@ -356,3 +356,28 @@ def denormalize_latents(cfg: WanVAEConfig, z: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(cfg.latents_mean, dtype=z.dtype, device=z.device)
     std = torch.tensor(cfg.latents_std, dtype=z.dtype, device=z.device)
     return z * std + mean
+
+
+# ---------------------------------------------------------------------------
+# spatial tiling (AutoencoderKLWan.tiled_decode, autoencoder_kl_wan.py:940-1063;
+# ``vae.py:359-417``): stride-based overlapping tiles, linearly blended,
+# cropped to the stride and concatenated
+# ---------------------------------------------------------------------------
+
+TILE_SAMPLE_MIN = 256
+TILE_SAMPLE_STRIDE = 192
+
+
+def wan_vae_decode_tiled(vae: AutoencoderKLWan, latents: torch.Tensor) -> torch.Tensor:
+    """Spatially tiled decode of denormalised latents [B, F', H', W', z]:
+    latent tiles of 32 x 32 every 24, each decoded by
+    ``wan_vae_decode_streamed``, blended over 64 pixels and cropped to the
+    stride (``stitch_tiles``)."""
+    h, w = latents.shape[2:4]
+    ratio = 8
+    tlm, tls = TILE_SAMPLE_MIN // ratio, TILE_SAMPLE_STRIDE // ratio
+    blend = TILE_SAMPLE_MIN - TILE_SAMPLE_STRIDE
+    rows = [[wan_vae_decode_streamed(vae, latents[:, :, i:i + tlm, j:j + tlm])
+             for j in range(0, w, tls)] for i in range(0, h, tls)]
+    video = stitch_tiles(rows, blend, blend, TILE_SAMPLE_STRIDE, TILE_SAMPLE_STRIDE)
+    return video[:, :, :h * ratio, :w * ratio]

@@ -3,7 +3,8 @@
 The table functions are numpy, copied from ``vap_tpu/ops/rope.py:27-148``
 (interleaved real RoPE, t:h:w = d/4 : 3d/8 : 3d/8, reference tokens at
 negative temporal positions for ``ref_type="continous_negative"``, the
-reference's spelling). ``apply_rotary_emb`` and
+reference's spelling, or at the positive offsets 50, 80, 110, ... of
+``"discrete_long_reference"``). ``apply_rotary_emb`` and
 ``prepare_cogvideox_rotary_embeddings`` return and take torch tensors.
 """
 
@@ -14,6 +15,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# temporal offsets of the references under "discrete_long_reference"
+# (``start_point`` and ``gap`` of ``vap_tpu/ops/rope.py:88-89``)
+DISCRETE_REF_START = 50
+DISCRETE_REF_GAP = 30
 
 
 # --- copied from vap_tpu/ops/rope.py:27-50 -----------------------------------
@@ -61,7 +67,9 @@ def get_3d_rotary_pos_embed_np(
     """3D video RoPE tables (cos, sin), each [T*H*W, embed_dim] float32.
 
     With ``mot_num > 0`` the temporal grid holds the ``mot_num`` reference
-    videos at negative positions ending at -1."""
+    videos: at negative positions ending at -1 (``"continous_negative"``),
+    or reference r at ``DISCRETE_REF_START + r * DISCRETE_REF_GAP + arange(T)``
+    (``"discrete_long_reference"``)."""
     grid_size_h, grid_size_w = grid_size
     start, stop = crops_coords
     grid_h = np.linspace(start[0], stop[0] * (grid_size_h - 1) / grid_size_h, grid_size_h,
@@ -71,11 +79,18 @@ def get_3d_rotary_pos_embed_np(
     grid_t = np.linspace(0, temporal_size * (temporal_size - 1) / temporal_size, temporal_size,
                          dtype=np.float32)
     if mot_num > 0:
-        if ref_type != "continous_negative":
-            raise NotImplementedError(f"ref_type {ref_type!r} is not ported")
-        t_range = temporal_size * (temporal_size - 1) / temporal_size - 0 + 1
-        temporal_size = temporal_size * mot_num
-        grid_t = np.linspace(-mot_num * t_range, -1, temporal_size, dtype=np.float32)
+        if ref_type == "continous_negative":
+            t_range = temporal_size * (temporal_size - 1) / temporal_size - 0 + 1
+            temporal_size = temporal_size * mot_num
+            grid_t = np.linspace(-mot_num * t_range, -1, temporal_size, dtype=np.float32)
+        elif ref_type == "discrete_long_reference":
+            start_offsets = (DISCRETE_REF_START
+                             + np.arange(mot_num, dtype=np.float32) * DISCRETE_REF_GAP)
+            base_range = np.arange(temporal_size, dtype=np.float32)
+            grid_t = (start_offsets[:, None] + base_range[None, :]).reshape(-1).astype(np.float32)
+            temporal_size = temporal_size * mot_num
+        else:
+            raise ValueError(f"Invalid ref_type: {ref_type}")
 
     dim_t = embed_dim // 4
     dim_h = embed_dim // 8 * 3

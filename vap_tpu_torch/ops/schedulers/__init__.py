@@ -1,3 +1,4 @@
 from .ddim import CogVideoXDDIMScheduler
 from .dpm import CogVideoXDPMScheduler
 from .flow_match import FlowMatchEulerScheduler
+from .unipc import UniPCScheduler

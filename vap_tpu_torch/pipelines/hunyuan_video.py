@@ -34,7 +34,7 @@ from ..models.hunyuan_video.vae import AutoencoderKLHunyuanVideo, hunyuan_vae_de
 from ..models.text_encoders.clip_text import CLIPTextModel
 from ..models.text_encoders.llama import LlamaModel
 from .cogvideox_i2v_mot import resolve_device
-from .offload import stage_component
+from .offload import StagedComponents
 
 # --- copied from vap_tpu/pipelines/hunyuan_video.py:26-37 --------------------
 # the reference's default llava template (pipeline_hunyuan_video.py:70-83)
@@ -65,7 +65,9 @@ def flow_sigmas(num_inference_steps: int, shift: float) -> np.ndarray:
 
 
 @dataclasses.dataclass
-class HunyuanVideoPipeline:
+class HunyuanVideoPipeline(StagedComponents):
+    COMPONENTS = ("transformer", "vae", "text_encoder", "text_encoder_2")
+
     transformer: HunyuanVideoTransformer3DModel
     vae: AutoencoderKLHunyuanVideo
     text_encoder: LlamaModel
@@ -86,26 +88,6 @@ class HunyuanVideoPipeline:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _component(self, name: str):
-        """The named component, staged onto the device under offload."""
-        if not self.enable_model_offload:
-            return getattr(self, name)
-        if self._staged and self._staged[0][0] == name:
-            return self._staged[0][1]
-        self._sync()
-        t0 = time.perf_counter()
-        comps = {n: getattr(self, n) for n in ("transformer", "vae", "text_encoder",
-                                                "text_encoder_2")}
-        module = stage_component(comps, name, self._staged, self.device)
-        self._sync()
-        staging = self.stage_seconds.setdefault("staging", {})
-        staging[name] = staging.get(name, 0.0) + time.perf_counter() - t0
-        return module
 
     def encode_prompt(self, prompt: str, max_length: int = 256, use_template: bool = True,
                       crop_start: int = CROP_START):

@@ -12,7 +12,8 @@ writes a weight.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import time
+from typing import ClassVar, Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -49,3 +50,35 @@ def stage_component(components: Dict[str, nn.Module], name: str,
             t.data = t.data.to(device)
     slot.append((name, module, host))
     return module
+
+
+class StagedComponents:
+    """What the inference pipelines share of offload. A pipeline names its
+    components in ``COMPONENTS`` and holds ``device``,
+    ``enable_model_offload``, ``stage_seconds`` (host-clock seconds per
+    stage) and ``_staged`` (the one-component slot)."""
+
+    COMPONENTS: ClassVar[Tuple[str, ...]] = ()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _component(self, name: str) -> nn.Module:
+        """The component ``name``: the resident module, or under
+        ``enable_model_offload`` the module staged onto ``device`` (one
+        component at a time), the seconds of the copy added to
+        ``stage_seconds["staging"][name]`` (read after a device
+        synchronise)."""
+        if not self.enable_model_offload:
+            return getattr(self, name)
+        if self._staged and self._staged[0][0] == name:
+            return self._staged[0][1]
+        self._sync()
+        t0 = time.perf_counter()
+        module = stage_component({n: getattr(self, n) for n in self.COMPONENTS}, name,
+                                 self._staged, self.device)
+        self._sync()
+        staging = self.stage_seconds.setdefault("staging", {})
+        staging[name] = staging.get(name, 0.0) + time.perf_counter() - t0
+        return module

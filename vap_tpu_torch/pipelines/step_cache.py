@@ -22,6 +22,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +86,34 @@ def parse_step_cache_schedule(spec: Optional[str], num_steps: int) -> Optional[n
     mask = (idx < warmup) | (idx >= num_steps - cooldown) | ((idx - warmup) % n == 0)
     mask[0] = True
     return mask
+
+
+class StepCacheSchedule:
+    """The denoise loops' per-step decision for one call: ``compute(i,
+    latents)`` says whether step ``i`` runs the transformer on its input
+    ``latents``. Without a spec every step computes; "uniform" reads the
+    mask; "adaptive" accumulates the relative L1 change of the inputs since
+    the last computed step (float32 on the latents' device, as the JAX scan
+    carries it, ``cogvideox_i2v_mot.py:285-301``) and decides on the host."""
+
+    def __init__(self, spec: Optional[StepCacheSpec]):
+        self.spec = spec
+        self.prev = None
+        self.accum = None
+
+    def compute(self, i: int, latents: torch.Tensor) -> bool:
+        spec = self.spec
+        if spec is None:
+            return True
+        if spec.kind == "uniform":
+            return bool(spec.mask[i])
+        if self.prev is None:
+            self.prev = latents
+            self.accum = torch.zeros((), dtype=torch.float32, device=latents.device)
+        d = (latents - self.prev).abs().mean() / (self.prev.abs().mean() + 1e-8)
+        self.accum = self.accum + d
+        compute = bool(spec.mask[i]) or bool(self.accum >= spec.thresh)
+        if compute:
+            self.accum = torch.zeros_like(self.accum)
+        self.prev = latents
+        return compute
