@@ -121,6 +121,17 @@ Phases, each of which raises on failure:
      method, which at one rank is the same local kernel call as the other
      two: the latents equal flash's bit for bit, with the same 42 K1
      launches);
+  5c. checkpoints in and out: after the main path's flash, sage and ring
+     runs, its latents under flash (2 steps), then the pipeline's
+     transformer, VAE and T5 written as a diffusers-layout directory under
+     build/ (config.json per component, the transformer and T5 in 5 GB
+     shards with an index; a disk too short fails here); after the bench
+     configuration, one step of it (sage, W8A8 chunk form) to latents; then
+     the pipeline built again from the directory (build_pipeline, onto the
+     card one tensor at a time) runs the same two calls, each with the
+     counts at 0 before it: K1's 84 launches, then K2's 42 and K3's 498,
+     latents bit-equal to the resident pipeline's; bytes, seconds and GB/s
+     of the write and the load, host RSS and its peak, peak card memory;
   6. Wan: a small pipeline on the card held against plain dense attention
      under flash and sage, then Wan2.1-I2V-14B VAP at full width (40 blocks,
      MoT in all 40, 40x128 heads, UMT5-XXL, CLIP ViT-H/14, the Wan VAE) at
@@ -134,7 +145,16 @@ Phases, each of which raises on failure:
      4 steps, decoded; per step K3's launches (804 on a computed step), the
      row form's calls (0), K2's and its pre-pass's; K3 and K2 launch on
      steps 0, 1 and 3 only and the reuse step costs under 5% of a computed
-     one;
+     one; then (6c) the Wan checkpoint at full width and cut depth: the first
+     4 blocks of that transformer (taken before 6b quantises it) with its
+     UMT5, CLIP and VAE, in host memory, run one step under flash to
+     latents, are written as a diffusers-layout directory under build/
+     (the transformer in 5 GB shards with an index), and the pipeline built
+     again from it (wan_vap.build_pipeline, the weights into host memory,
+     the depth from its config.json) runs the same step with the counts at
+     0 before it: K4's 20 launches, latents bit-equal; bytes, seconds and
+     GB/s of the write and the load, host RSS and peak card memory; the
+     UMT5, CLIP and VAE read back go on to phase 10b;
   7. K5 (the flash backward, D=64: the wgmma kernels of
      flash_bwd_sm90_d64.cu) against its plain PyTorch version in bf16 at
      the unaligned shapes and at the main-path shape [1,48,35552,64], dq, dk
@@ -155,6 +175,8 @@ Phases, each of which raises on failure:
      trainer's own attention context (``_attn_ctx``) with a one-rank NCCL
      group's mesh and ``attn_provider_training="ring"``: the loss and every
      expert gradient bit-equal, with the same K1 and K5 launches;
+     then trainer.export() (the full transformer in diffusers names) read
+     back with the port's reader: every tensor equal to the trained one;
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
@@ -173,7 +195,7 @@ Phases, each of which raises on failure:
      the plain structure of the recipe's config_plain.json, 40x128 heads,
      ffn 13,824, 36 input channels, random bf16 weights from a seed) on a
      random precomputed item at 49 frames of 480x832, batch 1, through
-     SFTTrainer.run: rank 16, alpha 16 on to_q, to_k, to_v and to_out,
+     SFTTrainer.run: rank 16, alpha 32 on to_q, to_k, to_v and to_out,
      logit-normal sigmas, AdamW (beta 0.9 / 0.99, weight decay 1e-4, clip
      1.0, a constant lr of 1e-4), remat "full", 3 optimizer steps (the first
      a warm-up); per step the loss, grad_norm and the forward / backward /
@@ -182,10 +204,18 @@ Phases, each of which raises on failure:
      step 1 and its A at step 2; the share of adapted weight elements the
      bf16 merge changes; then (10b) that trained model, its adapters in
      place, sampled through WanVAPPipeline.__call__ without a reference
-     (plain image-to-video) with phase 6's UMT5, CLIP and VAE under
+     (plain image-to-video) with phase 6c's UMT5, CLIP and VAE under
      offload, 49 frames of 480x832, UniPC, 2 steps under flash, latents
      out: K4's launches (self-attention at [2,40,20280,128] and the two
      cross-attentions of each block, 120 a step) and the peak memory;
+     (10c) the adapters, written after training as a PEFT file, merged into
+     the frozen weights (merge_lora_into_state_dict: f32 add, then bf16):
+     where delta is at least 8 bf16 ulps of the base, each merged weight
+     within 2 bf16 ulps of the trained one (ulps of the largest of the two,
+     the base and delta), while three faulty merges made on the card (no
+     delta, delta transposed, alpha / r dropped) must land outside it; a
+     forward at a short clip [1,2,30,52,36] within 2e-2 of max |out| of the
+     trained model's, which the faulty merges' forwards must exceed;
  11. HunyuanVideo T2V: a small pipeline on the card at head_dim 128 under
      flash and sage (K7 in K4 and in K2) held against the plain masked
      dense attention, then HunyuanVideo at full width and depth (20 dual +
@@ -273,10 +303,12 @@ Q_TILE = 64  # queries per tile of the dk/dv kernel
 TRAIN_STEPS = 3  # optimizer steps of phases 8 and 10: 1 warm-up, 2 timed
 TRAIN_LR = 1e-5  # the recipe's lr, constant: the first update is not at lr 0
 # the Wan LoRA recipe (examples/training/sft/wan/crush_smol_lora/train.sh):
-# rank 16, alpha 16 on to_q, to_k, to_v and to_out of every attention, lr
-# 1e-4 (constant here, not over its 100 warmup steps: the first update is
-# not at lr 0), logit-normal sigmas, the plain structure of config_plain.json
-WAN_LORA = dict(rank=16, lora_alpha=16, target_modules="to_q to_k to_v to_out", lr=1e-4,
+# rank 16 on to_q, to_k, to_v and to_out of every attention, lr 1e-4
+# (constant here, not over its 100 warmup steps: the first update is not at
+# lr 0), logit-normal sigmas, the plain structure of config_plain.json; alpha
+# 32 where the recipe has 16, so that 10c's merge scales delta by 2 and a
+# merge that drops alpha / r shows
+WAN_LORA = dict(rank=16, lora_alpha=32, target_modules="to_q to_k to_v to_out", lr=1e-4,
                 flow_weighting_scheme="logit_normal")
 WAN_STRUCTURE = "examples/training/sft/wan/crush_smol_lora/config_plain.json"
 # the HunyuanVideo LoRA recipe (examples/training/sft/hunyuan_video/
@@ -2537,6 +2569,336 @@ def small_modes_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: checkpoints in and out
+# ---------------------------------------------------------------------------
+
+CKPT_SHARD_BYTES = 5 * 10**9  # the transformer and T5 in shards of up to 5 GB, with an index
+CKPT_COMPONENTS = (("transformer", "CogVideoXTransformer3DMOTModel", "diffusion_pytorch_model"),
+                   ("vae", "AutoencoderKLCogVideoX", "diffusion_pytorch_model"),
+                   ("text_encoder", "T5EncoderModel", "model"))
+
+
+def rss_gib():
+    """This process's resident host memory now and its peak so far."""
+    import resource
+
+    with open("/proc/self/status") as fh:
+        now = next(int(line.split()[1]) for line in fh if line.startswith("VmRSS:"))
+    return now / 2**20, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def state_bytes(module):
+    return sum(t.numel() * t.element_size() for t in module.state_dict().values())
+
+
+def write_checkpoint(pipe, root, components=CKPT_COMPONENTS):
+    """The pipeline's ``components`` as a diffusers-layout directory: per
+    component a config.json (every field of its configuration) and its
+    weights, from the card (or host memory) one tensor at a time. Returns
+    the bytes written."""
+    from vap_tpu_torch.utils.safetensors import save_sharded
+
+    written = 0
+    for name, class_name, file in components:
+        module = getattr(pipe, name)
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        config = {"_class_name": class_name, **json.loads(json.dumps(
+            dataclasses.asdict(module.config)))}
+        with open(os.path.join(d, "config.json"), "w") as fh:
+            json.dump(config, fh)
+        written += save_sharded(module.state_dict(), d, name=file,
+                                max_shard_bytes=CKPT_SHARD_BYTES)
+    return written
+
+
+def resident_latents(pipe, provider, steps):
+    """Latents of the main path's call (``steps`` steps under ``provider``)."""
+    import torch
+
+    from vap_tpu_torch.ops.attention import attention_provider
+
+    with attention_provider(provider):
+        latents = pipe(**dict(main_path_args(steps), output_type="latent"))
+    torch.cuda.synchronize()
+    return latents.cpu()
+
+
+def timed_write(pipe, components):
+    """``components`` of ``pipe`` written as a checkpoint directory under
+    build/, timed. Fails where the disk is short. Returns (the directory,
+    the bytes)."""
+    import tempfile
+
+    import torch
+
+    need = sum(state_bytes(getattr(pipe, name)) for name, _, _ in components)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(HERE, "build"))
+    free = shutil.disk_usage(root).free
+    log(f"  checkpoint of {need / 1e9:.3f} GB to write; {free / 1e9:.1f} GB free under build/")
+    if free < need + 2**30:
+        raise RuntimeError(f"the disk is short: {free} bytes free for a {need}-byte checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = write_checkpoint(pipe, root, components)
+    seconds = time.perf_counter() - t0
+    now, peak = rss_gib()
+    files = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, fs in os.walk(root) for f in fs)
+    log(f"  written {written} bytes ({written / 1e9:.3f} GB) in {seconds:.2f} s, "
+        f"{written / seconds / 1e9:.2f} GB/s (into the page cache; no fsync), files {files}; "
+        f"host RSS {now:.2f} GiB, peak {peak:.2f} GiB; {power_line()}")
+    return root, written
+
+
+def checkpoint_write_path(pipe, dev):
+    """Before the bench configuration quantises the main pipeline: its
+    latents under flash (STEPS steps), then its weights written as a
+    checkpoint directory under build/. Returns (the directory, the bytes,
+    the latents)."""
+    want_flash = resident_latents(pipe, "flash", STEPS)
+    return (*timed_write(pipe, CKPT_COMPONENTS), want_flash)
+
+
+def timed_build(build, written, dev, **kwargs):
+    """``build(**kwargs)`` (a ``build_pipeline``) timed, with the host's and
+    the card's memory around it. Returns the pipeline."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rss0 = rss_gib()[0]
+    t0 = time.perf_counter()
+    pipe = build(**kwargs, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    now, peak = rss_gib()
+    where = "into host memory" if pipe.enable_model_offload else "onto the card"
+    log(f"  loaded {written} bytes in {seconds:.2f} s, {written / seconds / 1e9:.2f} GB/s (the "
+        f"files read warm, from the page cache), {where} one tensor at a time; host RSS "
+        f"{rss0:.2f} -> {now:.2f} GiB, peak {peak:.2f} GiB; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {power_line()}")
+    return pipe
+
+
+def bench_latents(pipe):
+    """Latents of one step of the bench configuration (sage, W8A8 in the
+    chunk form) on the quantised pipeline."""
+    from vap_tpu_torch.models.common import set_int8_act_scale
+
+    set_int8_act_scale(pipe.transformer, "chunk")
+    return resident_latents(pipe, "sage", 1)
+
+
+def checkpoint_load_path(root, written, want_flash, want_bench, dev):
+    """The pipeline built again from the directory (build_pipeline, onto the
+    card one tensor at a time), then the main path's call under flash
+    (STEPS steps, K1) and, once quantised, one step of the bench
+    configuration (K2, K3): each with every count at 0 before it, its
+    launches checked, its latents bit-equal to the resident pipeline's."""
+    import torch
+
+    from vap_tpu_torch.infer.cog_vap import build_pipeline
+    from vap_tpu_torch.models.common import quantize_transformer_linears
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config
+
+    pipe = timed_build(build_pipeline, written, dev, model_path=root, dtype_str="bfloat16",
+                       tokenizer=FakeTokenizer(T5Config.t5_xxl().vocab_size))
+    cfg = pipe.transformer.config
+    for provider, steps, want, expected in (
+            ("flash", STEPS, want_flash, {"flash_fwd": STEPS * cfg.num_layers}),
+            ("sage", 1, want_bench, {"sage_fwd": cfg.num_layers,
+                                     "w8a8": sum(W8A8_SHAPES.values())})):
+        if provider == "sage":
+            names = quantize_transformer_linears(pipe.transformer, act_scale="chunk")
+            log(f"  {len(names)} projections quantised in place")
+        reset_counts()
+        got = resident_latents(pipe, provider, steps)
+        launches = read_counts()
+        check_launches(launches, expected)
+        same = torch.equal(got, want)
+        log(f"  {provider}, {steps} step(s): latents {tuple(got.shape)} bit-equal to the resident "
+            f"pipeline's: {same}; launches {({k: v for k, v in launches.items() if v})}")
+        if not same:
+            raise AssertionError(f"checkpoint path, {provider}: latents differ from the resident "
+                                 f"pipeline's by up to {(got - want).abs().max().item()}")
+    del pipe
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def export_check(trainer):
+    """trainer.export() read back with the port's reader: every tensor equal
+    to the trained model's."""
+    import torch
+
+    from vap_tpu_torch.training.checkpoint import load_safetensors
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = trainer.export()
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    state = load_safetensors(path)
+    model = trainer.model.state_dict()
+    if set(state) != set(model):
+        raise AssertionError(f"export: keys {sorted(set(state) ^ set(model))[:5]} differ")
+    differ = [k for k, v in model.items() if not torch.equal(v, state[k].to(v.device))]
+    read = time.perf_counter() - t0
+    now, peak = rss_gib()
+    log(f"  export: {size} bytes ({size / 1e9:.3f} GB), {len(state)} tensors, written in "
+        f"{seconds:.2f} s ({size / seconds / 1e9:.2f} GB/s into the page cache), read back and "
+        f"compared on the card in {read:.2f} s; tensors that differ from the trained model: "
+        f"{len(differ)}; host RSS {now:.2f} GiB, peak {peak:.2f} GiB; {power_line()}")
+    if differ:
+        raise AssertionError(f"export: {differ[:5]} differ from the trained model")
+    os.remove(path)
+
+
+# 10c holds each merged bf16 weight against the trained one where the
+# adapters' delta is at least LORA_SIGNIFICANT_ULPS bf16 ulps of the frozen
+# weight W (three steps leave most of delta below half an ulp, where any
+# merge, or none, gives W): there a sound merge lands within
+# LORA_MERGE_ULPS of the trained weight (both round W + delta to bf16, the
+# trained one after rounding delta too; the products of A and B sum in other
+# orders), in ulps of the largest of W, delta and the two merged weights,
+# while a merge that drops delta, transposes it or drops alpha / r
+# (WAN_LORA's alpha is 2 r) lands at least about half of
+# LORA_SIGNIFICANT_ULPS off. The forward through the merged weights is held
+# within LORA_FORWARD_REL (max |diff| / max |out|) of the trained model's:
+# the bf16 noise of its activations, 0.012-0.015 from a sound merge, while
+# the faulty ones read 0.48-0.80 on the H100. Each faulty merge is read by
+# both measures in every run, and must fail both
+LORA_SIGNIFICANT_ULPS = 8
+LORA_MERGE_ULPS = 2
+LORA_FORWARD_REL = 2e-2
+
+
+def write_lora(trainer, work):
+    """The trainer's adapters as PEFT safetensors (what ``export`` writes
+    beside the full weights under LoRA). Returns the path."""
+    from vap_tpu_torch.training.checkpoint import export_lora_safetensors
+
+    path = os.path.join(work, "pytorch_lora_weights.safetensors")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    n = export_lora_safetensors(trainer.lora, path, rank=trainer.args.rank,
+                                alpha=float(trainer.args.lora_alpha))
+    log(f"  PEFT adapters: {n} bytes in {time.perf_counter() - t0:.2f} s; {power_line()}")
+    return path
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of |x| (of the smallest normal at 0)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2**-126))) - 7)
+
+
+def lora_merge_check(model, path, dev):
+    """The PEFT file merged into the frozen base (merge_lora_into_state_dict:
+    f32 add, then bf16), held against the trained model (W + delta rounded
+    in its own order): each merged weight where delta is significant (see
+    LORA_SIGNIFICANT_ULPS), and one forward through the merged weights on a
+    short clip. Three faulty merges, made on the card from W, A and B (no
+    delta, delta transposed, delta without alpha / r), are read by both
+    measures and must fail both. The model is changed in place: it ends
+    with the merged weights."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.training.checkpoint import load_lora_metadata, merge_lora_into_state_dict
+    from vap_tpu_torch.training.lora import LoRALinear
+
+    cfg = model.config
+    rng = np.random.default_rng(SEED + 12)
+    x = {"hidden_states": rng.standard_normal((1, 2, 30, 52, cfg.in_channels), dtype=np.float32),
+         "timestep": np.array([500.0], np.float32),
+         "encoder_hidden_states": rng.standard_normal((1, cfg.text_len, cfg.text_dim),
+                                                      dtype=np.float32),
+         "encoder_hidden_states_image": rng.standard_normal((1, 257, cfg.image_dim),
+                                                            dtype=np.float32)}
+    x = {k: torch.from_numpy(v).to(dev, torch.bfloat16 if v.ndim > 1 else torch.float32)
+         for k, v in x.items()}
+    adapted = {n: m for n, m in model.named_modules() if isinstance(m, LoRALinear)}
+    base = {n: m.weight.detach() for n, m in adapted.items()}
+    scales = {m.scale for m in adapted.values()}
+    if scales == {1.0} or any(m.weight.shape[0] != m.weight.shape[1] for m in adapted.values()):
+        raise AssertionError(f"10c needs a scale alpha / r other than 1 (got {scales}) and square "
+                             f"weights, so that a dropped scale or a transposed delta shows")
+
+    def delta(m):
+        return (m.lora_A @ m.lora_B).t() * m.scale
+
+    faulty = {"no delta": lambda w, m: w,
+              "delta transposed": lambda w, m: (w.float() + delta(m).t()).to(w.dtype),
+              "alpha / r dropped": lambda w, m: (w.float() + delta(m) / m.scale).to(w.dtype)}
+
+    def forward(weights):
+        """The model's output with each adapted layer running ``weights``
+        alone (its adapter scaled by 0)."""
+        kept = {n: m.scale for n, m in adapted.items()}
+        for n, m in adapted.items():
+            m.weight.data, m.scale = weights[n], 0.0
+        out = model(**x).float()
+        for n, m in adapted.items():
+            m.weight.data, m.scale = base[n], kept[n]
+        return out
+
+    with torch.no_grad():
+        want = model(**x).float()
+        t0 = time.perf_counter()
+        merged = merge_lora_into_state_dict({f"{n}.weight": w for n, w in base.items()}, path)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        merged = {n: merged.pop(f"{n}.weight") for n in adapted}
+        ulps = dict.fromkeys(["merge", *faulty], 0.0)
+        significant = 0
+        for n, m in adapted.items():
+            trained, d, w = m.merged_weight().float(), delta(m), base[n]
+            sig = d.abs() >= LORA_SIGNIFICANT_ULPS * bf16_ulp(w.float())
+            significant += int(sig.sum())
+            trained, mag = trained[sig], torch.maximum(w.float()[sig].abs(), d[sig].abs())
+            for name, got in (("merge", merged[n]), *((k, f(w, m)) for k, f in faulty.items())):
+                got = got.float()[sig]
+                # ulps of the largest of the four: where W + delta cancels,
+                # delta's own rounding is what the two merges differ by
+                ulp = bf16_ulp(torch.maximum(mag, torch.maximum(got.abs(), trained.abs())))
+                off = (got - trained).abs() / ulp
+                ulps[name] = max(ulps[name], off.max().item() if off.numel() else 0.0)
+        errs = {"merge": ((forward(merged) - want).abs().max() / want.abs().max()).item()}
+        for name, f in faulty.items():
+            out = forward({n: f(base[n], m) for n, m in adapted.items()})
+            errs[name] = ((out - want).abs().max() / want.abs().max()).item()
+        for n, m in adapted.items():  # the LoRALinear now runs the merged weight alone
+            m.weight.data = merged[n]
+            m.lora_B.zero_()
+    total = sum(w.numel() for w in base.values())
+    log(f"  PEFT file (lora_config {load_lora_metadata(path)}) merged into {len(adapted)} frozen "
+        f"weights in {seconds:.2f} s; {significant} of {total} adapted elements with |delta| of "
+        f"{LORA_SIGNIFICANT_ULPS} bf16 ulps of W or more; there, merged vs trained weights: max "
+        f"{ulps['merge']:g} bf16 ulps (limit {LORA_MERGE_ULPS}); forward through the merged "
+        f"weights at {tuple(x['hidden_states'].shape)}: max |diff| / max |out| "
+        f"{errs['merge']:.4g} (limit {LORA_FORWARD_REL}); {power_line()}")
+    log("  faulty merges, which must fail both: " + "; ".join(
+        f"{name}: {ulps[name]:g} ulps, forward {errs[name]:.4g}" for name in faulty))
+    if not significant:
+        raise AssertionError("LoRA merge: no element of delta is significant, so no merge could "
+                             "fail the weight check")
+    if ulps["merge"] > LORA_MERGE_ULPS or not errs["merge"] <= LORA_FORWARD_REL:
+        raise AssertionError(f"LoRA merge: weights {ulps['merge']} ulps (limit "
+                             f"{LORA_MERGE_ULPS}), forward {errs['merge']} (limit "
+                             f"{LORA_FORWARD_REL})")
+    passed = [name for name in faulty
+              if ulps[name] <= LORA_MERGE_ULPS or errs[name] <= LORA_FORWARD_REL]
+    if passed:
+        raise AssertionError(f"LoRA merge: the faulty merges {passed} pass a limit, which so "
+                             f"cannot tell them from a sound one")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: Wan
 # ---------------------------------------------------------------------------
 
@@ -2733,6 +3095,99 @@ def wan_bench_path(pipe, dev):
     check_launches(launches, {"sage_fwd": n * model.config.num_layers * 5, "w8a8": n * per_step})
     check_reuse_steps(steps, deltas)
     return launches["w8a8"]
+
+
+# phase 6c: the Wan checkpoint, at full width and cut depth: the first
+# WAN_CKPT_LAYERS blocks of phase 6's transformer (each with its MoT expert)
+# with its UMT5, CLIP and VAE
+WAN_CKPT_LAYERS = 4
+WAN_CKPT_COMPONENTS = (("transformer", "WanTransformer3DMOTModel", "diffusion_pytorch_model"),
+                       ("vae", "AutoencoderKLWan", "diffusion_pytorch_model"),
+                       ("text_encoder", "UMT5EncoderModel", "model"),
+                       ("image_encoder", "CLIPVisionModelWithProjection", "model"))
+
+
+def wan_cut_transformer(model, dev):
+    """The first WAN_CKPT_LAYERS blocks of ``model``, with its embedders and
+    its head, on the card (``load_model`` reads the blocks the cut model
+    has and ignores the others)."""
+    import torch
+
+    from vap_tpu_torch.models.loading import load_model
+
+    mot = tuple(i for i in model.config.block_idx_with_mot_ref if i < WAN_CKPT_LAYERS)
+    cfg = dataclasses.replace(model.config, num_layers=WAN_CKPT_LAYERS, block_idx_with_mot_ref=mot)
+    return load_model(type(model), cfg, model.state_dict(), dev, torch.bfloat16)
+
+
+def wan_latents(pipe, dev, want_launches):
+    """Latents of one step of the Wan main path's call under flash, with
+    every count at 0 before it and exactly ``want_launches`` K4 launches."""
+    import torch
+
+    from vap_tpu_torch.ops.attention import attention_provider
+
+    reset_counts()
+    with attention_provider("flash"):
+        latents = pipe(**dict(wan_args(1), output_type="latent"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_launches(launches, {"flash_fwd_d128": want_launches})
+    pipe._staged.clear()  # the slot's card copy goes now
+    return latents.cpu(), launches
+
+
+def wan_checkpoint_write_path(pipe, cut, dev):
+    """Phase 6c, out: phase 6's UMT5, CLIP and VAE with ``cut`` as a
+    pipeline in host memory, as phase 6's is; its latents (one step under
+    flash), then its four components written as a checkpoint directory
+    under build/. Returns (the directory, the bytes, the latents)."""
+    import torch
+
+    from vap_tpu_torch.pipelines.wan_i2v_mot import WanVAPPipeline
+
+    pipe._staged.clear()
+    torch.cuda.empty_cache()
+    resident = WanVAPPipeline(transformer=cut.to("cpu"), vae=pipe.vae,
+                              text_encoder=pipe.text_encoder, image_encoder=pipe.image_encoder,
+                              tokenizer=pipe.tokenizer, dtype=torch.bfloat16, device=dev,
+                              enable_model_offload=True)
+    want, launches = wan_latents(resident, dev, WAN_CKPT_LAYERS * 5)
+    log(f"  {WAN_CKPT_LAYERS} blocks ({n_params(cut)} parameters), 1 step: latents "
+        f"{tuple(want.shape)}, finite {bool(torch.isfinite(want).all())}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return (*timed_write(resident, WAN_CKPT_COMPONENTS), want)
+
+
+def wan_checkpoint_load_path(root, written, want, dev):
+    """Phase 6c, in: wan_vap.build_pipeline from that directory (the weights
+    into host memory, as phase 6's), the transformer's depth from its
+    config.json; one step's latents under flash with every count at 0
+    before it, K4's launches checked, bit-equal to the resident pipeline's.
+    Returns its UMT5, CLIP and VAE, which go on to phase 10b."""
+    import torch
+
+    from vap_tpu_torch.infer.wan_vap import build_pipeline
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config
+
+    pipe = timed_build(build_pipeline, written, dev, model_path=root, dtype_str="bfloat16",
+                       enable_model_offload=True,
+                       tokenizer=FakeTokenizer(T5Config.umt5_xxl().vocab_size))
+    depth = pipe.transformer.config.num_layers
+    if depth != WAN_CKPT_LAYERS:
+        raise AssertionError(f"the rebuilt transformer has {depth} blocks, its config.json "
+                             f"{WAN_CKPT_LAYERS}")
+    got, launches = wan_latents(pipe, dev, WAN_CKPT_LAYERS * 5)
+    same = torch.equal(got, want)
+    log(f"  flash, 1 step: latents {tuple(got.shape)} bit-equal to the resident pipeline's: "
+        f"{same}; launches { {k: v for k, v in launches.items() if v} }")
+    if not same:
+        raise AssertionError(f"Wan checkpoint path: latents differ from the resident pipeline's "
+                             f"by up to {(got - want).abs().max().item()}")
+    parts = {name: getattr(pipe, name) for name in ("vae", "text_encoder", "image_encoder")}
+    del pipe
+    shutil.rmtree(root)
+    return parts
 
 
 def wan_plain_sampling_path(model, parts, dev):
@@ -3017,10 +3472,14 @@ def training_path(dev):
         raise AssertionError(f"training: frozen tensors changed {frozen_changed[:5]}, trainable "
                              f"tensors that did not move {stuck[:5]}, reference-only tensors "
                              f"that moved {woke[:5]}")
-    del trainer, model, params, before
+    del params, before
+    t0 = time.perf_counter()
+    export_check(trainer)
+    seconds = time.perf_counter() - t0
+    del trainer, model
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches["flash_bwd"]
+    return launches["flash_bwd"], seconds
 
 
 # ---------------------------------------------------------------------------
@@ -3175,14 +3634,15 @@ def wan_training_path(dev):
     # K4 runs each attention in the forward and again in the recompute
     launches = run_lora_training(trainer, {"flash_fwd_d128": 2 * per_step,
                                            "flash_bwd_d128": per_step})
-    # the model goes on to phase 10b; its gradients and the optimizer state do not
+    peft = write_lora(trainer, os.path.join(HERE, "build", "chip_smoke_lora"))
+    # the model goes on to phases 10b and 10c; its gradients and the optimizer state do not
     model = trainer.model
     for p in model.parameters():
         p.grad = None
     del trainer
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches["flash_bwd_d128"], model
+    return launches["flash_bwd_d128"], model, peft
 
 
 # ---------------------------------------------------------------------------
@@ -3644,11 +4104,24 @@ def main():
     # its launches are those of the sequence-parallel attention step above
     for name in SEG_SPECS:
         launches[name] = ring_bwd_launches[name]
+    # 5c, before the bench configuration quantises the pipeline in place
+    log(f"checkpoint out: the main path's latents under flash ({STEPS} steps), then the "
+        f"pipeline's transformer, VAE and T5 written as a diffusers-layout directory:")
+    t0 = time.perf_counter()
+    ckpt_root, ckpt_bytes, want_flash = checkpoint_write_path(pipe, dev)
+    ckpt_seconds = time.perf_counter() - t0
     log(f"bench configuration, sage + W8A8 ({NUM_FRAMES} frames, {BENCH_STEPS} steps, "
         f"step cache {BENCH_CACHE}):")
     launches["w8a8"] = bench_config_path(pipe, dev)
+    t0 = time.perf_counter()
+    want_bench = bench_latents(pipe)
     del pipe
     torch.cuda.empty_cache()
+    log(f"checkpoint in: build_pipeline from that directory, then the main path's call under "
+        f"flash ({STEPS} steps) and one step of the bench configuration (sage, W8A8), latents "
+        f"against the resident pipeline's:")
+    checkpoint_load_path(ckpt_root, ckpt_bytes, want_flash, want_bench, dev)
+    ckpt_seconds += time.perf_counter() - t0
 
     # 6. Wan
     log("small Wan pipeline check:")
@@ -3659,12 +4132,24 @@ def main():
     launches["flash_fwd_d128"] = wan_main_path(pipe, "flash", WAN_STEPS, dev)
     log(f"Wan main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd_d128"] = wan_main_path(pipe, "sage", 1, dev)
+    # 6c's transformer, before the bench configuration quantises phase 6's in place
+    cut = wan_cut_transformer(pipe.transformer, dev)
     log(f"Wan bench configuration, sage + W8A8 + UniPC ({NUM_FRAMES} frames, {BENCH_STEPS} "
         f"steps, step cache {BENCH_CACHE}):")
     launches["w8a8_wan"] = wan_bench_path(pipe, dev)
-    # UMT5, CLIP and the VAE stay in host memory for phase 10b
-    wan_parts = {name: getattr(pipe, name) for name in ("vae", "text_encoder", "image_encoder")}
-    del pipe
+    log(f"Wan checkpoint out (6c): the first {WAN_CKPT_LAYERS} blocks of that transformer with "
+        f"its UMT5, CLIP and VAE, their latents under flash (1 step), then written as a "
+        f"diffusers-layout directory:")
+    t0 = time.perf_counter()
+    wan_root, wan_bytes, want_wan = wan_checkpoint_write_path(pipe, cut, dev)
+    del pipe, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("Wan checkpoint in (6c): wan_vap.build_pipeline from that directory, latents against the "
+        "resident pipeline's:")
+    # UMT5, CLIP and the VAE, read back, stay in host memory for phase 10b
+    wan_parts = wan_checkpoint_load_path(wan_root, wan_bytes, want_wan, dev)
+    ckpt_seconds += time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3675,7 +4160,8 @@ def main():
     # 8. training
     log(f"training, CogVideoX-5B VAP ({NUM_FRAMES} frames of {HEIGHT}x{WIDTH}, batch 1, "
         f"{TRAIN_STEPS} optimizer steps):")
-    launches["flash_bwd"] = training_path(dev)
+    launches["flash_bwd"], seconds = training_path(dev)
+    ckpt_seconds += seconds
 
     # 9. K6
     log("flash backward at head_dim 128 (K6) parity (bf16, vs plain PyTorch):")
@@ -3691,12 +4177,19 @@ def main():
     # 10. Wan LoRA training
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
         f"batch 1, {TRAIN_STEPS} optimizer steps):")
-    launches["flash_bwd_d128"], model = wan_training_path(dev)
+    launches["flash_bwd_d128"], model, peft = wan_training_path(dev)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"plain Wan I2V sampling of the trained LoRA model ({NUM_FRAMES} frames of "
         f"{WAN_HEIGHT}x{WAN_WIDTH}, UniPC, {WAN_STEPS} steps, latents):")
     wan_plain_sampling_path(model, wan_parts, dev)
+    log("the LoRA model's PEFT file merged into its frozen base (10c):")
+    t0 = time.perf_counter()
+    lora_merge_check(model, peft, dev)
+    shutil.rmtree(os.path.dirname(peft))
+    ckpt_seconds += time.perf_counter() - t0
+    log(f"checkpoint phase (5c, 6c, 8's export, 10's PEFT file and 10c): {ckpt_seconds:.1f} s "
+        f"in all")
     del model, wan_parts
     gc.collect()
     torch.cuda.empty_cache()

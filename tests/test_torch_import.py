@@ -1,6 +1,7 @@
 """The port stands without JAX: every slice module, and the scripts that
 drive it on the card, import with jax blocked, and importing them pulls in
-neither jax nor the JAX package."""
+neither jax nor the JAX package, nor ``safetensors``, ``huggingface_hub``
+or ``transformers``, which the card's machine does not have."""
 
 import os
 import re
@@ -44,6 +45,14 @@ SLICE_MODULES = [
     "vap_tpu_torch.pipelines.wan_i2v_mot",
     "vap_tpu_torch.pipelines.hunyuan_video",
     "vap_tpu_torch.models.random_init",
+    "vap_tpu_torch.models.loading",
+    "vap_tpu_torch.utils",
+    "vap_tpu_torch.utils.safetensors",
+    "vap_tpu_torch.utils.hub",
+    "vap_tpu_torch.infer",
+    "vap_tpu_torch.infer.cog_vap",
+    "vap_tpu_torch.infer.wan_vap",
+    "vap_tpu_torch.training.specs",
     "vap_tpu_torch.data",
     "vap_tpu_torch.data.precomputation",
     "vap_tpu_torch.data.sampler",
@@ -67,10 +76,13 @@ import importlib, sys
 before = set(sys.modules)
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["cv2"] = None  # the port must run where cv2 is not installed
+for name in ("safetensors", "huggingface_hub", "transformers"):
+    sys.modules[name] = None  # not installed on the card's machine
 for name in {modules!r}:
     importlib.import_module(name)
 leaked = sorted(m for m in set(sys.modules) - before if m == "vap_tpu"
-                or m.startswith(("vap_tpu.", "jax.", "cv2.")))
+                or m.startswith(("vap_tpu.", "jax.", "cv2.", "safetensors.", "huggingface_hub.",
+                                 "transformers.")))
 assert not leaked, leaked
 print("ok")
 """
@@ -87,10 +99,12 @@ def test_port_imports_without_jax(modules):
 
 
 def test_no_jax_sdpa_or_compile_in_port_sources():
-    """The port imports neither jax, cv2 nor the JAX package, and calls
-    neither torch's SDPA nor torch.compile."""
-    banned = re.compile(r"^\s*(import (jax|cv2)|from (jax|cv2)\b)|vap_tpu\.|torch\.compile"
-                        r"|scaled_dot_product_attention\(")
+    """The port imports neither jax, cv2, the JAX package, safetensors,
+    huggingface_hub nor transformers, and calls neither torch's SDPA nor
+    torch.compile."""
+    banned = re.compile(r"^\s*(import (jax|cv2|safetensors|huggingface_hub|transformers)\b"
+                        r"|from (jax|cv2|safetensors|huggingface_hub|transformers)\b)"
+                        r"|vap_tpu\.|torch\.compile|scaled_dot_product_attention\(")
     root = os.path.join(REPO, "vap_tpu_torch")
     hits = []
     for dirpath, _, files in os.walk(root):

@@ -50,6 +50,15 @@ class CogVideoXMOTConfig:
         return self.num_attention_heads * self.attention_head_dim
 
     @property
+    def joint_pos_embed_length(self) -> int:
+        """Token length of the learned joint pos_embedding buffer:
+        max_text_seq_length + default-resolution video tokens
+        (CogVideoXPatchEmbed._get_positional_embeddings)."""
+        frames = (self.sample_frames - 1) // self.temporal_compression_ratio + 1
+        spatial = (self.sample_height // self.patch_size) * (self.sample_width // self.patch_size)
+        return self.max_text_seq_length + frames * spatial
+
+    @property
     def mot_segments(self) -> Tuple[Tuple[int, int, bool], ...]:
         """Contiguous runs of blocks with equal MoT status: (start, length, has_mot).
 

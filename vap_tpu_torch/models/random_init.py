@@ -1,6 +1,6 @@
 """Random weights from a seed, in the distribution of the JAX package's
-initializers, for runs without a checkpoint (the port has no checkpoint
-loader yet).
+initializers, for runs without a checkpoint (``models/loading.py`` loads
+one).
 
 ``build_random(cls, cfg, device, dtype, generator)`` constructs a model on
 the meta device, allocates it on ``device`` and fills it from
@@ -21,6 +21,7 @@ from torch import nn
 from .cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel, sincos_pos_embedding
 from .common import RMSNorm
 from .hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+from .loading import build_on_meta
 from .text_encoders.clip_text import CLIPTextModel
 from .text_encoders.clip_vision import CLIPVisionModel
 from .text_encoders.llama import LlamaModel
@@ -78,12 +79,5 @@ def init_random_(model, gen):
 def build_random(cls, cfg, device, dtype, gen, host=False):
     """Construct on the meta device, allocate on ``device``, fill from
     ``gen``; with ``host``, move the weights to host memory afterwards."""
-    prev = torch.get_default_dtype()
-    torch.set_default_dtype(dtype)
-    try:
-        with torch.device("meta"):
-            model = cls(cfg)
-    finally:
-        torch.set_default_dtype(prev)
-    model = init_random_(model.to_empty(device=device), gen).eval()
+    model = init_random_(build_on_meta(cls, cfg, dtype).to_empty(device=device), gen).eval()
     return model.to("cpu") if host else model

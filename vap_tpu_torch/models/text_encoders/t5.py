@@ -161,6 +161,10 @@ class T5EncoderModel(nn.Module):
     """``forward(input_ids [B, S], attention_mask [B, S] or None)`` ->
     [B, S, d_model] in the weights' dtype."""
 
+    # state-dict key -> checkpoint keys, the first present wins: the
+    # embedding is ``shared`` in T5 checkpoints, ``encoder.embed_tokens`` in some
+    checkpoint_aliases = {"shared.weight": ("shared.weight", "encoder.embed_tokens.weight")}
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         if cfg.feed_forward_proj != "gated-gelu":

@@ -17,16 +17,26 @@ structure, ``cogvideox_5b_i2v_vap``, ``wan_14b_i2v_vap`` or
 transformer's fields as in JAX's ``train.py`` (a flat JSON, or its
 ``"transformer"`` section): ``examples/training/sft/wan/crush_smol_lora/
 config_plain.json`` makes Wan2.1-I2V-14B the plain model of the LoRA
-recipe. The weights are random, from ``--seed``, until a checkpoint loader
-is ported. The cache is the JAX trainer's precompute output
+recipe. The cache is the JAX trainer's precompute output
 (``rank_0/cond_*.npz``, ``lat_*.npz``); its shapes must fit the model
 configuration.
+
+The transformer's weights come as in JAX's ``train.py`` (``_build_cogvideox``
+:128-191, ``_build_wan`` :193-287, ``_build_hunyuan_video`` :418-470):
+``--videoasprompt_mot_name_or_path`` (a finetuned MoT transformer) first;
+else the ``transformer/`` component of ``--pretrained_model_name_or_path``
+(a directory or a cached hub id; its ``config.json`` sets the structure's
+fields under ``--model_structure_config``), a stock CogVideoX or Wan
+checkpoint getting its MoT expert cloned from the trunk
+(``training.specs``); else random weights from ``--seed``. Only the
+transformer loads: the conditions and latents come from the cache. At the
+end of the run the trainer exports its weights (``SFTTrainer.export``).
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) each process starts
 ``torch.distributed`` from the launcher's environment: NCCL on the card
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; the world must equal
-``data_degree x seq_degree``. Every rank builds the same random weights
-from ``--seed``.
+``data_degree x seq_degree``. Every rank builds the same weights; rank 0
+exports.
 """
 
 from __future__ import annotations
@@ -44,12 +54,16 @@ from .models.cogvideox.config import CogVideoXMOTConfig
 from .models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
 from .models.hunyuan_video.config import HunyuanVideoConfig
 from .models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+from .models.loading import load_model
 from .models.random_init import build_random
 from .models.wan.config import WanMOTConfig
 from .models.wan.transformer_mot import WanTransformer3DMOTModel
 from .pipelines.cogvideox_i2v_mot import resolve_device
 from .training.args import TrainingArgs
+from .training.checkpoint import load_safetensors
+from .training.specs import build_mot_state_dict_from_base, build_wan_mot_state_dict_from_base
 from .training.trainer import SFTTrainer
+from .utils.hub import component_config_kwargs, resolve_model_dir
 
 # per model_name: the model class, its config class and its configurations
 # by name (the released structure first; ``tiny`` for runs on the CPU)
@@ -88,6 +102,57 @@ def structure_overrides(cfg_cls, structure: Dict[str, Any]) -> Dict[str, Any]:
         return tuple(tuplify(x) for x in v) if isinstance(v, list) else v
 
     return {k: tuplify(v) for k, v in structure.items() if k in names}
+
+
+def transformer_dir(base: str) -> Optional[str]:
+    """The ``transformer/`` component of a checkpoint (a directory or a
+    cached hub id), or None: no ``base``, or no such component."""
+    if not base:
+        return None
+    d = os.path.join(resolve_model_dir(base), "transformer")
+    return d if os.path.isdir(d) else None
+
+
+def transformer_weights(args: TrainingArgs, cfg, base_dir: Optional[str]):
+    """The transformer's checkpoint as JAX's family builders pick it, or
+    None (random weights): the MoT checkpoint, else the base transformer
+    (for CogVideoX and Wan with the expert cloned from the trunk where the
+    checkpoint lacks it)."""
+    mot_path = args.videoasprompt_mot_name_or_path
+    if args.model_name != "hunyuan_video" and mot_path and os.path.exists(mot_path):
+        logging.getLogger(__name__).info("loading the MoT transformer from %s", mot_path)
+        return load_safetensors(mot_path)
+    if base_dir is None:
+        return None
+    try:
+        sd = load_safetensors(base_dir)
+    except FileNotFoundError:
+        return None
+    if args.model_name == "cogvideox":
+        return build_mot_state_dict_from_base(sd, cfg)
+    if args.model_name == "wan":
+        return build_wan_mot_state_dict_from_base(sd, cfg)
+    return sd
+
+
+def build_transformer(args: TrainingArgs, config_name: Optional[str], device: torch.device):
+    """The family's transformer at ``config_name`` (the released structure
+    when None), in bf16 on the card or f32 on the CPU: loaded from the
+    checkpoint ``transformer_weights`` picks, else random from ``--seed``."""
+    model_cls, cfg_cls, configs = MODELS[args.model_name]
+    config_name = config_name or next(iter(configs))
+    if config_name not in configs:
+        raise ValueError(f"unknown model_config {config_name!r} for {args.model_name}; "
+                         f"valid: {sorted(configs)}")
+    base_dir = transformer_dir(args.pretrained_model_name_or_path)
+    cfg = configs[config_name](**{**component_config_kwargs(cfg_cls, base_dir),
+                                  **structure_overrides(cfg_cls, args.model_structure())})
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    state = transformer_weights(args, cfg, base_dir)
+    if state is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return build_random(model_cls, cfg, device, dtype, gen)
+    return load_model(model_cls, cfg, state, device, dtype)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -139,19 +204,12 @@ def main(argv: Optional[List[str]] = None) -> SFTTrainer:
     config_name = ns.pop("model_config")
     args = TrainingArgs(**ns)
     device, started = init_distributed(args, device)
-    model_cls, cfg_cls, configs = MODELS[args.model_name]
-    config_name = config_name or next(iter(configs))
-    if config_name not in configs:
-        raise ValueError(f"unknown model_config {config_name!r} for {args.model_name}; "
-                         f"valid: {sorted(configs)}")
-    cfg = configs[config_name](**structure_overrides(cfg_cls, args.model_structure()))
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = build_random(model_cls, cfg, device, dtype, gen)
-    trainer = SFTTrainer(args, model)
+    trainer = SFTTrainer(args, build_transformer(args, config_name, device))
     try:
         trainer.run()
+        if trainer.rank == 0:
+            trainer.export()
     finally:
         if started:
             import torch.distributed as dist

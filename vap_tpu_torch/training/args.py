@@ -60,6 +60,11 @@ class TrainingArgs:
 
     # models
     model_name: str = "cogvideox"                 # cogvideox | wan | hunyuan_video
+    # a checkpoint directory or cached hub id (its transformer/ component);
+    # "" trains random weights from --seed
+    pretrained_model_name_or_path: str = ""
+    # a finetuned MoT transformer (safetensors file, index or directory)
+    videoasprompt_mot_name_or_path: Optional[str] = None
     model_structure_config: Optional[str] = None  # JSON with block_idx_with_mot_ref etc.
     training_type: str = "video_as_prompt_mot"    # | lora
     rank: int = 64            # LoRA rank (lora training type)

@@ -41,8 +41,14 @@ Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
     logged loss is the data group's mean. Only rank 0 (data rank 0, seq
     rank 0) writes checkpoints and logs; every rank resumes from them.
 
-Not ported: validation sampling, DPO, the exports, parameter sharding
-(FSDP, tensor parallelism), the profiler window and the trackers.
+``export`` writes the trained transformer at the end of a run as JAX's
+``SFTTrainer.export`` does (``trainer.py:817``): the full weights in
+diffusers names (``model_weights/<step>/model.safetensors``) and, under
+LoRA, the adapters in PEFT layout beside them
+(``pytorch_lora_weights.safetensors``).
+
+Not ported: validation sampling, DPO, parameter sharding (FSDP, tensor
+parallelism), the profiler window and the trackers.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import contextlib
 import logging
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -62,7 +68,7 @@ from ..data.sampler import ResolutionSampler, collate_tensor_dicts
 from ..ops.attention import attention_provider
 from ..parallel import MeshConfig, attention_mesh, make_mesh
 from .args import TrainingArgs
-from .checkpoint import Checkpointer, TrainState
+from .checkpoint import Checkpointer, TrainState, export_lora_safetensors, export_safetensors
 from .lora import lora_parameters, merge_lora_into_params
 from .optimizer import get_lr_schedule, get_optimizer
 from .train_step import (HunyuanTrainStepConfig, TrainStepConfig, WanTrainStepConfig,
@@ -198,6 +204,20 @@ class SFTTrainer:
             return merge_lora_into_params(state, self.lora, alpha=float(self.args.lora_alpha),
                                           rank=self.args.rank)
         return state
+
+    def export(self, path: Optional[str] = None) -> str:
+        """Write the merged weights (``merged_params``) as diffusers-layout
+        safetensors, by default ``<output_dir>/model_weights/<step:06d>/
+        model.safetensors``; under LoRA also the adapters in PEFT layout,
+        ``pytorch_lora_weights.safetensors`` beside it. Returns the path."""
+        path = path or os.path.join(self.args.output_dir, "model_weights",
+                                    f"{self.train_state.step:06d}", "model.safetensors")
+        export_safetensors(self.merged_params(), path)
+        if self.lora_mode:
+            export_lora_safetensors(
+                self.lora, os.path.join(os.path.dirname(path), "pytorch_lora_weights.safetensors"),
+                rank=self.args.rank, alpha=float(self.args.lora_alpha))
+        return path
 
     def trainable_state_dict(self) -> Dict[str, torch.Tensor]:
         params = dict(self.model.named_parameters())
