@@ -102,10 +102,14 @@ Phases, each of which raises on failure:
      the other sampling modes on a small pipeline, each against plain dense
      attention: ablation_single_branch, baseline_single_condition, plain
      image-to-video, text-to-video (a T2V-shaped model),
-     discrete_long_reference; plain equal to baseline_single_condition,
-     model offload equal to resident and the tiled and sliced decode of one
-     tile equal to the default decode, to the bit; the tiled decode of a 2
-     x 2 tile grid on the card against the CPU;
+     discrete_long_reference, the MoT options (reference_independent, the
+     reference-slot embeddings, ablation_single_encoder,
+     ablation_residual_addition) and CogVideoX 1.5 (patch_size_t 2, ofs
+     embedding, 9 frames: a padded latent frame); plain equal to
+     baseline_single_condition, model offload equal to resident and the
+     tiled and sliced decode of one tile equal to the default decode, to
+     the bit; the tiled decode and the tiled encode of a 2 x 2 tile grid on
+     the card against the CPU;
      then CogVideoX-5B VAP at full width (42 blocks, MoT in 0-40, T5-XXL,
      the full VAE) at 49 frames of 480x720, random bf16 weights from a
      seed, through CogVideoXVAPPipeline.__call__, cut to 2 DDIM steps of
@@ -132,13 +136,41 @@ Phases, each of which raises on failure:
      counts at 0 before it: K1's 84 launches, then K2's 42 and K3's 498,
      latents bit-equal to the resident pipeline's; bytes, seconds and GB/s
      of the write and the load, host RSS and its peak, peak card memory;
+     then the tiled VAE encode (vae_encode_tiled: 3 x 3 tiles of 240 x 360)
+     of the main path's 49-frame reference video, its seconds and peak card
+     memory beside vae_encode's;
+  5d. CogVideoX streamed block offload: the pipeline built a third time from
+     that directory with build_pipeline(offload_blocks_chunk=6), so that
+     every weight lands in host memory; the pages of its blocks' tensors
+     page-locked in place (cudaHostRegister; seconds, bytes and host RSS
+     before and after), 8 chunks, then the main path's flash call (2 steps, latents)
+     with the blocks streamed on a copy stream: K1's 84 launches, latents
+     bit-equal to the resident pipeline's; peak card memory, seconds per
+     step, bytes copied host -> card per step and their GB/s, the share of
+     the copies that overlapped compute (the copy stream's events);
+  5e. CogVideoX 1.5 VAP at full width: cogvideox_5b_i2v_vap with
+     CogVideoX1.5-5B-I2V's transformer fields (patch_size_t 2, ofs_embed_dim
+     512, sample 300 x 300 x 81, no learned position table; MoT in 0-40),
+     its VAE (invert_scale_latents, scaling 0.7) and T5-XXL, random bf16
+     weights from a seed, on the card: 81 frames of 768x1360 (21 latent
+     frames padded to 22), one reference, CFG batch 2, one DDIM step under
+     flash (42 K1 launches: 41 MoT blocks at [2,48,90212,64], the plain
+     block 41 at [2,48,45106,64], the shapes read from the calls), decoded
+     to 81 frames; the step, encode and decode seconds and the peak card
+     memory; then K1 on the last inputs of each shape held against its
+     plain version on heads 0-7 and 40-47, under phase 1's limits;
   6. Wan: a small pipeline on the card held against plain dense attention
      under flash and sage, then Wan2.1-I2V-14B VAP at full width (40 blocks,
      MoT in all 40, 40x128 heads, UMT5-XXL, CLIP ViT-H/14, the Wan VAE) at
      49 frames of 480x832, one reference, FlowMatch shift 3, guidance 5,
      random bf16 weights from a seed, through WanVAPPipeline.__call__ with
      model offload (one component on the card at a time), cut to 2 steps
-     under flash and 1 under sage; then (6b) its bench configuration on the
+     under flash and 1 under sage; then (6d) the same 2 flash steps with
+     offload_blocks_chunk=4: the 40 blocks page-locked in place and streamed
+     in 10 chunks on a copy stream, K4's 400 launches, latents bit-equal to
+     the resident run's, with the figures of 5d, then the pages unlocked
+     (close_streamed); then (6b) its
+     bench configuration on the
      same pipeline: the 804 projections quantised to W8A8 (chunk form) on
      the card, one weight at a time, the int8 copies kept in host memory;
      sage, UniPC (shift 3, guidance 5), the step cache "uniform:2:1:1" over
@@ -244,6 +276,11 @@ Phases, each of which raises on failure:
      bit-identical, every adapter's B moved at step 1 and its A at step 2;
      the share of adapted weight elements the bf16 merge changes.
 
+At the phase boundaries from 4 on, a "[host memory, ...]" line gives the
+seconds since the smoke began, the process's RSS and its peak so far, the
+sandbox's charged memory, which the machine's 96 GiB limit reads, and the
+free bytes glibc keeps in its heap for reuse.
+
 The last three lines are a JSON object with each kernel's launches in its
 main-path run (K7 in K4, K2, K6 and K5 and K8 in K1, K4, K5 and K6 listed apart
 from them; K8 is on no model's path: its launches are those of the ring's
@@ -255,6 +292,8 @@ the card's name and power limit as nvidia-smi gives them; and
 """
 
 import contextlib
+import ctypes
+import ctypes.util
 import dataclasses
 import json
 import os
@@ -700,7 +739,8 @@ def kernel_parity(dev):
         b, h, s, d = spec["timed"]
         q, k, v = qkv(b, h, s, s, d)
         ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=2)
-        plain_ms = time_ms(lambda: plain(q, k, v), iters=1, warmup=1)
+        # the parity loop above ran the plain version at this shape already
+        plain_ms = time_ms(lambda: plain(q, k, v), iters=1, warmup=0)
         library_ms = None
         if spec["kind"] == "flash":  # one PyTorch call with the same function: a yardstick
             with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -726,7 +766,7 @@ def kernel_parity(dev):
         for b, h, sq, skv, d in spec.get("timed_cross", ()):  # K4 and K2 at Wan's cross shapes
             q, k, v = qkv(b, h, sq, skv, d)
             c_ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=2)
-            c_plain = time_ms(lambda: plain(q, k, v), iters=1, warmup=1)
+            c_plain = time_ms(lambda: plain(q, k, v), iters=1, warmup=0)  # run in the parity loop
             c_lib = c_pre = None
             if spec["kind"] == "flash":
                 with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -2140,18 +2180,19 @@ def build_main_pipeline(dev):
     return pipe
 
 
-def main_path_args(steps):
+def main_path_args(steps, height=HEIGHT, width=WIDTH, frames=NUM_FRAMES):
     """The main path's call: a synthetic 480x720 image, a 49-frame reference
-    video, two prompts, DDIM with dynamic CFG at guidance 6."""
+    video, two prompts, DDIM with dynamic CFG at guidance 6 (5e's at its
+    own size)."""
     import numpy as np
 
-    yy, xx = np.meshgrid(np.linspace(-1, 1, HEIGHT), np.linspace(-1, 1, WIDTH), indexing="ij")
+    yy, xx = np.meshgrid(np.linspace(-1, 1, height), np.linspace(-1, 1, width), indexing="ij")
     image = np.stack([xx, yy, xx * yy], -1).astype(np.float32)
-    t = np.linspace(0, 1, NUM_FRAMES)[:, None, None, None]
+    t = np.linspace(0, 1, frames)[:, None, None, None]
     ref_video = np.clip(np.sin(3 * image[None] + 4 * t), -1, 1).astype(np.float32)
     return dict(image=image, prompt="a red fox runs through fresh snow", ref_videos=[ref_video],
-                prompt_mot_ref=["the camera orbits the subject"], height=HEIGHT, width=WIDTH,
-                num_frames=NUM_FRAMES, num_inference_steps=steps, guidance_scale=6.0,
+                prompt_mot_ref=["the camera orbits the subject"], height=height, width=width,
+                num_frames=frames, num_inference_steps=steps, guidance_scale=6.0,
                 use_dynamic_cfg=True, seed=SEED)
 
 
@@ -2469,10 +2510,14 @@ def small_modes_check(dev):
     single-branch ablation (the trunk over target ‖ reference, six latent
     frames where the learned table holds three), baseline_single_condition,
     plain image-to-video, text-to-video on a T2V-shaped model, the
-    discrete_long_reference RoPE; plain equal to baseline_single_condition,
-    model offload equal to resident and the tiled and sliced decode of a
-    single tile equal to the default decode, each to the bit; the tiled
-    decode of a 2 x 2 tile grid in float32 on the card against the CPU."""
+    discrete_long_reference RoPE, the MoT options (reference_independent,
+    the reference-slot embeddings, the two block ablations, each on a
+    transformer of its own) and CogVideoX 1.5 (patch_size_t 2, the ofs
+    embedding, a padded latent frame); plain equal to
+    baseline_single_condition, model offload equal to resident and the
+    tiled and sliced decode of a single tile equal to the default decode,
+    each to the bit; the tiled decode and the tiled encode of a 2 x 2 tile
+    grid in float32 on the card against the CPU."""
     import copy
 
     import numpy as np
@@ -2513,13 +2558,33 @@ def small_modes_check(dev):
                 output_type="latent",
                 latents=torch.from_numpy(rng.standard_normal((1, 3, 4, 8, 8)).astype(np.float32)))
     plain = dict(ref_videos=None, prompt_mot_ref=None)
-    modes = {"ablation_single_branch": (pipe, dict(ablation_single_branch=True)),
-             "baseline_single_condition": (pipe, dict(baseline_single_condition=True)),
-             "plain i2v": (pipe, plain),
-             "t2v": (pipeline(t2v), dict(plain, image=None)),
-             "discrete_long_reference": (pipe, dict(ref_type="discrete_long_reference"))}
+    layers = t_cfg.num_layers
+
+    def option(**kw):
+        """The pipeline on a small transformer with the MoT option ``kw``."""
+        cfg = dataclasses.replace(t_cfg, **kw)
+        return pipeline(build_random(CogVideoXTransformer3DMOTModel, cfg, dev, bf16, gen))
+
+    # CogVideoX 1.5: 9 frames give 3 latent frames, padded to 4
+    cog15 = option(patch_size_t=2, ofs_embed_dim=t_cfg.time_embed_dim,
+                   use_learned_positional_embeddings=False)
+    latents15 = torch.from_numpy(rng.standard_normal((1, 4, 4, 8, 8)).astype(np.float32))
+    # mode: (pipeline, call, K1 launches a step); an ablation block runs the
+    # reference's own attention and then the target's
+    modes = {"ablation_single_branch": (pipe, dict(ablation_single_branch=True), layers),
+             "baseline_single_condition": (pipe, dict(baseline_single_condition=True), layers),
+             "plain i2v": (pipe, plain, layers),
+             "t2v": (pipeline(t2v), dict(plain, image=None), layers),
+             "discrete_long_reference": (pipe, dict(ref_type="discrete_long_reference"), layers),
+             "reference_independent": (option(reference_train_mode="reference_independent"), {},
+                                       layers),
+             "ref_embeddings": (option(num_ref_embeddings=2), {}, layers),
+             "ablation_single_encoder": (option(ablation_single_encoder=True), {}, layers + 2),
+             "ablation_residual_addition": (option(ablation_residual_addition=True), {},
+                                            layers + 2),
+             "cogvideox 1.5": (cog15, dict(latents=latents15), layers)}
     got = {}
-    for mode, (p, extra) in modes.items():
+    for mode, (p, extra, per_step) in modes.items():
         args = dict(base, **extra)
         with attention_provider("xla"):
             ref = torch.as_tensor(p(**args))
@@ -2532,7 +2597,7 @@ def small_modes_check(dev):
         log(f"  {mode}: {tuple(out.shape)}, flash vs plain dense attention max|err| {err:.4e} "
             f"(tol {E2E_ATOL['flash']}), max|ref| {ref.abs().max().item():.3f}; launches "
             f"{ {k: v for k, v in launches.items() if v} }")
-        check_launches(launches, {"flash_fwd": STEPS * t_cfg.num_layers})
+        check_launches(launches, {"flash_fwd": STEPS * per_step})
         if not (torch.isfinite(out).all() and err <= E2E_ATOL["flash"]):
             raise AssertionError(f"small pipeline, {mode}: flash disagrees with plain attention")
     if not torch.equal(got["plain i2v"], got["baseline_single_condition"]):
@@ -2566,6 +2631,16 @@ def small_modes_check(dev):
         f"{err:.3e} (tol {VAE_CARD_ATOL}), max|ref| {ref.abs().max().item():.3f}")
     if not err <= VAE_CARD_ATOL:
         raise AssertionError("the tiled decode on the card disagrees with the CPU")
+    # the tiled encode, 2 x 2 tiles of 240 x 360 every 200 x 288
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 5, 256, 320, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref = cvae.vae_encode_tiled(vae32.cpu(), x)
+        out = cvae.vae_encode_tiled(vae32.to(dev), x.to(dev)).cpu()
+    err = (out - ref).abs().max().item()
+    log(f"  tiled encode, 2 x 2 tiles, card vs CPU (float32): {tuple(out.shape)}, max|err| "
+        f"{err:.3e} (tol {VAE_CARD_ATOL}), max|ref| {ref.abs().max().item():.3f}")
+    if not err <= VAE_CARD_ATOL:
+        raise AssertionError("the tiled encode on the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -2578,6 +2653,9 @@ CKPT_COMPONENTS = (("transformer", "CogVideoXTransformer3DMOTModel", "diffusion_
                    ("text_encoder", "T5EncoderModel", "model"))
 
 
+SMOKE_START = [time.perf_counter()]  # main() sets it when the smoke begins
+
+
 def rss_gib():
     """This process's resident host memory now and its peak so far."""
     import resource
@@ -2585,6 +2663,46 @@ def rss_gib():
     with open("/proc/self/status") as fh:
         now = next(int(line.split()[1]) for line in fh if line.startswith("VmRSS:"))
     return now / 2**20, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def charged_gib():
+    """The memory the machine's limit counts for this sandbox (its cgroup's
+    usage), which under gVisor stays charged for memory the process freed."""
+    for path in ("/sys/fs/cgroup/memory.current", "/sys/fs/cgroup/memory/memory.usage_in_bytes"):
+        try:
+            with open(path) as fh:
+                return int(fh.read()) / 2**30
+        except OSError:
+            pass
+    return float("nan")
+
+
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_size_t) for name in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks", "uordblks",
+        "fordblks", "keepcost")]
+
+
+def host_memory(phase):
+    """Logs host memory at a phase boundary, after the freed Python objects
+    are collected: the seconds since the smoke began, RSS and its peak so
+    far, the sandbox's charged memory (what the machine's limit reads), and
+    glibc's heap: the free bytes it keeps for reuse (mallinfo2 fordblks)
+    and the bytes of live mmapped blocks (hblkhd)."""
+    import gc
+
+    gc.collect()
+    libc = ctypes.CDLL(ctypes.util.find_library("c"))
+    heap = "n/a"
+    if hasattr(libc, "mallinfo2"):
+        libc.mallinfo2.restype = _MallInfo2
+        info = libc.mallinfo2()
+        heap = (f"{info.fordblks / 2**30:.2f} GiB free in the heap, {info.hblkhd / 2**30:.2f} "
+                f"GiB mmapped")
+    now, peak = rss_gib()
+    log(f"[host memory, {phase}, {time.perf_counter() - SMOKE_START[0]:.1f} s] RSS {now:.2f} "
+        f"GiB, peak {peak:.2f} GiB; charged {charged_gib():.2f} GiB (MemTotal "
+        f"{mem_total_gib():.2f} GiB); glibc: {heap}")
 
 
 def state_bytes(module):
@@ -2724,8 +2842,320 @@ def checkpoint_load_path(root, written, want_flash, want_bench, dev):
             raise AssertionError(f"checkpoint path, {provider}: latents differ from the resident "
                                  f"pipeline's by up to {(got - want).abs().max().item()}")
     del pipe
-    shutil.rmtree(root)
     torch.cuda.empty_cache()
+
+
+def tiled_encode_path(vae, dev):
+    """The tiled VAE encode (vae_encode_tiled, 240 x 360 tiles: 3 x 3 at
+    480 x 720) of the main path's 49-frame reference video on the main
+    pipeline's VAE, beside the plain encode: the seconds, the peak card
+    memory, finite moments of the plain encode's shape."""
+    import torch
+
+    from vap_tpu_torch.models.cogvideox.vae import vae_encode, vae_encode_tiled
+
+    video = torch.from_numpy(main_path_args(1)["ref_videos"][0])[None].to(dev, torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("vae_encode", vae_encode), ("vae_encode_tiled", vae_encode_tiled)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            out[name] = fn(vae, video)
+            torch.cuda.synchronize()
+            out[name + "_s"] = time.perf_counter() - t0
+            out[name + "_peak"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    plain, tiled = out["vae_encode"], out["vae_encode_tiled"]
+    diff = (tiled.float() - plain.float()).abs().max().item()
+    log(f"  tiled encode of {tuple(video.shape)}: moments {tuple(tiled.shape)} in "
+        f"{out['vae_encode_tiled_s']:.3f} s, peak {out['vae_encode_tiled_peak']:.2f} GiB; "
+        f"vae_encode {out['vae_encode_s']:.3f} s, peak {out['vae_encode_peak']:.2f} GiB; "
+        f"max|tiled - plain| {diff:.4f} (the tiles' edges and blends), max|plain| "
+        f"{plain.abs().max().item():.3f}; {power_line()}")
+    if tiled.shape != plain.shape or not torch.isfinite(tiled).all():
+        raise AssertionError(f"tiled encode {tuple(tiled.shape)} against {tuple(plain.shape)}, "
+                             f"or not finite")
+
+
+# ---------------------------------------------------------------------------
+# phases 5d and 6d: streamed block offload; phase 5e: CogVideoX 1.5
+# ---------------------------------------------------------------------------
+
+COG_STREAM_CHUNK = 6  # 5d's blocks a chunk: 8 chunks of the 42 (MoT 0-40, a plain 41)
+WAN_STREAM_CHUNK = 4  # 6d's, the figure of vap_tpu/pipelines/streamed.py:17-18
+
+
+def pin_blocks(pipe):
+    """``pipe``'s transformer blocks page-locked in place
+    (``pinned_blocks``), with host RSS around it. Returns the store."""
+    rss0, charged0 = rss_gib()[0], charged_gib()
+    store = pipe.pinned_blocks()
+    now, peak = rss_gib()
+    log(f"  {len(store.chunks)} chunks of up to {pipe.offload_blocks_chunk} blocks: "
+        f"{store.nbytes} bytes ({store.nbytes / 2**30:.2f} GiB) page-locked in place "
+        f"(cudaHostRegister over {len(store.spans)} page ranges) in {store.pin_seconds:.2f} s, "
+        f"after {store.edge_bytes} bytes of their page edges were copied in "
+        f"{store.edge_seconds:.2f} s; "
+        f"two card slots of {store.slot_bytes} bytes; host RSS {rss0:.2f} -> {now:.2f} GiB, "
+        f"peak {peak:.2f} GiB; the sandbox's charged memory {charged0:.2f} -> "
+        f"{charged_gib():.2f} GiB")
+    if not store.pinned or not store.spans:
+        raise AssertionError("the blocks are not page-locked")
+    return store
+
+
+def streamed_run(pipe, args, want, expected, dev):
+    """``pipe(**args)`` under flash with its blocks streamed, every count at
+    0 before it: ``expected`` launches, latents bit-equal to ``want``. Logs
+    and returns the figures: peak card memory, seconds per step, bytes
+    copied host -> card per step and their GB/s, the share of the copies
+    that overlapped compute (the last step's events)."""
+    import torch
+
+    from vap_tpu_torch.ops.attention import attention_provider
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with attention_provider("flash"):
+        got = pipe(**dict(args, output_type="latent"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    runner = pipe._streamed
+    stats = runner.copy_stats()
+    steps = pipe.stage_seconds["denoise_steps"]
+    per_step = runner.bytes_copied // runner.num_forwards
+    fig = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "step_s": steps,
+           "bytes_per_step": per_step, "copy_gb_s": per_step / stats["copy_ms"] * 1e-6,
+           "overlap_share": stats["overlap_ms"] / stats["copy_ms"], **stats}
+    got = got.cpu()
+    same = torch.equal(got, want)
+    log(f"  streamed, {len(steps)} step(s): latents {tuple(got.shape)} bit-equal to the resident "
+        f"run's: {same}; launches { {k: v for k, v in launches.items() if v} }; max_staged "
+        f"{runner.max_staged}, {runner.num_forwards} forwards")
+    log(f"  peak card memory {fig['peak_gib']:.2f} GiB; seconds per step "
+        f"{[round(x, 3) for x in steps]} (call {wall:.3f}); host -> card {per_step} bytes "
+        f"({per_step / 1e9:.3f} GB) a step at {fig['copy_gb_s']:.2f} GB/s over "
+        f"{stats['copy_ms']:.1f} ms of copies, {fig['overlap_share']:.4f} of them during compute "
+        f"(blocks {stats['compute_ms']:.1f} ms of the last step's {stats['blocks_ms']:.1f}); "
+        f"{power_line()}")
+    check_launches(launches, expected)
+    if not same:
+        raise AssertionError(f"streamed latents differ from the resident run's by up to "
+                             f"{(got - want).abs().max().item()}")
+    return fig
+
+
+def streamed_cog_path(root, written, want_flash, dev):
+    """Phase 5d: the pipeline built a third time from the checkpoint
+    directory with build_pipeline(offload_blocks_chunk=COG_STREAM_CHUNK),
+    every weight in host memory, then the main path's flash call (STEPS
+    steps) with the blocks streamed: K1's launches, latents bit-equal to the
+    resident pipeline's. Returns the figures."""
+    import torch
+
+    from vap_tpu_torch.infer.cog_vap import build_pipeline
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config
+
+    pipe = timed_build(build_pipeline, written, dev, model_path=root, dtype_str="bfloat16",
+                       offload_blocks_chunk=COG_STREAM_CHUNK,
+                       tokenizer=FakeTokenizer(T5Config.t5_xxl().vocab_size))
+    if not pipe.enable_model_offload:
+        raise AssertionError("offload_blocks_chunk did not imply model offload")
+    pin_blocks(pipe)
+    fig = streamed_run(pipe, main_path_args(STEPS), want_flash,
+                       {"flash_fwd": STEPS * pipe.transformer.config.num_layers}, dev)
+    del pipe
+    torch.cuda.empty_cache()
+    return fig
+
+
+COG15_HEIGHT, COG15_WIDTH, COG15_FRAMES = 768, 1360, 81
+COG15_HELD_HEADS = (slice(0, 8), slice(40, 48))  # 5e's K1 output held on these heads
+
+
+class KeptAttention:
+    """Within the block, the flash call of ``full_attention`` records the
+    shape of every (q, k, v) it hands K1's wrapper and keeps the last
+    call's tensors of each q shape (on the card) in ``qkv``; the wrapper and
+    its count are untouched."""
+
+    def __enter__(self):
+        from vap_tpu_torch.ops import attention
+
+        self.module, self.fn = attention, attention.flash_attention
+        self.shapes, self.qkv = [], {}
+
+        def recording(q, k, v, scale=None, kv_lens=None):
+            self.shapes.append((tuple(q.shape), tuple(k.shape), kv_lens is None))
+            self.qkv[tuple(q.shape)] = (q, k, v, scale)
+            return self.fn(q, k, v, scale, kv_lens)
+
+        attention.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.fn
+
+
+def held_on_heads(name, q, k, v, scale, heads):
+    """K1's wrapper on (q, k, v) on the card, its out and lse held against
+    the plain version on each head slice of ``heads`` (both batch
+    elements), under phase 1's limits. Returns the out's max|err|."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_attention_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    err = lse_err = ref_max = 0.0
+    t0 = time.perf_counter()
+    for hs in heads:
+        ref_out, ref_lse = fa.flash_attention_forward_plain(q[:, hs], k[:, hs], v[:, hs], scale)
+        ref_max = max(ref_max, ref_out.float().abs().max().item())
+        err = max(err, (out[:, hs].float() - ref_out.float()).abs().max().item())
+        lse_err = max(lse_err, (lse[:, hs] - ref_lse).abs().max().item())
+        del ref_out, ref_lse
+    n = sum(h.stop - h.start for h in heads)
+    log(f"  {name} {tuple(q.shape)} x {k.shape[2]}, held on {n} of {q.shape[1]} heads "
+        f"{[(h.start, h.stop) for h in heads]} (plain {time.perf_counter() - t0:.1f} s): out "
+        f"max|err| {err:.3e}, / max|ref| {ref_max:.3e} = {err / ref_max:.3e} (tol "
+        f"{OUT_REL_TOL}), lse max|err| {lse_err:.3e} (tol {LSE_ATOL}), finite {finite}")
+    if not (finite and err <= OUT_REL_TOL * ref_max and lse_err <= LSE_ATOL):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def cog15_path(dev):
+    """Phase 5e: CogVideoX 1.5 VAP at full width (cogvideox_5b_i2v_vap with
+    CogVideoX1.5-5B-I2V's transformer fields, its VAE and T5-XXL, random
+    bf16 weights from SEED, on the card) at 81 frames of 768x1360, one
+    reference, CFG batch 2: one DDIM step under flash, decoded."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
+    from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+    from vap_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.ops.attention import attention_provider
+    from vap_tpu_torch.pipelines.cogvideox_i2v_mot import CogVideoXVAPPipeline
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    t_cfg = CogVideoXMOTConfig.cogvideox_5b_i2v_vap(
+        patch_size_t=2, ofs_embed_dim=512, sample_height=300, sample_width=300, sample_frames=81,
+        use_learned_positional_embeddings=False)
+    txt_cfg = T5Config.t5_xxl()
+    pipe = CogVideoXVAPPipeline(
+        build_random(CogVideoXTransformer3DMOTModel, t_cfg, dev, bf16, gen),
+        build_random(AutoencoderKLCogVideoX,
+                     CogVideoXVAEConfig(invert_scale_latents=True, scaling_factor=0.7), dev, bf16,
+                     gen),
+        build_random(T5EncoderModel, txt_cfg, dev, bf16, gen),
+        FakeTokenizer(txt_cfg.vocab_size), dtype=bf16, device=dev)
+    torch.cuda.synchronize()
+    log(f"  CogVideoX 1.5 weights: transformer {n_params(pipe.transformer)} bf16 (pt "
+        f"{t_cfg.patch_size_t}, ofs {t_cfg.ofs_embed_dim}, sample {t_cfg.sample_height}x"
+        f"{t_cfg.sample_width}x{t_cfg.sample_frames}), {time.perf_counter() - t0:.2f} s to build")
+    args = main_path_args(1, COG15_HEIGHT, COG15_WIDTH, COG15_FRAMES)
+    lat_f = (COG15_FRAMES - 1) // 4 + 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with KeptAttention() as kept, attention_provider("flash"):
+        video = pipe(**args)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    st = pipe.stage_seconds
+    tokens = 2 * (t_cfg.max_text_seq_length
+                  + (lat_f + 1) // 2 * (COG15_HEIGHT // 16) * (COG15_WIDTH // 16))
+    # the MoT blocks attend over target and reference, the plain tail block
+    # over the target alone
+    joint = (2, t_cfg.num_attention_heads, tokens, t_cfg.attention_head_dim)
+    target = (2, t_cfg.num_attention_heads, tokens // 2, t_cfg.attention_head_dim)
+    n_mot = len(t_cfg.block_idx_with_mot_ref)
+    want_calls = {(joint, joint, True): n_mot, (target, target, True): t_cfg.num_layers - n_mot}
+    received = {s: kept.shapes.count(s) for s in dict.fromkeys(kept.shapes)}
+    log(f"  {COG15_FRAMES} frames of {COG15_HEIGHT}x{COG15_WIDTH}: {lat_f} latent frames padded to "
+        f"{lat_f + lat_f % 2}; K1's wrapper received (q, k, no kv_lens): calls {received} "
+        f"(expected {want_calls}); output {video.shape}, finite "
+        f"{bool(np.isfinite(video).all())}, range [{video.min():.3f}, {video.max():.3f}]")
+    log(f"  stage seconds: text_encode {st['text_encode']:.3f}, vae_encode {st['vae_encode']:.3f}, "
+        f"denoise step {[round(x, 3) for x in st['denoise_steps']]}, vae_decode "
+        f"{st['vae_decode']:.3f}; call {wall:.3f}; peak card memory {peak:.2f} GiB (with a "
+        f"joint and a target-only q, k and v kept from their blocks on); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {power_line()}")
+    expected = (1, COG15_FRAMES, COG15_HEIGHT, COG15_WIDTH, 3)
+    if video.shape != expected or not np.isfinite(video).all():
+        raise AssertionError(f"CogVideoX 1.5 output {video.shape} (expected {expected}) or "
+                             f"not finite")
+    check_launches(launches, {"flash_fwd": t_cfg.num_layers})
+    if received != want_calls:
+        raise AssertionError(f"K1 received {received}, not {want_calls}")
+    del pipe, video
+    torch.cuda.empty_cache()
+    # K1 at these shapes against its plain version, on the last block's
+    # inputs of each (block 40's joint attention, block 41's target-only)
+    k1_err = max(held_on_heads(f"K1 on 5e's {what} attention", *kept.qkv[shape],
+                               COG15_HELD_HEADS)
+                 for what, shape in (("joint", joint), ("target-only", target)))
+    kept.qkv = None
+    torch.cuda.empty_cache()
+    return {"step_s": st["denoise_steps"][0], "vae_encode_s": st["vae_encode"],
+            "vae_decode_s": st["vae_decode"], "peak_gib": peak, "k1_max_abs_err": k1_err}
+
+
+def wan_streamed_path(pipe, want, dev):
+    """Phase 6d, on phase 6's pipeline (its weights in host memory) before
+    6b quantises it: the same WAN_STEPS flash steps with
+    offload_blocks_chunk=WAN_STREAM_CHUNK, latents bit-equal to phase 6's,
+    K4's launches; then the pages unlocked.
+    Returns the figures."""
+    pipe.offload_blocks_chunk = WAN_STREAM_CHUNK
+    pin_blocks(pipe)
+    fig = streamed_run(pipe, wan_args(WAN_STEPS), want,
+                       {"flash_fwd_d128": WAN_STEPS * pipe.transformer.config.num_layers * 5}, dev)
+    t0 = time.perf_counter()
+    pipe.close_streamed()
+    pipe.offload_blocks_chunk = None
+    log(f"  close_streamed (the pages unlocked) in {time.perf_counter() - t0:.2f} s; host RSS "
+        f"{rss_gib()[0]:.2f} GiB, charged {charged_gib():.2f} GiB")
+    return fig
+
+
+class LastLatents:
+    """Within the block, ``pipe``'s scheduler is a subclass whose step keeps
+    the latents it returns: ``latents`` holds the final step's, on the host."""
+
+    def __init__(self, pipe):
+        self.pipe, self.latents = pipe, None
+
+    def __enter__(self):
+        scheduler, keeper = self.pipe.scheduler, self
+
+        class Keeping(type(scheduler)):
+            def step(self, *a, **kw):
+                out = super().step(*a, **kw)
+                keeper.latents = out
+                return out
+
+        self.scheduler = scheduler
+        self.pipe.scheduler = Keeping(**{f.name: getattr(scheduler, f.name)
+                                         for f in dataclasses.fields(scheduler)})
+        return self
+
+    def __exit__(self, *exc):
+        self.pipe.scheduler = self.scheduler
+        self.pipe = self.scheduler = None  # the pipeline goes when its phase lets go of it
+        if self.latents is not None:
+            self.latents = self.latents.cpu()
 
 
 def export_check(trainer):
@@ -4050,7 +4480,7 @@ def main():
     if not os.path.abspath(vap_tpu_torch.__file__).startswith(HERE + os.sep):
         raise SystemExit(f"chip_smoke: vap_tpu_torch comes from {vap_tpu_torch.__file__}, "
                          f"not from this checkout")
-    t_start = time.perf_counter()
+    t_start = SMOKE_START[0] = time.perf_counter()
 
     # 2. build
     registers = build_kernels()
@@ -4084,6 +4514,8 @@ def main():
         results[name]["ring_body_backward_max_rel_err"] = ring_bwd_err
 
     # 4-5. CogVideoX
+    host_memory("before 4")
+    streamed = {}
     log("small pipeline check:")
     small_pipeline_check(dev)
     log("small W8A8 pipeline check (DPM, adaptive step cache):")
@@ -4096,6 +4528,12 @@ def main():
     log(f"main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd"] = main_path(pipe, "sage", 1, dev)
     launches["sage_quant"] = read_counts()["sage_quant"]  # K2's pre-pass in that run
+    # the phases this slice added (the tiled encode, 5d, 5e, 6d), timed together
+    t0 = time.perf_counter()
+    log(f"the tiled VAE encode of the main path's reference video ({NUM_FRAMES} frames of "
+        f"{HEIGHT}x{WIDTH}):")
+    tiled_encode_path(pipe.vae, dev)
+    slice_seconds = time.perf_counter() - t0
     # before the bench configuration, which quantises the pipeline in place
     log(f"main path under ring, one-rank NCCL group ({NUM_FRAMES} frames, {RING_STEPS} step, "
         f"latents):")
@@ -4122,16 +4560,46 @@ def main():
         f"against the resident pipeline's:")
     checkpoint_load_path(ckpt_root, ckpt_bytes, want_flash, want_bench, dev)
     ckpt_seconds += time.perf_counter() - t0
+    host_memory("before 5d")
+    t0 = time.perf_counter()
+    log(f"streamed block offload (5d): build_pipeline from that directory with "
+        f"offload_blocks_chunk={COG_STREAM_CHUNK}, the main path's call under flash ({STEPS} "
+        f"steps, latents) with the blocks streamed, against the resident pipeline's:")
+    streamed["cogvideox"] = streamed_cog_path(ckpt_root, ckpt_bytes, want_flash, dev)
+    shutil.rmtree(ckpt_root)
+    torch.cuda.empty_cache()
+    host_memory("after 5d")
+    log(f"CogVideoX 1.5 VAP (5e; {COG15_FRAMES} frames of {COG15_HEIGHT}x{COG15_WIDTH}, 1 step "
+        f"under flash, decoded):")
+    cog15 = cog15_path(dev)
+    slice_seconds += time.perf_counter() - t0
+    results["flash_fwd"]["cog15_joint_max_abs_err"] = cog15["k1_max_abs_err"]
+    results["flash_fwd"]["max_abs_err"] = max(results["flash_fwd"]["max_abs_err"],
+                                              cog15["k1_max_abs_err"])
+    host_memory("after 5e")
 
     # 6. Wan
+    host_memory("before 6")
     log("small Wan pipeline check:")
     wan_small_check(dev)
     torch.cuda.empty_cache()
     pipe = build_wan_pipeline(dev)
     log(f"Wan main path, flash ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, {WAN_STEPS} steps):")
-    launches["flash_fwd_d128"] = wan_main_path(pipe, "flash", WAN_STEPS, dev)
+    with LastLatents(pipe) as flash_run:
+        launches["flash_fwd_d128"] = wan_main_path(pipe, "flash", WAN_STEPS, dev)
     log(f"Wan main path, sage ({NUM_FRAMES} frames, 1 step):")
     launches["sage_fwd_d128"] = wan_main_path(pipe, "sage", 1, dev)
+    # 6d, before the bench configuration quantises the blocks in place
+    t0 = time.perf_counter()
+    log(f"Wan streamed block offload (6d): the same {WAN_STEPS} flash steps with "
+        f"offload_blocks_chunk={WAN_STREAM_CHUNK}, latents against the resident run's:")
+    streamed["wan"] = wan_streamed_path(pipe, flash_run.latents, dev)
+    slice_seconds += time.perf_counter() - t0
+    host_memory("after 6d")
+    log(f"the phases of streamed offload, CogVideoX 1.5 and the tiled encode (5d, 5e, 6d, the "
+        f"tiled encode): {slice_seconds:.1f} s in all; streamed peaks "
+        f"{ {k: round(v['peak_gib'], 2) for k, v in streamed.items()} } GiB, CogVideoX 1.5 "
+        f"step {cog15['step_s']:.2f} s")
     # 6c's transformer, before the bench configuration quantises phase 6's in place
     cut = wan_cut_transformer(pipe.transformer, dev)
     log(f"Wan bench configuration, sage + W8A8 + UniPC ({NUM_FRAMES} frames, {BENCH_STEPS} "
@@ -4143,21 +4611,22 @@ def main():
     t0 = time.perf_counter()
     wan_root, wan_bytes, want_wan = wan_checkpoint_write_path(pipe, cut, dev)
     del pipe, cut
-    gc.collect()
     torch.cuda.empty_cache()
+    host_memory("before 6c's load")
     log("Wan checkpoint in (6c): wan_vap.build_pipeline from that directory, latents against the "
         "resident pipeline's:")
     # UMT5, CLIP and the VAE, read back, stay in host memory for phase 10b
     wan_parts = wan_checkpoint_load_path(wan_root, wan_bytes, want_wan, dev)
     ckpt_seconds += time.perf_counter() - t0
-    gc.collect()
     torch.cuda.empty_cache()
+    host_memory("before 7")
 
     # 7. K5
     log("flash backward parity (bf16, vs plain PyTorch):")
     results["flash_bwd"] = backward_parity(dev)
 
     # 8. training
+    host_memory("before 8")
     log(f"training, CogVideoX-5B VAP ({NUM_FRAMES} frames of {HEIGHT}x{WIDTH}, batch 1, "
         f"{TRAIN_STEPS} optimizer steps):")
     launches["flash_bwd"], seconds = training_path(dev)
@@ -4175,11 +4644,12 @@ def main():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     # 10. Wan LoRA training
+    host_memory("before 10")
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
         f"batch 1, {TRAIN_STEPS} optimizer steps):")
     launches["flash_bwd_d128"], model, peft = wan_training_path(dev)
-    gc.collect()
     torch.cuda.empty_cache()
+    host_memory("before 10b")
     log(f"plain Wan I2V sampling of the trained LoRA model ({NUM_FRAMES} frames of "
         f"{WAN_HEIGHT}x{WAN_WIDTH}, UniPC, {WAN_STEPS} steps, latents):")
     wan_plain_sampling_path(model, wan_parts, dev)
@@ -4191,8 +4661,8 @@ def main():
     log(f"checkpoint phase (5c, 6c, 8's export, 10's PEFT file and 10c): {ckpt_seconds:.1f} s "
         f"in all")
     del model, wan_parts
-    gc.collect()
     torch.cuda.empty_cache()
+    host_memory("before 11")
 
     # 11. HunyuanVideo
     log("small Hunyuan pipeline check:")
@@ -4226,7 +4696,7 @@ def main():
     # K7's backward in K5 is held, on no model's path: the run checked its count is 0
     launches["flash_bwd_varlen"] = train_launches["flash_bwd_varlen"]
     del transformer
-    gc.collect()
+    host_memory("at the end")
     log(f"smoke: {time.perf_counter() - t_start:.1f} s after start-up")
 
     # the wgmma kernels' registers (their K7 forms are the same kernels)

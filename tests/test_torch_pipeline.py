@@ -153,23 +153,6 @@ def test_invert_scale_latents_only_on_image_latents():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=1e-5)
 
 
-def test_unported_modes_raise(pipelines):
-    """What the port still lacks raises: streamed block offload, CogVideoX
-    1.5's temporal patching and the MoT options of the transformer."""
-    port, _ = pipelines
-    args, _ = _call_args()
-    streamed = tpipe.CogVideoXVAPPipeline(port.transformer, port.vae, port.text_encoder,
-                                          FakeTokenizer(), dtype=torch.float32, device="cpu",
-                                          offload_blocks_chunk=2)
-    with pytest.raises(NotImplementedError, match="offload_blocks_chunk"):
-        streamed(**args)
-    for option in (dict(patch_size_t=2), dict(ofs_embed_dim=8),
-                   dict(reference_train_mode="reference_independent"),
-                   dict(ablation_single_encoder=True), dict(ablation_residual_addition=True)):
-        with pytest.raises(NotImplementedError):
-            CogVideoXTransformer3DMOTModel(CogVideoXMOTConfig.tiny(**{**T_CFG, **option}))
-
-
 def test_pipeline_without_device_needs_a_card(monkeypatch):
     """No ``device`` means the card: on a box without CUDA the constructor
     raises instead of running on the CPU; ``device="cpu"`` is the way there."""

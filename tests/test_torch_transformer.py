@@ -80,10 +80,3 @@ def test_block_structure_follows_config(models):
     assert [blk.with_mot for blk in model.transformer_blocks] == [True, True, False]
     assert not hasattr(model.transformer_blocks[2], "attn1_mot_ref")
     assert model.patch_embed.pos_embedding.shape == (1, 6 + 3 * 4 * 4, model.config.inner_dim)
-
-
-@pytest.mark.parametrize("option", [dict(ablation_single_encoder=True),
-                                    dict(reference_train_mode="reference_independent")])
-def test_unported_modes_raise(option):
-    with pytest.raises(NotImplementedError):
-        CogVideoXTransformer3DMOTModel(CogVideoXMOTConfig.tiny(**option))

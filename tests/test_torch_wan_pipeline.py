@@ -142,18 +142,6 @@ def test_clip_preprocess_matches_jax(pipelines):
                                np.asarray(ref._clip_preprocess(image)), atol=1e-5, rtol=0)
 
 
-def test_unported_modes_raise(pipelines):
-    """What the port still lacks raises: streamed block offload and the MoT
-    option ``reference_train_mode``."""
-    port, _ = pipelines
-    args, _ = _call_args()
-    with pytest.raises(NotImplementedError, match="offload_blocks_chunk"):
-        port(offload_blocks_chunk=2)(**args)
-    with pytest.raises(NotImplementedError):
-        WanTransformer3DMOTModel(WanMOTConfig.tiny(**T_CFG,
-                                                   reference_train_mode="reference_independent"))
-
-
 def test_pipeline_without_device_needs_a_card(monkeypatch):
     """No ``device`` means the card: without one the constructor raises
     rather than running on the CPU."""

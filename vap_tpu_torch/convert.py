@@ -61,9 +61,12 @@ def _norm(sd: StateDict, prefix: str, p) -> None:
 # ---------------------------------------------------------------------------
 
 def _patch_embed(sd: StateDict, prefix: str, p, cfg: CogVideoXMOTConfig) -> None:
-    kernel = np.asarray(p["proj"]["kernel"])  # [C*p*p, D], (C, ph, pw)-ordered rows
+    # [C*p*p, D], (C, ph, pw)-ordered rows: a Conv2d kernel; with
+    # patch_size_t [C*pt*p*p, D], a Linear's weight transposed
+    kernel = np.asarray(p["proj"]["kernel"])
     ps = cfg.patch_size
-    sd[f"{prefix}.proj.weight"] = _t(kernel.T.reshape(cfg.inner_dim, cfg.in_channels, ps, ps))
+    sd[f"{prefix}.proj.weight"] = _t(kernel.T if cfg.patch_size_t else
+                                     kernel.T.reshape(cfg.inner_dim, cfg.in_channels, ps, ps))
     sd[f"{prefix}.proj.bias"] = _t(p["proj"]["bias"])
     _linear(sd, f"{prefix}.text_proj", p["text_proj"])
     if "pos_embedding" in p:
@@ -112,10 +115,19 @@ def from_jax_transformer(params: Dict[str, Any], cfg: CogVideoXMOTConfig) -> Sta
     for name in ("time_embedding", "time_embedding_mot_ref"):
         _linear(sd, f"{name}.linear_1", params[name]["linear_1"])
         _linear(sd, f"{name}.linear_2", params[name]["linear_2"])
-    _norm(sd, "norm_final", params["norm_final"])
-    _linear(sd, "norm_out.linear", params["norm_out"]["linear"])
-    _norm(sd, "norm_out.norm", params["norm_out"]["norm"])
-    _linear(sd, "proj_out", params["proj_out"])
+    if "ofs_embedding" in params:
+        _linear(sd, "ofs_embedding.linear_1", params["ofs_embedding"]["linear_1"])
+        _linear(sd, "ofs_embedding.linear_2", params["ofs_embedding"]["linear_2"])
+    for s in ("", "_mot_ref") if "proj_out_mot_ref" in params else ("",):
+        _norm(sd, f"norm_final{s}", params[f"norm_final{s}"])
+        _linear(sd, f"norm_out{s}.linear", params[f"norm_out{s}"]["linear"])
+        _norm(sd, f"norm_out{s}.norm", params[f"norm_out{s}"]["norm"])
+        _linear(sd, f"proj_out{s}", params[f"proj_out{s}"])
+    for name, keys in (("effect_embeddings", cfg.supported_effect_types),
+                       ("ref_embeddings", [f"ref_{i}" for i in range(cfg.num_ref_embeddings or 0)])):
+        if name in params:  # [N, D] -> one [1, 1, D] entry per name
+            for key, row in zip(keys, np.asarray(params[name])):
+                sd[f"{name}.{key}"] = _t(row.reshape(1, 1, -1))
     for (start, length, has_mot), seg in zip(cfg.mot_segments, params["blocks"]):
         for i in range(length):
             _block(sd, f"transformer_blocks.{start + i}", _index(seg, i), has_mot)
@@ -275,8 +287,9 @@ def from_jax_wan_transformer(params: Dict[str, Any], cfg: WanMOTConfig) -> State
     for name in ("condition_embedder", "condition_embedder_mot_ref"):
         if name in params:
             _wan_condition_embedder(sd, name, params[name])
-    _linear(sd, "proj_out", params["proj_out"])
-    sd["scale_shift_table"] = _t(np.asarray(params["scale_shift_table"])[None])
+    for s in ("", "_mot_ref") if "proj_out_mot_ref" in params else ("",):
+        _linear(sd, f"proj_out{s}", params[f"proj_out{s}"])
+        sd[f"scale_shift_table{s}"] = _t(np.asarray(params[f"scale_shift_table{s}"])[None])
     for (start, length, has_mot), seg in zip(cfg.mot_segments, params["blocks"]):
         for i in range(length):
             _wan_block(sd, f"blocks.{start + i}", _index(seg, i), has_mot)

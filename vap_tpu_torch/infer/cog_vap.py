@@ -6,8 +6,9 @@ cached hub id), each component's ``config.json`` layered over the released
 configuration, each component's files picked by ``variant``, a PEFT LoRA
 fused into the transformer's state dict before it loads. The weights go
 onto the card one tensor at a time (``models/loading.py``), or with
-``enable_model_offload`` into host memory, one component staged at a time
-while the pipeline runs. The tokenizer comes from the caller (``tokenizer=``
+``enable_model_offload`` (which ``offload_blocks_chunk`` implies) into host
+memory, one component staged at a time while the pipeline runs, the
+transformer's blocks a chunk at a time under streamed offload. The tokenizer comes from the caller (``tokenizer=``
 or ``pipe.tokenizer``): the port reads no tokenizer files.
 
     pipe = build_pipeline("Video-As-Prompt-CogVideoX-5B", tokenizer=tok)
@@ -89,19 +90,23 @@ def build_pipeline(model_path: str, dtype_str: str = "bfloat16", *,
                    text_encoder_dtype: Optional[str] = None,
                    lora_path: Optional[str] = None, lora_scale: Optional[float] = None,
                    enable_vae_tiling: bool = False, enable_vae_slicing: bool = False,
-                   enable_model_offload: bool = False,
+                   enable_model_offload: bool = False, offload_blocks_chunk: Optional[int] = None,
                    tokenizer: Any = None, device: Any = "cuda") -> CogVideoXVAPPipeline:
     """Assemble the CogVideoX VAP pipeline from a checkpoint directory or a
     cached hub id, with the JAX surface: each ``*_id`` overrides one
     component's source, each ``*_dtype`` its storage dtype (``dtype_str``
     otherwise); ``lora_path`` fuses PEFT-layout adapters into the
     transformer before it loads (``lora_scale``, else alpha / r); the
-    ``enable_vae_*`` toggles map to the pipeline's tiled / sliced decode.
-    Runs on the card unless ``device`` asks for the CPU."""
+    ``enable_vae_*`` toggles map to the pipeline's tiled / sliced decode;
+    ``offload_blocks_chunk`` streams the transformer's blocks that many at
+    a time and implies ``enable_model_offload``, as in JAX. Runs on the card
+    unless ``device`` asks for the CPU."""
     device = resolve_device(device)
     dtype = parse_dtype(dtype_str)
     t_dtype, vae_dt, txt_dtype = (parse_dtype(d) if d else dtype
                                   for d in (transformer_dtype, vae_dtype, text_encoder_dtype))
+    # streamed block offload keeps the whole model in host memory too
+    enable_model_offload = enable_model_offload or bool(offload_blocks_chunk)
     src = Components(model_path, revision, variant, cache_dir, device, enable_model_offload)
     transformer = src.load(CogVideoXTransformer3DMOTModel, CogVideoXMOTConfig, "transformer",
                            transformer_id, t_dtype, release=CogVideoXMOTConfig.cogvideox_5b_i2v_vap,
@@ -112,4 +117,4 @@ def build_pipeline(model_path: str, dtype_str: str = "bfloat16", *,
     return CogVideoXVAPPipeline(
         transformer, vae, text_encoder, tokenizer, dtype=dtype, device=device,
         enable_vae_tiling=enable_vae_tiling, enable_vae_slicing=enable_vae_slicing,
-        enable_model_offload=enable_model_offload)
+        enable_model_offload=enable_model_offload, offload_blocks_chunk=offload_blocks_chunk)

@@ -33,7 +33,7 @@ def build_pipeline(model_path: str, dtype_str: str = "bfloat16", flow_shift: flo
                    text_encoder_dtype: Optional[str] = None,
                    lora_path: Optional[str] = None, lora_scale: Optional[float] = None,
                    enable_vae_tiling: bool = False, enable_vae_slicing: bool = False,
-                   enable_model_offload: bool = False,
+                   enable_model_offload: bool = False, offload_blocks_chunk: Optional[int] = None,
                    tokenizer: Any = None, device: Any = "cuda") -> WanVAPPipeline:
     """Assemble the Wan2.1 VAP pipeline from a checkpoint directory or a
     cached hub id; see ``infer/cog_vap.py`` ``build_pipeline``."""
@@ -41,6 +41,8 @@ def build_pipeline(model_path: str, dtype_str: str = "bfloat16", flow_shift: flo
     dtype = parse_dtype(dtype_str)
     t_dtype, vae_dt, txt_dtype = (parse_dtype(d) if d else dtype
                                   for d in (transformer_dtype, vae_dtype, text_encoder_dtype))
+    # streamed block offload keeps the whole model in host memory too
+    enable_model_offload = enable_model_offload or bool(offload_blocks_chunk)
     src = Components(model_path, revision, variant, cache_dir, device, enable_model_offload)
     transformer = src.load(WanTransformer3DMOTModel, WanMOTConfig, "transformer", transformer_id,
                            t_dtype, release=WanMOTConfig.wan_14b_i2v_vap,
@@ -55,4 +57,4 @@ def build_pipeline(model_path: str, dtype_str: str = "bfloat16", flow_shift: flo
         transformer=transformer, **parts, tokenizer=tokenizer,
         scheduler=FlowMatchEulerScheduler(shift=flow_shift), dtype=dtype, device=device,
         enable_vae_tiling=enable_vae_tiling, enable_vae_slicing=enable_vae_slicing,
-        enable_model_offload=enable_model_offload)
+        enable_model_offload=enable_model_offload, offload_blocks_chunk=offload_blocks_chunk)

@@ -1,6 +1,6 @@
 """CogVideoX MoT diffusion transformer in PyTorch.
 
-Port of ``vap_tpu/models/cogvideox/transformer_mot.py:183-384,466-620``: a
+Port of ``vap_tpu/models/cogvideox/transformer_mot.py:102-620``: a
 CogVideoX DiT trunk plus a Mixture-of-Transformers reference branch whose
 tokens (clean reference-video latents) join the target tokens inside one
 full attention per block, with temporally biased RoPE on the reference
@@ -13,18 +13,29 @@ Without reference inputs the forward runs the base trunk alone over
 the MoT blocks skip their expert and no reference stream is built. The
 pipeline's plain, T2V and single-branch ablation modes call it so.
 
+The forward is ``prologue`` (time embeddings, patchify, the reference
+slot and effect embeddings), ``run_blocks`` over a range of blocks (the
+streamed offload runs it one chunk at a time, ``pipelines/streamed.py``)
+and ``epilogue`` (the output head, and with ``reference_independent`` the
+reference stream's own head), as ``cog_prologue``, ``cog_run_segment`` and
+``cog_epilogue`` of JAX (:466-579).
+
+CogVideoX 1.5 (``patch_size_t``): the patch projection is a linear over
+(C, pt, p, p)-ordered voxels and ``proj_out`` gives pt frames a token;
+``ofs_embedding`` adds to both branches' time embeddings when the caller
+gives ``ofs`` (the MoT forward only, as in JAX). The block ablations
+(``ablation_single_encoder``, ``ablation_residual_addition``) run the
+reference stream through its own sub-block first (:387-465).
+
 Module attributes follow the diffusers state-dict keys of
 ``CogVideoXTransformer3DMOTModel`` (``transformer_blocks.{i}.attn1.to_q``,
-``patch_embed.proj``, ...), so a checkpoint loads with ``load_state_dict``.
-Not ported (they raise): the block ablations (``ablation_single_encoder``,
-``ablation_residual_addition``), ``reference_independent``, effect and
-reference-slot embeddings, the ofs embedding and temporal patching
-(``patch_size_t``).
+``patch_embed.proj``, ``effect_embeddings.<type>``, ``ref_embeddings.ref_<i>``,
+...), so a checkpoint loads with ``load_state_dict``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,21 +48,6 @@ from ..common import (FeedForward, FP32LayerNorm, TimestepEmbedding, get_3d_sinc
 from .config import CogVideoXMOTConfig
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
-
-
-def _check_supported(cfg: CogVideoXMOTConfig) -> None:
-    unported = {
-        "ablation_single_encoder": cfg.ablation_single_encoder,
-        "ablation_residual_addition": cfg.ablation_residual_addition,
-        "reference_train_mode": cfg.reference_train_mode is not None,
-        "supported_effect_types": bool(cfg.supported_effect_types),
-        "num_ref_embeddings": bool(cfg.num_ref_embeddings),
-        "ofs_embed_dim": cfg.ofs_embed_dim is not None,
-        "patch_size_t": cfg.patch_size_t is not None,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"CogVideoX MoT options not ported to PyTorch yet: {bad}")
 
 
 def sincos_pos_embedding(cfg: CogVideoXMOTConfig, height: int, width: int,
@@ -68,14 +64,18 @@ def sincos_pos_embedding(cfg: CogVideoXMOTConfig, height: int, width: int,
 
 
 class CogVideoXPatchEmbed(nn.Module):
-    """Text projection + 2D patchify of the video, concatenated along tokens,
-    plus the learned joint position table when the config has one."""
+    """Text projection + patchify of the video (2D, or with ``patch_size_t``
+    over pt frames too), concatenated along tokens, plus the learned joint
+    position table when the config has one."""
 
     def __init__(self, cfg: CogVideoXMOTConfig):
         super().__init__()
         self.cfg = cfg
-        ps = cfg.patch_size
-        self.proj = nn.Conv2d(cfg.in_channels, cfg.inner_dim, kernel_size=ps, stride=ps)
+        ps, pt = cfg.patch_size, cfg.patch_size_t
+        if pt is None:
+            self.proj = nn.Conv2d(cfg.in_channels, cfg.inner_dim, kernel_size=ps, stride=ps)
+        else:
+            self.proj = nn.Linear(cfg.in_channels * pt * ps * ps, cfg.inner_dim)
         self.text_proj = nn.Linear(cfg.text_embed_dim, cfg.inner_dim)
         if cfg.use_learned_positional_embeddings:
             frames = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
@@ -89,10 +89,15 @@ class CogVideoXPatchEmbed(nn.Module):
         """text [B, T, D_text], video [B, F, C, H, W] -> [B, T + F*h*w, D]."""
         cfg = self.cfg
         b, f, c, h, w = video.shape
-        ps = cfg.patch_size
-        # conv2d(k = s = p) as a linear over (C, ph, pw)-ordered patch pixels
-        x = video.reshape(b, f, c, h // ps, ps, w // ps, ps).permute(0, 1, 3, 5, 2, 4, 6)
-        x = x.reshape(b, f * (h // ps) * (w // ps), c * ps * ps)
+        ps, pt = cfg.patch_size, cfg.patch_size_t or 1
+        if cfg.patch_size_t is None:
+            # conv2d(k = s = p) as a linear over (C, ph, pw)-ordered patch pixels
+            x = video.reshape(b, f, c, h // ps, ps, w // ps, ps).permute(0, 1, 3, 5, 2, 4, 6)
+        else:
+            # a linear over (C, pt, ph, pw)-ordered voxels (:198-205)
+            x = video.permute(0, 1, 3, 4, 2).reshape(b, f // pt, pt, h // ps, ps, w // ps, ps, c)
+            x = x.permute(0, 1, 3, 5, 7, 2, 4, 6)
+        x = x.reshape(b, (f // pt) * (h // ps) * (w // ps), c * pt * ps * ps)
         video_tokens = nn.functional.linear(x, self.proj.weight.flatten(1), self.proj.bias)
         tokens = torch.cat([self.text_proj(text), video_tokens], dim=1)
         if cfg.use_learned_positional_embeddings:
@@ -104,7 +109,7 @@ class CogVideoXPatchEmbed(nn.Module):
                     raise ValueError(
                         "learned positional embeddings fix the spatial resolution to "
                         f"{cfg.sample_height}x{cfg.sample_width} latents, got {h}x{w}")
-                pos = torch.from_numpy(sincos_pos_embedding(cfg, h, w, f)).to(tokens.device)
+                pos = torch.from_numpy(sincos_pos_embedding(cfg, h, w, f // pt)).to(tokens.device)
             tokens = tokens + pos[None].to(tokens.dtype)
         return tokens
 
@@ -173,6 +178,8 @@ class CogVideoXBlock(nn.Module):
         super().__init__()
         dim = cfg.inner_dim
         self.with_mot = with_mot
+        self.single_encoder = cfg.ablation_single_encoder
+        self.residual_addition = cfg.ablation_residual_addition
 
         def branch(suffix: str):
             setattr(self, f"norm1{suffix}", CogVideoXLayerNormZero(cfg.time_embed_dim, dim, cfg.norm_eps))
@@ -185,29 +192,68 @@ class CogVideoXBlock(nn.Module):
         if with_mot:
             branch("_mot_ref")
 
-    def _ff(self, hs, ehs, temb):
+    def _ff(self, hs, ehs, temb, suffix: str = ""):
         text_len = ehs.shape[1]
-        shift, scale, gate, e_shift, e_scale, e_gate = self.norm2.mods(temb)
-        nhs = _modulate(self.norm2.norm, hs, scale, shift)
-        nehs = _modulate(self.norm2.norm, ehs, e_scale, e_shift)
-        ff = self.ff(torch.cat([nehs, nhs], dim=1))
+        norm2 = getattr(self, f"norm2{suffix}")
+        shift, scale, gate, e_shift, e_scale, e_gate = norm2.mods(temb)
+        nhs = _modulate(norm2.norm, hs, scale, shift)
+        nehs = _modulate(norm2.norm, ehs, e_scale, e_shift)
+        ff = getattr(self, f"ff{suffix}")(torch.cat([nehs, nhs], dim=1))
         return hs + gate[:, None] * ff[:, text_len:], ehs + e_gate[:, None] * ff[:, :text_len]
+
+    def _self_attention(self, hs, ehs, temb, rope: Rope, suffix: str = ""):
+        """A whole plain sub-block (attention over [text ‖ video], then the
+        feed-forward) on the weights of branch ``suffix``."""
+        text_len = ehs.shape[1]
+        norm1, attn1 = getattr(self, f"norm1{suffix}"), getattr(self, f"attn1{suffix}")
+        shift, scale, gate, e_shift, e_scale, e_gate = norm1.mods(temb)
+        nhs = _modulate(norm1.norm, hs, scale, shift)
+        nehs = _modulate(norm1.norm, ehs, e_scale, e_shift)
+        q, k, v = attn1.qkv(torch.cat([nehs, nhs], dim=1), rope, text_len)
+        attn = attn1.out(full_attention(q, k, v))
+        hs = hs + gate[:, None] * attn[:, text_len:]
+        ehs = ehs + e_gate[:, None] * attn[:, :text_len]
+        return self._ff(hs, ehs, temb, suffix)
+
+    def _forward_ablation(self, hs, ehs, temb, rope: Rope, hs_ref, ehs_ref, temb_ref,
+                          rope_ref: Rope):
+        """The ablation blocks (``_block_forward_ablation``, :387-465, one
+        reference): the reference stream runs its own sub-block first, under
+        the TARGET's RoPE table as the reference does; then the target's
+        attention either takes the updated reference tokens into its
+        sequence (single_encoder, the two tables concatenated) or runs alone
+        and, after the feed-forward, adds the reference stream
+        (residual_addition)."""
+        hs_ref, ehs_ref = self._self_attention(hs_ref, ehs_ref, temb_ref[:, 0], rope, "_mot_ref")
+        if not self.single_encoder:
+            hs, ehs = self._self_attention(hs, ehs, temb, rope)
+            return hs + hs_ref, ehs + ehs_ref, hs_ref, ehs_ref
+        text_len, vid_len = ehs.shape[1], hs.shape[1]
+        hs_cat, ehs_cat = torch.cat([hs, hs_ref], dim=1), torch.cat([ehs, ehs_ref], dim=1)
+        rope_cat = (torch.cat([rope[0], rope_ref[0]]), torch.cat([rope[1], rope_ref[1]]))
+        cat_text_len = ehs_cat.shape[1]
+        shift, scale, gate, e_shift, e_scale, e_gate = self.norm1.mods(temb)
+        nh = _modulate(self.norm1.norm, hs_cat, scale, shift)
+        ne = _modulate(self.norm1.norm, ehs_cat, e_scale, e_shift)
+        q, k, v = self.attn1.qkv(torch.cat([ne, nh], dim=1), rope_cat, cat_text_len)
+        attn = self.attn1.out(full_attention(q, k, v))
+        hs = hs + gate[:, None] * attn[:, cat_text_len:cat_text_len + vid_len]
+        ehs = ehs + e_gate[:, None] * attn[:, :text_len]
+        hs, ehs = self._ff(hs, ehs, temb)
+        return hs, ehs, hs_ref, ehs_ref
 
     def forward(self, hs, ehs, temb, rope: Rope, hs_ref=None, ehs_ref=None, temb_ref=None,
                 rope_ref: Rope = None, num_mot_ref: int = 1):
+        if not self.with_mot or hs_ref is None:
+            hs, ehs = self._self_attention(hs, ehs, temb, rope)
+            return hs, ehs, hs_ref, ehs_ref
+        if self.single_encoder or self.residual_addition:
+            return self._forward_ablation(hs, ehs, temb, rope, hs_ref, ehs_ref, temb_ref, rope_ref)
+
         text_len = ehs.shape[1]
         shift, scale, gate, e_shift, e_scale, e_gate = self.norm1.mods(temb)
         nhs = _modulate(self.norm1.norm, hs, scale, shift)
         nehs = _modulate(self.norm1.norm, ehs, e_scale, e_shift)
-
-        if not self.with_mot or hs_ref is None:
-            q, k, v = self.attn1.qkv(torch.cat([nehs, nhs], dim=1), rope, text_len)
-            attn = self.attn1.out(full_attention(q, k, v))
-            hs = hs + gate[:, None] * attn[:, text_len:]
-            ehs = ehs + e_gate[:, None] * attn[:, :text_len]
-            hs, ehs = self._ff(hs, ehs, temb)
-            return hs, ehs, hs_ref, ehs_ref
-
         r = num_mot_ref
         ref_text_len = ehs_ref.shape[1]
         # per-ref modulation of the reference branch: temb_ref [B, R, E]
@@ -257,45 +303,67 @@ class _AdaLayerNorm(nn.Module):
 class CogVideoXTransformer3DMOTModel(nn.Module):
     """The VAP transformer. ``forward`` returns the prediction [B, F, C_out, H, W]."""
 
+    # read only when the checkpoint has it (``weights.py:112``)
+    optional_checkpoint_modules = ("ofs_embedding",)
+
     def __init__(self, cfg: CogVideoXMOTConfig):
         super().__init__()
-        _check_supported(cfg)
         self.config = cfg
         dim = cfg.inner_dim
+        pt = cfg.patch_size_t or 1
+        out_dim = cfg.patch_size * cfg.patch_size * pt * cfg.out_channels
         self.patch_embed = CogVideoXPatchEmbed(cfg)
         self.patch_embed_mot_ref = CogVideoXPatchEmbed(cfg)
         self.time_embedding = TimestepEmbedding(dim, cfg.time_embed_dim)
         self.time_embedding_mot_ref = TimestepEmbedding(dim, cfg.time_embed_dim)
+        if cfg.ofs_embed_dim:
+            self.ofs_embedding = TimestepEmbedding(cfg.ofs_embed_dim, cfg.ofs_embed_dim)
         mot = set(cfg.block_idx_with_mot_ref)
         self.transformer_blocks = nn.ModuleList(
             [CogVideoXBlock(cfg, i in mot) for i in range(cfg.num_layers)])
         self.norm_final = FP32LayerNorm(dim, eps=cfg.norm_eps)
         self.norm_out = _AdaLayerNorm(cfg.time_embed_dim, dim, cfg.norm_eps)
-        self.proj_out = nn.Linear(dim, cfg.patch_size * cfg.patch_size * cfg.out_channels)
+        self.proj_out = nn.Linear(dim, out_dim)
+        if cfg.reference_train_mode == "reference_independent":
+            self.norm_final_mot_ref = FP32LayerNorm(dim, eps=cfg.norm_eps)
+            self.norm_out_mot_ref = _AdaLayerNorm(cfg.time_embed_dim, dim, cfg.norm_eps)
+            self.proj_out_mot_ref = nn.Linear(dim, out_dim)
+        # keyed by the checkpoint's names, each [1, 1, D] as the JAX export
+        # writes them (``vap_tpu/training/checkpoint.py:187-192``)
+        if cfg.supported_effect_types:
+            self.effect_embeddings = nn.ParameterDict(
+                {t: nn.Parameter(torch.zeros(1, 1, dim)) for t in cfg.supported_effect_types})
+        if cfg.num_ref_embeddings:
+            self.ref_embeddings = nn.ParameterDict(
+                {f"ref_{i}": nn.Parameter(torch.zeros(1, 1, dim))
+                 for i in range(cfg.num_ref_embeddings)})
 
-    def _time_embed(self, mlp: TimestepEmbedding, t: torch.Tensor, dtype) -> torch.Tensor:
+    def _time_embed(self, mlp: TimestepEmbedding, t: torch.Tensor, dtype,
+                    dim: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
-        emb = sinusoidal_timestep_embedding(t, cfg.inner_dim, flip_sin_to_cos=cfg.flip_sin_to_cos,
+        emb = sinusoidal_timestep_embedding(t, dim or cfg.inner_dim,
+                                            flip_sin_to_cos=cfg.flip_sin_to_cos,
                                             downscale_freq_shift=cfg.freq_shift)
         return mlp(emb.to(dtype))
 
-    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                timestep: torch.Tensor, image_rotary_emb: Rope,
-                hidden_states_mot_ref: Optional[torch.Tensor] = None,
-                encoder_hidden_states_mot_ref: Optional[torch.Tensor] = None,
-                image_rotary_emb_mot_ref: Rope = None, num_mot_ref: int = 1,
-                timestep_mot_ref: Optional[torch.Tensor] = None,
-                remat: Union[bool, str] = False) -> torch.Tensor:
-        """hidden_states [B, F, C, H, W] (noisy ‖ image latents); text
-        [B, T, D_text]; timestep [B]; refs [B, R*F, C, H, W] and
-        [B, R*T, D_text]; timestep_mot_ref [B, R] defaults to the target's.
-        Without ``hidden_states_mot_ref`` the trunk runs alone over
-        ``hidden_states`` (which the single-branch ablation makes target ‖
-        references along frames, with the two RoPE tables concatenated).
+    @staticmethod
+    def _stacked(table: nn.ParameterDict, names) -> torch.Tensor:
+        """The embeddings ``names`` of ``table`` as one [N, D] tensor."""
+        return torch.cat([table[n].reshape(1, -1) for n in names])
 
-        ``remat``: False, or True / "full" to checkpoint each block
-        (``remat_blocks``); "ops" and "block_skip:N" raise."""
-        full_remat = remat_blocks(remat)
+    def prologue(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                 timestep: torch.Tensor, image_rotary_emb: Rope,
+                 hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                 encoder_hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                 image_rotary_emb_mot_ref: Rope = None, num_mot_ref: int = 1,
+                 timestep_mot_ref: Optional[torch.Tensor] = None,
+                 effect_ids: Optional[torch.Tensor] = None,
+                 ofs: Optional[torch.Tensor] = None) -> Tuple[tuple, Dict]:
+        """Time embeddings and patchify (``cog_prologue``, :466-526).
+        Returns (carry, aux): carry = (hs, ehs, hs_ref, ehs_ref), the
+        reference entries None without reference inputs (the trunk alone,
+        which takes no ofs, as in JAX); aux what every block and the
+        epilogue read."""
         cfg = self.config
         b, num_frames, _, height, width = hidden_states.shape
         t_text = encoder_hidden_states.shape[1]
@@ -305,25 +373,101 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
         emb = self._time_embed(self.time_embedding, timestep, dtype)
         tokens = self.patch_embed(encoder_hidden_states, hidden_states)
         ehs, hs = tokens[:, :t_text], tokens[:, t_text:]
-        hs_ref = ehs_ref = emb_ref = None
-        if hidden_states_mot_ref is not None:
-            if timestep_mot_ref is None:
-                timestep_mot_ref = timestep[:, None].expand(b, r)
-            emb_ref = self._time_embed(self.time_embedding_mot_ref, timestep_mot_ref.reshape(-1),
-                                       dtype).reshape(b, r, -1)
-            vid_ref = hidden_states_mot_ref.reshape(b * r, num_frames, *hidden_states_mot_ref.shape[2:])
-            txt_ref = encoder_hidden_states_mot_ref.reshape(b * r, t_text, -1)
-            tokens_ref = self.patch_embed_mot_ref(txt_ref, vid_ref).reshape(b, r, -1, cfg.inner_dim)
-            ehs_ref = tokens_ref[:, :, :t_text].reshape(b, r * t_text, cfg.inner_dim)
-            hs_ref = tokens_ref[:, :, t_text:].reshape(b, -1, cfg.inner_dim)
+        aux = {"emb": emb, "rope": image_rotary_emb, "emb_ref": None, "rope_ref": None,
+               "num_mot_ref": r, "shape": (num_frames, height, width)}
+        if hidden_states_mot_ref is None:
+            return (hs, ehs, None, None), aux
 
-        for block in self.transformer_blocks:
-            args = (hs, ehs, emb, image_rotary_emb, hs_ref, ehs_ref, emb_ref,
-                    image_rotary_emb_mot_ref, r)
-            hs, ehs, hs_ref, ehs_ref = run_block(block, full_remat, *args)
+        if timestep_mot_ref is None:
+            timestep_mot_ref = timestep[:, None].expand(b, r)
+        emb_ref = self._time_embed(self.time_embedding_mot_ref, timestep_mot_ref.reshape(-1),
+                                   dtype).reshape(b, r, -1)
+        if cfg.ofs_embed_dim and ofs is not None:
+            if not hasattr(self, "ofs_embedding"):
+                raise ValueError("ofs given, but the checkpoint had no ofs_embedding")
+            ofs_emb = self._time_embed(self.ofs_embedding, ofs, dtype, cfg.ofs_embed_dim)
+            emb = emb + ofs_emb
+            emb_ref = emb_ref + ofs_emb[:, None]
+        vid_ref = hidden_states_mot_ref.reshape(b * r, num_frames, *hidden_states_mot_ref.shape[2:])
+        txt_ref = encoder_hidden_states_mot_ref.reshape(b * r, t_text, -1)
+        tokens_ref = self.patch_embed_mot_ref(txt_ref, vid_ref).reshape(b, r, -1, cfg.inner_dim)
+        if cfg.num_ref_embeddings:
+            # reference slot embeddings, back to front (:515-518)
+            slots = self._stacked(self.ref_embeddings, [f"ref_{i}" for i in range(r - 1, -1, -1)])
+            tokens_ref = tokens_ref + slots.to(dtype)[None, :, None, :]
+        if cfg.supported_effect_types and effect_ids is not None:
+            table = self._stacked(self.effect_embeddings, cfg.supported_effect_types).to(dtype)
+            tokens_ref = tokens_ref + table[effect_ids][None, :, None, :]
+        ehs_ref = tokens_ref[:, :, :t_text].reshape(b, r * t_text, cfg.inner_dim)
+        hs_ref = tokens_ref[:, :, t_text:].reshape(b, -1, cfg.inner_dim)
+        aux.update(emb=emb, emb_ref=emb_ref, rope_ref=image_rotary_emb_mot_ref)
+        return (hs, ehs, hs_ref, ehs_ref), aux
 
-        hs = self.norm_final(hs)
-        hs = self.proj_out(self.norm_out(hs, emb))
-        ps = cfg.patch_size
-        out = hs.reshape(b, num_frames, height // ps, width // ps, -1, ps, ps)
-        return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, num_frames, -1, height, width)
+    def run_blocks(self, carry, aux, remat: Union[bool, str] = False, start: int = 0,
+                   stop: Optional[int] = None):
+        """Blocks ``start`` to ``stop`` (all by default) over the carry
+        (``cog_run_segment``); with ``remat`` True or "full" each block is
+        checkpointed."""
+        full_remat = remat_blocks(remat)
+        for block in self.transformer_blocks[start:stop]:
+            carry = run_block(block, full_remat, carry[0], carry[1], aux["emb"], aux["rope"],
+                              carry[2], carry[3], aux["emb_ref"], aux["rope_ref"],
+                              aux["num_mot_ref"])
+        return carry
+
+    def _unpatchify(self, x: torch.Tensor, num_frames: int, height: int, width: int):
+        """Output tokens -> [B, F, C_out, H, W] (``_unpatchify``, :224-242)."""
+        cfg = self.config
+        b, ps, pt = x.shape[0], cfg.patch_size, cfg.patch_size_t
+        if pt is None:
+            out = x.reshape(b, num_frames, height // ps, width // ps, -1, ps, ps)
+            out = out.permute(0, 1, 4, 2, 5, 3, 6)
+        else:
+            out = x.reshape(b, (num_frames + pt - 1) // pt, height // ps, width // ps, -1, pt,
+                            ps, ps)
+            out = out.permute(0, 1, 5, 4, 2, 6, 3, 7)
+        return out.reshape(b, num_frames, -1, height, width)
+
+    def epilogue(self, carry, aux, reference_head: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The output head (``cog_epilogue``, :551-579). Returns (the
+        prediction, the reference stream's under ``reference_independent``
+        with references and ``reference_head``, else None)."""
+        num_frames, height, width = aux["shape"]
+        hs = self.proj_out(self.norm_out(self.norm_final(carry[0]), aux["emb"]))
+        out = self._unpatchify(hs, num_frames, height, width)
+        hs_ref = carry[2]
+        if (hs_ref is None or not reference_head
+                or self.config.reference_train_mode != "reference_independent"):
+            return out, None
+        r = aux["num_mot_ref"]
+        shift, scale = self.norm_out_mot_ref.linear(silu(aux["emb_ref"])).chunk(2, dim=-1)
+        hs_ref = self.norm_out_mot_ref.norm(_per_ref(self.norm_final_mot_ref(hs_ref), r))
+        hs_ref = (hs_ref * (1 + scale[:, :, None]) + shift[:, :, None]).flatten(1, 2)
+        return out, self._unpatchify(self.proj_out_mot_ref(hs_ref), num_frames * r, height, width)
+
+    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                timestep: torch.Tensor, image_rotary_emb: Rope,
+                hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                encoder_hidden_states_mot_ref: Optional[torch.Tensor] = None,
+                image_rotary_emb_mot_ref: Rope = None, num_mot_ref: int = 1,
+                timestep_mot_ref: Optional[torch.Tensor] = None,
+                effect_ids: Optional[torch.Tensor] = None, ofs: Optional[torch.Tensor] = None,
+                remat: Union[bool, str] = False) -> torch.Tensor:
+        """hidden_states [B, F, C, H, W] (noisy ‖ image latents); text
+        [B, T, D_text]; timestep [B]; refs [B, R*F, C, H, W] and
+        [B, R*T, D_text]; timestep_mot_ref [B, R] defaults to the target's;
+        effect_ids [R] indexes ``supported_effect_types``; ofs [B]. Without
+        ``hidden_states_mot_ref`` the trunk runs alone over
+        ``hidden_states`` (which the single-branch ablation makes target ‖
+        references along frames, with the two RoPE tables concatenated).
+
+        ``remat``: False, or True / "full" to checkpoint each block
+        (``remat_blocks``); "ops" and "block_skip:N" raise. The reference
+        head's output of ``reference_independent`` is the second item of
+        ``epilogue``'s result."""
+        carry, aux = self.prologue(hidden_states, encoder_hidden_states, timestep,
+                                   image_rotary_emb, hidden_states_mot_ref,
+                                   encoder_hidden_states_mot_ref, image_rotary_emb_mot_ref,
+                                   num_mot_ref, timestep_mot_ref, effect_ids, ofs)
+        return self.epilogue(self.run_blocks(carry, aux, remat), aux, reference_head=False)[0]

@@ -449,6 +449,22 @@ def vae_decode_tiled(vae: AutoencoderKLCogVideoX, latents: torch.Tensor) -> torc
                         TILE_SAMPLE_MIN_W - blend_w)
 
 
+def vae_encode_tiled(vae: AutoencoderKLCogVideoX, video: torch.Tensor) -> torch.Tensor:
+    """Spatially tiled encode with overlap blending in latent space
+    (``vae_encode_tiled``, ``vae.py:699-737``): sample tiles of 240 x 360
+    every 200 x 288, each encoded by ``vae_encode``, their moments blended
+    over 5 latent rows and 9 columns and cropped to 25 x 36
+    (``stitch_tiles``). video [B, F, H, W, 3] channel-last."""
+    h, w = video.shape[2:4]
+    th, tw = TILE_SAMPLE_MIN_H, TILE_SAMPLE_MIN_W
+    tlh, tlw = th // 8, tw // 8
+    blend_h, blend_w = int(tlh * TILE_OVERLAP_H), int(tlw * TILE_OVERLAP_W)
+    rows = [[vae_encode(vae, video[:, :, i:i + th, j:j + tw])
+             for j in range(0, w, int(tw * (1 - TILE_OVERLAP_W)))]
+            for i in range(0, h, int(th * (1 - TILE_OVERLAP_H)))]
+    return stitch_tiles(rows, blend_h, blend_w, tlh - blend_h, tlw - blend_w)
+
+
 def posterior_mode(moments: torch.Tensor) -> torch.Tensor:
     """Mean of the diagonal Gaussian in channel-last moments."""
     return moments[..., : moments.shape[-1] // 2]

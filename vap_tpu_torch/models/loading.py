@@ -21,6 +21,10 @@ first present of the names the module's ``checkpoint_aliases`` give it
 ``encoder.embed_tokens.weight``, as ``convert_t5_state_dict`` takes it).
 Every other key of the checkpoint is ignored (diffusers' non-persistent
 tables, T5's tied ``encoder.embed_tokens.weight`` beside ``shared.weight``).
+A submodule that a model lists in ``optional_checkpoint_modules`` is read
+when the checkpoint has its keys and removed from the model when it has
+none (CogVideoX 1.5's ``ofs_embedding``, which JAX's converter reads only
+when present).
 A missing key raises ``KeyError``, a wrong shape ``ValueError``, both before
 any copy.
 
@@ -76,6 +80,9 @@ def load_state_(model: nn.Module, state: Mapping) -> nn.Module:
     if unsaved:
         raise RuntimeError(f"{type(model).__name__}: {unsaved[:4]} are not in the state dict, "
                            f"so loading would leave them uninitialised")
+    for name in getattr(model, "optional_checkpoint_modules", ()):
+        if hasattr(model, name) and not any(k.startswith(name + ".") for k in state):
+            delattr(model, name)
     plan = checkpoint_keys(model, state)
     targets = model.state_dict(keep_vars=True)
     with torch.no_grad():

@@ -19,11 +19,15 @@ trunk alone on any model, the MoT blocks' trunk halves included, with or
 without the image context and conditioning channels (T2V).
 
 The forward keeps the JAX package's channel-last layout, [B, F, H, W, C],
-and is split into ``prologue``, the blocks and ``epilogue`` as in JAX.
+and is split into ``prologue``, the blocks (``run_blocks`` over a range:
+the streamed offload runs it one chunk at a time) and ``epilogue`` as in
+JAX. With ``reference_train_mode="reference_independent"`` the epilogue
+also projects the reference stream through ``proj_out_mot_ref`` and
+``scale_shift_table_mot_ref``: JAX's documented departure from the
+reference, whose head projects the target stream (:13-15, :561-573).
 Module attributes follow the diffusers state-dict keys
 (``blocks.{i}.attn1.to_q``, ``condition_embedder.time_embedder.linear_1``,
-``patch_embedding`` as a Conv3d, ...). ``reference_train_mode`` is not
-ported (it raises).
+``patch_embedding`` as a Conv3d, ...).
 """
 
 from __future__ import annotations
@@ -351,8 +355,6 @@ class WanTransformer3DMOTModel(nn.Module):
 
     def __init__(self, cfg: WanMOTConfig):
         super().__init__()
-        if cfg.reference_train_mode is not None:
-            raise NotImplementedError("Wan reference_train_mode is not ported to PyTorch yet")
         self.config = cfg
         dim = cfg.inner_dim
         self.patch_embedding = nn.Conv3d(cfg.in_channels, dim, cfg.patch_size, stride=cfg.patch_size)
@@ -365,6 +367,9 @@ class WanTransformer3DMOTModel(nn.Module):
         self.blocks = nn.ModuleList([WanBlock(cfg, i in mot) for i in range(cfg.num_layers)])
         self.proj_out = nn.Linear(dim, cfg.out_channels * int(np.prod(cfg.patch_size)))
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 2, dim))
+        if cfg.reference_train_mode == "reference_independent":
+            self.proj_out_mot_ref = nn.Linear(dim, cfg.out_channels * int(np.prod(cfg.patch_size)))
+            self.scale_shift_table_mot_ref = nn.Parameter(torch.zeros(1, 2, dim))
 
     def prologue(self, hidden_states, timestep, encoder_hidden_states,
                  encoder_hidden_states_image=None, hidden_states_mot_ref=None,
@@ -399,19 +404,22 @@ class WanTransformer3DMOTModel(nn.Module):
         # per-ref patchify keeps each reference's token block contiguous
         vid_ref = hidden_states_mot_ref.reshape(b * r, f_ref // r, h, w, -1)
         hs_ref = patchify(self.patch_embedding_mot_ref, vid_ref, cfg.patch_size).reshape(b, -1, cfg.inner_dim)
-        _, tproj_ref, ctx_text_ref, ctx_img_ref = self.condition_embedder_mot_ref(
+        temb_ref, tproj_ref, ctx_text_ref, ctx_img_ref = self.condition_embedder_mot_ref(
             timestep_mot_ref.reshape(-1), encoder_hidden_states_mot_ref,
             encoder_hidden_states_image_mot_ref, dtype)
         aux.update({"ctx_text_ref": ctx_text_ref, "ctx_img_ref": ctx_img_ref,
-                    "tproj_ref": tproj_ref.reshape(b, r, 6, -1).float(), "rope_ref": rope_ref})
+                    "tproj_ref": tproj_ref.reshape(b, r, 6, -1).float(), "rope_ref": rope_ref,
+                    "temb_ref": temb_ref})
         return (hs, hs_ref), aux
 
-    def run_blocks(self, carry, aux, remat: Union[bool, str] = False):
-        """The blocks (``wan_run_segment`` over every segment); with
-        ``remat`` True or "full" each block is checkpointed."""
+    def run_blocks(self, carry, aux, remat: Union[bool, str] = False, start: int = 0,
+                   stop: Optional[int] = None):
+        """Blocks ``start`` to ``stop`` (all by default; ``wan_run_segment``
+        over the segments); with ``remat`` True or "full" each block is
+        checkpointed."""
         full_remat = remat_blocks(remat)
         hs, hs_ref = carry
-        for block in self.blocks:
+        for block in self.blocks[start:stop]:
             if hs_ref is None:
                 hs, _ = run_block(block, full_remat, hs, aux["ctx_text"], aux["ctx_img"],
                                   aux["tproj"], aux["rope"])
@@ -422,14 +430,30 @@ class WanTransformer3DMOTModel(nn.Module):
                                        aux["num_mot_ref"])
         return hs, hs_ref
 
-    def epilogue(self, carry, aux) -> torch.Tensor:
-        """Final AdaLN, projection and unpatchify (``wan_epilogue``, :543-573)."""
+    def epilogue(self, carry, aux, reference_head: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Final AdaLN, projection and unpatchify (``wan_epilogue``,
+        :543-573). Returns (the prediction, the reference stream's under
+        ``reference_independent`` with references and ``reference_head``,
+        else None)."""
         cfg = self.config
-        hs = carry[0]
+        hs, hs_ref = carry
         st = self.scale_shift_table.float() + aux["temb"].float()[:, None]
         shift, scale = st[:, 0][:, None], st[:, 1][:, None]
         hs = (layer_norm(hs.float(), None, None, cfg.eps) * (1 + scale) + shift).to(aux["dtype"])
-        return unpatchify(self.proj_out(hs), cfg.patch_size, *aux["grid"])
+        out = unpatchify(self.proj_out(hs), cfg.patch_size, *aux["grid"])
+        if (hs_ref is None or not reference_head
+                or cfg.reference_train_mode != "reference_independent"):
+            return out, None
+        b, r, s_ref = hs.shape[0], aux["num_mot_ref"], hs_ref.shape[1]
+        st = (self.scale_shift_table_mot_ref.float() + aux["temb_ref"].float()[:, None])
+        st = st.reshape(b, r, 2, -1)
+        shift, scale = st[:, :, 0][:, :, None], st[:, :, 1][:, :, None]
+        nref = layer_norm(hs_ref.float(), None, None, cfg.eps).reshape(b, r, s_ref // r, -1)
+        nref = (nref * (1 + scale) + shift).reshape(b, s_ref, -1).to(aux["dtype"])
+        _, pph, ppw = aux["grid"]
+        return out, unpatchify(self.proj_out_mot_ref(nref), cfg.patch_size,
+                               s_ref // (pph * ppw), pph, ppw)
 
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
@@ -443,9 +467,11 @@ class WanTransformer3DMOTModel(nn.Module):
         image [B, 257, D_img] or None (T2V); refs [B, R*F, H, W, C_in],
         timestep_mot_ref [B, R], [B, R*L, D_text] and [B, R*257, D_img]
         (``wan_mot_forward``), or no reference at all (``wan_forward``).
-        ``remat``: False, or True / "full" to checkpoint each block."""
+        ``remat``: False, or True / "full" to checkpoint each block. The
+        reference head's output of ``reference_independent`` is the second
+        item of ``epilogue``'s result."""
         carry, aux = self.prologue(hidden_states, timestep, encoder_hidden_states,
                                    encoder_hidden_states_image, hidden_states_mot_ref,
                                    timestep_mot_ref, encoder_hidden_states_mot_ref,
                                    encoder_hidden_states_image_mot_ref, num_mot_ref)
-        return self.epilogue(self.run_blocks(carry, aux, remat), aux)
+        return self.epilogue(self.run_blocks(carry, aux, remat), aux, reference_head=False)[0]

@@ -17,11 +17,14 @@ text-to-video model (``in_channels`` latent channels, no image latents);
 ``baseline_single_condition`` runs the trunk over the target only and
 ``ablation_single_branch`` over target ‖ references along frames, with the
 two RoPE tables concatenated. ``enable_model_offload`` keeps the weights in
-host memory and stages one component at a time (``pipelines/offload.py``).
-
-Not ported (it raises ``NotImplementedError``): streamed block offload
-(``offload_blocks_chunk``). Temporal patching (``patch_size_t``) raises
-where the transformer is built.
+host memory and stages one component at a time (``pipelines/offload.py``);
+``offload_blocks_chunk`` streams the transformer's blocks through the
+device that many at a time instead (``pipelines/streamed.py``), with the
+same step cache, DPM noise and scheduler steps. CogVideoX 1.5
+(``patch_size_t``): the target's latent frames are padded up to a multiple
+of pt, the leading pad frames dropped before the decode; each reference's
+latents repeat their last frame up to a multiple of pt, none when it
+divides (JAX's rule, :517-560).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..ops.rope import prepare_cogvideox_rotary_embeddings
 from ..ops.schedulers import CogVideoXDDIMScheduler, CogVideoXDPMScheduler
 from .offload import StagedComponents
 from .step_cache import StepCacheSchedule, parse_step_cache
+from .streamed import PinnedBlocks, StreamedTransformer
 
 DEFAULT_NEGATIVE_PROMPT = (
     "Bright tones, overexposed, static, blurred details, subtitles, style, works, paintings, "
@@ -101,6 +105,7 @@ def decode_splits(lat_w: int) -> int:
 @dataclasses.dataclass
 class CogVideoXVAPPipeline(StagedComponents):
     COMPONENTS = ("transformer", "vae", "text_encoder")
+    BLOCKS = "transformer_blocks"
 
     transformer: CogVideoXTransformer3DMOTModel
     vae: AutoencoderKLCogVideoX
@@ -122,7 +127,8 @@ class CogVideoXVAPPipeline(StagedComponents):
     enable_vae_slicing: bool = False
     # weights in host memory, one component at a time staged onto the device
     enable_model_offload: bool = False
-    # streamed block offload: not ported, raises
+    # streamed block offload: the blocks in host memory, this many at a time
+    # on the device (the weights must be in host memory)
     offload_blocks_chunk: Optional[int] = None
 
     # host-clock seconds of the last call, per stage (each read after a
@@ -130,6 +136,8 @@ class CogVideoXVAPPipeline(StagedComponents):
     # the host->device copies of offload
     stage_seconds: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
     _staged: list = dataclasses.field(default_factory=list, repr=False)
+    _pinned: Optional[PinnedBlocks] = dataclasses.field(default=None, repr=False)
+    _streamed: Optional[StreamedTransformer] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -183,7 +191,8 @@ class CogVideoXVAPPipeline(StagedComponents):
         return prepare_cogvideox_rotary_embeddings(
             height, width, num_latent_frames, attention_head_dim=cfg.attention_head_dim,
             patch_size=cfg.patch_size, sample_width=cfg.sample_width,
-            sample_height=cfg.sample_height, vae_scale_factor_spatial=self.vae_scale_factor_spatial,
+            sample_height=cfg.sample_height, patch_size_t=cfg.patch_size_t,
+            vae_scale_factor_spatial=self.vae_scale_factor_spatial,
             mot_num=mot_num, ref_type=ref_type, device=self.device)
 
     # ------------------------------------------------------------------
@@ -217,9 +226,6 @@ class CogVideoXVAPPipeline(StagedComponents):
         baseline_single_condition: bool = False,
         step_cache: Optional[str] = None,
     ):
-        if self.offload_blocks_chunk:
-            raise NotImplementedError("offload_blocks_chunk (streamed block offload) is not "
-                                      "ported to PyTorch yet")
         use_dpm = isinstance(self.scheduler, CogVideoXDPMScheduler)
         if not use_dpm and not isinstance(self.scheduler, CogVideoXDDIMScheduler):
             raise ValueError(f"unknown scheduler {type(self.scheduler).__name__}; "
@@ -264,6 +270,11 @@ class CogVideoXVAPPipeline(StagedComponents):
             self._component("vae")
         t0 = time.perf_counter()
         num_latent_frames = (num_frames - 1) // self.vae_scale_factor_temporal + 1
+        # CogVideoX 1.5: pad the frame count to a multiple of pt; the leading
+        # pad frames go before the decode (:517-530)
+        pt = cfg.patch_size_t
+        pad_lead = -num_latent_frames % pt if pt else 0
+        num_latent_frames += pad_lead
         lat_h = height // self.vae_scale_factor_spatial
         lat_w = width // self.vae_scale_factor_spatial
         latent_channels = cfg.in_channels if t2v else cfg.in_channels // 2
@@ -286,7 +297,12 @@ class CogVideoXVAPPipeline(StagedComponents):
             ref_lat_list, ref_img_lat_list = [], []
             for rv in ref_videos:
                 rv_t = torch.as_tensor(np.asarray(rv, np.float32), device=dev)[None]
-                ref_lat_list.append(self._vae_encode_mode(rv_t))
+                rl = self._vae_encode_mode(rv_t)
+                if pt:
+                    # the last latent frame repeated up to a multiple of pt,
+                    # none when it divides (JAX's rule, :538-552)
+                    rl = torch.cat([rl] + [rl[:, -1:]] * (-rl.shape[1] % pt), dim=1)
+                ref_lat_list.append(rl)
                 ref_img_lat_list.append(
                     pad_frames(self._vae_encode_mode(rv_t[:, :1], image_cond=True)))
             ref_latents = torch.cat(ref_lat_list, dim=1)
@@ -318,7 +334,14 @@ class CogVideoXVAPPipeline(StagedComponents):
         guidance = (dynamic_cfg_schedule(ts, guidance_scale, num_inference_steps)
                     if use_dynamic_cfg else np.full_like(ts, guidance_scale))
 
-        transformer = self._component("transformer")
+        # the streamed runner (blocks through the device a chunk at a time)
+        # or the transformer, called alike
+        streamed = bool(self.offload_blocks_chunk)
+        if streamed:
+            transformer = self.streamed_runner()
+        else:
+            self.close_streamed()  # a streamed call may have locked the blocks' pages
+            transformer = self._component("transformer")
 
         def raw_pred(latents, t):
             """One CFG-batch forward -> f32 [mult, F, C, H, W] (``:257-291``)."""
@@ -345,34 +368,39 @@ class CogVideoXVAPPipeline(StagedComponents):
         step_times, computed = [], []
         cached = None
         old_x0 = torch.zeros_like(latents)
-        for i, t in enumerate(ts):
-            t0 = time.perf_counter()
-            if schedule.compute(i, latents):
-                cached = raw_pred(latents, t)
-                computed.append(i)
-            noise_pred = cached
-            if do_cfg:
-                uncond, cond = noise_pred.chunk(2)
-                noise_pred = uncond + float(guidance[i]) * (cond - uncond)
-            step_coeffs = tuple(c[i] for c in coeffs)
-            if use_dpm:
-                noise = self.step_noise(gen, latents.shape)
-                latents, old_x0 = self.scheduler.step(noise_pred, latents, old_x0, step_coeffs,
-                                                      noise)
-            else:
-                latents = self.scheduler.step(noise_pred, latents, *step_coeffs)
-            self._sync()
-            step_times.append(time.perf_counter() - t0)
+        try:
+            for i, t in enumerate(ts):
+                t0 = time.perf_counter()
+                if schedule.compute(i, latents):
+                    cached = raw_pred(latents, t)
+                    computed.append(i)
+                noise_pred = cached
+                if do_cfg:
+                    uncond, cond = noise_pred.chunk(2)
+                    noise_pred = uncond + float(guidance[i]) * (cond - uncond)
+                step_coeffs = tuple(c[i] for c in coeffs)
+                if use_dpm:
+                    noise = self.step_noise(gen, latents.shape)
+                    latents, old_x0 = self.scheduler.step(noise_pred, latents, old_x0,
+                                                          step_coeffs, noise)
+                else:
+                    latents = self.scheduler.step(noise_pred, latents, *step_coeffs)
+                self._sync()
+                step_times.append(time.perf_counter() - t0)
+        finally:
+            if streamed:
+                transformer.release()
         times["denoise_steps"] = step_times
         times["computed_steps"] = computed
 
         if output_type == "latent":
             return latents
 
-        # 5. decode: channel-last, unscaled (the decode division keeps the
-        # factor even under invert_scale_latents)
+        # 5. decode: the pad frames dropped, channel-last, unscaled (the
+        # decode division keeps the factor even under invert_scale_latents)
         self._component("vae")
         t0 = time.perf_counter()
+        latents = latents[:, pad_lead:]
         z = latents.permute(0, 1, 3, 4, 2).to(dtype) / self.vae.config.scaling_factor
         out = self._decode(z).float().cpu().numpy()
         times["vae_decode"] = time.perf_counter() - t0

@@ -54,15 +54,66 @@ def stage_component(components: Dict[str, nn.Module], name: str,
 
 class StagedComponents:
     """What the inference pipelines share of offload. A pipeline names its
-    components in ``COMPONENTS`` and holds ``device``,
+    components in ``COMPONENTS`` and, where it streams, its transformer's
+    block list in ``BLOCKS``, and holds ``device``,
     ``enable_model_offload``, ``stage_seconds`` (host-clock seconds per
-    stage) and ``_staged`` (the one-component slot)."""
+    stage) and ``_staged`` (the one-component slot); one that streams holds
+    ``offload_blocks_chunk``, ``_pinned`` (the blocks' page-locked host
+    tensors) and ``_streamed`` (the runner)."""
 
     COMPONENTS: ClassVar[Tuple[str, ...]] = ()
+    BLOCKS: ClassVar[str] = ""
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _unstage(self) -> None:
+        """Put the staged component, if any, back in host memory."""
+        if self._staged:
+            _unstage(self._staged)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def pinned_blocks(self):
+        """The transformer's blocks in chunks of ``offload_blocks_chunk``,
+        their host pages locked in place on a card, built on first use and
+        again when the chunk size changed or a block tensor was replaced
+        (``pipelines/streamed.py``). Anything staged goes back to the host
+        first: the blocks' own host tensors are what is locked."""
+        from .streamed import PinnedBlocks, block_chunks
+
+        self._unstage()
+        chunks = block_chunks(self.transformer.config, self.offload_blocks_chunk)
+        store = self._pinned
+        if store is None or store.chunks != chunks or not store.current():
+            self.close_streamed()
+            self._pinned = PinnedBlocks(getattr(self.transformer, self.BLOCKS), chunks,
+                                        pin=self.device.type == "cuda")
+        return self._pinned
+
+    def streamed_runner(self):
+        """The streamed runner of the current store (one for every branch
+        mode and reference count: the chunks are the store's, the slots the
+        runner's)."""
+        from .streamed import StreamedTransformer
+
+        store = self.pinned_blocks()
+        if self._streamed is None or self._streamed.store is not store:
+            self._streamed = StreamedTransformer(self.transformer, store, self.device)
+        return self._streamed
+
+    def close_streamed(self) -> None:
+        """Drop the streamed runner and unlock the blocks' host pages: before
+        the blocks are staged whole (a resident call does it first), moved or
+        replaced (``quantize_transformer_linears``), since a copy from a
+        partly locked range fails."""
+        if self._streamed is not None:
+            self._streamed.release()
+            self._streamed = None
+        if self._pinned is not None:
+            self._pinned.close()
+            self._pinned = None
 
     def _component(self, name: str) -> nn.Module:
         """The component ``name``: the resident module, or under

@@ -15,10 +15,10 @@ Without reference videos (plain) the trunk runs alone, a crush_smol-style
 finetune; a text-to-video checkpoint (``in_channels == z_dim``) takes no
 conditioning channels, and a model without ``image_dim`` no CLIP context.
 With ``enable_model_offload`` every component stays in host memory and one
-at a time is staged onto the card (``pipelines/offload.py``).
-
-Not ported (it raises ``NotImplementedError``): streamed block offload
-(``offload_blocks_chunk``).
+at a time is staged onto the card (``pipelines/offload.py``);
+``offload_blocks_chunk`` streams the transformer's blocks through the card
+that many at a time (``pipelines/streamed.py``), with the same step cache
+and scheduler steps.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from ..ops.schedulers import FlowMatchEulerScheduler, UniPCScheduler
 from .cogvideox_i2v_mot import DEFAULT_NEGATIVE_PROMPT, resolve_device
 from .offload import StagedComponents
 from .step_cache import StepCacheSchedule, parse_step_cache
+from .streamed import PinnedBlocks, StreamedTransformer
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -140,6 +141,7 @@ def make_i2v_mask(batch: int, num_frames: int, lat_h: int, lat_w: int,
 @dataclasses.dataclass
 class WanVAPPipeline(StagedComponents):
     COMPONENTS = ("transformer", "vae", "text_encoder", "image_encoder")
+    BLOCKS = "blocks"
 
     transformer: WanTransformer3DMOTModel
     vae: AutoencoderKLWan
@@ -161,13 +163,16 @@ class WanVAPPipeline(StagedComponents):
     # changes nothing there
     enable_vae_tiling: bool = False
     enable_vae_slicing: bool = False
-    # streamed block offload: not ported, raises
+    # streamed block offload: the blocks in host memory, this many at a time
+    # on the device (the weights must be in host memory)
     offload_blocks_chunk: Optional[int] = None
 
     # host-clock seconds of the last call, per stage, each read after a
     # device synchronise; "staging" holds the host->device copies of offload
     stage_seconds: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
     _staged: list = dataclasses.field(default_factory=list, repr=False)
+    _pinned: Optional[PinnedBlocks] = dataclasses.field(default=None, repr=False)
+    _streamed: Optional[StreamedTransformer] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -238,9 +243,6 @@ class WanVAPPipeline(StagedComponents):
         output_type: str = "np",
         step_cache: Optional[str] = None,
     ):
-        if self.offload_blocks_chunk:
-            raise NotImplementedError("offload_blocks_chunk (streamed block offload) is not "
-                                      "ported to PyTorch yet")
         use_unipc = isinstance(self.scheduler, UniPCScheduler)
         if not use_unipc and not isinstance(self.scheduler, FlowMatchEulerScheduler):
             raise ValueError(f"unknown scheduler {type(self.scheduler).__name__}; "
@@ -328,7 +330,12 @@ class WanVAPPipeline(StagedComponents):
         # 4. denoise, the CFG pair folded into the batch. The step cache keeps
         # the raw CFG-batch prediction and reuses it on skipped steps; every
         # step recombines CFG and advances the scheduler (:245-305)
-        transformer = self._component("transformer")
+        streamed = bool(self.offload_blocks_chunk)
+        if streamed:
+            transformer = self.streamed_runner()
+        else:
+            self.close_streamed()  # a streamed call may have locked the blocks' pages
+            transformer = self._component("transformer")
         ts = self.scheduler.timesteps(num_inference_steps).astype(np.float32)
         if use_unipc:
             coeffs = self.scheduler.step_coefficients(num_inference_steps)
@@ -355,22 +362,26 @@ class WanVAPPipeline(StagedComponents):
 
         step_times, computed = [], []
         cached = None
-        for i, t in enumerate(ts):
-            t0 = time.perf_counter()
-            if schedule.compute(i, latents):
-                cached = raw_pred(latents, t)
-                computed.append(i)
-            pred = cached
-            if do_cfg:
-                uncond, cond = pred.chunk(2)
-                pred = uncond + float(guidance_scale) * (cond - uncond)
-            if use_unipc:
-                latents, carry = self.scheduler.step(pred, latents, carry,
-                                                     {k: v[i] for k, v in coeffs.items()})
-            else:
-                latents = self.scheduler.step(pred, latents, sigmas[i], sigmas[i + 1])
-            self._sync()
-            step_times.append(time.perf_counter() - t0)
+        try:
+            for i, t in enumerate(ts):
+                t0 = time.perf_counter()
+                if schedule.compute(i, latents):
+                    cached = raw_pred(latents, t)
+                    computed.append(i)
+                pred = cached
+                if do_cfg:
+                    uncond, cond = pred.chunk(2)
+                    pred = uncond + float(guidance_scale) * (cond - uncond)
+                if use_unipc:
+                    latents, carry = self.scheduler.step(pred, latents, carry,
+                                                         {k: v[i] for k, v in coeffs.items()})
+                else:
+                    latents = self.scheduler.step(pred, latents, sigmas[i], sigmas[i + 1])
+                self._sync()
+                step_times.append(time.perf_counter() - t0)
+        finally:
+            if streamed:
+                transformer.release()
         times["denoise_steps"] = step_times
         times["computed_steps"] = computed
 
