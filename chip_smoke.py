@@ -164,8 +164,8 @@ Phases, each of which raises on failure:
      MoT in all 40, 40x128 heads, UMT5-XXL, CLIP ViT-H/14, the Wan VAE) at
      49 frames of 480x832, one reference, FlowMatch shift 3, guidance 5,
      random bf16 weights from a seed, through WanVAPPipeline.__call__ with
-     model offload (one component on the card at a time), cut to 2 steps
-     under flash and 1 under sage; then (6d) the same 2 flash steps with
+     model offload (one component on the card at a time), cut to 1 step
+     under flash and 1 under sage; then (6d) the same flash step with
      offload_blocks_chunk=4: the 40 blocks page-locked in place and streamed
      in 10 chunks on a copy stream, K4's 400 launches, latents bit-equal to
      the resident run's, with the figures of 5d, then the pages unlocked
@@ -196,19 +196,38 @@ Phases, each of which raises on failure:
      version's, the backward of torch's SDPA flash backend (a yardstick
      only) and the card's bound;
   8. CogVideoX-5B VAP training at full width (42 blocks, MoT in 0-40,
-     random bf16 weights from a seed) on a random precomputed batch at 49
-     frames of 480x720, batch 1, through SFTTrainer.run: AdamW (beta 0.9 /
-     0.99, weight decay 1e-4, clip 1.0, a constant lr of 1e-5), remat
-     "full", 3 optimizer steps (the first a warm-up); per step the loss,
-     grad_norm, seconds and the forward / backward / update split, the peak
-     device memory, K1 and K5 launches (84 and 42 a step), the frozen trunk
-     bit-identical and the MoT expert moved; before the steps, one grad_fn
-     on the same model, batch and generator under "flash" and under the
-     trainer's own attention context (``_attn_ctx``) with a one-rank NCCL
-     group's mesh and ``attn_provider_training="ring"``: the loss and every
-     expert gradient bit-equal, with the same K1 and K5 launches;
-     then trainer.export() (the full transformer in diffusers names) read
-     back with the port's reader: every tensor equal to the trained one;
+     random bf16 weights from a seed) from clips on disk, the released
+     recipe's data path (vap_mot/train_single_node.sh): three seeded clips
+     written with the port's writer (49 frames of 512x768 and 448x672 at 16
+     fps, 74 of 512x640 at 24 fps: the fps resample, INTER_AREA, the linear
+     taps and the area-mode taps of the bucket fit to 480x720), a
+     vap_data.csv over them, a training.json shaped like the recipe's and a
+     validation.json pointing at a one-row benchmark CSV (2 DDIM steps);
+     T5-XXL and the VAE built on the card from the seed (the spec);
+     SFTTrainer(args, model, spec).run: the datasets on the prefetch thread,
+     decode (the decoder that served is printed), bucket fit, T5 and VAE
+     encodes online, batch 1: AdamW (beta 0.9 / 0.99, weight decay 1e-4,
+     clip 1.0, a constant lr of 1e-5), remat "full", 2 optimizer steps (the
+     first a warm-up), then validation sampling with the live weights
+     (validation_steps = 2); per step the loss, grad_norm, seconds and the
+     forward / backward / update split; the timing/* spans of the encodes,
+     the steps and validation and the peak device memory of each; K1 and K5
+     launches (84 and 42 a step, 42 a validation denoise step), the
+     validation video finite, 49 frames, written to
+     validation/000002/sample_0.mp4, the frozen trunk bit-identical and the
+     MoT expert moved; before the steps, one item encoded (its seconds), and
+     one grad_fn on it under "flash" and under the trainer's own attention
+     context (``_attn_ctx``) with a one-rank NCCL group's mesh and
+     ``attn_provider_training="ring"``: the loss and every expert gradient
+     bit-equal, with the same K1 and K5 launches; then trainer.export() (the
+     full transformer in diffusers names) read back with the port's reader:
+     every tensor equal to the trained one; then (8b) the data path's small
+     check at tiny widths on the card: CogVideoX (head_dim 64) trained 3
+     steps online and under enable_precomputation (the encode pass into a
+     cache, the encoders sent to host memory and brought back for a
+     validation every step), losses bit-equal; Wan VAP (head_dim 128) and
+     the HunyuanVideo LoRA (head_dim 128) trained one step from clips with
+     one validation sample each, K4 / K6 and K7's launches counted;
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
@@ -229,7 +248,7 @@ Phases, each of which raises on failure:
      random precomputed item at 49 frames of 480x832, batch 1, through
      SFTTrainer.run: rank 16, alpha 32 on to_q, to_k, to_v and to_out,
      logit-normal sigmas, AdamW (beta 0.9 / 0.99, weight decay 1e-4, clip
-     1.0, a constant lr of 1e-4), remat "full", 3 optimizer steps (the first
+     1.0, a constant lr of 1e-4), remat "full", 2 optimizer steps (the first
      a warm-up); per step the loss, grad_norm and the forward / backward /
      update seconds, the peak device memory, K4 and K6 launches (240 and 120
      a step), the frozen trunk bit-identical, every adapter's B moved at
@@ -237,7 +256,7 @@ Phases, each of which raises on failure:
      bf16 merge changes; then (10b) that trained model, its adapters in
      place, sampled through WanVAPPipeline.__call__ without a reference
      (plain image-to-video) with phase 6c's UMT5, CLIP and VAE under
-     offload, 49 frames of 480x832, UniPC, 2 steps under flash, latents
+     offload, 49 frames of 480x832, UniPC, 1 step under flash, latents
      out: K4's launches (self-attention at [2,40,20280,128] and the two
      cross-attentions of each block, 120 a step) and the peak memory;
      (10c) the adapters, written after training as a PEFT file, merged into
@@ -269,7 +288,7 @@ Phases, each of which raises on failure:
      joint keys valid), batch 1, through SFTTrainer.run: the
      modal_labs_dissolve recipe's rank 32, alpha 32 on to_q, to_k, to_v and
      to_out (208 adapters), logit-normal sigmas, AdamW (beta 0.9 / 0.99,
-     weight decay 1e-4, clip 1.0, a constant lr of 3e-5), remat "full", 3
+     weight decay 1e-4, clip 1.0, a constant lr of 3e-5), remat "full", 2
      optimizer steps; per step the loss, grad_norm and the forward /
      backward / update seconds, the peak device memory, K7's launches in K4
      (120 a step: forward and recompute) and in K6 (60), the frozen trunk
@@ -309,7 +328,7 @@ NUM_FRAMES = 49
 STEPS = 2
 HEIGHT, WIDTH = 480, 720
 WAN_HEIGHT, WAN_WIDTH = 480, 832
-WAN_STEPS = 2
+WAN_STEPS = 1
 PARITY_SHAPES = [(300, 200), (128, 257), (64, 77)]
 MAIN_SHAPE = (1, 48, 35552, 64)  # B, H, S, D of one CogVideoX joint attention at 49f@480x720
 # Wan at 49f@480x832: 13 latent frames of 30x52 tokens = 20,280 per branch
@@ -339,7 +358,8 @@ WAN_E2E_ATOL = {"flash": 0.25, "sage": 0.35}
 # read above the limit in all three.
 GRAD_REL_TOL = 2e-2
 Q_TILE = 64  # queries per tile of the dk/dv kernel
-TRAIN_STEPS = 3  # optimizer steps of phases 8 and 10: 1 warm-up, 2 timed
+TRAIN_STEPS = 2  # optimizer steps of phases 8, 10 and 13: 1 warm-up, 1 timed
+VAL_STEPS = 2  # phase 8's validation sampling: DDIM steps (the recipe's JSON says 50)
 TRAIN_LR = 1e-5  # the recipe's lr, constant: the first update is not at lr 0
 # the Wan LoRA recipe (examples/training/sft/wan/crush_smol_lora/train.sh):
 # rank 16 on to_q, to_k, to_v and to_out of every attention, lr 1e-4
@@ -353,7 +373,7 @@ WAN_STRUCTURE = "examples/training/sft/wan/crush_smol_lora/config_plain.json"
 # the HunyuanVideo LoRA recipe (examples/training/sft/hunyuan_video/
 # modal_labs_dissolve/train.sh): rank 32, alpha 32 on to_q, to_k, to_v and
 # to_out, lr 3e-5 (constant here: under its 1000 warmup steps, which count
-# updates, 3 steps would stay near lr 0), logit-normal sigmas
+# updates, 2 steps would stay near lr 0), logit-normal sigmas
 HUNYUAN_LORA = dict(rank=32, lora_alpha=32, target_modules="to_q to_k to_v to_out", lr=3e-5,
                     flow_weighting_scheme="logit_normal")
 # the tiny VAE encoder in float32 on the card against the CPU: the same
@@ -1658,8 +1678,8 @@ def ring_main_path(pipe, dev):
         raise AssertionError(f"ring ({RING_METHOD}) latents differ from flash's")
 
 
-def ring_training_check(trainer, dev):
-    """One ``grad_fn`` of phase 8's trainer on its batch, with the draws of
+def ring_training_check(trainer, dev, batch):
+    """One ``grad_fn`` of phase 8's trainer on ``batch``, with the draws of
     its first step's generator, under "flash" (the trainer's attention
     context, ``auto``), then under the trainer's attention context with the
     mesh of a one-rank NCCL group as its mesh and ``attn_provider_training``
@@ -1668,15 +1688,10 @@ def ring_training_check(trainer, dev):
     launches. Leaves no gradient and no data position behind."""
     import torch
 
-    from vap_tpu_torch.data.precomputation import PrecomputedReader
-    from vap_tpu_torch.data.sampler import ResolutionSampler
     from vap_tpu_torch.training.train_step import draw_step_noise
     from vap_tpu_torch.training.trainer import step_generator
 
     args, model = trainer.args, trainer.model
-    batch = trainer._batch(PrecomputedReader(args.precomputation_dir).stream(0),
-                           ResolutionSampler(args.batch_size))
-    trainer.data_position = 0
     draws = draw_step_noise(trainer.step_cfg, batch["latents"].shape,
                             step_generator(args.seed, 1, dev), dev)
     layers = model.config.num_layers
@@ -3189,7 +3204,7 @@ def export_check(trainer):
 
 # 10c holds each merged bf16 weight against the trained one where the
 # adapters' delta is at least LORA_SIGNIFICANT_ULPS bf16 ulps of the frozen
-# weight W (three steps leave most of delta below half an ulp, where any
+# weight W (two steps leave most of delta below half an ulp, where any
 # merge, or none, gives W): there a sound merge lands within
 # LORA_MERGE_ULPS of the trained weight (both round W + delta to bf16, the
 # trained one after rounding delta too; the products of A and B sum in other
@@ -3778,60 +3793,154 @@ def backward_parity(dev, d128=False):
 # phase 8: the full-width CogVideoX VAP training step
 # ---------------------------------------------------------------------------
 
-def training_batch(cfg):
-    """One random precomputed item at 49f@480x720, batch 1, in the JAX
-    trainer's cache layout: latents [1,13,16,60,90] (target, its first-frame
-    image latents, the reference and its image latents) and T5 states
-    [1,226,4096] for each prompt."""
+# the recipe's clips: (frames, height, width, fps); each fits the 49x480x720
+# bucket differently (the height decides cv2's mode): 512x768 shrinks
+# (INTER_AREA), 448x672 grows (INTER_LINEAR), 512x640 shrinks its height and
+# grows its width (INTER_AREA's area-mode taps), and 74 frames at 24 fps
+# resample to 49 at 16
+TRAIN_CLIPS = ((NUM_FRAMES, 512, 768, 16), (NUM_FRAMES, 448, 672, 16), (74, 512, 640, 24))
+
+
+def seeded_clip(seed, frames, h, w):
+    """A smooth seeded clip, uint8 [F, H, W, 3]: a coarse random pattern,
+    upsampled, drifting a few pixels a frame (cheap to encode)."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
-    frames = (NUM_FRAMES - 1) // 4 + 1
-    lat = (1, frames, cfg.out_channels, HEIGHT // 8, WIDTH // 8)
-    txt = (1, cfg.max_text_seq_length, cfg.text_embed_dim)
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3), dtype=np.uint8)
+    big = np.repeat(np.repeat(base, 16, axis=0), 16, axis=1)
+    return np.stack([big[(2 * f) % 16:(2 * f) % 16 + h, f % 16:f % 16 + w]
+                     for f in range(frames)])
 
-    def normal(shape):
-        return rng.standard_normal(shape, dtype=np.float32)
 
-    def first_frame(shape):  # one encoded frame, then zero padding (CogVideoXSpec)
-        x = np.zeros(shape, np.float32)
-        x[:, :1] = normal((1, 1) + shape[2:])
-        return x
+def log_video_io():
+    """Log the video I/O the data path uses on this machine (OpenCV; the
+    package raises, naming it, where it is missing)."""
+    import cv2
 
-    cond = {"encoder_hidden_states": normal(txt), "encoder_hidden_states_mot_ref": normal(txt)}
-    latents = {"latents": normal(lat), "image_latents": first_frame(lat),
-               "latents_mot_ref": normal(lat), "image_latents_mot_ref": first_frame(lat)}
-    return cond, latents
+    log(f"  video I/O: OpenCV {cv2.__version__}")
+
+
+def write_training_data(root, clips=TRAIN_CLIPS, steps=VAL_STEPS, size=(NUM_FRAMES, HEIGHT, WIDTH)):
+    """The recipe's data directory: the clips, a vap_data.csv over them
+    (each row's reference the next clip), a training.json shaped like the
+    recipe's, and a validation.json over a one-row benchmark.csv whose
+    target and reference are two more clips at the generation size (the
+    validation rows are not resized, as in JAX). Returns (training.json,
+    validation.json)."""
+    import csv
+
+    from vap_tpu_torch.data.video import export_to_video
+
+    os.makedirs(root, exist_ok=True)
+    names = []
+    for i, (frames, h, w, fps) in enumerate(clips + ((size + (16,),) * 2)):
+        names.append(f"clip_{i}.mp4")
+        export_to_video(seeded_clip(SEED + i, frames, h, w), os.path.join(root, names[-1]), fps=fps)
+    bench = names[len(clips):]
+    names = names[:len(clips)]
+    rows = [{"video_paths": n, "tar_video_caption": f"The video shows effect {i} on a scene",
+             "ref_video_paths": json.dumps([names[(i + 1) % len(names)]]), "kind": "fx",
+             "split": "train", "reference_alignment_score": 9.0} for i, n in enumerate(names)]
+    bench_row = dict(rows[0], video_paths=bench[0], ref_video_paths=json.dumps([bench[1]]),
+                     ref_video_caption="the reference")
+    for name, table in (("vap_data.csv", rows), ("benchmark.csv", [bench_row])):
+        with open(os.path.join(root, name), "w", newline="") as fh:
+            writer = csv.DictWriter(fh, fieldnames=list(table[0]))
+            writer.writeheader()
+            writer.writerows(table)
+    training = os.path.join(root, "training.json")
+    with open(training, "w") as fh:
+        json.dump({"datasets": [{"dataset_type": "video", "video_resolution_buckets": [list(size)],
+                                 "reshape_mode": "bicubic",
+                                 "remove_common_llm_caption_prefixes": True,
+                                 "frames_selection": "evenly", "meta_df_name": "vap_data.csv"}]},
+                  fh)
+    validation = os.path.join(root, "validation.json")
+    with open(validation, "w") as fh:
+        json.dump({"csv": "benchmark.csv", "num_frames": size[0], "height": size[1],
+                   "width": size[2], "num_inference_steps": steps, "guidance_scale": 6.0,
+                   "use_dynamic_cfg": True}, fh)
+    return training, validation
+
+
+def recipe_args(root, out, steps, **kw):
+    """The recipe's trainer flags (vap_mot/train_single_node.sh) at a
+    constant lr, on the data directory ``root``."""
+    from vap_tpu_torch.training.args import TrainingArgs
+
+    training, validation = (os.path.join(root, "training.json"),
+                            os.path.join(root, "validation.json"))
+    base = dict(data_root=root, dataset_config=training, validation_dataset_file=validation,
+                validation_steps=steps, video_resolution_buckets=((NUM_FRAMES, HEIGHT, WIDTH),),
+                output_dir=out, seed=SEED, train_steps=steps, optimizer="adamw", lr=TRAIN_LR,
+                lr_scheduler="constant", lr_warmup_steps=0, beta1=0.9, beta2=0.99,
+                weight_decay=1e-4, max_grad_norm=1.0, gradient_checkpointing=True,
+                checkpointing_steps=NEVER, logging_steps=1)
+    base.update(kw)
+    return TrainingArgs(**base)
 
 
 def build_trainer(dev, work, steps):
     """CogVideoX-5B VAP at full width with random bf16 weights from SEED on
-    the card, and an SFTTrainer for ``steps`` optimizer steps of the
-    recipe's AdamW at a constant lr, remat "full", on one random item
-    written as a precomputed cache under ``work``."""
+    the card, T5-XXL and the VAE beside it (the spec), and an SFTTrainer of
+    the recipe for ``steps`` optimizer steps on the clips under
+    ``work``/data, validating at the last step."""
     import shutil
 
     import torch
 
-    from vap_tpu_torch.data.precomputation import write_precomputed
     from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
     from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+    from vap_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
     from vap_tpu_torch.models.random_init import build_random
-    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.training.specs import CogVideoXSpec
     from vap_tpu_torch.training.trainer import SFTTrainer
 
     shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_training_data(os.path.join(work, "data"))
+    log(f"  {len(TRAIN_CLIPS)} clips {[c[:3] for c in TRAIN_CLIPS]}, 2 benchmark clips at "
+        f"{NUM_FRAMES}x{HEIGHT}x{WIDTH} and the recipe's JSON files written in "
+        f"{time.perf_counter() - t0:.2f} s")
     cfg = CogVideoXMOTConfig.cogvideox_5b_i2v_vap()
-    write_precomputed(os.path.join(work, "cache"), [training_batch(cfg)])
     model = build_random(CogVideoXTransformer3DMOTModel, cfg, dev, torch.bfloat16,
                          torch.Generator(device=dev).manual_seed(SEED + 8))
-    args = TrainingArgs(precomputation_dir=os.path.join(work, "cache"),
-                        output_dir=os.path.join(work, "out"), seed=SEED, train_steps=steps,
-                        optimizer="adamw", lr=TRAIN_LR, lr_scheduler="constant",
-                        lr_warmup_steps=0, beta1=0.9, beta2=0.99, weight_decay=1e-4,
-                        max_grad_norm=1.0, gradient_checkpointing=True,
-                        checkpointing_steps=NEVER, logging_steps=1)
-    return SFTTrainer(args, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    txt_cfg = T5Config.t5_xxl()
+    spec = CogVideoXSpec(model, FakeTokenizer(txt_cfg.vocab_size), dtype=torch.bfloat16, device=dev,
+                         vae=build_random(AutoencoderKLCogVideoX, CogVideoXVAEConfig(), dev,
+                                          torch.bfloat16, gen),
+                         text_encoder=build_random(T5EncoderModel, txt_cfg, dev, torch.bfloat16,
+                                                   gen))
+    args = recipe_args(os.path.join(work, "data"), os.path.join(work, "out"), steps)
+    return SFTTrainer(args, model, spec, track_stage_peaks=True)
+
+
+def first_item_batch(trainer):
+    """The first item of the trainer's stream, encoded (its seconds), as a
+    batch; the tracker's spans and the stage peaks it left are cleared."""
+    from vap_tpu_torch.data.config import build_datasets_from_config
+    from vap_tpu_torch.data.sampler import ResolutionSampler
+
+    args = trainer.args
+    sample = next(iter(build_datasets_from_config(args.dataset_config, args,
+                                                  family=args.model_name)))
+    t0 = time.perf_counter()
+    cond, lat = trainer._preprocess(sample)
+    seconds = time.perf_counter() - t0
+    spans = trainer.tracker._drain_timings()
+    peaks = dict(trainer.stage_peaks)
+    trainer.stage_peaks.clear()
+    batch = trainer._batch(iter([(cond, lat)]), ResolutionSampler(1))
+    trainer.data_position = 0
+    log(f"  one item encoded (bucket fit, T5 on 2 prompts, the VAE on the target, its first "
+        f"frame, the reference and its first frame) in {seconds:.3f} s: "
+        f"{ {k: round(v, 3) for k, v in spans.items()} }, peak card memory "
+        f"{ {k: round(v / 2**30, 2) for k, v in peaks.items()} } GiB; latents "
+        f"{tuple(lat['latents'].shape)}, text {tuple(cond['encoder_hidden_states'].shape)}")
+    return batch
 
 
 def training_path(dev):
@@ -3840,42 +3949,77 @@ def training_path(dev):
     import numpy as np
     import torch
 
+    from vap_tpu_torch.data import video
+
     work = os.path.join(HERE, "build", "chip_smoke_train")
     t0 = time.perf_counter()
+    log_video_io()
     trainer = build_trainer(dev, work, TRAIN_STEPS)
-    model, cfg = trainer.model, trainer.model.config
+    model, cfg, spec = trainer.model, trainer.model.config, trainer.spec
     params = dict(model.named_parameters())
     before = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
     n_train = sum(params[n].numel() for n in trainer.trainable_names)
     log(f"  {cfg.num_layers} blocks, MoT in {min(cfg.block_idx_with_mot_ref)}-"
         f"{max(cfg.block_idx_with_mot_ref)}: {n_params(model)} bf16 parameters, {n_train} "
-        f"trainable in {len(trainer.trainable_names)} tensors, remat "
-        f"{trainer.step_cfg.remat!r}, AdamW fused {trainer.optimizer.inner.defaults['fused']}; "
+        f"trainable in {len(trainer.trainable_names)} tensors, T5 {n_params(spec.text_encoder)} "
+        f"and VAE {n_params(spec.vae)} on the card, remat {trainer.step_cfg.remat!r}, AdamW "
+        f"fused {trainer.optimizer.inner.defaults['fused']}; "
         f"{time.perf_counter() - t0:.2f} s to build")
-    ring_training_check(trainer, dev)
+    ring_training_check(trainer, dev, first_item_batch(trainer))
+    videos = []
+    validation = spec.validation
+
+    def kept(sample, **kw):  # the validation video, kept for the checks
+        videos.append(validation(sample, **kw))
+        return videos[-1]
+
+    spec.validation = kept
+    decodes = dict(video.DECODES)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
     trainer.run()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    for r in trainer.history:
+    path = os.path.join(trainer.args.output_dir, "validation", f"{TRAIN_STEPS:06d}",
+                        "sample_0.mp4")
+    written = video.load_video(path)[0] if os.path.exists(path) else None
+    decoded = {k: v - decodes[k] for k, v in video.DECODES.items()}
+    # each span resets the peak: the run's is the largest span's
+    peak = max(trainer.stage_peaks.values(), default=0)
+    for r, entry in zip(trainer.history, trainer.tracker.history):
         total = r["forward_s"] + r["backward_s"] + r["update_s"]
         log(f"  step {r['step']}: loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, lr "
             f"{r['lr']:.1e}, {total:.3f} s = forward {r['forward_s']:.3f} + backward "
-            f"{r['backward_s']:.3f} + update {r['update_s']:.3f}")
-    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s; peak device memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches}, per step K1 {launches['flash_fwd'] / TRAIN_STEPS:g} (expected "
-        f"{2 * cfg.num_layers}: forward and recompute) and K5 "
-        f"{launches['flash_bwd'] / TRAIN_STEPS:g} (expected {cfg.num_layers})")
-    check_launches(launches, {"flash_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
-                              "flash_bwd": cfg.num_layers * TRAIN_STEPS})
+            f"{r['backward_s']:.3f} + update {r['update_s']:.3f}; spans "
+            f"{ {k: round(v, 3) for k, v in entry.items() if k.startswith('timing/')} }")
+    spans = {k for entry in trainer.tracker.history for k in entry if k.startswith("timing/")}
+    peaks = {k: round(v / 2**30, 2) for k, v in trainer.stage_peaks.items()}
+    want_k1 = 2 * cfg.num_layers * TRAIN_STEPS + cfg.num_layers * VAL_STEPS
+    log(f"  {TRAIN_STEPS} steps and a validation in {wall:.3f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB, by span {peaks} GiB; videos decoded in the run {decoded}; "
+        f"launches {launches}: K1 {launches['flash_fwd']} (expected {want_k1}: "
+        f"{2 * cfg.num_layers} a training step, forward and recompute, and {cfg.num_layers} a "
+        f"validation DDIM step at CFG batch 2) and K5 {launches['flash_bwd']} (expected "
+        f"{cfg.num_layers * TRAIN_STEPS})")
+    check_launches(launches, {"flash_fwd": want_k1, "flash_bwd": cfg.num_layers * TRAIN_STEPS})
     if not (len(trainer.history) == TRAIN_STEPS == trainer.optimizer.count
             and all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in trainer.history)):
         raise AssertionError(f"training: {trainer.optimizer.count} updates, history "
                              f"{trainer.history}")
+    need = {"timing/prepare_conditions", "timing/prepare_latents", "timing/train_step",
+            "timing/validation"}
+    if not need <= spans:
+        raise AssertionError(f"training: spans {sorted(spans)} lack {sorted(need - spans)}")
+    out = videos[0] if len(videos) == 1 else None
+    log(f"  validation video: {None if out is None else out.shape}, finite "
+        f"{out is not None and bool(np.isfinite(out).all())}, range "
+        f"[{out.min():.3f}, {out.max():.3f}]; {path} read back "
+        f"{None if written is None else written.shape}")
+    if (out is None or out.shape != (NUM_FRAMES, HEIGHT, WIDTH, 3) or not np.isfinite(out).all()
+            or written is None or written.shape != (NUM_FRAMES, HEIGHT, WIDTH, 3)):
+        raise AssertionError("training: the validation video is missing, not finite or not "
+                             f"{NUM_FRAMES} frames of {HEIGHT}x{WIDTH}")
     trainable = set(trainer.trainable_names)
     frozen_changed = [n for n, p in params.items()
                       if n not in trainable and not torch.equal(p.detach().cpu(), before[n])]
@@ -3902,14 +4046,198 @@ def training_path(dev):
         raise AssertionError(f"training: frozen tensors changed {frozen_changed[:5]}, trainable "
                              f"tensors that did not move {stuck[:5]}, reference-only tensors "
                              f"that moved {woke[:5]}")
-    del params, before
+    del params, before, videos
     t0 = time.perf_counter()
     export_check(trainer)
     seconds = time.perf_counter() - t0
-    del trainer, model
+    del trainer, model, spec
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches["flash_bwd"], seconds
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the data path at tiny widths (precompute, Wan, HunyuanVideo)
+# ---------------------------------------------------------------------------
+
+SMALL_CLIPS = ((9, 40, 40, 16), (9, 24, 48, 16), (14, 32, 32, 24))  # 14 at 24 fps: 9 at 16
+
+
+def small_cog_trainer(dev, root, out, **kw):
+    """A tiny CogVideoX VAP (head_dim 64, so K1 and K5 run) with a tiny T5
+    and VAE on the card, random from the seed; the recipe's trainer on
+    ``root`` at 9x32x32."""
+    import torch
+
+    from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
+    from vap_tpu_torch.models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+    from vap_tpu_torch.models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.training.specs import CogVideoXSpec
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cfg = CogVideoXMOTConfig.tiny(in_channels=8, out_channels=4, num_layers=3,
+                                  attention_head_dim=64, block_idx_with_mot_ref=(0, 1))
+    model = build_random(CogVideoXTransformer3DMOTModel, cfg, dev, bf16, gen)
+    spec = CogVideoXSpec(model, FakeTokenizer(128), dtype=bf16, device=dev,
+                         vae=build_random(AutoencoderKLCogVideoX, CogVideoXVAEConfig.tiny(), dev,
+                                          bf16, gen),
+                         text_encoder=build_random(T5EncoderModel,
+                                                   T5Config.tiny(d_model=cfg.text_embed_dim),
+                                                   dev, bf16, gen))
+    args = recipe_args(root, out, 3, video_resolution_buckets=((9, 32, 32),), lr=1e-3, **kw)
+    return SFTTrainer(args, model, spec)
+
+
+def data_small_check(dev):
+    """Phase 8b. CogVideoX online against enable_precomputation (the encode
+    pass into a cache, the encoders to host memory, back for each
+    validation): losses bit-equal, a validation every step in the second;
+    then Wan VAP and the HunyuanVideo LoRA, one step from clips and one
+    validation sample each, with K4 / K6 and K7's launches."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.models.hunyuan_video.config import HunyuanVideoConfig
+    from vap_tpu_torch.models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+    from vap_tpu_torch.models.hunyuan_video.vae import (AutoencoderKLHunyuanVideo,
+                                                        HunyuanVideoVAEConfig)
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.clip_text import CLIPTextConfig, CLIPTextModel
+    from vap_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from vap_tpu_torch.models.text_encoders.llama import LlamaConfig, LlamaModel
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.models.wan.config import WanMOTConfig
+    from vap_tpu_torch.models.wan.transformer_mot import WanTransformer3DMOTModel
+    from vap_tpu_torch.models.wan.vae import AutoencoderKLWan, WanVAEConfig
+    from vap_tpu_torch.pipelines.hunyuan_video import CROP_START, DEFAULT_PROMPT_TEMPLATE_PREFIX
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.specs import HunyuanVideoSpec, WanSpec
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    work = os.path.join(HERE, "build", "chip_smoke_data_small")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "data")
+    bf16 = torch.bfloat16
+    t_start = time.perf_counter()
+    write_training_data(root, clips=SMALL_CLIPS, steps=2, size=(9, 32, 32))
+
+    # CogVideoX: online, then the precompute pass and its replay
+    reset_counts()
+    online = small_cog_trainer(dev, root, os.path.join(work, "online"))
+    online.run()
+    on_launches = read_counts()
+    reset_counts()
+    pre = small_cog_trainer(dev, root, os.path.join(work, "pre"), validation_steps=1,
+                            enable_precomputation=True,
+                            precomputation_dir=os.path.join(work, "cache"),
+                            precomputation_once=True)
+    pre.run()
+    pre_launches = read_counts()
+    losses = [r["loss"] for r in online.history], [r["loss"] for r in pre.history]
+    where = {p.device.type for m in pre.spec.encoders().values() for p in m.parameters()}
+    videos = sorted(os.listdir(os.path.join(work, "pre", "validation")))
+    log(f"  CogVideoX (head_dim 64) online losses {losses[0]}, under enable_precomputation "
+        f"{losses[1]}: bit-equal {losses[0] == losses[1]}; the encoders after the run on {where}; "
+        f"validations {videos}; launches online {on_launches['flash_fwd']} K1 / "
+        f"{on_launches['flash_bwd']} K5, precomputed {pre_launches['flash_fwd']} / "
+        f"{pre_launches['flash_bwd']}")
+    layers = online.model.config.num_layers
+    check_launches(on_launches, {"flash_fwd": 2 * layers * 3 + layers * 2,
+                                 "flash_bwd": layers * 3})
+    check_launches(pre_launches, {"flash_fwd": 2 * layers * 3 + layers * 2 * 3,
+                                  "flash_bwd": layers * 3})
+    if not (losses[0] == losses[1] and all(np.isfinite(losses[0])) and where == {"cpu"}
+            and videos == ["000001", "000002", "000003"]):
+        raise AssertionError("the precompute mode differs from the online run")
+    del online, pre
+
+    # Wan VAP (head_dim 128): one step from the clips, one validation sample
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    w_cfg = WanMOTConfig.tiny(attention_head_dim=128, in_channels=12, out_channels=4,
+                              text_dim=32, image_dim=24, added_kv_proj_dim=256, ffn_dim=512)
+    model = build_random(WanTransformer3DMOTModel, w_cfg, dev, bf16, gen)
+    spec = WanSpec(model, FakeTokenizer(128), dtype=bf16, device=dev,
+                   vae=build_random(AutoencoderKLWan, WanVAEConfig.tiny(), dev, bf16, gen),
+                   text_encoder=build_random(T5EncoderModel,
+                                             T5Config.tiny(per_layer_relative_bias=True), dev,
+                                             bf16, gen),
+                   image_encoder=build_random(CLIPVisionModel, CLIPVisionConfig.tiny(), dev, bf16,
+                                              gen))
+    args = recipe_args(root, os.path.join(work, "wan"), 1, model_name="wan",
+                       video_resolution_buckets=((9, 32, 32),), lr=1e-3)
+    reset_counts()
+    trainer = SFTTrainer(args, model, spec)
+    trainer.run()
+    launches = read_counts()
+    # per MoT block: the joint attention and four cross-attentions, forward
+    # and recompute in the step, at CFG batch 2 in each of the validation's 2
+    # steps; backward for all but the last block's two reference
+    # cross-attentions, which feed no loss
+    per = w_cfg.num_layers * 5
+    log(f"  Wan VAP (head_dim 128): loss {trainer.history[0]['loss']:.6f}, validation "
+        f"{sorted(os.listdir(os.path.join(work, 'wan', 'validation')))}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check_launches(launches, {"flash_fwd_d128": 2 * per + 2 * per, "flash_bwd_d128": per - 2})
+    if not np.isfinite(trainer.history[0]["loss"]):
+        raise AssertionError("Wan VAP from clips: the loss is not finite")
+    del trainer, model, spec
+
+    # the HunyuanVideo LoRA (head_dim 128, the text mask padded: K7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    vae_cfg = HunyuanVideoVAEConfig.tiny()
+    h_cfg = HunyuanVideoConfig.tiny(attention_head_dim=128, in_channels=vae_cfg.latent_channels,
+                                    out_channels=vae_cfg.latent_channels, text_embed_dim=32,
+                                    rope_axes_dim=(32, 48, 48))
+    clip_cfg = CLIPTextConfig.tiny(hidden_size=h_cfg.pooled_projection_dim)
+    model = build_random(HunyuanVideoTransformer3DModel, h_cfg, dev, bf16, gen)
+    spec = HunyuanVideoSpec(
+        model, FakeTokenizer(64, prefix=DEFAULT_PROMPT_TEMPLATE_PREFIX, prefix_tokens=CROP_START),
+        FakeTokenizer(clip_cfg.vocab_size, eos=clip_cfg.eos_token_id), dtype=bf16, device=dev,
+        vae=build_random(AutoencoderKLHunyuanVideo, vae_cfg, dev, bf16, gen),
+        text_encoder=build_random(LlamaModel, LlamaConfig.tiny(hidden_size=h_cfg.text_embed_dim),
+                                  dev, bf16, gen),
+        text_encoder_2=build_random(CLIPTextModel, clip_cfg, dev, bf16, gen))
+    pairs = os.path.join(work, "pairs")
+    os.makedirs(pairs)
+    from vap_tpu_torch.data.video import export_to_video
+
+    for i in range(2):
+        export_to_video(seeded_clip(SEED + 30 + i, 9, 32, 32), os.path.join(pairs, f"c{i}.mp4"))
+        with open(os.path.join(pairs, f"c{i}.txt"), "w") as fh:
+            fh.write(f"The video shows a vase dissolving, take {i}")
+    val = os.path.join(work, "hunyuan_validation.json")
+    with open(val, "w") as fh:
+        json.dump({"num_samples": 1, "data": [{"caption": "MODAL_DISSOLVE a vase", "height": 32,
+                                                "width": 32, "num_frames": 9,
+                                                "num_inference_steps": 2}]}, fh)
+    args = TrainingArgs(model_name="hunyuan_video", training_type="lora", rank=4, lora_alpha=4,
+                        target_modules="to_q to_k to_v to_out", data_root=pairs,
+                        id_token="MODAL_DISSOLVE", remove_common_llm_caption_prefixes=True,
+                        output_dir=os.path.join(work, "hunyuan"),
+                        video_resolution_buckets=((9, 32, 32),), lr=1e-3, lr_scheduler="constant",
+                        flow_weighting_scheme="logit_normal", gradient_checkpointing=True,
+                        checkpointing_steps=NEVER, seed=SEED, train_steps=1, validation_steps=1,
+                        validation_dataset_file=val, logging_steps=1)
+    reset_counts()
+    trainer = SFTTrainer(args, model, spec)
+    trainer.run()
+    launches = read_counts()
+    per = h_cfg.num_layers + h_cfg.num_single_layers  # one joint attention a block
+    log(f"  HunyuanVideo LoRA (head_dim 128): loss {trainer.history[0]['loss']:.6f}, validation "
+        f"{sorted(os.listdir(os.path.join(work, 'hunyuan', 'validation')))}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check_launches(launches, {"flash_fwd_d128_varlen": 2 * per + 2 * per,
+                              "flash_bwd_d128_varlen": per})
+    if not np.isfinite(trainer.history[0]["loss"]):
+        raise AssertionError("the Hunyuan LoRA from clips: the loss is not finite")
+    del trainer, model, spec
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  phase 8b in {time.perf_counter() - t_start:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4336,7 +4664,7 @@ def build_hunyuan_trainer(model, work, latents):
 
 def hunyuan_training_path(model, latents, dev):
     """HunyuanVideo LoRA SFT at full width and depth on phase 11's
-    transformer (moved to the card): 3 steps at 49f@480x768 through
+    transformer (moved to the card): TRAIN_STEPS steps at 49f@480x768 through
     ``SFTTrainer.run``. Returns K7's launches in K4 and in K6."""
     import shutil
 
@@ -4627,10 +4955,15 @@ def main():
 
     # 8. training
     host_memory("before 8")
-    log(f"training, CogVideoX-5B VAP ({NUM_FRAMES} frames of {HEIGHT}x{WIDTH}, batch 1, "
-        f"{TRAIN_STEPS} optimizer steps):")
+    log(f"training, CogVideoX-5B VAP from clips on disk ({NUM_FRAMES} frames of {HEIGHT}x"
+        f"{WIDTH}, batch 1, {TRAIN_STEPS} optimizer steps, then validation, {VAL_STEPS} DDIM "
+        f"steps):")
     launches["flash_bwd"], seconds = training_path(dev)
     ckpt_seconds += seconds
+    host_memory("before 8b")
+    log("the data path at tiny widths (8b): CogVideoX online and under enable_precomputation, "
+        "Wan VAP and the HunyuanVideo LoRA from clips, each validated:")
+    data_small_check(dev)
 
     # 9. K6
     log("flash backward at head_dim 128 (K6) parity (bf16, vs plain PyTorch):")

@@ -1,7 +1,8 @@
 """The port stands without JAX: every slice module, and the scripts that
 drive it on the card, import with jax blocked, and importing them pulls in
-neither jax nor the JAX package, nor ``safetensors``, ``huggingface_hub``
-or ``transformers``, which the card's machine does not have."""
+neither jax nor the JAX package, nor ``safetensors``, ``huggingface_hub``,
+``transformers`` or ``pandas``, none of which the port depends on; OpenCV
+is imported only inside the codec functions of ``data/video.py``."""
 
 import os
 import re
@@ -54,8 +55,15 @@ SLICE_MODULES = [
     "vap_tpu_torch.infer.wan_vap",
     "vap_tpu_torch.training.specs",
     "vap_tpu_torch.data",
+    "vap_tpu_torch.data.config",
+    "vap_tpu_torch.data.dataloader",
+    "vap_tpu_torch.data.dataset",
+    "vap_tpu_torch.data.generic",
     "vap_tpu_torch.data.precomputation",
     "vap_tpu_torch.data.sampler",
+    "vap_tpu_torch.data.video",
+    "vap_tpu_torch.utils.timing",
+    "vap_tpu_torch.utils.trackers",
     "vap_tpu_torch.training",
     "vap_tpu_torch.training.args",
     "vap_tpu_torch.training.checkpoint",
@@ -76,13 +84,13 @@ import importlib, sys
 before = set(sys.modules)
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["cv2"] = None  # the port must run where cv2 is not installed
-for name in ("safetensors", "huggingface_hub", "transformers"):
+for name in ("safetensors", "huggingface_hub", "transformers", "pandas"):
     sys.modules[name] = None  # not installed on the card's machine
 for name in {modules!r}:
     importlib.import_module(name)
 leaked = sorted(m for m in set(sys.modules) - before if m == "vap_tpu"
                 or m.startswith(("vap_tpu.", "jax.", "cv2.", "safetensors.", "huggingface_hub.",
-                                 "transformers.")))
+                                 "transformers.", "pandas.")))
 assert not leaked, leaked
 print("ok")
 """
@@ -99,20 +107,27 @@ def test_port_imports_without_jax(modules):
 
 
 def test_no_jax_sdpa_or_compile_in_port_sources():
-    """The port imports neither jax, cv2, the JAX package, safetensors,
-    huggingface_hub nor transformers, and calls neither torch's SDPA nor
-    torch.compile."""
-    banned = re.compile(r"^\s*(import (jax|cv2|safetensors|huggingface_hub|transformers)\b"
-                        r"|from (jax|cv2|safetensors|huggingface_hub|transformers)\b)"
+    """The port imports neither jax, the JAX package, safetensors,
+    huggingface_hub, transformers nor pandas, and calls neither torch's SDPA
+    nor torch.compile; two imports happen inside a function, never at a
+    module's top level: cv2 in ``data/video.py`` (the codec) and
+    transformers in ``train.py`` (the tokenizer, when training from data)."""
+    banned = re.compile(r"^\s*(import (jax|cv2|safetensors|huggingface_hub|transformers|pandas)\b"
+                        r"|from (jax|cv2|safetensors|huggingface_hub|transformers|pandas)\b)"
                         r"|vap_tpu\.|torch\.compile|scaled_dot_product_attention\(")
     root = os.path.join(REPO, "vap_tpu_torch")
+    lazy = {os.path.join(root, "data", "video.py"): re.compile(r"^\s+import cv2$"),
+            os.path.join(root, "train.py"):
+                re.compile(r"^\s+from transformers import AutoTokenizer$")}
     hits = []
     for dirpath, _, files in os.walk(root):
         for name in files:
             if name.endswith((".py", ".cu", ".cuh")):
-                with open(os.path.join(dirpath, name)) as fh:
+                path = os.path.join(dirpath, name)
+                allowed = lazy.get(path, re.compile(r"(?!)"))
+                with open(path) as fh:
                     hits += [f"{name}:{n}: {line.strip()}" for n, line in enumerate(fh, 1)
-                             if banned.search(line)]
+                             if banned.search(line) and not allowed.match(line)]
     assert not hits, hits
 
 

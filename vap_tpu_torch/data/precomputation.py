@@ -30,10 +30,17 @@ template's first 95 tokens cropped), ``prompt_attention_mask`` [1, 256]
 VAE-scaled (unlike Wan's channel-last), 13 x 60 x 96 at 49f@480x768, as
 ``models/hunyuan_video/vae.py`` ``prepare_latents`` makes them.
 
-``write_precomputed`` writes the same layout, for data made without the
-encoders (random latents at a given shape, or Hunyuan latents from
-``prepare_latents``). Decoding, bucketing and the text-encoder and VAE
-precompute pass itself are not ported.
+``PrecomputedPreprocessor`` is the port of JAX's precompute pass
+(``vap_tpu/data/precomputation.py:55``): ``precompute`` (:118) runs the
+encoders over the data stream and writes that layout, with the manifest
+``{complete, count, rank, world_size, signature}``; ``is_cached`` (:114)
+accepts a cache only when every rank's manifest is complete, was written
+under this world size and this run's signature, and counts the files on
+disk, so a cache written under other settings is recomputed, never
+replayed. Caches are shared with JAX both ways. ``InMemoryPreprocessor``
+(:35) buffers ``num_items`` encoded pairs in host memory instead.
+``write_precomputed`` writes the same layout for data made without the
+encoders (random latents at a given shape, say).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from __future__ import annotations
 import ast
 import json
 import os
-from typing import Any, Dict, Iterable, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -81,7 +88,7 @@ def write_precomputed(directory: str, pairs: Iterable[Pair], rank: int = 0) -> i
 
 class PrecomputedReader:
     """The items of one rank's cache, in file order. Raises when the cache is
-    missing or incomplete: the port has no encoders to fill it."""
+    missing or incomplete (a trainer without encoders cannot fill it)."""
 
     def __init__(self, directory: str, rank: int = 0):
         self.dir = os.path.join(directory, f"rank_{rank}")
@@ -114,3 +121,89 @@ class PrecomputedReader:
         while True:
             yield self.item(i)
             i += 1
+
+
+class InMemoryPreprocessor:
+    """Encode ``num_items`` samples at a time into host memory."""
+
+    def __init__(self, data_iter: Iterator, prepare_conditions: Callable,
+                 prepare_latents: Callable, num_items: int = 8):
+        self._iter = data_iter
+        self._prepare_conditions = prepare_conditions
+        self._prepare_latents = prepare_latents
+        self.num_items = num_items
+        self._buffer: List[Pair] = []
+
+    def consume(self) -> List[Pair]:
+        self._buffer = []
+        for _ in range(self.num_items):
+            sample = next(self._iter)
+            self._buffer.append((self._prepare_conditions(sample), self._prepare_latents(sample)))
+        return self._buffer
+
+
+class PrecomputedPreprocessor:
+    """Write each rank's encoded (condition, latent) pairs once (the replay
+    is ``PrecomputedReader``'s); reuse is gated on every rank's manifest
+    (``is_cached``)."""
+
+    MANIFEST = MANIFEST
+
+    def __init__(self, directory: str, rank: int = 0, world_size: int = 1, reuse: bool = True,
+                 signature: Optional[Dict[str, Any]] = None):
+        self.root = directory
+        self.rank = rank
+        self.world_size = max(1, world_size)
+        self.signature = signature
+        self.dir = os.path.join(directory, f"rank_{rank}")
+        os.makedirs(self.dir, exist_ok=True)
+        self.reuse = reuse
+
+    def _rank_dir(self, rank: int) -> str:
+        return os.path.join(self.root, f"rank_{rank}")
+
+    def _npz_counts(self, rank: int) -> Dict[str, int]:
+        d = self._rank_dir(rank)
+        names = os.listdir(d) if os.path.isdir(d) else []
+        return {kind: sum(1 for f in names if f.startswith(kind + "_") and f.endswith(".npz"))
+                for kind in ("cond", "lat")}
+
+    def _rank_complete(self, rank: int) -> bool:
+        try:
+            with open(os.path.join(self._rank_dir(rank), MANIFEST)) as f:
+                m = json.load(f)
+        except (OSError, ValueError):
+            return False
+        if not m.get("complete") or m.get("world_size") != self.world_size:
+            return False  # another world size shards the data otherwise
+        if self.signature is not None and m.get("signature") != self.signature:
+            return False
+        counts = self._npz_counts(rank)
+        return counts["cond"] == counts["lat"] == m.get("count")
+
+    def is_cached(self) -> bool:
+        return self.reuse and all(self._rank_complete(r) for r in range(self.world_size))
+
+    def precompute(self, data_iter: Iterator, prepare_conditions: Callable,
+                   prepare_latents: Callable, max_items: Optional[int] = None) -> int:
+        """Encode the stream (up to ``max_items``) into this rank's files,
+        the stale ones removed first; the manifest is written last."""
+        for f in os.listdir(self.dir):
+            if f.endswith(".npz") or f == MANIFEST:
+                os.remove(os.path.join(self.dir, f))
+        count = 0
+        for sample in data_iter:
+            cond = prepare_conditions(sample)
+            lat = prepare_latents(sample)
+            _save_npz(os.path.join(self.dir, f"cond_{count:06d}.npz"), cond)
+            _save_npz(os.path.join(self.dir, f"lat_{count:06d}.npz"), lat)
+            count += 1
+            if max_items and count >= max_items:
+                break
+        manifest = {"complete": True, "count": count, "rank": self.rank,
+                    "world_size": self.world_size, "signature": self.signature}
+        tmp = os.path.join(self.dir, MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(self.dir, MANIFEST))
+        return count

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.video import resize_frame
 from ..models.text_encoders.clip_vision import CLIPVisionModel
 from ..models.text_encoders.t5 import T5EncoderModel
 from ..models.wan.transformer_mot import WanTransformer3DMOTModel
@@ -43,86 +44,6 @@ from .streamed import PinnedBlocks, StreamedTransformer
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
-
-# ---------------------------------------------------------------------------
-# host-side resize with cv2.resize's semantics (the JAX preprocessing calls
-# cv2, which the port does not import)
-# ---------------------------------------------------------------------------
-
-def _area_weights(src: int, dst: int) -> np.ndarray:
-    """[dst, src] INTER_AREA weights for a shrink: each output pixel averages
-    the source span [i * s, (i + 1) * s), s = src / dst, partial pixels at
-    the span's ends weighted by their overlap (cv2's computeResizeAreaTab)."""
-    scale = src / dst
-    w = np.zeros((dst, src), np.float64)
-    for dx in range(dst):
-        fsx1 = dx * scale
-        fsx2 = fsx1 + scale
-        cell = min(scale, src - fsx1)
-        sx1, sx2 = int(np.ceil(fsx1)), int(np.floor(fsx2))
-        sx2 = min(sx2, src - 1)
-        sx1 = min(sx1, sx2)
-        if sx1 - fsx1 > 1e-3:
-            w[dx, sx1 - 1] = (sx1 - fsx1) / cell
-        w[dx, sx1:sx2] = 1.0 / cell
-        if fsx2 - sx2 > 1e-3:
-            w[dx, sx2] = min(min(fsx2 - sx2, 1.0), cell) / cell
-    return w
-
-
-def _linear_weights(src: int, dst: int) -> np.ndarray:
-    """[dst, src] INTER_LINEAR weights: half-pixel centres, the source
-    coordinate clamped to the image at both ends."""
-    scale = src / dst
-    w = np.zeros((dst, src), np.float64)
-    for dx in range(dst):
-        fx = (dx + 0.5) * scale - 0.5
-        sx = int(np.floor(fx))
-        fx -= sx
-        if sx < 0:
-            fx, sx = 0.0, 0
-        if sx >= src - 1:
-            fx, sx = 0.0, src - 1
-        w[dx, sx] += 1.0 - fx
-        if fx:
-            w[dx, sx + 1] += fx
-    return w
-
-
-def _area_mode_weights(src: int, dst: int) -> np.ndarray:
-    """[dst, src] weights of cv2's INTER_AREA when an axis grows: cv2 then
-    runs its two-tap linear resize on both axes with the "area mode"
-    coefficients, fx = (i + 1) - (floor(i * s) + 1) / s taken modulo 1,
-    0 where it is not positive, s = 1 / (dst / src) in double, fx rounded
-    to float32 (cv2's resize.cpp)."""
-    inv = dst / src
-    scale = 1.0 / inv
-    w = np.zeros((dst, src), np.float64)
-    for dx in range(dst):
-        sx = int(np.floor(dx * scale))
-        fx = float(np.float32((dx + 1) - (sx + 1) * inv))
-        fx = 0.0 if fx <= 0 else fx - np.floor(fx)
-        if sx >= src - 1:
-            fx, sx = 0.0, src - 1
-        w[dx, sx] += 1.0 - fx
-        w[dx, min(sx + 1, src - 1)] += fx
-    return w
-
-
-def resize_frame(frame: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Resize one [H, W, C] float frame as ``resize_frame`` of ``vap_tpu/data/video.py``
-    does with cv2: INTER_AREA when the height shrinks (true area averages
-    when neither axis grows, the area-mode linear taps when the width
-    grows), else INTER_LINEAR. All are separable: out = Wy @ frame @ Wx^T
-    per channel."""
-    h, w = frame.shape[:2]
-    if h > height:
-        weights = _area_mode_weights if w < width else _area_weights
-        wy, wx = weights(h, height), weights(w, width)
-    else:
-        wy, wx = _linear_weights(h, height), _linear_weights(w, width)
-    rows = np.tensordot(wy, np.asarray(frame, np.float64), axes=(1, 0))  # [height, w, C]
-    return np.einsum("xw,ywc->yxc", wx, rows).astype(np.float32)
 
 
 # --- copied from vap_tpu/pipelines/wan_i2v_mot.py:83-92 (make_i2v_mask) ------

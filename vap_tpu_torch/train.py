@@ -1,4 +1,9 @@
-"""Train a Video-As-Prompt transformer from a precomputed cache.
+"""Train a Video-As-Prompt transformer from clips on disk or a precomputed
+cache.
+
+    python -m vap_tpu_torch.train --data_root DATA [--dataset_config training.json] \\
+        [--validation_dataset_file validation.json] [--enable_precomputation] \\
+        --pretrained_model_name_or_path CKPT --output_dir OUT ...
 
     python -m vap_tpu_torch.train --precomputation_dir CACHE --output_dir OUT \\
         [--model_name cogvideox|wan|hunyuan_video] [--training_type video_as_prompt_mot|lora] \\
@@ -7,6 +12,19 @@
 
     torchrun --nproc_per_node N -m vap_tpu_torch.train ... --seq_degree S \\
         [--data_degree D] [--cp_rotate_method allgather|ppermute|ulysses]   # N = D x S
+
+With ``--data_root`` or ``--dataset_config`` the trainer reads the clips
+(``data/``), bucket-fits and encodes them with the family's text encoder(s)
+and VAE (and Wan's image encoder), built as JAX's ``_build_cogvideox``,
+``_build_wan`` and ``_build_hunyuan_video`` build them: each component's
+weights from ``--pretrained_model_name_or_path/<component>`` (a missing
+component raises), random from ``--seed`` only under ``--model_config
+tiny`` or without a checkpoint, and never for Wan's VAE at the released
+structure, as in JAX; the tokenizer(s) from the checkpoint's
+``tokenizer/`` (and ``tokenizer_2/``) through ``transformers``, imported
+only then: where it is not installed, the entry point raises and names it
+(``main(..., tokenizers=...)`` takes them from the caller instead). With
+only ``--precomputation_dir`` no encoder is built.
 
 The port's counterpart of ``train.py`` for the SFT paths: the flags are the
 fields of ``training.args.TrainingArgs`` (the JAX names and defaults), plus
@@ -28,9 +46,10 @@ else the ``transformer/`` component of ``--pretrained_model_name_or_path``
 (a directory or a cached hub id; its ``config.json`` sets the structure's
 fields under ``--model_structure_config``), a stock CogVideoX or Wan
 checkpoint getting its MoT expert cloned from the trunk
-(``training.specs``); else random weights from ``--seed``. Only the
-transformer loads: the conditions and latents come from the cache. At the
+(``training.specs``); else random weights from ``--seed``. At the
 end of the run the trainer exports its weights (``SFTTrainer.export``).
+``--video_resolution_buckets`` and ``--report_to`` take JAX's forms
+(``49x480x720,49x480x832``; ``dummy,wandb``).
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) each process starts
 ``torch.distributed`` from the launcher's environment: NCCL on the card
@@ -49,19 +68,28 @@ import typing
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch import nn
 
 from .models.cogvideox.config import CogVideoXMOTConfig
 from .models.cogvideox.transformer_mot import CogVideoXTransformer3DMOTModel
+from .models.cogvideox.vae import AutoencoderKLCogVideoX, CogVideoXVAEConfig
 from .models.hunyuan_video.config import HunyuanVideoConfig
 from .models.hunyuan_video.transformer import HunyuanVideoTransformer3DModel
+from .models.hunyuan_video.vae import AutoencoderKLHunyuanVideo, HunyuanVideoVAEConfig
 from .models.loading import load_model
 from .models.random_init import build_random
+from .models.text_encoders.clip_text import CLIPTextConfig, CLIPTextModel
+from .models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+from .models.text_encoders.llama import LlamaConfig, LlamaModel
+from .models.text_encoders.t5 import T5Config, T5EncoderModel
 from .models.wan.config import WanMOTConfig
 from .models.wan.transformer_mot import WanTransformer3DMOTModel
+from .models.wan.vae import AutoencoderKLWan, WanVAEConfig
 from .pipelines.cogvideox_i2v_mot import resolve_device
 from .training.args import TrainingArgs
 from .training.checkpoint import load_safetensors
-from .training.specs import build_mot_state_dict_from_base, build_wan_mot_state_dict_from_base
+from .training.specs import (SPECS, build_mot_state_dict_from_base,
+                             build_wan_mot_state_dict_from_base)
 from .training.trainer import SFTTrainer
 from .utils.hub import component_config_kwargs, resolve_model_dir
 
@@ -87,6 +115,39 @@ MODELS = {
     }),
 }
 _STRUCTURE_SECTIONS = ("transformer", "vae", "text_encoder", "text_encoder_2", "image_encoder")
+
+# per model_name: its encoders (component name, class, config class, the
+# released configuration, the tiny one fitted to a tiny transformer's config)
+ENCODERS = {
+    "cogvideox": (
+        ("vae", AutoencoderKLCogVideoX, CogVideoXVAEConfig, CogVideoXVAEConfig,
+         lambda t: CogVideoXVAEConfig.tiny(latent_channels=t.out_channels)),
+        ("text_encoder", T5EncoderModel, T5Config, T5Config.t5_xxl,
+         lambda t: T5Config.tiny(d_model=t.text_embed_dim)),
+    ),
+    "wan": (
+        ("vae", AutoencoderKLWan, WanVAEConfig, WanVAEConfig,
+         lambda t: WanVAEConfig.tiny(z_dim=t.out_channels,
+                                     latents_mean=(0.0,) * t.out_channels,
+                                     latents_std=(1.0,) * t.out_channels)),
+        ("text_encoder", T5EncoderModel, T5Config, T5Config.umt5_xxl,
+         lambda t: T5Config.tiny(d_model=t.text_dim, per_layer_relative_bias=True)),
+        ("image_encoder", CLIPVisionModel, CLIPVisionConfig, CLIPVisionConfig,
+         lambda t: CLIPVisionConfig.tiny(hidden_size=t.image_dim)),
+    ),
+    "hunyuan_video": (
+        ("vae", AutoencoderKLHunyuanVideo, HunyuanVideoVAEConfig,
+         HunyuanVideoVAEConfig.hunyuan_video,
+         lambda t: HunyuanVideoVAEConfig.tiny(latent_channels=t.out_channels)),
+        ("text_encoder", LlamaModel, LlamaConfig, LlamaConfig.llava_llama_8b,
+         lambda t: LlamaConfig.tiny(hidden_size=t.text_embed_dim)),
+        ("text_encoder_2", CLIPTextModel, CLIPTextConfig, CLIPTextConfig.clip_vit_l,
+         lambda t: CLIPTextConfig.tiny(hidden_size=t.pooled_projection_dim)),
+    ),
+}
+# the tokenizers each family's spec takes, by the checkpoint's directory name
+TOKENIZERS = {"cogvideox": {"tokenizer": "tokenizer"}, "wan": {"tokenizer": "tokenizer"},
+              "hunyuan_video": {"tokenizer": "tokenizer", "clip_tokenizer": "tokenizer_2"}}
 
 
 def structure_overrides(cfg_cls, structure: Dict[str, Any]) -> Dict[str, Any]:
@@ -155,6 +216,63 @@ def build_transformer(args: TrainingArgs, config_name: Optional[str], device: to
     return load_model(model_cls, cfg, state, device, dtype)
 
 
+def load_tokenizers(args: TrainingArgs) -> Dict[str, Any]:
+    """The spec's tokenizer(s) from the checkpoint's ``tokenizer/`` (and
+    ``tokenizer_2/``) directories through ``transformers``, which is
+    imported only here; raises, naming what is missing, where it is not
+    installed or the checkpoint has no such directory."""
+    base = args.pretrained_model_name_or_path
+    dirs = {key: os.path.join(resolve_model_dir(base), name) if base else None
+            for key, name in TOKENIZERS[args.model_name].items()}
+    missing = [d or f"{TOKENIZERS[args.model_name][k]}/ (no --pretrained_model_name_or_path)"
+               for k, d in dirs.items() if not (d and os.path.isdir(d))]
+    if missing:
+        raise FileNotFoundError(f"training from data needs the tokenizer(s): no {missing}")
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        raise RuntimeError("training from data reads its tokenizer(s) with the transformers "
+                           "package, which is not installed; pass tokenizers to main() or "
+                           "build the spec yourself") from None
+    return {key: AutoTokenizer.from_pretrained(d) for key, d in dirs.items()}
+
+
+def build_spec(args: TrainingArgs, model: nn.Module, config_name: Optional[str],
+               tokenizers: Dict[str, Any]):
+    """The family's spec around ``model``: its encoders (JAX's family
+    builders) from ``--pretrained_model_name_or_path/<component>``, in the
+    model's dtype on its device. A component the checkpoint lacks raises;
+    random weights from ``--seed`` (each logged) only under ``tiny`` or
+    with no checkpoint at all, and never for Wan's VAE at the released
+    structure (JAX's ``_build_wan`` refuses it too)."""
+    p = next(model.parameters())
+    device, dtype = p.device, p.dtype
+    base = args.pretrained_model_name_or_path
+    root = resolve_model_dir(base) if base else None
+    tiny = config_name == "tiny"
+    encoders = {}
+    for i, (name, cls, cfg_cls, release, small) in enumerate(ENCODERS[args.model_name]):
+        comp = os.path.join(root, name) if root else None
+        comp = comp if comp and os.path.isdir(comp) else None
+        cfg = small(model.config) if tiny else release(**component_config_kwargs(cfg_cls, comp))
+        try:
+            state = load_safetensors(comp) if comp else None
+        except FileNotFoundError:
+            state = None
+        if state is None:
+            if not tiny and (base or (args.model_name, name) == ("wan", "vae")):
+                raise FileNotFoundError(
+                    f"{args.model_name} training from data needs the {name} weights: no "
+                    f"safetensors under {comp or os.path.join(root or '<no checkpoint>', name)}")
+            logging.getLogger(__name__).warning(
+                "random-initialized %s from --seed %d (no checkpoint)", name, args.seed)
+            gen = torch.Generator(device=device).manual_seed(args.seed + 1 + i)
+            encoders[name] = build_random(cls, cfg, device, dtype, gen)
+        else:
+            encoders[name] = load_model(cls, cfg, state, device, dtype)
+    return SPECS[args.model_name](model, dtype=dtype, device=device, **tokenizers, **encoders)
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("vap_tpu_torch.train")
     hints = typing.get_type_hints(TrainingArgs)
@@ -163,6 +281,8 @@ def _parser() -> argparse.ArgumentParser:
         if hint is bool:
             parser.add_argument(f"--{f.name}", action=argparse.BooleanOptionalAction,
                                 default=f.default)
+        elif f.name in _LIST_FLAGS:
+            parser.add_argument(f"--{f.name}", type=_LIST_FLAGS[f.name], default=f.default)
         else:
             kind = next((t for t in typing.get_args(hint) if t is not type(None)), hint)
             parser.add_argument(f"--{f.name}", type=kind, default=f.default)
@@ -172,6 +292,15 @@ def _parser() -> argparse.ArgumentParser:
                         help="the model's configuration: its released structure by default "
                              "(cogvideox_5b_i2v_vap, wan_14b_i2v_vap, hunyuan_video_t2v) or tiny")
     return parser
+
+
+def _buckets(text: str):
+    """JAX's bucket flag: ``49x480x720,49x480x832``."""
+    return tuple(tuple(int(x) for x in b.split("x")) for b in text.split(","))
+
+
+_LIST_FLAGS = {"video_resolution_buckets": _buckets, "image_resolution_buckets": _buckets,
+               "report_to": lambda text: tuple(text.split(","))}
 
 
 def init_distributed(args: TrainingArgs, device: torch.device):
@@ -198,14 +327,23 @@ def init_distributed(args: TrainingArgs, device: torch.device):
     return device, True
 
 
-def main(argv: Optional[List[str]] = None) -> SFTTrainer:
+def main(argv: Optional[List[str]] = None,
+         tokenizers: Optional[Dict[str, Any]] = None) -> SFTTrainer:
+    """Parse ``argv``, build the transformer (and, to train from data, the
+    spec with its encoders and ``tokenizers``, else those of the
+    checkpoint), train, export."""
     ns = vars(_parser().parse_args(argv))
     device = resolve_device(ns.pop("device"))
     config_name = ns.pop("model_config")
     args = TrainingArgs(**ns)
     device, started = init_distributed(args, device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    trainer = SFTTrainer(args, build_transformer(args, config_name, device))
+    model = build_transformer(args, config_name, device)
+    spec = None
+    if args.data_root or args.dataset_config:
+        spec = build_spec(args, model, config_name,
+                          tokenizers if tokenizers is not None else load_tokenizers(args))
+    trainer = SFTTrainer(args, model, spec)
     try:
         trainer.run()
         if trainer.rank == 0:

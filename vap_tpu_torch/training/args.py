@@ -24,13 +24,22 @@ split each attention's token stream (the ``ring`` provider, with
 ``fsdp_degree`` and ``tensor_degree`` above 1 raise (parameter sharding is
 a later slice), and so does ``seq_degree`` above 1 for Wan and
 HunyuanVideo, whose trainers take it in a later slice.
+
+The data, precompute, validation and tracker fields are JAX's
+(``vap_tpu/training/args.py:43-64, 110-132``), with its names and defaults:
+``--data_root`` / ``--meta_df_name`` or ``--dataset_config`` (a
+``training.json``), the resolution buckets, the reference and caption
+masking ratios; ``--enable_precomputation`` (one encode pass into
+``--precomputation_dir`` before training, else every sample is encoded
+online); ``--validation_dataset_file`` every ``--validation_steps`` under
+``--attn_provider_inference``; ``--report_to``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 from ..ops.attention import _parse_provider_spec
 from .train_step import FLOW_WEIGHTING_SCHEMES
@@ -55,8 +64,28 @@ class TrainingArgs:
     tensor_degree: int = 1    # > 1 not ported (tensor parallelism, a later slice)
     cp_rotate_method: str = "allgather"  # | ppermute | ulysses
 
-    precomputation_dir: Optional[str] = None
     output_dir: str = "output"
+
+    # dataset
+    dataset_config: Optional[str] = None
+    data_root: Optional[str] = None
+    meta_df_name: str = "vap_data.csv"
+    video_resolution_buckets: Tuple[Tuple[int, int, int], ...] = ((49, 480, 720),)
+    image_resolution_buckets: Tuple[Tuple[int, int], ...] = ((512, 512),)
+    id_token: Optional[str] = None           # LoRA trigger-word prefix
+    remove_common_llm_caption_prefixes: bool = False
+    enable_precomputation: bool = False
+    precomputation_items: int = 8
+    precomputation_dir: Optional[str] = None
+    precomputation_once: bool = False
+
+    # VAP data flags
+    sample_ref_videos_num: int = 1
+    mask_ref_ratio: float = 0.0
+    mask_caption_ratio: float = 0.02
+    alignment_score_threshold: float = 5.0
+    baseline_single_condition: Optional[str] = None  # not ported (its loss is a later slice)
+    ablation_scaling_data_num: int = 99999999
 
     # models
     model_name: str = "cogvideox"                 # cogvideox | wan | hunyuan_video
@@ -75,6 +104,8 @@ class TrainingArgs:
     # "flash"; "ring" under --seq_degree > 1), a bare provider or a per-site
     # spec ("ring cross:flash")
     attn_provider_training: str = "auto"
+    # the validation sampling's provider ("auto": the port's default, "flash")
+    attn_provider_inference: str = "auto"
 
     # training
     seed: int = 42
@@ -97,11 +128,15 @@ class TrainingArgs:
     epsilon: float = 1e-8
     max_grad_norm: float = 1.0
 
-    # checkpointing and logging
+    # validation, checkpointing and logging
+    validation_dataset_file: Optional[str] = None
+    validation_steps: int = 500
     checkpointing_steps: int = 500
     checkpointing_limit: Optional[int] = 2
     resume_from_checkpoint: Optional[str] = None  # "latest" or a step number
     logging_steps: int = 10
+    report_to: Tuple[str, ...] = ("dummy",)
+    tracker_name: str = "vap_tpu"
 
     def __post_init__(self):
         if self.gradient_accumulation_steps < 1:
@@ -135,8 +170,16 @@ class TrainingArgs:
         if self.seq_degree > 1 and self.model_name not in SEQ_PARALLEL_MODEL_NAMES:
             raise NotImplementedError(f"seq_degree > 1 for {self.model_name!r} is not ported "
                                       f"yet: its trainer under --seq_degree is a later slice")
-        if self.attn_provider_training not in ("", "auto"):
-            _parse_provider_spec(self.attn_provider_training)  # raises on an unknown provider
+        for spec in (self.attn_provider_training, self.attn_provider_inference):
+            if spec not in ("", "auto"):
+                _parse_provider_spec(spec)  # raises on an unknown provider
+        if self.baseline_single_condition is not None:
+            raise NotImplementedError("baseline_single_condition training is not ported to "
+                                      "PyTorch yet")
+        if self.ablation_scaling_data_num < 1:
+            raise ValueError("ablation_scaling_data_num must be a positive integer")
+        if self.validation_steps < 1:
+            raise ValueError("validation_steps must be >= 1")
 
     @property
     def world_size(self) -> int:

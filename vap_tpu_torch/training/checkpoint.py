@@ -65,11 +65,15 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, *, params: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
-             train_state: TrainState, data_position: int) -> str:
+             train_state: TrainState, data_position: int,
+             dataloader_state: Optional[str] = None) -> str:
+        """``dataloader_state``: the datasets' state as JSON (None without
+        datasets)."""
         path = self.path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save({"params": params, "opt_state": opt_state,
-                    "train_state": train_state.to_dict(), "data_position": data_position}, tmp)
+                    "train_state": train_state.to_dict(), "data_position": data_position,
+                    "dataloader_state": dataloader_state}, tmp)
         os.replace(tmp, path)
         if self.limit:
             for old in self.all_steps()[:-self.limit]:
@@ -80,7 +84,7 @@ class Checkpointer:
                 map_location: Any = "cpu") -> Optional[Dict[str, Any]]:
         """The checkpoint of ``step`` (the latest when None), or None when
         there is none: {"step", "params", "opt_state", "train_state",
-        "data_position"}."""
+        "data_position", "dataloader_state"}."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None

@@ -1,4 +1,5 @@
-"""The MoT expert of a VAP transformer, cloned from a stock checkpoint.
+"""The model specs of the trainer: each family's encoders, the MoT expert
+cloned from a stock checkpoint.
 
 Port of ``vap_tpu/training/specs.py:25-165`` (``expected_mot_ref_shapes``,
 ``_xavier_uniform``, ``build_mot_state_dict_from_base``,
@@ -9,17 +10,33 @@ Wan checkpoint, typically): a clone is the same tensor under the
 under a custom structure) and the zero effect / reference embeddings are
 drawn with numpy's ``default_rng(seed)`` in JAX's order, so they equal
 JAX's to the bit.
+
+The specs (``CogVideoXSpec`` :168, ``WanSpec`` :576, ``HunyuanVideoSpec``
+:304) hold the trained transformer, the text encoder(s), the VAE, the image
+encoder and the tokenizer(s) as modules and callables, on one device:
+``prepare_conditions`` and ``prepare_latents`` encode a bucket-fitted sample
+(float32 [-1, 1] [F, H, W, 3] videos) into the precomputed cache's arrays,
+float32, in JAX's layouts (``data/precomputation.py``); ``validation``
+samples the family's pipeline with the live transformer (``_cogvideox_validation``
+:274, ``_wan_validation`` :672, ``_hunyuan_validation`` :771), a video
+[F, H, W, 3] in [-1, 1]. The encoders are frozen and run without autograd.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
+from ..data.video import normalize_video, read_image, resize_video
 from ..models.cogvideox.config import CogVideoXMOTConfig
+from ..models.hunyuan_video.vae import prepare_latents as hunyuan_prepare_latents
+from ..pipelines.cogvideox_i2v_mot import CogVideoXVAPPipeline
+from ..pipelines.hunyuan_video import HunyuanVideoPipeline
+from ..pipelines.wan_i2v_mot import WanVAPPipeline, make_i2v_mask
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -168,3 +185,238 @@ def build_wan_mot_state_dict_from_base(sd: Mapping, cfg) -> StateDict:
         clone("proj_out")
         clone("scale_shift_table")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the specs
+# ---------------------------------------------------------------------------
+
+def _validation_image(sample: Dict[str, Any], height: int, width: int) -> Optional[np.ndarray]:
+    """A validation row's conditioning image: "image" (an array), else
+    "image_path" (a file, resized to height x width), else None (T2V)."""
+    if sample.get("image") is not None:
+        return sample["image"]
+    path = sample.get("image_path")
+    if not path:
+        return None
+    img = read_image(path)[None].astype(np.float32) / 255.0
+    return normalize_video(resize_video(img, height, width))[0]
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+class _Spec:
+    """What the three specs share: the modules, frozen, on ``device``."""
+
+    family = ""
+    ENCODERS: tuple = ()
+
+    def __init__(self, transformer: nn.Module, tokenizer=None, dtype: torch.dtype = torch.bfloat16,
+                 device=None, **encoders: Optional[nn.Module]):
+        self.transformer = transformer
+        self.tokenizer = tokenizer
+        self.dtype = dtype
+        self.device = torch.device(device) if device is not None else \
+            next(transformer.parameters()).device
+        for name in self.ENCODERS:
+            module = encoders.get(name)
+            if module is not None:
+                module.requires_grad_(False).eval()
+            setattr(self, name, module)
+
+    @property
+    def transformer_cfg(self):
+        return self.transformer.config
+
+    def encoders(self) -> Dict[str, nn.Module]:
+        """The encoder modules present, by name (what the trainer offloads)."""
+        return {n: getattr(self, n) for n in self.ENCODERS if getattr(self, n) is not None}
+
+    def _video(self, video: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(video, np.float32), device=self.device)[None]
+
+
+class CogVideoXSpec(_Spec):
+    """CogVideoX VAP: T5 conditions, VAE latents [B, F, C, h, w] scaled."""
+
+    family = "cogvideox"
+    ENCODERS = ("vae", "text_encoder")
+
+    def pipeline(self, **kw) -> CogVideoXVAPPipeline:
+        return CogVideoXVAPPipeline(self.transformer, self.vae, self.text_encoder, self.tokenizer,
+                                    dtype=self.dtype, device=self.device, **kw)
+
+    @torch.no_grad()
+    def prepare_conditions(self, sample: Dict[str, Any], max_length: int = 226) -> Dict[str, Any]:
+        pipe = self.pipeline()
+
+        def encode(text: str) -> np.ndarray:
+            return _numpy(pipe._t5_forward(pipe.encode_prompt_tokens(text, max_length)))
+
+        cond = {"encoder_hidden_states": encode(sample["caption"])}
+        if sample.get("caption_mot_ref"):
+            cond["encoder_hidden_states_mot_ref"] = np.concatenate(
+                [encode(c) for c in sample["caption_mot_ref"]], axis=1)
+        if self.transformer_cfg.supported_effect_types and sample.get("effect_types"):
+            type_to_id = {t: i for i, t in enumerate(self.transformer_cfg.supported_effect_types)}
+            cond["effect_ids"] = np.asarray([type_to_id[t] for t in sample["effect_types"]])
+        return cond
+
+    @torch.no_grad()
+    def prepare_latents(self, sample: Dict[str, Any]) -> Dict[str, Any]:
+        """The target, its first frame, each reference and its first frame,
+        VAE-encoded (posterior mode, scaled) to [1, F, C, h, w]; the
+        first-frame latents padded with zero frames to the target's."""
+        pipe = self.pipeline()
+
+        def enc(video: np.ndarray) -> np.ndarray:
+            return np.ascontiguousarray(
+                _numpy(pipe._vae_encode_mode(self._video(video))).transpose(0, 1, 4, 2, 3))
+
+        video = sample["video"]
+        latents = enc(video)
+        f_lat = latents.shape[1]
+        out = {"latents": latents}
+        # a plain T2V finetune (in_channels == latent channels) takes no image latents
+        if self.transformer_cfg.in_channels > latents.shape[2]:
+            image_latent = enc(video[:1])
+            pad = np.zeros((1, f_lat - 1) + image_latent.shape[2:], np.float32)
+            out["image_latents"] = np.concatenate([image_latent, pad], axis=1)
+        if not sample.get("ref_videos"):
+            return out
+        ref_lat, ref_img_lat = [], []
+        for rv in sample["ref_videos"]:
+            ref_lat.append(enc(rv))
+            fi = enc(rv[:1])
+            pad = np.zeros((1, f_lat - 1) + fi.shape[2:], np.float32)
+            ref_img_lat.append(np.concatenate([fi, pad], axis=1))
+        out["latents_mot_ref"] = np.concatenate(ref_lat, axis=1)
+        out["image_latents_mot_ref"] = np.concatenate(ref_img_lat, axis=1)
+        return out
+
+    def validation(self, sample: Dict[str, Any], **gen_kwargs) -> np.ndarray:
+        """One generation with the live transformer; a sample without
+        reference videos runs the plain trunk. Returns [F, H, W, 3]."""
+        defaults = dict(num_inference_steps=50, guidance_scale=6.0, use_dynamic_cfg=True,
+                        max_sequence_length=self.transformer_cfg.max_text_seq_length)
+        defaults.update(gen_kwargs)
+        image = _validation_image(sample, defaults.get("height", 480), defaults.get("width", 720))
+        video = self.pipeline()(image=image, prompt=sample["caption"],
+                                ref_videos=sample.get("ref_videos"),
+                                prompt_mot_ref=sample.get("caption_mot_ref"), **defaults)
+        return video[0]
+
+
+class WanSpec(_Spec):
+    """Wan VAP: UMT5 conditions (zero past the prompt), CLIP image states,
+    mean/std-normalised VAE latents channel-last, the 4-channel first-frame
+    mask and the first frame's latents as ``condition``."""
+
+    family = "wan"
+    ENCODERS = ("vae", "text_encoder", "image_encoder")
+
+    def pipeline(self, **kw) -> WanVAPPipeline:
+        return WanVAPPipeline(self.transformer, self.vae, self.text_encoder, self.image_encoder,
+                              self.tokenizer, dtype=self.dtype, device=self.device, **kw)
+
+    @torch.no_grad()
+    def prepare_conditions(self, sample: Dict[str, Any], max_length: int = 512) -> Dict[str, Any]:
+        pipe = self.pipeline()
+
+        def encode(text: str) -> np.ndarray:
+            return _numpy(pipe.encode_prompt(text, max_length))
+
+        cond = {"encoder_hidden_states": encode(sample["caption"])}
+        if sample.get("caption_mot_ref"):
+            cond["encoder_hidden_states_mot_ref"] = np.concatenate(
+                [encode(c) for c in sample["caption_mot_ref"]], axis=1)
+        if self.image_encoder is not None:
+            cond["encoder_hidden_states_image"] = _numpy(pipe.encode_image(sample["video"][0]))
+            if sample.get("ref_videos"):
+                cond["encoder_hidden_states_image_mot_ref"] = np.concatenate(
+                    [_numpy(pipe.encode_image(rv[0])) for rv in sample["ref_videos"]], axis=1)
+        return cond
+
+    @torch.no_grad()
+    def prepare_latents(self, sample: Dict[str, Any]) -> Dict[str, Any]:
+        pipe = self.pipeline()
+
+        def enc(video: np.ndarray) -> np.ndarray:
+            return _numpy(pipe._vae_encode(self._video(video)))
+
+        def first_frame(video: np.ndarray) -> np.ndarray:
+            return np.concatenate([video[:1], np.zeros((num_frames - 1, h, w, 3), np.float32)])
+
+        video = sample["video"]
+        num_frames, h, w = video.shape[:3]
+        latents = enc(video)
+        lh, lw = latents.shape[2:4]
+        out = {"latents": latents}
+        # a plain T2V finetune (in_channels == latent channels) takes no conditioning channels
+        i2v = self.transformer_cfg.in_channels > latents.shape[-1]
+        if i2v:
+            mask = make_i2v_mask(1, num_frames, lh, lw).astype(np.float32)
+            out["condition"] = np.concatenate([mask, enc(first_frame(video))], axis=-1)
+        if not sample.get("ref_videos"):
+            return out
+        if not i2v:
+            raise ValueError("VAP (MoT) samples need the I2V conditioning channels; the "
+                             f"transformer config has in_channels={self.transformer_cfg.in_channels}")
+        ref_lat, ref_cond = [], []
+        for rv in sample["ref_videos"]:
+            ref_lat.append(enc(rv))
+            ref_cond.append(np.concatenate([mask, enc(first_frame(rv))], axis=-1))
+        out["latents_mot_ref"] = np.concatenate(ref_lat, axis=1)
+        out["condition_mot_ref"] = np.concatenate(ref_cond, axis=1)
+        return out
+
+    def validation(self, sample: Dict[str, Any], **gen_kwargs) -> np.ndarray:
+        defaults = dict(num_inference_steps=50, guidance_scale=5.0,
+                        max_sequence_length=self.transformer_cfg.text_len)
+        gen_kwargs.pop("use_dynamic_cfg", None)  # CogVideoX's alone
+        defaults.update(gen_kwargs)
+        image = _validation_image(sample, defaults.get("height", 480), defaults.get("width", 832))
+        video = self.pipeline()(image=image, prompt=sample["caption"],
+                                ref_videos=sample.get("ref_videos"),
+                                prompt_mot_ref=sample.get("caption_mot_ref"), **defaults)
+        return video[0]
+
+
+class HunyuanVideoSpec(_Spec):
+    """HunyuanVideo: LLaMA hidden state -3 (the template's first 95 tokens
+    cropped) with its mask, CLIP-L pooled; causal-VAE latents channel-first,
+    scaled."""
+
+    family = "hunyuan_video"
+    ENCODERS = ("vae", "text_encoder", "text_encoder_2")
+
+    def __init__(self, transformer: nn.Module, tokenizer=None, clip_tokenizer=None, **kw):
+        super().__init__(transformer, tokenizer, **kw)
+        self.clip_tokenizer = clip_tokenizer
+
+    def pipeline(self, **kw) -> HunyuanVideoPipeline:
+        return HunyuanVideoPipeline(self.transformer, self.vae, self.text_encoder,
+                                    self.text_encoder_2, self.tokenizer, self.clip_tokenizer,
+                                    dtype=self.dtype, device=self.device, **kw)
+
+    @torch.no_grad()
+    def prepare_conditions(self, sample: Dict[str, Any], max_length: int = 256) -> Dict[str, Any]:
+        hidden, mask, pooled = self.pipeline().encode_prompt(sample["caption"], max_length)
+        return {"encoder_hidden_states": _numpy(hidden), "prompt_attention_mask": _numpy(mask),
+                "pooled_projections": _numpy(pooled)}
+
+    @torch.no_grad()
+    def prepare_latents(self, sample: Dict[str, Any]) -> Dict[str, Any]:
+        return hunyuan_prepare_latents(self.vae, sample, self.dtype)
+
+    def validation(self, sample: Dict[str, Any], **gen_kwargs) -> np.ndarray:
+        defaults = dict(num_inference_steps=50, guidance_scale=6.0)
+        for k in ("use_dynamic_cfg", "negative_prompt"):
+            gen_kwargs.pop(k, None)
+        defaults.update(gen_kwargs)
+        return self.pipeline()(prompt=sample["caption"], **defaults)[0]
+
+
+SPECS = {"cogvideox": CogVideoXSpec, "wan": WanSpec, "hunyuan_video": HunyuanVideoSpec}

@@ -3,30 +3,51 @@ and HunyuanVideo.
 
 Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
 :47, ``local_batch_size`` :91, the mesh :136-161, ``_build_step`` :191-235,
-``_install_accum`` :252, ``_attn_ctx`` :260-280, ``run`` :458-602,
-``_merged_params`` :605), one process per device:
+``_install_accum`` :252, ``_attn_ctx`` :260-280, ``_prepare_dataset`` :283,
+``_offload_encoders`` :341, ``_load_encoders`` :353, ``_precomputed_pairs``
+:357, ``_preprocess`` :422, ``run`` :458-602, ``_merged_params`` :605, the
+validation :617-793, ``dump_training_sample`` :795), one process per device:
   * ``--training_type video_as_prompt_mot``: only the MoT expert trains
     (``trainable_mask``); ``lora``: adapters over the ``--target_modules``
     projections of the frozen model (``install_lora``). The optimizer
     holds only what trains;
   * the loss is the family's: ``cogvideox_vap_loss``, ``wan_vap_loss`` or
     ``hunyuan_loss`` (the flow-matching flags from the arguments);
-  * the batches come from the precomputed ``.npz`` cache, replayed forever
-    and bucketed by shape; the text encoder and the VAE never load;
+  * the data: given a spec (``training/specs.py``: the encoders), the
+    samples come from ``--data_root`` or ``--dataset_config`` through the
+    VAP or the plain video datasets on a prefetching host thread, are
+    bucket-fitted and encoded online, one sample at a time
+    (``timing/prepare_conditions``, ``timing/prepare_latents``); under
+    ``enable_precomputation`` a pass first encodes them into
+    ``precomputation_dir`` (reused when complete under the same signature)
+    or, without a directory, ``precomputation_items`` at a time into host
+    memory, and the encoders go to host memory while the steps run.
+    Without a spec the batches come from a complete precomputed cache
+    (JAX's layout), replayed forever. Either way they are bucketed by shape;
   * ``train_state.step`` counts micro-batches; every
     ``gradient_accumulation_steps`` of them the summed gradients are
     averaged and take one optimizer update (trainer.py:548-558);
   * each micro-batch draws its timesteps (sigmas) and noise from a generator
     seeded from (seed, step), so a resumed run draws what an uninterrupted
     one draws (trainer.py:535-538); the LoRA adapters are drawn from
-    ``seed``;
-  * loss and grad_norm are logged every ``logging_steps`` and kept in
-    ``history``, with the seconds of the forward, the backward and the
-    update (the device is synchronised at each mark);
+    ``seed``; the datasets' draws come from their own generators;
+  * every ``validation_steps``, with ``validation_dataset_file`` set, the
+    spec samples its pipeline with the transformer being trained, in
+    ``eval()`` under ``no_grad`` and ``attn_provider_inference`` (under
+    LoRA the adapted linears merge in their forward: no copy), writing
+    ``validation/<step:06d>/sample_<i>.mp4`` (``timing/validation``); the
+    training stream is not touched;
+  * loss and grad_norm are kept in ``history``, with the seconds of the
+    forward, the backward and the update (the device is synchronised at
+    each mark), and logged to the tracker (``--report_to``) every
+    ``logging_steps`` and at the last step, with the ``timing/*`` spans
+    since the last log; on the card, with ``track_stage_peaks``,
+    ``stage_peaks`` holds each span's peak device memory (each span then
+    resets the card's peak statistics, which the caller asked for);
   * a checkpoint every ``checkpointing_steps`` holds what trains (the
-    expert, or the adapters) and the optimizer state; ``resume_from_checkpoint``
-    ("latest" or a step) restores them, the train state and the data
-    position;
+    expert, or the adapters), the optimizer state and the data position
+    (the datasets' state, JSON); ``resume_from_checkpoint`` ("latest" or a
+    step) restores them, so the sample stream goes on where it stopped;
   * several processes (``torchrun``, ``torch.distributed`` started first):
     a ``DeviceMesh`` of ``data_degree`` x ``seq_degree`` ranks. Every rank
     reads the same global batch of ``batch_size x data_degree`` items and
@@ -38,8 +59,11 @@ Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
     same gradients. Each update averages the trainable gradients over the
     ``data`` group once (with accumulation, once per update), before the
     norm, the clip and AdamW, so every rank applies the same update; the
-    logged loss is the data group's mean. Only rank 0 (data rank 0, seq
-    rank 0) writes checkpoints and logs; every rank resumes from them.
+    logged loss is the data group's mean. Every rank samples each
+    validation, on the same rows with the same seeds (the ``ring``
+    provider's collectives need every rank of the seq group). Only rank 0
+    (data rank 0, seq rank 0) writes checkpoints, the precompute cache, the
+    validation videos and logs; every rank resumes from them.
 
 ``export`` writes the trained transformer at the end of a run as JAX's
 ``SFTTrainer.export`` does (``trainer.py:817``): the full weights in
@@ -47,24 +71,31 @@ diffusers names (``model_weights/<step>/model.safetensors``) and, under
 LoRA, the adapters in PEFT layout beside them
 (``pytorch_lora_weights.safetensors``).
 
-Not ported: validation sampling, DPO, parameter sharding (FSDP, tensor
-parallelism), the profiler window and the trackers.
+Not ported: DPO, the image datasets, the validation scorers (CLIP score,
+flow metrics), parameter sharding (FSDP, tensor parallelism) and the
+profiler window.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..data.precomputation import PrecomputedReader
+from ..data import video as _video
+from ..data.dataloader import PrefetchingDataLoader
+from ..data.dataset import VideoAsPromptDataset, VideoAsPromptValidationDataset
+from ..data.precomputation import (InMemoryPreprocessor, PrecomputedPreprocessor,
+                                   PrecomputedReader)
 from ..data.sampler import ResolutionSampler, collate_tensor_dicts
+from ..utils.trackers import initialize_trackers
 from ..ops.attention import attention_provider
 from ..parallel import MeshConfig, attention_mesh, make_mesh
 from .args import TrainingArgs
@@ -100,12 +131,25 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed((seed << 32) + step)
 
 
+Pair = Tuple[Dict[str, Any], Dict[str, Any]]
+
+
 class SFTTrainer:
-    def __init__(self, args: TrainingArgs, model: nn.Module):
-        if not args.precomputation_dir:
-            raise ValueError("the port trains from a precomputed cache: set precomputation_dir")
+    def __init__(self, args: TrainingArgs, model: nn.Module, spec=None, *,
+                 track_stage_peaks: bool = False):
+        if spec is None and not args.precomputation_dir:
+            raise ValueError("without a spec (the encoders), the trainer trains from a "
+                             "precomputed cache: set precomputation_dir")
+        if spec is not None:
+            if spec.transformer is not model:
+                raise ValueError("the spec must hold the transformer being trained")
+            if spec.family != args.model_name:
+                raise ValueError(f"a {spec.family} spec for model_name {args.model_name}")
+            if not (args.data_root or args.dataset_config):
+                raise ValueError("training from data needs data_root or dataset_config")
         self.args = args
         self.model = model
+        self.spec = spec
         self.device = next(model.parameters()).device
         self.mesh = self._make_mesh()
         self.step_cfg = _make_step_config(args.model_name, args, model.config)
@@ -113,9 +157,16 @@ class SFTTrainer:
         self._build_step()
         self.train_state = TrainState()
         self.data_position = 0  # items taken from the endless replay of the cache
+        self.dataloader_state: Optional[Dict[str, Any]] = None  # the datasets' state
         self.checkpointer = Checkpointer(os.path.join(args.output_dir, "checkpoints"),
                                          args.checkpointing_limit)
+        self.tracker = initialize_trackers(args.report_to, args.tracker_name, args.output_dir)
         self.history: List[Dict[str, float]] = []
+        self.track_stage_peaks = track_stage_peaks
+        self.stage_peaks: Dict[str, int] = {}  # peak device bytes per timing span
+        self._host_encoders: Dict[str, nn.Module] = {}
+        self._dumped_sample = False
+        self.validation_artifacts: Dict[str, str] = {}  # the last validation's videos
 
     def _make_mesh(self):
         """The (data, 1, seq, 1) ``DeviceMesh`` when the run takes more than
@@ -138,14 +189,15 @@ class SFTTrainer:
         self.rank = dist.get_rank()
         return mesh
 
-    def _attn_ctx(self):
-        """The training step's attention context (JAX ``_attn_ctx``,
-        trainer.py:260-280): with a mesh the attention mesh is installed
-        (JAX installs it only at ``seq_degree > 1``; at one seq rank
-        ``ring`` is the local kernel either way), and with ``seq_degree > 1``
-        ``auto`` becomes ``ring``; any other provider spec is installed as
-        given."""
-        name = self.args.attn_provider_training
+    def _attn_ctx(self, training: bool = True):
+        """The attention context of the training step, or of validation
+        sampling (JAX ``_attn_ctx``, trainer.py:260-280): with a mesh the
+        attention mesh is installed (JAX installs it only at ``seq_degree >
+        1``; at one seq rank ``ring`` is the local kernel either way), and
+        with ``seq_degree > 1`` ``auto`` becomes ``ring``; any other
+        provider spec is installed as given."""
+        name = (self.args.attn_provider_training if training
+                else self.args.attn_provider_inference)
         stack = contextlib.ExitStack()
         if self.mesh is not None:
             stack.enter_context(attention_mesh(self.mesh, "seq",
@@ -241,7 +293,152 @@ class SFTTrainer:
         self.optimizer.load_state_dict(restored["opt_state"])
         self.train_state = restored["train_state"]
         self.data_position = restored["data_position"]
+        if restored.get("dataloader_state"):
+            self.dataloader_state = json.loads(restored["dataloader_state"])
+        self._dumped_sample = True
         logger.info("resumed from step %d", self.train_state.step)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """A ``timing/*`` span in the tracker; on the card, with
+        ``track_stage_peaks``, its peak device memory joins
+        ``stage_peaks[name]`` (the card's peak statistics are reset at the
+        span's start)."""
+        cuda = self.track_stage_peaks and self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        with self.tracker.timed(name):
+            yield
+        if cuda:
+            peak = torch.cuda.max_memory_allocated(self.device)
+            self.stage_peaks[name] = max(self.stage_peaks.get(name, 0), peak)
+
+    # ------------------------------------------------------------------
+    # the data
+    # ------------------------------------------------------------------
+    def _prepare_dataset(self) -> PrefetchingDataLoader:
+        """The training stream (``_prepare_dataset``, trainer.py:283): the
+        ``--dataset_config`` datasets, else the VAP dataset (a VAP training
+        type) or the auto-detected video layout under ``--data_root``. Every
+        rank reads the same global stream (each keeps its rows of a batch)."""
+        args = self.args
+        if args.dataset_config:
+            from ..data.config import build_datasets_from_config
+
+            dataset = build_datasets_from_config(args.dataset_config, args,
+                                                 family=args.model_name)
+        elif args.training_type == "video_as_prompt_mot":
+            dataset = VideoAsPromptDataset(
+                args.data_root, meta_df_name=args.meta_df_name, infinite=True,
+                sample_ref_videos_num=args.sample_ref_videos_num,
+                mask_ref_ratio=args.mask_ref_ratio, mask_caption_ratio=args.mask_caption_ratio,
+                alignment_score_threshold=args.alignment_score_threshold,
+                baseline_single_condition=args.baseline_single_condition,
+                ablation_scaling_data_num=args.ablation_scaling_data_num, seed=args.seed)
+        else:
+            from ..data.generic import DatasetPreprocessingWrapper, initialize_dataset
+
+            dataset = DatasetPreprocessingWrapper(
+                initialize_dataset(args.data_root, "video", infinite=True),
+                id_token=args.id_token,
+                remove_common_llm_caption_prefixes=args.remove_common_llm_caption_prefixes)
+        return PrefetchingDataLoader(dataset, prefetch=4)
+
+    def _fit(self, sample: Dict[str, Any]) -> Dict[str, Any]:
+        """Bucket-fit the target and reference videos; a dataset's own
+        buckets and frame selection (``--dataset_config``) override the
+        global ones."""
+        buckets = sample.get("_resolution_buckets", self.args.video_resolution_buckets)
+        fsel = sample.get("_frames_selection", "evenly")
+        video, _ = _video.resize_to_nearest_bucket(sample["video"], buckets, fsel)
+        refs = [_video.resize_to_nearest_bucket(r, buckets, fsel)[0]
+                for r in sample.get("ref_videos", [])]
+        return dict(sample, video=video, ref_videos=refs)
+
+    def _preprocess(self, sample: Dict[str, Any]) -> Pair:
+        """decode -> bucket fit -> text and VAE encode."""
+        prepare_conditions, prepare_latents = self._timed_encoders()
+        sample = self._fit(sample)
+        return prepare_conditions(sample), prepare_latents(sample)
+
+    def _offload_encoders(self) -> None:
+        """Move the spec's encoders to host memory: the steps run with only
+        the transformer on the card."""
+        for name, module in self.spec.encoders().items():
+            self._host_encoders[name] = module.to("cpu")
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _load_encoders(self) -> None:
+        for module in self._host_encoders.values():
+            module.to(self.device)
+        self._host_encoders = {}
+
+    def _signature(self) -> Dict[str, Any]:
+        """What a precomputed cache was made under (JAX's): a cache of
+        another signature is recomputed, never replayed."""
+        args = self.args
+        return {"data_root": str(args.data_root), "dataset_config": str(args.dataset_config or ""),
+                "video_resolution_buckets": [list(b) for b in args.video_resolution_buckets or []],
+                "precomputation_once": bool(args.precomputation_once),
+                "precomputation_items": int(args.precomputation_items)}
+
+    def _precomputed_pairs(self, data_iter: Iterator, epoch_len: int) -> Iterator[Pair]:
+        """(condition, latent) pairs forever, the encoders on the card only
+        during the encode passes (``_precomputed_pairs``, trainer.py:357)."""
+        args = self.args
+        if args.precomputation_dir:
+            pre = PrecomputedPreprocessor(args.precomputation_dir, signature=self._signature())
+            if self.rank == 0 and not pre.is_cached():
+                # precomputation_once caches one epoch of the endless stream
+                max_items = epoch_len if args.precomputation_once else args.precomputation_items
+                n = pre.precompute(map(self._fit, data_iter), *self._timed_encoders(),
+                                   max_items=max_items)
+                logger.info("precomputed %d items -> %s", n, pre.dir)
+            if self.mesh is not None:
+                import torch.distributed as dist
+
+                dist.barrier()
+            self._offload_encoders()
+            yield from PrecomputedReader(args.precomputation_dir).stream(self.data_position)
+            return
+        pre = InMemoryPreprocessor(map(self._fit, data_iter), *self._timed_encoders(),
+                                   num_items=args.precomputation_items)
+        while True:
+            self._load_encoders()
+            buffer = pre.consume()
+            self._offload_encoders()
+            yield from buffer
+
+    def _timed_encoders(self):
+        """The spec's two encode passes, each in its ``timing/*`` span."""
+        def timed(name, fn):
+            def call(sample):
+                with self._stage(name):
+                    return fn(sample)
+            return call
+
+        return (timed("timing/prepare_conditions", self.spec.prepare_conditions),
+                timed("timing/prepare_latents", self.spec.prepare_latents))
+
+    def _online_pairs(self, data_iter: Iterator) -> Iterator[Pair]:
+        for raw in data_iter:
+            if self.train_state.step == 0 and not self._dumped_sample and self.rank == 0:
+                self.dump_training_sample(raw)
+                self._dumped_sample = True
+            yield self._preprocess(raw)
+
+    def _pairs(self) -> Tuple[Iterator[Pair], Optional[PrefetchingDataLoader]]:
+        if self.spec is None:
+            return PrecomputedReader(self.args.precomputation_dir).stream(self.data_position), None
+        loader = self._prepare_dataset()
+        if self.dataloader_state is not None:
+            loader.load_state_dict({"dataset": self.dataloader_state})
+        data_iter = iter(loader)
+        if self.args.enable_precomputation:
+            return self._precomputed_pairs(data_iter, len(loader.dataset)), loader
+        return self._online_pairs(data_iter), loader
 
     def _batch(self, stream, sampler: ResolutionSampler) -> Dict[str, torch.Tensor]:
         while not sampler.is_ready:
@@ -249,8 +446,8 @@ class SFTTrainer:
             self.data_position += 1
         conds, lats = sampler.get_batch()
         batch = {**collate_tensor_dicts(conds), **collate_tensor_dicts(lats)}
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()
-                if not isinstance(v, list)}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items() if not isinstance(v, list)}
 
     def _local(self, x: torch.Tensor) -> torch.Tensor:
         """This data rank's rows of a global-batch tensor."""
@@ -261,12 +458,13 @@ class SFTTrainer:
         args = self.args
         if args.resume_from_checkpoint:
             self._resume()
-        reader = PrecomputedReader(args.precomputation_dir)
-        stream = reader.stream(self.data_position)
+        stream, loader = self._pairs()
         global_batch = args.batch_size * args.data_degree
         sampler = ResolutionSampler(global_batch)
         while self.train_state.step < args.train_steps:
             batch = self._batch(stream, sampler)
+            if loader is not None:
+                self.dataloader_state = loader.state_dict().get("dataset")
             self.train_state.step += 1
             self.train_state.observed_data_samples += global_batch
             step = self.train_state.step
@@ -279,38 +477,195 @@ class SFTTrainer:
             draws = draw_step_noise(self.step_cfg, batch["latents"].shape,
                                     step_generator(args.seed, step, self.device), self.device)
             batch = {k: self._local(v) for k, v in batch.items()}
-            clock("start")
-            with self._attn_ctx():
-                metrics = self._grad(self.model, batch, None, clock,
-                                     **{k: self._local(v) for k, v in draws.items()})
-            loss = metrics["loss"].detach().clone()
-            self._data_mean([loss])
-            record = {"step": step, "loss": float(loss),
-                      "forward_s": marks["forward"] - marks["start"],
-                      "backward_s": marks["backward"] - marks["forward"]}
-            if step % self.accum_steps == 0:
-                record["lr"] = self.optimizer.lr
-                if self.mesh is not None:  # every rank takes part, with zeros where none
-                    for p in self.optimizer.params:
-                        if p.grad is None:
-                            p.grad = torch.zeros_like(p)
-                    self._data_mean([p.grad for p in self.optimizer.params])
-                record["grad_norm"] = float(self._apply(1.0 / self.accum_steps))
-                clock("update")
-                record["update_s"] = marks["update"] - marks["backward"]
-                record["updates"] = self.optimizer.count
+            with self._stage("timing/train_step"):
+                clock("start")
+                with self._attn_ctx():
+                    metrics = self._grad(self.model, batch, None, clock,
+                                         **{k: self._local(v) for k, v in draws.items()})
+                loss = metrics["loss"].detach().clone()
+                self._data_mean([loss])
+                record = {"step": step, "loss": float(loss),
+                          "forward_s": marks["forward"] - marks["start"],
+                          "backward_s": marks["backward"] - marks["forward"]}
+                if step % self.accum_steps == 0:
+                    record["lr"] = self.optimizer.lr
+                    if self.mesh is not None:  # every rank takes part, with zeros where none
+                        for p in self.optimizer.params:
+                            if p.grad is None:
+                                p.grad = torch.zeros_like(p)
+                        self._data_mean([p.grad for p in self.optimizer.params])
+                    record["grad_norm"] = float(self._apply(1.0 / self.accum_steps))
+                    clock("update")
+                    record["update_s"] = marks["update"] - marks["backward"]
+                    record["updates"] = self.optimizer.count
             self.history.append(record)
 
-            if self.rank == 0 and step % args.logging_steps == 0:
-                logger.info("step %d: %s", step, {k: v for k, v in record.items() if k != "step"})
+            if args.validation_dataset_file and step % args.validation_steps == 0:
+                with self._stage("timing/validation"):
+                    self._validate()
             if step % args.checkpointing_steps == 0:
                 if self.rank == 0:
+                    state = None if self.dataloader_state is None else \
+                        json.dumps(self.dataloader_state)
                     self.checkpointer.save(step, params=self.trainable_state_dict(),
                                            opt_state=self.optimizer.state_dict(),
                                            train_state=self.train_state,
-                                           data_position=self.data_position)
+                                           data_position=self.data_position,
+                                           dataloader_state=state)
                 if self.mesh is not None:  # no rank goes on before the file is whole
                     import torch.distributed as dist
 
                     dist.barrier()
+            if self.rank == 0 and (step % args.logging_steps == 0 or step == args.train_steps):
+                logger.info("step %d: %s", step, {k: v for k, v in record.items() if k != "step"})
+                self.tracker.log({**{k: v for k, v in record.items() if k != "step"},
+                                  "train/observed_data_samples":
+                                      self.train_state.observed_data_samples}, step=step)
+        if loader is not None:
+            loader.close()
+        self.tracker.finish()
         return self.train_state
+
+    # ------------------------------------------------------------------
+    # validation
+    # ------------------------------------------------------------------
+    def _load_validation_config(self):
+        """``--validation_dataset_file``: a JSON pointing at a benchmark CSV
+        with the generation's parameters (the recipes' ``validation.json``),
+        or a bare CSV. Returns (csv_path, gen_kwargs, num_samples)."""
+        args = self.args
+        path = args.validation_dataset_file
+        gen: Dict[str, Any] = {}
+        if not path.endswith(".json"):
+            return path, gen, None
+        with open(path) as f:
+            vcfg = json.load(f)
+        csv = vcfg.get("csv") or vcfg.get("val_data")
+        if isinstance(csv, list):
+            csv = csv[0]
+        for base in (os.path.dirname(os.path.abspath(path)), args.data_root or "",
+                     vcfg.get("root", "")):
+            cand = os.path.join(base, csv) if base else csv
+            if os.path.exists(cand):
+                csv = cand
+                break
+        for k in ("num_frames", "height", "width", "num_inference_steps", "guidance_scale",
+                  "use_dynamic_cfg", "step_cache"):
+            if k in vcfg:
+                gen[k] = vcfg[k]
+        return csv, gen, vcfg.get("num_samples")
+
+    def _resolve_val_limit(self, num_samples, total: int) -> Optional[int]:
+        """The validation sample cap: ``"all"`` or -1, every row (None); an
+        unset cap one sample, with a warning when there are more; else n."""
+        if num_samples == "all" or num_samples == -1:
+            return None
+        if num_samples is None:
+            if total > 1:
+                logger.warning("validation: no num_samples configured — generating 1 of %d rows. "
+                               "Set num_samples in the validation JSON (an integer, or \"all\" "
+                               "for every row) to change this.", total)
+            return 1
+        return int(num_samples)
+
+    def _validate(self) -> None:
+        """Sample the spec's pipeline with the transformer being trained
+        (``_validate``, trainer.py:667): the benchmark CSV's rows (VAP) or
+        the JSON's ``data`` prompts (a plain finetune). The module goes into
+        ``eval()`` and back; a fresh generator per sample, so the training
+        stream and its draws are untouched. Every rank samples (the seq
+        group's collectives need each of its ranks); rank 0 writes."""
+        if self.spec is None:
+            raise ValueError("validation needs a spec (the encoders and the VAE)")
+        model = self.model
+        if self.train_state.step % self.accum_steps == 0:
+            for p in model.parameters():  # nothing is mid-accumulation: free the gradients
+                p.grad = None
+        was_training = model.training
+        reload = bool(self._host_encoders)
+        if reload:
+            self._load_encoders()
+        model.eval()
+        try:
+            with torch.no_grad():
+                samples, gen_kwargs, num_samples = self._validation_samples()
+                out_dir = os.path.join(self.args.output_dir, "validation",
+                                       f"{self.train_state.step:06d}")
+                if self.rank == 0:
+                    os.makedirs(out_dir, exist_ok=True)
+                artifacts = {}
+                for i, (sample, kwargs) in enumerate(samples):
+                    if num_samples is not None and i >= num_samples:
+                        break
+                    with self._attn_ctx(training=False):
+                        video = self.spec.validation(sample, seed=self.args.seed + i,
+                                                     **{**gen_kwargs, **kwargs})
+                    if self.rank == 0:
+                        self._write_validation_sample(np.asarray(video), out_dir, i, artifacts)
+                if self.rank == 0:
+                    self.tracker.log_artifacts(artifacts, step=self.train_state.step)
+                    self.validation_artifacts = artifacts
+        finally:
+            model.train(was_training)
+            if reload:
+                self._offload_encoders()
+
+    def _validation_samples(self):
+        """(an iterator of (sample, per-sample kwargs), shared kwargs, the
+        sample cap): the validation JSON's ``num_samples``."""
+        args = self.args
+        fb = args.video_resolution_buckets[0]
+        path = args.validation_dataset_file
+        if path.endswith(".json"):
+            with open(path) as f:
+                vcfg = json.load(f)
+            if isinstance(vcfg, list) or ("data" in vcfg and not (vcfg.get("csv")
+                                                                   or vcfg.get("val_data"))):
+                # prompt-driven validation of a plain finetune (_validate_generic)
+                data = vcfg.get("data", []) if isinstance(vcfg, dict) else vcfg
+                num_samples = self._resolve_val_limit(
+                    vcfg.get("num_samples") if isinstance(vcfg, dict) else None, len(data))
+
+                def generic():
+                    for sample in data:
+                        kw = dict(height=sample.get("height", fb[1]),
+                                  width=sample.get("width", fb[2]),
+                                  num_frames=sample.get("num_frames", fb[0]),
+                                  num_inference_steps=sample.get("num_inference_steps", 30))
+                        if "guidance_scale" in sample:
+                            kw["guidance_scale"] = sample["guidance_scale"]
+                        yield sample, kw
+                return generic(), {}, num_samples
+        csv_path, gen, num_samples = self._load_validation_config()
+        ds = VideoAsPromptValidationDataset(csv_path, num_frames=gen.get("num_frames", fb[0]))
+        num_samples = self._resolve_val_limit(num_samples, len(ds))
+        gen_kwargs = dict(height=gen.get("height", fb[1]), width=gen.get("width", fb[2]),
+                          num_frames=gen.get("num_frames", fb[0]),
+                          num_inference_steps=gen.get("num_inference_steps", 50))
+        for k in ("guidance_scale", "use_dynamic_cfg", "step_cache"):
+            if k in gen:
+                gen_kwargs[k] = gen[k]
+        return ((sample, {}) for sample in ds), gen_kwargs, num_samples
+
+    def _write_validation_sample(self, media: np.ndarray, out_dir: str, i: int,
+                                 artifacts: Dict[str, str]) -> None:
+        """Write one [-1, 1] [F, H, W, 3] sample as ``sample_<i>.mp4``."""
+        path = os.path.join(out_dir, f"sample_{i}.mp4")
+        _video.export_to_video((media + 1.0) / 2.0, path, fps=16)
+        artifacts[f"validation/sample_{i}"] = path
+        logger.info("validation sample written: %s", path)
+
+    def dump_training_sample(self, sample: Dict[str, Any], step: int = 0) -> None:
+        """The decoded target and reference videos and the captions of the
+        first training sample, under ``training_samples/``, for a look."""
+        out_dir = os.path.join(self.args.output_dir, "training_samples")
+        os.makedirs(out_dir, exist_ok=True)
+        _video.export_to_video((sample["video"] + 1.0) / 2.0,
+                               os.path.join(out_dir, f"{step}-training_sample.mp4"), fps=16)
+        for ri, rv in enumerate(sample.get("ref_videos", [])):
+            _video.export_to_video((rv + 1.0) / 2.0, os.path.join(out_dir, f"{step}-ref_{ri}.mp4"),
+                                   fps=16)
+        with open(os.path.join(out_dir, f"{step}-caption.txt"), "w") as f:
+            f.write(str(sample.get("caption", "")) + "\n")
+            for c in sample.get("caption_mot_ref", []):
+                f.write(str(c) + "\n")
