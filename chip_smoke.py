@@ -221,13 +221,34 @@ Phases, each of which raises on failure:
      ``attn_provider_training="ring"``: the loss and every expert gradient
      bit-equal, with the same K1 and K5 launches; then trainer.export() (the
      full transformer in diffusers names) read back with the port's reader:
-     every tensor equal to the trained one; then (8b) the data path's small
+     every tensor equal to the trained one; then one step of the released
+     DPO recipe (vap_mot/train_single_node_dpo.sh: --dpo, rank 32, alpha
+     32, lr 5e-5 constant) on the same model, T5 and VAE, the expert's
+     AdamW state and gradients freed first: a dpo.csv over the same clips
+     (scores 100, 95, 5 in one kind), the lose video encoded in the win
+     video's bucket, a LoRA policy on the expert's six projections at
+     batch 2 (win, lose): the reference pass with the adapters bypassed,
+     the policy's forward and backward, the update, their seconds and the
+     step's peak memory; at step 1 the policy's per-sample losses equal the
+     reference's to the bit and the loss ln 2 x dpo_weight, A's gradients
+     zero and B's finite and non-zero exactly where they reach the loss,
+     the frozen weights bit-equal to the export, K1 126 (reference, forward,
+     recompute) and K5 42 launches, every attention call at batch 2; then
+     K1 and K5 at [2,48,35552,64] against their plain versions on heads 0
+     and 47 of both batch rows (a dout with its rows swapped must break
+     K5's limit in row 1); then (8b) the data path's small
      check at tiny widths on the card: CogVideoX (head_dim 64) trained 3
      steps online and under enable_precomputation (the encode pass into a
      cache, the encoders sent to host memory and brought back for a
      validation every step), losses bit-equal; Wan VAP (head_dim 128) and
      the HunyuanVideo LoRA (head_dim 128) trained one step from clips with
-     one validation sample each, K4 / K6 and K7's launches counted;
+     one validation sample each, K4 / K6 and K7's launches counted; then
+     the training objectives one step each from clips at tiny width with
+     their K1 / K5 launches: the single-branch ablation (whole model and
+     LoRA), baseline_single_condition, the plain CogVideoX LoRA,
+     reference_independent with and without random_refer_noise, CogVideoX
+     1.5 (patch_size_t 2), DPO resumed from a checkpoint equal to the
+     uninterrupted run, and Wan DPO (head_dim 128: K4 and K6);
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
@@ -2993,9 +3014,12 @@ COG15_HELD_HEADS = (slice(0, 8), slice(40, 48))  # 5e's K1 output held on these 
 
 class KeptAttention:
     """Within the block, the flash call of ``full_attention`` records the
-    shape of every (q, k, v) it hands K1's wrapper and keeps the last
-    call's tensors of each q shape (on the card) in ``qkv``; the wrapper and
-    its count are untouched."""
+    shape of every (q, k, v) it hands K1's wrapper and, with ``keep``, keeps
+    the last call's tensors of each q shape (on the card) in ``qkv``; the
+    wrapper and its count are untouched."""
+
+    def __init__(self, keep=True):
+        self.keep = keep
 
     def __enter__(self):
         from vap_tpu_torch.ops import attention
@@ -3005,7 +3029,8 @@ class KeptAttention:
 
         def recording(q, k, v, scale=None, kv_lens=None):
             self.shapes.append((tuple(q.shape), tuple(k.shape), kv_lens is None))
-            self.qkv[tuple(q.shape)] = (q, k, v, scale)
+            if self.keep:
+                self.qkv[tuple(q.shape)] = (q, k, v, scale)
             return self.fn(q, k, v, scale, kv_lens)
 
         attention.flash_attention = recording
@@ -3175,7 +3200,8 @@ class LastLatents:
 
 def export_check(trainer):
     """trainer.export() read back with the port's reader: every tensor equal
-    to the trained model's."""
+    to the trained model's. Returns the file's path (the caller removes
+    it)."""
     import torch
 
     from vap_tpu_torch.training.checkpoint import load_safetensors
@@ -3199,7 +3225,7 @@ def export_check(trainer):
         f"{len(differ)}; host RSS {now:.2f} GiB, peak {peak:.2f} GiB; {power_line()}")
     if differ:
         raise AssertionError(f"export: {differ[:5]} differ from the trained model")
-    os.remove(path)
+    return path
 
 
 # 10c holds each merged bf16 weight against the trained one where the
@@ -3944,6 +3970,7 @@ def first_item_batch(trainer):
 
 
 def training_path(dev):
+    import gc
     import shutil
 
     import numpy as np
@@ -4048,12 +4075,212 @@ def training_path(dev):
                              f"that moved {woke[:5]}")
     del params, before, videos
     t0 = time.perf_counter()
-    export_check(trainer)
+    exported = export_check(trainer)
     seconds = time.perf_counter() - t0
-    del trainer, model, spec
-    shutil.rmtree(work, ignore_errors=True)
+    # the DPO step runs on the same model, T5 and VAE: the expert's AdamW
+    # state and gradients go first; the export holds the weights it starts
+    # from
+    spec.validation = validation
+    trainer.optimizer.inner.state.clear()
+    for p in model.parameters():
+        p.grad = None
+    del trainer
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_bwd"], seconds
+    dpo = dpo_path(model, spec, dev, work, exported)
+    os.remove(exported)
+    del model, spec
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_bwd"], seconds, dpo
+
+
+# the released DPO recipe (vap_mot/train_single_node_dpo.sh); its
+# --target_modules regex is passed, and ignored as JAX's DPO ignores it
+DPO_RECIPE = dict(dpo=True, rank=32, lora_alpha=32, lr=5e-5, lr_scheduler="constant",
+                  target_modules="(transformer_blocks|single_transformer_blocks).*"
+                                 "(to_q|to_k|to_v|to_out.0)",
+                  sample_ref_videos_num=1, mask_ref_ratio=0.0, mask_caption_ratio=0.02)
+DPO_SCORES = (100, 95, 5)  # one kind: a stage-1 pair (>= 90, <= 10) and a reference
+
+
+def write_dpo_csv(root, names, name="dpo.csv"):
+    """A DPO table over the clips ``names`` in ``root``: one kind, the
+    scores of DPO_SCORES, each row's reference the next clip."""
+    import csv
+
+    rows = [{"video_paths": n, "tar_video_caption": f"The video shows effect {i} on a scene",
+             "ref_video_paths": json.dumps([names[(i + 1) % len(names)]]), "kind": "fx",
+             "split": "train", "reference_alignment_score": score}
+            for i, (n, score) in enumerate(zip(names, DPO_SCORES))]
+    with open(os.path.join(root, name), "w", newline="") as fh:
+        writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return name
+
+
+def dpo_path(model, spec, dev, work, start):
+    """Phase 8's DPO step: the released recipe (DPO_RECIPE) on phase 8's
+    CogVideoX-5B VAP model, T5-XXL and VAE, one full step on a win / lose
+    pair of its clips (the lose video encoded in the win video's bucket):
+    the reference pass with the adapters bypassed, the policy's forward and
+    backward at batch 2, the update. At step 1 B = 0, so the policy is the
+    reference: their per-sample losses must be equal to the bit and the loss
+    ln 2 mean(dpo_weight); the A gradients zero, the B gradients finite and
+    not all zero; every frozen weight bit-identical after the update to the
+    weights it started from (``start``: phase 8's export, read back); K1
+    3 x 42 (reference, forward, recompute) and K5 42 launches, all at
+    batch 2. Returns what it measured."""
+    import gc
+    import math
+
+    import torch
+
+    from vap_tpu_torch.training.checkpoint import load_safetensors
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    root = os.path.join(work, "data")
+    meta = write_dpo_csv(root, [f"clip_{i}.mp4" for i in range(len(TRAIN_CLIPS))])
+    args = recipe_args(root, os.path.join(work, "dpo"), 1, dataset_config=None,
+                       validation_dataset_file=None, meta_df_name=meta, **DPO_RECIPE)
+    layers = model.config.num_layers
+    t0 = time.perf_counter()
+    trainer = SFTTrainer(args, model, spec, track_stage_peaks=True)
+    lora = trainer.lora
+    n_lora = sum(t.numel() for ab in lora.values() for t in ab.values())
+    log(f"  DPO: rank {args.rank}, alpha {args.lora_alpha}, {len(lora)} adapted projections "
+        f"(the MoT expert's six of {len(model.config.block_idx_with_mot_ref)} blocks), "
+        f"{n_lora} adapter parameters, installed in {time.perf_counter() - t0:.2f} s")
+    grads = {}
+    apply = trainer._apply
+
+    def largest(t):  # max|grad|; a tensor the backward never reached has none
+        return t.new_zeros(()) if t.grad is None else t.grad.abs().max()
+
+    def kept_apply(scale):  # the adapters' gradients, read before the update
+        a = torch.stack([largest(ab["A"]) for ab in lora.values()])
+        b = torch.stack([largest(ab["B"]) for ab in lora.values()])
+        finite = torch.stack([torch.isfinite(b)])
+        grads.update(a_max=a.max().item(), b_max=b.max().item(), b_finite=bool(finite.all()),
+                     b_live={n for n, x in zip(lora, b.tolist()) if x > 0})
+        return apply(scale)
+
+    trainer._apply = kept_apply
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with KeptAttention(keep=False) as seen:  # the batch of every attention call
+        trainer.run()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    r, m = trainer.history[0], trainer.last_metrics
+    same = torch.equal(m["policy_losses"], m["ref_losses"])
+    weight = m["dpo_weight"].item()
+    want_loss = math.log(2) * weight
+    loss_err = abs(r["loss"] - want_loss)
+    peak = trainer.stage_peaks.get("timing/train_step", 0)
+    step = r["reference_s"] + r["forward_s"] + r["backward_s"] + r["update_s"]
+    spans = {k: round(v, 3) for k, v in trainer.tracker.history[0].items()
+             if k.startswith("timing/")}
+    log(f"  DPO step 1 in {wall:.3f} s (encodes included): {step:.3f} s = reference "
+        f"{r['reference_s']:.3f} + forward {r['forward_s']:.3f} + backward "
+        f"{r['backward_s']:.3f} + update {r['update_s']:.3f}; spans {spans}; peak card memory "
+        f"{peak / 2**30:.2f} GiB in the step, by span "
+        f"{ {k: round(v / 2**30, 2) for k, v in trainer.stage_peaks.items()} } GiB")
+    log(f"  per-sample losses: policy {m['policy_losses'].tolist()}, reference "
+        f"{m['ref_losses'].tolist()}, bit-equal {same}; loss {r['loss']!r} against ln 2 x "
+        f"dpo_weight {weight!r} = {want_loss!r} (|diff| {loss_err:.3e}); model_diff "
+        f"{r['model_diff']!r}, ref_diff {r['ref_diff']!r}, grad_norm {r['grad_norm']!r}")
+    # the last MoT block's reference queries, output projection and
+    # feed-forward feed only the reference stream, which no loss reads: their
+    # B gradients are zero, every other one is not
+    last = max(model.config.block_idx_with_mot_ref)
+    dead = {n for n in lora if n.startswith(tuple(
+        f"transformer_blocks.{last}.{m}" for m in ("attn1_mot_ref.to_q", "attn1_mot_ref.to_out",
+                                                   "ff_mot_ref")))}
+    live = set(lora) - dead
+    log(f"  adapter gradients: max|grad A| {grads.get('a_max')}, max|grad B| "
+        f"{grads.get('b_max')}, B non-zero in {len(grads.get('b_live', ()))} of {len(lora)} (the "
+        f"{len(live)} that reach the loss), finite {grads.get('b_finite')}; launches K1 {launches['flash_fwd']} (expected {3 * layers}: "
+        f"reference, forward and recompute), K5 {launches['flash_bwd']} (expected {layers}); "
+        f"attention batch sizes {sorted({q[0] for q, _, _ in seen.shapes})}")
+    check_launches(launches, {"flash_fwd": 3 * layers, "flash_bwd": layers})
+    t0 = time.perf_counter()
+    before = load_safetensors(start)
+    params = {n: p for n, p in model.named_parameters() if n in before}
+    if len(params) + 2 * len(lora) != len(list(model.parameters())):
+        raise AssertionError("DPO: the model's frozen weights are not the export's")
+    changed = [n for n, p in params.items() if not torch.equal(p, before[n].to(p.device))]
+    moved = {n for n, ab in lora.items() if ab["B"].detach().any()}
+    log(f"  frozen tensors changed by the update: {len(changed)} of {len(before)} (compared in "
+        f"{time.perf_counter() - t0:.2f} s, against phase 8's export read back); adapters "
+        f"whose B moved off 0: {len(moved)} of "
+        f"{len(lora)} (those that reach the loss: {moved == live})")
+    if not (same and loss_err <= 4 * 2**-24 * max(want_loss, 1.0) and grads
+            and grads["a_max"] == 0.0 and grads["b_finite"] and grads["b_live"] == live
+            and not changed and moved == live and {q[0] for q, _, _ in seen.shapes} == {2}):
+        raise AssertionError(f"DPO step: policy == reference {same}, loss error {loss_err}, "
+                             f"gradients {grads}, frozen tensors changed {changed[:5]}, "
+                             f"adapters moved {moved}, shapes {set(seen.shapes)}")
+    del before, params, trainer, lora
+    gc.collect()
+    return {"step_s": step, "reference_s": r["reference_s"], "forward_s": r["forward_s"],
+            "backward_s": r["backward_s"], "update_s": r["update_s"], "peak_gib": peak / 2**30,
+            "k1": launches["flash_fwd"], "k5": launches["flash_bwd"]}
+
+
+def k5_batch2_parity(dev):
+    """K1 and K5 at batch 2, [2, 48, 35552, 64] (the DPO step's shape), on
+    random inputs: each held against its plain version on heads 0 and 47 of
+    both batch rows, under phase 3's and phase 7's limits; a dout whose two rows
+    are swapped must fail K5's limit in row 1. Returns K5's max|err|."""
+    import torch
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    shape = (2,) + MAIN_SHAPE[1:]
+    q, k, v, dout = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(4)]
+    heads = [slice(0, 1), slice(shape[1] - 1, shape[1])]
+    held_on_heads("flash_fwd (K1) at batch 2", q, k, v, None, heads)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    t0 = time.perf_counter()
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    swapped = fa.flash_attention_backward(q, k, v, out, lse, dout.flip(0).contiguous())
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    worst, fault = 0.0, {}
+    rows = []
+    for hs in heads:
+        ref = fa.flash_attention_backward_plain(q[:, hs], k[:, hs], v[:, hs], out[:, hs],
+                                                lse[:, hs], dout[:, hs])
+        for b in range(2):
+            for name, g, sw, r in zip("qkv", got, swapped, ref):
+                ref_max = r[b].float().abs().max().item()
+                err = (g[b, hs].float() - r[b].float()).abs().max().item()
+                rows.append((hs.start, b, name, err, ref_max))
+                worst = max(worst, err)
+                if b == 1:
+                    fault[(hs.start, name)] = (
+                        (sw[b, hs].float() - r[b].float()).abs().max().item() / ref_max)
+        del ref
+    ok = finite and all(e <= GRAD_REL_TOL * m for *_, e, m in rows)
+    caught = all(f > GRAD_REL_TOL for f in fault.values())
+    log(f"  flash_bwd (K5) at batch 2 {shape} x {shape[2]}, held on heads "
+        f"{[(h.start, h.stop) for h in heads]} of both rows ({time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"h{h} row {b} d{n} {e / m:.3e}" for h, b, n, e, m in rows)
+        + f" (max|err| / max|ref|, tol {GRAD_REL_TOL}); finite {finite}; dout rows swapped, "
+        f"row 1: {min(fault.values()):.3e} at least (must exceed the tol)")
+    if not ok:
+        raise AssertionError("K5 at batch 2 disagrees with its plain version")
+    if not caught:
+        raise AssertionError("K5 at batch 2: the limit does not catch dout rows swapped")
+    del q, k, v, dout, out, lse, got, swapped
+    torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -4063,10 +4290,11 @@ def training_path(dev):
 SMALL_CLIPS = ((9, 40, 40, 16), (9, 24, 48, 16), (14, 32, 32, 24))  # 14 at 24 fps: 9 at 16
 
 
-def small_cog_trainer(dev, root, out, **kw):
-    """A tiny CogVideoX VAP (head_dim 64, so K1 and K5 run) with a tiny T5
-    and VAE on the card, random from the seed; the recipe's trainer on
-    ``root`` at 9x32x32."""
+def small_cog_trainer(dev, root, out, cfg_kw=None, frames=9, steps=3, **kw):
+    """A tiny CogVideoX VAP (head_dim 64, so K1 and K5 run; ``cfg_kw``
+    overrides its fields) with a tiny T5 and VAE on the card, random from
+    the seed; the recipe's trainer on ``root`` at ``frames``x32x32 for
+    ``steps`` steps with ``kw``."""
     import torch
 
     from vap_tpu_torch.models.cogvideox.config import CogVideoXMOTConfig
@@ -4079,8 +4307,9 @@ def small_cog_trainer(dev, root, out, **kw):
 
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    cfg = CogVideoXMOTConfig.tiny(in_channels=8, out_channels=4, num_layers=3,
-                                  attention_head_dim=64, block_idx_with_mot_ref=(0, 1))
+    cfg = CogVideoXMOTConfig.tiny(**{**dict(in_channels=8, out_channels=4, num_layers=3,
+                                            attention_head_dim=64,
+                                            block_idx_with_mot_ref=(0, 1)), **(cfg_kw or {})})
     model = build_random(CogVideoXTransformer3DMOTModel, cfg, dev, bf16, gen)
     spec = CogVideoXSpec(model, FakeTokenizer(128), dtype=bf16, device=dev,
                          vae=build_random(AutoencoderKLCogVideoX, CogVideoXVAEConfig.tiny(), dev,
@@ -4088,7 +4317,8 @@ def small_cog_trainer(dev, root, out, **kw):
                          text_encoder=build_random(T5EncoderModel,
                                                    T5Config.tiny(d_model=cfg.text_embed_dim),
                                                    dev, bf16, gen))
-    args = recipe_args(root, out, 3, video_resolution_buckets=((9, 32, 32),), lr=1e-3, **kw)
+    args = recipe_args(root, out, steps, video_resolution_buckets=((frames, 32, 32),), lr=1e-3,
+                       **kw)
     return SFTTrainer(args, model, spec)
 
 
@@ -4238,6 +4468,143 @@ def data_small_check(dev):
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"  phase 8b in {time.perf_counter() - t_start:.1f} s")
+
+
+# the rest of phase 8b: the training objectives at tiny widths. Each case:
+# (the tiny CogVideoX's config fields, the trainer's flags, its data
+# directory, buckets); one step each under gradient checkpointing
+SMALL_OBJECTIVES = {
+    "ablation_single_branch (full)": (dict(block_idx_with_mot_ref=()), dict(
+        ablation_single_branch=True, target_modules="none"), "vap", 9),
+    "ablation_single_branch (LoRA)": (dict(block_idx_with_mot_ref=()), dict(
+        ablation_single_branch=True, rank=4, lora_alpha=4,
+        target_modules="(transformer_blocks).*(to_q|to_k|to_v|to_out.0)"), "vap", 9),
+    "baseline_single_condition": (dict(block_idx_with_mot_ref=()), dict(
+        ablation_single_branch=True, target_modules="none", baseline_single_condition="fx"),
+        "vap", 9),
+    "plain LoRA (config_plain.json)": (dict(block_idx_with_mot_ref=()), dict(
+        training_type="lora", rank=4, lora_alpha=4, target_modules="to_q to_k to_v to_out"),
+        "plain", 9),
+    "reference_independent": (dict(reference_train_mode="reference_independent"), dict(
+        reference_train_mode="reference_independent"), "vap", 9),
+    "reference_independent + random_refer_noise": (
+        dict(reference_train_mode="reference_independent"),
+        dict(reference_train_mode="reference_independent", random_refer_noise=True), "vap", 9),
+    # 13 frames: 4 latent frames, which patch_size_t = 2 divides
+    "CogVideoX 1.5 (patch_size_t 2)": (dict(patch_size_t=2), {}, "vap13", 13),
+}
+
+
+def objectives_small_check(dev):
+    """Phase 8b's training objectives: the single-branch ablation (full and
+    LoRA), baseline_single_condition, the plain CogVideoX LoRA,
+    reference_independent with and without random_refer_noise and
+    CogVideoX 1.5 at tiny width from clips, one step each with their K1 / K5
+    launches; DPO from a checkpoint after one step equal to two steps
+    uninterrupted; Wan DPO (head_dim 128: K4 and K6)."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.data.video import export_to_video
+    from vap_tpu_torch.models.random_init import build_random
+    from vap_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from vap_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+    from vap_tpu_torch.models.wan.config import WanMOTConfig
+    from vap_tpu_torch.models.wan.transformer_mot import WanTransformer3DMOTModel
+    from vap_tpu_torch.models.wan.vae import AutoencoderKLWan, WanVAEConfig
+    from vap_tpu_torch.training.specs import WanSpec
+    from vap_tpu_torch.training.trainer import SFTTrainer
+
+    work = os.path.join(HERE, "build", "chip_smoke_objectives")
+    shutil.rmtree(work, ignore_errors=True)
+    t_start = time.perf_counter()
+    roots = {"vap": os.path.join(work, "vap"), "vap13": os.path.join(work, "vap13"),
+             "plain": os.path.join(work, "plain")}
+    write_training_data(roots["vap"], clips=SMALL_CLIPS, steps=2, size=(9, 32, 32))
+    names = [f"clip_{i}.mp4" for i in range(len(SMALL_CLIPS))]
+    dpo_csv = write_dpo_csv(roots["vap"], names)
+    write_training_data(roots["vap13"], clips=((13, 32, 32, 16), (13, 40, 40, 16)), steps=2,
+                        size=(13, 32, 32))
+    os.makedirs(roots["plain"])
+    for i in range(2):
+        export_to_video(seeded_clip(SEED + 40 + i, 9, 32, 32),
+                        os.path.join(roots["plain"], f"c{i}.mp4"))
+        with open(os.path.join(roots["plain"], f"c{i}.txt"), "w") as fh:
+            fh.write(f"a vase dissolving, take {i}")
+
+    plain = dict(dataset_config=None, validation_dataset_file=None)  # vap_data.csv, no validation
+    for name, (cfg_kw, kw, data, frames) in SMALL_OBJECTIVES.items():
+        trainer = small_cog_trainer(dev, roots[data], os.path.join(work, "out"), cfg_kw, frames,
+                                    steps=1, **plain, **kw)
+        reset_counts()
+        trainer.run()
+        launches = read_counts()
+        layers = trainer.model.config.num_layers
+        loss = trainer.history[0]["loss"]
+        what = ("adapters" if trainer.lora_mode else "of the MoT expert"
+                if trainer.model.config.block_idx_with_mot_ref else "of the whole model")
+        log(f"  {name}: loss {loss:.6f}, {len(trainer.trainable_names)} tensors {what} train; "
+            f"launches K1 {launches['flash_fwd']} / K5 {launches['flash_bwd']}")
+        check_launches(launches, {"flash_fwd": 2 * layers, "flash_bwd": layers})
+        if not np.isfinite(loss):
+            raise AssertionError(f"{name}: the loss is not finite")
+        del trainer
+        shutil.rmtree(os.path.join(work, "out"), ignore_errors=True)
+
+    # DPO: two steps, then one step + a checkpoint + one resumed step
+    dpo_kw = dict(dpo=True, rank=4, lora_alpha=4, meta_df_name=dpo_csv)
+    runs = []
+    for i, (steps, ckpt, resume) in enumerate(((2, NEVER, None), (1, 1, None),
+                                               (2, 1, "latest"))):
+        out = os.path.join(work, "dpo_whole" if i == 0 else "dpo_resumed")
+        trainer = small_cog_trainer(dev, roots["vap"], out, steps=steps, checkpointing_steps=ckpt,
+                                    resume_from_checkpoint=resume, **plain, **dpo_kw)
+        reset_counts()
+        trainer.run()
+        launches = read_counts()
+        layers = trainer.model.config.num_layers
+        ran = len(trainer.history)
+        check_launches(launches, {"flash_fwd": 3 * layers * ran, "flash_bwd": layers * ran})
+        runs.append([r["loss"] for r in trainer.history])
+        del trainer
+    log(f"  DPO (head_dim 64): two steps {runs[0]}, one step, a checkpoint and one resumed "
+        f"step {runs[1] + runs[2]}: equal {runs[0] == runs[1] + runs[2]}; K1 3 x 3 and K5 3 "
+        f"a step")
+    if runs[0] != runs[1] + runs[2] or not np.isfinite(runs[0]).all():
+        raise AssertionError("DPO resumed from a checkpoint differs from the uninterrupted run")
+
+    # Wan DPO (head_dim 128)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    w_cfg = WanMOTConfig.tiny(attention_head_dim=128, in_channels=12, out_channels=4,
+                              text_dim=32, image_dim=24, added_kv_proj_dim=256, ffn_dim=512)
+    model = build_random(WanTransformer3DMOTModel, w_cfg, dev, bf16, gen)
+    spec = WanSpec(model, FakeTokenizer(128), dtype=bf16, device=dev,
+                   vae=build_random(AutoencoderKLWan, WanVAEConfig.tiny(), dev, bf16, gen),
+                   text_encoder=build_random(T5EncoderModel,
+                                             T5Config.tiny(per_layer_relative_bias=True), dev,
+                                             bf16, gen),
+                   image_encoder=build_random(CLIPVisionModel, CLIPVisionConfig.tiny(), dev, bf16,
+                                              gen))
+    args = recipe_args(roots["vap"], os.path.join(work, "wan_dpo"), 1, model_name="wan",
+                       video_resolution_buckets=((9, 32, 32),), lr=1e-3, dataset_config=None,
+                       validation_dataset_file=None, flow_weighting_scheme="logit_normal",
+                       **dpo_kw)
+    trainer = SFTTrainer(args, model, spec)
+    reset_counts()
+    trainer.run()
+    launches = read_counts()
+    per = w_cfg.num_layers * 5  # the joint attention and four cross-attentions a block
+    r = trainer.history[0]
+    log(f"  Wan DPO (head_dim 128): loss {r['loss']:.6f}, model_diff {r['model_diff']!r}, "
+        f"ref_diff {r['ref_diff']!r}; launches { {k: v for k, v in launches.items() if v} }")
+    check_launches(launches, {"flash_fwd_d128": 3 * per, "flash_bwd_d128": per - 2})
+    if not (np.isfinite(r["loss"]) and r["model_diff"] == r["ref_diff"]):
+        raise AssertionError("Wan DPO: the first step's policy is not its reference")
+    del trainer, model, spec
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  the objectives of phase 8b in {time.perf_counter() - t_start:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4958,12 +5325,19 @@ def main():
     log(f"training, CogVideoX-5B VAP from clips on disk ({NUM_FRAMES} frames of {HEIGHT}x"
         f"{WIDTH}, batch 1, {TRAIN_STEPS} optimizer steps, then validation, {VAL_STEPS} DDIM "
         f"steps):")
-    launches["flash_bwd"], seconds = training_path(dev)
+    launches["flash_bwd"], seconds, dpo = training_path(dev)
     ckpt_seconds += seconds
+    log("K1 and K5 at the DPO step's batch of 2 (bf16, vs plain PyTorch, both rows):")
+    results["flash_bwd"]["batch2_max_abs_err"] = k5_batch2_parity(dev)
+    results["flash_bwd"]["dpo_step"] = dpo
     host_memory("before 8b")
     log("the data path at tiny widths (8b): CogVideoX online and under enable_precomputation, "
         "Wan VAP and the HunyuanVideo LoRA from clips, each validated:")
     data_small_check(dev)
+    log("the training objectives at tiny widths (8b): the single-branch ablations, "
+        "baseline_single_condition, the plain CogVideoX LoRA, reference_independent, "
+        "CogVideoX 1.5, a DPO resume and Wan DPO:")
+    objectives_small_check(dev)
 
     # 9. K6
     log("flash backward at head_dim 128 (K6) parity (bf16, vs plain PyTorch):")

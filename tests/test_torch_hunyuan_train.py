@@ -128,14 +128,12 @@ def _assert_grads(got, want, what):
 # the transformer under grad
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("remat", [False, "full"])
-def test_transformer_grads_match_jax(remat):
-    """The port's forward and its gradients (latents, text states and every
-    weight) under "flash" (K7's plain forward and backward through
-    ``FlashAttentionFunction``), with and without block remat, against
-    ``jax.grad`` of ``hunyuan_video_forward`` under "flash_varlen" in
-    interpret mode, with a ragged text mask and a loss that weights every
-    output element differently."""
+@functools.lru_cache(maxsize=None)
+def _jax_transformer_grads():
+    """JAX's side of ``test_transformer_grads_match_jax``, shared by its
+    cases: the batch, the output weights, timesteps and guidance, and
+    ``jax.grad`` of the weighted output (params, latents, text states) with
+    the output itself."""
     jcfg, cfg, params = _setup()
     batch = _batch(cfg, 2)
     w = np.random.default_rng(3).standard_normal(batch["latents"].shape).astype(np.float32)
@@ -154,7 +152,19 @@ def test_transformer_grads_match_jax(remat):
         want, want_out = jax.grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
             _jnp(params), jnp.asarray(batch["latents"]), jnp.asarray(batch["encoder_hidden_states"]))
     want_params = convert.from_jax_hunyuan_transformer(jax.tree.map(np.asarray, want[0]), cfg)
+    return batch, w, t, g, want_params, np.asarray(want_out), np.array(want[1]), np.array(want[2])
 
+
+@pytest.mark.parametrize("remat", [False, "full"])
+def test_transformer_grads_match_jax(remat):
+    """The port's forward and its gradients (latents, text states and every
+    weight) under "flash" (K7's plain forward and backward through
+    ``FlashAttentionFunction``), with and without block remat, against
+    ``jax.grad`` of ``hunyuan_video_forward`` under "flash_varlen" in
+    interpret mode, with a ragged text mask and a loss that weights every
+    output element differently."""
+    _, cfg, params = _setup()
+    batch, w, t, g, want_params, want_out, want_x, want_enc = _jax_transformer_grads()
     model = _model(cfg, params)
     x = torch.from_numpy(batch["latents"]).requires_grad_()
     enc = torch.from_numpy(batch["encoder_hidden_states"]).requires_grad_()
@@ -167,11 +177,11 @@ def test_transformer_grads_match_jax(remat):
                     remat=remat)
         (out * torch.from_numpy(w)).sum().backward()
     assert tfa.flash_attention_backward.launches_varlen == before  # CPU: plain versions only
-    scale = max(np.abs(np.asarray(want_out)).max(), 1.0)
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
-                               atol=TRANSFORMER_ATOL * scale, rtol=0)
-    _assert_grads({"latents": x.grad}, {"latents": torch.from_numpy(np.array(want[1]))}, "inputs")
-    _assert_grads({"text": enc.grad}, {"text": torch.from_numpy(np.array(want[2]))}, "inputs")
+    scale = max(np.abs(want_out).max(), 1.0)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=TRANSFORMER_ATOL * scale,
+                               rtol=0)
+    _assert_grads({"latents": x.grad}, {"latents": torch.from_numpy(want_x)}, "inputs")
+    _assert_grads({"text": enc.grad}, {"text": torch.from_numpy(want_enc)}, "inputs")
     # the text states past sample 1's mask reach no output
     assert not enc.grad[1, VALID[1]:].any()
     _assert_grads({n: p.grad for n, p in model.named_parameters()}, want_params, "weights")

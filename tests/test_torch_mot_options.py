@@ -6,8 +6,8 @@ outputs), the block ablations ``ablation_single_encoder`` and
 ``reference_independent`` head (JAX's documented departure from the
 reference: ``proj_out_mot_ref`` projects the reference stream) against
 ``wan_mot_forward``; the loaders reading the new keys as JAX's converters
-do, and no others. Training keeps refusing ``reference_independent`` and
-temporal patching.
+do, and no others. Training takes ``reference_independent`` and temporal
+patching, and still refuses the remat modes not ported.
 
 Tiny configs of ``tests/test_torch_transformer.py`` (three blocks, MoT in
 0-1, the learned position table) and ``tests/test_torch_weights.py``; the
@@ -258,12 +258,27 @@ def test_loaders_read_the_new_keys_as_jax(name):
 
 @pytest.mark.parametrize("what", ["reference_independent", "patch_size_t"])
 def test_training_still_refuses(what):
-    """Inference takes both options; the port's training step does not yet
-    (ROADMAP Queue 1 #5)."""
-    with pytest.raises(NotImplementedError):
-        if what == "reference_independent":
-            train_step.TrainStepConfig(model=CogVideoXMOTConfig.tiny(**COG),
-                                       reference_train_mode="reference_independent")
-        else:
-            train_step._rope_tables(CogVideoXMOTConfig.tiny(patch_size_t=2), 4, 4, 2, 1,
-                                    "continous_negative")
+    """The training step takes both options (``tests/test_torch_train_objectives.py``
+    holds their losses against JAX's); with either, it still refuses the
+    remat modes not ported (ROADMAP Queue 1 #5)."""
+    kw = (dict(reference_train_mode="reference_independent") if what == "reference_independent"
+          else dict(patch_size_t=2, use_learned_positional_embeddings=False))
+    cfg = CogVideoXMOTConfig.tiny(**{**COG, **kw})
+    rope, rope_ref = train_step._rope_tables(cfg, 8, 8, 4, 1, "continous_negative")
+    assert rope[0].shape[0] == (2 if what == "patch_size_t" else 4) * 16 and rope_ref is not None
+    step_kw = dict(reference_train_mode="reference_independent") \
+        if what == "reference_independent" else {}
+    rng = np.random.default_rng(0)
+    lat = (1, 4, cfg.out_channels, 8, 8)
+    batch = {k: torch.from_numpy(rng.standard_normal(shape, np.float32)) for k, shape in (
+        ("latents", lat), ("image_latents", lat), ("latents_mot_ref", lat),
+        ("image_latents_mot_ref", lat),
+        ("encoder_hidden_states", (1, cfg.max_text_seq_length, cfg.text_embed_dim)),
+        ("encoder_hidden_states_mot_ref", (1, cfg.max_text_seq_length, cfg.text_embed_dim)))}
+    model = CogVideoXTransformer3DMOTModel(cfg)
+    loss, _ = train_step.cogvideox_vap_loss(
+        model, train_step.TrainStepConfig(model=cfg, remat=False, **step_kw), batch)
+    assert torch.isfinite(loss)
+    with pytest.raises(NotImplementedError, match="remat"):
+        train_step.cogvideox_vap_loss(
+            model, train_step.TrainStepConfig(model=cfg, remat="ops", **step_kw), batch)

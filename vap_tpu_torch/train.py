@@ -6,7 +6,8 @@ cache.
         --pretrained_model_name_or_path CKPT --output_dir OUT ...
 
     python -m vap_tpu_torch.train --precomputation_dir CACHE --output_dir OUT \\
-        [--model_name cogvideox|wan|hunyuan_video] [--training_type video_as_prompt_mot|lora] \\
+        [--model_name cogvideox|wan|hunyuan_video] \\
+        [--training_type video_as_prompt_mot|sft|lora|dpo] [--dpo] \\
         [--model_structure_config JSON] [--train_steps N] [--lr 1e-5] \\
         [--device cuda|cpu] [--model_config NAME]
 
@@ -88,8 +89,8 @@ from .models.wan.vae import AutoencoderKLWan, WanVAEConfig
 from .pipelines.cogvideox_i2v_mot import resolve_device
 from .training.args import TrainingArgs
 from .training.checkpoint import load_safetensors
-from .training.specs import (SPECS, build_mot_state_dict_from_base,
-                             build_wan_mot_state_dict_from_base)
+from .training.specs import (build_mot_state_dict_from_base, build_wan_mot_state_dict_from_base,
+                             get_model_spec_cls)
 from .training.trainer import SFTTrainer
 from .utils.hub import component_config_kwargs, resolve_model_dir
 
@@ -199,15 +200,25 @@ def transformer_weights(args: TrainingArgs, cfg, base_dir: Optional[str]):
 def build_transformer(args: TrainingArgs, config_name: Optional[str], device: torch.device):
     """The family's transformer at ``config_name`` (the released structure
     when None), in bf16 on the card or f32 on the CPU: loaded from the
-    checkpoint ``transformer_weights`` picks, else random from ``--seed``."""
+    checkpoint ``transformer_weights`` picks, else random from ``--seed``.
+    For CogVideoX, as JAX's ``_build_cogvideox`` (train.py:143-154):
+    ``--ablation_single_branch`` leaves no MoT block, and
+    ``--reference_train_mode`` sets the config's unless the structure JSON
+    sets it."""
     model_cls, cfg_cls, configs = MODELS[args.model_name]
     config_name = config_name or next(iter(configs))
     if config_name not in configs:
         raise ValueError(f"unknown model_config {config_name!r} for {args.model_name}; "
                          f"valid: {sorted(configs)}")
     base_dir = transformer_dir(args.pretrained_model_name_or_path)
-    cfg = configs[config_name](**{**component_config_kwargs(cfg_cls, base_dir),
-                                  **structure_overrides(cfg_cls, args.model_structure())})
+    fields = {**component_config_kwargs(cfg_cls, base_dir),
+              **structure_overrides(cfg_cls, args.model_structure())}
+    if args.model_name == "cogvideox":
+        if args.ablation_single_branch:  # the plain trunk: no MoT block
+            fields["block_idx_with_mot_ref"] = ()
+        if fields.get("reference_train_mode") is None:  # the flag, unless the structure says
+            fields["reference_train_mode"] = args.reference_train_mode
+    cfg = configs[config_name](**fields)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     state = transformer_weights(args, cfg, base_dir)
     if state is None:
@@ -270,7 +281,8 @@ def build_spec(args: TrainingArgs, model: nn.Module, config_name: Optional[str],
             encoders[name] = build_random(cls, cfg, device, dtype, gen)
         else:
             encoders[name] = load_model(cls, cfg, state, device, dtype)
-    return SPECS[args.model_name](model, dtype=dtype, device=device, **tokenizers, **encoders)
+    return get_model_spec_cls(args.model_name, args.training_type)(
+        model, dtype=dtype, device=device, **tokenizers, **encoders)
 
 
 def _parser() -> argparse.ArgumentParser:

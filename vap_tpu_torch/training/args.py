@@ -1,7 +1,7 @@
 """Training arguments of the port's SFT paths.
 
 The fields of ``vap_tpu/training/args.py`` ``TrainingArgs`` that these paths
-read, with the JAX names, defaults and validation. Three recipes set them:
+read, with the JAX names, defaults and validation. These recipes set them:
 the CogVideoX VAP expert SFT
 (``examples/training/sft/cogvideox/vap_mot/train_single_node.sh``: AdamW,
 beta (0.9, 0.99), weight decay 1e-4, lr 1e-5 constant_with_warmup, clip
@@ -14,7 +14,17 @@ of ``config_plain.json``) and the HunyuanVideo LoRA finetune
 ``--model_name hunyuan_video --training_type lora``, rank 32, alpha 32,
 ``to_q to_k to_v to_out``, lr 3e-5 with 1000 warmup steps, AdamW beta
 (0.9, 0.99), weight decay 1e-4, logit-normal flow weighting, gradient
-checkpointing).
+checkpointing); the CogVideoX VAP DPO stage
+(``examples/training/sft/cogvideox/vap_mot/train_single_node_dpo.sh``:
+``--dpo``, rank 32, alpha 32, lr 5e-5 constant), the single-branch
+ablations (``vap_mot/ablation/1-single_branch_full.sh``,
+``1-single_branch_lora.sh``: ``--ablation_single_branch`` with
+``--target_modules none`` or rank 64) and the plain CogVideoX LoRA
+(``examples/training/sft/cogvideox/crush_smol_lora/train.sh``:
+``--training_type lora`` on ``config_plain.json``). ``training_type``
+``sft`` trains what JAX's ``sft`` trains: the MoT partition of a
+CogVideoX or Wan model (the whole model for HunyuanVideo), on the plain
+dataset.
 
 The parallel flags are JAX's (``vap_tpu/training/args.py:21-25``): one
 process per GPU under ``torchrun``; ``data_degree`` ranks take slices of
@@ -48,8 +58,9 @@ from .train_step import FLOW_WEIGHTING_SCHEMES
 # not train yet (they raise NotImplementedError; unknown values ValueError)
 MODEL_NAMES = ("cogvideox", "wan", "hunyuan_video")
 UNPORTED_MODEL_NAMES = ("ltx_video", "cogview4", "flux")
-TRAINING_TYPES = ("video_as_prompt_mot", "lora")
-UNPORTED_TRAINING_TYPES = ("sft", "dpo", "control", "control_lora", "control_full_finetune")
+TRAINING_TYPES = ("video_as_prompt_mot", "sft", "lora", "dpo")
+UNPORTED_TRAINING_TYPES = ("control", "control_lora", "control_full_finetune")
+REFERENCE_TRAIN_MODES = (None, "reference_independent")
 CP_ROTATE_METHODS = ("allgather", "ppermute", "ulysses")
 # model_name values whose trainer takes --seq_degree > 1 in this port
 SEQ_PARALLEL_MODEL_NAMES = ("cogvideox",)
@@ -84,8 +95,19 @@ class TrainingArgs:
     mask_ref_ratio: float = 0.0
     mask_caption_ratio: float = 0.02
     alignment_score_threshold: float = 5.0
-    baseline_single_condition: Optional[str] = None  # not ported (its loss is a later slice)
+    # one kind's rows only; with ablation_single_branch the trunk over the
+    # target alone
+    baseline_single_condition: Optional[str] = None
     ablation_scaling_data_num: int = 99999999
+    reference_train_mode: Optional[str] = None  # None | "reference_independent"
+    random_refer_noise: bool = False  # the reference timesteps reach its time embedding
+    num_ref_diffusion_time_sigmas: int = 10
+    ref_type: str = "continous_negative"
+    # DPO (as training_type dpo): a LoRA policy over the frozen MoT model
+    dpo: bool = False
+    # one trunk over [target ‖ references]: the whole model trains under
+    # --target_modules none, else LoRA adapters
+    ablation_single_branch: bool = False
 
     # models
     model_name: str = "cogvideox"                 # cogvideox | wan | hunyuan_video
@@ -95,7 +117,7 @@ class TrainingArgs:
     # a finetuned MoT transformer (safetensors file, index or directory)
     videoasprompt_mot_name_or_path: Optional[str] = None
     model_structure_config: Optional[str] = None  # JSON with block_idx_with_mot_ref etc.
-    training_type: str = "video_as_prompt_mot"    # | lora
+    training_type: str = "video_as_prompt_mot"    # | sft | lora | dpo
     rank: int = 64            # LoRA rank (lora training type)
     lora_alpha: int = 64
     target_modules: str = "default"  # "none" | regex-ish module list (reference style)
@@ -173,13 +195,17 @@ class TrainingArgs:
         for spec in (self.attn_provider_training, self.attn_provider_inference):
             if spec not in ("", "auto"):
                 _parse_provider_spec(spec)  # raises on an unknown provider
-        if self.baseline_single_condition is not None:
-            raise NotImplementedError("baseline_single_condition training is not ported to "
-                                      "PyTorch yet")
+        if self.reference_train_mode not in REFERENCE_TRAIN_MODES:
+            raise ValueError(f"unknown reference_train_mode {self.reference_train_mode}")
         if self.ablation_scaling_data_num < 1:
             raise ValueError("ablation_scaling_data_num must be a positive integer")
         if self.validation_steps < 1:
             raise ValueError("validation_steps must be >= 1")
+
+    @property
+    def is_dpo(self) -> bool:
+        """``--dpo`` or ``training_type dpo`` (JAX's trainer.py:154)."""
+        return bool(self.dpo or self.training_type == "dpo")
 
     @property
     def world_size(self) -> int:

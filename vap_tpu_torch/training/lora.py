@@ -5,7 +5,9 @@ Port of ``vap_tpu/training/lora.py``. An adapter tree is a dict
 targeted ``nn.Linear``, in the JAX package's layout (A and B of a kernel
 [in, out]). ``init_lora`` draws it (A ~ N(0, 1) * fan_in^-1/2, B = 0, so the
 adapted model starts equal to the base); ``apply_lora`` installs it;
-``merge_lora_into_params`` bakes it into a state dict for export.
+``merge_lora_into_params`` bakes it into a state dict for export;
+``lora_bypassed`` runs the model on its frozen base alone (DPO's reference
+pass).
 
 The function is JAX's ``apply_lora``: each targeted linear runs with the
 merged weight W + ((alpha / r) * A @ B)^T cast to W's dtype, formed inside
@@ -20,7 +22,8 @@ float8 weight raises.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Sequence
+import contextlib
+from typing import Dict, Iterable, Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +42,8 @@ LoRATree = Dict[str, Dict[str, torch.Tensor]]
 class LoRALinear(nn.Module):
     """A frozen ``nn.Linear`` (its ``weight`` and ``bias``, the same
     parameters) with an adapter: y = x W'^T + bias, W' = W + ((scale A B)^T)
-    in W's dtype. ``lora_A`` [in, r] and ``lora_B`` [r, out] train."""
+    in W's dtype. ``lora_A`` [in, r] and ``lora_B`` [r, out] train. With
+    ``bypass`` set the adapter is off: y = x W^T + bias."""
 
     def __init__(self, base: nn.Linear, a: torch.Tensor, b: torch.Tensor, scale: float):
         super().__init__()
@@ -48,13 +52,29 @@ class LoRALinear(nn.Module):
         self.lora_A = nn.Parameter(a)
         self.lora_B = nn.Parameter(b)
         self.scale = scale
+        self.bypass = False
 
     def merged_weight(self) -> torch.Tensor:
         delta = (self.lora_A @ self.lora_B) * self.scale
         return self.weight + delta.t().to(self.weight.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.merged_weight(), self.bias)
+        return F.linear(x, self.weight if self.bypass else self.merged_weight(), self.bias)
+
+
+@contextlib.contextmanager
+def lora_bypassed(model: nn.Module) -> Iterator[None]:
+    """Within the block every ``LoRALinear`` of ``model`` runs its frozen
+    base alone, as JAX's DPO reference pass runs the base tree without
+    ``apply_lora`` (train_step.py:499)."""
+    modules = [m for m in model.modules() if isinstance(m, LoRALinear)]
+    for m in modules:
+        m.bypass = True
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.bypass = False
 
 
 def target_names(model: nn.Module, targets: Sequence[str] = DEFAULT_TARGETS,

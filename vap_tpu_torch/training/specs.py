@@ -420,3 +420,21 @@ class HunyuanVideoSpec(_Spec):
 
 
 SPECS = {"cogvideox": CogVideoXSpec, "wan": WanSpec, "hunyuan_video": HunyuanVideoSpec}
+
+# (model_name, training_type) -> spec (``SUPPORTED_MODEL_SPECS``, specs.py:239-243,
+# :395-396, :700-703): the VAP families train every type, HunyuanVideo sft and lora
+SUPPORTED_MODEL_SPECS = {
+    **{(family, tt): SPECS[family] for family in ("cogvideox", "wan")
+       for tt in ("video_as_prompt_mot", "sft", "lora", "dpo")},
+    ("hunyuan_video", "sft"): HunyuanVideoSpec,
+    ("hunyuan_video", "lora"): HunyuanVideoSpec,
+}
+
+
+def get_model_spec_cls(model_name: str, training_type: str):
+    """The spec class of (model_name, training_type) (``get_model_spec_cls``,
+    specs.py:246); an unsupported pair raises ValueError."""
+    key = (model_name, training_type)
+    if key not in SUPPORTED_MODEL_SPECS:
+        raise ValueError(f"unsupported (model, training_type): {key}")
+    return SUPPORTED_MODEL_SPECS[key]

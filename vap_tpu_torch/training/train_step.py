@@ -1,18 +1,31 @@
-"""The Video-As-Prompt SFT steps in PyTorch: the CogVideoX VAP loss, the Wan
-and HunyuanVideo flow-matching losses and LoRA SFT.
+"""The Video-As-Prompt training objectives in PyTorch: the CogVideoX VAP
+loss in every mode, the Wan and HunyuanVideo flow-matching losses, LoRA SFT
+and DPO.
 
-Port of ``vap_tpu/training/train_step.py``. The CogVideoX VAP branch with a
-clean reference (``reference_train_mode=None``):
+Port of ``vap_tpu/training/train_step.py``. The CogVideoX loss
+(``cogvideox_vap_loss``, :158-292):
   * a uniform timestep and Gaussian noise per sample; ``add_noise`` on the
     target latents under the zero-terminal-SNR table;
   * the model input is [noisy ‖ image latents] (channels), and the
-    reference branch gets [clean reference latents ‖ its image latents];
+    reference branch gets [reference latents ‖ its image latents];
   * pred = get_velocity(ᾱ, velocity, noisy, t), the x0 prediction, against
     the clean latents, weighted by 1 / (1 - ᾱ_t) (1 at t = 999, where
     ᾱ = 0; above 1e3 at small t), in float32;
-  * only the MoT expert trains: every parameter whose name has no
-    ``TRAINABLE_MARKERS`` entry gets ``requires_grad_(False)``. Activation
-    gradients still flow through the frozen trunk, whose weights get none.
+  * without ``latents_mot_ref`` in the batch, the plain loss: the trunk
+    alone over [noisy ‖ image latents] (I2V) or the noisy latents (T2V);
+  * ``reference_independent``: each reference noised at its own timestep in
+    [0, ``num_ref_diffusion_time_sigmas``), its own head's x0 prediction
+    against the clean reference, weighted the same way, added at
+    0.6 / ``sample_ref_videos_num``; the reference timesteps reach the
+    reference branch's time embedding only under ``random_refer_noise``;
+  * ``ablation_single_branch``: the trunk alone over [target ‖ references]
+    along frames with the two RoPE tables concatenated (the target alone
+    under ``baseline_single_condition``), the loss on the first frames;
+  * CogVideoX 1.5 (``patch_size_t``): the slice RoPE grid;
+  * only the MoT expert trains under ``video_as_prompt_mot``: every
+    parameter whose name has no ``TRAINABLE_MARKERS`` entry gets
+    ``requires_grad_(False)``. Activation gradients still flow through the
+    frozen trunk, whose weights get none.
 
 The Wan loss (``wan_vap_loss``, :530): sigmas drawn by the flow-matching
 density of ``flow_weighting_scheme`` on the FlowMatch training grid, x_t =
@@ -30,11 +43,17 @@ backward).
 LoRA SFT (``make_lora_sft_step``, :346): adapters over the targeted
 projections of a frozen model (``training/lora.py``); only they train.
 
+DPO (``_make_dpo_step_from``, :474; ``make_dpo_step`` :516,
+``make_wan_dpo_step`` :669): a batch of win rows then lose rows; per-sample
+losses (``cogvideox_per_sample_loss``, ``wan_per_sample_loss``) where win
+and lose share one timestep (sigma) and one noise draw; the reference pass
+runs the same model with its adapters bypassed, under ``no_grad``, on the
+same draws as the policy pass; the loss is
+-logsigmoid(-0.5 beta ((w - l)_policy - (w - l)_reference)) * dpo_weight,
+meaned over pairs.
+
 Timesteps, sigmas and noise come from a ``torch.Generator``, or are given
-explicitly (the tests pass JAX's draws). Not ported (they raise):
-``reference_independent`` (with its ``random_refer_noise``), the plain
-no-reference CogVideoX loss and the single-branch ablations; DPO is not
-ported either.
+explicitly (the tests pass JAX's draws).
 """
 
 from __future__ import annotations
@@ -49,7 +68,8 @@ from torch import nn
 from ..models.cogvideox.config import CogVideoXMOTConfig
 from ..ops.rope import prepare_cogvideox_rotary_embeddings
 from ..ops.schedulers.common import add_noise, get_velocity, make_alphas_cumprod
-from .lora import DEFAULT_TARGETS, LoRATree, apply_lora, init_lora, lora_parameters
+from .lora import (DEFAULT_TARGETS, LoRATree, apply_lora, init_lora, lora_bypassed,
+                   lora_parameters)
 from .optimizer import Optimizer
 
 TRAINABLE_MARKERS = ("_mot_ref", "effect_embeddings", "ref_embeddings")
@@ -102,20 +122,19 @@ def flow_loss_weights(sigmas: torch.Tensor, scheme: str = "none") -> torch.Tenso
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
-    """The fields of the JAX ``TrainStepConfig`` this loss reads; the two
-    that select a loss not ported yet raise when set."""
+    """The JAX ``TrainStepConfig`` (train_step.py:96-111)."""
     model: CogVideoXMOTConfig
-    reference_train_mode: Optional[str] = None   # "reference_independent": not ported
+    reference_train_mode: Optional[str] = None   # None | "reference_independent"
+    random_refer_noise: bool = False
+    num_ref_diffusion_time_sigmas: int = 10
+    sample_ref_videos_num: int = 1
     ref_type: str = "continous_negative"
     num_train_timesteps: int = 1000
     remat: Union[bool, str] = True
-    ablation_single_branch: bool = False         # not ported
-
-    def __post_init__(self):
-        if self.reference_train_mode is not None or self.ablation_single_branch:
-            raise NotImplementedError(
-                "reference_independent and the single-branch ablations are not ported to "
-                "PyTorch yet")
+    # one trunk over [target ‖ refs] with concatenated RoPE, the loss on the
+    # target's frames; with baseline_single_condition the refs are dropped
+    ablation_single_branch: bool = False
+    baseline_single_condition: bool = False
 
 
 def trainable_mask(model: nn.Module) -> List[str]:
@@ -133,33 +152,94 @@ def trainable_mask(model: nn.Module) -> List[str]:
 
 def _rope_tables(cfg: CogVideoXMOTConfig, lat_h: int, lat_w: int, lat_f: int, mot_num: int,
                  ref_type: str, device=None):
-    if cfg.patch_size_t is not None:
-        raise NotImplementedError("temporal patching (patch_size_t) is not ported")
+    """The target's RoPE table and the references' (``mot_num`` of them);
+    with ``patch_size_t`` (CogVideoX 1.5) the slice grid."""
     kw = dict(attention_head_dim=cfg.attention_head_dim, patch_size=cfg.patch_size,
-              sample_width=cfg.sample_width, sample_height=cfg.sample_height, device=device)
+              patch_size_t=cfg.patch_size_t, sample_width=cfg.sample_width,
+              sample_height=cfg.sample_height, device=device)
     rope = prepare_cogvideox_rotary_embeddings(lat_h * 8, lat_w * 8, lat_f, **kw)
+    if not mot_num:
+        return rope, None
     rope_ref = prepare_cogvideox_rotary_embeddings(lat_h * 8, lat_w * 8, lat_f, mot_num=mot_num,
                                                    ref_type=ref_type, **kw)
     return rope, rope_ref
 
 
+def _alphas_cumprod(device) -> torch.Tensor:
+    return torch.from_numpy(make_alphas_cumprod(rescale_betas_zero_snr=True)).to(device)
+
+
+def _x0_error(alphas_cumprod: torch.Tensor, velocity: torch.Tensor, noisy: torch.Tensor,
+              timesteps: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The weighted squared error of the x0 prediction, elementwise:
+    1 / (1 - ᾱ_t) (get_velocity(ᾱ, velocity, noisy, t) - target)^2."""
+    pred = get_velocity(alphas_cumprod, velocity.float(), noisy, timesteps)
+    weights = (1.0 / (1.0 - alphas_cumprod[timesteps])).reshape(-1, 1, 1, 1, 1)
+    return weights * torch.square(pred - target)
+
+
+def _cogvideox_velocity(model: nn.Module, cfg: TrainStepConfig, batch: Dict[str, torch.Tensor],
+                        noisy: torch.Tensor, timesteps: torch.Tensor,
+                        ref_in: Optional[torch.Tensor] = None,
+                        t_ref: Optional[torch.Tensor] = None,
+                        effect_ids: Optional[torch.Tensor] = None,
+                        reference_head: bool = False, single_branch: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The CogVideoX model on the noisy target latents [B, F, C, H, W],
+    each beside its image latents where the batch has them. Returns (the
+    velocity, the reference head's under ``reference_head``, else None):
+      * ``ref_in`` None: the trunk alone (I2V or T2V);
+      * ``single_branch`` (``ablation_single_branch``): the trunk alone over [target ‖
+        references] along frames with the two RoPE tables concatenated (the
+        target alone under ``baseline_single_condition``), cut to the
+        target's frames;
+      * else the MoT branch over the references ``ref_in`` [B, R*F, C, H, W]
+        at ``t_ref`` [B, R] (the target's timestep when None)."""
+    f_lat, lat_h, lat_w = noisy.shape[1], noisy.shape[3], noisy.shape[4]
+    dtype = next(model.parameters()).dtype
+    text = batch["encoder_hidden_states"].to(dtype)
+    hidden = noisy
+    if "image_latents" in batch:
+        hidden = torch.cat([noisy, batch["image_latents"].float()], dim=2)
+    num_mot_ref = 0 if ref_in is None else ref_in.shape[1] // f_lat
+    rope, rope_ref = _rope_tables(cfg.model, lat_h, lat_w, f_lat, num_mot_ref, cfg.ref_type,
+                                  noisy.device)
+    if ref_in is None:
+        return model(hidden.to(dtype), text, timesteps.float(), rope, remat=cfg.remat), None
+    hidden_ref = torch.cat([ref_in, batch["image_latents_mot_ref"].float()], dim=2)
+    if single_branch:
+        if not cfg.baseline_single_condition:
+            hidden = torch.cat([hidden, hidden_ref], dim=1)
+            rope = (torch.cat([rope[0], rope_ref[0]]), torch.cat([rope[1], rope_ref[1]]))
+        return model(hidden.to(dtype), text, timesteps.float(), rope,
+                     remat=cfg.remat)[:, :f_lat], None
+    carry, aux = model.prologue(hidden.to(dtype), text, timesteps.float(), rope,
+                                hidden_ref.to(dtype),
+                                batch["encoder_hidden_states_mot_ref"].to(dtype), rope_ref,
+                                num_mot_ref, t_ref, effect_ids)
+    return model.epilogue(model.run_blocks(carry, aux, cfg.remat), aux,
+                          reference_head=reference_head)
+
+
 def cogvideox_vap_loss(model: nn.Module, cfg: TrainStepConfig, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None, *,
                        timesteps: Optional[torch.Tensor] = None,
-                       noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Metrics]:
-    """The VAP loss of ``cogvideox_vap_loss`` (train_step.py:208-292 with a
-    clean reference). batch: ``latents``, ``image_latents`` [B, F, C, H, W],
-    ``latents_mot_ref``, ``image_latents_mot_ref`` [B, R*F, C, H, W] (VAE
-    scaled), ``encoder_hidden_states`` [B, T, Dt] and
-    ``encoder_hidden_states_mot_ref`` [B, R*T, Dt], on the model's device.
-    ``timesteps`` [B] and ``noise`` (the latents' shape) are drawn from
-    ``generator`` when not given."""
-    if "latents_mot_ref" not in batch:
-        raise NotImplementedError("the plain (no-reference) loss is not ported to PyTorch yet")
+                       noise: Optional[torch.Tensor] = None,
+                       ref_timesteps: Optional[torch.Tensor] = None,
+                       ref_noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Metrics]:
+    """The loss of ``cogvideox_vap_loss`` (train_step.py:158-292), every
+    branch. batch: ``latents`` [B, F, C, H, W], ``encoder_hidden_states``
+    [B, T, Dt], optionally ``image_latents`` [B, F, C, H, W] (VAE scaled);
+    with references ``latents_mot_ref``, ``image_latents_mot_ref``
+    [B, R*F, C, H, W], ``encoder_hidden_states_mot_ref`` [B, R*T, Dt] and
+    optionally ``effect_ids`` [R]; on the model's device. ``timesteps`` [B]
+    and ``noise`` (the latents' shape), and under ``reference_independent``
+    ``ref_timesteps`` [B, R] and ``ref_noise`` (the references' shape), are
+    drawn from ``generator`` in that order when not given."""
     latents = batch["latents"].float()
-    b, f_lat, _, lat_h, lat_w = latents.shape
+    b, f_lat, c, lat_h, lat_w = latents.shape
     device = latents.device
-    alphas_cumprod = torch.from_numpy(make_alphas_cumprod(rescale_betas_zero_snr=True)).to(device)
+    alphas_cumprod = _alphas_cumprod(device)
     if timesteps is None:
         timesteps = torch.randint(0, cfg.num_train_timesteps, (b,), generator=generator,
                                   device=device)
@@ -169,21 +249,85 @@ def cogvideox_vap_loss(model: nn.Module, cfg: TrainStepConfig, batch: Dict[str, 
     timesteps, noise = timesteps.to(device), noise.to(device, torch.float32)
     noisy = add_noise(alphas_cumprod, latents, noise, timesteps)
 
+    if "latents_mot_ref" not in batch:
+        # the plain finetune: the trunk alone, I2V with first-frame image
+        # latents, else T2V
+        velocity, _ = _cogvideox_velocity(model, cfg, batch, noisy, timesteps)
+        loss = torch.mean(_x0_error(alphas_cumprod, velocity, noisy, timesteps, latents))
+        return loss, {"loss": loss.detach(), "loss_main": loss.detach()}
+
     latents_ref = batch["latents_mot_ref"].float()
     num_mot_ref = latents_ref.shape[1] // f_lat
-    hidden = torch.cat([noisy, batch["image_latents"].float()], dim=2)
-    hidden_ref = torch.cat([latents_ref, batch["image_latents_mot_ref"].float()], dim=2)
-    rope, rope_ref = _rope_tables(cfg.model, lat_h, lat_w, f_lat, num_mot_ref, cfg.ref_type,
-                                  device)
-    dtype = next(model.parameters()).dtype
-    velocity = model(hidden.to(dtype), batch["encoder_hidden_states"].to(dtype),
-                     timesteps.float(), rope, hidden_ref.to(dtype),
-                     batch["encoder_hidden_states_mot_ref"].to(dtype), rope_ref,
-                     num_mot_ref=num_mot_ref, remat=cfg.remat)
-    pred = get_velocity(alphas_cumprod, velocity.float(), noisy, timesteps)
-    weights = (1.0 / (1.0 - alphas_cumprod[timesteps])).reshape(b, 1, 1, 1, 1)
-    loss = torch.mean(weights * torch.square(pred - latents))
-    return loss, {"loss": loss.detach(), "loss_main": loss.detach()}
+    per_ref = (b * num_mot_ref, f_lat, c, lat_h, lat_w)
+    independent = cfg.reference_train_mode == "reference_independent"
+    if independent:  # each reference noised at one of the last timesteps
+        if ref_timesteps is None:
+            ref_timesteps = torch.randint(0, cfg.num_ref_diffusion_time_sigmas, (b, num_mot_ref),
+                                          generator=generator, device=device)
+        if ref_noise is None:
+            ref_noise = torch.randn(latents_ref.shape, generator=generator, device=device,
+                                    dtype=torch.float32)
+        ref_timesteps = ref_timesteps.to(device)
+        ref_in = add_noise(alphas_cumprod, latents_ref.reshape(per_ref),
+                           ref_noise.to(device, torch.float32).reshape(per_ref),
+                           ref_timesteps.reshape(-1)).reshape(latents_ref.shape)
+    else:
+        ref_in = latents_ref
+    t_ref = ref_timesteps.float() if independent and cfg.random_refer_noise else None
+    velocity, velocity_ref = _cogvideox_velocity(model, cfg, batch, noisy, timesteps, ref_in,
+                                                 t_ref, batch.get("effect_ids"),
+                                                 reference_head=independent,
+                                                 single_branch=cfg.ablation_single_branch)
+    loss_main = torch.mean(_x0_error(alphas_cumprod, velocity, noisy, timesteps, latents))
+    metrics = {"loss_main": loss_main.detach()}
+    loss = loss_main
+    if independent:
+        if velocity_ref is None:
+            raise ValueError("reference_independent needs the reference head: a MoT model "
+                             "whose config has reference_train_mode='reference_independent', "
+                             "without ablation_single_branch")
+        loss_ref = torch.mean(_x0_error(alphas_cumprod, velocity_ref.reshape(per_ref),
+                                        ref_in.reshape(per_ref), ref_timesteps.reshape(-1),
+                                        latents_ref.reshape(per_ref)))
+        loss_ref = loss_ref * 0.6 / cfg.sample_ref_videos_num
+        metrics["loss_ref"] = loss_ref.detach()
+        loss = loss + loss_ref
+    metrics["loss"] = loss.detach()
+    return loss, metrics
+
+
+def _pair_draws(draws: Dict[str, Optional[torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Each draw of a pair [P, ...] repeated for its win and lose rows
+    [2P, ...] (win rows first)."""
+    return {k: torch.cat([v, v]) for k, v in draws.items()}
+
+
+def cogvideox_per_sample_loss(model: nn.Module, cfg: TrainStepConfig,
+                              batch: Dict[str, torch.Tensor],
+                              generator: Optional[torch.Generator] = None, *,
+                              timesteps: Optional[torch.Tensor] = None,
+                              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-sample weighted x0 loss of DPO (``_per_sample_weighted_mse``,
+    train_step.py:431), [2P] for a batch of P win rows then P lose rows
+    (the VAP keys of ``cogvideox_vap_loss``, clean references). A pair
+    shares ``timesteps`` [P] and ``noise`` [P, F, C, H, W], drawn from
+    ``generator`` in that order when not given."""
+    latents = batch["latents"].float()
+    device = latents.device
+    if timesteps is None or noise is None:
+        drawn = draw_step_noise(cfg, (latents.shape[0] // 2,) + tuple(latents.shape[1:]),
+                                generator, device)
+        timesteps = drawn["timesteps"] if timesteps is None else timesteps
+        noise = drawn["noise"] if noise is None else noise
+    pair = _pair_draws({"t": timesteps.to(device), "n": noise.to(device, torch.float32)})
+    alphas_cumprod = _alphas_cumprod(device)
+    noisy = add_noise(alphas_cumprod, latents, pair["n"], pair["t"])
+    # the MoT branch over clean references, without effect ids, whatever
+    # the ablation flags, as in JAX
+    velocity, _ = _cogvideox_velocity(model, cfg, batch, noisy, pair["t"],
+                                      batch["latents_mot_ref"].float())
+    err = _x0_error(alphas_cumprod, velocity, noisy, pair["t"], latents)
+    return err.mean(dim=(1, 2, 3, 4))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +368,38 @@ def _flow_match(cfg, latents: torch.Tensor, generator: Optional[torch.Generator]
     return sigmas * num_train_timesteps, noisy, noise - latents, loss_w
 
 
+def _wan_velocity(model: nn.Module, batch: Dict[str, torch.Tensor], noisy: torch.Tensor,
+                  timesteps: torch.Tensor, remat) -> torch.Tensor:
+    """The Wan model on the noisy latents and the batch's conditioning: the
+    trunk alone without ``latents_mot_ref`` (``condition`` concatenated
+    where present), else the MoT branch with clean references at t = 1."""
+    b, f_lat = noisy.shape[:2]
+    dtype = next(model.parameters()).dtype
+
+    def states(name):
+        x = batch.get(name)
+        return None if x is None else x.to(dtype)
+
+    hidden = noisy
+    if "condition" in batch:
+        hidden = torch.cat([noisy, batch["condition"].float()], dim=-1)
+    kwargs = dict(hidden_states=hidden.to(dtype), timestep=timesteps,
+                  encoder_hidden_states=states("encoder_hidden_states"),
+                  encoder_hidden_states_image=states("encoder_hidden_states_image"),
+                  remat=remat)
+    if "latents_mot_ref" in batch:
+        latents_ref = batch["latents_mot_ref"].float()
+        num_mot_ref = latents_ref.shape[1] // f_lat
+        hidden_ref = torch.cat([latents_ref, batch["condition_mot_ref"].float()], dim=-1)
+        kwargs.update(hidden_states_mot_ref=hidden_ref.to(dtype),
+                      timestep_mot_ref=torch.ones((b, num_mot_ref), device=noisy.device),
+                      encoder_hidden_states_mot_ref=states("encoder_hidden_states_mot_ref"),
+                      encoder_hidden_states_image_mot_ref=states(
+                          "encoder_hidden_states_image_mot_ref"),
+                      num_mot_ref=num_mot_ref)
+    return model(**kwargs)
+
+
 def wan_vap_loss(model: nn.Module, cfg: WanTrainStepConfig, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None, *,
                  sigmas: Optional[torch.Tensor] = None,
@@ -239,36 +415,36 @@ def wan_vap_loss(model: nn.Module, cfg: WanTrainStepConfig, batch: Dict[str, tor
     ``noise`` (the latents' shape) are drawn from ``generator`` when not
     given. The precomputed states go into the model in its dtype."""
     latents = batch["latents"].float()
-    b, f_lat = latents.shape[:2]
-    device = latents.device
     timesteps, noisy, target, loss_w = _flow_match(cfg, latents, generator, sigmas, noise,
                                                    cfg.num_train_timesteps)
-    dtype = next(model.parameters()).dtype
-
-    def states(name):
-        x = batch.get(name)
-        return None if x is None else x.to(dtype)
-
-    hidden = noisy
-    if "condition" in batch:
-        hidden = torch.cat([noisy, batch["condition"].float()], dim=-1)
-    kwargs = dict(hidden_states=hidden.to(dtype), timestep=timesteps,
-                  encoder_hidden_states=states("encoder_hidden_states"),
-                  encoder_hidden_states_image=states("encoder_hidden_states_image"),
-                  remat=cfg.remat)
-    if "latents_mot_ref" in batch:
-        latents_ref = batch["latents_mot_ref"].float()
-        num_mot_ref = latents_ref.shape[1] // f_lat
-        hidden_ref = torch.cat([latents_ref, batch["condition_mot_ref"].float()], dim=-1)
-        kwargs.update(hidden_states_mot_ref=hidden_ref.to(dtype),
-                      timestep_mot_ref=torch.ones((b, num_mot_ref), device=device),
-                      encoder_hidden_states_mot_ref=states("encoder_hidden_states_mot_ref"),
-                      encoder_hidden_states_image_mot_ref=states(
-                          "encoder_hidden_states_image_mot_ref"),
-                      num_mot_ref=num_mot_ref)
-    velocity = model(**kwargs)
+    velocity = _wan_velocity(model, batch, noisy, timesteps, cfg.remat)
     loss = torch.mean(loss_w * torch.square(velocity.float() - target))
     return loss, {"loss": loss.detach(), "loss_main": loss.detach()}
+
+
+def wan_per_sample_loss(model: nn.Module, cfg: WanTrainStepConfig,
+                        batch: Dict[str, torch.Tensor],
+                        generator: Optional[torch.Generator] = None, *,
+                        sigmas: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-sample flow-matching loss of Wan DPO (``_wan_per_sample_mse``,
+    train_step.py:619), [2P] for P win rows then P lose rows (the MoT keys
+    of ``wan_vap_loss``). A pair shares ``sigmas`` [P] and ``noise``
+    [P, F, H, W, C], drawn from ``generator`` in that order when not
+    given."""
+    latents = batch["latents"].float()
+    if sigmas is None or noise is None:
+        drawn = draw_step_noise(cfg, (latents.shape[0] // 2,) + tuple(latents.shape[1:]),
+                                generator, latents.device)
+        sigmas = drawn["sigmas"] if sigmas is None else sigmas
+        noise = drawn["noise"] if noise is None else noise
+    pair = _pair_draws({"s": sigmas.to(latents.device, torch.float32),
+                        "n": noise.to(latents.device, torch.float32)})
+    timesteps, noisy, target, loss_w = _flow_match(cfg, latents, None, pair["s"], pair["n"],
+                                                   cfg.num_train_timesteps)
+    velocity = _wan_velocity(model, batch, noisy, timesteps, cfg.remat)
+    err = loss_w * torch.square(velocity.float() - target)
+    return err.mean(dim=tuple(range(1, err.ndim)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,13 +486,17 @@ def hunyuan_loss(model: nn.Module, cfg: HunyuanTrainStepConfig, batch: Dict[str,
 
 
 def draw_step_noise(cfg, latents_shape: Sequence[int], generator: torch.Generator,
-                    device=None) -> Dict[str, torch.Tensor]:
+                    device=None, ref_shape: Optional[Sequence[int]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The random draws of one micro-batch, as the family's loss makes them
     from ``generator`` when it is given none, in the same order: CogVideoX
-    (``TrainStepConfig``) ``timesteps`` [B] then ``noise``; the flow
-    families ``sigmas`` [B] (``sample_flow_sigmas`` by ``cfg``'s flags)
-    then ``noise``, of the latents' shape. The data-parallel trainer draws
-    them for the whole global batch and gives each rank its rows."""
+    (``TrainStepConfig``) ``timesteps`` [B] then ``noise``, and under
+    ``reference_independent`` with ``ref_shape`` (the references' latents)
+    ``ref_timesteps`` [B, R] then ``ref_noise``; the flow families
+    ``sigmas`` [B] (``sample_flow_sigmas`` by ``cfg``'s flags) then
+    ``noise``, of the latents' shape. The data-parallel trainer draws them
+    for the whole global batch and gives each rank its rows; DPO draws them
+    for the pairs (``latents_shape`` of the win rows)."""
     b = latents_shape[0]
     if isinstance(cfg, TrainStepConfig):
         draws = {"timesteps": torch.randint(0, cfg.num_train_timesteps, (b,), generator=generator,
@@ -329,7 +509,84 @@ def draw_step_noise(cfg, latents_shape: Sequence[int], generator: torch.Generato
             device=device)}
     draws["noise"] = torch.randn(tuple(latents_shape), generator=generator, device=device,
                                  dtype=torch.float32)
+    if (isinstance(cfg, TrainStepConfig) and cfg.reference_train_mode == "reference_independent"
+            and ref_shape is not None):
+        num_mot_ref = ref_shape[1] // latents_shape[1]
+        draws["ref_timesteps"] = torch.randint(0, cfg.num_ref_diffusion_time_sigmas,
+                                               (b, num_mot_ref), generator=generator,
+                                               device=device)
+        draws["ref_noise"] = torch.randn(tuple(ref_shape), generator=generator, device=device,
+                                         dtype=torch.float32)
     return draws
+
+
+PerSampleFn = Callable[..., torch.Tensor]
+DPO_BETA = 500.0
+
+
+def make_dpo_loss(per_sample_fn: PerSampleFn,
+                  clock: Optional[Callable[[str], None]] = None):
+    """The DPO loss of ``_make_dpo_step_from`` (train_step.py:474-513) over
+    ``per_sample_fn`` (``cogvideox_per_sample_loss`` or
+    ``wan_per_sample_loss``), as a loss function of ``make_grad_and_apply``:
+    ``dpo_loss(model, cfg, batch, generator=None, **draws) -> (loss,
+    metrics)``. batch: P win rows then P lose rows, and
+    ``dpo_weight`` [P] (1 where absent). The pair draws (``timesteps`` or
+    ``sigmas``, then ``noise``, [P, ...]) are drawn once from ``generator``
+    when not given and serve both passes, as JAX's shared key does: first
+    the reference, the model with its adapters bypassed under ``no_grad``
+    (then ``clock("reference")`` where a clock is given), then the policy.
+    The loss is mean(-logsigmoid(-0.5 DPO_BETA (model_diff - ref_diff))
+    dpo_weight), with
+    model_diff = win - lose of the policy's per-sample losses and ref_diff
+    the reference's; the metrics hold both means, both passes' per-sample
+    losses and the mean pair weight."""
+
+    def dpo_loss(model: nn.Module, cfg, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 **draws: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
+        latents = batch["latents"]
+        half = latents.shape[0] // 2
+        if len(draws) < 2:
+            draws = {**draw_step_noise(cfg, (half,) + tuple(latents.shape[1:]), generator,
+                                       latents.device), **draws}
+        with torch.no_grad(), lora_bypassed(model):
+            ref_losses = per_sample_fn(model, cfg, batch, **draws)
+        if clock:
+            clock("reference")
+        losses = per_sample_fn(model, cfg, batch, **draws)
+        ref_diff = ref_losses[:half] - ref_losses[half:]
+        model_diff = losses[:half] - losses[half:]
+        inside = -0.5 * DPO_BETA * (model_diff - ref_diff)
+        dpo_w = batch.get("dpo_weight")
+        dpo_w = torch.ones_like(model_diff) if dpo_w is None else dpo_w.float()
+        loss = torch.mean(-torch.nn.functional.logsigmoid(inside) * dpo_w)
+        return loss, {"loss": loss.detach(), "model_diff": model_diff.mean().detach(),
+                      "ref_diff": ref_diff.mean(), "policy_losses": losses.detach(),
+                      "ref_losses": ref_losses, "dpo_weight": dpo_w.mean()}
+
+    return dpo_loss
+
+
+DPO_PER_SAMPLE = {"cogvideox": cogvideox_per_sample_loss, "wan": wan_per_sample_loss}
+
+
+def install_dpo_lora(model: nn.Module, *, rank: int = 64, alpha: float = 64.0,
+                     generator: Optional[torch.Generator] = None) -> LoRATree:
+    """The policy's adapters of DPO (``_make_dpo_step_from``'s init_fn,
+    train_step.py:490-494): every default projection of the MoT expert
+    (``DEFAULT_TARGETS``, ``mot_only``), whatever ``--target_modules``
+    says; the base model, frozen, doubles as the DPO reference."""
+    return install_lora(model, rank=rank, alpha=alpha, targets=DEFAULT_TARGETS, mot_only=True,
+                        generator=generator)
+
+
+def make_dpo_step(cfg, optimizer: Optimizer, family: str = "cogvideox"):
+    """One DPO update (``make_dpo_step`` :516, ``make_wan_dpo_step`` :669):
+    ``step_fn(model, batch, generator=None, **draws) -> metrics`` with
+    ``grad_norm``, on a model whose adapters (``install_dpo_lora``) are what
+    ``optimizer`` holds."""
+    return make_train_step(cfg, optimizer, make_dpo_loss(DPO_PER_SAMPLE[family]))
 
 
 def make_hunyuan_train_step(cfg: HunyuanTrainStepConfig, optimizer: Optimizer):
@@ -342,14 +599,18 @@ def make_hunyuan_train_step(cfg: HunyuanTrainStepConfig, optimizer: Optimizer):
 LossFn = Callable[..., Tuple[torch.Tensor, Metrics]]
 
 
-def make_grad_and_apply(loss_fn: LossFn, cfg: TrainStepConfig, optimizer: Optimizer):
+def make_grad_and_apply(loss_fn: LossFn, cfg: TrainStepConfig, optimizer: Optimizer, *,
+                        unreached_ok: bool = False):
     """The split step of ``make_grad_and_apply`` (train_step.py:295-323),
     for gradient accumulation.
 
     ``grad_fn(model, batch, generator=None, clock=None, **draws) -> metrics``
     adds this micro-batch's gradient into the trainable parameters' ``.grad``
     (their sum over micro-batches), calling ``clock("forward")`` once the
-    loss is computed and ``clock("backward")`` once it is differentiated;
+    loss is computed and ``clock("backward")`` once it is differentiated.
+    A loss that nothing that trains reaches raises, unless ``unreached_ok``
+    (``training_type sft`` on plain data, whose loss never reaches the MoT
+    partition that trains): then the gradients stay zero, as in JAX.
     ``apply_fn(scale) -> grad_norm`` multiplies the
     summed gradients by ``scale`` (1/accumulation: their mean), reports the
     global norm before clipping, clips, takes one optimizer update and clears
@@ -361,7 +622,11 @@ def make_grad_and_apply(loss_fn: LossFn, cfg: TrainStepConfig, optimizer: Optimi
         loss, metrics = loss_fn(model, cfg, batch, generator, **draws)
         if clock:
             clock("forward")
-        loss.backward()
+        if loss.requires_grad:
+            loss.backward()
+        elif not unreached_ok:
+            raise ValueError("nothing that trains reaches the loss: no trainable parameter "
+                             "would get a gradient")
         if clock:
             clock("backward")
         return metrics

@@ -7,17 +7,27 @@ Port of ``vap_tpu/training/trainer.py`` ``SFTTrainer`` (``_make_step_config``
 ``_offload_encoders`` :341, ``_load_encoders`` :353, ``_precomputed_pairs``
 :357, ``_preprocess`` :422, ``run`` :458-602, ``_merged_params`` :605, the
 validation :617-793, ``dump_training_sample`` :795), one process per device:
-  * ``--training_type video_as_prompt_mot``: only the MoT expert trains
-    (``trainable_mask``); ``lora``: adapters over the ``--target_modules``
-    projections of the frozen model (``install_lora``). The optimizer
-    holds only what trains;
-  * the loss is the family's: ``cogvideox_vap_loss``, ``wan_vap_loss`` or
-    ``hunyuan_loss`` (the flow-matching flags from the arguments);
+  * ``--training_type video_as_prompt_mot`` (and ``sft``): only the MoT
+    expert of CogVideoX or Wan trains (``trainable_mask``), all of
+    HunyuanVideo; ``lora``: adapters over the ``--target_modules``
+    projections of the frozen model (``install_lora``);
+    ``--ablation_single_branch``: the whole model under ``--target_modules
+    none``, else adapters over every block; ``--dpo`` (or ``training_type
+    dpo``, CogVideoX and Wan): adapters over the MoT expert's six
+    projections (``install_dpo_lora``), the frozen model the reference. The
+    optimizer holds only what trains;
+  * the loss is the family's: ``cogvideox_vap_loss`` (every mode of the
+    step config: plain, ``reference_independent``, the single-branch
+    ablations), ``wan_vap_loss`` or ``hunyuan_loss`` (the flow-matching
+    flags from the arguments); under DPO ``make_dpo_loss`` over the
+    family's per-sample loss;
   * the data: given a spec (``training/specs.py``: the encoders), the
     samples come from ``--data_root`` or ``--dataset_config`` through the
     VAP or the plain video datasets on a prefetching host thread, are
     bucket-fitted and encoded online, one sample at a time
-    (``timing/prepare_conditions``, ``timing/prepare_latents``); under
+    (``timing/prepare_conditions``, ``timing/prepare_latents``; under DPO
+    the lose video too, in the win video's bucket and frame selection:
+    ``latents_lose`` and ``dpo_weight``, trainer.py:446-455); under
     ``enable_precomputation`` a pass first encodes them into
     ``precomputation_dir`` (reused when complete under the same signature)
     or, without a directory, ``precomputation_items`` at a time into host
@@ -52,7 +62,10 @@ validation :617-793, ``dump_training_sample`` :795), one process per device:
     a ``DeviceMesh`` of ``data_degree`` x ``seq_degree`` ranks. Every rank
     reads the same global batch of ``batch_size x data_degree`` items and
     draws that batch's timesteps (or sigmas) and noise from the step's
-    generator; each data rank keeps its ``batch_size`` rows, and the seq
+    generator; each data rank keeps its ``batch_size`` rows (under DPO its
+    pairs, assembled win rows then lose rows on the rank: JAX assembles the
+    global batch, ``_assemble_dpo_batch`` :835, which split across ranks
+    would part a pair), and the seq
     ranks of one data group hold the same rows. With ``seq_degree > 1`` the
     training step runs under the attention mesh and the ``ring`` provider
     (``auto`` becomes ``ring``), whose backward gives every seq rank the
@@ -71,7 +84,10 @@ diffusers names (``model_weights/<step>/model.safetensors``) and, under
 LoRA, the adapters in PEFT layout beside them
 (``pytorch_lora_weights.safetensors``).
 
-Not ported: DPO, the image datasets, the validation scorers (CLIP score,
+Refused as JAX refuses them: DPO with gradient accumulation, with
+``enable_precomputation`` or for a family other than CogVideoX and Wan.
+
+Not ported: the image datasets, the validation scorers (CLIP score,
 flow metrics), parameter sharding (FSDP, tensor parallelism) and the
 profiler window.
 """
@@ -91,7 +107,8 @@ from torch import nn
 
 from ..data import video as _video
 from ..data.dataloader import PrefetchingDataLoader
-from ..data.dataset import VideoAsPromptDataset, VideoAsPromptValidationDataset
+from ..data.dataset import (VideoAsPromptDataset, VideoAsPromptDPODataset,
+                            VideoAsPromptValidationDataset)
 from ..data.precomputation import (InMemoryPreprocessor, PrecomputedPreprocessor,
                                    PrecomputedReader)
 from ..data.sampler import ResolutionSampler, collate_tensor_dicts
@@ -102,15 +119,19 @@ from .args import TrainingArgs
 from .checkpoint import Checkpointer, TrainState, export_lora_safetensors, export_safetensors
 from .lora import lora_parameters, merge_lora_into_params
 from .optimizer import get_lr_schedule, get_optimizer
-from .train_step import (HunyuanTrainStepConfig, TrainStepConfig, WanTrainStepConfig,
-                         cogvideox_vap_loss, draw_step_noise, hunyuan_loss, install_lora,
-                         make_grad_and_apply, parse_target_modules, trainable_mask, wan_vap_loss)
+from .train_step import (DPO_PER_SAMPLE, HunyuanTrainStepConfig, TrainStepConfig,
+                         WanTrainStepConfig, cogvideox_vap_loss, draw_step_noise, hunyuan_loss,
+                         install_dpo_lora, install_lora, make_dpo_loss, make_grad_and_apply,
+                         parse_target_modules, trainable_mask, wan_vap_loss)
 
 logger = logging.getLogger("vap_tpu_torch.trainer")
 
 
 FAMILY_LOSSES = {"cogvideox": cogvideox_vap_loss, "wan": wan_vap_loss,
                  "hunyuan_video": hunyuan_loss}
+# whether the family's full training trains the MoT partition alone
+# (JAX's FAMILY_LOSSES, train_step.py:948)
+PARTITIONED = {"cogvideox": True, "wan": True, "hunyuan_video": False}
 FLOW_STEP_CONFIGS = {"wan": WanTrainStepConfig, "hunyuan_video": HunyuanTrainStepConfig}
 
 
@@ -123,7 +144,29 @@ def _make_step_config(family: str, args: TrainingArgs, transformer_cfg):
                                          flow_weighting_scheme=args.flow_weighting_scheme,
                                          flow_logit_mean=args.flow_logit_mean,
                                          flow_logit_std=args.flow_logit_std)
-    return TrainStepConfig(model=transformer_cfg, remat=args.remat_mode())
+    return TrainStepConfig(model=transformer_cfg, reference_train_mode=args.reference_train_mode,
+                           random_refer_noise=args.random_refer_noise,
+                           num_ref_diffusion_time_sigmas=args.num_ref_diffusion_time_sigmas,
+                           sample_ref_videos_num=args.sample_ref_videos_num,
+                           ref_type=args.ref_type, remat=args.remat_mode(),
+                           ablation_single_branch=args.ablation_single_branch,
+                           baseline_single_condition=bool(args.baseline_single_condition))
+
+
+def assemble_dpo_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Win rows then lose rows (``_assemble_dpo_batch``, trainer.py:835):
+    each tensor with a ``<name>_lose`` twin becomes [win ‖ lose] along the
+    batch, every other one is repeated (the shared conditioning);
+    ``dpo_weight`` stays one per pair, float32."""
+    out = {}
+    for k, v in batch.items():
+        if k.endswith("_lose") or k == "dpo_weight":
+            continue
+        twin = batch.get(k + "_lose")
+        out[k] = torch.cat([v, v if twin is None else twin])
+    if "dpo_weight" in batch:
+        out["dpo_weight"] = batch["dpo_weight"].float().reshape(-1)
+    return out
 
 
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
@@ -147,6 +190,18 @@ class SFTTrainer:
                 raise ValueError(f"a {spec.family} spec for model_name {args.model_name}")
             if not (args.data_root or args.dataset_config):
                 raise ValueError("training from data needs data_root or dataset_config")
+        self._marks: Dict[str, float] = {}  # this step's times by name (``_clock``)
+        self.dpo = args.is_dpo
+        if self.dpo:  # JAX's refusals (trainer.py:155-158, 205-206, 495-496)
+            if args.gradient_accumulation_steps > 1:
+                raise ValueError("gradient accumulation is not supported with DPO "
+                                 "(reference DPO recipes run with accumulation=1)")
+            if args.model_name not in DPO_PER_SAMPLE:
+                raise ValueError(f"DPO is only defined for cogvideox/wan, got {args.model_name}")
+            if args.enable_precomputation:
+                raise ValueError("enable_precomputation is not supported with DPO")
+            if spec is None:
+                raise ValueError("DPO trains from data (win and lose videos): set data_root")
         self.args = args
         self.model = model
         self.spec = spec
@@ -167,6 +222,7 @@ class SFTTrainer:
         self._host_encoders: Dict[str, nn.Module] = {}
         self._dumped_sample = False
         self.validation_artifacts: Dict[str, str] = {}  # the last validation's videos
+        self.last_metrics: Dict[str, torch.Tensor] = {}  # the last micro-batch's loss metrics
 
     def _make_mesh(self):
         """The (data, 1, seq, 1) ``DeviceMesh`` when the run takes more than
@@ -221,8 +277,9 @@ class SFTTrainer:
             t.div_(self.args.data_degree)
 
     def _build_step(self) -> None:
-        """The optimizer and the grad/apply pair of this training type; what
-        trains is ``trainable_names``, the adapters in ``lora`` (LoRA)."""
+        """The optimizer and the grad/apply pair of this training type
+        (``_build_step``, trainer.py:191-235); what trains is
+        ``trainable_names``, the adapters in ``lora`` (LoRA and DPO)."""
         args, model = self.args, self.model
         loss_fn = FAMILY_LOSSES[args.model_name]
         schedule = get_lr_schedule(args.lr_scheduler, args.lr, warmup_steps=args.lr_warmup_steps,
@@ -233,20 +290,33 @@ class SFTTrainer:
                                  beta2=args.beta2, epsilon=args.epsilon,
                                  weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm)
 
-        self.lora_mode = args.training_type == "lora"
+        def lora_generator():
+            return torch.Generator(device=self.device).manual_seed(args.seed)
+
         self.lora = None
-        if self.lora_mode:
+        if self.dpo:  # the adapters are the policy; the frozen model is the reference
+            self.lora = install_dpo_lora(model, rank=args.rank, alpha=float(args.lora_alpha),
+                                         generator=lora_generator())
+            loss_fn = make_dpo_loss(DPO_PER_SAMPLE[args.model_name], clock=self._clock)
+        elif args.training_type == "lora" or (args.ablation_single_branch
+                                              and args.target_modules != "none"):
             self.lora = install_lora(
                 model, rank=args.rank, alpha=float(args.lora_alpha),
-                targets=parse_target_modules(args.target_modules),
-                generator=torch.Generator(device=self.device).manual_seed(args.seed))
+                targets=parse_target_modules(args.target_modules), generator=lora_generator())
+        elif PARTITIONED[args.model_name] and not args.ablation_single_branch:
+            trainable_mask(model)
+        else:  # a full finetune: the single-branch ablation, HunyuanVideo
+            model.requires_grad_(True)
+        self.lora_mode = self.lora is not None
+        if self.lora_mode:
             params = lora_parameters(self.lora)
         else:
-            trainable_mask(model)
             params = [p for p in model.parameters() if p.requires_grad]
         self.trainable_names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.optimizer = make_optimizer(params)
-        self._grad, self._apply = make_grad_and_apply(loss_fn, self.step_cfg, self.optimizer)
+        # sft trains the MoT partition, which the plain loss never reaches
+        self._grad, self._apply = make_grad_and_apply(loss_fn, self.step_cfg, self.optimizer,
+                                                      unreached_ok=args.training_type == "sft")
 
     def merged_params(self) -> Dict[str, torch.Tensor]:
         """The model's weights with what trained in them (``_merged_params``):
@@ -278,6 +348,11 @@ class SFTTrainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _clock(self, name: str) -> None:
+        """Marks this step's time at ``name`` once the card is done."""
+        self._sync()
+        self._marks[name] = time.perf_counter()
 
     def _resume(self) -> None:
         spec = self.args.resume_from_checkpoint
@@ -320,16 +395,17 @@ class SFTTrainer:
     def _prepare_dataset(self) -> PrefetchingDataLoader:
         """The training stream (``_prepare_dataset``, trainer.py:283): the
         ``--dataset_config`` datasets, else the VAP dataset (a VAP training
-        type) or the auto-detected video layout under ``--data_root``. Every
-        rank reads the same global stream (each keeps its rows of a batch)."""
+        type; under DPO the DPO dataset) or the auto-detected video layout
+        under ``--data_root``. Every rank reads the same global stream (each
+        keeps its rows of a batch)."""
         args = self.args
         if args.dataset_config:
             from ..data.config import build_datasets_from_config
 
             dataset = build_datasets_from_config(args.dataset_config, args,
                                                  family=args.model_name)
-        elif args.training_type == "video_as_prompt_mot":
-            dataset = VideoAsPromptDataset(
+        elif args.training_type == "video_as_prompt_mot" or self.dpo:
+            dataset = (VideoAsPromptDPODataset if self.dpo else VideoAsPromptDataset)(
                 args.data_root, meta_df_name=args.meta_df_name, infinite=True,
                 sample_ref_videos_num=args.sample_ref_videos_num,
                 mask_ref_ratio=args.mask_ref_ratio, mask_caption_ratio=args.mask_caption_ratio,
@@ -346,21 +422,33 @@ class SFTTrainer:
         return PrefetchingDataLoader(dataset, prefetch=4)
 
     def _fit(self, sample: Dict[str, Any]) -> Dict[str, Any]:
-        """Bucket-fit the target and reference videos; a dataset's own
-        buckets and frame selection (``--dataset_config``) override the
-        global ones."""
+        """Bucket-fit the target, reference and (DPO) lose videos; a
+        dataset's own buckets and frame selection (``--dataset_config``)
+        override the global ones."""
         buckets = sample.get("_resolution_buckets", self.args.video_resolution_buckets)
         fsel = sample.get("_frames_selection", "evenly")
         video, _ = _video.resize_to_nearest_bucket(sample["video"], buckets, fsel)
         refs = [_video.resize_to_nearest_bucket(r, buckets, fsel)[0]
                 for r in sample.get("ref_videos", [])]
-        return dict(sample, video=video, ref_videos=refs)
+        sample = dict(sample, video=video, ref_videos=refs)
+        if "video_lose" in sample:  # the win video's buckets and frame selection
+            sample["video_lose"] = _video.resize_to_nearest_bucket(sample["video_lose"], buckets,
+                                                                   fsel)[0]
+        return sample
 
     def _preprocess(self, sample: Dict[str, Any]) -> Pair:
-        """decode -> bucket fit -> text and VAE encode."""
+        """decode -> bucket fit -> text and VAE encode; under DPO also the
+        lose video's latents (``latents_lose``: the lose video encoded as
+        the target, the conditioning shared with the win video) and the
+        pair's ``dpo_weight`` [1]."""
         prepare_conditions, prepare_latents = self._timed_encoders()
         sample = self._fit(sample)
-        return prepare_conditions(sample), prepare_latents(sample)
+        cond, lat = prepare_conditions(sample), prepare_latents(sample)
+        if self.dpo:
+            lose = prepare_latents(dict(sample, video=sample["video_lose"], ref_videos=[]))
+            lat = dict(lat, latents_lose=lose["latents"],
+                       dpo_weight=np.asarray([sample.get("dpo_weight", 1.0)], np.float32))
+        return cond, lat
 
     def _offload_encoders(self) -> None:
         """Move the spec's encoders to host memory: the steps run with only
@@ -468,25 +556,33 @@ class SFTTrainer:
             self.train_state.step += 1
             self.train_state.observed_data_samples += global_batch
             step = self.train_state.step
-            marks = {}
+            self._marks = marks = {}
+            clock = self._clock
 
-            def clock(name: str) -> None:
-                self._sync()
-                marks[name] = time.perf_counter()
-
+            # under DPO the draws are the pairs' (one per win / lose pair)
+            ref = batch.get("latents_mot_ref") if not self.dpo else None
             draws = draw_step_noise(self.step_cfg, batch["latents"].shape,
-                                    step_generator(args.seed, step, self.device), self.device)
+                                    step_generator(args.seed, step, self.device), self.device,
+                                    ref_shape=None if ref is None else ref.shape)
             batch = {k: self._local(v) for k, v in batch.items()}
+            if self.dpo:
+                batch = assemble_dpo_batch(batch)
             with self._stage("timing/train_step"):
                 clock("start")
                 with self._attn_ctx():
                     metrics = self._grad(self.model, batch, None, clock,
                                          **{k: self._local(v) for k, v in draws.items()})
-                loss = metrics["loss"].detach().clone()
-                self._data_mean([loss])
-                record = {"step": step, "loss": float(loss),
-                          "forward_s": marks["forward"] - marks["start"],
-                          "backward_s": marks["backward"] - marks["forward"]}
+                self.last_metrics = metrics
+                logged = ["loss", "model_diff", "ref_diff"] if self.dpo else ["loss"]
+                values = [metrics[k].detach().float().clone() for k in logged]
+                self._data_mean(values)
+                record = {"step": step, **{k: float(v) for k, v in zip(logged, values)}}
+                forward_from = "start"
+                if self.dpo:
+                    record["reference_s"] = marks["reference"] - marks["start"]
+                    forward_from = "reference"
+                record.update(forward_s=marks["forward"] - marks[forward_from],
+                              backward_s=marks["backward"] - marks["forward"])
                 if step % self.accum_steps == 0:
                     record["lr"] = self.optimizer.lr
                     if self.mesh is not None:  # every rank takes part, with zeros where none
