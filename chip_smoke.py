@@ -236,7 +236,10 @@ Phases, each of which raises on failure:
      recompute) and K5 42 launches, every attention call at batch 2; then
      K1 and K5 at [2,48,35552,64] against their plain versions on heads 0
      and 47 of both batch rows (a dout with its rows swapped must break
-     K5's limit in row 1); then (8b) the data path's small
+     K5's limit in row 1); before the export, an ``adamw-8bit`` update of
+     the expert on the first item (its AdamW state freed first): the int8
+     state's bytes a parameter, the update's seconds, the peak, the loss of
+     the step after; then (8b) the data path's small
      check at tiny widths on the card: CogVideoX (head_dim 64) trained 3
      steps online and under enable_precomputation (the encode pass into a
      cache, the encoders sent to host memory and brought back for a
@@ -262,7 +265,24 @@ Phases, each of which raises on failure:
      (forward and backward without kv_lens on a suffix of 1e4) that breaks
      the limit; times beside the plain version, the bound over the valid
      keys and SDPA's memory-efficient backward with a boolean key mask (a
-     yardstick only);
+     yardstick only); then (9c) the released Wan control recipe
+     (control/wan/image_condition/train.sh): K6 at its self-attention
+     [1,12,20280,128] against the plain version (with the planted fault),
+     then Wan2.1-T2V-1.3B (30 blocks, 12x128 heads, ffn 8960, random bf16
+     weights from a seed) widened to 33 input channels by the entry point,
+     phase 6c's UMT5 and VAE on the card for the phase, a ControlTrainer of
+     the recipe (control_type none, frame conditioning index 0 with the
+     mask, control_lora rank 64 / alpha 64 with the injection weight and
+     the QK norms trained directly, AdamW, remat "full") 2 steps from 2
+     clips at 49 frames of 480x832 with the encodes online, then one
+     validation sample (2 FlowMatch steps at CFG batch 2, decoded): the
+     seconds, the peaks, K4 360 and K6 120 launches, the export's two
+     files; on the first batch and draws, one step under remat "ops" and
+     "block_skip:2" against "full" (the loss to the bit, the gradients
+     within 2e-2 of max|full| and whether to the bit, K4 120 / 120 / 90
+     a step, the seconds and peaks; a recompute fed half its input must
+     break the limit); one control_full_finetune step of a fresh 1.3B
+     model under Adafactor (seconds, peak, the state's bytes);
  10. Wan2.1-I2V-14B LoRA SFT at full width and depth (40 blocks, no MoT:
      the plain structure of the recipe's config_plain.json, 40x128 heads,
      ffn 13,824, 36 input channels, random bf16 weights from a seed) on a
@@ -287,7 +307,13 @@ Phases, each of which raises on failure:
      the base and delta), while three faulty merges made on the card (no
      delta, delta transposed, alpha / r dropped) must land outside it; a
      forward at a short clip [1,2,30,52,36] within 2e-2 of max |out| of the
-     trained model's, which the faulty merges' forwards must exceed;
+     trained model's, which the faulty merges' forwards must exceed; (10d)
+     that model's frozen base, its adapters taken out, given to an
+     SFTTrainer under --training_type lora --layerwise_upcasting_modules
+     transformer (float8_e4m3fn, the JAX package's default skip patterns),
+     which casts it, installs new adapters and takes one step from phase
+     10's item: the frozen bytes before and after, the step's seconds and
+     peak, the loss beside the bf16 base's on the same item and draws;
  11. HunyuanVideo T2V: a small pipeline on the card at head_dim 128 under
      flash and sage (K7 in K4 and in K2) held against the plain masked
      dense attention, then HunyuanVideo at full width and depth (20 dual +
@@ -3992,7 +4018,8 @@ def training_path(dev):
         f"and VAE {n_params(spec.vae)} on the card, remat {trainer.step_cfg.remat!r}, AdamW "
         f"fused {trainer.optimizer.inner.defaults['fused']}; "
         f"{time.perf_counter() - t0:.2f} s to build")
-    ring_training_check(trainer, dev, first_item_batch(trainer))
+    batch0 = first_item_batch(trainer)
+    ring_training_check(trainer, dev, batch0)
     videos = []
     validation = spec.validation
 
@@ -4074,6 +4101,8 @@ def training_path(dev):
                              f"tensors that did not move {stuck[:5]}, reference-only tensors "
                              f"that moved {woke[:5]}")
     del params, before, videos
+    opt8 = adam8bit_check(trainer, batch0, dev)
+    del batch0
     t0 = time.perf_counter()
     exported = export_check(trainer)
     seconds = time.perf_counter() - t0
@@ -4093,7 +4122,7 @@ def training_path(dev):
     shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_bwd"], seconds, dpo
+    return launches["flash_bwd"], seconds, dpo, opt8
 
 
 # the released DPO recipe (vap_mot/train_single_node_dpo.sh); its
@@ -4229,6 +4258,64 @@ def dpo_path(model, spec, dev, work, start):
     return {"step_s": step, "reference_s": r["reference_s"], "forward_s": r["forward_s"],
             "backward_s": r["backward_s"], "update_s": r["update_s"], "peak_gib": peak / 2**30,
             "k1": launches["flash_fwd"], "k5": launches["flash_bwd"]}
+
+
+def adam8bit_check(trainer, batch, dev):
+    """Phase 8's expert under ``--optimizer adamw-8bit`` (the AdamW state
+    freed first): the trainer builds its step again (``_build_step``: the
+    optimizer of ``args.optimizer`` over JAX's leaves, and its grad / apply
+    pair), then one update on ``batch`` with the draws of step 1's
+    generator, and the loss of the step after (a forward on the same batch
+    and draws); the state's bytes per trained parameter, the update's
+    seconds and the peak (the encoders resident, as in the run)."""
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.training.optim8bit import Adam8bit
+    from vap_tpu_torch.training.train_step import cogvideox_vap_loss, draw_step_noise
+    from vap_tpu_torch.training.trainer import step_generator
+
+    args, model = trainer.args, trainer.model
+    trainer.optimizer.inner.state.clear()
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    args.optimizer = "adamw-8bit"
+    trainer._build_step()
+    opt, grad_fn, apply_fn = trainer.optimizer, trainer._grad, trainer._apply
+    if not isinstance(opt.inner, Adam8bit):
+        raise AssertionError(f"--optimizer adamw-8bit built {type(opt.inner).__name__}")
+    draws = draw_step_noise(trainer.step_cfg, batch["latents"].shape,
+                            step_generator(args.seed, 1, dev), dev)
+    n = sum(p.numel() for p in opt.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with trainer._attn_ctx():
+        losses = [grad_fn(model, batch, None, None, **draws)["loss"].item()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    norm = apply_fn().item()
+    torch.cuda.synchronize()
+    updates = [time.perf_counter() - t0]
+    peak = torch.cuda.max_memory_allocated(dev)
+    with trainer._attn_ctx(), torch.no_grad():
+        losses.append(cogvideox_vap_loss(model, trainer.step_cfg, batch, **draws)[0].item())
+    state = opt.state_bytes()
+    log(f"  adamw-8bit on the expert ({n} parameters, {len(opt.inner.leaves)} JAX leaves): "
+        f"state {state} bytes = "
+        f"{state / n:.4f} a parameter (AdamW's two moments in bf16: 4), update "
+        f"{updates[0]:.3f} s, peak {peak / 2**30:.2f} GiB (AdamW: 57.06 resident, "
+        f"66.34 from clips, on an H100 80GB HBM3), loss {losses[0]:.6f}, the step after {losses[1]:.6f}, "
+        f"grad_norm {norm:.6f}")
+    if not (np.isfinite(losses).all() and opt.count == 1 and losses[1] != losses[0]):
+        raise AssertionError(f"adamw-8bit: losses {losses}, {opt.count} updates")
+    opt.inner.state.clear()
+    del opt
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    return {"state_bytes_per_param": state / n, "update_s": updates, "peak_gib": peak / 2**30,
+            "loss": losses}
 
 
 def k5_batch2_parity(dev):
@@ -4608,6 +4695,354 @@ def objectives_small_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 9c: the Wan control recipe at full width
+# (examples/training/control/wan/image_condition/train.sh)
+# ---------------------------------------------------------------------------
+
+CONTROL_RECIPE = dict(model_name="wan", training_type="control_lora", control_type="none",
+                      frame_conditioning_type="index", frame_conditioning_index=0,
+                      frame_conditioning_concatenate_mask=True, rank=64, lora_alpha=64,
+                      train_qk_norm=True, flow_weighting_scheme="logit_normal", optimizer="adamw",
+                      lr=3e-5, lr_scheduler="constant", lr_warmup_steps=0,
+                      gradient_checkpointing=True)
+CONTROL_CLIPS = 2  # clips with captions (the plain video layout), 49x480x832 at 16 fps
+CONTROL_VAL_STEPS = 2  # the validation JSON's num_inference_steps (the recipe's: 30)
+# K6 at the control path's self-attention: Wan2.1-T2V-1.3B, 12 heads of 128
+CONTROL_ATTN = (1, 12, ((NUM_FRAMES - 1) // 4 + 1) * (WAN_HEIGHT // 16) * (WAN_WIDTH // 16), 128)
+REMAT_MODES = ("ops", "block_skip:2")
+
+
+def write_control_data(root):
+    """The recipe's data: CONTROL_CLIPS clips with a caption file each, its
+    training.json and a validation.json whose one entry's control video is
+    one more clip at 49x480x832, sampled in CONTROL_VAL_STEPS steps."""
+    from vap_tpu_torch.data.video import export_to_video
+
+    os.makedirs(root, exist_ok=True)
+    for i in range(CONTROL_CLIPS + 1):
+        export_to_video(seeded_clip(SEED + 40 + i, NUM_FRAMES, WAN_HEIGHT, WAN_WIDTH),
+                        os.path.join(root, f"clip_{i}.mp4"), fps=16)
+        if i < CONTROL_CLIPS:
+            with open(os.path.join(root, f"clip_{i}.txt"), "w") as fh:
+                fh.write(f"The video shows a ship sailing on a stormy sea, take {i}")
+    with open(os.path.join(root, "training.json"), "w") as fh:
+        json.dump({"datasets": [{"dataset_type": "video", "video_resolution_buckets":
+                                 [[NUM_FRAMES, WAN_HEIGHT, WAN_WIDTH]], "reshape_mode": "bicubic",
+                                 "remove_common_llm_caption_prefixes": True}]}, fh)
+    with open(os.path.join(root, "validation.json"), "w") as fh:
+        json.dump({"data": [{"caption": "a ship sailing on a stormy sea",
+                             "control_video": f"clip_{CONTROL_CLIPS}.mp4",
+                             "num_inference_steps": CONTROL_VAL_STEPS}]}, fh)
+
+
+def control_k6_parity(dev):
+    """K6 against its plain version at the control path's self-attention,
+    [1, 12, 20280, 128], with the planted fault (dout rows out of place in
+    their q tiles); its time, the plain version's and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    b, h, s, d = CONTROL_ATTN
+    q, k, v, dout = [torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(4)]
+    out, lse = fa.flash_attention_forward(q, k, v)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    ref = fa.flash_attention_backward_rows_plain(q, k, v, out, lse, dout)
+    n = s // Q_TILE * Q_TILE
+    rolled = torch.cat([dout[:, :, :n].unflatten(2, (-1, Q_TILE)).roll(1, dims=3).flatten(2, 3),
+                        dout[:, :, n:]], dim=2).contiguous()
+    fault = fa.flash_attention_backward(q, k, v, out, lse, rolled)
+    errs = [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
+            for g, r in zip(got, ref)]
+    faults = [(f.float() - r.float()).abs().max().item() for f, r in zip(fault, ref)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del got, fault, rolled
+    ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: fa.flash_attention_backward_rows_plain(q, k, v, out, lse, dout),
+                       iters=1, warmup=0)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o = F.scaled_dot_product_attention(*leaves)
+    library_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                         iters=3, warmup=1)
+    bound_ms, bound_by = bwd_bound(b, h, s, s, d)
+    log(f"  flash_bwd_d128 (K6) at the control path's {CONTROL_ATTN}: " + ", ".join(
+        f"d{x} max|err| {e:.3e} / max|ref| {m:.3e} = {e / m:.3e} (planted fault {fe / m:.3e})"
+        for x, (e, m), fe in zip("qkv", errs, faults)) + f" (tol {GRAD_REL_TOL}), finite "
+        f"{finite}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA flash backward "
+        f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    if not (finite and all(e <= GRAD_REL_TOL * m for e, m in errs)):
+        raise AssertionError("K6 disagrees with its plain version at the control shape")
+    if not all(fe > GRAD_REL_TOL * m for fe, (_, m) in zip(faults, errs)):
+        raise AssertionError("K6 at the control shape: the limit does not catch dout rows out "
+                             "of place")
+    del q, k, v, out, lse, dout, ref, leaves, o
+    torch.cuda.empty_cache()
+    return {"shape": list(CONTROL_ATTN[:3]) + [s, d], "max_abs_err": max(e for e, _ in errs),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def build_control_trainer(dev, work, text_encoder, vae):
+    """The recipe's ControlTrainer: Wan2.1-T2V-1.3B built by the entry point
+    (``train.build_control_transformer``: random bf16 weights from SEED,
+    widened to 33 input channels), UMT5 and the Wan VAE given (phase 6c's,
+    read back), on the clips under ``work``/data, validating after step 2."""
+    import torch
+
+    from vap_tpu_torch.train import build_control_transformer
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.control_specs import WanControlSpec
+    from vap_tpu_torch.training.control_trainer import ControlTrainer
+
+    root = os.path.join(work, "data")
+    write_control_data(root)
+    args = TrainingArgs(data_root=root, dataset_config=os.path.join(root, "training.json"),
+                        validation_dataset_file=os.path.join(root, "validation.json"),
+                        validation_steps=TRAIN_STEPS,
+                        video_resolution_buckets=((NUM_FRAMES, WAN_HEIGHT, WAN_WIDTH),),
+                        output_dir=os.path.join(work, "out"), seed=SEED, train_steps=TRAIN_STEPS,
+                        checkpointing_steps=NEVER, logging_steps=1, **CONTROL_RECIPE)
+    model = build_control_transformer(args, None, dev)  # bf16 on the card
+    spec = WanControlSpec(model, FakeTokenizer(text_encoder.config.vocab_size),
+                          dtype=next(model.parameters()).dtype, device=dev, vae=vae,
+                          text_encoder=text_encoder)
+    return ControlTrainer(args, model, spec, track_stage_peaks=True)
+
+
+def remat_variants(trainer, batch, draws):
+    """One step's loss and gradients under "full", each of REMAT_MODES and
+    a planted fault ("full" with block 0's recompute fed half its input),
+    from the same weights, batch and draws: the losses equal to the bit,
+    each mode's gradients within GRAD_REL_TOL of max|full| per tensor (and
+    whether they are equal to the bit), K4's and K6's launches, seconds and
+    peak; the fault must fail the gradient check."""
+    import dataclasses
+
+    import torch
+
+    from vap_tpu_torch.training.control_trainer import wan_control_loss
+
+    model, dev = trainer.model, trainer.device
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    block0 = model.blocks[0]
+    real_forward = block0.forward
+    calls = [0]
+
+    def halved_on_recompute(hs, *args):
+        calls[0] += 1
+        return real_forward(hs * 0.5 if calls[0] == 2 else hs, *args)
+
+    def step(mode, fault=False):
+        for _, p in params:
+            p.grad = None
+        if fault:
+            calls[0] = 0
+            block0.forward = halved_on_recompute
+        cfg = dataclasses.replace(trainer.step_cfg, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            loss, _ = wan_control_loss(model, cfg, batch, **draws)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            block0.forward = real_forward
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        grads = {n: p.grad.detach().clone() for n, p in params}
+        return (loss.detach(), grads, seconds, torch.cuda.max_memory_allocated(dev),
+                launches["flash_fwd_d128"], launches["flash_bwd_d128"])
+
+    def held(grads, ref):
+        worst, equal = 0.0, True
+        for n, g in ref.items():
+            scale = g.float().abs().max().item()
+            err = (grads[n].float() - g.float()).abs().max().item()
+            worst = max(worst, err / scale if scale else err)
+            equal = equal and torch.equal(grads[n], g)
+        return worst, equal
+
+    per_block = 2  # self-attention and the text cross-attention
+    layers = model.config.num_layers
+    loss_full, ref, seconds, peak, k4, k6 = step("full")
+    log(f"  remat full: loss {loss_full.item():.6f}, {seconds:.3f} s, peak {peak / 2**30:.2f} GiB, "
+        f"K4 {k4} (expected {2 * per_block * layers}), K6 {k6} (expected {per_block * layers})")
+    out = {"full": {"s": seconds, "peak_gib": peak / 2**30, "k4": k4}}
+    if (k4, k6) != (2 * per_block * layers, per_block * layers):
+        raise AssertionError(f"remat full: K4 {k4}, K6 {k6}")
+    checkpointed = {"ops": layers, "block_skip:2": (layers - layers % 2) // 2}
+    for mode in REMAT_MODES:
+        loss, grads, seconds, peak, k4, k6 = step(mode)
+        worst, equal = held(grads, ref)
+        want_k4 = per_block * (layers + checkpointed[mode])
+        log(f"  remat {mode}: loss {loss.item():.6f} (equal to full's {torch.equal(loss, loss_full)}"
+            f"), gradients max|diff| / max|full| {worst:.3e} (tol {GRAD_REL_TOL}; equal to the bit "
+            f"{equal}), {seconds:.3f} s, peak {peak / 2**30:.2f} GiB, K4 {k4} (expected {want_k4}),"
+            f" K6 {k6}")
+        out[mode] = {"s": seconds, "peak_gib": peak / 2**30, "k4": k4, "grad_rel": worst,
+                     "bit_equal": equal}
+        if not torch.equal(loss, loss_full) or worst > GRAD_REL_TOL:
+            raise AssertionError(f"remat {mode}: loss {loss.item()} vs {loss_full.item()}, "
+                                 f"gradients {worst:.3e} of max|full|")
+        if (k4, k6) != (want_k4, per_block * layers):
+            raise AssertionError(f"remat {mode}: K4 {k4} (expected {want_k4}), K6 {k6}")
+        del grads
+    loss, grads, _, _, _, _ = step("full", fault=True)
+    worst, _ = held(grads, ref)
+    log(f"  planted fault (block 0's recompute on half its input): loss equal "
+        f"{torch.equal(loss, loss_full)}, gradients max|diff| / max|full| {worst:.3e}")
+    if worst <= GRAD_REL_TOL:
+        raise AssertionError("remat check: the limit does not catch a faulty recompute")
+    for _, p in params:
+        p.grad = None
+    return out
+
+
+def adafactor_step(trainer, batch, draws, dev):
+    """control_full_finetune under ``adafactor``: a fresh 1.3B model (the
+    entry point's, widened), one step on the same batch and draws; its
+    seconds, peak and the optimizer state's bytes."""
+    import dataclasses
+
+    import torch
+
+    from vap_tpu_torch.train import build_control_transformer
+    from vap_tpu_torch.training.control_trainer import make_control_step, wan_control_loss
+    from vap_tpu_torch.training.optimizer import get_lr_schedule, get_optimizer, jax_layout
+
+    args = dataclasses.replace(trainer.args, training_type="control_full_finetune",
+                               optimizer="adafactor")
+    model = build_control_transformer(args, None, dev)
+
+    def make_optimizer(params):
+        params = list(params)
+        return get_optimizer("adafactor", params, get_lr_schedule("constant", args.lr),
+                             max_grad_norm=args.max_grad_norm, layout=jax_layout(model, params))
+
+    _, opt, grad_fn, apply_fn = make_control_step(
+        wan_control_loss, trainer.step_cfg, model, make_optimizer, family="wan",
+        full_finetune=True)
+    n = sum(p.numel() for p in opt.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    metrics = grad_fn(model, batch, None, None, **draws)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grad_norm = apply_fn()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = opt.state_bytes()
+    log(f"  control_full_finetune, adafactor: {n} trained parameters (bf16), loss "
+        f"{metrics['loss'].item():.6f}, grad_norm {grad_norm.item():.6f}, {t2 - t0:.3f} s = "
+        f"forward + backward {t1 - t0:.3f} + update {t2 - t1:.3f}; peak {peak / 2**30:.2f} GiB; "
+        f"optimizer state {state} bytes ({state / n:.4f} a parameter; AdamW in bf16: 4)")
+    if not (torch.isfinite(metrics["loss"]) and torch.isfinite(grad_norm) and opt.count == 1):
+        raise AssertionError("adafactor step: not finite, or no update")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"s": t2 - t0, "update_s": t2 - t1, "peak_gib": peak / 2**30,
+            "state_bytes_per_param": state / n}
+
+
+def control_training_path(dev, parts):
+    """Phase 9c: the released control recipe at full width, UMT5 and the VAE
+    of ``parts`` (phase 6c's, in host memory) on the card for the phase.
+    Two steps from clips (UMT5 and the VAE online), one validation (2
+    FlowMatch steps at CFG batch 2, decoded); then the remat modes and the
+    Adafactor full finetune on the first step's batch and draws."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    work = os.path.join(HERE, "build", "chip_smoke_control")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    text_encoder, vae = parts["text_encoder"].to(dev), parts["vae"].to(dev)
+    trainer = build_control_trainer(dev, work, text_encoder, vae)
+    model, cfg = trainer.model, trainer.model.config
+    n_train = sum(p.numel() for n, p in model.named_parameters() if n in trainer.trainable_names)
+    log(f"  Wan2.1-T2V-1.3B: {cfg.num_layers} blocks, {cfg.num_attention_heads}x"
+        f"{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}, {cfg.in_channels} input channels; "
+        f"{n_params(model)} bf16 parameters, {len(trainer.lora)} adapters (rank "
+        f"{trainer.args.rank}) and {len(trainer.trainable_names) - 2 * len(trainer.lora)} "
+        f"tensors trained directly: {n_train} trained parameters; remat "
+        f"{trainer.step_cfg.remat!r}; UMT5 and the VAE moved to the card; "
+        f"{time.perf_counter() - t0:.2f} s to build")
+    record = []
+    grad = trainer._grad
+
+    def recording(model, batch, generator=None, clock=None, **draws):
+        if not record:
+            record.append(({k: v.detach().clone() for k, v in batch.items()},
+                           {k: v.detach().clone() for k, v in draws.items()}))
+        return grad(model, batch, generator, clock, **draws)
+
+    trainer._grad = recording
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = max(trainer.stage_peaks.values(), default=0)
+    for r in trainer.history:
+        total = r["forward_s"] + r["backward_s"] + r["update_s"]
+        log(f"  step {r['step']}: loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, "
+            f"{total:.3f} s = forward {r['forward_s']:.3f} + backward {r['backward_s']:.3f} + "
+            f"update {r['update_s']:.3f}")
+    per_step = 2 * cfg.num_layers  # self- and text cross-attention per block
+    want = {"flash_fwd_d128": 2 * per_step * TRAIN_STEPS + per_step * CONTROL_VAL_STEPS,
+            "flash_bwd_d128": per_step * TRAIN_STEPS}
+    peaks = {k: round(v / 2**30, 2) for k, v in trainer.stage_peaks.items()}
+    log(f"  {TRAIN_STEPS} steps and a validation in {wall:.3f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB, by span {peaks} GiB; launches: K4 {launches['flash_fwd_d128']} "
+        f"(expected {want['flash_fwd_d128']}: {2 * per_step} a step, forward and recompute, and "
+        f"{per_step} a validation step at CFG batch 2), K6 {launches['flash_bwd_d128']} (expected "
+        f"{want['flash_bwd_d128']})")
+    check_launches(launches, want)
+    if not (len(trainer.history) == TRAIN_STEPS == trainer.optimizer.count
+            and all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in trainer.history)):
+        raise AssertionError(f"control training: history {trainer.history}")
+    path = os.path.join(trainer.args.output_dir, "validation", f"{TRAIN_STEPS:06d}",
+                        "sample_0.mp4")
+    from vap_tpu_torch.data import video
+
+    written = video.load_video(path)[0] if os.path.exists(path) else None
+    log(f"  validation video {path}: {None if written is None else written.shape}")
+    if written is None or written.shape != (NUM_FRAMES, WAN_HEIGHT, WAN_WIDTH, 3):
+        raise AssertionError("control validation: no video of 49 frames at 480x832")
+    batch, draws = record[0]
+    remat = remat_variants(trainer, batch, draws)
+    export = trainer.export()
+    files = sorted(os.listdir(os.path.dirname(export)))
+    log(f"  export: {files}")
+    if files != ["control_injection_layers.safetensors", "pytorch_lora_weights.safetensors"]:
+        raise AssertionError(f"control export: {files}")
+    steps = [r["forward_s"] + r["backward_s"] + r["update_s"] for r in trainer.history]
+    result = {"step_s": steps, "peak_gib": peak / 2**30, "trained": n_train,
+              "k4": launches["flash_fwd_d128"], "k6": launches["flash_bwd_d128"], "remat": remat}
+    trainer.optimizer.inner.state.clear()
+    result["adafactor"] = adafactor_step(trainer, batch, draws, dev)
+    del trainer, model, batch, draws, record
+    parts["text_encoder"], parts["vae"] = text_encoder.to("cpu"), vae.to("cpu")
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 10: Wan2.1-I2V-14B LoRA SFT at full width
 # ---------------------------------------------------------------------------
 
@@ -4732,6 +5167,105 @@ def run_lora_training(trainer, want_launches):
     log(f"  after step {TRAIN_STEPS}: {kept} of {total} adapted weight elements "
         f"({kept / total:.4f}) differ from the frozen base once merged in bf16")
     return launches
+
+
+def strip_lora(model):
+    """Phase 10's adapters taken out: each ``LoRALinear`` of ``model`` gives
+    way to an ``nn.Linear`` holding its frozen weight and bias (no copy)."""
+    import torch
+
+    from vap_tpu_torch.training.lora import LoRALinear
+
+    for name, m in [(n, m) for n, m in model.named_modules() if isinstance(m, LoRALinear)]:
+        lin = torch.nn.Linear(m.weight.shape[1], m.weight.shape[0], bias=m.bias is not None,
+                              device="meta")
+        lin.weight, lin.bias = m.weight, m.bias
+        model.set_submodule(name, lin)
+
+
+def wan_float8_check(model, dev, work):
+    """Phase 10's frozen base (its adapters taken out) trained by an
+    ``SFTTrainer`` of the LoRA recipe under ``--layerwise_upcasting_modules
+    transformer`` (float8_e4m3fn, the JAX package's default skip patterns):
+    the trainer casts the base, installs its adapters and takes one step
+    from phase 10's item, written as a precomputed cache under ``work``.
+    Before it, the bf16 base's loss on that item with the draws of the
+    trainer's step 1. Logs the frozen bytes before and after, the step's
+    seconds and peak, and its loss against the bf16 one (float8 changes
+    the weights: no limit, the difference is logged)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.data.precomputation import write_precomputed
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.lora import LoRALinear
+    from vap_tpu_torch.training.train_step import draw_step_noise, wan_vap_loss
+    from vap_tpu_torch.training.trainer import SFTTrainer, _make_step_config, step_generator
+
+    strip_lora(model)
+    model.requires_grad_(False)
+    cfg = model.config
+    shutil.rmtree(work, ignore_errors=True)
+    args = TrainingArgs(model_name="wan", training_type="lora",
+                        layerwise_upcasting_modules="transformer",
+                        layerwise_upcasting_storage_dtype="float8_e4m3fn",
+                        model_structure_config=os.path.join(HERE, WAN_STRUCTURE),
+                        precomputation_dir=os.path.join(work, "cache"),
+                        output_dir=os.path.join(work, "out"), seed=SEED, train_steps=1,
+                        optimizer="adamw", lr_scheduler="constant", lr_warmup_steps=0,
+                        beta1=0.9, beta2=0.99, weight_decay=1e-4, max_grad_norm=1.0,
+                        gradient_checkpointing=True, checkpointing_steps=NEVER,
+                        logging_steps=1, **WAN_LORA)
+    item = wan_training_batch(cfg)
+    write_precomputed(args.precomputation_dir, [item])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {**item[0], **item[1]}.items()}
+    step_cfg = _make_step_config("wan", args, cfg)
+    draws = draw_step_noise(step_cfg, batch["latents"].shape, step_generator(args.seed, 1, dev),
+                            dev)
+    model.train()
+    with torch.no_grad():
+        bf16_loss = wan_vap_loss(model, step_cfg, batch, **draws)[0].item()
+    del batch, draws
+    frozen = lambda: sum(p.numel() * p.element_size() for p in model.parameters()
+                         if not p.requires_grad)
+    before = frozen()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = SFTTrainer(args, model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    after = frozen()
+    lin = sum(isinstance(m, LoRALinear) and m.weight.dtype == torch.float8_e4m3fn
+              for m in model.modules())
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    (r,) = trainer.history
+    loss, norm = r["loss"], r["grad_norm"]
+    log(f"  the trainer (lora, --layerwise_upcasting_modules transformer): "
+        f"{len(trainer.layerwise_cast)} tensors cast, {lin} of {len(trainer.lora)} adapted "
+        f"linears over float8, built in {build_s:.3f} s; frozen bytes {before} -> {after} "
+        f"({after / before:.4f}); one step {seconds:.3f} s (forward {r['forward_s']:.3f} + "
+        f"backward {r['backward_s']:.3f} + update {r['update_s']:.3f}), peak "
+        f"{peak / 2**30:.2f} GiB (bf16 storage: 46.71 on an H100 80GB HBM3), loss {loss:.6f} against the bf16 "
+        f"storage's {bf16_loss:.6f} on the same item and draws (diff {loss - bf16_loss:+.3e}), "
+        f"grad_norm {norm:.6f}")
+    if not (np.isfinite([loss, norm]).all() and after < before and lin == len(trainer.lora)
+            and trainer.optimizer.count == 1):
+        raise AssertionError(f"float8 storage: loss {loss}, grad_norm {norm}, bytes {after}, "
+                             f"{lin} float8 linears of {len(trainer.lora)}")
+    trainer.optimizer.inner.state.clear()
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"frozen_bytes": [before, after], "peak_gib": peak / 2**30, "step_s": seconds,
+            "forward_s": r["forward_s"], "backward_s": r["backward_s"],
+            "update_s": r["update_s"], "loss": loss, "bf16_loss": bf16_loss}
 
 
 def describe_lora(trainer, t0):
@@ -5325,7 +5859,8 @@ def main():
     log(f"training, CogVideoX-5B VAP from clips on disk ({NUM_FRAMES} frames of {HEIGHT}x"
         f"{WIDTH}, batch 1, {TRAIN_STEPS} optimizer steps, then validation, {VAL_STEPS} DDIM "
         f"steps):")
-    launches["flash_bwd"], seconds, dpo = training_path(dev)
+    launches["flash_bwd"], seconds, dpo, opt8 = training_path(dev)
+    results["flash_bwd"]["adamw_8bit"] = opt8
     ckpt_seconds += seconds
     log("K1 and K5 at the DPO step's batch of 2 (bf16, vs plain PyTorch, both rows):")
     results["flash_bwd"]["batch2_max_abs_err"] = k5_batch2_parity(dev)
@@ -5350,6 +5885,23 @@ def main():
         results[name]["train_shape_max_abs_err"] = err
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
+    # 9c. the Wan control recipe (UMT5 and the VAE of 6c, on the card for the phase)
+    host_memory("before 9c")
+    t0 = time.perf_counter()
+    log(f"K6 at the control path's self-attention {CONTROL_ATTN} (bf16, vs plain PyTorch):")
+    results["flash_bwd_d128"]["control"] = control_k6_parity(dev)
+    log(f"training, the Wan control recipe: Wan2.1-T2V-1.3B widened to 33 channels, "
+        f"control_lora from clips ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, batch 1, "
+        f"{TRAIN_STEPS} steps, then validation, {CONTROL_VAL_STEPS} FlowMatch steps at CFG "
+        f"batch 2, decoded); remat {', '.join(REMAT_MODES)} against full; "
+        f"control_full_finetune under adafactor:")
+    control = control_training_path(dev, wan_parts)
+    results["flash_fwd_d128"]["control_launches"] = control["k4"]
+    results["flash_bwd_d128"]["control_launches"] = control["k6"]
+    results["flash_bwd_d128"]["control_recipe"] = control
+    log(f"  phase 9c: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     # 10. Wan LoRA training
     host_memory("before 10")
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
@@ -5365,6 +5917,9 @@ def main():
     lora_merge_check(model, peft, dev)
     shutil.rmtree(os.path.dirname(peft))
     ckpt_seconds += time.perf_counter() - t0
+    log("one step of the LoRA trainer over that model's base in float8_e4m3fn storage (10d):")
+    results["flash_bwd_d128"]["float8_storage"] = wan_float8_check(
+        model, dev, os.path.join(HERE, "build", "chip_smoke_wan_float8"))
     log(f"checkpoint phase (5c, 6c, 8's export, 10's PEFT file and 10c): {ckpt_seconds:.1f} s "
         f"in all")
     del model, wan_parts

@@ -510,12 +510,15 @@ def test_dpo_refusals_are_jaxs(dpo_data, tmp_path, kw, match):
 
 
 def test_dpo_flags_and_training_types():
-    """``--dpo`` and training_type dpo and sft are accepted; control* still
-    raise."""
+    """``--dpo`` and training_type dpo and sft are accepted; control* are
+    accepted for wan (control is control_lora) and refused for cogvideox."""
     assert TrainingArgs(dpo=True).is_dpo and TrainingArgs(training_type="dpo").is_dpo
     assert not TrainingArgs(training_type="sft").is_dpo
     for tt in ("control", "control_lora", "control_full_finetune"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="control training supports"):
             TrainingArgs(training_type=tt)
+        args = TrainingArgs(model_name="wan", training_type=tt)
+        assert args.is_control and not args.is_dpo
+        assert args.training_type == ("control_lora" if tt == "control" else tt)
     with pytest.raises(ValueError, match="unknown reference_train_mode"):
         TrainingArgs(reference_train_mode="bogus")

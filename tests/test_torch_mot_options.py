@@ -276,9 +276,12 @@ def test_training_still_refuses(what):
         ("encoder_hidden_states", (1, cfg.max_text_seq_length, cfg.text_embed_dim)),
         ("encoder_hidden_states_mot_ref", (1, cfg.max_text_seq_length, cfg.text_embed_dim)))}
     model = CogVideoXTransformer3DMOTModel(cfg)
+    draws = train_step.draw_step_noise(train_step.TrainStepConfig(model=cfg, **step_kw), lat,
+                                       torch.Generator().manual_seed(0), ref_shape=lat)
     loss, _ = train_step.cogvideox_vap_loss(
-        model, train_step.TrainStepConfig(model=cfg, remat=False, **step_kw), batch)
+        model, train_step.TrainStepConfig(model=cfg, remat=False, **step_kw), batch,
+        **draws)
     assert torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="remat"):
-        train_step.cogvideox_vap_loss(
-            model, train_step.TrainStepConfig(model=cfg, remat="ops", **step_kw), batch)
+    ops, _ = train_step.cogvideox_vap_loss(
+        model, train_step.TrainStepConfig(model=cfg, remat="ops", **step_kw), batch, **draws)
+    assert torch.equal(ops, loss)

@@ -177,10 +177,26 @@ def test_remat_gives_the_same_grads(setup):
 
 @pytest.mark.parametrize("remat", ["ops", "block_skip:2"])
 def test_unported_remat_modes_raise(setup, remat):
+    """"ops" and "block_skip:2", once refused, now give the loss and the
+    gradients of "full" to the bit (tests/test_torch_remat.py holds them
+    against JAX); an unknown mode still raises."""
     _, params, cfg = setup
     batch = _torch_batch(_batch(4))
-    with pytest.raises(NotImplementedError, match="remat"):
-        tts.cogvideox_vap_loss(_model(cfg, params), tts.TrainStepConfig(model=cfg, remat=remat),
+    draws = _jax_draws(jax.random.PRNGKey(4), batch["latents"].shape)
+    out = []
+    for mode in ("full", remat):
+        model = _model(cfg, params)
+        tts.trainable_mask(model)
+        loss, _ = tts.cogvideox_vap_loss(model, tts.TrainStepConfig(model=cfg, remat=mode),
+                                         batch, **draws)
+        loss.backward()
+        out.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()
+                                    if p.grad is not None}))
+    assert torch.equal(out[0][0], out[1][0])
+    for name, g in out[0][1].items():
+        torch.testing.assert_close(out[1][1][name], g, atol=0, rtol=0, msg=name)
+    with pytest.raises(ValueError, match="remat"):
+        tts.cogvideox_vap_loss(_model(cfg, params), tts.TrainStepConfig(model=cfg, remat="some"),
                                batch)
 
 
@@ -293,8 +309,14 @@ def test_clip_matches_optax_formula():
 
 @pytest.mark.parametrize("name", ["adafactor", "adamw-8bit"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError):
-        topt.get_optimizer(name, [torch.nn.Parameter(torch.zeros(2))], lambda c: 0.0)
+    """Both optimizers, once refused, are built now (tests/test_torch_optimizers.py
+    holds them against optax and JAX's optim8bit); an unknown name raises."""
+    from vap_tpu_torch.training.optim8bit import Adam8bit
+
+    opt = topt.get_optimizer(name, [torch.nn.Parameter(torch.zeros(2))], lambda c: 0.0)
+    assert isinstance(opt.inner, topt.Adafactor if name == "adafactor" else Adam8bit)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        topt.get_optimizer(name + "-x", [torch.nn.Parameter(torch.zeros(2))], lambda c: 0.0)
 
 
 def test_add_noise_and_get_velocity_match_jax():

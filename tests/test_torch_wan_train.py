@@ -384,10 +384,19 @@ def test_lora_step_without_targets_raises():
 
 
 def test_float8_base_is_not_ported():
+    """A float8 frozen weight, once refused, is now upcast at use: the
+    adapted linear gives what it gives over the upcast weight
+    (tests/test_torch_layerwise.py holds the float8 step against JAX)."""
     _, cfg, params = _setup("plain_i2v")
-    model = _model(cfg, params)
+    model = _model(cfg, params).requires_grad_(False)
     lora = tlora.init_lora(model, RANK, ("to_q",), mot_only=False)
-    model.blocks[0].attn1.to_q.weight.data = model.blocks[0].attn1.to_q.weight.data.to(
-        torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="float8"):
-        tlora.apply_lora(model, lora, alpha=ALPHA, rank=RANK)
+    linear = model.blocks[0].attn1.to_q
+    linear.weight.data = linear.weight.data.to(torch.float8_e4m3fn)
+    upcast = linear.weight.float()
+    tlora.apply_lora(model, lora, alpha=ALPHA, rank=RANK)
+    x = torch.randn(2, 3, linear.in_features)
+    adapted = model.blocks[0].attn1.to_q
+    assert adapted.weight.dtype == torch.float8_e4m3fn
+    with tlora.lora_bypassed(model):
+        torch.testing.assert_close(adapted(x), torch.nn.functional.linear(x, upcast, adapted.bias),
+                                   atol=0, rtol=0)

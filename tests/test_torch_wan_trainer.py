@@ -135,7 +135,8 @@ def test_wan_expert_sft_trains_only_the_mot_branch(caches, tmp_path):
 
 @pytest.mark.parametrize("field,value,error", [
     ("model_name", "ltx_video", NotImplementedError), ("model_name", "sd3", ValueError),
-    ("training_type", "control", NotImplementedError), ("training_type", "full", ValueError),
+    # control trains wan alone (and cogview4, not ported): not the default cogvideox
+    ("training_type", "control", ValueError), ("training_type", "full", ValueError),
     ("flow_weighting_scheme", "bogus", ValueError)])
 def test_args_reject_what_is_not_ported(field, value, error):
     with pytest.raises(error):

@@ -8,6 +8,23 @@ import os
 
 import numpy as np
 
+
+def _share_the_cores():
+    """Under pytest-xdist each worker process gives torch's intra-op pool
+    the machine's cores / workers threads (at least 2), where torch's
+    default, every core in every worker, oversubscribes the cores: six
+    workers on eight cores ran the port's files 4x slower. Every worker
+    imports this module while it collects the suite; a run without xdist
+    keeps torch's default."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        import torch
+
+        torch.set_num_threads(max(2, (os.cpu_count() or 2) // int(workers)))
+
+
+_share_the_cores()
+
 CLIP_SHAPE = (9, 32, 32, 3)
 
 

@@ -18,8 +18,11 @@ are left out) and ``CombinedDataset`` (:404).
 Every dataset is an iterable, endless when ``infinite``, whose state is its
 sample index; videos come out float32 [-1, 1] [F, H, W, 3].
 
+``ControlDatasetWrapper`` (:361) adds the control signal of control
+training to each sample.
+
 Not ported: the image datasets and ``load_image``, which come with the image
-families, and the control wrapper, which comes with control training.
+families.
 """
 
 from __future__ import annotations
@@ -266,6 +269,50 @@ class DatasetPreprocessingWrapper(_StatefulIterable):
             if self.id_token:
                 caption = f"{self.id_token} {caption}"
             sample["caption"] = caption
+            yield sample
+
+
+class ControlDatasetWrapper(_StatefulIterable):
+    """Each sample with its control signal (``ControlDatasetWrapper``,
+    ``vap_tpu/data/generic.py:361``): ``canny`` computes per-frame edges on
+    the host (``training/control.py`` ``canny_control``, OpenCV); ``none``
+    copies the video; ``custom`` expects a ``control_video`` (or
+    ``control_image``) column in the dataset and raises without one. A
+    sample that has its control already keeps it. The state is the wrapped
+    dataset's. (Image samples are not ported: the image datasets come with
+    the image families.)"""
+
+    def __init__(self, dataset, control_type: str = "canny"):
+        from ..training.args import CONTROL_TYPES
+
+        if control_type not in CONTROL_TYPES:
+            raise ValueError(f"unknown control_type {control_type!r}")
+        self.dataset = dataset
+        self.control_type = control_type
+        self.infinite = getattr(dataset, "infinite", False)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def state_dict(self):
+        return self.dataset.state_dict()
+
+    def load_state_dict(self, state):
+        self.dataset.load_state_dict(state)
+
+    def __iter__(self):
+        from ..training.control import canny_control
+
+        for sample in self.dataset:
+            has_control = "control_image" in sample or "control_video" in sample
+            if self.control_type == "custom":
+                if not has_control:
+                    raise ValueError("control_type=custom requires control_image/control_video "
+                                     "columns in the dataset")
+            elif not has_control and "video" in sample:
+                sample["control_video"] = (canny_control(sample["video"])
+                                           if self.control_type == "canny"
+                                           else sample["video"].copy())
             yield sample
 
 

@@ -90,6 +90,13 @@ def export_to_video(frames: np.ndarray, path: str, fps: int = 16) -> str:
     return path
 
 
+def canny_edges(frames: np.ndarray, low: int, high: int) -> np.ndarray:
+    """OpenCV's Canny edges of each uint8 RGB frame [F, H, W, 3] -> uint8
+    [F, H, W] (the control trainer's canny control)."""
+    cv2 = _cv2("the canny control")
+    return np.stack([cv2.Canny(cv2.cvtColor(f, cv2.COLOR_RGB2GRAY), low, high) for f in frames])
+
+
 def read_image(path: str) -> np.ndarray:
     """An image file as uint8 RGB [H, W, 3]."""
     cv2 = _cv2(f"reading {path}")

@@ -44,7 +44,7 @@ from torch import nn
 from ...ops.attention import full_attention
 from ...ops.rope import apply_rotary_emb
 from ..common import (FeedForward, FP32LayerNorm, TimestepEmbedding, get_3d_sincos_pos_embed,
-                      remat_blocks, run_block, silu, sinusoidal_timestep_embedding)
+                      run_block, segments_plan, silu, stored, sinusoidal_timestep_embedding)
 from .config import CogVideoXMOTConfig
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -98,7 +98,8 @@ class CogVideoXPatchEmbed(nn.Module):
             x = video.permute(0, 1, 3, 4, 2).reshape(b, f // pt, pt, h // ps, ps, w // ps, ps, c)
             x = x.permute(0, 1, 3, 5, 7, 2, 4, 6)
         x = x.reshape(b, (f // pt) * (h // ps) * (w // ps), c * pt * ps * ps)
-        video_tokens = nn.functional.linear(x, self.proj.weight.flatten(1), self.proj.bias)
+        video_tokens = nn.functional.linear(x, stored(self.proj.weight, x.dtype).flatten(1),
+                                            stored(self.proj.bias, x.dtype))
         tokens = torch.cat([self.text_proj(text), video_tokens], dim=1)
         if cfg.use_learned_positional_embeddings:
             pos = self.pos_embedding[0]
@@ -406,13 +407,14 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
     def run_blocks(self, carry, aux, remat: Union[bool, str] = False, start: int = 0,
                    stop: Optional[int] = None):
         """Blocks ``start`` to ``stop`` (all by default) over the carry
-        (``cog_run_segment``); with ``remat`` True or "full" each block is
-        checkpointed."""
-        full_remat = remat_blocks(remat)
-        for block in self.transformer_blocks[start:stop]:
-            carry = run_block(block, full_remat, carry[0], carry[1], aux["emb"], aux["rope"],
-                              carry[2], carry[3], aux["emb_ref"], aux["rope_ref"],
-                              aux["num_mot_ref"])
+        (``cog_run_segment``) under ``remat`` (``remat_plan`` over each
+        run of MoT or plain blocks, as JAX scans them)."""
+        plan = segments_plan(remat, [length for _, length, _ in self.config.mot_segments])
+        stop = len(self.transformer_blocks) if stop is None else stop
+        for i in range(start, stop):
+            carry = run_block(self.transformer_blocks[i], plan[i], carry[0], carry[1],
+                              aux["emb"], aux["rope"], carry[2], carry[3], aux["emb_ref"],
+                              aux["rope_ref"], aux["num_mot_ref"])
         return carry
 
     def _unpatchify(self, x: torch.Tensor, num_frames: int, height: int, width: int):
@@ -462,8 +464,8 @@ class CogVideoXTransformer3DMOTModel(nn.Module):
         ``hidden_states`` (which the single-branch ablation makes target ‖
         references along frames, with the two RoPE tables concatenated).
 
-        ``remat``: False, or True / "full" to checkpoint each block
-        (``remat_blocks``); "ops" and "block_skip:N" raise. The reference
+        ``remat``: False, True / "full", "ops" or "block_skip:N"
+        (``remat_plan``). The reference
         head's output of ``reference_independent`` is the second item of
         ``epilogue``'s result."""
         carry, aux = self.prologue(hidden_states, encoder_hidden_states, timestep,

@@ -10,6 +10,7 @@ Norms compute in float32 and cast back, as the JAX functions do.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -17,30 +18,79 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ..ops.int8_matmul import int8_linear_chunk, int8_mm, supported
 
 
-def remat_blocks(remat) -> bool:
-    """Whether ``remat`` (``scan_blocks_with_remat``, ``vap_tpu/models/common.py:273``)
-    checkpoints each block: False runs the blocks plainly; True or "full"
-    checkpoints each one (``run_block``). "ops" and "block_skip:N" are not
-    ported and raise."""
-    if isinstance(remat, str) and remat.startswith(("ops", "block_skip")):
-        raise NotImplementedError(f"remat mode {remat!r} is not ported to PyTorch yet")
-    if remat not in (False, None, True, "full"):
-        raise ValueError(f"unknown remat mode {remat!r}; valid: False, True/'full'")
-    return remat in (True, "full")
+def remat_plan(remat, length: int) -> List[Optional[str]]:
+    """Each block's checkpointing over one run of ``length`` blocks that
+    JAX scans as one (``scan_blocks_with_remat``,
+    ``vap_tpu/models/common.py:273-305``): None (run plainly), "full" or
+    "ops".
+      * False / None: none;
+      * True / "full": every block checkpointed whole;
+      * "ops": JAX's ``dots_saveable`` (``run_block``);
+      * "block_skip:N" ("block_skip": N = 2): the first L - L mod N blocks
+        cut into groups of N, the first block of each group checkpointed,
+        the others and the tail run plainly; every block checkpointed when
+        N <= 1 or L < N."""
+    if remat in (False, None):
+        return [None] * length
+    if remat in (True, "full", "ops"):
+        return ["ops" if remat == "ops" else "full"] * length
+    if isinstance(remat, str) and remat.startswith("block_skip"):
+        n = int(remat.split(":", 1)[1]) if ":" in remat else 2
+        if n <= 1 or length < n:
+            return ["full"] * length
+        main = length - length % n
+        return ["full" if i < main and i % n == 0 else None for i in range(length)]
+    raise ValueError(f"unknown remat mode {remat!r}; valid: False, True/'full', 'ops', "
+                     f"'block_skip[:N]'")
 
 
-def run_block(block: nn.Module, remat: bool, *args):
-    """``block(*args)``, under a non-reentrant ``torch.utils.checkpoint`` when
-    ``remat``: the backward then keeps only the block's inputs and runs its
-    forward again."""
+def segments_plan(remat, lengths) -> List[Optional[str]]:
+    """``remat_plan`` over consecutive runs of blocks (JAX scans each run,
+    a segment of MoT or plain blocks, on its own), concatenated."""
+    return [mode for length in lengths for mode in remat_plan(remat, length)]
+
+
+# JAX's dots_saveable: the outputs of matrix products are saved, the rest
+# is recomputed
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    if op in _SAVED_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_block(block: nn.Module, remat: Optional[str], *args):
+    """``block(*args)`` under ``remat`` (a ``remat_plan`` entry; True is
+    "full"): "full", a non-reentrant ``torch.utils.checkpoint``, whose
+    backward keeps only the block's inputs and runs its forward again;
+    "ops", the same with a selective policy that keeps the outputs of
+    ``mm`` / ``addmm`` / ``bmm`` and recomputes the rest: the attention
+    kernels launch outside aten, so their forward runs again, as a Pallas
+    call under JAX's ``dots_saveable`` does."""
+    if remat == "ops":
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _dots_saveable))
     if remat:
         return checkpoint(block, *args, use_reentrant=False)
     return block(*args)
+
+
+def stored(w: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """A parameter read directly (a patch embedding's kernel): float8
+    storage (``training/layerwise.py``) upcast to ``dtype``."""
+    if w is not None and w.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return w.to(dtype)
+    return w
 
 
 def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:

@@ -16,7 +16,7 @@ contiguous right-padded prefix (the pipeline checks it), so under the
 kernel providers it runs K7, the varlen forward (60 launches a step at the
 released depth), and under grad K7's backward. The refiner's attention is
 the JAX package's plain ``_masked_attention`` (f32 scores, f32 P V).
-``remat`` True or "full" checkpoints each dual and single block
+``remat`` ("full", "ops", "block_skip:N") applies to the dual and the single blocks
 (``scan_blocks_with_remat``, :397-399).
 
 Module attributes follow the diffusers ``HunyuanVideoTransformer3DModel``
@@ -37,8 +37,8 @@ from torch import nn
 
 from ...ops.attention import full_attention
 from ...ops.rope import apply_rotary_emb, get_1d_rotary_pos_embed
-from ..common import (RMSNorm, TimestepEmbedding, gelu_tanh, layer_norm, remat_blocks, run_block,
-                      silu, sinusoidal_timestep_embedding)
+from ..common import (RMSNorm, TimestepEmbedding, gelu_tanh, layer_norm, remat_plan, run_block,
+                      silu, sinusoidal_timestep_embedding, stored)
 from .config import HunyuanVideoConfig
 
 _EPS = 1e-6
@@ -336,10 +336,10 @@ class HunyuanVideoTransformer3DModel(nn.Module):
         [B, S_txt, text_embed_dim]; pooled_projections [B, pooled dim];
         timestep [B] in [0, 1000]; guidance [B], already x1000;
         encoder_attention_mask [B, S_txt], a contiguous right-padded
-        prefix of ones; ``remat`` False, or True / "full" to checkpoint
-        each block. Returns [B, out_channels, F, H, W]."""
+        prefix of ones; ``remat`` False, True / "full", "ops" or
+        "block_skip:N" (``remat_plan`` over the dual blocks, then over the
+        single ones, as JAX scans them). Returns [B, out_channels, F, H, W]."""
         cfg = self.config
-        full_remat = remat_blocks(remat)
         b, c, f, h, w = hidden_states.shape
         pt, p = cfg.patch_size_t, cfg.patch_size
         dtype = encoder_hidden_states.dtype
@@ -348,7 +348,7 @@ class HunyuanVideoTransformer3DModel(nn.Module):
         x = hidden_states.reshape(b, c, f // pt, pt, h // p, p, w // p, p)
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, -1, c * pt * p * p)
         proj = self.x_embedder.proj
-        hs = F.linear(x.to(dtype), proj.weight.flatten(1), proj.bias)
+        hs = F.linear(x.to(dtype), stored(proj.weight, dtype).flatten(1), stored(proj.bias, dtype))
         s_img = hs.shape[1]
 
         tte = self.time_text_embed
@@ -381,11 +381,13 @@ class HunyuanVideoTransformer3DModel(nn.Module):
             sel_full = (pos < n_first).float()[None, :, None]
             sel_img = sel_full[:, :s_img]
 
-        for block in self.transformer_blocks:
-            hs, enc = run_block(block, full_remat, hs, enc, mods, rope, kv_lens, sel_img)
+        for block, mode in zip(self.transformer_blocks,
+                               remat_plan(remat, len(self.transformer_blocks))):
+            hs, enc = run_block(block, mode, hs, enc, mods, rope, kv_lens, sel_img)
         x = torch.cat([hs, enc], dim=1)
-        for block in self.single_transformer_blocks:
-            x = run_block(block, full_remat, x, mods, rope, kv_lens, sel_full, s_img)
+        for block, mode in zip(self.single_transformer_blocks,
+                               remat_plan(remat, len(self.single_transformer_blocks))):
+            x = run_block(block, mode, x, mods, rope, kv_lens, sel_full, s_img)
         hs = x[:, :s_img]
 
         scale, shift = self.norm_out.mods(temb, 2, dtype)

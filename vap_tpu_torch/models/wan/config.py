@@ -64,6 +64,20 @@ class WanMOTConfig:
         return cls(**base)
 
     @classmethod
+    def wan_1_3b_t2v(cls, **overrides) -> "WanMOTConfig":
+        """Wan-AI/Wan2.1-T2V-1.3B-Diffusers, the base model of the control
+        trainer (``examples/training/control/wan/image_condition``): 30
+        blocks, 12 heads of 128, ffn 8960, 16 input channels, no MoT block
+        and no image cross-attention."""
+        base = dict(
+            num_attention_heads=12, attention_head_dim=128, in_channels=16,
+            out_channels=16, ffn_dim=8960, num_layers=30,
+            block_idx_with_mot_ref=(),
+        )
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
     def tiny(cls, **overrides) -> "WanMOTConfig":
         base = dict(
             num_attention_heads=2, attention_head_dim=12, in_channels=4,

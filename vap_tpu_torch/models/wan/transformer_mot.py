@@ -32,6 +32,7 @@ Module attributes follow the diffusers state-dict keys
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -40,8 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import full_attention
-from ..common import (FeedForward, FP32LayerNorm, RMSNorm, gelu_tanh, layer_norm, remat_blocks,
-                      run_block, silu, sinusoidal_timestep_embedding)
+from ..common import (FeedForward, FP32LayerNorm, RMSNorm, gelu_tanh, layer_norm,
+                      run_block, segments_plan, silu, stored, sinusoidal_timestep_embedding)
 from .config import WanMOTConfig
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -337,7 +338,31 @@ def patchify(patch_embedding: nn.Conv3d, video: torch.Tensor, patch) -> torch.Te
     x = video.reshape(b, f // pt, pt, h // ph, ph, w // pw, pw, c)
     x = x.permute(0, 1, 3, 5, 7, 2, 4, 6)  # [B, F', h, w, C, pt, ph, pw]
     x = x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
-    return F.linear(x, patch_embedding.weight.flatten(1), patch_embedding.bias)
+    return F.linear(x, stored(patch_embedding.weight, x.dtype).flatten(1),
+                    stored(patch_embedding.bias, x.dtype))
+
+
+def expand_patch_embedding(model: "WanTransformer3DMOTModel",
+                           extra_in_channels: int) -> "WanTransformer3DMOTModel":
+    """Widen ``patch_embedding`` in place to take ``extra_in_channels`` more
+    input channels ([noisy ‖ control(+mask)], ``expand_patch_embedding``,
+    ``vap_tpu/models/wan/transformer_mot.py:221``): the old channels keep
+    their weights, the new ones start at zero, so the widened model starts
+    as the one it was; the config's ``in_channels`` follows. Returns the
+    model."""
+    old = model.patch_embedding
+    cfg = dataclasses.replace(model.config, in_channels=model.config.in_channels
+                              + extra_in_channels)
+    new = nn.Conv3d(cfg.in_channels, old.out_channels, cfg.patch_size, stride=cfg.patch_size,
+                    device=old.weight.device, dtype=old.weight.dtype)
+    with torch.no_grad():
+        new.weight.zero_()
+        new.weight[:, :old.in_channels] = old.weight
+        new.bias.copy_(old.bias)
+    new.requires_grad_(old.weight.requires_grad)
+    model.patch_embedding = new
+    model.config = cfg
+    return model
 
 
 def unpatchify(x: torch.Tensor, patch, ppf: int, pph: int, ppw: int) -> torch.Tensor:
@@ -415,16 +440,18 @@ class WanTransformer3DMOTModel(nn.Module):
     def run_blocks(self, carry, aux, remat: Union[bool, str] = False, start: int = 0,
                    stop: Optional[int] = None):
         """Blocks ``start`` to ``stop`` (all by default; ``wan_run_segment``
-        over the segments); with ``remat`` True or "full" each block is
-        checkpointed."""
-        full_remat = remat_blocks(remat)
+        over the segments) under ``remat`` (``remat_plan`` over each run
+        of MoT or plain blocks, as JAX scans them)."""
+        plan = segments_plan(remat, [length for _, length, _ in self.config.mot_segments])
         hs, hs_ref = carry
-        for block in self.blocks[start:stop]:
+        stop = len(self.blocks) if stop is None else stop
+        for i in range(start, stop):
+            block, mode = self.blocks[i], plan[i]
             if hs_ref is None:
-                hs, _ = run_block(block, full_remat, hs, aux["ctx_text"], aux["ctx_img"],
+                hs, _ = run_block(block, mode, hs, aux["ctx_text"], aux["ctx_img"],
                                   aux["tproj"], aux["rope"])
             else:
-                hs, hs_ref = run_block(block, full_remat, hs, aux["ctx_text"], aux["ctx_img"],
+                hs, hs_ref = run_block(block, mode, hs, aux["ctx_text"], aux["ctx_img"],
                                        aux["tproj"], aux["rope"], hs_ref, aux["ctx_text_ref"],
                                        aux["ctx_img_ref"], aux["tproj_ref"], aux["rope_ref"],
                                        aux["num_mot_ref"])
@@ -467,7 +494,8 @@ class WanTransformer3DMOTModel(nn.Module):
         image [B, 257, D_img] or None (T2V); refs [B, R*F, H, W, C_in],
         timestep_mot_ref [B, R], [B, R*L, D_text] and [B, R*257, D_img]
         (``wan_mot_forward``), or no reference at all (``wan_forward``).
-        ``remat``: False, or True / "full" to checkpoint each block. The
+        ``remat``: False, True / "full", "ops" or "block_skip:N"
+        (``remat_plan``). The
         reference head's output of ``reference_independent`` is the second
         item of ``epilogue``'s result."""
         carry, aux = self.prologue(hidden_states, timestep, encoder_hidden_states,

@@ -7,7 +7,7 @@ cache.
 
     python -m vap_tpu_torch.train --precomputation_dir CACHE --output_dir OUT \\
         [--model_name cogvideox|wan|hunyuan_video] \\
-        [--training_type video_as_prompt_mot|sft|lora|dpo] [--dpo] \\
+        [--training_type video_as_prompt_mot|sft|lora|dpo|control|control_full_finetune] \\
         [--model_structure_config JSON] [--train_steps N] [--lr 1e-5] \\
         [--device cuda|cpu] [--model_config NAME]
 
@@ -51,6 +51,13 @@ checkpoint getting its MoT expert cloned from the trunk
 end of the run the trainer exports its weights (``SFTTrainer.export``).
 ``--video_resolution_buckets`` and ``--report_to`` take JAX's forms
 (``49x480x720,49x480x832``; ``dummy,wandb``).
+
+``--training_type control`` (``control_lora``) or ``control_full_finetune``
+with ``--model_name wan`` trains the control recipe
+(``examples/training/control/wan/image_condition/train.sh``) through
+``ControlTrainer``: Wan2.1-T2V-1.3B (``--model_config wan_1_3b_t2v`` by
+default, ``tiny`` on the CPU), a stock T2V checkpoint's transformer widened
+by ``expand_patch_embedding``, UMT5 and the Wan VAE (no image encoder).
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) each process starts
 ``torch.distributed`` from the launcher's environment: NCCL on the card
@@ -106,6 +113,7 @@ MODELS = {
     }),
     "wan": (WanTransformer3DMOTModel, WanMOTConfig, {
         "wan_14b_i2v_vap": WanMOTConfig.wan_14b_i2v_vap,
+        "wan_1_3b_t2v": WanMOTConfig.wan_1_3b_t2v,
         # two blocks, 4 latent + 4 conditioning channels
         "tiny": lambda **kw: WanMOTConfig.tiny(**{"in_channels": 8, "out_channels": 4, **kw}),
     }),
@@ -147,6 +155,15 @@ ENCODERS = {
     ),
 }
 # the tokenizers each family's spec takes, by the checkpoint's directory name
+# the control trainer's base (JAX's _build_wan under control*): the T2V
+# model, no MoT block, no image context, before its input layer is widened
+CONTROL_CONFIGS = {
+    "wan_1_3b_t2v": WanMOTConfig.wan_1_3b_t2v,
+    # two blocks, the 16 latent channels of Wan's VAE
+    "tiny": lambda **kw: WanMOTConfig.tiny(**{
+        "in_channels": 16, "out_channels": 16, "block_idx_with_mot_ref": (), "image_dim": None,
+        "added_kv_proj_dim": None, **kw}),
+}
 TOKENIZERS = {"cogvideox": {"tokenizer": "tokenizer"}, "wan": {"tokenizer": "tokenizer"},
               "hunyuan_video": {"tokenizer": "tokenizer", "clip_tokenizer": "tokenizer_2"}}
 
@@ -205,6 +222,8 @@ def build_transformer(args: TrainingArgs, config_name: Optional[str], device: to
     ``--ablation_single_branch`` leaves no MoT block, and
     ``--reference_train_mode`` sets the config's unless the structure JSON
     sets it."""
+    if args.is_control:
+        return build_control_transformer(args, config_name, device)
     model_cls, cfg_cls, configs = MODELS[args.model_name]
     config_name = config_name or next(iter(configs))
     if config_name not in configs:
@@ -225,6 +244,42 @@ def build_transformer(args: TrainingArgs, config_name: Optional[str], device: to
         gen = torch.Generator(device=device).manual_seed(args.seed)
         return build_random(model_cls, cfg, device, dtype, gen)
     return load_model(model_cls, cfg, state, device, dtype)
+
+
+def build_control_transformer(args: TrainingArgs, config_name: Optional[str],
+                              device: torch.device) -> WanTransformer3DMOTModel:
+    """The control trainer's transformer (JAX's ``_build_wan`` under
+    ``control*``, train.py:211-235): Wan2.1-T2V-1.3B (``wan_1_3b_t2v``, or
+    ``tiny``) with the checkpoint's ``config.json`` and structure fields
+    (``block_idx_with_mot_ref`` dropped), its weights from the stock T2V
+    checkpoint's ``transformer/`` or random from ``--seed``, then the input
+    layer widened to ``control_in_channels`` (``expand_patch_embedding``)."""
+    from .models.wan.transformer_mot import expand_patch_embedding
+    from .training.control_trainer import control_in_channels
+
+    config_name = config_name or "wan_1_3b_t2v"
+    if config_name not in CONTROL_CONFIGS:
+        raise ValueError(f"unknown model_config {config_name!r} for control training; "
+                         f"valid: {sorted(CONTROL_CONFIGS)}")
+    base_dir = transformer_dir(args.pretrained_model_name_or_path)
+    fields = {**component_config_kwargs(WanMOTConfig, base_dir),
+              **structure_overrides(WanMOTConfig, args.model_structure())}
+    fields.pop("block_idx_with_mot_ref", None)
+    cfg = CONTROL_CONFIGS[config_name](**fields)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    state = None
+    if base_dir is not None:
+        try:
+            state = load_safetensors(base_dir)
+        except FileNotFoundError:
+            state = None
+    if state is None:
+        model = build_random(WanTransformer3DMOTModel, cfg, device, dtype,
+                             torch.Generator(device=device).manual_seed(args.seed))
+    else:
+        model = load_model(WanTransformer3DMOTModel, cfg, state, device, dtype)
+    new_in = control_in_channels(cfg.in_channels, args.frame_conditioning_concatenate_mask)
+    return expand_patch_embedding(model, new_in - cfg.in_channels)
 
 
 def load_tokenizers(args: TrainingArgs) -> Dict[str, Any]:
@@ -263,6 +318,8 @@ def build_spec(args: TrainingArgs, model: nn.Module, config_name: Optional[str],
     tiny = config_name == "tiny"
     encoders = {}
     for i, (name, cls, cfg_cls, release, small) in enumerate(ENCODERS[args.model_name]):
+        if args.is_control and name == "image_encoder":
+            continue  # the T2V control base reads no image states (train.py:269-272)
         comp = os.path.join(root, name) if root else None
         comp = comp if comp and os.path.isdir(comp) else None
         cfg = small(model.config) if tiny else release(**component_config_kwargs(cfg_cls, comp))
@@ -355,7 +412,12 @@ def main(argv: Optional[List[str]] = None,
     if args.data_root or args.dataset_config:
         spec = build_spec(args, model, config_name,
                           tokenizers if tokenizers is not None else load_tokenizers(args))
-    trainer = SFTTrainer(args, model, spec)
+    if args.is_control:
+        from .training.control_trainer import ControlTrainer
+
+        trainer = ControlTrainer(args, model, spec)
+    else:
+        trainer = SFTTrainer(args, model, spec)
     try:
         trainer.run()
         if trainer.rank == 0:

@@ -43,23 +43,45 @@ masking ratios; ``--enable_precomputation`` (one encode pass into
 ``--precomputation_dir`` before training, else every sample is encoded
 online); ``--validation_dataset_file`` every ``--validation_steps`` under
 ``--attn_provider_inference``; ``--report_to``.
+
+The rest of training (``vap_tpu/training/args.py:36-40, 79-84, 92-94,
+160-224``): the control trainer (``training_type`` ``control`` =
+``control_lora``, or ``control_full_finetune``; Wan only here, CogView4's
+comes with that family) with ``control_type``, the frame conditioning and
+``train_qk_norm``, as the released recipe
+``examples/training/control/wan/image_condition/train.sh`` sets them
+(Wan2.1-T2V-1.3B, ``control_type none``, ``frame_conditioning_type index``,
+index 0 with the mask, rank 64, alpha 64, ``train_qk_norm``, AdamW, lr 3e-5
+with 500 warmup steps, logit-normal flow weighting, gradient
+checkpointing); ``checkpointing_type`` (``full`` | ``ops`` | ``block_skip``
+every ``checkpointing_n_layer`` blocks); float8 storage of the frozen base
+under LoRA (``layerwise_upcasting_*``); every optimizer of JAX's
+``get_optimizer``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from typing import Any, Dict, Optional, Tuple, Union
 
 from ..ops.attention import _parse_provider_spec
+from .layerwise import DEFAULT_SKIP_PATTERNS, STORAGE_DTYPES
 from .train_step import FLOW_WEIGHTING_SCHEMES
 
-# model_name and training_type values of the JAX trainer that the port does
-# not train yet (they raise NotImplementedError; unknown values ValueError)
+# model_name values of the JAX trainer that the port does not train yet
+# (they raise NotImplementedError; unknown values ValueError)
 MODEL_NAMES = ("cogvideox", "wan", "hunyuan_video")
 UNPORTED_MODEL_NAMES = ("ltx_video", "cogview4", "flux")
-TRAINING_TYPES = ("video_as_prompt_mot", "sft", "lora", "dpo")
-UNPORTED_TRAINING_TYPES = ("control", "control_lora", "control_full_finetune")
+TRAINING_TYPES = ("video_as_prompt_mot", "sft", "lora", "dpo", "control_lora",
+                  "control_full_finetune")
+# the control trainer's families (JAX's CONTROL_FAMILY_LOSSES); cogview4's
+# comes with that family
+CONTROL_MODEL_NAMES = ("wan",)
+CONTROL_TYPES = ("canny", "custom", "none")
+FRAME_CONDITIONING_TYPES = ("index", "prefix", "random", "first_and_last", "full")
+CHECKPOINTING_TYPES = ("full", "ops", "block_skip")
 REFERENCE_TRAIN_MODES = (None, "reference_independent")
 CP_ROTATE_METHODS = ("allgather", "ppermute", "ulysses")
 # model_name values whose trainer takes --seq_degree > 1 in this port
@@ -117,10 +139,21 @@ class TrainingArgs:
     # a finetuned MoT transformer (safetensors file, index or directory)
     videoasprompt_mot_name_or_path: Optional[str] = None
     model_structure_config: Optional[str] = None  # JSON with block_idx_with_mot_ref etc.
-    training_type: str = "video_as_prompt_mot"    # | sft | lora | dpo
+    training_type: str = "video_as_prompt_mot"    # | sft | lora | dpo | control*
+    # float8 storage of the frozen base under LoRA (training/layerwise.py)
+    layerwise_upcasting_modules: str = ""         # "" | "transformer"
+    layerwise_upcasting_storage_dtype: str = "float8_e4m3fn"  # | float8_e5m2
+    layerwise_upcasting_skip_modules_pattern: str = ",".join(DEFAULT_SKIP_PATTERNS)
     rank: int = 64            # LoRA rank (lora training type)
     lora_alpha: int = 64
     target_modules: str = "default"  # "none" | regex-ish module list (reference style)
+
+    # control training (training/control_trainer.py)
+    control_type: str = "canny"            # canny | custom | none
+    frame_conditioning_type: str = "full"  # index | prefix | random | first_and_last | full
+    frame_conditioning_index: int = 0
+    frame_conditioning_concatenate_mask: bool = False
+    train_qk_norm: bool = False
 
     # attention provider of the training step: "auto" (the port's default,
     # "flash"; "ring" under --seq_degree > 1), a bare provider or a per-site
@@ -135,6 +168,8 @@ class TrainingArgs:
     train_steps: int = 60000
     gradient_accumulation_steps: int = 1
     gradient_checkpointing: bool = True
+    checkpointing_type: str = "full"  # full | ops | block_skip
+    checkpointing_n_layer: int = 2    # block_skip's stride
     flow_weighting_scheme: str = "none"
     flow_logit_mean: float = 0.0
     flow_logit_std: float = 1.0
@@ -170,9 +205,8 @@ class TrainingArgs:
                                       f"PyTorch yet")
         if self.model_name not in MODEL_NAMES:
             raise ValueError(f"unknown model_name {self.model_name}")
-        if self.training_type in UNPORTED_TRAINING_TYPES:
-            raise NotImplementedError(f"training_type {self.training_type!r} is not ported to "
-                                      f"PyTorch yet")
+        if self.training_type == "control":  # the default control mode
+            self.training_type = "control_lora"
         if self.training_type not in TRAINING_TYPES:
             raise ValueError(f"unknown training_type {self.training_type}")
         if self.flow_weighting_scheme not in FLOW_WEIGHTING_SCHEMES:
@@ -201,6 +235,51 @@ class TrainingArgs:
             raise ValueError("ablation_scaling_data_num must be a positive integer")
         if self.validation_steps < 1:
             raise ValueError("validation_steps must be >= 1")
+        if self.is_control:
+            if self.model_name not in CONTROL_MODEL_NAMES:
+                raise ValueError(f"control training supports {list(CONTROL_MODEL_NAMES)} "
+                                 f"(and cogview4, not ported), got {self.model_name!r}")
+            if self.control_type not in CONTROL_TYPES:
+                raise ValueError(f"unknown control_type {self.control_type!r}; "
+                                 f"valid: {CONTROL_TYPES}")
+            if self.frame_conditioning_type not in FRAME_CONDITIONING_TYPES:
+                raise ValueError(f"unknown frame_conditioning_type "
+                                 f"{self.frame_conditioning_type!r}; valid: "
+                                 f"{FRAME_CONDITIONING_TYPES}")
+        if self.checkpointing_type not in CHECKPOINTING_TYPES:
+            raise ValueError(f"unknown checkpointing_type {self.checkpointing_type!r}; valid: "
+                             f"{', '.join(CHECKPOINTING_TYPES)}")
+        if self.checkpointing_n_layer < 1:
+            raise ValueError("checkpointing_n_layer must be >= 1")
+        from .optimizer import OPTIMIZERS
+
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.optimizer!r}; valid: {OPTIMIZERS}")
+        for m in self.layerwise_modules:
+            if m != "transformer":
+                raise ValueError(f"unknown layerwise_upcasting module {m!r}; valid: transformer")
+        if self.layerwise_upcasting_storage_dtype not in STORAGE_DTYPES:
+            raise ValueError(f"unknown layerwise_upcasting_storage_dtype "
+                             f"{self.layerwise_upcasting_storage_dtype!r}; valid: "
+                             f"{tuple(STORAGE_DTYPES)}")
+        for pat in self.layerwise_skip_patterns:
+            try:
+                re.compile(pat)
+            except re.error as e:
+                raise ValueError(f"bad regex in layerwise_upcasting_skip_modules_pattern "
+                                 f"{pat!r}: {e}") from None
+
+    @property
+    def is_control(self) -> bool:
+        return self.training_type.startswith("control")
+
+    @property
+    def layerwise_modules(self) -> Tuple[str, ...]:
+        return tuple(filter(None, self.layerwise_upcasting_modules.split(",")))
+
+    @property
+    def layerwise_skip_patterns(self) -> Tuple[str, ...]:
+        return tuple(filter(None, self.layerwise_upcasting_skip_modules_pattern.split(",")))
 
     @property
     def is_dpo(self) -> bool:
@@ -220,6 +299,12 @@ class TrainingArgs:
         return {}
 
     def remat_mode(self) -> Union[bool, str]:
-        """The transformer's ``remat`` argument: "full" under gradient
-        checkpointing (the only checkpointing type ported), else False."""
-        return "full" if self.gradient_checkpointing else False
+        """The transformer's ``remat`` argument (``remat_mode``, args.py:
+        220-226): False without gradient checkpointing, else
+        ``checkpointing_type``, "block_skip:<checkpointing_n_layer>" for
+        ``block_skip``."""
+        if not self.gradient_checkpointing:
+            return False
+        if self.checkpointing_type == "block_skip":
+            return f"block_skip:{self.checkpointing_n_layer}"
+        return self.checkpointing_type

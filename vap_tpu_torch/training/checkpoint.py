@@ -4,8 +4,10 @@ Port of ``vap_tpu/training/checkpoint.py``. Training state
 (``TrainState``, ``Checkpointer``, :25-127): a checkpoint is one ``torch.save`` file per step,
 ``step_<step>.pt`` under the checkpoint directory, holding the trainable
 parameters' state dict (the MoT expert, or the LoRA adapters'
-``lora_A``/``lora_B``), the optimizer's state, the train state and the
-position of the data stream; it is written to a temporary name and renamed,
+``lora_A``/``lora_B``, and what control LoRA trains directly), the
+optimizer's state (AdamW's moments, Adafactor's factored ones, the 8-bit
+Adam's int8 codes and float32 scales, each with its update count), the
+train state and the position of the data stream; it is written to a temporary name and renamed,
 so a crash never leaves a partial file under a step's name. At most
 ``checkpointing_limit`` files are kept, the oldest removed first.
 
@@ -15,7 +17,8 @@ a sharded index or a component directory), ``export_safetensors`` (the
 full transformer in diffusers names), ``export_lora_safetensors`` (PEFT
 names ``transformer.<module>.lora_{A,B}.weight``, [out, in] orientation,
 the ``lora_config`` in the header), ``merge_lora_into_state_dict`` and
-``load_lora_metadata``.
+``load_lora_metadata``, and the control trainer's directly trained tensors
+(``export_control_layers``).
 """
 
 from __future__ import annotations
@@ -184,6 +187,17 @@ def export_lora_safetensors(lora: Mapping, path: str, *, rank: int, alpha: float
     meta.update(metadata or {})
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     return save_file(out, path, meta)
+
+
+def export_control_layers(tensors: Mapping, path: str) -> int:
+    """Write what control LoRA trains directly ({module parameter name:
+    tensor}: the widened injection layer's weight, the QK norms' weights)
+    as ``transformer.<name>`` in diffusers names and layout
+    (``control_injection_layers.safetensors``; JAX's file names its stacked
+    tree's leaves). Returns the bytes written."""
+    out = {f"transformer.{name}": t.detach().contiguous() for name, t in tensors.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    return save_file(out, path, {"format": "pt"})
 
 
 def load_lora_metadata(path: str) -> Dict[str, Any]:

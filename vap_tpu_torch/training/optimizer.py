@@ -1,4 +1,4 @@
-"""Learning-rate schedules and the optimizer of the port's trainer.
+"""Learning-rate schedules and the optimizers of the port's trainer.
 
 Port of ``vap_tpu/training/optimizer.py:18-97`` (optax). A schedule is a
 function of the optimizer's update count, as an optax schedule is: warmup
@@ -7,24 +7,29 @@ schedules give lr 0 at update 0, so the first update of
 accumulation micro-batches do not advance it.
 
 ``Optimizer`` is the optax chain ``clip_by_global_norm(max_grad_norm)`` then
-``adamw``/``adam``: the clip is optax's formula, ``g / norm * max_norm`` in
+the named optimizer: the clip is optax's formula, ``g / norm * max_norm`` in
 the gradient's dtype when the global norm reaches ``max_norm`` (torch's
-``clip_grad_norm_`` adds 1e-6 to the norm, optax does not), and the update
-is torch's AdamW or Adam with the moments in the parameters' dtype, as
-optax keeps them. On CUDA the update is ``fused=True``: the default
-``foreach`` path makes temporaries the size of all the states, about 11 GB
-each for the CogVideoX-5B MoT expert in bf16; elsewhere ``foreach=False``.
+``clip_grad_norm_`` adds 1e-6 to the norm, optax does not). Then:
+  * ``adamw`` / ``adam``: torch's AdamW or Adam with the moments in the
+    parameters' dtype, as optax keeps them. On CUDA the update is
+    ``fused=True``: the default ``foreach`` path makes temporaries the size
+    of all the states, about 11 GB each for the CogVideoX-5B MoT expert in
+    bf16; elsewhere ``foreach=False``;
+  * ``adamw-8bit`` / ``adam-8bit`` (and the ``bnb`` aliases,
+    optimizer.py:82-90): the blockwise int8 moments of ``optim8bit.py``;
+  * ``adafactor``: ``optax.adafactor(schedule)`` at its defaults
+    (optimizer.py:91-92), ``Adafactor`` below.
 A trainable parameter that got no gradient (a branch the loss does not
 reach) is stepped with a zero gradient, as optax steps a zero leaf.
-
-Not ported (they raise): ``adafactor`` and the 8-bit optimizers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+import re
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -102,39 +107,243 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+ADAM_8BIT = {"adamw-8bit": True, "adamw-bnb-8bit": True, "adam-8bit": False,
+             "adam-bnb-8bit": False}  # name -> with weight decay
+OPTIMIZERS = ("adamw", "adam", "adafactor", *ADAM_8BIT)
+
+
+def _factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128):
+    """optax's ``_factored_dims``: the (second largest, largest) dims of
+    ``shape`` (``np.argsort``; a tie keeps the lower dim first), or None
+    below two dims or when the second largest is under the threshold."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape, kind="stable")
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr)`` at its defaults: ``scale_by_factored_rms``
+    (g^2 + 1e-30; decay 1 - (t+1)^-0.8 at the update count t; factored over
+    the two largest dims once the second is >= 128, else a full second
+    moment), ``clip_by_block_rms(1.0)``, the learning rate, then
+    ``scale_by_param_block_rms`` (the parameter's RMS, floored at 1e-3); no
+    momentum, no weight decay. The state is in the parameters' dtype.
+
+    Everything is computed on the parameter as the JAX package stores it:
+    ``kernels[i]`` marks a Linear or Conv weight ([out, in, *k] here, the
+    [in * k, out] kernel there: its view ``flatten(1).t()``), so the
+    factored dims are JAX's, ties included. ``groups[i]`` names the JAX
+    leaf a parameter belongs to: the blocks JAX stacks along a leading
+    axis are one leaf, whose update RMS (the clip) and parameter RMS are
+    taken over the whole stack (the factoring is per block either way,
+    the stack never being one of the two largest dims). None: each
+    parameter its own leaf."""
+
+    # optax.adafactor's defaults
+    DECAY_RATE, EPS, CLIPPING_THRESHOLD, MIN_SCALE = 0.8, 1e-30, 1.0, 1e-3
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float = 0.0,
+                 kernels: Optional[Sequence[bool]] = None, groups: Optional[Sequence] = None):
+        super().__init__(params, dict(lr=lr))
+        plist = self._params()
+        self.kernels = list(kernels) if kernels is not None else [False] * len(plist)
+        keys = list(groups) if groups is not None else list(range(len(plist)))
+        if len(self.kernels) != len(plist) or len(keys) != len(plist):
+            raise ValueError("one kernel flag and one group key per parameter")
+        self.groups: Dict[Any, List[int]] = {}
+        for i, key in enumerate(keys):
+            self.groups.setdefault(key, []).append(i)
+        self.count = 0
+        for p, kernel in zip(plist, self.kernels):
+            shape = tuple(self._view(p, kernel).shape)
+            dims = _factored_dims(shape)
+            kw = dict(dtype=p.dtype, device=p.device)
+            if dims is None:
+                self.state[p] = {"v": torch.zeros(shape, **kw)}
+            else:
+                d1, d0 = dims
+                self.state[p] = {"v_row": torch.zeros(shape[:d0] + shape[d0 + 1:], **kw),
+                                 "v_col": torch.zeros(shape[:d1] + shape[d1 + 1:], **kw)}
+            self.state[p]["dims"] = dims
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    @staticmethod
+    def _view(x: torch.Tensor, kernel: bool) -> torch.Tensor:
+        return x.flatten(1).t() if kernel and x.ndim >= 2 else x
+
+    @staticmethod
+    def _unview(u: torch.Tensor, like: torch.Tensor, kernel: bool) -> torch.Tensor:
+        return u.t().reshape(like.shape) if kernel and like.ndim >= 2 else u
+
+    def state_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for s in self.state.values()
+                   for t in s.values() if isinstance(t, torch.Tensor))
+
+    def _scaled(self, g: torch.Tensor, st: Dict) -> torch.Tensor:
+        """The factored-RMS update of the view ``g`` from the state (after
+        its update), in float32."""
+        dims = st["dims"]
+        if dims is None:
+            return g * st["v"].float() ** -0.5
+        d1, d0 = dims
+        v_row, v_col = st["v_row"].float(), st["v_col"].float()
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+        col_factor = v_col ** -0.5
+        return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        # 1 - (t+1)^-0.8 and its complement in float32, as optax takes them
+        decay_t = 1.0 - torch.tensor(self.count + 1, dtype=torch.float32) ** -self.DECAY_RATE
+        decay, rest = float(decay_t), float(1.0 - decay_t)
+        lr = self.param_groups[0]["lr"]
+        plist = self._params()
+        for members in self.groups.values():
+            # pass 1: the second-moment state, the update's and the
+            # parameter's sums of squares over the leaf
+            usq = psq = 0.0
+            numel = 0
+            for i in members:
+                p = plist[i]
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                g = self._view(p.grad, self.kernels[i]).float()
+                gsq = g * g + self.EPS
+                if st["dims"] is None:
+                    st["v"].copy_(decay * st["v"].float() + rest * gsq)
+                else:
+                    d1, d0 = st["dims"]
+                    st["v_row"].copy_(decay * st["v_row"].float()
+                                      + rest * gsq.mean(dim=d0))
+                    st["v_col"].copy_(decay * st["v_col"].float()
+                                      + rest * gsq.mean(dim=d1))
+                del gsq
+                u = self._scaled(g, st)
+                usq = usq + u.square().sum()
+                psq = psq + p.float().square().sum()
+                numel += p.numel()
+            if not numel:
+                continue
+            clip = torch.clamp(torch.sqrt(usq / numel) / self.CLIPPING_THRESHOLD, min=1.0)
+            scale = torch.clamp(torch.sqrt(psq / numel), min=self.MIN_SCALE)
+            # pass 2: the update again from the stored state (optax reads
+            # the state after its cast), clipped, times lr and the RMS
+            for i in members:
+                p = plist[i]
+                if p.grad is None:
+                    continue
+                g = self._view(p.grad, self.kernels[i]).float()
+                u = self._scaled(g, self.state[p]) / clip * lr * scale
+                p.add_(-self._unview(u, p, self.kernels[i]).to(p.dtype))
+        self.count += 1
+        return None
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count,
+                "state": [{k: t.clone() for k, t in self.state[p].items()
+                           if isinstance(t, torch.Tensor)} for p in self._params()]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        params = self._params()
+        if len(state["state"]) != len(params):
+            raise ValueError(f"an Adafactor state of {len(state['state'])} parameters for "
+                             f"{len(params)}")
+        self.count = int(state["count"])
+        for p, saved in zip(params, state["state"]):
+            for k, t in saved.items():
+                self.state[p][k].copy_(t)
+
+
+def jax_layout(model: torch.nn.Module, params: Sequence[torch.Tensor]):
+    """(kernel flags, group keys) of ``params`` of ``model`` for
+    ``Adafactor`` and ``Adam8bit``: a Linear's or a ConvNd's ``weight`` is a kernel; a
+    parameter of a block of a module list (``blocks.{i}.``,
+    ``transformer_blocks.{i}.`` ...) groups with its twins of the blocks
+    JAX stacks into one leaf: every block of the list, or of its run of
+    MoT or plain blocks where the config has ``mot_segments``. A parameter
+    outside ``model`` (a LoRA adapter, kept in JAX's layout) is its own
+    leaf and no kernel."""
+    kernel_ids = {id(m.weight) for m in model.modules()
+                  if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Conv2d,
+                                    torch.nn.Conv3d))}
+    names = {id(p): n for n, p in model.named_parameters()}
+    segments = getattr(getattr(model, "config", None), "mot_segments", None)
+
+    def key(i: int, p: torch.Tensor):
+        name = names.get(id(p))
+        if name is None:
+            return ("param", i)
+        m = re.match(r"^(.*?)\.(\d+)\.(.*)$", name)
+        if m is None:
+            return ("param", name)
+        prefix, idx, rest = m.group(1), int(m.group(2)), m.group(3)
+        seg = 0
+        if segments and prefix in ("blocks", "transformer_blocks"):
+            seg = next(s for s, (start, length, _) in enumerate(segments)
+                       if start <= idx < start + length)
+        return ("stack", prefix, seg, rest)
+
+    return [id(p) in kernel_ids for p in params], [key(i, p) for i, p in enumerate(params)]
+
+
 class Optimizer:
-    """Global-norm clipping, then AdamW or Adam, with the lr of ``schedule``
-    at each update. ``step()`` reads the parameters' ``.grad``, which must
-    already be the gradient to apply (the mean over accumulated
-    micro-batches), and returns the global norm before clipping."""
+    """Global-norm clipping, then the named optimizer (``OPTIMIZERS``), with
+    the lr of ``schedule`` at each update. ``step()`` reads the parameters'
+    ``.grad``, which must already be the gradient to apply (the mean over
+    accumulated micro-batches), and returns the global norm before
+    clipping. ``layout`` (``jax_layout``: kernel flags and JAX leaves) serves
+    Adafactor and the 8-bit Adam."""
 
     def __init__(self, name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule, *,
                  beta1: float = 0.9, beta2: float = 0.99, epsilon: float = 1e-8,
-                 weight_decay: float = 1e-4, max_grad_norm: Optional[float] = 1.0):
+                 weight_decay: float = 1e-4, max_grad_norm: Optional[float] = 1.0,
+                 layout=None):
         self.params = list(params)
         if not self.params:
             raise ValueError("no trainable parameter")
+        self.name = name
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.count = 0  # updates applied (optax's count)
         kw = dict(lr=0.0, betas=(beta1, beta2), eps=epsilon)
-        if all(p.is_cuda for p in self.params):
-            kw["fused"] = True
-        else:
-            kw["foreach"] = False
+        kernels, groups = layout if layout is not None else (None, None)
+        if name in ("adamw", "adam"):
+            if all(p.is_cuda for p in self.params):
+                kw["fused"] = True
+            else:
+                kw["foreach"] = False
         if name == "adamw":
             self.inner = torch.optim.AdamW(self.params, weight_decay=weight_decay, **kw)
         elif name == "adam":
             self.inner = torch.optim.Adam(self.params, weight_decay=0.0, **kw)
-        elif name in ("adafactor", "adamw-8bit", "adamw-bnb-8bit", "adam-8bit", "adam-bnb-8bit"):
-            raise NotImplementedError(f"optimizer {name!r} is not ported to PyTorch yet")
+        elif name in ADAM_8BIT:
+            from .optim8bit import Adam8bit
+
+            self.inner = Adam8bit(self.params, weight_decay=weight_decay if ADAM_8BIT[name]
+                                  else 0.0, kernels=kernels, groups=groups, **kw)
+        elif name == "adafactor":
+            self.inner = Adafactor(self.params, kernels=kernels, groups=groups)
         else:
-            raise ValueError(f"unknown optimizer {name!r}")
+            raise ValueError(f"unknown optimizer {name!r}; valid: {OPTIMIZERS}")
 
     @property
     def lr(self) -> float:
         """The lr of the next update."""
         return self.schedule(self.count)
+
+    def state_bytes(self) -> int:
+        """The bytes of the optimizer's state on its device(s)."""
+        if hasattr(self.inner, "state_bytes"):
+            return self.inner.state_bytes()
+        return sum(t.numel() * t.element_size() for s in self.inner.state.values()
+                   for t in s.values() if isinstance(t, torch.Tensor) and t.ndim > 0)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -165,7 +374,7 @@ class Optimizer:
 
 def get_optimizer(name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule, *,
                   beta1: float = 0.9, beta2: float = 0.99, epsilon: float = 1e-8,
-                  weight_decay: float = 1e-4,
-                  max_grad_norm: Optional[float] = 1.0) -> Optimizer:
+                  weight_decay: float = 1e-4, max_grad_norm: Optional[float] = 1.0,
+                  layout=None) -> Optimizer:
     return Optimizer(name, params, schedule, beta1=beta1, beta2=beta2, epsilon=epsilon,
-                     weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+                     weight_decay=weight_decay, max_grad_norm=max_grad_norm, layout=layout)

@@ -435,6 +435,8 @@ def get_model_spec_cls(model_name: str, training_type: str):
     """The spec class of (model_name, training_type) (``get_model_spec_cls``,
     specs.py:246); an unsupported pair raises ValueError."""
     key = (model_name, training_type)
+    if training_type.startswith("control"):
+        from . import control_specs  # noqa: F401  (registers the control specs)
     if key not in SUPPORTED_MODEL_SPECS:
         raise ValueError(f"unsupported (model, training_type): {key}")
     return SUPPORTED_MODEL_SPECS[key]

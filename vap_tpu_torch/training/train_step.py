@@ -68,6 +68,7 @@ from torch import nn
 from ..models.cogvideox.config import CogVideoXMOTConfig
 from ..ops.rope import prepare_cogvideox_rotary_embeddings
 from ..ops.schedulers.common import add_noise, get_velocity, make_alphas_cumprod
+from .layerwise import compute_dtype
 from .lora import (DEFAULT_TARGETS, LoRATree, apply_lora, init_lora, lora_bypassed,
                    lora_parameters)
 from .optimizer import Optimizer
@@ -196,7 +197,7 @@ def _cogvideox_velocity(model: nn.Module, cfg: TrainStepConfig, batch: Dict[str,
       * else the MoT branch over the references ``ref_in`` [B, R*F, C, H, W]
         at ``t_ref`` [B, R] (the target's timestep when None)."""
     f_lat, lat_h, lat_w = noisy.shape[1], noisy.shape[3], noisy.shape[4]
-    dtype = next(model.parameters()).dtype
+    dtype = compute_dtype(model)
     text = batch["encoder_hidden_states"].to(dtype)
     hidden = noisy
     if "image_latents" in batch:
@@ -374,7 +375,7 @@ def _wan_velocity(model: nn.Module, batch: Dict[str, torch.Tensor], noisy: torch
     trunk alone without ``latents_mot_ref`` (``condition`` concatenated
     where present), else the MoT branch with clean references at t = 1."""
     b, f_lat = noisy.shape[:2]
-    dtype = next(model.parameters()).dtype
+    dtype = compute_dtype(model)
 
     def states(name):
         x = batch.get(name)
@@ -473,7 +474,7 @@ def hunyuan_loss(model: nn.Module, cfg: HunyuanTrainStepConfig, batch: Dict[str,
     latents = batch["latents"].float()
     b = latents.shape[0]
     timesteps, noisy, target, loss_w = _flow_match(cfg, latents, generator, sigmas, noise)
-    dtype = next(model.parameters()).dtype
+    dtype = compute_dtype(model)
     pred = model(hidden_states=noisy.to(dtype),
                  encoder_hidden_states=batch["encoder_hidden_states"].to(dtype),
                  pooled_projections=batch["pooled_projections"].to(dtype),

@@ -15,7 +15,12 @@ validation :617-793, ``dump_training_sample`` :795), one process per device:
     none``, else adapters over every block; ``--dpo`` (or ``training_type
     dpo``, CogVideoX and Wan): adapters over the MoT expert's six
     projections (``install_dpo_lora``), the frozen model the reference. The
-    optimizer holds only what trains;
+    optimizer holds only what trains (``--optimizer``: AdamW, Adam,
+    Adafactor, the 8-bit Adam / AdamW; JAX's layout of each parameter from
+    ``jax_layout``); under ``lora`` with ``--layerwise_upcasting_modules
+    transformer`` the frozen base is stored in float8 first
+    (``cast_layerwise_storage``, trainer.py:218-228); the control trainer
+    (``training/control_trainer.py``) subclasses this loop;
   * the loss is the family's: ``cogvideox_vap_loss`` (every mode of the
     step config: plain, ``reference_independent``, the single-branch
     ablations), ``wan_vap_loss`` or ``hunyuan_loss`` (the flow-matching
@@ -117,8 +122,9 @@ from ..ops.attention import attention_provider
 from ..parallel import MeshConfig, attention_mesh, make_mesh
 from .args import TrainingArgs
 from .checkpoint import Checkpointer, TrainState, export_lora_safetensors, export_safetensors
+from .layerwise import cast_layerwise_storage
 from .lora import lora_parameters, merge_lora_into_params
-from .optimizer import get_lr_schedule, get_optimizer
+from .optimizer import get_lr_schedule, get_optimizer, jax_layout
 from .train_step import (DPO_PER_SAMPLE, HunyuanTrainStepConfig, TrainStepConfig,
                          WanTrainStepConfig, cogvideox_vap_loss, draw_step_noise, hunyuan_loss,
                          install_dpo_lora, install_lora, make_dpo_loss, make_grad_and_apply,
@@ -207,7 +213,7 @@ class SFTTrainer:
         self.spec = spec
         self.device = next(model.parameters()).device
         self.mesh = self._make_mesh()
-        self.step_cfg = _make_step_config(args.model_name, args, model.config)
+        self.step_cfg = self._make_step_config()
         self.accum_steps = args.gradient_accumulation_steps
         self._build_step()
         self.train_state = TrainState()
@@ -223,6 +229,22 @@ class SFTTrainer:
         self._dumped_sample = False
         self.validation_artifacts: Dict[str, str] = {}  # the last validation's videos
         self.last_metrics: Dict[str, torch.Tensor] = {}  # the last micro-batch's loss metrics
+
+    def _make_step_config(self):
+        return _make_step_config(self.args.model_name, self.args, self.model.config)
+
+    def _make_optimizer(self, params):
+        """The optimizer of ``--optimizer`` over ``params`` (parameters of
+        the model), with JAX's layout of each (``jax_layout``) for the
+        optimizers that read it."""
+        args = self.args
+        schedule = get_lr_schedule(args.lr_scheduler, args.lr, warmup_steps=args.lr_warmup_steps,
+                                   train_steps=args.train_steps)
+        params = list(params)
+        return get_optimizer(args.optimizer, params, schedule, beta1=args.beta1,
+                             beta2=args.beta2, epsilon=args.epsilon,
+                             weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
+                             layout=jax_layout(self.model, params))
 
     def _make_mesh(self):
         """The (data, 1, seq, 1) ``DeviceMesh`` when the run takes more than
@@ -282,24 +304,23 @@ class SFTTrainer:
         ``trainable_names``, the adapters in ``lora`` (LoRA and DPO)."""
         args, model = self.args, self.model
         loss_fn = FAMILY_LOSSES[args.model_name]
-        schedule = get_lr_schedule(args.lr_scheduler, args.lr, warmup_steps=args.lr_warmup_steps,
-                                   train_steps=args.train_steps)
-
-        def make_optimizer(params):
-            return get_optimizer(args.optimizer, params, schedule, beta1=args.beta1,
-                                 beta2=args.beta2, epsilon=args.epsilon,
-                                 weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm)
 
         def lora_generator():
             return torch.Generator(device=self.device).manual_seed(args.seed)
 
         self.lora = None
+        self.layerwise_cast: List[str] = []  # the parameters stored in float8
         if self.dpo:  # the adapters are the policy; the frozen model is the reference
             self.lora = install_dpo_lora(model, rank=args.rank, alpha=float(args.lora_alpha),
                                          generator=lora_generator())
             loss_fn = make_dpo_loss(DPO_PER_SAMPLE[args.model_name], clock=self._clock)
         elif args.training_type == "lora" or (args.ablation_single_branch
                                               and args.target_modules != "none"):
+            if args.training_type == "lora" and "transformer" in args.layerwise_modules:
+                # float8 storage of the frozen base (trainer.py:218-228)
+                model.requires_grad_(False)
+                self.layerwise_cast = cast_layerwise_storage(
+                    model, args.layerwise_upcasting_storage_dtype, args.layerwise_skip_patterns)
             self.lora = install_lora(
                 model, rank=args.rank, alpha=float(args.lora_alpha),
                 targets=parse_target_modules(args.target_modules), generator=lora_generator())
@@ -313,7 +334,7 @@ class SFTTrainer:
         else:
             params = [p for p in model.parameters() if p.requires_grad]
         self.trainable_names = [n for n, p in model.named_parameters() if p.requires_grad]
-        self.optimizer = make_optimizer(params)
+        self.optimizer = self._make_optimizer(params)
         # sft trains the MoT partition, which the plain loss never reaches
         self._grad, self._apply = make_grad_and_apply(loss_fn, self.step_cfg, self.optimizer,
                                                       unreached_ok=args.training_type == "sft")
@@ -537,6 +558,15 @@ class SFTTrainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items() if not isinstance(v, list)}
 
+    def _draws(self, batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
+        """The random draws of micro-batch ``step`` for the whole global
+        batch, from ``step_generator`` (under DPO the pairs', one per win /
+        lose pair)."""
+        ref = batch.get("latents_mot_ref") if not self.dpo else None
+        return draw_step_noise(self.step_cfg, batch["latents"].shape,
+                               step_generator(self.args.seed, step, self.device), self.device,
+                               ref_shape=None if ref is None else ref.shape)
+
     def _local(self, x: torch.Tensor) -> torch.Tensor:
         """This data rank's rows of a global-batch tensor."""
         size = self.args.batch_size
@@ -559,11 +589,7 @@ class SFTTrainer:
             self._marks = marks = {}
             clock = self._clock
 
-            # under DPO the draws are the pairs' (one per win / lose pair)
-            ref = batch.get("latents_mot_ref") if not self.dpo else None
-            draws = draw_step_noise(self.step_cfg, batch["latents"].shape,
-                                    step_generator(args.seed, step, self.device), self.device,
-                                    ref_shape=None if ref is None else ref.shape)
+            draws = self._draws(batch, step)
             batch = {k: self._local(v) for k, v in batch.items()}
             if self.dpo:
                 batch = assemble_dpo_batch(batch)
