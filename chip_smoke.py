@@ -148,33 +148,36 @@ Phases, each of which raises on failure:
      bit-equal to the resident pipeline's; peak card memory, seconds per
      step, bytes copied host -> card per step and their GB/s, the share of
      the copies that overlapped compute (the copy stream's events);
-  5e. CogVideoX 1.5 VAP at full width: cogvideox_5b_i2v_vap with
-     CogVideoX1.5-5B-I2V's transformer fields (patch_size_t 2, ofs_embed_dim
-     512, sample 300 x 300 x 81, no learned position table; MoT in 0-40),
+  5e. CogVideoX 1.5 VAP at full width and cut depth: cogvideox_5b_i2v_vap
+     with CogVideoX1.5-5B-I2V's transformer fields (patch_size_t 2,
+     ofs_embed_dim 512, sample 300 x 300 x 81, no learned position table)
+     at 4 of its 42 blocks (MoT in 0-2, the plain tail block),
      its VAE (invert_scale_latents, scaling 0.7) and T5-XXL, random bf16
      weights from a seed, on the card: 81 frames of 768x1360 (21 latent
      frames padded to 22), one reference, CFG batch 2, one DDIM step under
-     flash (42 K1 launches: 41 MoT blocks at [2,48,90212,64], the plain
-     block 41 at [2,48,45106,64], the shapes read from the calls), decoded
+     flash (4 K1 launches: 3 MoT blocks at [2,48,90212,64], the plain
+     tail block at [2,48,45106,64], the shapes read from the calls), decoded
      to 81 frames; the step, encode and decode seconds and the peak card
      memory; then K1 on the last inputs of each shape held against its
      plain version on heads 0-7 and 40-47, under phase 1's limits;
   6. Wan: a small pipeline on the card held against plain dense attention
-     under flash and sage, then Wan2.1-I2V-14B VAP at full width (40 blocks,
-     MoT in all 40, 40x128 heads, UMT5-XXL, CLIP ViT-H/14, the Wan VAE) at
+     under flash and sage, then Wan2.1-I2V-14B VAP at full width and cut
+     depth (20 of its 40 blocks, MoT in all 20, 40x128 heads, UMT5-XXL, CLIP
+     ViT-H/14, the Wan VAE) at
      49 frames of 480x832, one reference, FlowMatch shift 3, guidance 5,
      random bf16 weights from a seed, through WanVAPPipeline.__call__ with
      model offload (one component on the card at a time), cut to 1 step
      under flash and 1 under sage; then (6d) the same flash step with
-     offload_blocks_chunk=4: the 40 blocks page-locked in place and streamed
-     in 10 chunks on a copy stream, K4's 400 launches, latents bit-equal to
+     offload_blocks_chunk=4: the 20 blocks page-locked in place and streamed
+     in 5 chunks on a copy stream, K4's 200 launches, latents bit-equal to
      the resident run's, with the figures of 5d, then the pages unlocked
      (close_streamed); then (6b) its
      bench configuration on the
-     same pipeline: the 804 projections quantised to W8A8 (chunk form) on
-     the card, one weight at a time, the int8 copies kept in host memory;
-     sage, UniPC (shift 3, guidance 5), the step cache "uniform:2:1:1" over
-     4 steps, decoded; per step K3's launches (804 on a computed step), the
+     same pipeline: the 404 projections of its 20 blocks (804 at 40)
+     quantised to W8A8 (chunk form) on the card, one weight at a time, the
+     int8 copies kept in host memory; sage, UniPC (shift 3, guidance 5), the
+     step cache "uniform:2:1:1" over 4 steps, decoded; per step K3's
+     launches (404 on a computed step), the
      row form's calls (0), K2's and its pre-pass's; K3 and K2 launch on
      steps 0, 1 and 3 only and the reuse step costs under 5% of a computed
      one; then (6c) the Wan checkpoint at full width and cut depth: the first
@@ -251,7 +254,19 @@ Phases, each of which raises on failure:
      LoRA), baseline_single_condition, the plain CogVideoX LoRA,
      reference_independent with and without random_refer_noise, CogVideoX
      1.5 (patch_size_t 2), DPO resumed from a checkpoint equal to the
-     uninterrupted run, and Wan DPO (head_dim 128: K4 and K6);
+     uninterrupted run, and Wan DPO (head_dim 128: K4 and K6); then (8a)
+     the same model, its DPO adapters taken out, under the released 3-ref
+     HSDP recipe (vap_mot/train_single_node_3ref.sh) read through the
+     port's parser with its degrees folded to one rank (data 1, fsdp 1) and
+     no warm-up: one step (AdamW, clip) on the first item unsharded, then,
+     from the same weights, sharded by FSDP2 over a one-rank NCCL
+     (data, fsdp) mesh (SFTTrainer(..., shard=True): DTensor parameters, the
+     sharded optimizer and clip) and the full-state gather
+     (trainable_state_dict), both steps with the reference time
+     embedding's gradient summed over the 41 MoT blocks in float64 (FSDP2's
+     hooks change the order of that bf16 sum): the loss and every updated
+     tensor of the expert equal to the bit, the grad norms within 1e-6 of
+     each other, K1 84 and K5 42 launches each, the seconds and peaks;
   9. K6 (the flash backward, D=128) as K5 in phase 7, at the unaligned
      shapes and at the main-path shapes of Wan training, [1,40,20280,128]
      x 20280 (self-attention), x 512 (UMT5) and x 257 (CLIP) keys; its
@@ -293,8 +308,12 @@ Phases, each of which raises on failure:
      a warm-up); per step the loss, grad_norm and the forward / backward /
      update seconds, the peak device memory, K4 and K6 launches (240 and 120
      a step), the frozen trunk bit-identical, every adapter's B moved at
-     step 1 and its A at step 2; the share of adapted weight elements the
-     bf16 merge changes; then (10b) that trained model, its adapters in
+     step 1 and its A at step 2, the second step (10a) under the one-rank
+     ``ring cross:flash`` (a one-rank NCCL group's mesh installed) inside
+     the trainer's profiling window (--profile_dir), its loss and adapter
+     gradients equal to the bit to one grad_fn under flash on the same item
+     and draws, the trace's top device kernels; the share of adapted
+     weight elements the bf16 merge changes; then (10b) that trained model, its adapters in
      place, sampled through WanVAPPipeline.__call__ without a reference
      (plain image-to-video) with phase 6c's UMT5, CLIP and VAE under
      offload, 49 frames of 480x832, UniPC, 1 step under flash, latents
@@ -339,8 +358,11 @@ Phases, each of which raises on failure:
      optimizer steps; per step the loss, grad_norm and the forward /
      backward / update seconds, the peak device memory, K7's launches in K4
      (120 a step: forward and recompute) and in K6 (60), the frozen trunk
-     bit-identical, every adapter's B moved at step 1 and its A at step 2;
-     the share of adapted weight elements the bf16 merge changes.
+     bit-identical, every adapter's B moved at step 1 and its A at step 2,
+     the second step (13a) under the one-rank ``ring`` (K7 reached through
+     it, with the prompt's kv_lens) inside the profiling window, held to
+     the bit against a grad_fn under flash as in 10a; the share of adapted
+     weight elements the bf16 merge changes.
 
 At the phase boundaries from 4 on, a "[host memory, ...]" line gives the
 seconds since the smoke began, the process's RSS and its peak so far, the
@@ -449,9 +471,17 @@ W8A8_PARITY = [(300, k, n) for k in (256, 3072) for n in (128, 384)]  # M, K, N
 # through attn2's k, v (2 x 80), the FFN up and down (80 each); each image
 # embedder 2 x 257 CLIP rows through its two (K, N = 1280 | 5120). N = 5120
 # leaves a ragged last column tile of 128 (26 x 192 + 128).
-WAN_W8A8_SHAPES = {(40560, 5120, 5120): 480, (1024, 5120, 5120): 160,
-                   (40560, 5120, 13824): 80, (40560, 13824, 5120): 80,
-                   (514, 1280, 1280): 2, (514, 1280, 5120): 2}
+def wan_w8a8_shapes(layers):
+    """(M, K, N) -> K3's launches a computed step of a Wan VAP transformer
+    of ``layers`` MoT blocks: per block 12, 4, 2 and 2; the image embedders
+    2 and 2."""
+    return {(40560, 5120, 5120): 12 * layers, (1024, 5120, 5120): 4 * layers,
+            (40560, 5120, 13824): 2 * layers, (40560, 13824, 5120): 2 * layers,
+            (514, 1280, 1280): 2, (514, 1280, 5120): 2}
+
+
+# at the released depth (40 blocks): 804 a step, whose time phase 3 gives
+WAN_W8A8_SHAPES = wan_w8a8_shapes(40)
 # K3 vs plain version: per chunk the int32 product is exact on both sides
 # and the f32 steps are the same, uncontracted, in the same order, so the
 # bf16 outputs are equal to the bit; they are also held as max|err| /
@@ -1742,6 +1772,7 @@ def ring_training_check(trainer, dev, batch):
     draws = draw_step_noise(trainer.step_cfg, batch["latents"].shape,
                             step_generator(args.seed, 1, dev), dev)
     layers = model.config.num_layers
+    mot = len(model.config.block_idx_with_mot_ref)
     want = {"flash_fwd": 2 * layers, "flash_bwd": layers}  # forward and recompute; backward
 
     def run(ctx):
@@ -3035,6 +3066,10 @@ def streamed_cog_path(root, written, want_flash, dev):
 
 
 COG15_HEIGHT, COG15_WIDTH, COG15_FRAMES = 768, 1360, 81
+# 5e's depth: MoT in blocks 0-2 and the plain tail block (the released 42,
+# MoT in 0-40, cut to leave the time limit room for phases 8a, 10a and 13a;
+# every width and both K1 shapes are the released model's)
+COG15_LAYERS = 4
 COG15_HELD_HEADS = (slice(0, 8), slice(40, 48))  # 5e's K1 output held on these heads
 
 
@@ -3116,7 +3151,8 @@ def cog15_path(dev):
     t0 = time.perf_counter()
     t_cfg = CogVideoXMOTConfig.cogvideox_5b_i2v_vap(
         patch_size_t=2, ofs_embed_dim=512, sample_height=300, sample_width=300, sample_frames=81,
-        use_learned_positional_embeddings=False)
+        use_learned_positional_embeddings=False, num_layers=COG15_LAYERS,
+        block_idx_with_mot_ref=tuple(range(COG15_LAYERS - 1)))
     txt_cfg = T5Config.t5_xxl()
     pipe = CogVideoXVAPPipeline(
         build_random(CogVideoXTransformer3DMOTModel, t_cfg, dev, bf16, gen),
@@ -3449,9 +3485,16 @@ def wan_small_check(dev):
             raise AssertionError(f"small Wan pipeline under {provider} disagrees with plain attention")
 
 
+# the Wan generation phases (6, 6b, 6c, 6d) run the first 20 of the released
+# 40 blocks, MoT in each (cut to leave the time limit room for phases 8a, 10a
+# and 13a; every width is the released one, and phase 10 trains all 40)
+WAN_GEN_LAYERS = 20
+
+
 def build_wan_pipeline(dev):
-    """Wan2.1-I2V-14B VAP at full width with random bf16 weights from SEED,
-    each component built on the card and kept in host memory (model offload)."""
+    """Wan2.1-I2V-14B VAP at full width and WAN_GEN_LAYERS of its 40 blocks,
+    with random bf16 weights from SEED, each component built on the card and
+    kept in host memory (model offload)."""
     import torch
 
     from vap_tpu_torch.models.random_init import build_random
@@ -3465,7 +3508,8 @@ def build_wan_pipeline(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = torch.bfloat16
     t0 = time.perf_counter()
-    t_cfg = WanMOTConfig.wan_14b_i2v_vap()
+    t_cfg = WanMOTConfig.wan_14b_i2v_vap(num_layers=WAN_GEN_LAYERS,
+                                         block_idx_with_mot_ref=tuple(range(WAN_GEN_LAYERS)))
     txt_cfg = T5Config.umt5_xxl()
     parts = {}
     for name, cls, cfg in (("transformer", WanTransformer3DMOTModel, t_cfg),
@@ -3559,7 +3603,7 @@ def wan_bench_path(pipe, dev):
     log(f"  {len(names)} projections "
         f"({n_int8} weights) quantised on the card, int8 kept in host memory, in {quantize_s:.2f} "
         f"s; the transformer now {sum(t.numel() * t.element_size() for t in model.state_dict().values()) / 2**30:.2f} GiB")
-    per_step = sum(WAN_W8A8_SHAPES.values())
+    per_step = sum(wan_w8a8_shapes(model.config.num_layers).values())
     if len(names) != per_step:
         raise AssertionError(f"{len(names)} projections quantised, expected {per_step}")
 
@@ -4102,7 +4146,6 @@ def training_path(dev):
                              f"that moved {woke[:5]}")
     del params, before, videos
     opt8 = adam8bit_check(trainer, batch0, dev)
-    del batch0
     t0 = time.perf_counter()
     exported = export_check(trainer)
     seconds = time.perf_counter() - t0
@@ -4118,11 +4161,185 @@ def training_path(dev):
     torch.cuda.empty_cache()
     dpo = dpo_path(model, spec, dev, work, exported)
     os.remove(exported)
-    del model, spec
+    strip_lora(model)  # the DPO adapters out: phase 8a trains the expert again
+    log("the sharded trainer (8a): the 3-ref HSDP recipe folded to one rank, unsharded then "
+        "FSDP2 over a one-rank NCCL mesh:")
+    sharded = sharded_training_check(model, spec, dev, work, batch0)
+    del model, spec, batch0
     shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_bwd"], seconds, dpo, opt8
+    return launches["flash_bwd"], seconds, dpo, opt8, sharded
+
+
+# the released 3-ref HSDP recipe (data 4 x fsdp 2); phase 8a reads its
+# arguments through the port's parser with the degrees folded to one rank
+THREE_REF_RECIPE = "examples/training/sft/cogvideox/vap_mot/train_single_node_3ref.sh"
+# the grad norms' tolerance, relative: the sharded norm is sqrt of the sum
+# of squares all-reduced over the shard groups, the unsharded one the norm
+# of the per-tensor norms, which round apart in the last float32 bits
+SHARDED_NORM_RTOL = 1e-6
+
+
+# FSDP2 passes each unit's inputs through an autograd node of its own, so the
+# two terms a MoT block gives the reference time embedding's bf16 gradient
+# are summed in that node before the 41 blocks' sums reach the embedding
+# (without FSDP2 all 82 terms are summed there, one by one): the sums round
+# apart by a few bf16 ulps. Phase 8a takes both steps with that one sum in
+# float64 (``ref_embedding_summed_in_f64``): each block's two terms still
+# meet in bf16 (a + b, one rounding whichever comes first), and a float64
+# sum of 41 bf16 values is exact unless an element's terms span more than
+# 38 binades, so the embedding's gradient, and with it every gradient, must
+# be the same to the bit on both paths; the loss and every updated tensor
+# of the expert are held so
+@contextlib.contextmanager
+def ref_embedding_summed_in_f64():
+    """CogVideoX's MoT blocks given the reference time embedding through a
+    float64 copy of it (one a forward; each block reads its bf16 cast), so
+    that autograd sums the blocks' gradients in float64 and casts the sum
+    to bf16 once; yields the list of the blocks whose gradient reached it
+    (one entry a block)."""
+    from vap_tpu_torch.models.cogvideox import transformer_mot
+
+    plain = transformer_mot.run_block
+    held, terms = [None, None], []
+
+    def run_block(block, remat, *args):
+        emb_ref = args[6]  # (hs, ehs, emb, rope, hs_ref, ehs_ref, emb_ref, ...)
+        if emb_ref is not None and block.with_mot:
+            if held[0] is not emb_ref:
+                held[:] = [emb_ref, emb_ref.double()]
+            cast = held[1].to(emb_ref.dtype)
+            cast.register_hook(lambda g, block=block: terms.append(block))
+            args = args[:6] + (cast,) + args[7:]
+        return plain(block, remat, *args)
+
+    transformer_mot.run_block = run_block
+    try:
+        yield terms
+    finally:
+        transformer_mot.run_block = plain
+        held[:] = [None, None]
+
+
+def recipe_argv(path, **flags):
+    """The ``python train.py`` arguments of a launch script, ``flags``
+    replacing or adding values (``--name value``)."""
+    import shlex
+
+    with open(path) as f:
+        text = f.read()
+    argv = shlex.split(text.split("python train.py", 1)[1].replace("\\\n", " ").split("\n\n")[0])
+    for name, value in flags.items():
+        key = f"--{name}"
+        if key in argv:
+            argv[argv.index(key) + 1] = str(value)
+        else:
+            argv += [key, str(value)]
+    return argv
+
+
+def sharded_training_check(model, spec, dev, work, batch):
+    """Phase 8a: one step of the 3-ref recipe unsharded, then sharded over
+    a one-rank NCCL mesh from the same weights and draws (see the module's
+    docstring). The model stays sharded: the caller drops it."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from vap_tpu_torch.parallel.sharding import is_sharded
+    from vap_tpu_torch.train import _parser
+    from vap_tpu_torch.training.args import TrainingArgs
+    from vap_tpu_torch.training.train_step import draw_step_noise
+    from vap_tpu_torch.training.trainer import SFTTrainer, step_generator
+
+    argv = recipe_argv(os.path.join(HERE, THREE_REF_RECIPE), data_degree=1, fsdp_degree=1,
+                       data_root=os.path.join(work, "data"),
+                       output_dir=os.path.join(work, "sharded"), lr_warmup_steps=0,
+                       resume_from_checkpoint="", pretrained_model_name_or_path="")
+    ns = vars(_parser().parse_args(argv))
+    ns.pop("device"), ns.pop("model_config")
+    args = TrainingArgs(**ns)
+    layers = model.config.num_layers
+    mot = len(model.config.block_idx_with_mot_ref)
+    want = {"flash_fwd": 2 * layers, "flash_bwd": layers}  # forward and recompute; backward
+    for module in spec.encoders().values():  # T5 and the VAE wait in host memory
+        module.to("cpu")
+    torch.cuda.empty_cache()
+    draws = {}  # step 1's draws, once the trainer's step config exists
+
+    def step(trainer):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        with trainer._attn_ctx(), ref_embedding_summed_in_f64() as terms:
+            loss = trainer._grad(model, batch, None, None, **draws)["loss"].detach().clone()
+        norm = trainer._apply(1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check_launches(launches, want)
+        if len(terms) != mot:
+            raise AssertionError(f"{len(terms)} blocks' gradients reached the reference time "
+                                 f"embedding, not {mot}")
+        return loss, norm, wall, torch.cuda.max_memory_allocated(dev), launches
+
+    trainer = SFTTrainer(args, model, spec)
+    draws.update(draw_step_noise(trainer.step_cfg, batch["latents"].shape,
+                                 step_generator(args.seed, 1, dev), dev))
+    names = trainer.trainable_names
+    params = dict(model.named_parameters())
+    start = {n: params[n].detach().to("cpu", copy=True) for n in names}
+    loss, norm, wall, peak, launches = step(trainer)
+    updated = {n: params[n].detach().clone() for n in names}
+    with torch.no_grad():
+        for n in names:
+            params[n].copy_(start[n])
+    trainer.optimizer.inner.state.clear()
+    for p in model.parameters():
+        p.grad = None
+    del trainer, start, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with one_rank_nccl_group(dev):
+        t0 = time.perf_counter()
+        trainer = SFTTrainer(args, model, spec, shard=True)
+        build = time.perf_counter() - t0
+        sharded = sum(is_sharded(p) for p in model.parameters())
+        s_loss, s_norm, s_wall, s_peak, s_launches = step(trainer)
+        t0 = time.perf_counter()
+        state = trainer.trainable_state_dict()
+        gather = time.perf_counter() - t0
+        differ = [n for n in names if not torch.equal(state[n], updated[n].cpu())]
+        del state
+    norm_gap = abs(s_norm.item() - norm.item()) / norm.item()
+    log(f"  the 3-ref recipe ({THREE_REF_RECIPE}, degrees folded to 1 x 1; sample_ref_videos_num "
+        f"{args.sample_ref_videos_num}, optimizer {args.optimizer}, lr {args.lr}) on phase 8's "
+        f"first item (one reference: three at full width do not fit one card beside the "
+        f"unsharded state), {len(names)} trained tensors, the reference time embedding's "
+        f"gradient summed over the {mot} MoT blocks in float64 on both paths:")
+    log(f"  unsharded: loss {loss.item():.6f}, grad_norm {norm.item():.6f}, {wall:.3f} s, peak "
+        f"{peak / 2**30:.2f} GiB; K1 {launches['flash_fwd']}, K5 {launches['flash_bwd']}")
+    log(f"  sharded (FSDP2 over a one-rank NCCL (data, fsdp) mesh, {sharded} of "
+        f"{len(list(model.parameters()))} parameters DTensors, built in {build:.2f} s): loss "
+        f"{s_loss.item():.6f}, bit-equal {torch.equal(s_loss, loss)}; grad_norm "
+        f"{s_norm.item():.6f}, relative difference {norm_gap:.3e} (tol {SHARDED_NORM_RTOL}); "
+        f"{s_wall:.3f} s, peak {s_peak / 2**30:.2f} GiB; K1 {s_launches['flash_fwd']}, K5 "
+        f"{s_launches['flash_bwd']}; the full-state gather in {gather:.2f} s: updated expert "
+        f"tensors bit-equal to the unsharded step's {len(names) - len(differ)} of {len(names)}"
+        f"{f' (not {differ[:5]})' if differ else ''}; {power_line()}")
+    if not (torch.equal(s_loss, loss) and norm_gap <= SHARDED_NORM_RTOL and not differ
+            and sharded == len(list(model.parameters())) and np.isfinite(loss.item())):
+        raise AssertionError("the sharded step differs from the unsharded one")
+    del trainer, updated
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss.item(), "grad_norm": [norm.item(), s_norm.item()],
+            "seconds": [wall, s_wall], "peak_gib": [peak / 2**30, s_peak / 2**30],
+            "k1": s_launches["flash_fwd"],
+            "k5": s_launches["flash_bwd"]}
 
 
 # the released DPO recipe (vap_mot/train_single_node_dpo.sh); its
@@ -5100,15 +5317,113 @@ def build_wan_trainer(dev, work):
     return SFTTrainer(args, model)
 
 
-def run_lora_training(trainer, want_launches):
+def top_device_kernels(prof, n=8):
+    """The card's time in a profiler's window (the trainer's traces only the
+    card): (ms busy in all, [(kernel name, ms in all, calls)] of the ``n``
+    with the most)."""
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted((e for e in prof.key_averages() if device_us(e) > 0), key=device_us,
+                  reverse=True)
+    busy = sum(device_us(e) for e in rows) / 1e3
+    return busy, [(e.key[:60], round(device_us(e) / 1e3, 3), e.count) for e in rows[:n]]
+
+
+# 10a / 13a: the one-rank ring runs the flash step's kernels through the
+# ring's route (attention_with_lse), so its loss and gradients should be
+# flash's to the bit (phase 8's ring_training_check reads them so at
+# D=64); held within one bf16 ulp of the largest gradient of each tensor
+# (2^-7 of it), what a flipped rounding of a bf16 attention output gives,
+# and the loss within RING_LOSS_RTOL
+RING_GRAD_RTOL = 2**-7
+RING_LOSS_RTOL = 1e-6
+
+
+def ring_profiled_step(trainer, provider, work):
+    """The next step of a LoRA trainer under ``provider`` (the ``ring``
+    provider at one rank: a one-rank NCCL group's mesh installed as the
+    trainer's) inside its profiling window (``--profile_dir``, the run's
+    first step), held against one grad_fn under ``flash`` on the same item
+    and draws: the loss and every adapter gradient within RING_LOSS_RTOL and
+    RING_GRAD_RTOL, and whether to the bit. Returns (the ring step's
+    launches, what it measured)."""
+    import torch
+
+    from vap_tpu_torch.data.precomputation import PrecomputedReader
+    from vap_tpu_torch.data.sampler import ResolutionSampler
+
+    args, model = trainer.args, trainer.model
+    step = trainer.train_state.step + 1
+    position = trainer.data_position
+    batch = trainer._batch(PrecomputedReader(args.precomputation_dir).stream(position),
+                           ResolutionSampler(1))
+    trainer.data_position = position
+    draws = trainer._draws(batch, step)
+    with trainer._attn_ctx():
+        loss = trainer._grad(model, batch, None, None, **draws)["loss"].item()
+    params = trainer.optimizer.params
+
+    def grads():  # an adapter the loss does not reach has none: zeros, as the update reads it
+        return [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                for p in params]
+
+    want = grads()
+    for p in params:
+        p.grad = None
+    got = []
+    apply = trainer._apply
+
+    def kept(scale=1.0):  # the gradients the update reads
+        got.extend(grads())
+        return apply(scale)
+
+    trace = os.path.join(work, "trace")
+    ring_args = dataclasses.replace(args, attn_provider_training=provider, profile_dir=trace,
+                                    profile_start_step=1, profile_num_steps=1)
+    with one_rank_nccl_group(trainer.device) as mesh:
+        trainer.mesh, trainer.args, trainer._apply = mesh, ring_args, kept
+        try:
+            reset_counts()
+            trainer.run()
+            launches = read_counts()
+        finally:
+            trainer.mesh, trainer.args, trainer._apply = None, args, apply
+    ring_loss = trainer.history[-1]["loss"]
+    same = sum(torch.equal(g, w) for g, w in zip(got, want))
+    worst = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                for g, w in zip(got, want))
+    loss_err = abs(ring_loss - loss) / max(abs(loss), 1e-30)
+    busy, top = top_device_kernels(trainer.profile)
+    record = trainer.history[-1]
+    wall = record["forward_s"] + record["backward_s"] + record["update_s"]
+    path = os.path.join(trace, "trace_rank0.json")
+    log(f"  step {step} under {provider!r} (one-rank NCCL mesh) in the profiling window: loss "
+        f"{ring_loss!r} against flash's {loss!r} (bit-equal {ring_loss == loss}), adapter "
+        f"gradients bit-equal {same} of {len(params)}, the largest max|diff| / max|flash| "
+        f"{worst:.3e} (tol {RING_GRAD_RTOL:.3e}); the step {wall:.3f} s, the card busy "
+        f"{busy / 1e3:.3f} s of it (idle {1 - busy / 1e3 / wall:.3f}); the trace "
+        f"({os.path.getsize(path) if os.path.exists(path) else 0} bytes) top device kernels "
+        f"(name, ms, calls): {top}")
+    if not (loss_err <= RING_LOSS_RTOL and worst <= RING_GRAD_RTOL and os.path.exists(path)
+            and len(got) == len(want)):
+        raise AssertionError(f"the {provider} step differs from flash's or wrote no trace")
+    shutil.rmtree(trace, ignore_errors=True)
+    return launches, {"loss": [loss, ring_loss], "grads_bit_equal": [same, len(params)],
+                      "grad_max_rel_diff": worst, "step_s": wall, "busy_s": busy / 1e3,
+                      "top_device_kernels": top}
+
+
+def run_lora_training(trainer, want_launches, ring, work):
     """``TRAIN_STEPS`` optimizer steps of a LoRA trainer on the card, one
-    ``run()`` each, with every launch counter at 0 before the first: per
+    ``run()`` each, the last under ``ring`` (``ring_profiled_step``, its
+    trace under ``work``), each step's launches counted from 0: per
     step the loss, grad_norm and the forward / backward / update seconds;
     the peak device memory; exactly ``want_launches`` per step (none of any
     other kernel); the frozen trunk bit-identical (a host copy); every
     adapter's B moved at step 1 and its A at step 2, none at step 1; the
-    share of adapted weight elements the bf16 merge changes. Returns the
-    launches."""
+    share of adapted weight elements the bf16 merge changes. Returns (the
+    launches, the ring step's readings)."""
     import numpy as np
     import torch
 
@@ -5118,17 +5433,22 @@ def run_lora_training(trainer, want_launches):
     before = {n: p.detach().to("cpu", copy=True) for n, p in params.items() if n not in trainable}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
     start = {n: ab["A"].detach().clone() for n, ab in trainer.lora.items()}
     snapshots = []
+    launches = dict.fromkeys(read_counts(), 0)
     t0 = time.perf_counter()
     for step in range(1, TRAIN_STEPS + 1):  # one run() per step, to see what each moved
         trainer.args.train_steps = step
-        trainer.run()
+        if step == TRAIN_STEPS:
+            counted, ring_result = ring_profiled_step(trainer, ring, work)
+        else:
+            reset_counts()
+            trainer.run()
+            counted = read_counts()
+        launches = {k: launches[k] + counted[k] for k in launches}
         snapshots.append({n: {k: v.detach().clone() for k, v in ab.items()}
                           for n, ab in trainer.lora.items()})
     wall = time.perf_counter() - t0
-    launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     for r in trainer.history:
         total = r["forward_s"] + r["backward_s"] + r["update_s"]
@@ -5166,7 +5486,7 @@ def run_lora_training(trainer, want_launches):
     total = sum(params[f"{n}.weight"].numel() for n in trainer.lora)
     log(f"  after step {TRAIN_STEPS}: {kept} of {total} adapted weight elements "
         f"({kept / total:.4f}) differ from the frozen base once merged in bf16")
-    return launches
+    return launches, ring_result
 
 
 def strip_lora(model):
@@ -5290,9 +5610,11 @@ def wan_training_path(dev):
         f"{cfg.num_attention_heads}x{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}, "
         f"{cfg.in_channels} input channels: {describe_lora(trainer, t0)}")
     per_step = 3 * cfg.num_layers  # self, text and image attention per block
-    # K4 runs each attention in the forward and again in the recompute
-    launches = run_lora_training(trainer, {"flash_fwd_d128": 2 * per_step,
-                                           "flash_bwd_d128": per_step})
+    # K4 runs each attention in the forward and again in the recompute; step
+    # 2 (10a) under the one-rank ring, the cross-attentions local
+    launches, ring = run_lora_training(trainer, {"flash_fwd_d128": 2 * per_step,
+                                                 "flash_bwd_d128": per_step},
+                                       ring="ring cross:flash", work=work)
     peft = write_lora(trainer, os.path.join(HERE, "build", "chip_smoke_lora"))
     # the model goes on to phases 10b and 10c; its gradients and the optimizer state do not
     model = trainer.model
@@ -5301,7 +5623,7 @@ def wan_training_path(dev):
     del trainer
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches["flash_bwd_d128"], model, peft
+    return launches["flash_bwd_d128"], model, peft, ring
 
 
 # ---------------------------------------------------------------------------
@@ -5566,7 +5888,8 @@ def build_hunyuan_trainer(model, work, latents):
 def hunyuan_training_path(model, latents, dev):
     """HunyuanVideo LoRA SFT at full width and depth on phase 11's
     transformer (moved to the card): TRAIN_STEPS steps at 49f@480x768 through
-    ``SFTTrainer.run``. Returns K7's launches in K4 and in K6."""
+    ``SFTTrainer.run``, the last under the one-rank ``ring`` (13a). Returns
+    K7's launches in K4 and in K6, and the ring step's readings."""
     import shutil
 
     import torch
@@ -5581,13 +5904,15 @@ def hunyuan_training_path(model, latents, dev):
         f"{HUNYUAN_TRAIN_SHAPE} with {hunyuan_kv_len(HUNYUAN_TRAIN_IMAGE_TOKENS)} valid keys: "
         f"{describe_lora(trainer, t0)}")
     per_step = cfg.num_layers + cfg.num_single_layers  # one joint attention a block
-    # K7 in K4 runs each attention in the forward and again in the recompute
-    launches = run_lora_training(trainer, {"flash_fwd_d128_varlen": 2 * per_step,
-                                           "flash_bwd_d128_varlen": per_step})
+    # K7 in K4 runs each attention in the forward and again in the recompute;
+    # step 2 (13a) under the one-rank ring, kv_lens through it
+    launches, ring = run_lora_training(trainer, {"flash_fwd_d128_varlen": 2 * per_step,
+                                                 "flash_bwd_d128_varlen": per_step},
+                                       ring="ring", work=work)
     del trainer
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, ring
 
 
 def serialised_wgmma(log_text, kernels):
@@ -5859,8 +6184,9 @@ def main():
     log(f"training, CogVideoX-5B VAP from clips on disk ({NUM_FRAMES} frames of {HEIGHT}x"
         f"{WIDTH}, batch 1, {TRAIN_STEPS} optimizer steps, then validation, {VAL_STEPS} DDIM "
         f"steps):")
-    launches["flash_bwd"], seconds, dpo, opt8 = training_path(dev)
+    launches["flash_bwd"], seconds, dpo, opt8, sharded = training_path(dev)
     results["flash_bwd"]["adamw_8bit"] = opt8
+    results["flash_bwd"]["sharded_step"] = sharded
     ckpt_seconds += seconds
     log("K1 and K5 at the DPO step's batch of 2 (bf16, vs plain PyTorch, both rows):")
     results["flash_bwd"]["batch2_max_abs_err"] = k5_batch2_parity(dev)
@@ -5906,7 +6232,8 @@ def main():
     host_memory("before 10")
     log(f"training, Wan2.1-I2V-14B LoRA ({NUM_FRAMES} frames of {WAN_HEIGHT}x{WAN_WIDTH}, "
         f"batch 1, {TRAIN_STEPS} optimizer steps):")
-    launches["flash_bwd_d128"], model, peft = wan_training_path(dev)
+    launches["flash_bwd_d128"], model, peft, ring = wan_training_path(dev)
+    results["flash_bwd_d128"]["ring_profiled_step"] = ring
     torch.cuda.empty_cache()
     host_memory("before 10b")
     log(f"plain Wan I2V sampling of the trained LoRA model ({NUM_FRAMES} frames of "
@@ -5953,7 +6280,8 @@ def main():
     # 13. HunyuanVideo LoRA training
     log(f"training, HunyuanVideo LoRA ({HUNYUAN_TRAIN_FRAMES} frames of {HUNYUAN_TRAIN_HEIGHT}x"
         f"{HUNYUAN_TRAIN_WIDTH}, batch 1, {TRAIN_STEPS} optimizer steps):")
-    train_launches = hunyuan_training_path(transformer, latents, dev)
+    train_launches, ring = hunyuan_training_path(transformer, latents, dev)
+    results["flash_bwd_d128_varlen"]["ring_profiled_step"] = ring
     launches["flash_bwd_d128_varlen"] = train_launches["flash_bwd_d128_varlen"]
     # K7's backward in K5 is held, on no model's path: the run checked its count is 0
     launches["flash_bwd_varlen"] = train_launches["flash_bwd_varlen"]

@@ -77,6 +77,11 @@ SLICE_MODULES = [
     "vap_tpu_torch.parallel",
     "vap_tpu_torch.parallel.mesh",
     "vap_tpu_torch.parallel.ring_attention",
+    "vap_tpu_torch.parallel.sharding",
+    "vap_tpu_torch.utils.logging",
+    "vap_tpu_torch.scripts.memory_check",
+    "vap_tpu_torch.training.optim8bit",
+    "vap_tpu_torch.training.layerwise",
 ]
 
 _PROBE = """

@@ -223,16 +223,22 @@ def test_every_rank_resumes_from_rank_0s_checkpoint(ranks):
         assert all(np.array_equal(p, got[0][1][n]) for n, p in params.items()), rank
 
 
+# what each degree above 1 is still refused for: tensor parallelism
+# everywhere, parameter sharding for the control trainer
+UNPORTED = {"fsdp_degree": dict(model_name="wan", training_type="control"),
+            "tensor_degree": {}}
+
+
 @pytest.mark.parametrize("flag", ["fsdp_degree", "tensor_degree"])
 def test_unported_degrees_raise(flag):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TrainingArgs(**{flag: 2})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TrainingArgs(**{flag: 2}, **UNPORTED[flag])
 
 
 def test_parallel_flags_validated():
-    """JAX's names and defaults; an unknown rotate method, a degree below 1
-    or Wan under --seq_degree raise, and so does a world the launcher does
-    not run."""
+    """JAX's names and defaults; an unknown rotate method or a degree below
+    1 raise (Wan under --seq_degree is taken), and so does a world the
+    launcher does not run."""
     args = TrainingArgs()
     assert (args.data_degree, args.fsdp_degree, args.seq_degree, args.tensor_degree,
             args.cp_rotate_method, args.attn_provider_training) == (1, 1, 1, 1, "allgather",
@@ -241,8 +247,7 @@ def test_parallel_flags_validated():
         TrainingArgs(cp_rotate_method="alltoall")
     with pytest.raises(ValueError, match="seq_degree must be >= 1"):
         TrainingArgs(seq_degree=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TrainingArgs(model_name="wan", seq_degree=2)
+    assert TrainingArgs(model_name="wan", seq_degree=2).world_size == 2
     with pytest.raises(ValueError, match="unknown attention provider"):
         TrainingArgs(attn_provider_training="bogus")
     with pytest.raises(ValueError, match="launcher runs 1 processes"):

@@ -25,6 +25,14 @@ def _share_the_cores():
 
 _share_the_cores()
 
+
+def rank_threads(ranks):
+    """Torch threads for each of ``ranks`` processes a test spawns: the
+    machine's cores shared among the pytest-xdist workers and the ranks
+    (at least 1)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, (os.cpu_count() or 1) // (workers * ranks))
+
 CLIP_SHAPE = (9, 32, 32, 3)
 
 

@@ -7,12 +7,11 @@ spatially conditioned norm. Convolutions are plain PyTorch (cuDNN on the
 card), as they were XLA in JAX.
 
 Inside, tensors are channel-first [B, C, F, H, W]; the public functions
-(``vae_encode``, ``vae_decode_streamed``, ``vae_decode_wsplit``,
-``vae_decode_tiled``, ``posterior_mode``) keep the JAX package's
-channel-last [B, F, H, W, C]. Module attributes follow the diffusers keys
-of ``AutoencoderKLCogVideoX``. The conv cache is an explicit dict keyed by
-each causal conv's module path. The tiled encode is not ported (no
-pipeline calls it).
+(``vae_encode``, ``vae_encode_tiled``, ``vae_decode_streamed``,
+``vae_decode_wsplit``, ``vae_decode_tiled``, ``posterior_mode``) keep the
+JAX package's channel-last [B, F, H, W, C]. Module attributes follow the
+diffusers keys of ``AutoencoderKLCogVideoX``. The conv cache is an explicit
+dict keyed by each causal conv's module path.
 """
 
 from __future__ import annotations

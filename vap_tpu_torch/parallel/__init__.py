@@ -1,6 +1,7 @@
-"""Multi-GPU parallelism of the port: the device mesh and sequence-parallel
-attention, forward and backward (``vap_tpu/parallel/``). Parameter sharding
-(``sharding.py``: FSDP, tensor parallelism) is not ported yet."""
+"""Multi-GPU parallelism of the port: the device mesh, sequence-parallel
+attention, forward and backward, and parameter sharding (``sharding.py``:
+FSDP2 / HSDP over the (data, fsdp) axes) (``vap_tpu/parallel/``). Tensor
+parallelism is not ported yet."""
 
 from .mesh import AXES, MeshConfig, make_mesh
 from .ring_attention import (ROTATE_METHODS, attention_mesh, get_attention_mesh,

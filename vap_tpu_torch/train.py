@@ -11,8 +11,9 @@ cache.
         [--model_structure_config JSON] [--train_steps N] [--lr 1e-5] \\
         [--device cuda|cpu] [--model_config NAME]
 
-    torchrun --nproc_per_node N -m vap_tpu_torch.train ... --seq_degree S \\
-        [--data_degree D] [--cp_rotate_method allgather|ppermute|ulysses]   # N = D x S
+    torchrun --nproc_per_node N -m vap_tpu_torch.train ... [--data_degree D] \\
+        [--fsdp_degree F] [--seq_degree S] \\
+        [--cp_rotate_method allgather|ppermute|ulysses]   # N = D x F x S
 
 With ``--data_root`` or ``--dataset_config`` the trainer reads the clips
 (``data/``), bucket-fits and encodes them with the family's text encoder(s)
@@ -62,8 +63,9 @@ by ``expand_patch_embedding``, UMT5 and the Wan VAE (no image encoder).
 Under ``torchrun`` (``WORLD_SIZE`` > 1) each process starts
 ``torch.distributed`` from the launcher's environment: NCCL on the card
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; the world must equal
-``data_degree x seq_degree``. Every rank builds the same weights; rank 0
-exports.
+``data_degree x fsdp_degree x seq_degree``. Every rank builds the same
+weights (``fsdp_degree > 1`` shards them, HSDP with ``data_degree > 1``);
+every rank takes part in the export, rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ from .training.specs import (build_mot_state_dict_from_base, build_wan_mot_state
                              get_model_spec_cls)
 from .training.trainer import SFTTrainer
 from .utils.hub import component_config_kwargs, resolve_model_dir
+from .utils.logging import get_logger
 
 # per model_name: the model class, its config class and its configurations
 # by name (the released structure first; ``tiny`` for runs on the CPU)
@@ -199,7 +202,7 @@ def transformer_weights(args: TrainingArgs, cfg, base_dir: Optional[str]):
     checkpoint lacks it)."""
     mot_path = args.videoasprompt_mot_name_or_path
     if args.model_name != "hunyuan_video" and mot_path and os.path.exists(mot_path):
-        logging.getLogger(__name__).info("loading the MoT transformer from %s", mot_path)
+        get_logger(__name__).info("loading the MoT transformer from %s", mot_path)
         return load_safetensors(mot_path)
     if base_dir is None:
         return None
@@ -219,7 +222,9 @@ def build_transformer(args: TrainingArgs, config_name: Optional[str], device: to
     when None), in bf16 on the card or f32 on the CPU: loaded from the
     checkpoint ``transformer_weights`` picks, else random from ``--seed``.
     For CogVideoX, as JAX's ``_build_cogvideox`` (train.py:143-154):
-    ``--ablation_single_branch`` leaves no MoT block, and
+    ``--ablation_single_branch`` leaves no MoT block,
+    ``--ablation_single_encoder`` and ``--ablation_residual_addition`` set
+    the structure's fields, and
     ``--reference_train_mode`` sets the config's unless the structure JSON
     sets it."""
     if args.is_control:
@@ -235,6 +240,10 @@ def build_transformer(args: TrainingArgs, config_name: Optional[str], device: to
     if args.model_name == "cogvideox":
         if args.ablation_single_branch:  # the plain trunk: no MoT block
             fields["block_idx_with_mot_ref"] = ()
+        if args.ablation_single_encoder:
+            fields["ablation_single_encoder"] = True
+        if args.ablation_residual_addition:
+            fields["ablation_residual_addition"] = True
         if fields.get("reference_train_mode") is None:  # the flag, unless the structure says
             fields["reference_train_mode"] = args.reference_train_mode
     cfg = configs[config_name](**fields)
@@ -332,7 +341,7 @@ def build_spec(args: TrainingArgs, model: nn.Module, config_name: Optional[str],
                 raise FileNotFoundError(
                     f"{args.model_name} training from data needs the {name} weights: no "
                     f"safetensors under {comp or os.path.join(root or '<no checkpoint>', name)}")
-            logging.getLogger(__name__).warning(
+            get_logger(__name__).warning(
                 "random-initialized %s from --seed %d (no checkpoint)", name, args.seed)
             gen = torch.Generator(device=device).manual_seed(args.seed + 1 + i)
             encoders[name] = build_random(cls, cfg, device, dtype, gen)
@@ -377,11 +386,11 @@ def init_distributed(args: TrainingArgs, device: torch.device):
     more than one process: NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU;
     a group the caller started already is kept. Returns (the device of
     this process, whether this call started the group). Raises when the
-    world is not ``data_degree x seq_degree``."""
+    world is not ``data_degree x fsdp_degree x seq_degree``."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != args.world_size:
-        raise ValueError(f"the launcher runs {world} processes, but data_degree x seq_degree = "
-                         f"{args.world_size}")
+        raise ValueError(f"the launcher runs {world} processes, but data_degree x fsdp_degree x "
+                         f"seq_degree = {args.world_size}")
     if world == 1:
         return device, False
     import torch.distributed as dist
@@ -420,8 +429,7 @@ def main(argv: Optional[List[str]] = None,
         trainer = SFTTrainer(args, model, spec)
     try:
         trainer.run()
-        if trainer.rank == 0:
-            trainer.export()
+        trainer.export()  # every rank gathers its shards; rank 0 writes
     finally:
         if started:
             import torch.distributed as dist

@@ -27,13 +27,25 @@ CogVideoX or Wan model (the whole model for HunyuanVideo), on the plain
 dataset.
 
 The parallel flags are JAX's (``vap_tpu/training/args.py:21-25``): one
-process per GPU under ``torchrun``; ``data_degree`` ranks take slices of
-one global batch and average their gradients, and ``seq_degree`` ranks
+process per GPU under ``torchrun``; the ``data_degree x fsdp_degree``
+ranks take slices of one global batch, ``fsdp_degree`` ranks shard the
+parameters, gradients and optimizer state (FSDP2; HSDP with
+``data_degree > 1``, ``parallel/sharding.py``: the recipes
+``cogvideox/vap_mot/train_single_node_3ref.sh``, 4 x 2, and
+``wan/vap_mot/train_single_node.sh``, 2 x 4), and ``seq_degree`` ranks
 split each attention's token stream (the ``ring`` provider, with
-``cp_rotate_method``). The world is ``data_degree x seq_degree``;
-``fsdp_degree`` and ``tensor_degree`` above 1 raise (parameter sharding is
-a later slice), and so does ``seq_degree`` above 1 for Wan and
-HunyuanVideo, whose trainers take it in a later slice.
+``cp_rotate_method``), for the three families. The world is
+``data_degree x fsdp_degree x seq_degree``; ``tensor_degree`` above 1
+raises (tensor parallelism is a later slice), and so does ``fsdp_degree``
+above 1 for the control trainer.
+
+JAX's other flags that the released recipes pass are taken as JAX takes
+them: ``ref_videos_num`` and ``training_dataset_kind`` (read by nothing, as
+in JAX), ``transformer_dtype`` (the same), ``ablation_single_encoder`` and
+``ablation_residual_addition`` (set on the CogVideoX structure by
+``vap_tpu_torch.train``); the profiling window (``profile_dir``,
+``profile_start_step``, ``profile_num_steps``, args.py:134-141, refused
+below 1 as JAX refuses them, :158-159).
 
 The data, precompute, validation and tracker fields are JAX's
 (``vap_tpu/training/args.py:43-64, 110-132``), with its names and defaults:
@@ -85,19 +97,20 @@ CHECKPOINTING_TYPES = ("full", "ops", "block_skip")
 REFERENCE_TRAIN_MODES = (None, "reference_independent")
 CP_ROTATE_METHODS = ("allgather", "ppermute", "ulysses")
 # model_name values whose trainer takes --seq_degree > 1 in this port
-SEQ_PARALLEL_MODEL_NAMES = ("cogvideox",)
+SEQ_PARALLEL_MODEL_NAMES = ("cogvideox", "wan", "hunyuan_video")
 
 
 @dataclasses.dataclass
 class TrainingArgs:
-    # parallel (torchrun: one process per GPU; world = data x seq)
+    # parallel (torchrun: one process per GPU; world = data x fsdp x seq)
     data_degree: int = 1
-    fsdp_degree: int = 1      # > 1 not ported (parameter sharding, a later slice)
+    fsdp_degree: int = 1      # FSDP2 parameter sharding; HSDP with data_degree > 1
     seq_degree: int = 1
     tensor_degree: int = 1    # > 1 not ported (tensor parallelism, a later slice)
     cp_rotate_method: str = "allgather"  # | ppermute | ulysses
 
     output_dir: str = "output"
+    transformer_dtype: str = "bfloat16"  # accepted, read by nothing (as in JAX)
 
     # dataset
     dataset_config: Optional[str] = None
@@ -113,6 +126,7 @@ class TrainingArgs:
     precomputation_once: bool = False
 
     # VAP data flags
+    ref_videos_num: int = 5  # accepted, read by nothing (as in JAX)
     sample_ref_videos_num: int = 1
     mask_ref_ratio: float = 0.0
     mask_caption_ratio: float = 0.02
@@ -125,6 +139,10 @@ class TrainingArgs:
     random_refer_noise: bool = False  # the reference timesteps reach its time embedding
     num_ref_diffusion_time_sigmas: int = 10
     ref_type: str = "continous_negative"
+    training_dataset_kind: str = "vap_data"  # accepted, read by nothing (as in JAX)
+    # CogVideoX structure ablations (train.py sets them on the config)
+    ablation_single_encoder: bool = False
+    ablation_residual_addition: bool = False
     # DPO (as training_type dpo): a LoRA policy over the frozen MoT model
     dpo: bool = False
     # one trunk over [target ‖ references]: the whole model trains under
@@ -195,6 +213,12 @@ class TrainingArgs:
     report_to: Tuple[str, ...] = ("dummy",)
     tracker_name: str = "vap_tpu"
 
+    # a torch.profiler Chrome trace of the steps [profile_start_step,
+    # profile_start_step + profile_num_steps) of this process's run
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 2
+    profile_num_steps: int = 3
+
     def __post_init__(self):
         if self.gradient_accumulation_steps < 1:
             raise ValueError("gradient_accumulation_steps must be >= 1")
@@ -218,11 +242,15 @@ class TrainingArgs:
         for name in ("data_degree", "fsdp_degree", "seq_degree", "tensor_degree"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
-        for name, what in (("fsdp_degree", "parameter sharding (FSDP2/HSDP)"),
-                           ("tensor_degree", "tensor parallelism")):
-            if getattr(self, name) > 1:
-                raise NotImplementedError(f"{name} > 1 is not ported to PyTorch yet: {what} is "
-                                          f"a later slice of the port")
+        if self.tensor_degree > 1:
+            raise NotImplementedError("tensor_degree > 1 is not ported to PyTorch yet: tensor "
+                                      "parallelism is a later slice of the port (Wan's QK RMS "
+                                      "norm spans every head, so column-parallel q and k need "
+                                      "a reduction inside it)")
+        if self.fsdp_degree > 1 and self.is_control:
+            raise NotImplementedError("fsdp_degree > 1 for the control trainer is not ported: its "
+                                      "f32 adapters and the bf16 layers it trains directly share "
+                                      "FSDP units, whose gradients reduce in one dtype")
         if self.seq_degree > 1 and self.model_name not in SEQ_PARALLEL_MODEL_NAMES:
             raise NotImplementedError(f"seq_degree > 1 for {self.model_name!r} is not ported "
                                       f"yet: its trainer under --seq_degree is a later slice")
@@ -235,6 +263,8 @@ class TrainingArgs:
             raise ValueError("ablation_scaling_data_num must be a positive integer")
         if self.validation_steps < 1:
             raise ValueError("validation_steps must be >= 1")
+        if self.profile_dir and (self.profile_num_steps < 1 or self.profile_start_step < 1):
+            raise ValueError("profile_num_steps and profile_start_step must be >= 1")
         if self.is_control:
             if self.model_name not in CONTROL_MODEL_NAMES:
                 raise ValueError(f"control training supports {list(CONTROL_MODEL_NAMES)} "
@@ -288,8 +318,8 @@ class TrainingArgs:
 
     @property
     def world_size(self) -> int:
-        """The processes a run takes: data_degree x seq_degree."""
-        return self.data_degree * self.seq_degree
+        """The processes a run takes: data_degree x fsdp_degree x seq_degree."""
+        return self.data_degree * self.fsdp_degree * self.seq_degree
 
     def model_structure(self) -> Dict[str, Any]:
         """The ``--model_structure_config`` JSON, or {} when none is given."""

@@ -83,18 +83,19 @@ class Checkpointer:
                 os.remove(self.path(old))
         return path
 
-    def restore(self, step: Optional[int] = None,
-                map_location: Any = "cpu") -> Optional[Dict[str, Any]]:
+    def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
         """The checkpoint of ``step`` (the latest when None), or None when
         there is none: {"step", "params", "opt_state", "train_state",
-        "data_position", "dataloader_state"}."""
+        "data_position", "dataloader_state"}. Its tensors are copy-on-write
+        views of the file in host memory, read as they are used (the ranks
+        of a sharded run each read their pieces of one page-cached file)."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         if not os.path.exists(self.path(step)):
             raise FileNotFoundError(f"no checkpoint of step {step} in {self.dir}")
         # a file this trainer wrote: tensors, dicts and numbers only
-        state = torch.load(self.path(step), map_location=map_location, weights_only=True)
+        state = torch.load(self.path(step), map_location="cpu", weights_only=True, mmap=True)
         state["step"] = step
         state["train_state"] = TrainState.from_dict(state["train_state"])
         return state

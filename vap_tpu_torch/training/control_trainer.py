@@ -321,14 +321,16 @@ class ControlTrainer(SFTTrainer):
         directly trained tensors as ``transformer.<name>``
         (``control_injection_layers.safetensors``), in
         ``<output_dir>/model_weights/<step:06d>/`` unless ``path`` (a
-        directory) is given."""
+        directory) is given. Only rank 0 writes."""
         out_dir = path or os.path.join(self.args.output_dir, "model_weights",
                                        f"{self.train_state.step:06d}")
+        target = os.path.join(out_dir, "model.safetensors" if self.full_finetune
+                              else "pytorch_lora_weights.safetensors")
+        if self.rank != 0:  # rank 0 writes
+            return target
         if self.full_finetune:
-            target = os.path.join(out_dir, "model.safetensors")
             export_safetensors(self.merged_params(), target)
             return target
-        target = os.path.join(out_dir, "pytorch_lora_weights.safetensors")
         export_lora_safetensors(self.lora, target, rank=self.args.rank,
                                 alpha=float(self.args.lora_alpha))
         params = dict(self.model.named_parameters())

@@ -39,6 +39,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+from ..parallel.sharding import full_tensor, local, local_part
+
 BLOCK_SIZE = 2048
 # blocks per chunk of the update: 2^13 blocks are 16 Mi elements, 64 MiB in f32
 CHUNK_BLOCKS = 1 << 13
@@ -139,10 +141,12 @@ class Adam8bit(torch.optim.Optimizer):
 
     @staticmethod
     def _flat_grad(p: torch.Tensor, kernel: bool) -> torch.Tensor:
-        """``p``'s gradient flattened in JAX's order (zeros where it has none)."""
+        """``p``'s whole gradient flattened in JAX's order (zeros where it
+        has none; gathered where it is sharded)."""
         if p.grad is None:
             return torch.zeros(p.numel(), dtype=p.dtype, device=p.device)
-        return (p.grad.flatten(1).t() if kernel and p.ndim >= 2 else p.grad).reshape(-1)
+        g = full_tensor(p.grad)
+        return (g.flatten(1).t() if kernel and p.ndim >= 2 else g).reshape(-1)
 
     def _update(self, ps, kernels, st, group, b1, b2, bc1, bc2) -> None:
         """One leaf: the moments over the stream of its members, chunk by
@@ -179,9 +183,10 @@ class Adam8bit(torch.optim.Optimizer):
     @staticmethod
     def _apply(p: torch.Tensor, upd: torch.Tensor, kernel: bool, group) -> None:
         if kernel and p.ndim >= 2:
-            u = upd.view(p[0].numel(), p.shape[0]).t().reshape(p.shape)
+            u = upd.view(p.numel() // p.shape[0], p.shape[0]).t().reshape(p.shape)
         else:
             u = upd.view(p.shape)
+        u, p = local_part(u, p), local(p)  # a sharded parameter takes its piece
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
         p.add_(-(group["lr"] * u))

@@ -32,6 +32,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
+from ..parallel.sharding import (full_tensor, is_sharded, local, local_part, row_squares,
+                                 shard_groups, shard_like)
+
 Schedule = Callable[[int], float]
 
 
@@ -102,9 +105,23 @@ def get_lr_schedule(name: str, lr: float, *, warmup_steps: int = 0, train_steps:
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in float32 (optax.global_norm)."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares of every gradient, in float32
+    (optax.global_norm). Sharded gradients (``parallel/sharding.py``) give
+    the norm of the whole gradient on every rank: each rank's sums of
+    squares over its pieces, all-reduced over the groups the pieces are cut
+    over (a sum of local squares alone would give each rank its own norm)."""
+    grads = list(grads)
+    groups = shard_groups(grads)
+    if not groups:
+        norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    squares = torch.stack([torch.linalg.vector_norm(local(g), dtype=torch.float32).square()
+                           for g in grads])
+    for group in groups:
+        dist.all_reduce(squares, group=group)
+    return torch.linalg.vector_norm(torch.sqrt(squares))
 
 
 ADAM_8BIT = {"adamw-8bit": True, "adamw-bnb-8bit": True, "adam-8bit": False,
@@ -140,7 +157,12 @@ class Adafactor(torch.optim.Optimizer):
     axis are one leaf, whose update RMS (the clip) and parameter RMS are
     taken over the whole stack (the factoring is per block either way,
     the stack never being one of the two largest dims). None: each
-    parameter its own leaf."""
+    parameter its own leaf.
+
+    Over sharded parameters each gradient is gathered whole once a step,
+    for both passes, the parameter's RMS is summed from ``row_squares``
+    (one float a row gathered), each rank applies its piece of the update,
+    and the state is whole on every rank."""
 
     # optax.adafactor's defaults
     DECAY_RATE, EPS, CLIPPING_THRESHOLD, MIN_SCALE = 0.8, 1e-30, 1.0, 1e-3
@@ -158,7 +180,7 @@ class Adafactor(torch.optim.Optimizer):
             self.groups.setdefault(key, []).append(i)
         self.count = 0
         for p, kernel in zip(plist, self.kernels):
-            shape = tuple(self._view(p, kernel).shape)
+            shape = self._view_shape(p, kernel)
             dims = _factored_dims(shape)
             kw = dict(dtype=p.dtype, device=p.device)
             if dims is None:
@@ -175,6 +197,13 @@ class Adafactor(torch.optim.Optimizer):
     @staticmethod
     def _view(x: torch.Tensor, kernel: bool) -> torch.Tensor:
         return x.flatten(1).t() if kernel and x.ndim >= 2 else x
+
+    @staticmethod
+    def _view_shape(p: torch.Tensor, kernel: bool) -> Tuple[int, ...]:
+        """The shape of ``_view`` of the whole parameter (sharded or not)."""
+        if kernel and p.ndim >= 2:
+            return (math.prod(p.shape[1:]), p.shape[0])
+        return tuple(p.shape)
 
     @staticmethod
     def _unview(u: torch.Tensor, like: torch.Tensor, kernel: bool) -> torch.Tensor:
@@ -209,12 +238,14 @@ class Adafactor(torch.optim.Optimizer):
             # parameter's sums of squares over the leaf
             usq = psq = 0.0
             numel = 0
+            whole = {}  # member -> its whole gradient's view, gathered once for both passes
             for i in members:
                 p = plist[i]
                 if p.grad is None:
                     continue
                 st = self.state[p]
-                g = self._view(p.grad, self.kernels[i]).float()
+                whole[i] = self._view(full_tensor(p.grad), self.kernels[i])
+                g = whole[i].float()
                 gsq = g * g + self.EPS
                 if st["dims"] is None:
                     st["v"].copy_(decay * st["v"].float() + rest * gsq)
@@ -227,7 +258,7 @@ class Adafactor(torch.optim.Optimizer):
                 del gsq
                 u = self._scaled(g, st)
                 usq = usq + u.square().sum()
-                psq = psq + p.float().square().sum()
+                psq = psq + row_squares(p.detach()).sum()
                 numel += p.numel()
             if not numel:
                 continue
@@ -239,9 +270,10 @@ class Adafactor(torch.optim.Optimizer):
                 p = plist[i]
                 if p.grad is None:
                     continue
-                g = self._view(p.grad, self.kernels[i]).float()
+                g = whole.pop(i).float()
                 u = self._scaled(g, self.state[p]) / clip * lr * scale
-                p.add_(-self._unview(u, p, self.kernels[i]).to(p.dtype))
+                u = local_part(self._unview(u, p, self.kernels[i]), p)
+                local(p).add_(-u.to(p.dtype))
         self.count += 1
         return None
 
@@ -354,7 +386,7 @@ class Optimizer:
         norm = global_norm(grads)
         if self.max_grad_norm and norm.item() >= self.max_grad_norm:
             for g in grads:  # optax: (t / g_norm) * max_norm, in t's dtype
-                g.div_(norm.to(g.dtype)).mul_(self.max_grad_norm)
+                local(g).div_(norm.to(g.dtype)).mul_(self.max_grad_norm)
         for group in self.inner.param_groups:
             group["lr"] = self.lr
         self.inner.step()
@@ -365,11 +397,28 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
 
     def state_dict(self) -> Dict:
+        """The update count and the inner optimizer's state; over sharded
+        parameters AdamW's moments are sharded too (``sharding.full_state``
+        gathers them), the 8-bit and Adafactor states are whole on every
+        rank."""
         return {"count": self.count, "inner": self.inner.state_dict()}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Restore ``state_dict``'s result, its tensors whole or sharded:
+        a whole moment of a sharded parameter is cut to this rank's piece."""
         self.count = int(state["count"])
-        self.inner.load_state_dict(state["inner"])
+        inner = state["inner"]
+        if isinstance(self.inner, (torch.optim.AdamW, torch.optim.Adam)):
+            def placed(i, value):
+                p = self.params[i]
+                if (is_sharded(p) and torch.is_tensor(value) and not is_sharded(value)
+                        and tuple(value.shape) == tuple(p.shape)):
+                    return shard_like(value, p)
+                return value
+
+            inner = dict(inner, state={i: {k: placed(int(i), v) for k, v in st.items()}
+                                       for i, st in inner["state"].items()})
+        self.inner.load_state_dict(inner)
 
 
 def get_optimizer(name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule, *,

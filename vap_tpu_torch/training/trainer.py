@@ -64,24 +64,41 @@ validation :617-793, ``dump_training_sample`` :795), one process per device:
     (the datasets' state, JSON); ``resume_from_checkpoint`` ("latest" or a
     step) restores them, so the sample stream goes on where it stopped;
   * several processes (``torchrun``, ``torch.distributed`` started first):
-    a ``DeviceMesh`` of ``data_degree`` x ``seq_degree`` ranks. Every rank
-    reads the same global batch of ``batch_size x data_degree`` items and
-    draws that batch's timesteps (or sigmas) and noise from the step's
-    generator; each data rank keeps its ``batch_size`` rows (under DPO its
-    pairs, assembled win rows then lose rows on the rank: JAX assembles the
-    global batch, ``_assemble_dpo_batch`` :835, which split across ranks
-    would part a pair), and the seq
-    ranks of one data group hold the same rows. With ``seq_degree > 1`` the
-    training step runs under the attention mesh and the ``ring`` provider
-    (``auto`` becomes ``ring``), whose backward gives every seq rank the
-    same gradients. Each update averages the trainable gradients over the
-    ``data`` group once (with accumulation, once per update), before the
-    norm, the clip and AdamW, so every rank applies the same update; the
-    logged loss is the data group's mean. Every rank samples each
+    a ``DeviceMesh`` of ``data_degree`` x ``fsdp_degree`` x ``seq_degree``
+    ranks. Every rank reads the same global batch of ``batch_size x
+    data_degree x fsdp_degree`` items and draws that batch's timesteps (or
+    sigmas) and noise from the step's generator; each (data, fsdp) rank
+    keeps its ``batch_size`` rows (JAX's ``local_batch_size``, :91-98;
+    under DPO its pairs, assembled win rows then lose rows on the rank: JAX
+    assembles the global batch, ``_assemble_dpo_batch`` :835, which split
+    across ranks would part a pair), and the seq ranks of one (data, fsdp)
+    group hold the same rows. With ``seq_degree > 1`` the training step
+    runs under the attention mesh and the ``ring`` provider (``auto``
+    becomes ``ring``, for Wan ``ring cross:flash``: its cross-attentions
+    over the 512 text and 257 image keys stay local), whose backward gives
+    every seq rank the same gradients; nothing is reduced over ``seq``.
+    With ``fsdp_degree > 1`` (or ``shard=True``) the model is sharded
+    after LoRA and float8 storage are installed and before the optimizer
+    is built (``parallel/sharding.py``: FSDP2, HSDP over ``data``), whose
+    reduce-scatter averages the gradients over ``data x fsdp``; otherwise
+    each update averages the trainable gradients over the ``data`` group
+    once (with accumulation, once per update), before the norm, the clip
+    and the update, so every rank applies the same update. The logged loss
+    is the mean over the (data, fsdp) ranks. Every rank samples each
     validation, on the same rows with the same seeds (the ``ring``
-    provider's collectives need every rank of the seq group). Only rank 0
-    (data rank 0, seq rank 0) writes checkpoints, the precompute cache, the
-    validation videos and logs; every rank resumes from them.
+    provider's collectives and the sharded model's gathers need every
+    rank). Only rank 0 writes checkpoints, the precompute cache, the
+    validation videos, the exports and logs, in whole tensors gathered from
+    the shards (every rank takes part in the gathers); every rank resumes
+    from them, a sharded rank cutting its piece;
+  * ``--profile_dir``: a ``torch.profiler`` Chrome trace of the steps
+    ``profile_start_step`` to ``profile_start_step + profile_num_steps - 1``
+    of this process's run (JAX's window, trainer.py:524-600, keyed on the
+    process-local step count, so a resumed run traces too; on the card its
+    kernels and copies, on the CPU the host's ops with a ``train_step <n>``
+    span a step), written as ``<profile_dir>/trace_rank<rank>.json``, the
+    profiler kept in ``profile``; a run that ends inside the window stops
+    and writes it, one that ends before it warns that no trace was written.
 
 ``export`` writes the trained transformer at the end of a run as JAX's
 ``SFTTrainer.export`` does (``trainer.py:817``): the full weights in
@@ -93,15 +110,13 @@ Refused as JAX refuses them: DPO with gradient accumulation, with
 ``enable_precomputation`` or for a family other than CogVideoX and Wan.
 
 Not ported: the image datasets, the validation scorers (CLIP score,
-flow metrics), parameter sharding (FSDP, tensor parallelism) and the
-profiler window.
+flow metrics) and tensor parallelism.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-import logging
 import os
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -117,9 +132,11 @@ from ..data.dataset import (VideoAsPromptDataset, VideoAsPromptDPODataset,
 from ..data.precomputation import (InMemoryPreprocessor, PrecomputedPreprocessor,
                                    PrecomputedReader)
 from ..data.sampler import ResolutionSampler, collate_tensor_dicts
+from ..utils.logging import get_logger
 from ..utils.trackers import initialize_trackers
 from ..ops.attention import attention_provider
 from ..parallel import MeshConfig, attention_mesh, make_mesh
+from ..parallel.sharding import full_state, local, local_part, rank_of, shard_model
 from .args import TrainingArgs
 from .checkpoint import Checkpointer, TrainState, export_lora_safetensors, export_safetensors
 from .layerwise import cast_layerwise_storage
@@ -130,7 +147,7 @@ from .train_step import (DPO_PER_SAMPLE, HunyuanTrainStepConfig, TrainStepConfig
                          install_dpo_lora, install_lora, make_dpo_loss, make_grad_and_apply,
                          parse_target_modules, trainable_mask, wan_vap_loss)
 
-logger = logging.getLogger("vap_tpu_torch.trainer")
+logger = get_logger("vap_tpu_torch.trainer")
 
 
 FAMILY_LOSSES = {"cogvideox": cogvideox_vap_loss, "wan": wan_vap_loss,
@@ -139,6 +156,9 @@ FAMILY_LOSSES = {"cogvideox": cogvideox_vap_loss, "wan": wan_vap_loss,
 # (JAX's FAMILY_LOSSES, train_step.py:948)
 PARTITIONED = {"cogvideox": True, "wan": True, "hunyuan_video": False}
 FLOW_STEP_CONFIGS = {"wan": WanTrainStepConfig, "hunyuan_video": HunyuanTrainStepConfig}
+# the training step's provider under --seq_degree > 1 when "auto" is asked
+# for: Wan's cross-attentions (512 UMT5 and 257 CLIP keys) stay local
+SEQ_PROVIDERS = {"wan": "ring cross:flash"}
 
 
 def _make_step_config(family: str, args: TrainingArgs, transformer_cfg):
@@ -185,7 +205,11 @@ Pair = Tuple[Dict[str, Any], Dict[str, Any]]
 
 class SFTTrainer:
     def __init__(self, args: TrainingArgs, model: nn.Module, spec=None, *,
-                 track_stage_peaks: bool = False):
+                 track_stage_peaks: bool = False, shard: Optional[bool] = None):
+        """``shard``: shard the model over the (data, fsdp) ranks (FSDP2);
+        by default when ``fsdp_degree > 1``. ``shard=True`` at one process
+        shards over a one-rank mesh, which needs ``torch.distributed``
+        started on that one process."""
         if spec is None and not args.precomputation_dir:
             raise ValueError("without a spec (the encoders), the trainer trains from a "
                              "precomputed cache: set precomputation_dir")
@@ -212,6 +236,7 @@ class SFTTrainer:
         self.model = model
         self.spec = spec
         self.device = next(model.parameters()).device
+        self.shard = args.fsdp_degree > 1 if shard is None else bool(shard)
         self.mesh = self._make_mesh()
         self.step_cfg = self._make_step_config()
         self.accum_steps = args.gradient_accumulation_steps
@@ -229,6 +254,7 @@ class SFTTrainer:
         self._dumped_sample = False
         self.validation_artifacts: Dict[str, str] = {}  # the last validation's videos
         self.last_metrics: Dict[str, torch.Tensor] = {}  # the last micro-batch's loss metrics
+        self.profile = None  # the profiler of the --profile_dir window, once it ran
 
     def _make_step_config(self):
         return _make_step_config(self.args.model_name, self.args, self.model.config)
@@ -247,23 +273,26 @@ class SFTTrainer:
                              layout=jax_layout(self.model, params))
 
     def _make_mesh(self):
-        """The (data, 1, seq, 1) ``DeviceMesh`` when the run takes more than
-        one process (JAX trainer.py:136-143), else None."""
+        """The (data, fsdp, seq, 1) ``DeviceMesh`` when the run takes more
+        than one process or shards (JAX trainer.py:136-143), else None.
+        ``batch_rank``: this rank's index among the (data, fsdp) ranks, whose
+        rows of the global batch it takes."""
         args = self.args
-        self.data_rank = 0
+        self.batch_rank = 0
         self.rank = 0
-        if args.world_size == 1:
+        if args.world_size == 1 and not self.shard:
             return None
         import torch.distributed as dist
 
         if not dist.is_initialized() or dist.get_world_size() != args.world_size:
             raise ValueError(
-                f"data_degree x seq_degree = {args.world_size} needs torch.distributed started "
-                f"on that many processes (torchrun --nproc_per_node {args.world_size}), got "
+                f"data_degree x fsdp_degree x seq_degree = {args.world_size} needs "
+                f"torch.distributed started on that many processes (torchrun --nproc_per_node "
+                f"{args.world_size}), got "
                 f"{dist.get_world_size() if dist.is_initialized() else 'none'}")
-        mesh = make_mesh(MeshConfig(data=args.data_degree, seq=args.seq_degree),
-                         self.device.type)
-        self.data_rank = mesh.get_local_rank("data")
+        mesh = make_mesh(MeshConfig(data=args.data_degree, fsdp=args.fsdp_degree,
+                                    seq=args.seq_degree), self.device.type)
+        self.batch_rank = rank_of(mesh)
         self.rank = dist.get_rank()
         return mesh
 
@@ -272,8 +301,8 @@ class SFTTrainer:
         sampling (JAX ``_attn_ctx``, trainer.py:260-280): with a mesh the
         attention mesh is installed (JAX installs it only at ``seq_degree >
         1``; at one seq rank ``ring`` is the local kernel either way), and
-        with ``seq_degree > 1`` ``auto`` becomes ``ring``; any other
-        provider spec is installed as given."""
+        with ``seq_degree > 1`` ``auto`` becomes ``ring`` (``SEQ_PROVIDERS``
+        for Wan); any other provider spec is installed as given."""
         name = (self.args.attn_provider_training if training
                 else self.args.attn_provider_inference)
         stack = contextlib.ExitStack()
@@ -281,22 +310,25 @@ class SFTTrainer:
             stack.enter_context(attention_mesh(self.mesh, "seq",
                                                rotate_method=self.args.cp_rotate_method))
             if self.args.seq_degree > 1 and name in ("", "auto"):
-                name = "ring"
+                name = SEQ_PROVIDERS.get(self.args.model_name, "ring")
         if name not in ("", "auto"):
             stack.enter_context(attention_provider(name))
         return stack
 
     def _data_mean(self, tensors) -> None:
-        """Average ``tensors`` in place over the ``data`` group (all-reduce,
-        then the same division on every rank)."""
-        if self.mesh is None or self.args.data_degree == 1:
+        """Average ``tensors`` in place over the (data, fsdp) ranks, which
+        hold the rows of one global batch (all-reduces over the ``data`` and
+        the ``fsdp`` groups, then the same division on every rank)."""
+        groups = [a for a in ("data", "fsdp") if getattr(self.args, f"{a}_degree") > 1]
+        if self.mesh is None or not groups:
             return
         import torch.distributed as dist
 
-        group = self.mesh.get_group("data")
+        n = self.args.data_degree * self.args.fsdp_degree
         for t in tensors:
-            dist.all_reduce(t, group=group)
-            t.div_(self.args.data_degree)
+            for axis in groups:
+                dist.all_reduce(t, group=self.mesh.get_group(axis))
+            t.div_(n)
 
     def _build_step(self) -> None:
         """The optimizer and the grad/apply pair of this training type
@@ -328,6 +360,12 @@ class SFTTrainer:
             trainable_mask(model)
         else:  # a full finetune: the single-branch ablation, HunyuanVideo
             model.requires_grad_(True)
+        if self.shard:  # its parameters become DTensors: the adapters' too
+            shard_model(model, self.mesh)
+            if self.lora is not None:
+                self.lora = {name: {"A": model.get_submodule(name).lora_A,
+                                    "B": model.get_submodule(name).lora_B}
+                             for name in self.lora}
         self.lora_mode = self.lora is not None
         if self.lora_mode:
             params = lora_parameters(self.lora)
@@ -339,12 +377,17 @@ class SFTTrainer:
         self._grad, self._apply = make_grad_and_apply(loss_fn, self.step_cfg, self.optimizer,
                                                       unreached_ok=args.training_type == "sft")
 
-    def merged_params(self) -> Dict[str, torch.Tensor]:
+    def merged_params(self, keep: bool = True) -> Optional[Dict[str, torch.Tensor]]:
         """The model's weights with what trained in them (``_merged_params``):
-        under LoRA the adapters baked into the frozen base."""
-        state = {k: v.detach() for k, v in self.model.state_dict().items()}
+        under LoRA the adapters baked into the frozen base. A sharded model's
+        weights are gathered whole, in host memory where ``keep`` (every
+        rank must call it); elsewhere None."""
+        state = full_state({k: v.detach() for k, v in self.model.state_dict().items()}, keep)
+        lora = full_state(self.lora, keep) if self.lora_mode else None
+        if not keep:
+            return None
         if self.lora_mode:
-            return merge_lora_into_params(state, self.lora, alpha=float(self.args.lora_alpha),
+            return merge_lora_into_params(state, lora, alpha=float(self.args.lora_alpha),
                                           rank=self.args.rank)
         return state
 
@@ -352,19 +395,29 @@ class SFTTrainer:
         """Write the merged weights (``merged_params``) as diffusers-layout
         safetensors, by default ``<output_dir>/model_weights/<step:06d>/
         model.safetensors``; under LoRA also the adapters in PEFT layout,
-        ``pytorch_lora_weights.safetensors`` beside it. Returns the path."""
+        ``pytorch_lora_weights.safetensors`` beside it. Rank 0 writes; a
+        sharded model is gathered, so every rank calls it. Returns the
+        path."""
         path = path or os.path.join(self.args.output_dir, "model_weights",
                                     f"{self.train_state.step:06d}", "model.safetensors")
-        export_safetensors(self.merged_params(), path)
-        if self.lora_mode:
-            export_lora_safetensors(
-                self.lora, os.path.join(os.path.dirname(path), "pytorch_lora_weights.safetensors"),
-                rank=self.args.rank, alpha=float(self.args.lora_alpha))
+        keep = self.rank == 0
+        if not (keep or self.shard):
+            return path
+        merged = self.merged_params(keep)
+        lora = full_state(self.lora, keep) if self.lora_mode else None
+        if keep:
+            export_safetensors(merged, path)
+            if self.lora_mode:
+                export_lora_safetensors(
+                    lora, os.path.join(os.path.dirname(path), "pytorch_lora_weights.safetensors"),
+                    rank=self.args.rank, alpha=float(self.args.lora_alpha))
         return path
 
-    def trainable_state_dict(self) -> Dict[str, torch.Tensor]:
+    def trainable_state_dict(self, keep: bool = True) -> Dict[str, Optional[torch.Tensor]]:
+        """What trains, by name: whole tensors (a sharded one gathered into
+        host memory where ``keep``, else None; every rank must call it)."""
         params = dict(self.model.named_parameters())
-        return {name: params[name].detach() for name in self.trainable_names}
+        return full_state({name: params[name].detach() for name in self.trainable_names}, keep)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -377,15 +430,16 @@ class SFTTrainer:
 
     def _resume(self) -> None:
         spec = self.args.resume_from_checkpoint
-        restored = self.checkpointer.restore(None if spec == "latest" else int(spec),
-                                             map_location=self.device)
+        # the file's whole tensors, mapped; each parameter and moment is copied
+        # (a sharded rank's pieces of them) onto the device
+        restored = self.checkpointer.restore(None if spec == "latest" else int(spec))
         if restored is None:
             logger.info("no checkpoint to resume from in %s", self.checkpointer.dir)
             return
         params = dict(self.model.named_parameters())
         with torch.no_grad():
             for name, value in restored["params"].items():
-                params[name].copy_(value)
+                local(params[name]).copy_(local_part(value, params[name]))
         self.optimizer.load_state_dict(restored["opt_state"])
         self.train_state = restored["train_state"]
         self.data_position = restored["data_position"]
@@ -568,22 +622,26 @@ class SFTTrainer:
                                ref_shape=None if ref is None else ref.shape)
 
     def _local(self, x: torch.Tensor) -> torch.Tensor:
-        """This data rank's rows of a global-batch tensor."""
+        """This (data, fsdp) rank's rows of a global-batch tensor."""
         size = self.args.batch_size
-        return x[self.data_rank * size:(self.data_rank + 1) * size]
+        return x[self.batch_rank * size:(self.batch_rank + 1) * size]
 
     def run(self) -> TrainState:
         args = self.args
         if args.resume_from_checkpoint:
             self._resume()
         stream, loader = self._pairs()
-        global_batch = args.batch_size * args.data_degree
+        global_batch = args.batch_size * args.data_degree * args.fsdp_degree
         sampler = ResolutionSampler(global_batch)
+        steps_this_run = 0  # process-local, unlike the resumable step (the profiling window)
         while self.train_state.step < args.train_steps:
             batch = self._batch(stream, sampler)
             if loader is not None:
                 self.dataloader_state = loader.state_dict().get("dataset")
             self.train_state.step += 1
+            steps_this_run += 1
+            if args.profile_dir and steps_this_run == args.profile_start_step:
+                self._start_profile()
             self.train_state.observed_data_samples += global_batch
             step = self.train_state.step
             self._marks = marks = {}
@@ -593,7 +651,7 @@ class SFTTrainer:
             batch = {k: self._local(v) for k, v in batch.items()}
             if self.dpo:
                 batch = assemble_dpo_batch(batch)
-            with self._stage("timing/train_step"):
+            with self._stage("timing/train_step"), self._step_span(step):
                 clock("start")
                 with self._attn_ctx():
                     metrics = self._grad(self.model, batch, None, clock,
@@ -611,7 +669,8 @@ class SFTTrainer:
                               backward_s=marks["backward"] - marks["forward"])
                 if step % self.accum_steps == 0:
                     record["lr"] = self.optimizer.lr
-                    if self.mesh is not None:  # every rank takes part, with zeros where none
+                    # every rank takes part, with zeros where none (sharded: FSDP2 reduced them)
+                    if self.mesh is not None and not self.shard:
                         for p in self.optimizer.params:
                             if p.grad is None:
                                 p.grad = torch.zeros_like(p)
@@ -621,19 +680,26 @@ class SFTTrainer:
                     record["update_s"] = marks["update"] - marks["backward"]
                     record["updates"] = self.optimizer.count
             self.history.append(record)
+            if self._profiler is not None and (
+                    steps_this_run >= args.profile_start_step + args.profile_num_steps - 1):
+                self._stop_profile()
 
             if args.validation_dataset_file and step % args.validation_steps == 0:
                 with self._stage("timing/validation"):
                     self._validate()
             if step % args.checkpointing_steps == 0:
-                if self.rank == 0:
+                keep = self.rank == 0  # a sharded state is gathered on every rank, kept on 0
+                params = self.trainable_state_dict(keep) if keep or self.shard else None
+                opt_state = (full_state(self.optimizer.state_dict(), keep)
+                             if keep or self.shard else None)
+                if keep:
                     state = None if self.dataloader_state is None else \
                         json.dumps(self.dataloader_state)
-                    self.checkpointer.save(step, params=self.trainable_state_dict(),
-                                           opt_state=self.optimizer.state_dict(),
+                    self.checkpointer.save(step, params=params, opt_state=opt_state,
                                            train_state=self.train_state,
                                            data_position=self.data_position,
                                            dataloader_state=state)
+                del params, opt_state
                 if self.mesh is not None:  # no rank goes on before the file is whole
                     import torch.distributed as dist
 
@@ -643,10 +709,49 @@ class SFTTrainer:
                 self.tracker.log({**{k: v for k, v in record.items() if k != "step"},
                                   "train/observed_data_samples":
                                       self.train_state.observed_data_samples}, step=step)
+        if self._profiler is not None:  # train_steps ended inside the window
+            self._stop_profile()
+        elif args.profile_dir and self.profile is None:
+            logger.warning("--profile_dir set but no trace written: the run did only %d "
+                           "step(s), fewer than --profile_start_step %d", steps_this_run,
+                           args.profile_start_step)
         if loader is not None:
             loader.close()
         self.tracker.finish()
         return self.train_state
+
+    _profiler = None  # the profiler while the window is open
+
+    def _step_span(self, step: int):
+        """A ``train_step <step>`` span in the trace while the window is open."""
+        if self._profiler is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"train_step {step}")
+
+    def _start_profile(self) -> None:
+        """Open the profiling window: a ``torch.profiler`` of the card's
+        kernels and copies (on the CPU, of the host's ops: the ``train_step``
+        spans). The card's window leaves the host's ops out: a full-width
+        step runs tens of thousands, which cost the trace more time than
+        the kernels it is for."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        self._profiler = profile(activities=[ProfilerActivity.CUDA if cuda
+                                             else ProfilerActivity.CPU])
+        self._profiler.__enter__()
+
+    def _stop_profile(self) -> None:
+        """Close the window (the card done first) and write its Chrome
+        trace."""
+        self._sync()
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.args.profile_dir, exist_ok=True)
+        path = os.path.join(self.args.profile_dir, f"trace_rank{self.rank}.json")
+        prof.export_chrome_trace(path)
+        self.profile = prof
+        logger.info("profiler trace written to %s", path)
 
     # ------------------------------------------------------------------
     # validation
